@@ -1,0 +1,322 @@
+// Pack-build kernel (K1): the flagship's prediction MLP and eval embedding
+// tail in one kernel, from the encoded rays to the per-sample pack.
+//
+// Replaces hyperreel_tpu/ops/pallas/pack_build.py:_pack_build_kernel with
+// its in-kernel MLP (_mlp_rows, the HYPERREEL_PK_MLP route the JAX package
+// takes by default) and _bitonic_sublane.
+//
+// Bound on the H100: the MLP's tensor-core work (about 0.8 MFLOP per ray),
+// about two thirds of the kernel's time on an H100 80GB HBM3 at 700 W
+// (prefetching weight fragments deeper does not shorten it); the tail is
+// a few dozen flops per sample against 40 bytes of pack written. Design: a
+// block of 16 warps takes 64 rays (32 under the f32 policy). Their
+// activations never leave shared memory: two operand buffers (bf16 under
+// the bench policy, f32 under the f32 policy) hold a layer's input and
+// the next layer's, with the encoded rays parked in columns [xcol, xcol +
+// cin) of both for the first and the skip layer, and `out` holds the f32
+// sums. A warp takes a 16-column strip of a layer for all the block's
+// rays: WMMA m16n16k16 (bf16 operands, f32 accumulation) with the weights
+// [k, n] read as fragments from global memory, where the 0.8 MB of the
+// flagship's weights stay in L2, the next k-step's fragment loaded while
+// this one's products run (the f32 policy runs the strip as plain FMAs).
+// The warp then adds the bias, applies the leaky relu and rounds the
+// strip into the next layer's operand buffer at once, so one barrier per
+// layer remains; the last layer stays f32 in `out`. The tail then runs
+// one S-lane segment of a warp per ray, one lane per sample, reading its
+// fields from `out` (columns field-major: the host permutes the last
+// layer), sorting the distances with __shfl_xor_sync and writing pack
+// column r*S + s of each row, 128 contiguous bytes per warp.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+// field slots (PackParams.foff) and activation slots (PackParams.act)
+enum PackField { F_Z, F_SIGMA, F_FLOW, F_PSIG, F_POFF, F_CS, F_CSH, F_N };
+enum PackActSlot { A_Z, A_ISECT, A_SIGMA, A_FLOW, A_FLOW_STAGE, A_PSIG, A_POFF,
+               A_PO_STAGE, A_CS, A_CSH, A_N };
+constexpr int kPackMaxS = 32;
+constexpr int kMaxLayers = 12;
+
+// The C interface's types live at global scope: a signature naming a type
+// of an unnamed namespace would give the extern "C" entry internal linkage.
+struct PackAct {
+  int kind;  // 0 identity, 1 sigmoid, 2 tanh
+  float inner, outer, shift, w, start;
+};
+
+// One MLP layer: out[:, :n] = A[:, k0:k0 + k] @ w + b, then leaky relu
+// when `act`. w is row-major [k, n] in the operand type, b f32 [n].
+struct MlpLayer {
+  const void* w;
+  const float* b;
+  int k0, k, n, act;
+};
+
+struct PackParams {
+  int B, S, P;
+  int cin, xcol, n_layers, bf16;
+  float leaky;
+  MlpLayer layer[kMaxLayers];
+  int foff[F_N];  // channel offset of each field in the MLP row
+  PackAct act[A_N];
+  float samples[kPackMaxS];
+  float z_scale[kPackMaxS];
+  float aabb_lo[3];
+  float aabb_inv[3];
+};
+
+namespace {
+
+using namespace nvcuda;
+
+constexpr int kPackRows = 10;
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kStrip = 16;      // output columns per warp task
+constexpr size_t kMaxSmem = 227 * 1024;
+
+// rays per block: the operand buffers and the f32 sums of a block's rays
+// fit shared memory at 64 rays in bf16 and 32 in f32
+template <typename T>
+constexpr int kRaysOf = std::is_same_v<T, __nv_bfloat16> ? 64 : 32;
+
+__device__ __forceinline__ float apply_act(const PackAct& a, float x) {
+  float u = x * a.inner + a.shift;
+  float f;
+  if (a.kind == 1) {
+    f = 1.0f / (1.0f + expf(-u));
+  } else if (a.kind == 2) {
+    f = tanhf(u);
+  } else {
+    f = u;
+  }
+  f = f * a.outer;
+  return a.w * f + (1.0f - a.w) * a.start;
+}
+
+// out[:, c0:c0 + 16] = A[:, L.k0:L.k0 + L.k] @ w[:, c0:c0 + 16] for all R
+// rows, on the tensor cores; the next k-step's weight fragment is loaded
+// while this one's products run.
+template <int R>
+__device__ void strip_mma(const __nv_bfloat16* A, int lda, const MlpLayer& L,
+                          int c0, float* out, int lds) {
+  constexpr int RT = R / 16;
+  const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(L.w) + c0;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[RT];
+#pragma unroll
+  for (int rt = 0; rt < RT; ++rt) wmma::fill_fragment(acc[rt], 0.0f);
+  wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>
+      b, b_next;
+  wmma::load_matrix_sync(b, w, L.n);
+  for (int kk = 0; kk < L.k; kk += 16) {
+    if (kk + 16 < L.k) {
+      wmma::load_matrix_sync(b_next, w + (int64_t)(kk + 16) * L.n, L.n);
+    }
+#pragma unroll
+    for (int rt = 0; rt < RT; ++rt) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                     wmma::row_major> a;
+      wmma::load_matrix_sync(a, A + rt * 16 * lda + L.k0 + kk, lda);
+      wmma::mma_sync(acc[rt], a, b, acc[rt]);
+    }
+    b = b_next;
+  }
+#pragma unroll
+  for (int rt = 0; rt < RT; ++rt) {
+    wmma::store_matrix_sync(out + rt * 16 * lds + c0, acc[rt], lds,
+                            wmma::mem_row_major);
+  }
+}
+
+// the same strip in f32 FMAs (the f32 policy): lane -> column c0 + lane %
+// 16, rows lane / 16, + 2, ...
+template <int R>
+__device__ void strip_fma(const float* A, int lda, const MlpLayer& L, int c0,
+                          float* out, int lds) {
+  const int lane = threadIdx.x % 32;
+  const int c = c0 + lane % kStrip;
+  const float* w = static_cast<const float*>(L.w) + c;
+  for (int r = lane / kStrip; r < R; r += 32 / kStrip) {
+    const float* a = A + r * lda + L.k0;
+    float s = 0.0f;
+    for (int kk = 0; kk < L.k; ++kk) s += a[kk] * __ldg(w + (int64_t)kk * L.n);
+    out[r * lds + c] = s;
+  }
+}
+
+__device__ __forceinline__ void store_operand(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ void store_operand(float* p, float v) { *p = v; }
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+pack_build_kernel(const float* __restrict__ x0, const float* __restrict__ rays,
+                  float* __restrict__ pack, const __grid_constant__ PackParams p,
+                  int lda, int lds) {
+  constexpr int R = kRaysOf<T>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* bufs[2] = {reinterpret_cast<T*>(smem),
+                reinterpret_cast<T*>(smem) + (size_t)R * lda};
+  float* out =
+      reinterpret_cast<float*>(smem + 2 * (size_t)R * lda * sizeof(T));
+  const int64_t r0 = (int64_t)blockIdx.x * R;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  // ---- the encoded rays (zero columns up to the first layer's k, zero
+  // rows past B), in both operand buffers: the first and the skip layer
+  // read them, and no hidden layer's output reaches their columns
+  const int kin = p.layer[0].k;
+  for (int i = tid; i < R * kin; i += kThreads) {
+    const int r = i / kin, c = i % kin;
+    const int64_t gr = r0 + r;
+    const float v = (c < p.cin && gr < p.B) ? __ldg(x0 + gr * p.cin + c) : 0.0f;
+    store_operand(bufs[0] + r * lda + p.xcol + c, v);
+    store_operand(bufs[1] + r * lda + p.xcol + c, v);
+  }
+  __syncthreads();
+
+  // ---- the MLP: layer l reads buffer l % 2 and writes the other, so a
+  // warp finishes each 16-column strip (products, bias, leaky relu, the
+  // rounding to the next operand) while other warps still read the input
+  for (int l = 0; l < p.n_layers; ++l) {
+    const MlpLayer& L = p.layer[l];
+    const T* in = bufs[l & 1];
+    T* next = bufs[(l + 1) & 1];
+    const bool last = l == p.n_layers - 1;
+    for (int c0 = warp * kStrip; c0 < L.n; c0 += kWarps * kStrip) {
+      if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+        strip_mma<R>(in, lda, L, c0, out, lds);
+      } else {
+        strip_fma<R>(in, lda, L, c0, out, lds);
+      }
+      __syncwarp();
+      const int c = c0 + lane % kStrip;
+      const float b = __ldg(L.b + c);
+      for (int r = lane / kStrip; r < R; r += 32 / kStrip) {
+        float v = out[r * lds + c] + b;
+        if (L.act && v < 0.0f) v *= p.leaky;
+        if (last) {
+          out[r * lds + c] = v;
+        } else {
+          store_operand(next + r * lda + c, v);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // ---- the tail: one S-lane segment per ray. R * S and kThreads are
+  // multiples of 32, so a warp enters and leaves the loop as a whole.
+  const int S = p.S;
+  const int64_t N = (int64_t)p.B * S;
+  for (int i = tid; i < R * S; i += kThreads) {
+    const int rl = i / S, s = i % S;
+    const int64_t r = r0 + rl;
+    const bool live = r < p.B;
+    // rows past B run on (with the last ray's data) so that every lane
+    // takes part in the shuffles; they store nothing
+    const float* ray = rays + (live ? r : (int64_t)p.B - 1) * 8;
+    const float* row = out + rl * lds;
+    auto field = [&](int f, int c) { return row[(p.foff[f] + c) * S + s]; };
+    const float o[3] = {__ldg(ray + 0), __ldg(ray + 1), __ldg(ray + 2)};
+    const float d[3] = {__ldg(ray + 3), __ldg(ray + 4), __ldg(ray + 5)};
+    const float dt = __ldg(ray + 6);
+
+    // z processing (intersect.py z_plane): act(z) * (1 - sigma)
+    float z = apply_act(p.act[A_ISECT], apply_act(p.act[A_Z], field(F_Z, 0)));
+    z = z * (1.0f - apply_act(p.act[A_SIGMA], field(F_SIGMA, 0)));
+    z = z * p.z_scale[s] + p.samples[s];
+    const float dz = fabsf(d[2]) < 1e-5f ? 1e12f : d[2];
+    float dist = (z - o[2]) / dz;
+    if (dist <= 0.0f) dist = 0.0f;
+
+    // values-only ascending bitonic sort over the S-lane segment
+    for (int k = 2; k <= S; k <<= 1) {
+      for (int j = k >> 1; j >= 1; j >>= 1) {
+        const float partner = __shfl_xor_sync(0xffffffffu, dist, j);
+        const bool lo_half = (s & j) == 0;
+        const bool take_min = ((s & k) == 0) == lo_half;
+        dist = take_min ? fminf(dist, partner) : fmaxf(dist, partner);
+      }
+    }
+
+    // points; flow / offset / colour fields stay in prediction order
+    const float po_fac = 1.0f - apply_act(p.act[A_PSIG], field(F_PSIG, 0));
+    float vals[kPackRows];
+    for (int c = 0; c < 3; ++c) {
+      float v = o[c] + d[c] * dist;
+      v = v + apply_act(p.act[A_FLOW_STAGE],
+                        apply_act(p.act[A_FLOW], field(F_FLOW, c))) * dt;
+      v = v + apply_act(p.act[A_PO_STAGE],
+                        apply_act(p.act[A_POFF], field(F_POFF, c))) * po_fac;
+      vals[c] = (v - p.aabb_lo[c]) * p.aabb_inv[c] - 1.0f;
+      vals[4 + c] = apply_act(p.act[A_CS], field(F_CS, c));
+      vals[7 + c] = apply_act(p.act[A_CSH], field(F_CSH, c));
+    }
+    vals[3] = dist;
+    if (live) {
+      const int64_t g = r * S + s;
+#pragma unroll
+      for (int j = 0; j < kPackRows; ++j) pack[(int64_t)j * N + g] = vals[j];
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch(const float* x0, const float* rays, float* pack,
+                   const PackParams& p, int lda, int lds, size_t smem,
+                   cudaStream_t st) {
+  cudaError_t e = cudaFuncSetAttribute(
+      pack_build_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return e;
+  constexpr int R = kRaysOf<T>;
+  const unsigned blocks = (unsigned)((p.B + R - 1) / R);
+  pack_build_kernel<T><<<blocks, kThreads, smem, st>>>(x0, rays, pack, p, lda,
+                                                        lds);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int pack_build_launch(const float* x0, const float* rays,
+                                 float* pack, const PackParams* p,
+                                 void* stream) {
+  const int S = p->S;
+  if (S < 1 || S > kPackMaxS || (S & (S - 1)) || p->n_layers < 1 ||
+      p->n_layers > kMaxLayers) {
+    return (int)cudaErrorInvalidValue;
+  }
+  // the operand buffers' width covers every layer's input columns; `out`
+  // every layer's n. Hidden outputs stay left of the encoded rays.
+  int cols = 0, width = 0;
+  for (int l = 0; l < p->n_layers; ++l) {
+    const MlpLayer& L = p->layer[l];
+    if (L.k < 16 || L.k % 16 || L.n < kStrip || L.n % kStrip || L.k0 % 16 ||
+        (l + 1 < p->n_layers && L.n > p->xcol)) {
+      return (int)cudaErrorInvalidValue;
+    }
+    cols = L.k0 + L.k > cols ? L.k0 + L.k : cols;
+    width = L.n > width ? L.n : width;
+  }
+  if (p->P * S > p->layer[p->n_layers - 1].n) return (int)cudaErrorInvalidValue;
+  // row strides padded against bank conflicts: operand rows 8 elements
+  // past a multiple of 16, `out` rows 16 floats past a multiple of 32
+  const int lda = cols + 8, lds = (width + 31) / 32 * 32 + 16;
+  const int R = p->bf16 ? kRaysOf<__nv_bfloat16> : kRaysOf<float>;
+  const size_t smem = 2 * (size_t)R * lda * (p->bf16 ? 2 : 4) +
+                      (size_t)R * lds * 4;
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (p->B == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  return p->bf16
+      ? (int)launch<__nv_bfloat16>(x0, rays, pack, *p, lda, lds, smem, st)
+      : (int)launch<float>(x0, rays, pack, *p, lda, lds, smem, st);
+}
+
+extern "C" int pack_params_size() { return (int)sizeof(PackParams); }

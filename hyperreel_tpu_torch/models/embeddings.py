@@ -1,0 +1,272 @@
+"""Embedding stages of the flagship chain (port of
+hyperreel_tpu/models/embeddings.py; reference nlf/embedding/).
+
+Each stage has `.init(gen, device) -> params` and
+`.apply(params, x, ctx, render_kwargs) -> x` over a dict of tensors. The
+ported stages are ray_prediction, ray_intersect, advect_points,
+point_offset, add_point_outputs and extract_fields; any other stage type,
+and per-stage wait/stop gating, raise NotImplementedError.
+"""
+
+from typing import List
+
+import torch
+
+from hyperreel_tpu_torch.models.activations import get_activation
+from hyperreel_tpu_torch.models.intersect import build_intersect
+from hyperreel_tpu_torch.models.mlp import build_net
+from hyperreel_tpu_torch.models.pe import get_pe
+from hyperreel_tpu_torch.models.ray_param import get_ray_param
+
+
+class RayPredictionEmbedding:
+    """The sample-prediction network (reference nlf/embedding/ray.py:
+    213-363): parameterize and encode channel ranges of the ray, run one
+    MLP, split its output into per-sample fields with their activations."""
+
+    def __init__(self, cfg, compute_dtype=None):
+        self.cfg = cfg
+        self.rays_name = cfg.get("rays_name", "rays")
+        self.param_ranges, self.params_fns, self.pes = [], [], []
+        in_channels = 0
+        for pcfg in cfg["params"].values():
+            start, end = int(pcfg["start"]), int(pcfg["end"])
+            self.param_ranges.append((start, end))
+            param_cfg = dict(pcfg["param"])
+            param_cfg.setdefault("in_channels", end - start)
+            rp = get_ray_param(param_cfg)
+            self.params_fns.append(rp)
+            pe = get_pe(rp.out_channels, pcfg.get("pe", None))
+            self.pes.append(pe)
+            in_channels += pe.out_channels
+        self.in_channels = in_channels
+        self.z_channels = int(cfg["z_channels"])
+        outputs = cfg["outputs"]
+        self.output_names = list(outputs.keys())
+        self.output_shapes = [int(outputs[k]["channels"])
+                              for k in self.output_names]
+        self.preds_per_z = sum(self.output_shapes)
+        if cfg.get("ray_outputs"):
+            raise NotImplementedError(
+                "ray_outputs are not ported (ROADMAP.md: long tail)")
+        self.total_point_out = self.z_channels * self.preds_per_z
+        # the reference shrinks depth by 2 and drops linear_last here
+        # (nlf/embedding/ray.py:283-285)
+        net_cfg = dict(cfg["net"])
+        if "depth" in net_cfg:
+            net_cfg["depth"] = int(net_cfg["depth"]) - 2
+            net_cfg["linear_last"] = False
+        self.net = build_net(self.in_channels, self.total_point_out, net_cfg,
+                             compute_dtype=compute_dtype)
+        self.activations = [get_activation(outputs[k].get("activation",
+                                                          "identity"))
+                            for k in self.output_names]
+
+    def init(self, gen, device):
+        return {"net": self.net.init(gen, device)}
+
+    def net_input(self, rays, ctx):
+        """[B, in_channels] encoded ray parameters."""
+        return torch.cat([pe.apply(rp.apply(rays[:, a:b]), ctx)
+                          for (a, b), rp, pe in zip(self.param_ranges,
+                                                    self.params_fns,
+                                                    self.pes)], -1)
+
+    def apply(self, params, x, ctx, render_kwargs=None):
+        rays = x[self.rays_name]
+        out = self.net.apply(params["net"], self.net_input(rays, ctx), ctx)
+        point_out = out.reshape(rays.shape[0], self.z_channels,
+                                self.preds_per_z)
+        off = 0
+        for name, width, act in zip(self.output_names, self.output_shapes,
+                                    self.activations):
+            x[name] = act(point_out[..., off:off + width], ctx)
+            off += width
+        return x
+
+
+class RayIntersectEmbedding:
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.rays_name = cfg.get("rays_name", "rays")
+        self.z_channels = int(cfg["z_channels"])
+        self.intersect = build_intersect(self.z_channels, cfg["intersect"])
+
+    def init(self, gen, device):
+        return {"intersect": {}}
+
+    def apply(self, params, x, ctx, render_kwargs=None):
+        return self.intersect.apply(x[self.rays_name], x, ctx)
+
+
+def get_base_time(t, flow_keyframes, total_frames):
+    """Snap times to keyframe times, eval form (reference
+    utils/flow_utils.py:10-35)."""
+    if flow_keyframes <= 0:
+        return torch.zeros_like(t)
+    fac = flow_keyframes * (total_frames - 1) / total_frames
+    base = torch.clamp(t * fac, 0.0, flow_keyframes - 1.0) - 1e-5
+    return torch.round(base) * (1.0 / fac)
+
+
+class AdvectPointsEmbedding:
+    """Keyframe flow advection (reference nlf/embedding/point.py:741-834),
+    spatial flow only."""
+
+    def __init__(self, cfg, num_keyframes=1, num_frames=1):
+        self.cfg = cfg
+        if cfg.get("use_angular_flow", False):
+            raise NotImplementedError(
+                "angular flow is not ported (ROADMAP.md: long tail)")
+        self.rays_name = cfg.get("rays_name", "rays")
+        self.in_points_field = cfg.get("in_points_field", "points")
+        self.out_points_field = cfg.get("out_points_field", "points")
+        self.use_spatial_flow = bool(cfg.get("use_spatial_flow", False))
+        self.spatial_flow_activation = get_activation(
+            cfg.get("spatial_flow_activation", "identity"))
+        self.num_keyframes = num_keyframes
+        self.num_frames = num_frames
+
+    def init(self, gen, device):
+        return {}
+
+    def apply(self, params, x, ctx, render_kwargs=None):
+        rays = x[self.rays_name]
+        points = x[self.in_points_field]
+        t = rays[..., -1:]
+        base_t = get_base_time(t, self.num_keyframes, self.num_frames)
+        time_offset = (t - base_t)[..., None, :]
+        if self.use_spatial_flow:
+            flow = self.spatial_flow_activation(x["spatial_flow"], ctx)
+            x["spatial_flow"] = flow
+            points = points + flow * time_offset
+        B, S = points.shape[:2]
+        x[self.out_points_field] = points
+        x["base_times"] = base_t[..., None, :].expand(B, S, 1)
+        x["time_offset"] = time_offset.expand(B, S, 1)
+        return x
+
+
+class PointOffsetEmbedding:
+    """points += act(point_offset) * (1 - sigma) (reference
+    nlf/embedding/point.py:338-399; train-time dropout not ported)."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        if cfg.get("dropout") or cfg.get("save_points_field"):
+            raise NotImplementedError(
+                "point_offset dropout / save_points_field are not ported "
+                "(ROADMAP.md: flagship training step)")
+        self.in_density_field = cfg.get("in_density_field", "sigma")
+        self.in_offset_field = cfg.get("in_offset_field", "point_offset")
+        self.out_offset_field = cfg.get("out_offset_field", "offset")
+        self.in_points_field = cfg.get("in_points_field", "points")
+        self.out_points_field = cfg.get("out_points_field", "points")
+        self.use_sigma = bool(cfg.get("use_sigma", True))
+        self.activation = get_activation(cfg.get("activation", "identity"))
+
+    def init(self, gen, device):
+        return {}
+
+    def apply(self, params, x, ctx, render_kwargs=None):
+        in_points = x[self.in_points_field]
+        if self.use_sigma and self.in_density_field in x:
+            sigma = x[self.in_density_field]
+        else:
+            sigma = in_points.new_zeros(in_points.shape[:2] + (1,))
+        offset = self.activation(x[self.in_offset_field], ctx) * (1.0 - sigma)
+        x[self.in_offset_field] = offset
+        x[self.out_points_field] = in_points + offset
+        if self.out_offset_field is not None:
+            x[self.out_offset_field] = offset
+        return x
+
+
+class AddPointOutputsEmbedding:
+    """Broadcast per-ray viewdirs/times to per-sample fields (reference
+    nlf/embedding/point.py:837-873)."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.rays_name = cfg.get("rays_name", "rays")
+        self.extra_outputs = list(cfg.get("extra_outputs", []))
+
+    def init(self, gen, device):
+        return {}
+
+    def apply(self, params, x, ctx, render_kwargs=None):
+        rays = x[self.rays_name]
+        B, S = rays.shape[0], x["points"].shape[1]
+        if "times" in self.extra_outputs and "times" not in x:
+            x["times"] = rays[..., None, -1:].expand(B, S, 1)
+        if "base_times" in self.extra_outputs and "base_times" not in x:
+            x["base_times"] = rays[..., None, -1:].expand(B, S, 1)
+        if "viewdirs" in self.extra_outputs and "viewdirs" not in x:
+            x["viewdirs"] = rays[..., None, 3:6].expand(B, S, 3)
+        return x
+
+
+class ExtractFieldsEmbedding:
+    """Final field selection (reference nlf/embedding/point.py:221-247)."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.fields = list(cfg.get("fields", []))
+
+    def init(self, gen, device):
+        return {}
+
+    def apply(self, params, x, ctx, render_kwargs=None):
+        fields = self.fields + list((render_kwargs or {}).get("fields", []))
+        return {k: x[k] for k in fields if k in x}
+
+
+class EmbeddingChain:
+    """Ordered chain over the sample-state dict (reference
+    nlf/embedding/embedding.py:59-126)."""
+
+    def __init__(self, stages: List):
+        self.stages = stages          # (name, stage) pairs
+
+    def init(self, gen, device):
+        return {name: stage.init(gen, device) for name, stage in self.stages}
+
+    def apply(self, params, rays, ctx, render_kwargs=None):
+        x = {"rays": rays}
+        for name, stage in self.stages:
+            x = stage.apply(params[name], x, ctx, render_kwargs)
+        return x
+
+
+def build_embedding_chain(cfg, dataset_info=None, compute_dtype=None):
+    """Build the ray_point chain from `embedding.embeddings` (reference
+    nlf/models/models.py:104-143)."""
+    dataset_info = dataset_info or {}
+    stages = []
+    for name, scfg in cfg["embeddings"].items():
+        t = scfg["type"]
+        if scfg.get("wait_iters") or scfg.get("stop_iters"):
+            raise NotImplementedError(
+                "per-stage wait/stop gating is not ported "
+                "(ROADMAP.md: flagship training step)")
+        if t == "ray_prediction":
+            stage = RayPredictionEmbedding(dict(scfg), compute_dtype)
+        elif t == "ray_intersect":
+            stage = RayIntersectEmbedding(dict(scfg))
+        elif t == "advect_points":
+            stage = AdvectPointsEmbedding(
+                dict(scfg),
+                int(dataset_info.get("num_keyframes", 1)),
+                int(dataset_info.get("num_frames", 1)))
+        elif t == "point_offset":
+            stage = PointOffsetEmbedding(dict(scfg))
+        elif t == "add_point_outputs":
+            stage = AddPointOutputsEmbedding(dict(scfg))
+        elif t == "extract_fields":
+            stage = ExtractFieldsEmbedding(dict(scfg))
+        else:
+            raise NotImplementedError(
+                f"embedding stage {t!r} is not ported "
+                "(ROADMAP.md: long tail)")
+        stages.append((name, stage))
+    return EmbeddingChain(stages)

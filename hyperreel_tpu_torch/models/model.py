@@ -1,0 +1,57 @@
+"""Model composition (port of hyperreel_tpu/models/model.py; reference
+nlf/models/models.py): rgb = color_net(embedding_chain(param(rays))).
+
+Functional, like the JAX package: `init(gen, device) -> params`,
+`apply(params, rays, ctx, render_kwargs) -> {"rgb": [B, 3], ...}`.
+Eval calls take the fused path (models/fused_eval.py, the CUDA kernels)
+when the chain is the flagship pattern and `fused_render_cf` is on; the
+general stage chain is the other route and the fused path's reference.
+"""
+
+from hyperreel_tpu_torch.models import fused_eval
+from hyperreel_tpu_torch.models.embeddings import build_embedding_chain
+from hyperreel_tpu_torch.models.ray_param import get_ray_param
+from hyperreel_tpu_torch.models.tensorf import build_color_net
+
+
+class LightfieldModel:
+    def __init__(self, cfg, dataset_info=None, compute_dtype=None):
+        self.cfg = cfg
+        self.dataset_info = dataset_info
+        self.compute_dtype = compute_dtype
+        self.ray_param = get_ray_param(cfg.get("param", {"fn": "identity"}))
+        self.embedding = build_embedding_chain(cfg["embedding"], dataset_info,
+                                               compute_dtype)
+        self.color_net = build_color_net(cfg["color"]["net"], dataset_info)
+        self._cf_eval = None
+        if cfg["color"]["net"].get("fused_render_cf", True) \
+                and fused_eval.cf_eligible(self):
+            self._cf_eval = fused_eval.FusedCFEval(self)
+
+    def init(self, gen, device):
+        """Parameters drawn from the torch.Generator `gen`, on `device`."""
+        return {"embedding": self.embedding.init(gen, device),
+                "color": self.color_net.init(gen, device)}
+
+    def apply(self, params, rays, ctx, render_kwargs=None):
+        render_kwargs = render_kwargs or {}
+        if self._cf_eval is not None and self._cf_eval.ok(ctx, render_kwargs):
+            return self._cf_eval.apply(params, rays, ctx, render_kwargs)
+        rays = self.ray_param.apply(rays)
+        x = self.embedding.apply(params["embedding"], rays, ctx,
+                                 render_kwargs)
+        return self.color_net.apply(params["color"], x, ctx, render_kwargs)
+
+    def prepare_eval(self, params):
+        """Per-checkpoint tables of the fused path (FusedCFEval.prepare),
+        or None when the model has no fused path. Pass the result as
+        render_kwargs["cf_prepared"]."""
+        if self._cf_eval is None:
+            return None
+        return self._cf_eval.prepare(params)
+
+
+def build_model(cfg, dataset_info=None, compute_dtype=None):
+    if cfg.get("type", "lightfield") != "lightfield":
+        raise NotImplementedError(f"model type {cfg['type']!r}")
+    return LightfieldModel(cfg, dataset_info, compute_dtype)

@@ -1,0 +1,134 @@
+"""Build and load the port's CUDA kernels (csrc/*.cu) on first use.
+
+`nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+-Xcompiler -fPIC` compiles every source of csrc/ into one shared library
+with a plain C interface, which ctypes loads. The library goes to
+build/hyperreel_tpu_torch/ under the checkout root (listed in
+.gitignore) and is rebuilt whenever a source is newer than it. Nothing
+here runs at import time.
+"""
+
+import ctypes
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
+    "hyperreel_tpu_torch"
+LIB_NAME = "libhyperreel_kernels.so"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+class Act(ctypes.Structure):
+    _fields_ = [("kind", ctypes.c_int), ("inner", ctypes.c_float),
+                ("outer", ctypes.c_float), ("shift", ctypes.c_float),
+                ("w", ctypes.c_float), ("start", ctypes.c_float)]
+
+
+class MlpLayer(ctypes.Structure):
+    _fields_ = [("w", ctypes.c_void_p), ("b", ctypes.c_void_p)] + [
+        (n, ctypes.c_int) for n in ("k0", "k", "n", "act")]
+
+
+PACK_MAX_LAYERS = 12
+
+
+class PackParams(ctypes.Structure):
+    """Mirror of csrc/pack_build.cu PackParams."""
+    _fields_ = [(n, ctypes.c_int) for n in
+                ("B", "S", "P", "cin", "xcol", "n_layers", "bf16")] + [
+        ("leaky", ctypes.c_float),
+        ("layer", MlpLayer * PACK_MAX_LAYERS),
+        ("foff", ctypes.c_int * 7), ("act", Act * 10),
+                ("samples", ctypes.c_float * 32),
+                ("z_scale", ctypes.c_float * 32),
+                ("aabb_lo", ctypes.c_float * 3),
+                ("aabb_inv", ctypes.c_float * 3)]
+
+
+SHADE_MAX_WB = 432
+
+
+class ShadeParams(ctypes.Structure):
+    """Mirror of csrc/shade.cu ShadeParams."""
+    _fields_ = [(n, ctypes.c_int) for n in
+                ("B", "S", "W", "H", "TW", "TH", "C", "nd")] + [
+        ("distance_scale", ctypes.c_float),
+        ("wb", ctypes.c_float * SHADE_MAX_WB)]
+
+
+@dataclass
+class KernelLibrary:
+    lib: ctypes.CDLL
+    build_seconds: float     # 0.0 when an up-to-date library was reused
+    compiler_log: str
+
+
+_LOADED = None
+
+
+def _nvcc():
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on "
+                           "the machine with the card")
+    return path
+
+
+def _build(out):
+    sources = sorted(str(p) for p in CSRC.glob("*.cu"))
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.perf_counter()
+    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
+                         capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if res.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                           f"{res.stdout}\n{res.stderr}")
+    os.replace(tmp, out)       # atomic: a concurrent build never sees half
+    return seconds, res.stdout + res.stderr
+
+
+def load_library():
+    """The loaded kernel library, built first if missing or stale."""
+    global _LOADED
+    if _LOADED is not None:
+        return _LOADED
+    out = BUILD_DIR / LIB_NAME
+    newest = max(p.stat().st_mtime for p in CSRC.glob("*.cu"))
+    seconds, log = 0.0, ""
+    if not out.exists() or out.stat().st_mtime < newest:
+        seconds, log = _build(out)
+    lib = ctypes.CDLL(str(out))
+    vp = ctypes.c_void_p
+    lib.pack_build_launch.argtypes = [vp, vp, vp,
+                                      ctypes.POINTER(PackParams), vp]
+    lib.pack_build_launch.restype = ctypes.c_int
+    lib.shade_launch.argtypes = [vp, vp, vp, vp, vp,
+                                 ctypes.POINTER(ShadeParams), vp]
+    lib.shade_launch.restype = ctypes.c_int
+    for fn, struct in ((lib.pack_params_size, PackParams),
+                       (lib.shade_params_size, ShadeParams)):
+        fn.argtypes = []
+        fn.restype = ctypes.c_int
+        if fn() != ctypes.sizeof(struct):
+            raise RuntimeError(
+                f"{struct.__name__}: C size {fn()} != ctypes size "
+                f"{ctypes.sizeof(struct)}")
+    _LOADED = KernelLibrary(lib, seconds, log)
+    return _LOADED
+
+
+def check_launch(rc, name):
+    """Raise on a non-zero cudaError_t returned by a C launcher."""
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError_t {rc}")

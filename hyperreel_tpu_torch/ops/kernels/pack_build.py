@@ -1,0 +1,295 @@
+"""Pack-build (K1): the flagship's prediction MLP and eval embedding tail,
+from the encoded rays to the per-sample pack of ops/kernels/layout.py.
+
+Replaces hyperreel_tpu/ops/pallas/pack_build.py:_pack_build_kernel with
+its in-kernel MLP (_mlp_rows, the JAX package's default HYPERREEL_PK_MLP
+route) and _bitonic_sublane. CUDA source: csrc/pack_build.cu. Bound on the
+H100 by the MLP's tensor-core products (about two thirds of the kernel's
+time on an H100 80GB HBM3 at 700 W); each block keeps its rays'
+activations in shared memory from the encoded input to the last layer,
+runs the layers as bf16 WMMA tiles with f32 accumulation, and then the
+tail with one warp lane per sample. See the source for the design.
+
+The MLP, under the bf16 policy as the JAX kernel's `_mlp_rows`: one bf16
+rounding of each layer's input, weight and bias, f32 sums, f32 leaky relu
+and an f32 last layer (bf16 storage at that boundary cost 3.2e-4 of rgb on
+the TPU against the 2e-4 gate). Under the f32 policy nothing is rounded.
+
+The tail, per sample, in order: the field activations; z = act(z)*(1 -
+sigma)*z_scale + anchor; dist = (z - o_z)/d_z (d_z guarded at 1e-5, dist
+<= 0 -> 0); the values-only ascending sort of the S distances (the flow,
+offset and colour fields stay in prediction order); p = o + d*dist; p +=
+flow*dt; p += offset*(1 - point_sigma); aabb normalisation; the pack.
+
+`pack_build(x0, mlp, ray_pack, spec, it)` takes
+  x0       f32 [B, cin], the MLP's encoded input;
+  mlp      the MlpTables of `mlp_tables` (built once per checkpoint);
+  ray_pack f32 [B, 8]: o xyz, d xyz, dt = t - base_t, tn;
+and returns the pack f32 [PACK_ROWS, B*S]. A CPU tensor goes to
+`pack_build_plain`; a CUDA tensor launches the kernel or raises.
+"""
+
+from dataclasses import dataclass
+from typing import Dict, List
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from hyperreel_tpu_torch.models.activations import LeakyRelu
+from hyperreel_tpu_torch.models.mlp import round_to
+from hyperreel_tpu_torch.ops.kernels import build
+from hyperreel_tpu_torch.ops.kernels.layout import PACK_ROWS, check_ray_pack
+
+# field slots of the MLP row (PackParams.foff) and activation slots
+# (PackParams.act), in the order of csrc/pack_build.cu
+FIELDS = ("z", "sigma", "flow", "psig", "poff", "cs", "csh")
+ACTS = ("z", "isect", "sigma", "flow", "flow_stage", "psig", "poff",
+        "po_stage", "cs", "csh")
+_IDENTITY = (0, 1.0, 1.0, 0.0, 1.0, 0.0)
+MAX_S = 32
+MAX_LAYERS = build.PACK_MAX_LAYERS
+
+
+def _ceil(x, m):
+    return -(-x // m) * m
+
+
+@dataclass
+class MlpLayer:
+    """out[:, :n] = A[:, k0:k0 + k] @ w + b (then leaky relu if `act`),
+    A being the kernel's per-ray operand buffer."""
+    w: torch.Tensor          # [k, n] in the operand dtype
+    b: torch.Tensor          # f32 [n] (bf16-valued under the bf16 policy)
+    k0: int
+    act: bool
+
+
+@dataclass
+class MlpTables:
+    """The prediction MLP as K1 reads it: per layer the transposed weight,
+    zero-padded to k % 16 == 0 rows and n % 32 == 0 columns, in the
+    operand dtype. The encoded input sits in operand columns
+    [xcol, xcol + cin); the skip layer reads [hidden, input] from columns
+    [0, xcol + cin_pad); the last layer's columns are field-major."""
+    layers: List[MlpLayer]
+    cin: int
+    xcol: int
+    leaky: float
+    compute_dtype: object    # torch.bfloat16 or None (f32)
+
+
+def mlp_tables(net, params, perm):
+    """BaseMLP `net` with nn.Linear-layout `params` -> MlpTables; `perm`
+    maps field-major output column -> the MLP's own column."""
+    if not isinstance(net.layer_act, LeakyRelu) or net.activation != \
+            "identity":
+        raise NotImplementedError(
+            "K1 runs leaky-relu MLPs with an identity output "
+            "(ROADMAP.md: long tail)")
+    if net.compute_dtype not in (None, torch.bfloat16):
+        raise NotImplementedError(f"MLP policy {net.compute_dtype}")
+    if net.depth + 2 > MAX_LAYERS:
+        raise NotImplementedError(f"K1 takes <= {MAX_LAYERS} layers")
+    cd = net.compute_dtype
+    cin, cp, hp = net.in_channels, _ceil(net.in_channels, 16), \
+        _ceil(net.hidden, 32)
+    last = net.depth + 1
+
+    def pad(m, rows, cols):
+        return F.pad(m, (0, cols - m.shape[1], 0, rows - m.shape[0]))
+
+    layers = []
+    for i in range(net.depth + 2):
+        p = params[f"layer_{i}"]
+        w = p["weight"].float().t()                       # [in, out]
+        b = p["bias"].float() if "bias" in p else w.new_zeros(w.shape[1])
+        if i == last:
+            w, b = w[:, perm.to(w.device)], b[perm.to(w.device)]
+        n = hp if i < last else _ceil(w.shape[1], 32)
+        if i == 0:
+            blocks, k0 = [(w, cp)], hp
+        elif i in net.skips:                 # weight rows [input, hidden]
+            blocks, k0 = [(w[cin:], hp), (w[:cin], cp)], 0
+        else:
+            blocks, k0 = [(w, hp)], 0
+        wt = torch.cat([pad(m, k, n) for m, k in blocks], 0)
+        layers.append(MlpLayer(
+            w=wt.to(cd or torch.float32).contiguous(),
+            b=round_to(F.pad(b, (0, n - b.shape[0])), cd).contiguous(),
+            k0=k0, act=i < net.act_until))
+    return MlpTables(layers, cin, hp, float(net.layer_act.a), cd)
+
+
+@dataclass
+class PackSpec:
+    """Static description of one chain's embedding tail.
+
+    foff: field slot -> channel offset in the MLP row; every slot of
+          FIELDS is required (the flagship's chain).
+    acts: activation slot -> models.activations.Activation (absent slots
+          are identity).
+    """
+    S: int
+    P: int
+    foff: Dict[str, int]
+    acts: Dict[str, object]
+    samples: np.ndarray      # [S] z anchors
+    z_scale: np.ndarray      # [S]
+    aabb: np.ndarray         # [2, 3]
+
+    def __post_init__(self):
+        if self.S > MAX_S or self.S & (self.S - 1):
+            raise NotImplementedError(
+                f"S={self.S}: the kernel takes a power of two <= {MAX_S} "
+                "(one warp lane per sample)")
+        missing = [k for k in FIELDS if k not in self.foff]
+        if missing:
+            raise NotImplementedError(
+                f"chain without {missing}: K1 takes the flagship's fields "
+                "(ROADMAP.md: long tail)")
+
+    def descriptors(self, it):
+        return {k: (self.acts[k].descriptor(it) if k in self.acts
+                    else _IDENTITY) for k in ACTS}
+
+    def params(self, B, mlp, it):
+        """The kernel's PackParams for B rays at iteration `it`."""
+        p = build.PackParams()
+        p.B, p.S, p.P = B, self.S, self.P
+        p.cin, p.xcol, p.n_layers = mlp.cin, mlp.xcol, len(mlp.layers)
+        p.bf16, p.leaky = int(mlp.compute_dtype is not None), mlp.leaky
+        for i, l in enumerate(mlp.layers):
+            p.layer[i] = build.MlpLayer(l.w.data_ptr(), l.b.data_ptr(), l.k0,
+                                        l.w.shape[0], l.w.shape[1],
+                                        int(l.act))
+        for i, k in enumerate(FIELDS):
+            p.foff[i] = self.foff[k]
+        for i, d in enumerate(self.descriptors(it).values()):
+            p.act[i] = build.Act(int(d[0]), *(float(v) for v in d[1:]))
+        for s in range(self.S):
+            p.samples[s] = float(self.samples[s])
+            p.z_scale[s] = float(self.z_scale[s])
+        lo = np.asarray(self.aabb, np.float32)
+        inv = (2.0 / (lo[1] - lo[0])).astype(np.float32)
+        for c in range(3):
+            p.aabb_lo[c] = float(lo[0][c])
+            p.aabb_inv[c] = float(inv[c])
+        return p
+
+
+def _apply_desc(x, d):
+    kind, inner, outer, shift, w, start = d
+    u = x * inner + shift
+    if kind == 1:
+        f = torch.reciprocal(1.0 + torch.exp(-u))
+    elif kind == 2:
+        f = torch.tanh(u)
+    else:
+        f = u
+    return w * (f * outer) + (1.0 - w) * start
+
+
+def mlp_plain(x0, mlp):
+    """Plain PyTorch version of the kernel's MLP: [B, cin] -> f32 [B, n]
+    of the last layer (field-major columns, zero-padded)."""
+    cols = max(l.k0 + l.w.shape[0] for l in mlp.layers)
+    A = x0.new_zeros(x0.shape[0], cols)
+    A[:, mlp.xcol:mlp.xcol + mlp.cin] = x0
+    for i, l in enumerate(mlp.layers):
+        y = round_to(A[:, l.k0:l.k0 + l.w.shape[0]], mlp.compute_dtype) \
+            @ l.w.float() + l.b
+        if l.act:
+            y = F.leaky_relu(y, mlp.leaky)
+        if i + 1 < len(mlp.layers):
+            A[:, :y.shape[1]] = y
+    return y
+
+
+def tail_plain(mlp_out, ray_pack, spec, it):
+    """Plain PyTorch version of the kernel's tail: the MLP's field-major
+    f32 output [B, >= P*S] -> the pack."""
+    B, S = ray_pack.shape[0], spec.S
+    dsc = spec.descriptors(it)
+    rows3 = mlp_out[:, :spec.P * S].reshape(B, spec.P, S)
+
+    def field(slot, act, c=0):
+        return _apply_desc(rows3[:, spec.foff[slot] + c], dsc[act])
+
+    o, d, dt = ray_pack[:, 0:3], ray_pack[:, 3:6], ray_pack[:, 6:7]
+    z = _apply_desc(field("z", "z"), dsc["isect"])
+    z = z * (1.0 - field("sigma", "sigma"))
+    dev = mlp_out.device
+    z = z * torch.as_tensor(spec.z_scale, dtype=torch.float32, device=dev) \
+        + torch.as_tensor(spec.samples, dtype=torch.float32, device=dev)
+    dz = torch.where(d[:, 2:3].abs() < 1e-5,
+                     torch.full_like(d[:, 2:3], 1e12), d[:, 2:3])
+    dist = (z - o[:, 2:3]) / dz
+    dist = torch.where(dist <= 0.0, torch.zeros_like(dist), dist)
+    dist = torch.sort(dist, dim=-1).values
+
+    po_fac = 1.0 - field("psig", "psig")
+    aabb = np.asarray(spec.aabb, np.float32)
+    inv = (2.0 / (aabb[1] - aabb[0])).astype(np.float32)
+    pts = []
+    for c in range(3):
+        p = o[:, c:c + 1] + d[:, c:c + 1] * dist
+        p = p + _apply_desc(field("flow", "flow", c), dsc["flow_stage"]) * dt
+        p = p + _apply_desc(field("poff", "poff", c),
+                            dsc["po_stage"]) * po_fac
+        pts.append((p - float(aabb[0][c])) * float(inv[c]) - 1.0)
+    rows = pts + [dist] + [field(slot, slot, c) for slot in ("cs", "csh")
+                           for c in range(3)]
+    return torch.stack(rows, 0).reshape(PACK_ROWS, B * S)
+
+
+def pack_build_plain(x0, mlp, ray_pack, spec, it):
+    """Plain PyTorch version of the kernel (same inputs and output)."""
+    return tail_plain(mlp_plain(x0, mlp), ray_pack, spec, it)
+
+
+def _check(x0, mlp, ray_pack, spec):
+    B = x0.shape[0]
+    if x0.dtype != torch.float32 or tuple(x0.shape) != (B, mlp.cin) \
+            or not x0.is_contiguous():
+        raise ValueError(f"x0 must be contiguous f32 (B, {mlp.cin}), got "
+                         f"{x0.dtype} {tuple(x0.shape)}")
+    check_ray_pack(ray_pack, B)
+    wdt = mlp.compute_dtype or torch.float32
+    for l in mlp.layers:
+        if l.w.dtype != wdt or l.b.dtype != torch.float32 \
+                or not (l.w.is_contiguous() and l.b.is_contiguous()) \
+                or l.w.data_ptr() % 32:
+            raise ValueError("MLP tables must be contiguous, 32-byte "
+                             f"aligned {wdt} weights with f32 biases")
+        if l.w.device != x0.device or l.b.device != x0.device:
+            raise ValueError("MLP tables lie on another device than x0")
+    if spec.P * spec.S > mlp.layers[-1].w.shape[1]:
+        raise ValueError("the MLP's last layer is narrower than P*S")
+    if x0.device != ray_pack.device:
+        raise ValueError("x0 and ray_pack lie on different devices")
+    return B
+
+
+def pack_build(x0, mlp, ray_pack, spec, it):
+    """Run K1 (see the module docstring); counts launches in
+    `pack_build.launches`."""
+    B = _check(x0, mlp, ray_pack, spec)
+    if x0.device.type == "cpu":
+        return pack_build_plain(x0, mlp, ray_pack, spec, it)
+    if x0.device.type != "cuda":
+        raise ValueError(f"pack_build has no kernel for {x0.device}")
+    lib = build.load_library().lib
+    pack = torch.empty((PACK_ROWS, B * spec.S), dtype=torch.float32,
+                       device=x0.device)
+    params = spec.params(B, mlp, it)
+    with torch.cuda.device(x0.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        build.check_launch(lib.pack_build_launch(
+            x0.data_ptr(), ray_pack.data_ptr(), pack.data_ptr(), params,
+            stream), "pack_build")
+    pack_build.launches += 1
+    return pack
+
+
+pack_build.launches = 0

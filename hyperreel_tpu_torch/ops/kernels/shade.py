@@ -1,0 +1,232 @@
+"""Shade + composite (K2): from the per-sample pack (ops/kernels/layout.py)
+to the per-ray colour, for the dynamic single-axis net
+(TensorVMKeyframeTime with one space plane and one time plane).
+
+Replaces hyperreel_tpu/ops/pallas/shade.py:_shade_kernel on the quad
+route (with _shade_core, _corner_weights, _twohot_matmul, _shade_tail and
+_compact_rows) and the XLA quad-row gather before it. CUDA source:
+csrc/shade.cu. Bound on the H100 by device-memory bytes and load latency:
+per valid sample one 8*C-byte quad row and the 40-byte pack column; the
+lane computes its texel address itself (no gather kernel, no index
+array), samples outside the aabb load nothing, and the per-ray composite
+and sums stay in registers (warp shuffles). See the source for the design.
+
+The view direction and the keyframe time coordinate tn are per ray: both
+come from the ray pack f32 [B, 8] (o xyz, d xyz, dt, tn) that K1 read.
+
+Per sample: validity (|xn|, |yn|, |zn| <= 1 and dist > 0); the space
+features, bilinear from the 4 corners of one quad-table row; the time
+features, linear in z and then in t on the time plane (or linear in z on
+a table premixed for one t); prod = space * time; density =
+relu(sum of the first nd channels) * valid; SH colour
+max(sum_k (wb @ prod)_k Y_k + 0.5, 0) * (scale + 1) + shift. Per ray: the
+log-space composite (last delta 1e10, x = clip(sigma*delta*distance_scale,
++-70), exclusive log-transmittance floored at log 1e-10) and the sums
+r, g, b, acc, depth.
+
+Tables (built once per checkpoint by `quad_table`, `time_table`,
+`basis_table`):
+  quad  bf16 [(H+1)*(W+1), 4C]: the zero-ring-padded space plane, row
+        y*(W+1) + x holding its corners (y,x), (y,x+1), (y+1,x), (y+1,x+1);
+  ttab  f32 [TH, TW, C] (the time plane as is), or [TW, C] premixed when
+        the caller passes TH = 0;
+  wb    f32 [3*K, C] on the host (it rides in the kernel's parameters):
+        basis rows c*K + k, zero on the nd density columns.
+"""
+
+from dataclasses import dataclass
+
+import torch
+
+from hyperreel_tpu_torch.ops.kernels import build
+from hyperreel_tpu_torch.ops.kernels.layout import check_pack, check_ray_pack
+from hyperreel_tpu_torch.ops.render_math import raw2alpha
+from hyperreel_tpu_torch.ops.sh import eval_sh_bases
+
+# the (C, SH degree) pairs csrc/shade.cu is built for: those of the
+# ported configurations (technicolor_z_plane C=16, tiny_dynamic C=8)
+KERNEL_CHANNELS = (8, 16)
+KERNEL_SH_DEG = 2
+
+
+@dataclass(frozen=True)
+class ShadeSpec:
+    S: int
+    W: int
+    H: int
+    TW: int
+    TH: int          # 0: ttab is premixed [TW, C]
+    C: int
+    nd: int
+    deg: int         # SH degree
+    distance_scale: float
+
+    @property
+    def n_basis(self):
+        return (self.deg + 1) ** 2
+
+
+def quad_table(plane_hwc):
+    """[H, W, C] plane -> bf16 [(H+1)*(W+1), 4C] quad-corner table
+    (hyperreel_tpu/models/fused_eval.py _plan_arrays quad_table)."""
+    H, W, C = plane_hwc.shape
+    p = torch.nn.functional.pad(plane_hwc.to(torch.bfloat16),
+                                (0, 0, 1, 1, 1, 1))
+    q = torch.cat([p[:-1, :-1], p[:-1, 1:], p[1:, :-1], p[1:, 1:]], -1)
+    return q.reshape((H + 1) * (W + 1), 4 * C).contiguous()
+
+
+def time_table(time_khc):
+    """[TH, TW, C] time plane -> the f32 table the kernel reads."""
+    return time_khc.float().contiguous()
+
+
+def premix_time(ttab, tn0):
+    """Mix the keyframe rows of [TH, TW, C] with the weights of one time
+    coordinate tn0 (0-d tensor): the [TW, C] table for a frame whose rays
+    all share that t (hyperreel_tpu/models/fused_eval.py _premix)."""
+    TH = ttab.shape[0]
+    pt = (tn0 + 1.0) * 0.5 * (TH - 1)
+    p0 = torch.floor(pt)
+    ft = pt - p0
+    k = torch.arange(TH, device=ttab.device, dtype=torch.float32)
+    t_lo = ((p0 >= 0.0) & (p0 <= TH - 1.0)).float()
+    t_hi = ((p0 + 1.0 >= 0.0) & (p0 + 1.0 <= TH - 1.0)).float()
+    mk = torch.where(k == p0, (1.0 - ft) * t_lo, 0.0) \
+        + torch.where(k == p0 + 1.0, ft * t_hi, 0.0)
+    return torch.tensordot(mk, ttab, dims=1).contiguous()
+
+
+def basis_table(basis_weight, nd):
+    """basis [3K, C - nd] (nn.Linear layout) -> f32 [3K, C] with zero
+    density columns."""
+    w = basis_weight.detach().float().cpu()
+    return torch.cat([w.new_zeros(w.shape[0], nd), w], 1).contiguous()
+
+
+def _taps(coord, size):
+    """Linear taps along one axis (align_corners=True, zero padding):
+    (index of the low tap clamped to [-1, size-1], its weight, the high
+    tap's weight), weights zero off-grid."""
+    pc = (coord + 1.0) * 0.5 * (size - 1)
+    p0 = torch.floor(pc)
+    f = pc - p0
+    w0 = torch.where((p0 >= 0.0) & (p0 <= size - 1.0), 1.0 - f, 0.0)
+    w1 = torch.where((p0 + 1.0 >= 0.0) & (p0 + 1.0 <= size - 1.0), f, 0.0)
+    return torch.clamp(p0, -1.0, size - 1.0).long(), w0, w1
+
+
+def _line(table_lc, i0, w0, w1):
+    """sum of w0 * table[i0] + w1 * table[i0 + 1] over [L, C] rows."""
+    L = table_lc.shape[0]
+    lo = table_lc[torch.clamp(i0, 0, L - 1)]
+    hi = table_lc[torch.clamp(i0 + 1, 0, L - 1)]
+    return lo * w0[:, None] + hi * w1[:, None]
+
+
+def shade_plain(quad, pack, ray_pack, ttab, wb, spec):
+    """Plain PyTorch version of the kernel (same inputs and output)."""
+    S, C = spec.S, spec.C
+    B = check_pack(pack, S)
+    xn, yn, zn, dist = pack[0], pack[1], pack[2], pack[3]
+    per_sample = ray_pack.repeat_interleave(S, 0)         # [B*S, 8]
+    valid = (xn.abs() <= 1.0) & (yn.abs() <= 1.0) & (zn.abs() <= 1.0) \
+        & (dist > 0.0)
+
+    xi, wx0, wx1 = _taps(xn, spec.W)
+    yi, wy0, wy1 = _taps(yn, spec.H)
+    rows = quad[(yi + 1) * (spec.W + 1) + (xi + 1)].float()
+    q = rows.reshape(-1, 4, C)
+    feat = (q[:, 0] * (wy0 * wx0)[:, None] + q[:, 1] * (wy0 * wx1)[:, None]
+            + q[:, 2] * (wy1 * wx0)[:, None] + q[:, 3] * (wy1 * wx1)[:, None])
+
+    zi, wz0, wz1 = _taps(zn, spec.TW)
+    if spec.TH == 0:
+        ft = _line(ttab, zi, wz0, wz1)
+    else:
+        ti, wt0, wt1 = _taps(per_sample[:, 7], spec.TH)
+        flat = ttab.reshape(spec.TH, spec.TW, C)
+        ft = torch.zeros_like(feat)
+        for dt, wt in ((0, wt0), (1, wt1)):
+            k = torch.clamp(ti + dt, 0, spec.TH - 1)
+            zf = (flat[k, torch.clamp(zi, 0, spec.TW - 1)] * wz0[:, None]
+                  + flat[k, torch.clamp(zi + 1, 0, spec.TW - 1)]
+                  * wz1[:, None])
+            ft = ft + zf * wt[:, None]
+    prod = feat * ft
+    sigma = torch.clamp_min(prod[:, :spec.nd].sum(-1), 0.0) * valid.float()
+    app = prod @ wb.to(prod.device).t()                   # [N, 3K]
+    K = spec.n_basis
+    Y = eval_sh_bases(spec.deg, per_sample[:, 3:6])       # [N, K]
+    e = (app.reshape(-1, 3, K) * Y[:, None, :]).sum(-1)
+    rgb = torch.clamp_min(e + 0.5, 0.0) * (pack[4:7].t() + 1.0) \
+        + pack[7:10].t()
+    rgb = torch.where(valid[:, None], rgb, 0.0)
+
+    d = dist.reshape(B, S)
+    delta = torch.cat([d[:, 1:] - d[:, :-1],
+                       torch.full_like(d[:, :1], 1e10)], -1)
+    _, w, _ = raw2alpha(sigma.reshape(B, S), delta * spec.distance_scale)
+    rgb_map = (w[..., None] * rgb.reshape(B, S, 3)).sum(1)
+    return torch.cat([rgb_map, w.sum(-1, keepdim=True),
+                      (w * d).sum(-1, keepdim=True)], -1)
+
+
+def _check(quad, pack, ray_pack, ttab, wb, spec):
+    C, K = spec.C, spec.n_basis
+    tshape = (spec.TW, C) if spec.TH == 0 else (spec.TH, spec.TW, C)
+    for name, t, dtype, shape in (
+            ("quad", quad, torch.bfloat16,
+             ((spec.H + 1) * (spec.W + 1), 4 * C)),
+            ("ttab", ttab, torch.float32, tshape),
+            ("wb", wb, torch.float32, (3 * K, C))):
+        if t.dtype != dtype or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous {dtype} {shape}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+    if any(t.device != pack.device for t in (quad, ray_pack, ttab)):
+        raise ValueError("quad, ray_pack, ttab and pack lie on different "
+                         "devices")
+    if wb.device.type != "cpu":
+        raise ValueError("wb must lie on the host")
+    B = check_pack(pack, spec.S)
+    check_ray_pack(ray_pack, B)
+    return B
+
+
+def shade(quad, pack, ray_pack, ttab, wb, spec):
+    """Run K2: returns f32 [B, 5] = r, g, b, acc, depth per ray. A CPU
+    pack goes to `shade_plain`; a CUDA pack launches the kernel or
+    raises. Counts launches in `shade.launches`."""
+    B = _check(quad, pack, ray_pack, ttab, wb, spec)
+    if pack.device.type == "cpu":
+        return shade_plain(quad, pack, ray_pack, ttab, wb, spec)
+    if pack.device.type != "cuda":
+        raise ValueError(f"shade has no kernel for {pack.device}")
+    if spec.C not in KERNEL_CHANNELS or spec.deg != KERNEL_SH_DEG:
+        raise NotImplementedError(
+            f"shade kernel: C={spec.C}, SH degree {spec.deg} not built "
+            f"(C in {KERNEL_CHANNELS}, degree {KERNEL_SH_DEG}; ROADMAP.md: "
+            "long tail)")
+    for t in (quad, ttab):
+        if t.data_ptr() % 16:
+            raise ValueError("quad and ttab must be 16-byte aligned")
+    lib = build.load_library().lib
+    p = build.ShadeParams()
+    p.B, p.S, p.W, p.H, p.TW, p.TH = B, spec.S, spec.W, spec.H, spec.TW, \
+        spec.TH
+    p.C, p.nd = spec.C, spec.nd
+    p.distance_scale = float(spec.distance_scale)
+    vals = wb.reshape(-1).tolist()
+    p.wb[:len(vals)] = vals
+    out = torch.empty((B, 5), dtype=torch.float32, device=pack.device)
+    with torch.cuda.device(pack.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        build.check_launch(lib.shade_launch(
+            quad.data_ptr(), pack.data_ptr(), ray_pack.data_ptr(),
+            ttab.data_ptr(), out.data_ptr(), p, stream), "shade")
+    shade.launches += 1
+    return out
+
+
+shade.launches = 0

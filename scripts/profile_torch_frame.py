@@ -1,0 +1,135 @@
+"""Where the time of the PyTorch/CUDA port's frame goes, on one NVIDIA GPU.
+
+Renders chip_smoke.py's configuration (technicolor_z_plane at full width,
+bf16 MLP policy, the 1024x1024 bench frame in 4 chunks at t=0.3) and
+prints:
+  * the card's name and power limit (nvidia-smi);
+  * frame time from CUDA events over back-to-back frames, and the host's
+    time to enqueue one frame onto an idle card (when the two are close,
+    the host holds the card back), and every synchronising call that one
+    frame makes (torch.cuda.set_sync_debug_mode);
+  * under torch.profiler: device milliseconds per frame for each kernel,
+    the device's busy time, the span from its first to its last kernel,
+    and the idle share of that span; then the host operators by their
+    own CPU time.
+
+    python3 scripts/profile_torch_frame.py [--frames 3] [--trace FILE]
+
+--trace writes the profiler's Chrome trace to FILE.
+"""
+
+import argparse
+import statistics
+import subprocess
+import sys
+import time
+import warnings
+from collections import defaultdict
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+
+def busy_ms(intervals):
+    """Length of the union of [start, end) intervals (microseconds in,
+    milliseconds out)."""
+    total, end = 0.0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total / 1e3
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--frames", type=int, default=3)
+    ap.add_argument("--trace", default=None)
+    args = ap.parse_args()
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    from hyperreel_tpu_torch.models.ctx import StepCtx
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_torch_frame needs a CUDA card")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(card.splitlines()[0], flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+
+    _, _, model, params, prep = cs.flagship(dev)
+    frame = torch.from_numpy(cs.bench_frame()).to(dev)
+    ctx = StepCtx(it=cs.IT)
+    rk = {"cf_prepared": prep, "uniform_time": True}
+
+    def render():
+        return [model.apply(params, frame[i], ctx, rk)
+                for i in range(frame.shape[0])]
+
+    frame_ms = cs.cuda_ms(torch, render, 10)
+    host = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        render()
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    print(f"# frame {frame_ms:.3f} ms (CUDA events, 10 frames); host "
+          f"enqueue of one frame {statistics.median(host):.3f} ms "
+          f"(median of 5)", flush=True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        render()
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message).splitlines()[0] for w in caught]
+    print(f"# synchronising calls in one frame: {len(syncs)}")
+    for m in sorted(set(syncs)):
+        print(f"#   {syncs.count(m)} x {m[:120]}")
+    torch.cuda.synchronize()
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(args.frames):
+            render()
+        torch.cuda.synchronize()
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
+
+    per_name = defaultdict(float)
+    intervals = []
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        a, b = e.time_range.start, e.time_range.end
+        intervals.append((a, b))
+        per_name[e.name] += (b - a) / 1e3 / args.frames
+    if not intervals:
+        raise RuntimeError("the profiler recorded no device activity")
+    busy = busy_ms(intervals) / args.frames
+    span = (max(b for _, b in intervals)
+            - min(a for a, _ in intervals)) / 1e3 / args.frames
+    print(f"# device ms per frame over {args.frames} profiled frames "
+          f"({card.splitlines()[0]})")
+    for name, ms in sorted(per_name.items(), key=lambda kv: -kv[1]):
+        print(f"{ms:9.3f}  {100 * ms / busy:5.1f} %  {name[:100]}")
+    print(f"# busy {busy:.3f} ms of a {span:.3f} ms span per frame: idle "
+          f"{100 * (1 - busy / span):.1f} %")
+    print(f"# host operators by own CPU time, {args.frames} frames "
+          "(profiler overhead included)")
+    print(prof.key_averages().table(sort_by="self_cpu_time_total",
+                                    row_limit=20, max_name_column_width=60))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,132 @@
+"""K2 shade: the port's plain version (the CPU side of
+hyperreel_tpu_torch/ops/kernels/shade.py) against the JAX Pallas kernel
+`fused_shade_composite` on the quad route (s_major=True, interpret mode on
+the CPU), fed the same pack and each package's tables built from the same
+weights."""
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from hyperreel_tpu.ops.pallas.shade import fused_shade_composite
+from hyperreel_tpu_torch.ops.kernels import shade as SH
+from hyperreel_tpu_torch.ops.kernels.layout import JAX_PACK_ROWS, PACK_ROWS
+
+from torch_parity import flagship_cfg, models, weights
+
+B, TILE = 256, 128
+
+
+def _pack(S, seed):
+    """A port-layout pack [10, B*S] and ray pack [B, 8]: points partly
+    outside the aabb, sorted distances with a few invalid (0) samples,
+    per-ray view directions and times."""
+    rng = np.random.default_rng(seed)
+    xyz = rng.uniform(-1.1, 1.1, (3, B, S))
+    dist = np.sort(rng.uniform(0.0, 3.0, (B, S)), 1)
+    dist[:, :2] *= rng.uniform(0, 1, (B, 1)) < 0.3     # dist 0: invalid
+    cs = rng.normal(0, 0.1, (6, B, S))
+    pack = np.concatenate([xyz, dist[None], cs], 0)
+    vd = rng.normal(0, 1, (B, 3))
+    vd /= np.linalg.norm(vd, axis=1, keepdims=True)
+    rays = np.concatenate([rng.normal(0, 1, (B, 3)), vd,
+                           rng.normal(0, 0.1, (B, 1)),
+                           rng.uniform(-1, 1, (B, 1))], 1)
+    return (pack.reshape(PACK_ROWS, B * S).astype(np.float32),
+            rays.astype(np.float32))
+
+
+def _to_smajor(pack, rays, S):
+    """Port pack and ray pack -> the JAX kernel's 16-row S-major tile
+    order (tn in row 3, the view direction in rows 11..13)."""
+    nb = B // TILE
+    p16 = np.zeros((16, B, S), np.float32)
+    p16[list(JAX_PACK_ROWS)] = pack.reshape(PACK_ROWS, B, S)
+    p16[3] = rays[:, 7:8]
+    p16[11:14] = rays[:, 3:6].T[:, :, None]
+    p = p16.reshape(16, nb, TILE, S).transpose(0, 1, 3, 2)
+    return p.reshape(16, B * S)
+
+
+def _jax_premix(ttab_t, TH, C, tn0):
+    """hyperreel_tpu/models/fused_eval.py _premix (uniform time), numpy."""
+    pt = (tn0 + 1.0) * 0.5 * (TH - 1)
+    p0 = np.floor(pt)
+    ft = pt - p0
+    tb = int(np.clip(p0, -1.0, TH - 1.0) + 1.0)
+    t_lo = float(0.0 <= p0 <= TH - 1.0)
+    t_hi = float(0.0 <= p0 + 1.0 <= TH - 1.0)
+    k = np.arange(TH + 2)
+    mk = np.where(k == tb, (1.0 - ft) * t_lo, 0.0) \
+        + np.where(k == tb + 1, ft * t_hi, 0.0)
+    return np.tensordot(mk.astype(np.float32),
+                        ttab_t.reshape(TH + 2, C, -1), axes=1)
+
+
+# acc="f32" runs the JAX kernel's time lookup at f32 (its acc_dtype
+# argument), which isolates the port's math: only f32 summation order
+# differs. acc="bf16" is the JAX default, which rounds the time table and
+# the z weights to bf16 in the two-hot matmul (shade.py:141-142, :500);
+# the port's f32 taps do not.
+CASES = [(tiny, premix, "f32") for tiny in (True, False)
+         for premix in (False, True)] + [
+    (False, False, "bf16"), (False, True, "bf16")]
+
+
+@pytest.mark.parametrize("tiny,premix,acc", CASES, ids=[
+    f"{'tiny_S8' if t else 'flagship_S32'}-{'TH0' if p else 'TH4'}-{a}"
+    for t, p, a in CASES])
+def test_plain_shade_matches_jax_kernel(tiny, premix, acc):
+    jm, tm = models(flagship_cfg(tiny=tiny), bf16=False)
+    jp, tp = weights(jm, seed=1)
+    cf = tm._cf_eval
+    S = cf.S
+    prep = cf.prepare(tp)
+    H, W, TH, TW, C, nd = prep["dims"]
+    assert TH == 4 and (tiny or (H, W, TW, C, nd) == (161, 161, 80, 16, 8))
+    pack, rays = _pack(S, seed=S + premix)
+
+    # JAX: its own plan arrays, the quad-row gather fused_eval does
+    # between the kernels, then the kernel
+    jcf = jm._cf_eval
+    (qt,), (ttab_t,), wb_t = jcf._plan_arrays(jp["color"])
+    pk16 = _to_smajor(pack, rays, S)
+    px = (pk16[0] + 1.0) * 0.5 * (W - 1)
+    py = (pk16[1] + 1.0) * 0.5 * (H - 1)
+    xi = (np.clip(np.floor(px), -1, W - 1) + 1).astype(np.int32)
+    yi = (np.clip(np.floor(py), -1, H - 1) + 1).astype(np.int32)
+    rows = np.asarray(qt)[yi * (W + 1) + xi]
+    ttab, th = np.asarray(ttab_t), TH
+    tn0 = float(rays[0, 7])
+    if premix:
+        rays[:, 7] = tn0              # a frame: every ray shares one t
+        pk16 = _to_smajor(pack, rays, S)
+        ttab, th = _jax_premix(ttab, TH, C, tn0), 0
+    want = np.asarray(fused_shade_composite(
+        jnp.asarray(rows), jnp.asarray(pk16), jnp.asarray(ttab), wb_t,
+        S=S, W=W, H=H, TW=TW, TH=th, n_density=nd,
+        n_basis=(jcf.net._sh_deg + 1) ** 2, density_shift=0.0,
+        distance_scale=jcf.net.distance_scale, tile=TILE,
+        s_major=True,
+        acc_dtype=jnp.float32 if acc == "f32" else jnp.bfloat16))[:5].T
+
+    ttab_p = SH.premix_time(prep["ttab"], torch.tensor(tn0)) if premix \
+        else prep["ttab"]
+    spec = SH.ShadeSpec(S=S, W=W, H=H, TW=TW, TH=0 if premix else TH, C=C,
+                        nd=nd, deg=cf.net.sh_deg,
+                        distance_scale=cf.net.distance_scale)
+    got = SH.shade(prep["quad"], torch.from_numpy(pack),
+                   torch.from_numpy(rays), ttab_p, prep["wb"], spec).numpy()
+    assert got.shape == (B, 5)
+    assert want[:, 3].max() > 0.5         # the scene is not transparent
+    # f32: 1e-5 on rgb and acc, 5e-5 on depth (distances up to 3).
+    # bf16: a relative 2^-9 on every time feature; at this scene's
+    # opacities (density up to 8 per sample) that moves rgb and acc by up
+    # to 3.2e-4 (measured), so 5e-4, and depth by up to 3x that.
+    tol = 1e-5 if acc == "f32" else 5e-4
+    err = np.abs(got[:, :4] - want[:, :4]).max()
+    assert err <= tol, err
+    derr = np.abs(got[:, 4] - want[:, 4]).max()
+    assert derr <= 5 * tol, derr
