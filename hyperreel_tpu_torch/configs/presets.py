@@ -1,0 +1,210 @@
+"""The model configs that the port renders, as plain dicts: its own copy
+of the parts of hyperreel_tpu/configs/presets.py it uses (the reference's
+shipped Hydra yamls, conf/experiment/model/*.yaml).
+
+`convert_epochs_to_iters` reproduces the reference's in-place epoch->iter
+config rewrite (nlf/__init__.py:306-315, utils/config_utils.py:32-38):
+every `*_epoch(s)` key becomes the matching `*_iter(s)` key scaled by
+iters_per_epoch. tests/test_torch_package.py holds each preset here equal
+to the JAX package's.
+"""
+
+import copy
+
+_EPOCH_KEY_MAP = {
+    "max_freq_epoch": "max_freq_iter",
+    "wait_epochs": "wait_iters",
+    "window_epochs": "window_iters",
+    "stop_epochs": "stop_iters",
+    "warmup_epochs": "warmup_iters",
+    "decay_epochs": "decay_iters",
+    "falloff_epochs": "falloff_iters",
+}
+
+
+def convert_epochs_to_iters(cfg, iters_per_epoch):
+    """Recursively rewrite epoch-denominated schedule keys to iterations."""
+    if isinstance(cfg, dict):
+        out = {}
+        for k, v in cfg.items():
+            if k in _EPOCH_KEY_MAP and isinstance(v, (int, float)):
+                out[_EPOCH_KEY_MAP[k]] = v * iters_per_epoch
+            else:
+                out[k] = convert_epochs_to_iters(v, iters_per_epoch)
+        return out
+    if isinstance(cfg, list):
+        return [convert_epochs_to_iters(v, iters_per_epoch) for v in cfg]
+    return cfg
+
+
+def _ease_sigmoid(window_epochs, wait_epochs, shift=4.0):
+    return {
+        "type": "ease_value",
+        "start_value": 1.0,
+        "window_epochs": window_epochs,
+        "wait_epochs": wait_epochs,
+        "activation": {"type": "sigmoid", "shift": shift},
+    }
+
+
+def _ease_zero():
+    return {
+        "type": "ease_value",
+        "start_value": 0.0,
+        "window_epochs": 0,
+        "wait_epochs": 0,
+        "activation": {"type": "identity"},
+    }
+
+
+def technicolor_z_plane(z_channels=32):
+    """Dynamic HyperReel model (reference
+    conf/experiment/model/technicolor_z_plane.yaml)."""
+    return {
+        "type": "lightfield",
+        "param": {"n_dims": 6, "fn": "identity"},
+        "embedding": {
+            "type": "ray_point",
+            "embeddings": {
+                "ray_prediction_0": {
+                    "type": "ray_prediction",
+                    "params": {
+                        "ray": {
+                            "start": 0, "end": 6,
+                            "param": {"n_dims": 4, "fn": "two_plane"},
+                            "pe": {"type": "windowed", "n_freqs": 0,
+                                   "wait_iters": 0, "max_freq_epoch": 0},
+                        },
+                        "time": {
+                            "start": 7, "end": 8,
+                            "param": {"n_dims": 1, "fn": "identity"},
+                            "pe": {"type": "windowed", "n_freqs": 2,
+                                   "wait_iters": 0, "max_freq_epoch": 0},
+                        },
+                    },
+                    "net": {"type": "base", "group": "embedding_impl",
+                            "depth": 6, "hidden_channels": 256, "skips": [3]},
+                    "z_channels": z_channels,
+                    "outputs": {
+                        "z_vals": {"channels": 1},
+                        "spatial_flow": {
+                            "channels": 3,
+                            "activation": {"type": "identity",
+                                           "outer_fac": 0.25},
+                        },
+                        "sigma": {"channels": 1,
+                                  "activation": _ease_sigmoid(3, 0)},
+                        "point_sigma": {"channels": 1,
+                                        "activation": _ease_sigmoid(3, 1)},
+                        "point_offset": {
+                            "channels": 3,
+                            "activation": {"type": "tanh", "outer_fac": 0.25},
+                        },
+                        "color_scale": {"channels": 3,
+                                        "activation": _ease_zero()},
+                        "color_shift": {"channels": 3,
+                                        "activation": _ease_zero()},
+                    },
+                },
+                "ray_intersect_0": {
+                    "type": "ray_intersect",
+                    "z_channels": z_channels,
+                    "intersect": {
+                        "type": "z_plane",
+                        "sort": True,
+                        "use_disparity": False,
+                        "use_sigma": True,
+                        "out_points": "raw_points",
+                        "out_distance": "raw_distance",
+                        "initial": -1.0,
+                        "end": 1.0,
+                        "activation": {"type": "identity", "fac": 0.5},
+                    },
+                },
+                "flow_0": {
+                    "type": "advect_points",
+                    "use_spatial_flow": True,
+                    "use_angular_flow": False,
+                    "out_flow_field": "raw_flow",
+                    "flow_scale": 0.0,
+                    "spatial_flow_activation": {"type": "identity",
+                                                "fac": 0.25},
+                },
+                "point_offset_0": {
+                    "type": "point_offset",
+                    "in_density_field": "point_sigma",
+                    "use_sigma": True,
+                },
+                "add_point_outputs_0": {
+                    "type": "add_point_outputs",
+                    "extra_outputs": ["viewdirs", "times"],
+                },
+                "extract_fields": {
+                    "type": "extract_fields",
+                    "fields": ["points", "distances", "base_times",
+                               "time_offset", "times", "viewdirs", "weights",
+                               "color_transform_global", "color_scale_global",
+                               "color_shift_global", "color_transform",
+                               "color_scale", "color_shift"],
+                },
+            },
+        },
+        "color": {
+            "type": "base",
+            "net": {
+                "type": "tensor_vm_split_time",
+                "white_bg": 0,
+                "black_bg": 0,
+                "fea2denseAct": "relu",
+                "distance_scale": 16.0,
+                "density_shift": 0.0,
+                "aabb": [[-2.0, -2.0, -1.0], [2.0, 2.0, 1.0]],
+                "N_voxel_init": 2097152,
+                "N_voxel_final": 512000000,
+                "upsamp_list": [4000, 6000, 8000, 10000, 12000],
+                "lr_upsample_reset": True,
+                "update_AlphaMask_list": [4000, 8000],
+                "rm_weight_mask_thre": 0,
+                "alpha_mask_thre": 1e-3,
+                "n_lamb_sigma": [8, 0, 0],
+                "n_lamb_sh": [8, 0, 0],
+                "shadingMode": "SH",
+                "data_dim_color": 27,
+                "densityMode": "Density",
+                # fused eval path (models/fused_eval.py)
+                "fused_render": True,
+            },
+        },
+    }
+
+
+def with_coherent_gather(cfg, px=4, py=3, block=4):
+    """Enable the coherent patch-gather render path (one (px x py)-texel
+    row per `block`-consecutive-ray block and sample slot —
+    ops/patch_gather.py). EXACT only for scanline-coherent frame renders
+    whose block footprints fit the patch (high pixel density);
+    out-of-patch corners degrade to the zero-padding value. The coverage
+    witness (outputs["patch_coverage_viol"]) reports violations per
+    call. block=8 needs a wider patch (e.g. px=5) at scanline pixel
+    order. Eval-only: training and the general path ignore the flag.
+    Returns a new config."""
+    cfg = copy.deepcopy(cfg)
+    cfg["color"]["net"]["coherent_gather"] = [int(px), int(py),
+                                              int(block)]
+    return cfg
+
+
+def tiny_dynamic(z_channels=8, grid=32):
+    """Miniature dynamic config for tests."""
+    cfg = technicolor_z_plane(z_channels=z_channels)
+    net = cfg["color"]["net"]
+    net["bf16_tables"] = False
+    net["N_voxel_init"] = grid ** 3
+    net["N_voxel_final"] = grid ** 3
+    net["upsamp_list"] = []
+    net["update_AlphaMask_list"] = []
+    net["n_lamb_sigma"] = [4, 0, 0]
+    net["n_lamb_sh"] = [4, 0, 0]
+    cfg["embedding"]["embeddings"]["ray_prediction_0"]["net"].update(
+        {"depth": 4, "hidden_channels": 64, "skips": [2]})
+    return cfg

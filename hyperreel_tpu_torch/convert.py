@@ -21,9 +21,9 @@ def _is_port_linear(node):
         and set(node) <= {"weight", "bias"}
 
 
-def params_from_jax(tree, device="cpu"):
+def params_from_jax(tree, device="cuda"):
     """JAX params (numpy leaves) -> the port's params (f32 tensors on
-    `device`)."""
+    `device`, the card unless the caller names another)."""
     if _is_jax_linear(tree):
         out = {"weight": torch.tensor(
             np.asarray(tree["w"], np.float32).T, device=device)}

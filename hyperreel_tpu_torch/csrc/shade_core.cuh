@@ -1,0 +1,218 @@
+// Device code shared by the shade kernels (K2 shade.cu, K3 shade_patch.cu)
+// and the standalone composite (K7 composite.cu): the per-sample shading
+// that follows the space features (time-plane taps, density, SH-2 colour,
+// colour scale/shift) and the per-ray log-space composite over an S-lane
+// segment of a warp.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+constexpr int kBasis = 9;                    // SH degree 2
+constexpr int kMaxWb = 3 * kBasis * 16;      // [3 * kBasis, C] floats
+
+// global scope: see the note on PackParams in pack_build.cu
+struct ShadeParams {
+  int B, S, W, H, TW, TH, C, nd;
+  float distance_scale;
+  float wb[kMaxWb];  // [3 * kBasis, C], rows ch * kBasis + k (colour ch)
+};
+
+namespace shade_core {
+
+constexpr int kPackRows = 10;
+constexpr float kLogEps = -23.025850929940457f;  // log(1e-10)
+constexpr float kExpClamp = 70.0f;
+
+constexpr float kC0 = 0.28209479177387814f;
+constexpr float kC1 = 0.4886025119029199f;
+constexpr float kC20 = 1.0925484305920792f;
+constexpr float kC21 = -1.0925484305920792f;
+constexpr float kC22 = 0.31539156525252005f;
+constexpr float kC23 = -1.0925484305920792f;
+constexpr float kC24 = 0.5462742152960396f;
+
+// the 9 real SH bases of degree <= 2 (the flagship's and tiny_dynamic's)
+__device__ __forceinline__ void sh_basis2(float x, float y, float z,
+                                          float* Y) {
+  const float xx = x * x, yy = y * y, zz = z * z;
+  const float xy = x * y, yz = y * z, xz = x * z;
+  Y[0] = kC0;
+  Y[1] = -kC1 * y;
+  Y[2] = kC1 * z;
+  Y[3] = -kC1 * x;
+  Y[4] = kC20 * xy;
+  Y[5] = kC21 * yz;
+  Y[6] = kC22 * (2.0f * zz - xx - yy);
+  Y[7] = kC23 * xz;
+  Y[8] = kC24 * (xx - yy);
+}
+
+// Linear-interpolation taps along one grid axis (align_corners=True, zero
+// padding): base index, the two weights, zeroed where a tap is off-grid.
+struct Taps {
+  int i0;
+  float w0, w1;
+};
+
+__device__ __forceinline__ Taps taps(float coord, int size) {
+  const float pc = (coord + 1.0f) * 0.5f * (float)(size - 1);
+  const float p0 = floorf(pc);
+  const float f = pc - p0;
+  Taps t;
+  t.i0 = (int)fminf(fmaxf(p0, -1.0f), size - 1.0f);
+  t.w0 = (p0 >= 0.0f && p0 <= size - 1.0f) ? 1.0f - f : 0.0f;
+  t.w1 = (p0 + 1.0f >= 0.0f && p0 + 1.0f <= size - 1.0f) ? f : 0.0f;
+  return t;
+}
+
+// a bf16 is the upper 16 bits of the f32 with the same value; a 32-bit
+// word holds two, the lower half first
+__device__ __forceinline__ float bf16_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// acc[8q .. 8q+7] += w * the 8 bf16 of one 16-byte vector
+__device__ __forceinline__ void axpy_bf16x8(float* acc, float w,
+                                            const uint4& u) {
+  const uint32_t words[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int h = 0; h < 4; ++h) {
+    acc[2 * h + 0] += bf16_lo(words[h]) * w;
+    acc[2 * h + 1] += bf16_hi(words[h]) * w;
+  }
+}
+
+// acc[c] += w * row[c] for C contiguous f32 values (16-byte aligned)
+template <int C>
+__device__ __forceinline__ void axpy_row(float* acc, float w,
+                                         const float* row) {
+  const float4* v = reinterpret_cast<const float4*>(row);
+#pragma unroll
+  for (int q = 0; q < C / 4; ++q) {
+    const float4 t = __ldg(v + q);
+    acc[4 * q + 0] += w * t.x;
+    acc[4 * q + 1] += w * t.y;
+    acc[4 * q + 2] += w * t.z;
+    acc[4 * q + 3] += w * t.w;
+  }
+}
+
+template <int C>
+__device__ __forceinline__ void z_blend(float* out, const float* line,
+                                        const Taps& tz) {
+#pragma unroll
+  for (int c = 0; c < C; ++c) out[c] = 0.0f;
+  if (tz.w0 != 0.0f) axpy_row<C>(out, tz.w0, line + (int64_t)tz.i0 * C);
+  if (tz.w1 != 0.0f) {
+    axpy_row<C>(out, tz.w1, line + (int64_t)(tz.i0 + 1) * C);
+  }
+}
+
+// Is this sample inside the aabb with a positive distance (pack rows
+// xn, yn, zn, dist)?
+__device__ __forceinline__ bool sample_valid(const float* pk) {
+  return fabsf(pk[0]) <= 1.0f && fabsf(pk[1]) <= 1.0f &&
+         fabsf(pk[2]) <= 1.0f && pk[3] > 0.0f;
+}
+
+// Everything after the space features of one valid sample: the time
+// features (z taps, then t taps, or z taps on a table premixed for one t
+// when p.TH == 0), density = relu of the summed density channels, and the
+// SH-2 colour max(sum_k (wb @ prod)_k Y_k + 0.5, 0) * (scale + 1) + shift.
+// `feat` holds the C space features and is overwritten; `pk` the sample's
+// 10 pack rows, `ray` its ray pack row (o xyz, d xyz, dt, tn).
+template <int C>
+__device__ __forceinline__ void shade_sample(float* feat, const float* pk,
+                                             const float* ray,
+                                             const float* ttab,
+                                             const ShadeParams& p,
+                                             float& sigma, float* rgb) {
+  constexpr int K = kBasis;
+  const Taps tz = taps(pk[2], p.TW);
+  float ft[C];
+  if (p.TH == 0) {
+    z_blend<C>(ft, ttab, tz);
+  } else {
+    const Taps tt = taps(__ldg(ray + 7), p.TH);
+#pragma unroll
+    for (int c = 0; c < C; ++c) ft[c] = 0.0f;
+    float zf[C];
+    if (tt.w0 != 0.0f) {
+      z_blend<C>(zf, ttab + (int64_t)tt.i0 * p.TW * C, tz);
+#pragma unroll
+      for (int c = 0; c < C; ++c) ft[c] += zf[c] * tt.w0;
+    }
+    if (tt.w1 != 0.0f) {
+      z_blend<C>(zf, ttab + (int64_t)(tt.i0 + 1) * p.TW * C, tz);
+#pragma unroll
+      for (int c = 0; c < C; ++c) ft[c] += zf[c] * tt.w1;
+    }
+  }
+
+  float dsum = 0.0f;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    feat[c] *= ft[c];
+    if (c < p.nd) dsum += feat[c];
+  }
+  sigma = fmaxf(dsum, 0.0f);
+  float Y[K];
+  sh_basis2(__ldg(ray + 3), __ldg(ray + 4), __ldg(ray + 5), Y);
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    float e = 0.0f;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      float app = 0.0f;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        app += p.wb[(ch * K + k) * C + c] * feat[c];
+      }
+      e += app * Y[k];
+    }
+    rgb[ch] = fmaxf(e + 0.5f, 0.0f) * (pk[4 + ch] + 1.0f) + pk[7 + ch];
+  }
+}
+
+// The composite weight of this lane's sample in its ray, over the S-lane
+// segment that holds the ray's samples in order (lane s of the segment is
+// sample s): delta = next dist - dist (1e10 for the last sample), x =
+// clip(sigma * delta * scale, +-70), alpha = 1 - exp(-x), times the
+// exclusive transmittance exp(sum of max(-x, log 1e-10) over the samples
+// before). An inclusive __shfl_up_sync scan; every lane of the warp must
+// call it.
+__device__ __forceinline__ float composite_weight(float sigma, float dist,
+                                                  float scale, int s,
+                                                  int S) {
+  const unsigned full = 0xffffffffu;
+  const float nxt = __shfl_down_sync(full, dist, 1, S);
+  const float delta = (s == S - 1) ? 1e10f : nxt - dist;
+  const float x = fminf(fmaxf(sigma * (delta * scale), -kExpClamp),
+                        kExpClamp);
+  const float alpha = 1.0f - expf(-x);
+  float acc = fmaxf(-x, kLogEps);
+  for (int off = 1; off < S; off <<= 1) {
+    const float y = __shfl_up_sync(full, acc, off, S);
+    if (s >= off) acc += y;
+  }
+  const float prev = __shfl_up_sync(full, acc, 1, S);
+  return alpha * expf(s == 0 ? 0.0f : prev);
+}
+
+// v[i] <- the sum of v[i] over the S-lane segment (a __shfl_xor_sync
+// butterfly); every lane of the warp must call it.
+template <int NV>
+__device__ __forceinline__ void segment_sum(float* v, int S) {
+  const unsigned full = 0xffffffffu;
+  for (int off = S >> 1; off >= 1; off >>= 1) {
+#pragma unroll
+    for (int i = 0; i < NV; ++i) v[i] += __shfl_xor_sync(full, v[i], off, S);
+  }
+}
+
+}  // namespace shade_core

@@ -1,22 +1,41 @@
-"""Fused eval render of the flagship dynamic model on two CUDA kernels
-(port of hyperreel_tpu/models/fused_eval.py FusedCFEval, quad route).
+"""Fused eval render of the flagship dynamic model on CUDA kernels (port of
+hyperreel_tpu/models/fused_eval.py FusedCFEval, dyn1 routes).
 
   rays -> encodings -> K1 pack_build (the prediction MLP, its last
   layer's columns permuted field-major on the host; field activations, z,
   distances, sort, advection, offsets, normalisation: the per-sample
-  pack) -> K2 shade (space/time lookups, density, SH colour, composite)
-  -> rgb.
+  pack) -> the space features, the time features, density, SH colour,
+  composite -> rgb, on one of three routes:
 
-The route is the JAX package's dyn1 quad route: one space plane and one
-time plane, identity contraction, no coherent patch-gather and no sample
-compaction or stride. `uniform_time` (every ray of the call shares one t,
-as in a frame render) premixes the keyframe rows of the time plane for
-that t on the device, and the call returns the witness
-outputs["uniform_time_viol"] = max |tn - tn[0]|. Configurations that the
-JAX package renders on another fused route raise NotImplementedError;
-chains that are not the flagship pattern have no fused path and take the
-general stage chain, as in the JAX package.
+  quad   K2 shade reads each sample's quad-table row;
+  patch  (coherent_gather [px, py, R] in the net config) K3 shade_patch
+         blends each (block, slot)'s patch row inside the shade kernel;
+         with HYPERREEL_FUSED_PATCH=0 (or false), K4 patch_blend writes
+         bf16 features and K2 shade_preblended reads them.
+
+The patch route is the JAX package's coherent patch-gather: coherent
+block j is the caller's rays R*j .. R*j+R-1 (R = 8 when the config asks
+for 8, else 4); `render_kwargs["rays_phase_major"]` says the caller
+delivers them phase-major (ray R*j+p at position p*(B/R)+j, as bench.py
+does) and takes the outputs in that order. The kernels find a block's
+rays by that stride, so no ray is permuted. The port takes the patch
+route whenever B % R == 0 (the JAX package also needs its tile to
+divide). It is exact where every block's footprint fits the patch and
+zero-degrades where it does not; the call returns the witness
+outputs["patch_coverage_viol"] = the fraction of (block, slot) pairs
+whose valid samples' footprint exits the patch (ops/kernels/
+patch_blend.py), for the caller to gate on (bench.py holds it to 1e-4).
+
+`uniform_time` (every ray of the call shares one t, as in a frame render)
+premixes the keyframe rows of the time plane for that t on the device,
+and the call returns the witness outputs["uniform_time_viol"] = max |tn -
+tn[0]|. Configurations that the JAX package renders on another fused
+route raise NotImplementedError; chains that are not the flagship pattern
+have no fused path and take the general stage chain, as in the JAX
+package.
 """
+
+import os
 
 import numpy as np
 import torch
@@ -25,8 +44,12 @@ from hyperreel_tpu_torch.models.activations import Activation
 from hyperreel_tpu_torch.models.embeddings import get_base_time
 from hyperreel_tpu_torch.ops.kernels.pack_build import (
     PackSpec, mlp_tables, pack_build)
+from hyperreel_tpu_torch.ops.kernels.patch_blend import PatchSpec, patch_blend
 from hyperreel_tpu_torch.ops.kernels.shade import (
-    ShadeSpec, basis_table, premix_time, quad_table, shade, time_table)
+    ShadeSpec, basis_table, premix_time, quad_table, shade, shade_preblended,
+    time_table)
+from hyperreel_tpu_torch.ops.kernels.shade_patch import shade_patch
+from hyperreel_tpu_torch.ops.patch_gather import build_patch_table_2d
 
 DYN_CHAIN = ["ray_prediction_0", "ray_intersect_0", "flow_0",
              "point_offset_0", "add_point_outputs_0", "extract_fields"]
@@ -75,10 +98,12 @@ class FusedCFEval:
             raise NotImplementedError(
                 "multi-axis fused render is not ported (ROADMAP.md: K5/K6 "
                 "and the other net families)")
-        if self.net.cfg.get("coherent_gather"):
-            raise NotImplementedError(
-                "the coherent patch-gather route is not ported "
-                "(ROADMAP.md: K3/K4 patch route)")
+        # coherent patch-gather: [px, py] and the block size R (8 when
+        # the config says 8, else 4, as the JAX package takes it)
+        pc = self.net.cfg.get("coherent_gather")
+        self.patch_cfg = (int(pc[0]), int(pc[1])) if pc else None
+        self.patch_block = 8 if pc and len(pc) > 2 and int(pc[2]) == 8 \
+            else 4
         self.S = self.pred.z_channels
         self.P = self.pred.preds_per_z
         offs, off = {}, 0
@@ -123,8 +148,9 @@ class FusedCFEval:
 
     def prepare(self, params):
         """Per-checkpoint tables: K1's MLP tables (last layer field-major),
-        the bf16 quad table of the space plane, the f32 time plane and the
-        host basis table."""
+        the bf16 quad table of the space plane (and its bf16 patch table
+        on the patch route), the f32 time plane and the host basis
+        table."""
         cp = params["color"]
         # field-major column c*S + s <- the MLP's output column s*P + c
         perm = torch.as_tensor(np.arange(self.S * self.P).reshape(
@@ -136,11 +162,15 @@ class FusedCFEval:
         timep = torch.cat([cp["density"]["time_0"], cp["app"]["time_0"]],
                           -1)
         nd = self.net.density_n_comp[0]
-        return {"mlp": mlp, "quad": quad_table(space),
+        prep = {"mlp": mlp, "quad": quad_table(space),
                 "ttab": time_table(timep),
                 "wb": basis_table(cp["basis_mat"]["weight"], nd),
                 "dims": (space.shape[0], space.shape[1], timep.shape[0],
                          timep.shape[1], space.shape[2], nd)}
+        if self.patch_cfg is not None:
+            prep["patch"] = build_patch_table_2d(space.to(torch.bfloat16),
+                                                 *self.patch_cfg)
+        return prep
 
     def ray_pack(self, rays):
         """[B, 8] rows o xyz, d xyz, dt = t - base_t, tn (keyframe time
@@ -169,7 +199,24 @@ class FusedCFEval:
         spec = ShadeSpec(S=self.S, W=W, H=H, TW=TW, TH=TH, C=C, nd=nd,
                          deg=self.net.sh_deg,
                          distance_scale=self.net.distance_scale)
-        out = shade(prep["quad"], pack, rp, ttab, prep["wb"], spec)
+        B = rays.shape[0]
+        if self.patch_cfg is not None and B % self.patch_block == 0:
+            pspec = PatchSpec(
+                R=self.patch_block, px=self.patch_cfg[0],
+                py=self.patch_cfg[1], W=W, H=H, C=C, S=self.S,
+                phase_major=bool(render_kwargs.get("rays_phase_major")))
+            if os.environ.get("HYPERREEL_FUSED_PATCH", "1") not in (
+                    "0", "false"):
+                out, viol = shade_patch(prep["patch"], pack, rp, ttab,
+                                        prep["wb"], spec, pspec)
+            else:
+                feats, viol = patch_blend(prep["patch"], pack, pspec)
+                out = shade_preblended(feats, pack, rp, ttab, prep["wb"],
+                                       spec)
+            outputs["patch_coverage_viol"] = viol[0].float() / (
+                B // pspec.R * self.S)
+        else:
+            out = shade(prep["quad"], pack, rp, ttab, prep["wb"], spec)
         rgb = out[:, :3]
         if not self.net.black_bg and self.net.white_bg:
             rgb = rgb + (1.0 - out[:, 3:4])

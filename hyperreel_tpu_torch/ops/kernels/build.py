@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) on first use.
 
-`nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
--Xcompiler -fPIC` compiles every source of csrc/ into one shared library
+Each source of csrc/ is compiled by its own `nvcc -gencode
+arch=compute_90a,code=sm_90a -std=c++17 -O3 -c -Xcompiler -fPIC` process,
+all started together, and the objects are linked into one shared library
 with a plain C interface, which ctypes loads. The library goes to
-build/hyperreel_tpu_torch/ under the checkout root (listed in
-.gitignore) and is rebuilt whenever a source is newer than it. Nothing
-here runs at import time.
+build/hyperreel_tpu_torch/ under the checkout root (listed in .gitignore)
+and is rebuilt whenever a source or header (csrc/*.cuh) is newer than it.
+Nothing here runs at import time.
 """
 
 import ctypes
@@ -22,7 +23,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
     "hyperreel_tpu_torch"
 LIB_NAME = "libhyperreel_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 
 class Act(ctypes.Structure):
@@ -56,11 +57,17 @@ SHADE_MAX_WB = 432
 
 
 class ShadeParams(ctypes.Structure):
-    """Mirror of csrc/shade.cu ShadeParams."""
+    """Mirror of csrc/shade_core.cuh ShadeParams."""
     _fields_ = [(n, ctypes.c_int) for n in
                 ("B", "S", "W", "H", "TW", "TH", "C", "nd")] + [
         ("distance_scale", ctypes.c_float),
         ("wb", ctypes.c_float * SHADE_MAX_WB)]
+
+
+class PatchParams(ctypes.Structure):
+    """Mirror of csrc/patch_core.cuh PatchParams."""
+    _fields_ = [(n, ctypes.c_int) for n in
+                ("B", "S", "W", "H", "C", "R", "px", "py", "phase_major")]
 
 
 @dataclass
@@ -81,21 +88,43 @@ def _nvcc():
     return path
 
 
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
 def _build(out):
-    sources = sorted(str(p) for p in CSRC.glob("*.cu"))
+    """Compile every source in its own nvcc process, all at once, then
+    link; returns (seconds, the compilers' output)."""
+    sources, _ = _sources()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
     t0 = time.perf_counter()
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
-                         capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{res.stdout}\n{res.stderr}")
-    os.replace(tmp, out)       # atomic: a concurrent build never sees half
-    return seconds, res.stdout + res.stderr
+    try:
+        procs = [(src, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+             str(work / (src.stem + ".o")), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            for src in sources]
+        log, failed = [], []
+        for src, proc in procs:
+            text = proc.communicate()[0]
+            log.append(f"== {src.name}\n{text}")
+            if proc.returncode != 0:
+                failed.append(src.name)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "".join(log))
+        tmp = work / LIB_NAME
+        res = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
+             *(str(work / (src.stem + ".o")) for src in sources)],
+            capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{res.stdout}\n{res.stderr}")
+        os.replace(tmp, out)   # atomic: a concurrent build never sees half
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return time.perf_counter() - t0, "".join(log)
 
 
 def load_library():
@@ -104,20 +133,28 @@ def load_library():
     if _LOADED is not None:
         return _LOADED
     out = BUILD_DIR / LIB_NAME
-    newest = max(p.stat().st_mtime for p in CSRC.glob("*.cu"))
+    newest = max(p.stat().st_mtime for group in _sources() for p in group)
     seconds, log = 0.0, ""
     if not out.exists() or out.stat().st_mtime < newest:
         seconds, log = _build(out)
     lib = ctypes.CDLL(str(out))
     vp = ctypes.c_void_p
-    lib.pack_build_launch.argtypes = [vp, vp, vp,
-                                      ctypes.POINTER(PackParams), vp]
-    lib.pack_build_launch.restype = ctypes.c_int
-    lib.shade_launch.argtypes = [vp, vp, vp, vp, vp,
-                                 ctypes.POINTER(ShadeParams), vp]
-    lib.shade_launch.restype = ctypes.c_int
+    shade_p, patch_p = ctypes.POINTER(ShadeParams), ctypes.POINTER(PatchParams)
+    for fn, args in (
+            (lib.pack_build_launch,
+             [vp, vp, vp, ctypes.POINTER(PackParams), vp]),
+            (lib.shade_launch, [vp, vp, vp, vp, vp, shade_p, vp]),
+            (lib.shade_preblended_launch, [vp, vp, vp, vp, vp, shade_p, vp]),
+            (lib.shade_patch_launch,
+             [vp, vp, vp, vp, vp, vp, shade_p, patch_p, vp]),
+            (lib.patch_blend_launch, [vp, vp, vp, vp, patch_p, vp]),
+            (lib.composite_launch, [vp, vp, vp, vp, ctypes.c_int,
+                                    ctypes.c_int, ctypes.c_float, vp])):
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
     for fn, struct in ((lib.pack_params_size, PackParams),
-                       (lib.shade_params_size, ShadeParams)):
+                       (lib.shade_params_size, ShadeParams),
+                       (lib.patch_params_size, PatchParams)):
         fn.argtypes = []
         fn.restype = ctypes.c_int
         if fn() != ctypes.sizeof(struct):

@@ -5,11 +5,18 @@ to the per-ray colour, for the dynamic single-axis net
 Replaces hyperreel_tpu/ops/pallas/shade.py:_shade_kernel on the quad
 route (with _shade_core, _corner_weights, _twohot_matmul, _shade_tail and
 _compact_rows) and the XLA quad-row gather before it. CUDA source:
-csrc/shade.cu. Bound on the H100 by device-memory bytes and load latency:
-per valid sample one 8*C-byte quad row and the 40-byte pack column; the
-lane computes its texel address itself (no gather kernel, no index
-array), samples outside the aabb load nothing, and the per-ray composite
-and sums stay in registers (warp shuffles). See the source for the design.
+csrc/shade.cu (the per-sample shading and the composite in
+csrc/shade_core.cuh). Bound on the H100 by device-memory bytes and load
+latency: per valid sample one 8*C-byte quad row and the 40-byte pack
+column; the lane computes its texel address itself (no gather kernel, no
+index array), samples outside the aabb load nothing, and the per-ray
+composite and sums stay in registers (warp shuffles). See the source for
+the design.
+
+`shade_preblended` is the same kernel reading the space features that
+the patch-blend kernel (ops/kernels/patch_blend.py) wrote, bf16 [B*S, C]
+one row per sample, instead of the quad table (the two-kernel patch
+route; shade.py `preblended="phase_major"`).
 
 The view direction and the keyframe time coordinate tn are per ray: both
 come from the ray pack f32 [B, 8] (o xyz, d xyz, dt, tn) that K1 read.
@@ -124,21 +131,29 @@ def _line(table_lc, i0, w0, w1):
     return lo * w0[:, None] + hi * w1[:, None]
 
 
-def shade_plain(quad, pack, ray_pack, ttab, wb, spec):
-    """Plain PyTorch version of the kernel (same inputs and output)."""
+def quad_features(quad, pack, spec):
+    """The space features f32 [B*S, C] of every sample: bilinear from the
+    4 corners of its quad-table row."""
+    C = spec.C
+    xi, wx0, wx1 = _taps(pack[0], spec.W)
+    yi, wy0, wy1 = _taps(pack[1], spec.H)
+    rows = quad[(yi + 1) * (spec.W + 1) + (xi + 1)].float()
+    q = rows.reshape(-1, 4, C)
+    return (q[:, 0] * (wy0 * wx0)[:, None] + q[:, 1] * (wy0 * wx1)[:, None]
+            + q[:, 2] * (wy1 * wx0)[:, None]
+            + q[:, 3] * (wy1 * wx1)[:, None])
+
+
+def shade_features_plain(feat, pack, ray_pack, ttab, wb, spec):
+    """Everything after the space features f32 [B*S, C]: validity, the
+    time features, density, the SH colour and the per-ray composite ->
+    f32 [B, 5] (csrc/shade_core.cuh shade_sample and composite_weight)."""
     S, C = spec.S, spec.C
     B = check_pack(pack, S)
     xn, yn, zn, dist = pack[0], pack[1], pack[2], pack[3]
     per_sample = ray_pack.repeat_interleave(S, 0)         # [B*S, 8]
     valid = (xn.abs() <= 1.0) & (yn.abs() <= 1.0) & (zn.abs() <= 1.0) \
         & (dist > 0.0)
-
-    xi, wx0, wx1 = _taps(xn, spec.W)
-    yi, wy0, wy1 = _taps(yn, spec.H)
-    rows = quad[(yi + 1) * (spec.W + 1) + (xi + 1)].float()
-    q = rows.reshape(-1, 4, C)
-    feat = (q[:, 0] * (wy0 * wx0)[:, None] + q[:, 1] * (wy0 * wx1)[:, None]
-            + q[:, 2] * (wy1 * wx0)[:, None] + q[:, 3] * (wy1 * wx1)[:, None])
 
     zi, wz0, wz1 = _taps(zn, spec.TW)
     if spec.TH == 0:
@@ -172,46 +187,45 @@ def shade_plain(quad, pack, ray_pack, ttab, wb, spec):
                       (w * d).sum(-1, keepdim=True)], -1)
 
 
-def _check(quad, pack, ray_pack, ttab, wb, spec):
+def shade_plain(quad, pack, ray_pack, ttab, wb, spec):
+    """Plain PyTorch version of the kernel (same inputs and output)."""
+    return shade_features_plain(quad_features(quad, pack, spec), pack,
+                                ray_pack, ttab, wb, spec)
+
+
+def shade_preblended_plain(feats, pack, ray_pack, ttab, wb, spec):
+    """Plain PyTorch version of the pre-blended kernel."""
+    return shade_features_plain(feats.float(), pack, ray_pack, ttab, wb,
+                                spec)
+
+
+def check_tables(ttab, wb, spec, device):
+    """Raise unless the time table and the basis table fit `spec` (ttab
+    contiguous f32 on `device`, wb on the host)."""
     C, K = spec.C, spec.n_basis
     tshape = (spec.TW, C) if spec.TH == 0 else (spec.TH, spec.TW, C)
-    for name, t, dtype, shape in (
-            ("quad", quad, torch.bfloat16,
-             ((spec.H + 1) * (spec.W + 1), 4 * C)),
-            ("ttab", ttab, torch.float32, tshape),
-            ("wb", wb, torch.float32, (3 * K, C))):
-        if t.dtype != dtype or tuple(t.shape) != shape \
+    for name, t, shape in (("ttab", ttab, tshape), ("wb", wb, (3 * K, C))):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape \
                 or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous {dtype} {shape}, "
-                             f"got {t.dtype} {tuple(t.shape)}")
-    if any(t.device != pack.device for t in (quad, ray_pack, ttab)):
-        raise ValueError("quad, ray_pack, ttab and pack lie on different "
-                         "devices")
+            raise ValueError(f"{name} must be contiguous f32 {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if ttab.device != device:
+        raise ValueError("ttab lies on another device than the pack")
     if wb.device.type != "cpu":
         raise ValueError("wb must lie on the host")
-    B = check_pack(pack, spec.S)
-    check_ray_pack(ray_pack, B)
-    return B
 
 
-def shade(quad, pack, ray_pack, ttab, wb, spec):
-    """Run K2: returns f32 [B, 5] = r, g, b, acc, depth per ray. A CPU
-    pack goes to `shade_plain`; a CUDA pack launches the kernel or
-    raises. Counts launches in `shade.launches`."""
-    B = _check(quad, pack, ray_pack, ttab, wb, spec)
-    if pack.device.type == "cpu":
-        return shade_plain(quad, pack, ray_pack, ttab, wb, spec)
-    if pack.device.type != "cuda":
-        raise ValueError(f"shade has no kernel for {pack.device}")
+def check_kernel(spec, name):
+    """Raise unless the kernels are built for spec's C and SH degree."""
     if spec.C not in KERNEL_CHANNELS or spec.deg != KERNEL_SH_DEG:
         raise NotImplementedError(
-            f"shade kernel: C={spec.C}, SH degree {spec.deg} not built "
+            f"{name} kernel: C={spec.C}, SH degree {spec.deg} not built "
             f"(C in {KERNEL_CHANNELS}, degree {KERNEL_SH_DEG}; ROADMAP.md: "
             "long tail)")
-    for t in (quad, ttab):
-        if t.data_ptr() % 16:
-            raise ValueError("quad and ttab must be 16-byte aligned")
-    lib = build.load_library().lib
+
+
+def shade_params(B, spec, wb):
+    """The kernels' ShadeParams for B rays (the basis rides in them)."""
     p = build.ShadeParams()
     p.B, p.S, p.W, p.H, p.TW, p.TH = B, spec.S, spec.W, spec.H, spec.TW, \
         spec.TH
@@ -219,14 +233,72 @@ def shade(quad, pack, ray_pack, ttab, wb, spec):
     p.distance_scale = float(spec.distance_scale)
     vals = wb.reshape(-1).tolist()
     p.wb[:len(vals)] = vals
+    return p
+
+
+def _check(space, space_shape, pack, ray_pack, ttab, wb, spec):
+    if space.dtype != torch.bfloat16 or tuple(space.shape) != space_shape \
+            or not space.is_contiguous():
+        raise ValueError(f"space table must be contiguous bf16 "
+                         f"{space_shape}, got {space.dtype} "
+                         f"{tuple(space.shape)}")
+    B = check_pack(pack, spec.S)
+    check_ray_pack(ray_pack, B)
+    check_tables(ttab, wb, spec, pack.device)
+    if space.device != pack.device or ray_pack.device != pack.device:
+        raise ValueError("the space table, ray_pack and pack lie on "
+                         "different devices")
+    return B
+
+
+def _launch(name, fn, space, pack, ray_pack, ttab, wb, spec, B):
+    if pack.device.type != "cuda":
+        raise ValueError(f"{name} has no kernel for {pack.device}")
+    check_kernel(spec, name)
+    for t in (space, ttab):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: tables must be 16-byte aligned")
     out = torch.empty((B, 5), dtype=torch.float32, device=pack.device)
     with torch.cuda.device(pack.device):
         stream = torch.cuda.current_stream().cuda_stream
-        build.check_launch(lib.shade_launch(
-            quad.data_ptr(), pack.data_ptr(), ray_pack.data_ptr(),
-            ttab.data_ptr(), out.data_ptr(), p, stream), "shade")
+        build.check_launch(fn(
+            space.data_ptr(), pack.data_ptr(), ray_pack.data_ptr(),
+            ttab.data_ptr(), out.data_ptr(), shade_params(B, spec, wb),
+            stream), name)
+    return out
+
+
+def shade(quad, pack, ray_pack, ttab, wb, spec):
+    """Run K2: returns f32 [B, 5] = r, g, b, acc, depth per ray. A CPU
+    pack goes to `shade_plain`; a CUDA pack launches the kernel or
+    raises. Counts launches in `shade.launches`."""
+    B = _check(quad, ((spec.H + 1) * (spec.W + 1), 4 * spec.C), pack,
+               ray_pack, ttab, wb, spec)
+    if pack.device.type == "cpu":
+        return shade_plain(quad, pack, ray_pack, ttab, wb, spec)
+    out = _launch("shade", build.load_library().lib.shade_launch, quad,
+                  pack, ray_pack, ttab, wb, spec, B)
     shade.launches += 1
     return out
 
 
 shade.launches = 0
+
+
+def shade_preblended(feats, pack, ray_pack, ttab, wb, spec):
+    """Run K2 on pre-blended space features bf16 [B*S, C] (one row per
+    sample, in the pack's order): returns f32 [B, 5]. A CPU pack goes to
+    `shade_preblended_plain`; a CUDA pack launches the kernel or raises.
+    Counts launches in `shade_preblended.launches`."""
+    B = _check(feats, (pack.shape[1], spec.C), pack, ray_pack, ttab, wb,
+               spec)
+    if pack.device.type == "cpu":
+        return shade_preblended_plain(feats, pack, ray_pack, ttab, wb, spec)
+    out = _launch("shade_preblended",
+                  build.load_library().lib.shade_preblended_launch, feats,
+                  pack, ray_pack, ttab, wb, spec, B)
+    shade_preblended.launches += 1
+    return out
+
+
+shade_preblended.launches = 0

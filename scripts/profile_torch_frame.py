@@ -1,8 +1,10 @@
 """Where the time of the PyTorch/CUDA port's frame goes, on one NVIDIA GPU.
 
 Renders chip_smoke.py's configuration (technicolor_z_plane at full width,
-bf16 MLP policy, the 1024x1024 bench frame in 4 chunks at t=0.3) and
-prints:
+bf16 MLP policy, the 1024x1024 bench frame in 4 chunks at t=0.3) on one
+route (--route: quad, K1 then K2; fused, the coherent patch-gather route
+at R=8 (5, 2) with bench.py's phase-major rays, K1 then K3; two, the same
+route on K1, K4 and K2-preblended) and prints:
   * the card's name and power limit (nvidia-smi);
   * frame time from CUDA events over back-to-back frames, and the host's
     time to enqueue one frame onto an idle card (when the two are close,
@@ -13,12 +15,14 @@ prints:
     and the idle share of that span; then the host operators by their
     own CPU time.
 
-    python3 scripts/profile_torch_frame.py [--frames 3] [--trace FILE]
+    python3 scripts/profile_torch_frame.py [--route quad|fused|two]
+        [--frames 3] [--trace FILE]
 
 --trace writes the profiler's Chrome trace to FILE.
 """
 
 import argparse
+import os
 import statistics
 import subprocess
 import sys
@@ -46,6 +50,8 @@ def busy_ms(intervals):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--route", choices=("quad", "fused", "two"),
+                    default="quad")
     ap.add_argument("--frames", type=int, default=3)
     ap.add_argument("--trace", default=None)
     args = ap.parse_args()
@@ -67,10 +73,18 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
-    _, _, model, params, prep = cs.flagship(dev)
+    cfg, info, model, params, prep = cs.flagship(dev)
     frame = torch.from_numpy(cs.bench_frame()).to(dev)
     ctx = StepCtx(it=cs.IT)
     rk = {"cf_prepared": prep, "uniform_time": True}
+    if args.route != "quad":
+        os.environ["HYPERREEL_FUSED_PATCH"] = \
+            "1" if args.route == "fused" else "0"
+        model, prep = cs.patch_model(cfg, info, params, cs.PATCH_R8)
+        frame = cs.phase_major(frame, cs.PATCH_R8[2]).contiguous()
+        rk = {"cf_prepared": prep, "uniform_time": True,
+              "rays_phase_major": True}
+    print(f"# route {args.route}", flush=True)
 
     def render():
         return [model.apply(params, frame[i], ctx, rk)
@@ -92,7 +106,9 @@ def main():
         torch.cuda.set_sync_debug_mode("warn")
         render()
         torch.cuda.set_sync_debug_mode("default")
-    syncs = [str(w.message).splitlines()[0] for w in caught]
+    # the first warning is the debug mode's own notice, not a sync
+    syncs = [str(w.message).splitlines()[0] for w in caught
+             if "prototype feature" not in str(w.message)]
     print(f"# synchronising calls in one frame: {len(syncs)}")
     for m in sorted(set(syncs)):
         print(f"#   {syncs.count(m)} x {m[:120]}")

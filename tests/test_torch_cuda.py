@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card. Marked `cuda`: without an NVIDIA card every test here skips (CUDA
 kernels have no CPU mode; the plain versions are held against the JAX
-package by tests/test_torch_pack_build.py, test_torch_shade.py and
-test_torch_slice.py). Run on the card with
+package by tests/test_torch_pack_build.py, test_torch_shade.py,
+test_torch_slice.py, test_torch_patch.py, test_torch_patch_route.py and
+test_torch_composite.py). Run on the card with
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 
@@ -14,14 +15,22 @@ import numpy as np
 import pytest
 import torch
 
-from hyperreel_tpu.configs.presets import (
-    convert_epochs_to_iters, technicolor_z_plane, tiny_dynamic)
+from hyperreel_tpu_torch.configs.presets import (
+    convert_epochs_to_iters, technicolor_z_plane, tiny_dynamic,
+    with_coherent_gather)
 from hyperreel_tpu_torch.models.ctx import StepCtx
 from hyperreel_tpu_torch.models.model import build_model
+from hyperreel_tpu_torch.ops.kernels.composite import (
+    composite, composite_plain)
 from hyperreel_tpu_torch.ops.kernels.pack_build import (
     pack_build, pack_build_plain)
+from hyperreel_tpu_torch.ops.kernels.patch_blend import (
+    PatchSpec, patch_blend, patch_blend_plain)
 from hyperreel_tpu_torch.ops.kernels.shade import (
-    ShadeSpec, premix_time, shade, shade_plain)
+    ShadeSpec, premix_time, shade, shade_plain, shade_preblended,
+    shade_preblended_plain)
+from hyperreel_tpu_torch.ops.kernels.shade_patch import (
+    shade_patch, shade_patch_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -37,10 +46,12 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _model(tiny, dev, bf16=False):
+def _model(tiny, dev, bf16=False, patch=None):
     cfg = convert_epochs_to_iters(
         tiny_dynamic() if tiny else technicolor_z_plane(), 4000)
     cfg["color"]["net"].update(fused_render=True, bf16_tables=True)
+    if patch:
+        cfg = with_coherent_gather(cfg, *patch)
     model = build_model(cfg, dataset_info=INFO,
                         compute_dtype=torch.bfloat16 if bf16 else None)
     gen = torch.Generator().manual_seed(0)
@@ -112,3 +123,126 @@ def test_fused_model_matches_general_on_card(dev):
                                                      before[1] + 1)
     b = general.apply(params, rays, ctx)["rgb"]
     assert (a - b).abs().max() <= 2e-4
+
+
+def _frame_rays(side, dev, R=None):
+    """A side x side crop of bench.py's 1024^2 camera (its pixel density),
+    scanline order, or phase-major for blocks of R (bench.py:125-127)."""
+    u = (np.arange(1024) - 511.5)[512 - side // 2:512 + side // 2] / 1228.8
+    uu, vv = np.meshgrid(u, u)
+    d = np.stack([uu, vv, np.ones_like(uu)], -1).reshape(-1, 3)
+    o = np.zeros_like(d)
+    o[:, 2] = -1.5
+    n = d.shape[0]
+    rays = np.concatenate([o, d, np.full((n, 1), 3.0),
+                           np.full((n, 1), 0.3)], -1).astype(np.float32)
+    if R:
+        rays = rays.reshape(n // R, R, 8).transpose(1, 0, 2).reshape(n, 8)
+    return torch.from_numpy(np.ascontiguousarray(rays)).to(dev)
+
+
+def _ulps(a, b):
+    """|a - b| in bf16 ulps of the larger value (1e-6 where a sum
+    cancels to almost nothing)."""
+    a, b = a.float(), b.float()
+    big = torch.maximum(a.abs(), b.abs()).clamp_min(2.0 ** -126)
+    return ((a - b).abs() / (torch.exp2(torch.floor(torch.log2(big)) - 7)
+                             + 1e-6)).max().item()
+
+
+# K3 and K2-preblended hold the per-ray sums at K2's 1e-4; K4's bf16
+# features may differ by one bf16 ulp (the same f32 sum in another order,
+# then rounded); the coverage counts are exact.
+@pytest.mark.parametrize("pm", [True, False], ids=["phase_major", "scanline"])
+@pytest.mark.parametrize("tiny,patch", [(True, (4, 3, 4)), (True, (5, 2, 8)),
+                                        (False, (5, 2, 8))],
+                         ids=["S8_R4", "S8_R8", "S32_R8"])
+def test_patch_kernels_match_plain(dev, tiny, patch, pm):
+    _, model, params = _model(tiny, dev, bf16=True, patch=patch)
+    cf = model._cf_eval
+    prep = cf.prepare(params)
+    H, W, TH, TW, C, nd = prep["dims"]
+    rays = _frame_rays(40, dev, patch[2] if pm else None)    # 1600 rays
+    rp = cf.ray_pack(rays)
+    pack = pack_build(cf.pred.net_input(rays, StepCtx(it=20000)).float()
+                      .contiguous(), prep["mlp"], rp, cf.spec, 20000)
+    spec = ShadeSpec(S=cf.S, W=W, H=H, TW=TW, TH=0, C=C, nd=nd,
+                     deg=cf.net.sh_deg, distance_scale=cf.net.distance_scale)
+    ps = PatchSpec(R=patch[2], px=patch[0], py=patch[1], W=W, H=H, C=C,
+                   S=cf.S, phase_major=pm)
+    ttab = premix_time(prep["ttab"], rp[0, 7])
+    out, v = shade_patch(prep["patch"], pack, rp, ttab, prep["wb"], spec, ps)
+    ref, vr = shade_patch_plain(prep["patch"], pack, rp, ttab, prep["wb"],
+                                spec, ps)
+    torch.cuda.synchronize()
+    assert int(v) == int(vr)
+    assert (out[:, :4] - ref[:, :4]).abs().max() <= 1e-4
+    assert (out[:, 4] - ref[:, 4]).abs().max() <= 1e-3
+    feats, v = patch_blend(prep["patch"], pack, ps)
+    feats_p, vr = patch_blend_plain(prep["patch"], pack, ps)
+    assert int(v) == int(vr) and _ulps(feats, feats_p) <= 1.0
+    pre = shade_preblended(feats, pack, rp, ttab, prep["wb"], spec)
+    ref = shade_preblended_plain(feats, pack, rp, ttab, prep["wb"], spec)
+    assert (pre[:, :4] - ref[:, :4]).abs().max() <= 1e-4
+    # the two routes agree with each other and with the quad route
+    quad = shade(prep["quad"], pack, rp, ttab, prep["wb"], spec)
+    assert (pre[:, :4] - out[:, :4]).abs().max() <= 2e-4
+    assert (quad[:, :4] - out[:, :4]).abs().max() <= 2e-4
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+# Each route against the same route on the CPU (its kernels' plain
+# versions) at the fused-path gate; the fused route also against the quad
+# route (exact at the bench's pixel density). The two-kernel route rounds
+# its features to bf16 as the JAX route does (2^-9 relative), which moves
+# this scene's rgb by up to ~2e-4 from the quad route's.
+@pytest.mark.parametrize("fused,kernels", [
+    ("1", {"shade_patch": 1}),
+    ("0", {"patch_blend": 1, "shade_preblended": 1})], ids=["fused", "two"])
+def test_patch_route_launches_on_card(dev, fused, kernels, monkeypatch):
+    monkeypatch.setenv("HYPERREEL_FUSED_PATCH", fused)
+    _, model, params = _model(True, dev, patch=(5, 2, 8))
+    _, quad, _ = _model(True, dev)
+    fns = (pack_build, shade, shade_patch, patch_blend, shade_preblended)
+    before = {f.__name__: f.launches for f in fns}
+    rays = _frame_rays(64, dev, 8)
+    rk = {"rays_phase_major": True, "uniform_time": True}
+    out = model.apply(params, rays, StepCtx(it=20000), rk)
+    got = {f.__name__: f.launches - before[f.__name__] for f in fns}
+    want = dict.fromkeys(got, 0)
+    want.update(pack_build=1, **kernels)
+    assert got == want
+    assert float(out["patch_coverage_viol"]) <= 1e-4
+    plain = model.apply(_to(params, "cpu"), rays.cpu(), StepCtx(it=20000),
+                        rk)
+    # K1 and its plain version differ by ~1e-7 (f32 sums in another
+    # order), which can move a sample across a texel edge
+    assert abs(float(plain["patch_coverage_viol"])
+               - float(out["patch_coverage_viol"])) <= 1e-3
+    assert (out["rgb"].cpu() - plain["rgb"]).abs().max() <= 2e-4
+    if fused == "1":
+        exact = quad.apply(params, rays, StepCtx(it=20000),
+                           {"uniform_time": True})
+        assert (out["rgb"] - exact["rgb"]).abs().max() <= 2e-4
+
+
+@pytest.mark.parametrize("S", [8, 32])
+@pytest.mark.parametrize("B", [1000, 4096])
+def test_composite_matches_plain(dev, S, B):
+    gen = torch.Generator(device=dev).manual_seed(S)
+    sigma = 0.05 * torch.rand(B, S, device=dev, generator=gen)
+    sigma[::2, -1] = 0.0
+    dist = torch.sort(0.1 + 2.9 * torch.rand(B, S, device=dev,
+                                             generator=gen), -1).values
+    rgb = torch.rand(B, S, 3, device=dev, generator=gen)
+    before = composite.launches
+    got = composite(sigma, dist, rgb, 16.0)
+    assert composite.launches == before + 1
+    want = composite_plain(sigma, dist, rgb, 16.0)
+    for g, w in zip(got, want):
+        assert (g - w).abs().max() <= 1e-5

@@ -1,6 +1,8 @@
-"""Packaging of the PyTorch port: it imports no JAX, and chip_smoke.py
-refuses to run (non-zero exit, no result line) without a CUDA card or
-without the repository beside it."""
+"""Packaging of the PyTorch port: it imports no JAX, no Triton and
+nothing of the JAX package (its presets are its own copy, held equal to
+the JAX package's here), and chip_smoke.py refuses to run (non-zero exit,
+no result line) without a CUDA card or without the repository beside
+it."""
 
 import os
 import shutil
@@ -8,7 +10,11 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
 import torch
+
+from hyperreel_tpu.configs import presets as JP
+from hyperreel_tpu_torch.configs import presets as TP
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -22,21 +28,43 @@ def _run(code_or_script, cwd, script=False):
 
 
 def test_port_imports_no_jax():
+    """Every module of the port, chip_smoke.py's imports (and its model
+    build, which reads the presets) and the profile script's."""
     res = _run(
-        "import sys\n"
-        "import hyperreel_tpu_torch, hyperreel_tpu_torch.convert\n"
-        "import hyperreel_tpu_torch.models.model\n"
-        "import hyperreel_tpu_torch.models.fused_eval\n"
-        "import hyperreel_tpu_torch.ops.kernels.build\n"
-        "from hyperreel_tpu.configs.presets import technicolor_z_plane\n"
-        "from hyperreel_tpu_torch.models.model import build_model\n"
-        "build_model(technicolor_z_plane(), {'num_keyframes': 4,"
-        " 'num_frames': 50})\n"
-        "bad = [m for m in sys.modules if m == 'jax' or"
-        " m.startswith(('jax.', 'jaxlib', 'triton'))]\n"
+        "import importlib, pkgutil, sys\n"
+        "import hyperreel_tpu_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(\n"
+        "    hyperreel_tpu_torch.__path__, 'hyperreel_tpu_torch.')]\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "import torch\n"
+        "import chip_smoke\n"
+        "chip_smoke.flagship(torch.device('cpu'))\n"
+        "sys.path.insert(0, 'scripts')\n"
+        "import profile_torch_frame\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'triton',\n"
+        "       'hyperreel_tpu') or m.startswith(('jax.', 'jaxlib.',\n"
+        "       'triton.', 'hyperreel_tpu.'))]\n"
         "assert not bad, bad\n"
+        "assert len(mods) > 25, mods\n"
         "print('clean')\n", cwd=ROOT)
     assert res.returncode == 0 and "clean" in res.stdout, res.stderr
+
+
+@pytest.mark.parametrize("name,make", [
+    ("technicolor_z_plane", lambda P: P.technicolor_z_plane()),
+    ("technicolor_z_plane_z16", lambda P: P.technicolor_z_plane(16)),
+    ("tiny_dynamic", lambda P: P.tiny_dynamic()),
+    ("tiny_dynamic_z4_grid16", lambda P: P.tiny_dynamic(4, 16)),
+    ("bench_patch_route", lambda P: P.with_coherent_gather(
+        P.technicolor_z_plane(), 5, 2, 8)),
+    ("default_patch_route", lambda P: P.with_coherent_gather(
+        P.tiny_dynamic())),
+    ("epochs_to_iters", lambda P: P.convert_epochs_to_iters(
+        P.technicolor_z_plane(), 4000)),
+])
+def test_presets_equal_the_jax_packages(name, make):
+    assert make(TP) == make(JP)
 
 
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):

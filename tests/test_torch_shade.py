@@ -12,9 +12,10 @@ import torch
 
 from hyperreel_tpu.ops.pallas.shade import fused_shade_composite
 from hyperreel_tpu_torch.ops.kernels import shade as SH
-from hyperreel_tpu_torch.ops.kernels.layout import JAX_PACK_ROWS, PACK_ROWS
+from hyperreel_tpu_torch.ops.kernels.layout import PACK_ROWS
 
-from torch_parity import flagship_cfg, models, weights
+from torch_parity import (
+    flagship_cfg, jax_pack, jax_premix, models, weights)
 
 B, TILE = 256, 128
 
@@ -36,33 +37,6 @@ def _pack(S, seed):
                            rng.uniform(-1, 1, (B, 1))], 1)
     return (pack.reshape(PACK_ROWS, B * S).astype(np.float32),
             rays.astype(np.float32))
-
-
-def _to_smajor(pack, rays, S):
-    """Port pack and ray pack -> the JAX kernel's 16-row S-major tile
-    order (tn in row 3, the view direction in rows 11..13)."""
-    nb = B // TILE
-    p16 = np.zeros((16, B, S), np.float32)
-    p16[list(JAX_PACK_ROWS)] = pack.reshape(PACK_ROWS, B, S)
-    p16[3] = rays[:, 7:8]
-    p16[11:14] = rays[:, 3:6].T[:, :, None]
-    p = p16.reshape(16, nb, TILE, S).transpose(0, 1, 3, 2)
-    return p.reshape(16, B * S)
-
-
-def _jax_premix(ttab_t, TH, C, tn0):
-    """hyperreel_tpu/models/fused_eval.py _premix (uniform time), numpy."""
-    pt = (tn0 + 1.0) * 0.5 * (TH - 1)
-    p0 = np.floor(pt)
-    ft = pt - p0
-    tb = int(np.clip(p0, -1.0, TH - 1.0) + 1.0)
-    t_lo = float(0.0 <= p0 <= TH - 1.0)
-    t_hi = float(0.0 <= p0 + 1.0 <= TH - 1.0)
-    k = np.arange(TH + 2)
-    mk = np.where(k == tb, (1.0 - ft) * t_lo, 0.0) \
-        + np.where(k == tb + 1, ft * t_hi, 0.0)
-    return np.tensordot(mk.astype(np.float32),
-                        ttab_t.reshape(TH + 2, C, -1), axes=1)
 
 
 # acc="f32" runs the JAX kernel's time lookup at f32 (its acc_dtype
@@ -92,7 +66,7 @@ def test_plain_shade_matches_jax_kernel(tiny, premix, acc):
     # between the kernels, then the kernel
     jcf = jm._cf_eval
     (qt,), (ttab_t,), wb_t = jcf._plan_arrays(jp["color"])
-    pk16 = _to_smajor(pack, rays, S)
+    pk16 = jax_pack(pack, rays, S, TILE)
     px = (pk16[0] + 1.0) * 0.5 * (W - 1)
     py = (pk16[1] + 1.0) * 0.5 * (H - 1)
     xi = (np.clip(np.floor(px), -1, W - 1) + 1).astype(np.int32)
@@ -102,8 +76,8 @@ def test_plain_shade_matches_jax_kernel(tiny, premix, acc):
     tn0 = float(rays[0, 7])
     if premix:
         rays[:, 7] = tn0              # a frame: every ray shares one t
-        pk16 = _to_smajor(pack, rays, S)
-        ttab, th = _jax_premix(ttab, TH, C, tn0), 0
+        pk16 = jax_pack(pack, rays, S, TILE)
+        ttab, th = jax_premix(ttab, TH, C, tn0), 0
     want = np.asarray(fused_shade_composite(
         jnp.asarray(rows), jnp.asarray(pk16), jnp.asarray(ttab), wb_t,
         S=S, W=W, H=H, TW=TW, TH=th, n_density=nd,

@@ -106,7 +106,7 @@ def test_params_round_trip():
     jm, tm = models(flagship_cfg(tiny=True), bf16=False)
     pn = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0)))
     from hyperreel_tpu_torch.convert import params_from_jax
-    back = params_to_jax(params_from_jax(pn))
+    back = params_to_jax(params_from_jax(pn, device="cpu"))
     la, ta = jax.tree.flatten(pn)
     lb, tb = jax.tree.flatten(back)
     assert ta == tb

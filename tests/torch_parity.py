@@ -15,6 +15,7 @@ from hyperreel_tpu.configs.presets import (
 from hyperreel_tpu.models.model import build_model as build_jax
 from hyperreel_tpu_torch.convert import params_from_jax
 from hyperreel_tpu_torch.models.model import build_model as build_torch
+from hyperreel_tpu_torch.ops.kernels.layout import JAX_PACK_ROWS, PACK_ROWS
 
 # the flagship's dataset as __graft_entry__.entry() builds it
 INFO = {"num_keyframes": 4, "num_frames": 50, "num_views": 16}
@@ -54,7 +55,7 @@ def weights(jax_model, seed=0):
     for k, v in pn["color"]["density"].items():
         pn["color"]["density"][k] = rng.uniform(0, 1, v.shape).astype(
             np.float32)
-    return jax.tree.map(jnp.asarray, pn), params_from_jax(pn)
+    return jax.tree.map(jnp.asarray, pn), params_from_jax(pn, device="cpu")
 
 
 def entry_rays(n, seed=0, t=None):
@@ -70,3 +71,38 @@ def entry_rays(n, seed=0, t=None):
     times = rng.uniform(0, 1, (n, 1)).astype(np.float32) if t is None \
         else np.full((n, 1), t, np.float32)
     return np.concatenate([o, d, cam, times], -1)
+
+
+def smajor(cols, S, tile):
+    """[rows, B*S] columns in ray-major order -> the JAX kernels' S-major
+    tile order (lane s*tile + r within each block of tile rays)."""
+    rows, N = cols.shape
+    return cols.reshape(rows, N // (S * tile), tile, S).transpose(
+        0, 1, 3, 2).reshape(rows, N)
+
+
+def jax_pack(pack, rays, S, tile):
+    """Port pack [10, B*S] and ray pack [B, 8] -> the JAX kernels' 16-row
+    pack in S-major tile order (tn in row 3, the view direction in rows
+    11..13)."""
+    B = rays.shape[0]
+    p16 = np.zeros((16, B, S), np.float32)
+    p16[list(JAX_PACK_ROWS)] = pack.reshape(PACK_ROWS, B, S)
+    p16[3] = rays[:, 7:8]
+    p16[11:14] = rays[:, 3:6].T[:, :, None]
+    return smajor(p16.reshape(16, B * S), S, tile)
+
+
+def jax_premix(ttab_t, TH, C, tn0):
+    """hyperreel_tpu/models/fused_eval.py _premix (uniform time), numpy."""
+    pt = (tn0 + 1.0) * 0.5 * (TH - 1)
+    p0 = np.floor(pt)
+    ft = pt - p0
+    tb = int(np.clip(p0, -1.0, TH - 1.0) + 1.0)
+    t_lo = float(0.0 <= p0 <= TH - 1.0)
+    t_hi = float(0.0 <= p0 + 1.0 <= TH - 1.0)
+    k = np.arange(TH + 2)
+    mk = np.where(k == tb, (1.0 - ft) * t_lo, 0.0) \
+        + np.where(k == tb + 1, ft * t_hi, 0.0)
+    return np.tensordot(mk.astype(np.float32),
+                        ttab_t.reshape(TH + 2, C, -1), axes=1)
