@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch/CUDA port (hyperreel_tpu_torch) on one NVIDIA
-GPU: the flagship eval render at full width through the hand-written
+GPU: the flagship eval render (technicolor_z_plane) and the static
+multi-axis family's (llff_z_plane) at full width through the hand-written
 kernels, checked against their plain PyTorch versions and against the
 port's general path, on the quad route and on the coherent patch-gather
-route; and the standalone composite entry point.
+routes; and the standalone composite entry point.
 
     python3 chip_smoke.py
 
@@ -34,10 +35,34 @@ no result line):
      PVIOL_EXACT) and the rgb against the quad route's frame (<= 2e-4);
   8. frame time of the three routes, 10 frames after a warm-up frame
      each, in turns quad, fused, two-kernel, two-kernel, fused, quad,
-     twice (CUDA events).
+     twice (CUDA events);
+  9. llff_z_plane (bf16 MLP policy, mipnerf contraction, [8, 4, 4]
+     components) on a trained checkpoint's grid: N_voxel_init set to
+     N_voxel_final (262,144,000 voxels), whose bf16 quad tables (~116 MB)
+     exceed the card's 50 MB L2; weights from a seeded torch.Generator with
+     the density planes and lines redrawn uniform in [0, 0.05);
+ 10. on one chunk of the bench frame (o, d only: a static scene): K1 with
+     the contraction and no flow stage (bf16 and f32 MLP policies), K5
+     (multi-axis shade), K4 on each of the three planes, K5 reading their
+     pre-blended features, and K6 (fused multi-axis patch shade) at R=8
+     (5, 2) on the phase-major chunk, each against its plain version, the
+     witness counts equal; the share of valid samples (>= 25 %); each
+     kernel's CUDA-event time in turns, and its plain version's; K5 on the
+     same pack with the init grid's L2-resident tables, in turns with the
+     checkpoint grid's;
+ 11. the bench frame on llff's routes through model.apply: quad (K1, K5),
+     fused patch (HYPERREEL_FUSED_PATCH_MULTI=1: K1, K6) and two-kernel
+     patch (K1, K4 x 3, K5-preblended) at R=8 (5, 2), and both patch
+     routes at R=4 (4, 3): finite, in [0, 1], the launches per chunk, the
+     coverage witness, and the rgb within 2e-4 of the quad route's frame
+     where the witness is <= 1e-4 (printed where it is not; at R=4 the
+     witness must be <= 1e-4);
+ 12. llff fused vs general path on 4096 rays, f32 MLP policy (<= 2e-4);
+ 13. frame time of llff's routes in turns, as phase 8.
 The line before the last is the kernels' JSON record (launches on their
 main path, error against the plain version, ms and the plain version's
-ms, and the least time the card could take); the last line is
+ms, and the least time the card could take, counting of each table only
+the rows the chunk reads); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -69,6 +94,8 @@ PATH_TOL = 2e-4                # tests/test_fused_cf.py gate
 COMPOSITE_TOL = 1e-5           # f32 scan and sums in another order
 F32_RAYS = 16384               # K1's f32-policy check (plain FMA layers)
 COMPOSITE_S = 32
+# llff_z_plane's density planes and lines are redrawn uniform in [0, this)
+LLFF_DENSITY = 0.05
 
 # The card's published peaks (NVIDIA H100 SXM data sheet, 700 W): device
 # memory bytes/s, f32 operations/s outside the tensor cores, dense bf16
@@ -85,6 +112,9 @@ BF16_OPS_PER_S = 989e12
 # K3/K4's hat blend of at most four texels (8C+22); the composite of one
 # sample with its 5 sums (46) or K7's 4 (40).
 K1_TAIL_OPS = 100
+# K1's mipnerf contraction per sample: inverse_contract_distance (8),
+# contract_rows of the point and of the origin (2 x 20), the distance (9)
+K1_CONTRACT_OPS = 57
 COMPOSITE_OPS, COMPOSITE4_OPS = 46, 40
 
 
@@ -103,6 +133,42 @@ def bound(nbytes, ops):
 
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def rows_bytes(table, rows):
+    """Bytes of the rows of a [n, width] table that the flat row indices
+    `rows` touch, each row counted once."""
+    return rows.unique().numel() * table.shape[1] * table.element_size()
+
+
+def quad_rows(pack, m0, m1, W, H):
+    """The quad-table rows that the valid samples of `pack` read on the
+    plane of pack rows (m0, m1) (csrc/shade_core.cuh, multi_core.cuh)."""
+    from hyperreel_tpu_torch.ops.kernels.shade import taps
+    ok = valid_mask(pack)
+    xi, yi = taps(pack[m0][ok], W)[0], taps(pack[m1][ok], H)[0]
+    return (yi + 1) * (W + 1) + (xi + 1)
+
+
+def patch_rows(pack, spec, every_slot):
+    """The patch-table rows of the slots' anchors (patch_anchor_idx): of
+    every slot (K4 writes every sample's features), or only of the slots
+    with a valid sample (the fused kernels shade nothing else)."""
+    from hyperreel_tpu_torch.ops.kernels.patch_blend import (
+        grouped, patch_anchors)
+    rows = patch_anchors(pack, spec)[2]
+    return rows if every_slot else rows[grouped(valid_mask(pack),
+                                                spec).any(0)]
+
+
+def entry(name, source, replaces, launches, err, ms, plain_ms, bnd):
+    """One kernel's record in the JSON line (no single PyTorch call
+    computes any of these functions, so there is no library time)."""
+    return {"name": name, "route": "cuda",
+            "source": f"hyperreel_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
 
 
 def cuda_ms(torch, fn, reps):
@@ -184,6 +250,421 @@ def flagship(dev):
     return cfg, info, model, params, model.prepare_eval(params)
 
 
+def llff(dev, bf16=True, patch=None, params=None, grid="checkpoint"):
+    """llff_z_plane at full width (6x256 MLP, S=32, [8, 4, 4] components,
+    SH degree 2) on a trained checkpoint's grid: N_voxel_init set to
+    N_voxel_final (262,144,000 voxels: planes 786x706, 471x706, 471x786,
+    lines 471, 786, 706), so that the bf16 quad tables (~116 MB) exceed the
+    50 MB L2; with grid="init" the preset's own N_voxel_init (128^3 voxels,
+    ~4.7 MB of tables, which stay in L2). The bf16 (or f32) MLP policy;
+    with `patch` the coherent patch-gather route (px, py, R). Weights from
+    torch.Generator seed SEED (or the given params) with the density planes
+    and lines redrawn uniform in [0, LLFF_DENSITY): (cfg, model, params,
+    prepared tables)."""
+    import torch
+
+    from hyperreel_tpu_torch.configs.presets import (
+        convert_epochs_to_iters, llff_z_plane, with_coherent_gather)
+    from hyperreel_tpu_torch.models.model import build_model
+
+    cfg = convert_epochs_to_iters(llff_z_plane(), iters_per_epoch=4000)
+    net = cfg["color"]["net"]
+    if grid == "checkpoint":
+        net["N_voxel_init"] = net["N_voxel_final"]
+    if patch:
+        cfg = with_coherent_gather(cfg, *patch)
+    model = build_model(cfg, compute_dtype=torch.bfloat16 if bf16 else None)
+    if params is None:
+        gen = torch.Generator().manual_seed(SEED)
+        params = model.init(gen, dev)
+        # the relu init of the density grids is a constant 1e-2 (an almost
+        # transparent scene); redrawn, the bench frame's rays end mostly
+        # opaque over several samples
+        for k, v in params["color"]["density"].items():
+            params["color"]["density"][k] = LLFF_DENSITY * torch.rand(
+                v.shape, generator=gen).to(dev)
+    return cfg, model, params, model.prepare_eval(params)
+
+
+def valid_mask(pack):
+    """Samples inside the aabb with a positive distance."""
+    return ((pack[0].abs() <= 1) & (pack[1].abs() <= 1)
+            & (pack[2].abs() <= 1) & (pack[3] > 0))
+
+
+def valid_count(pack):
+    return valid_mask(pack).sum().item()
+
+
+def multi_ops(axes, blend):
+    """f32 operations per valid sample after the pack of K5/K6: per axis
+    the plane features (`blend(C)`), the line taps (4C+6), the product (C)
+    and the density sum (nd), then the basis (54A for A appearance
+    channels), SH basis 20, SH sums 54, colour 12, validity 8."""
+    A = sum(a.C - a.nd for a in axes)
+    return sum(blend(a.C) + 5 * a.C + 6 + a.nd for a in axes) + 54 * A + 94
+
+
+def llff_phases(torch, dev, card, frame, reset_counts, read_counts):
+    """Phases 9-13: llff_z_plane's kernels on one chunk against their plain
+    versions and timed in turns, the bench frame on its routes, fused vs
+    general path, and the routes' frame times. Returns (the
+    kernels' JSON records, {route: ms/frame})."""
+    from hyperreel_tpu_torch.models.ctx import StepCtx
+    from hyperreel_tpu_torch.ops.kernels.pack_build import (
+        pack_build, pack_build_plain)
+    from hyperreel_tpu_torch.ops.kernels.patch_blend import (
+        patch_blend, patch_blend_plain)
+    from hyperreel_tpu_torch.ops.kernels.shade_multi import (
+        MultiSpec, shade_multi, shade_multi_plain, shade_multi_preblended,
+        shade_multi_preblended_plain)
+    from hyperreel_tpu_torch.ops.kernels.shade_multi_patch import (
+        shade_multi_patch, shade_multi_patch_plain)
+
+    ctx = StepCtx(it=IT)
+    # ---- 9. the model at the checkpoint grid, quad and patch routes
+    cfg, model, params, prep = llff(dev)
+    _, model8, _, prep8 = llff(dev, patch=PATCH_R8, params=params)
+    cf = model._cf_eval
+    axes = prep["axes"]
+    print("# llff_z_plane: planes " + ", ".join(
+        f"{a.H}x{a.W}x{a.C}" for a in axes) + "; lines " + ", ".join(
+        str(a.L) for a in axes) + f"; quad tables "
+        f"{sum(nbytes(q) for q in prep['quads']) / 1e6:.1f} MB", flush=True)
+    frame6 = frame[..., :6].contiguous()      # a static scene: o, d only
+    R8 = PATCH_R8[2]
+    frame_pm = phase_major(frame6, R8).contiguous()
+
+    # ---- 10. one chunk: K1 (contraction, no flow) and K5 against their
+    # plain versions; K4 on each plane, K5-preblended and K6 on the chunk
+    # in bench.py's phase-major order
+    chunk, chunk_pm = frame6[0], frame_pm[0]
+    net_in = cf.pred.net_input(chunk, ctx).float().contiguous()
+    rp = cf.ray_pack(chunk)
+    tabs = prep["mlp"]
+    pack = pack_build(net_in, tabs, rp, cf.spec, IT)
+    pack_p = pack_build_plain(net_in, tabs, rp, cf.spec, IT)
+    torch.cuda.synchronize()
+    k1_err = (pack - pack_p).abs().max().item()
+    cf32 = llff(dev, bf16=False, params=params)[1]._cf_eval
+    tabs32 = cf32.prepare(params)["mlp"]
+    x32, rp32 = net_in[:F32_RAYS].contiguous(), rp[:F32_RAYS].contiguous()
+    k1_err32 = (pack_build(x32, tabs32, rp32, cf32.spec, IT)
+                - pack_build_plain(x32, tabs32, rp32, cf32.spec, IT)
+                ).abs().max().item()
+    print(f"# llff K1 pack_build (mipnerf contraction): max |kernel - "
+          f"plain| {k1_err:.3e} bf16 MLP (tol {PACK_TOL_BF16}), "
+          f"{k1_err32:.3e} f32 MLP on {F32_RAYS} rays (tol {PACK_TOL})",
+          flush=True)
+    if not (k1_err <= PACK_TOL_BF16 and k1_err32 <= PACK_TOL):
+        raise AssertionError(f"llff K1 disagrees with its plain version: "
+                             f"{k1_err}, {k1_err32}")
+    del pack_p
+    N = pack.shape[1]
+    valid = valid_count(pack)
+    print(f"# llff chunk: {valid} of {N} samples valid "
+          f"({100 * valid / N:.1f} %)", flush=True)
+    if valid < N // 4:
+        raise AssertionError("under a quarter of the samples are valid: "
+                             "move the camera")
+
+    spec = MultiSpec(S=cf.S, axes=axes, deg=cf.net.sh_deg,
+                     distance_scale=cf.net.distance_scale)
+    lines, wb = prep["lines"], prep["wb"]
+    out = shade_multi(prep["quads"], lines, pack, rp, wb, spec)
+    out_p = shade_multi_plain(prep["quads"], lines, pack, rp, wb, spec)
+    torch.cuda.synchronize()
+    k5_err = (out[:, :4] - out_p[:, :4]).abs().max().item()
+    k5_derr = (out[:, 4] - out_p[:, 4]).abs().max().item()
+    print(f"# K5 shade_multi: max |kernel - plain| rgb/acc {k5_err:.3e}, "
+          f"depth {k5_derr:.3e} (tol {SHADE_TOL}); acc mean "
+          f"{out[:, 3].mean().item():.4f}", flush=True)
+    if not (k5_err <= SHADE_TOL and k5_derr <= 10 * SHADE_TOL):
+        raise AssertionError(f"K5 disagrees with its plain version: "
+                             f"{k5_err}, {k5_derr}")
+    del out_p
+
+    rp_pm = cf.ray_pack(chunk_pm)
+    pack_pm = pack_build(cf.pred.net_input(chunk_pm, ctx).float()
+                         .contiguous(), tabs, rp_pm, cf.spec, IT)
+    cf8 = model8._cf_eval
+    pspecs = cf8.patch_specs([(a.W, a.H, a.C, a.m0, a.m1) for a in axes],
+                             True)
+    flags = torch.zeros(N // R8, dtype=torch.uint8, device=dev)
+    flags_p = flags.clone()
+    feats, k4_ratio, k4_err = [], 0.0, 0.0
+    for ptab, ps in zip(prep8["ptabs"], pspecs):
+        f, vk = patch_blend(ptab, pack_pm, ps, flags)
+        fp, vp = patch_blend_plain(ptab, pack_pm, ps, flags_p)
+        fk, fpl = f.float(), fp.float()
+        ratio = ((fk - fpl).abs() / (bf16_ulp(torch, torch.maximum(
+            fk.abs(), fpl.abs())) + 1e-6)).max().item()
+        print(f"# K4 patch_blend plane ({ps.m0}, {ps.m1}) C={ps.C}: max "
+              f"|kernel - plain| {(fk - fpl).abs().max().item():.3e}, "
+              f"{ratio:.3f} bf16 ulps at most (tol 1); violations {int(vk)} "
+              f"(plain {int(vp)})", flush=True)
+        if not (ratio <= 1.0 and int(vk) == int(vp)):
+            raise AssertionError(f"K4 on plane ({ps.m0}, {ps.m1}) disagrees "
+                                 f"with its plain version: {ratio}")
+        k4_ratio = max(k4_ratio, ratio)
+        k4_err = max(k4_err, (fk - fpl).abs().max().item())
+        feats.append(f)
+        del fp, fk, fpl
+    viol_k4, viol_p = int(flags.sum()), int(flags_p.sum())
+    pre = shade_multi_preblended(feats, lines, pack_pm, rp_pm, wb, spec)
+    pre_p = shade_multi_preblended_plain(feats, lines, pack_pm, rp_pm, wb,
+                                         spec)
+    fused, vk = shade_multi_patch(prep8["ptabs"], lines, pack_pm, rp_pm, wb,
+                                  spec, pspecs)
+    fused_p, vp = shade_multi_patch_plain(prep8["ptabs"], lines, pack_pm,
+                                          rp_pm, wb, spec, pspecs)
+    quad_pm = shade_multi(prep["quads"], lines, pack_pm, rp_pm, wb, spec)
+    torch.cuda.synchronize()
+    pre_err = (pre[:, :4] - pre_p[:, :4]).abs().max().item()
+    k6_err = (fused[:, :4] - fused_p[:, :4]).abs().max().item()
+    k6_derr = (fused[:, 4] - fused_p[:, 4]).abs().max().item()
+    print(f"# K5-preblended: max |kernel - plain| {pre_err:.3e} (tol "
+          f"{SHADE_TOL}); K6 shade_multi_patch R=8 (5,2): rgb/acc "
+          f"{k6_err:.3e}, depth {k6_derr:.3e} (tol {SHADE_TOL}); coverage "
+          f"violations K6 {int(vk)}, plain {int(vp)}, K4 flags {viol_k4} "
+          f"(plain {viol_p}) of {N // R8} slots; K6 vs K5 "
+          f"{(fused[:, :4] - quad_pm[:, :4]).abs().max().item():.3e}, "
+          f"K4 + K5-pre vs K5 "
+          f"{(pre[:, :4] - quad_pm[:, :4]).abs().max().item():.3e}",
+          flush=True)
+    if not (pre_err <= SHADE_TOL and k6_err <= SHADE_TOL
+            and k6_derr <= 10 * SHADE_TOL
+            and int(vk) == int(vp) == viol_k4 == viol_p):
+        raise AssertionError(f"K5-preblended / K6 disagree with their plain "
+                             f"versions: {pre_err}, {k6_err}, {k6_derr}, "
+                             f"{int(vk)}, {int(vp)}, {viol_k4}, {viol_p}")
+    del pre_p, fused_p, flags_p
+
+    # the chunk's kernels, timed in turns (K5, K6, K4 x3, K5-pre, and
+    # back), 20 calls each time; then each plain version once or twice
+    def blend3():
+        fl = torch.zeros(N // R8, dtype=torch.uint8, device=dev)
+        return [patch_blend(t, pack_pm, ps, fl) for t, ps in
+                zip(prep8["ptabs"], pspecs)]
+
+    kernels = {
+        "K5": lambda: shade_multi(prep["quads"], lines, pack_pm, rp_pm, wb,
+                                  spec),
+        "K6": lambda: shade_multi_patch(prep8["ptabs"], lines, pack_pm,
+                                        rp_pm, wb, spec, pspecs),
+        "K4x3": blend3,
+        "K5-pre": lambda: shade_multi_preblended(feats, lines, pack_pm,
+                                                 rp_pm, wb, spec)}
+    turns = {name: [] for name in kernels}
+    for name in list(kernels) + list(kernels)[::-1]:
+        turns[name].append(cuda_ms(torch, kernels[name], 20))
+    print("# llff chunk, in turns: " + "; ".join(
+        f"{name} " + ", ".join(f"{t:.4f}" for t in ts) + " ms"
+        for name, ts in turns.items()), flush=True)
+    k5_ms, k6_ms, k4_ms, pre_ms = (sum(turns[n]) / 2 for n in kernels)
+    # K5 on the same pack with the tables of the preset's init grid
+    # (N_voxel_init: ~4.7 MB of quad tables, which stay in L2), in turns
+    # with the checkpoint grid's: how much of K5's time the quad-row reads
+    # from device memory cost
+    _, small, small_params, _ = llff(dev, grid="init")
+    sprep = small.prepare_eval(small_params)
+    sspec = MultiSpec(S=cf.S, axes=sprep["axes"], deg=cf.net.sh_deg,
+                      distance_scale=cf.net.distance_scale)
+    grids = {
+        "checkpoint": lambda: shade_multi(prep["quads"], lines, pack_pm,
+                                          rp_pm, wb, spec),
+        "init": lambda: shade_multi(sprep["quads"], sprep["lines"], pack_pm,
+                                    rp_pm, sprep["wb"], sspec)}
+    gturns = {name: [] for name in grids}
+    for name in list(grids) + list(grids)[::-1]:
+        gturns[name].append(cuda_ms(torch, grids[name], 20))
+    print(f"# K5 by grid, in turns: checkpoint grid ("
+          f"{sum(nbytes(q) for q in prep['quads']) / 1e6:.1f} MB of quad "
+          f"tables) " + ", ".join(f"{t:.4f}" for t in gturns["checkpoint"])
+          + f" ms; init grid ("
+          f"{sum(nbytes(q) for q in sprep['quads']) / 1e6:.1f} MB) "
+          + ", ".join(f"{t:.4f}" for t in gturns["init"]) + " ms",
+          flush=True)
+    del small, small_params, sprep
+    k1_ms = cuda_ms(torch, lambda: pack_build(net_in, tabs, rp, cf.spec, IT),
+                    20)
+    k1_plain_ms = cuda_ms(
+        torch, lambda: pack_build_plain(net_in, tabs, rp, cf.spec, IT), 2)
+    k5_plain_ms = cuda_ms(torch, lambda: shade_multi_plain(
+        prep["quads"], lines, pack_pm, rp_pm, wb, spec), 2)
+    k6_plain_ms = cuda_ms(torch, lambda: shade_multi_patch_plain(
+        prep8["ptabs"], lines, pack_pm, rp_pm, wb, spec, pspecs), 2)
+    k4_plain_ms = cuda_ms(torch, lambda: [
+        patch_blend_plain(t, pack_pm, ps) for t, ps in
+        zip(prep8["ptabs"], pspecs)], 2)
+    pre_plain_ms = cuda_ms(torch, lambda: shade_multi_preblended_plain(
+        feats, lines, pack_pm, rp_pm, wb, spec), 2)
+
+    valid_pm = valid_count(pack_pm)
+    out_bytes = CHUNK * 5 * 4
+    mlp_ops = 2 * CHUNK * sum(
+        p["weight"].numel() for p in
+        params["embedding"]["ray_prediction_0"]["net"].values())
+    k1_bound = bound(
+        nbytes(net_in, rp, pack) + sum(nbytes(l.w, l.b) for l in tabs.layers),
+        [(mlp_ops, BF16_OPS_PER_S),
+         (N * (K1_TAIL_OPS + K1_CONTRACT_OPS), F32_OPS_PER_S)])
+    # the table bytes: only the rows this chunk reads, each once
+    quad_bytes = sum(rows_bytes(q, quad_rows(pack_pm, a.m0, a.m1, a.W, a.H))
+                     for q, a in zip(prep["quads"], axes))
+    ptab_bytes = [sum(rows_bytes(t, patch_rows(pack_pm, ps, every))
+                      for t, ps in zip(prep8["ptabs"], pspecs))
+                  for every in (False, True)]
+    shared = nbytes(pack_pm, rp_pm, *lines) + out_bytes
+    k5_bound = bound(
+        shared + quad_bytes,
+        [(valid_pm * multi_ops(axes, lambda C: 8 * C + 10)
+          + N * COMPOSITE_OPS, F32_OPS_PER_S)])
+    pre_bound = bound(
+        shared + nbytes(*feats),
+        [(valid_pm * multi_ops(axes, lambda C: C) + N * COMPOSITE_OPS,
+          F32_OPS_PER_S)])
+    k6_bound = bound(
+        shared + ptab_bytes[0] + 4,
+        [(valid_pm * multi_ops(axes, lambda C: 8 * C + 22)
+          + N * COMPOSITE_OPS, F32_OPS_PER_S)])
+    k4_bound = bound(
+        nbytes(pack_pm[:4], *feats) + ptab_bytes[1] + 3 * 4,
+        [(N * sum(8 * a.C + 22 for a in axes), F32_OPS_PER_S)])
+    print(f"# llff chunk ({card}): K1 {k1_ms:.3f} ms (plain "
+          f"{k1_plain_ms:.3f}, bound {k1_bound[0]:.4f} {k1_bound[1]}); K5 "
+          f"{k5_ms:.3f} (plain {k5_plain_ms:.3f}, bound {k5_bound[0]:.4f} "
+          f"{k5_bound[1]}); K6 {k6_ms:.3f} (plain {k6_plain_ms:.3f}, bound "
+          f"{k6_bound[0]:.4f} {k6_bound[1]}); K4 x3 {k4_ms:.3f} (plain "
+          f"{k4_plain_ms:.3f}, bound {k4_bound[0]:.4f} {k4_bound[1]}); "
+          f"K5-preblended {pre_ms:.3f} (plain {pre_plain_ms:.3f}, bound "
+          f"{pre_bound[0]:.4f} {pre_bound[1]}); {valid_pm} of {N} samples "
+          f"valid; MLP {mlp_ops / 1e9:.1f} GFLOP; table rows the chunk "
+          f"reads: quad {quad_bytes / 1e6:.1f} of "
+          f"{nbytes(*prep['quads']) / 1e6:.1f} MB, patch (K6) "
+          f"{ptab_bytes[0] / 1e6:.1f}, (K4) {ptab_bytes[1] / 1e6:.1f} of "
+          f"{nbytes(*prep8['ptabs']) / 1e6:.1f} MB", flush=True)
+    del feats, pre, fused, quad_pm, pack_pm, out
+    torch.cuda.empty_cache()
+
+    # ---- 11. the bench frame through model.apply on each route
+    def render(m, frames, rkw):
+        return [m.apply(params, frames[i], ctx, rkw)
+                for i in range(frames.shape[0])]
+
+    n_chunks = frame6.shape[0]
+    _, model4, _, prep4 = llff(dev, patch=PATCH_R4, params=params)
+    rk = {"cf_prepared": prep}
+    rk8 = {"cf_prepared": prep8, "rays_phase_major": True}
+    rk4 = {"cf_prepared": prep4, "rays_phase_major": True}
+    R4 = PATCH_R4[2]
+    frame_pm4 = phase_major(frame6, R4).contiguous()
+    # name: (HYPERREEL_FUSED_PATCH_MULTI, model, frame, render_kwargs,
+    # launches per frame, R of the phase-major rays)
+    routes = {
+        "llff quad": ("0", model, frame6, rk,
+                      {"shade_multi": n_chunks}, None),
+        "llff fused patch": ("1", model8, frame_pm, rk8,
+                             {"shade_multi_patch": n_chunks}, R8),
+        "llff two-kernel patch": ("0", model8, frame_pm, rk8,
+                                  {"patch_blend": 3 * n_chunks,
+                                   "shade_multi_preblended": n_chunks}, R8),
+        "llff fused patch R=4 (4,3)": (
+            "1", model4, frame_pm4, rk4, {"shade_multi_patch": n_chunks}, R4),
+        "llff two-kernel patch R=4 (4,3)": (
+            "0", model4, frame_pm4, rk4,
+            {"patch_blend": 3 * n_chunks,
+             "shade_multi_preblended": n_chunks}, R4)}
+    counts, rgb_quad = {}, None
+    for name, (env, m, frames, rkw, kern, R) in routes.items():
+        with EnvVar("HYPERREEL_FUSED_PATCH_MULTI", env):
+            reset_counts()
+            outs = render(m, frames, rkw)
+            torch.cuda.synchronize()
+            got = read_counts()
+        want = dict.fromkeys(got, 0)
+        want.update(pack_build=n_chunks, **kern)
+        counts[name] = got
+        rgb = torch.cat([scanline(o["rgb"], R) if R else o["rgb"]
+                         for o in outs])
+        if not (torch.isfinite(rgb).all() and rgb.min() >= 0
+                and rgb.max() <= 1 and rgb.shape == (SIDE * SIDE, 3)):
+            raise AssertionError(f"{name}: frame rgb is not finite in [0, 1]")
+        if got != want:
+            raise AssertionError(f"{name}: kernel launches {got}, want {want}")
+        if R is None:
+            rgb_quad = rgb
+            print(f"# frame {SIDE}x{SIDE} ({name}): rgb min "
+                  f"{rgb.min().item():.4f} max {rgb.max().item():.4f} mean "
+                  f"{rgb.mean().item():.4f}; launches {got}", flush=True)
+            continue
+        pviol = max(float(o["patch_coverage_viol"]) for o in outs)
+        err = (rgb - rgb_quad).abs().max().item()
+        print(f"# frame ({name}, phase-major rays): launches {got}; coverage "
+              f"witness {pviol:.3e} (gate {PVIOL_EXACT}); rgb vs the quad "
+              f"route's frame {err:.3e} (tol {PATH_TOL})", flush=True)
+        # at R=4 (4, 3) the frame's footprints stay inside their patches,
+        # so both patch routes must render the quad route's frame; at R=8
+        # (5, 2) they do not, and the witness says so
+        exact = pviol <= PVIOL_EXACT
+        if (R == R4 and not exact) or (exact and not err <= PATH_TOL):
+            raise AssertionError(f"{name}: witness {pviol}, rgb error {err}")
+
+    # ---- 12. fused vs general path on 4096 rays, f32 MLP policy
+    import copy
+    from hyperreel_tpu_torch.models.model import build_model
+    cfg_g = copy.deepcopy(cfg)
+    cfg_g["color"]["net"]["fused_render_cf"] = False
+    fused_m = build_model(cfg)
+    general = build_model(cfg_g)
+    rays = torch.from_numpy(entry_rays(4096)[:, :6].copy()).to(dev)
+    a = fused_m.apply(params, rays, ctx)["rgb"]
+    b = general.apply(params, rays, ctx)["rgb"]
+    path_err = (a - b).abs().max().item()
+    print(f"# llff fused vs general, 4096 entry() rays: max |diff| "
+          f"{path_err:.3e} (tol {PATH_TOL})", flush=True)
+    if not path_err <= PATH_TOL:
+        raise AssertionError(f"llff fused and general paths disagree: "
+                             f"{path_err}")
+    del fused_m, general, a, b
+
+    # ---- 13. frame time of the routes, in turns
+    names = list(routes)
+    times = {name: [] for name in names}
+    for name in (names + names[::-1]) * 2:
+        env, m, frames, rkw = routes[name][:4]
+        with EnvVar("HYPERREEL_FUSED_PATCH_MULTI", env):
+            times[name].append(cuda_ms(
+                torch, lambda: render(m, frames, rkw), TIMED_FRAMES))
+    frame_ms = {}
+    for name, ts in times.items():
+        frame_ms[name] = sum(ts) / len(ts)
+        print(f"# {card}: {name} route {frame_ms[name]:.3f} ms/frame, "
+              f"{SIDE * SIDE / frame_ms[name] / 1e3:.3f} Mrays/s "
+              f"({TIMED_FRAMES} frames after a warm-up frame, 4 times: "
+              + ", ".join(f"{t:.3f}" for t in ts) + ")", flush=True)
+
+    src = "hyperreel_tpu/ops/pallas/"
+    return [
+        entry("pack_build_llff", "pack_build.cu", src + "pack_build.py:137",
+              counts["llff quad"]["pack_build"], k1_err, k1_ms, k1_plain_ms,
+              k1_bound),
+        entry("shade_multi", "shade_multi.cu", src + "shade.py:742",
+              counts["llff quad"]["shade_multi"], k5_err, k5_ms,
+              k5_plain_ms, k5_bound),
+        entry("shade_multi_preblended", "shade_multi.cu", src + "shade.py:761",
+              counts["llff two-kernel patch"]["shade_multi_preblended"],
+              pre_err, pre_ms, pre_plain_ms, pre_bound),
+        entry("patch_blend_llff_3_planes", "patch_blend.cu",
+              src + "patch_blend.py:51",
+              counts["llff two-kernel patch"]["patch_blend"], k4_err, k4_ms,
+              k4_plain_ms, k4_bound),
+        entry("shade_multi_patch", "shade_multi_patch.cu",
+              src + "shade.py:786",
+              counts["llff fused patch"]["shade_multi_patch"], k6_err, k6_ms,
+              k6_plain_ms, k6_bound)], frame_ms
+
+
 def patch_model(cfg, info, params, shape):
     """The flagship with the coherent patch-gather route (px, py, R) on the
     same weights: (model, prepared tables)."""
@@ -197,21 +678,21 @@ def patch_model(cfg, info, params, shape):
     return model, model.prepare_eval(params)
 
 
-class FusedPatch:
-    """Set HYPERREEL_FUSED_PATCH for the duration of a with-block."""
+class EnvVar:
+    """Set one environment variable for the duration of a with-block."""
 
-    def __init__(self, value):
-        self.value, self.old = value, None
+    def __init__(self, name, value):
+        self.name, self.value, self.old = name, value, None
 
     def __enter__(self):
-        self.old = os.environ.get("HYPERREEL_FUSED_PATCH")
-        os.environ["HYPERREEL_FUSED_PATCH"] = self.value
+        self.old = os.environ.get(self.name)
+        os.environ[self.name] = self.value
 
     def __exit__(self, *exc):
         if self.old is None:
-            os.environ.pop("HYPERREEL_FUSED_PATCH", None)
+            os.environ.pop(self.name, None)
         else:
-            os.environ["HYPERREEL_FUSED_PATCH"] = self.old
+            os.environ[self.name] = self.old
 
 
 def bf16_ulp(torch, x):
@@ -253,8 +734,14 @@ def main():
     from hyperreel_tpu_torch.ops.kernels.shade_patch import (
         shade_patch, shade_patch_plain)
 
+    from hyperreel_tpu_torch.ops.kernels.shade_multi import (
+        shade_multi, shade_multi_preblended)
+    from hyperreel_tpu_torch.ops.kernels.shade_multi_patch import (
+        shade_multi_patch)
+
     counted = (pack_build, shade, shade_preblended, shade_patch, patch_blend,
-               composite)
+               composite, shade_multi, shade_multi_preblended,
+               shade_multi_patch)
 
     def reset_counts():
         for fn in counted:
@@ -352,8 +839,7 @@ def main():
           f"(plain {k1_plain_ms:.3f}), K2 TH=0 {k2_ms:.3f} ms "
           f"(plain {k2_plain_ms:.3f})", flush=True)
     N = pack.shape[1]
-    valid = ((pack[0].abs() <= 1) & (pack[1].abs() <= 1)
-             & (pack[2].abs() <= 1) & (pack[3] > 0)).sum().item()
+    valid = valid_count(pack)
     mlp_ops = 2 * CHUNK * sum(
         p["weight"].numel() for p in
         params["embedding"]["ray_prediction_0"]["net"].values())
@@ -361,7 +847,8 @@ def main():
         nbytes(net_in, rp, pack) + sum(nbytes(l.w, l.b) for l in tabs.layers),
         [(mlp_ops, BF16_OPS_PER_S), (N * K1_TAIL_OPS, F32_OPS_PER_S)])
     k2_bound = bound(
-        nbytes(pack, rp, prep["quad"], ttab) + CHUNK * 5 * 4,
+        nbytes(pack, rp, ttab) + CHUNK * 5 * 4
+        + rows_bytes(prep["quad"], quad_rows(pack, 0, 1, W, H)),
         [(valid * (shade_ops(C, nd) + 8 * C + 10) + N * COMPOSITE_OPS,
           F32_OPS_PER_S)])
     print(f"# chunk: {valid} of {N} samples valid; MLP {mlp_ops / 1e9:.1f} "
@@ -507,15 +994,16 @@ def main():
         prep8["patch"], pack_pm, ps8), 2)
     pre_plain_ms = cuda_ms(torch, lambda: shade_preblended_plain(
         feats, pack_pm, rp_pm, ttab, prep["wb"], spec), 2)
-    valid_pm = ((pack_pm[0].abs() <= 1) & (pack_pm[1].abs() <= 1)
-                & (pack_pm[2].abs() <= 1) & (pack_pm[3] > 0)).sum().item()
+    valid_pm = valid_count(pack_pm)
     out_bytes = CHUNK * 5 * 4
     k3_bound = bound(
-        nbytes(pack_pm, rp_pm, prep8["patch"], ttab) + out_bytes + 4,
+        nbytes(pack_pm, rp_pm, ttab) + out_bytes + 4
+        + rows_bytes(prep8["patch"], patch_rows(pack_pm, ps8, False)),
         [(valid_pm * (shade_ops(C, nd) + 8 * C + 22) + N * COMPOSITE_OPS,
           F32_OPS_PER_S)])
     k4_bound = bound(
-        nbytes(pack_pm[:4], prep8["patch"], feats) + 4,
+        nbytes(pack_pm[:4], feats) + 4
+        + rows_bytes(prep8["patch"], patch_rows(pack_pm, ps8, True)),
         [(N * (8 * C + 22), F32_OPS_PER_S)])
     pre_bound = bound(
         nbytes(feats, pack_pm, rp_pm, ttab) + out_bytes,
@@ -567,7 +1055,7 @@ def main():
         for order, frames in (("phase-major", frame_pm),
                               ("scanline", frame)):
             pm = order == "phase-major"
-            with FusedPatch(fused_env):
+            with EnvVar("HYPERREEL_FUSED_PATCH", fused_env):
                 reset_counts()
                 outs = render(model8, frames, {**rk8,
                                                "rays_phase_major": pm})
@@ -599,7 +1087,7 @@ def main():
     times = {name: [] for name in routes}
     for name in (list(routes) + list(routes)[::-1]) * 2:
         env, m, frames, rkw = routes[name]
-        with FusedPatch(env):
+        with EnvVar("HYPERREEL_FUSED_PATCH", env):
             times[name].append(cuda_ms(
                 torch, lambda: render(m, frames, rkw), TIMED_FRAMES))
     frame_ms = {}
@@ -609,15 +1097,15 @@ def main():
               f"ms/frame, {SIDE * SIDE / frame_ms[name] / 1e3:.3f} Mrays/s "
               f"({TIMED_FRAMES} frames after a warm-up frame, 4 times: "
               + ", ".join(f"{t:.3f}" for t in ts) + ")", flush=True)
+    del pack, pack_pm, feats, pre, out, rgb_quad, frame_pm
+    torch.cuda.empty_cache()
+
+    # ---- 9-13. the static multi-axis family (llff_z_plane)
+    llff_entries, llff_frame_ms = llff_phases(
+        torch, dev, card.splitlines()[0], frame, reset_counts, read_counts)
+    frame_ms.update(llff_frame_ms)
     print(f"# chip_smoke took {time.perf_counter() - t_start:.1f} s after "
           "the card check", flush=True)
-
-    def entry(name, source, replaces, launches, err, ms, plain_ms, bnd):
-        return {"name": name, "route": "cuda",
-                "source": f"hyperreel_tpu_torch/csrc/{source}",
-                "replaces": replaces, "launches": launches,
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
 
     record = {"kernels": [
         entry("pack_build", "pack_build.cu",
@@ -640,7 +1128,7 @@ def main():
               k4_plain_ms, k4_bound),
         entry("composite", "composite.cu",
               "hyperreel_tpu/ops/pallas/composite.py:26", k7_launches,
-              k7_err, k7_ms, k7_plain_ms, k7_bound)],
+              k7_err, k7_ms, k7_plain_ms, k7_bound)] + llff_entries,
         "frame_ms": frame_ms}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -178,6 +178,112 @@ def technicolor_z_plane(z_channels=32):
     }
 
 
+def llff_z_plane(z_channels=32):
+    """Static HyperReel model with mipnerf-contracted z-planes (reference
+    conf/experiment/model/llff_z_plane.yaml)."""
+    return {
+        "type": "lightfield",
+        "param": {"n_dims": 6, "fn": "identity"},
+        "embedding": {
+            "type": "ray_point",
+            "embeddings": {
+                "ray_prediction_0": {
+                    "type": "ray_prediction",
+                    "params": {
+                        "ray": {
+                            "start": 0, "end": 6,
+                            "param": {"n_dims": 6, "fn": "pluecker",
+                                      "direction_multiplier": 1.0,
+                                      "moment_multiplier": 1.0},
+                            "pe": {"type": "windowed", "n_freqs": 1,
+                                   "wait_iters": 0, "max_freq_epoch": 0},
+                        },
+                    },
+                    "net": {"type": "base", "group": "embedding_impl",
+                            "depth": 6, "hidden_channels": 256, "skips": [3]},
+                    "z_channels": z_channels,
+                    "outputs": {
+                        "z_vals": {"channels": 1},
+                        "sigma": {"channels": 1,
+                                  "activation": _ease_sigmoid(3, 0)},
+                        "point_sigma": {"channels": 1,
+                                        "activation": _ease_sigmoid(3, 1)},
+                        "point_offset": {
+                            "channels": 3,
+                            "activation": {"type": "tanh",
+                                           "outer_fac": 0.125},
+                        },
+                        "color_scale": {"channels": 3,
+                                        "activation": _ease_zero()},
+                        "color_shift": {"channels": 3,
+                                        "activation": _ease_zero()},
+                    },
+                },
+                "ray_intersect_0": {
+                    "type": "ray_intersect",
+                    "z_channels": z_channels,
+                    "intersect": {
+                        "type": "z_plane",
+                        "sort": True,
+                        "use_disparity": False,
+                        "use_sigma": True,
+                        "out_points": "raw_points",
+                        "out_distance": "raw_distance",
+                        "initial": -1.0,
+                        "end": 1.0,
+                        "contract": {
+                            "type": "mipnerf",
+                            "contract_samples": True,
+                            "contract_start_radius": 1.0,
+                            "contract_end_radius": 8.0,
+                        },
+                        "activation": {"type": "identity", "fac": 0.5},
+                    },
+                },
+                "point_offset_0": {
+                    "type": "point_offset",
+                    "in_density_field": "point_sigma",
+                    "use_sigma": True,
+                },
+                "add_point_outputs_0": {
+                    "type": "add_point_outputs",
+                    "extra_outputs": ["viewdirs"],
+                },
+                "extract_fields": {
+                    "type": "extract_fields",
+                    "fields": ["points", "distances", "viewdirs", "weights",
+                               "color_scale", "color_shift"],
+                },
+            },
+        },
+        "color": {
+            "type": "base",
+            "net": {
+                "type": "tensor_vm_split_no_sample",
+                # fused eval when eligible (models/fused_eval.py)
+                "fused_render": True,
+                "white_bg": 0,
+                "black_bg": 0,
+                "fea2denseAct": "relu",
+                "distance_scale": 16.0,
+                "density_shift": 0.0,
+                "aabb": [[-1.5, -1.67, -1.0], [1.5, 1.67, 1.0]],
+                "N_voxel_init": 2097152,
+                "N_voxel_final": 262144000,
+                "upsamp_list": [4000, 6000, 8000, 10000, 12000],
+                "lr_upsample_reset": True,
+                "update_AlphaMask_list": [],
+                "rm_weight_mask_thre": 0,
+                "alpha_mask_thre": 1e-3,
+                "n_lamb_sigma": [8, 4, 4],
+                "n_lamb_sh": [8, 4, 4],
+                "shadingMode": "SH",
+                "data_dim_color": 27,
+            },
+        },
+    }
+
+
 def with_coherent_gather(cfg, px=4, py=3, block=4):
     """Enable the coherent patch-gather render path (one (px x py)-texel
     row per `block`-consecutive-ray block and sample slot —
@@ -191,6 +297,23 @@ def with_coherent_gather(cfg, px=4, py=3, block=4):
     cfg = copy.deepcopy(cfg)
     cfg["color"]["net"]["coherent_gather"] = [int(px), int(py),
                                               int(block)]
+    return cfg
+
+
+def tiny_static(z_channels=8, grid=32):
+    """Miniature static config for tests/smoke training (no reference
+    analog; shapes chosen for fast CPU jit). bf16 gather tables are off so
+    numeric tests stay deterministic at f32."""
+    cfg = llff_z_plane(z_channels=z_channels)
+    net = cfg["color"]["net"]
+    net["bf16_tables"] = False
+    net["N_voxel_init"] = grid ** 3
+    net["N_voxel_final"] = grid ** 3
+    net["upsamp_list"] = []
+    net["n_lamb_sigma"] = [4, 2, 2]
+    net["n_lamb_sh"] = [4, 2, 2]
+    cfg["embedding"]["embeddings"]["ray_prediction_0"]["net"].update(
+        {"depth": 4, "hidden_channels": 64, "skips": [2]})
     return cfg
 
 

@@ -1,5 +1,7 @@
-// Pack-build kernel (K1): the flagship's prediction MLP and eval embedding
-// tail in one kernel, from the encoded rays to the per-sample pack.
+// Pack-build kernel (K1): the prediction MLP and eval embedding tail of the
+// z-plane chains in one kernel, from the encoded rays to the per-sample
+// pack: the flagship's dynamic chain, and the static llff_z_plane chain
+// (no flow stage; the mipnerf scene contraction).
 //
 // Replaces hyperreel_tpu/ops/pallas/pack_build.py:_pack_build_kernel with
 // its in-kernel MLP (_mlp_rows, the HYPERREEL_PK_MLP route the JAX package
@@ -25,7 +27,11 @@
 // one S-lane segment of a warp per ray, one lane per sample, reading its
 // fields from `out` (columns field-major: the host permutes the last
 // layer), sorting the distances with __shfl_xor_sync and writing pack
-// column r*S + s of each row, 128 contiguous bytes per warp.
+// column r*S + s of each row, 128 contiguous bytes per warp. The mipnerf
+// contraction (hyperreel_tpu/ops/contract.py inverse_contract_distance and
+// contract_rows, the JAX kernel's :191-194 and :209-221) runs per lane in
+// the JAX operation order, with __f*_rn intrinsics so that no multiply-add
+// is fused where the JAX and plain versions round twice.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,6 +73,10 @@ struct PackParams {
   float z_scale[kPackMaxS];
   float aabb_lo[3];
   float aabb_inv[3];
+  // scene contraction: 0 identity, 1 mipnerf; contract_samples: the
+  // anchors live in contracted space (z -> inverse_contract_distance(z))
+  int contract, contract_samples;
+  float c_start_r, c_inv_end_r, c_r_scale, c_start_d, c_inv_end_d, c_d_scale;
 };
 
 namespace {
@@ -96,6 +106,36 @@ __device__ __forceinline__ float apply_act(const PackAct& a, float x) {
   }
   f = f * a.outer;
   return a.w * f + (1.0f - a.w) * a.start;
+}
+
+// mipnerf inverse_contract_distance with the identity distance activation:
+// contracted distance in [-2, 2] -> metric distance
+__device__ __forceinline__ float inverse_contract_distance(
+    float d, const PackParams& p) {
+  float x = __fmul_rn(__fdiv_rn(d, 2.0f), 2.0f);
+  x = fminf(fmaxf(x, -2.0f), 2.0f);
+  const float t = __fsub_rn(2.0f, fabsf(x));
+  const float inv = __fadd_rn(__fdiv_rn(t, p.c_d_scale), p.c_inv_end_d);
+  const float r =
+      fabsf(x) < 1.0f ? x : (x > 0.0f ? 1.0f : -1.0f) * __fdiv_rn(1.0f, inv);
+  return __fmul_rn(r, p.c_start_d);
+}
+
+// mipnerf contract_rows: the point scaled onto the radius-2 ball (inside
+// the unit ball it stays)
+__device__ __forceinline__ void contract_rows(float* v, const PackParams& p) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c) v[c] = __fdiv_rn(v[c], p.c_start_r);
+  const float sq = __fadd_rn(__fadd_rn(__fmul_rn(v[0], v[0]),
+                                       __fmul_rn(v[1], v[1])),
+                             __fmul_rn(v[2], v[2]));
+  const float dist = __fsqrt_rn(fmaxf(sq, 1e-24f));
+  const float inv = __fdiv_rn(1.0f, fmaxf(dist, 1e-12f));
+  const float t = __fmul_rn(__fsub_rn(inv, p.c_inv_end_r), p.c_r_scale);
+  const float scale =
+      dist < 1.0f ? 1.0f : __fdiv_rn(__fsub_rn(2.0f, t), fmaxf(dist, 1e-12f));
+#pragma unroll
+  for (int c = 0; c < 3; ++c) v[c] = __fmul_rn(v[c], scale);
 }
 
 // out[:, c0:c0 + 16] = A[:, L.k0:L.k0 + L.k] @ w[:, c0:c0 + 16] for all R
@@ -231,6 +271,7 @@ pack_build_kernel(const float* __restrict__ x0, const float* __restrict__ rays,
     float z = apply_act(p.act[A_ISECT], apply_act(p.act[A_Z], field(F_Z, 0)));
     z = z * (1.0f - apply_act(p.act[A_SIGMA], field(F_SIGMA, 0)));
     z = z * p.z_scale[s] + p.samples[s];
+    if (p.contract_samples) z = inverse_contract_distance(z, p);
     const float dz = fabsf(d[2]) < 1e-5f ? 1e12f : d[2];
     float dist = (z - o[2]) / dz;
     if (dist <= 0.0f) dist = 0.0f;
@@ -246,12 +287,31 @@ pack_build_kernel(const float* __restrict__ x0, const float* __restrict__ rays,
     }
 
     // points; flow / offset / colour fields stay in prediction order
+    float base[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) base[c] = o[c] + d[c] * dist;
+    if (p.contract) {
+      // contract the point and measure its distance from the contracted
+      // origin (hyperreel_tpu/ops/pallas/pack_build.py:209-221)
+      float oc[3] = {o[0], o[1], o[2]};
+      contract_rows(base, p);
+      contract_rows(oc, p);
+      float sq = 0.0f;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float e = __fsub_rn(base[c], oc[c]);
+        sq = c == 0 ? __fmul_rn(e, e) : __fadd_rn(sq, __fmul_rn(e, e));
+      }
+      dist = dist <= 0.0f ? 0.0f : __fsqrt_rn(fmaxf(sq, 1e-24f));
+    }
     const float po_fac = 1.0f - apply_act(p.act[A_PSIG], field(F_PSIG, 0));
     float vals[kPackRows];
     for (int c = 0; c < 3; ++c) {
-      float v = o[c] + d[c] * dist;
-      v = v + apply_act(p.act[A_FLOW_STAGE],
-                        apply_act(p.act[A_FLOW], field(F_FLOW, c))) * dt;
+      float v = base[c];
+      if (p.foff[F_FLOW] >= 0) {
+        v = v + apply_act(p.act[A_FLOW_STAGE],
+                          apply_act(p.act[A_FLOW], field(F_FLOW, c))) * dt;
+      }
       v = v + apply_act(p.act[A_PO_STAGE],
                         apply_act(p.act[A_POFF], field(F_POFF, c))) * po_fac;
       vals[c] = (v - p.aabb_lo[c]) * p.aabb_inv[c] - 1.0f;

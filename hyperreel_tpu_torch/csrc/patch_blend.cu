@@ -1,6 +1,9 @@
-// Patch-blend kernel (K4): the space features of the coherent patch-gather
-// route, one bf16 row of C channels per sample, for the pre-blended shade
-// kernel (shade.cu, shade_preblended_launch) that reads them.
+// Patch-blend kernel (K4): the features of one plane of the coherent
+// patch-gather route, one bf16 row of C channels per sample, for the
+// pre-blended shade kernels that read them (shade.cu
+// shade_preblended_launch: the flagship's space plane; shade_multi.cu
+// shade_multi_preblended_launch: each of the static net's three planes,
+// one K4 launch per plane, its coordinates in pack rows (m0, m1)).
 //
 // Replaces hyperreel_tpu/ops/pallas/patch_blend.py:_patch_blend_kernel
 // together with patch_anchor_idx and the XLA patch-row gather that fed it.
@@ -10,9 +13,12 @@
 // at its position in the caller's order (the pack's order), instead of the
 // TPU's phase-major [R*C, J] tiles.
 //
-// Bound on the H100 by device-memory bytes: per sample it reads two pack
-// rows (xn, yn) and the two that decide validity (zn, dist), px*py*C*2 / R
-// bytes of patch row, and writes its 2*C-byte feature row. Design: the
+// Bound on the H100 by device-memory bytes: per sample it reads the four
+// pack rows that hold its point and decide validity (xn, yn, zn, dist),
+// px*py*C*2 / R bytes of patch row, and writes its 2*C-byte feature row.
+// With a flag buffer it also marks each violating slot (flags[j*S + s] =
+// 1), so that one count over the buffer after the three launches of the
+// multi-axis route gives the OR over the planes. Design: the
 // anchors, the shared-memory patch rows and the hat blend of
 // patch_core.cuh (see there), then each lane writes its row with 16-byte
 // stores. Built for C in {8, 16} and R in {4, 8}.
@@ -36,6 +42,7 @@ __global__ void __launch_bounds__(kPatchThreads)
     patch_blend_kernel(const uint4* __restrict__ ptab,
                        const float* __restrict__ pack,
                        uint4* __restrict__ feats, int* __restrict__ viol,
+                       unsigned char* __restrict__ flags,
                        const __grid_constant__ PatchParams q) {
   extern __shared__ uint4 smem[];
   const Slot t = thread_slot<R>(q);
@@ -48,9 +55,10 @@ __global__ void __launch_bounds__(kPatchThreads)
     pk[i] = t.live ? __ldg(pack + (int64_t)i * N + g) : 0.0f;
   }
   const bool valid = t.live && sample_valid(pk);
+  const PatchAxis ax = single_axis(ptab, q);
+  const uint4* row;
   float u, v;
-  const uint4* row =
-      stage_patch<R>(ptab, q, t, pk[0], pk[1], valid, smem, viol, u, v);
+  stage_patches<R, 1>(&ax, q, t, pk, valid, smem, viol, flags, &row, &u, &v);
   if (!t.live) return;
 
   float feat[C];
@@ -66,34 +74,38 @@ __global__ void __launch_bounds__(kPatchThreads)
 
 template <int C, int R>
 cudaError_t launch(const uint4* ptab, const float* pack, uint4* feats,
-                   int* viol, const PatchParams& q, cudaStream_t st) {
+                   int* viol, unsigned char* flags, const PatchParams& q,
+                   cudaStream_t st) {
   const int64_t J = q.B / R;
   const int per_block = kPatchThreads / (R * q.S);
   const unsigned blocks = (unsigned)((J + per_block - 1) / per_block);
-  patch_blend_kernel<C, R><<<blocks, kPatchThreads, smem_bytes(q), st>>>(
-      ptab, pack, feats, viol, q);
+  patch_blend_kernel<C, R>
+      <<<blocks, kPatchThreads, single_smem_bytes(q), st>>>(
+          ptab, pack, feats, viol, flags, q);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int patch_blend_launch(const void* ptab, const float* pack,
-                                  void* feats, int* viol,
+                                  void* feats, int* viol, void* flags,
                                   const PatchParams* q, void* stream) {
   const int S = q->S;
   if (S < 1 || S > 32 || (S & (S - 1)) || (q->R != 4 && q->R != 8) ||
-      q->B % q->R || smem_bytes(*q) > 48 * 1024) {
+      q->B % q->R || single_smem_bytes(*q) > 48 * 1024 || q->m0 < 0 ||
+      q->m0 > 2 || q->m1 < 0 || q->m1 > 2) {
     return (int)cudaErrorInvalidValue;
   }
   if (q->B == 0) return 0;
   const uint4* pt = static_cast<const uint4*>(ptab);
   uint4* f = static_cast<uint4*>(feats);
+  unsigned char* fl = static_cast<unsigned char*>(flags);
   cudaStream_t st = (cudaStream_t)stream;
   switch (q->C * 10 + q->R) {
-    case 84: return (int)launch<8, 4>(pt, pack, f, viol, *q, st);
-    case 88: return (int)launch<8, 8>(pt, pack, f, viol, *q, st);
-    case 164: return (int)launch<16, 4>(pt, pack, f, viol, *q, st);
-    case 168: return (int)launch<16, 8>(pt, pack, f, viol, *q, st);
+    case 84: return (int)launch<8, 4>(pt, pack, f, viol, fl, *q, st);
+    case 88: return (int)launch<8, 8>(pt, pack, f, viol, fl, *q, st);
+    case 164: return (int)launch<16, 4>(pt, pack, f, viol, fl, *q, st);
+    case 168: return (int)launch<16, 8>(pt, pack, f, viol, fl, *q, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,19 +1,23 @@
-// Device code shared by the two kernels of the coherent patch-gather route:
-// K3 (shade_patch.cu, the blend inside the shade kernel) and K4
-// (patch_blend.cu, the blend alone). Port of hyperreel_tpu/ops/
-// patch_gather.py and the blend of ops/pallas/patch_blend.py:
-// _patch_blend_kernel with patch_anchor_idx.
+// Device code shared by the kernels of the coherent patch-gather routes:
+// K3 (shade_patch.cu, the blend inside the flagship's shade kernel), K4
+// (patch_blend.cu, the blend alone, on any plane axis) and K6
+// (shade_multi_patch.cu, the blend of the three plane axes inside the
+// multi-axis shade kernel). Port of hyperreel_tpu/ops/patch_gather.py and
+// the blend of ops/pallas/patch_blend.py:_patch_blend_kernel with
+// patch_anchor_idx.
 //
 // A coherent block j is R rays of one chunk; at every sample slot s the R
-// rays' samples share one patch row: px*py texels of C bf16 channels,
-// texel t = ty*px + tx channel-major, anchored at (x0, y0) = clip(floor(
-// min over the R rays of the unnormalised coordinate), -1, W-1 / H-1).
-// Ray p of block j is the caller's ray R*j + p, found at position R*j + p,
-// or at p*(B/R) + j when the caller delivers the rays phase-major; the
-// kernels read and write each ray at its position, so there is no
-// permutation and no index array. A sample's feature is
+// rays' samples share one patch row per plane axis: px*py texels of C bf16
+// channels, texel t = ty*px + tx channel-major, anchored at (x0, y0) =
+// clip(floor(min over the R rays of the unnormalised coordinate), -1, W-1 /
+// H-1), the coordinates being the plane's two point components (pack rows
+// m0 and m1: 0 and 1 for the flagship's space plane, MAT_MODE of the static
+// net's axis otherwise). Ray p of block j is the caller's ray R*j + p,
+// found at position R*j + p, or at p*(B/R) + j when the caller delivers the
+// rays phase-major; the kernels read and write each ray at its position, so
+// there is no permutation and no index array. A sample's feature is
 //   sum over ty < py, tx < px of max(0, 1-|u-tx|) * max(0, 1-|v-ty|) *
-//   patch[t],  u = (xn+1)*0.5*(W-1) - x0, v likewise,
+//   patch[t],  u = (x+1)*0.5*(W-1) - x0, v likewise,
 // which is the bilinear lookup when the sample's 2x2 footprint lies in the
 // patch and zero-degrades where it leaves it. Only the taps floor(u),
 // floor(u)+1 (and those of v) can have a non-zero hat weight, so a thread
@@ -21,7 +25,7 @@
 // the full sum). The kernels also count the coverage violations: the
 // slots whose valid samples' footprint exits the patch on some axis,
 // floor(max) - floor(min) > p - 2 (hyperreel_tpu/models/fused_eval.py
-// patch_coverage_viol).
+// patch_coverage_viol, the OR over every plane's two coordinates).
 //
 // Thread layout of a CUDA block of kPatchThreads threads: G = kPatchThreads
 // / (R*S) coherent blocks; thread (jb*R + p)*S + s holds sample s of ray p
@@ -31,34 +35,43 @@
 
 #include "shade_core.cuh"
 
-// global scope: see the note on PackParams in pack_build.cu
+// global scope: see the note on PackParams in pack_build.cu. K3 and K4 read
+// every field; K6 reads B, S, R, px, py and phase_major (its planes' shapes
+// are in its MultiParams).
 struct PatchParams {
-  int B, S, W, H, C, R, px, py, phase_major;
+  int B, S, W, H, C, R, px, py, phase_major, m0, m1;
 };
 
 constexpr int kPatchThreads = 256;
+constexpr int kMaxPatchAxes = 3;
 
 namespace patch_core {
 
-// 16-byte vectors of one patch row (px*py*C bf16), and the row stride in
-// shared memory: odd, so that the 16-byte loads of 8 neighbouring slots
-// fall in distinct banks
-__host__ __device__ inline int row_vecs(const PatchParams& q) {
-  return q.px * q.py * q.C / 8;
-}
-__host__ __device__ inline int row_stride(const PatchParams& q) {
-  return row_vecs(q) | 1;
-}
+// One plane axis as the prologue sees it: its patch table, its shape, the
+// pack rows of its two coordinates and the 16-byte vectors of one patch
+// row (px*py*C bf16).
+struct PatchAxis {
+  const uint4* ptab;
+  int W, H, m0, m1, vecs;
+};
+
+// the row stride in shared memory: odd, so that the 16-byte loads of 8
+// neighbouring slots fall in distinct banks
+__host__ __device__ inline int row_stride(int vecs) { return vecs | 1; }
+
 // slots (coherent block, sample slot) of one CUDA block
-__host__ __device__ inline int block_slots(const PatchParams& q) {
-  return kPatchThreads / q.R;
+__host__ __device__ inline int block_slots(int R) {
+  return kPatchThreads / R;
 }
-// dynamic shared memory: the slots' patch rows, then per thread xn, yn,
-// valid; per slot x0, y0, row index; one violation count
-__host__ __device__ inline size_t smem_bytes(const PatchParams& q) {
-  return (size_t)block_slots(q) * row_stride(q) * 16 +
-         (size_t)kPatchThreads * 3 * 4 + (size_t)block_slots(q) * 3 * 4 +
-         16;
+
+// dynamic shared memory: each axis's patch rows for the block's slots, then
+// per thread x, y, z and valid; per axis and slot x0, y0 and the row index;
+// one violation count
+__host__ __device__ inline size_t smem_bytes(const int* vecs, int na, int R) {
+  size_t rows = 0;
+  for (int a = 0; a < na; ++a) rows += (size_t)row_stride(vecs[a]);
+  return (size_t)block_slots(R) * rows * 16 + (size_t)kPatchThreads * 4 * 4 +
+         (size_t)na * block_slots(R) * 3 * 4 + 16;
 }
 
 // the thread's coherent block, ray and sample slot, and its ray's position
@@ -84,91 +97,125 @@ __device__ __forceinline__ Slot thread_slot(const PatchParams& q) {
   return t;
 }
 
+// xyz[m] by selects (m is a kernel parameter: no local-memory indexing)
+__device__ __forceinline__ float pick3(const float* xyz, int m) {
+  return m == 0 ? xyz[0] : m == 1 ? xyz[1] : xyz[2];
+}
+
 // the unnormalised texel coordinate (align_corners=True)
 __device__ __forceinline__ float texel(float coord, int size) {
   return (coord + 1.0f) * 0.5f * (float)(size - 1);
 }
 
 // The collective prologue; every thread of the CUDA block calls it with its
-// sample's normalised plane coordinates and validity. Computes each slot's
-// anchor (the min over its R rays, every sample counted, as the JAX
-// anchors do), adds the block's coverage violations to *viol, stages each
-// slot's patch row in shared memory, and returns the thread's row with its
+// sample's normalised point (pack rows 0..2) and validity. For each of the
+// NA plane axes it computes each slot's anchor (the min over its R rays,
+// every sample counted, as the JAX anchors do) and stages each slot's patch
+// row in shared memory; it adds the block's coverage violations (slots that
+// violate on any axis) to *viol, sets flags[j*S + s] = 1 for each such slot
+// when `flags` is not null, and returns per axis the thread's row and its
 // offsets (u, v) inside the patch.
-template <int R>
-__device__ const uint4* stage_patch(const uint4* __restrict__ ptab,
-                                    const PatchParams& q, const Slot& t,
-                                    float xn, float yn, bool valid,
-                                    uint4* smem, int* viol, float& u,
-                                    float& v) {
+template <int R, int NA>
+__device__ __forceinline__ void stage_patches(
+    const PatchAxis* ax, const PatchParams& q, const Slot& t, const float* xyz,
+    bool valid, uint4* smem, int* viol, unsigned char* flags,
+    const uint4** rows, float* u, float* v) {
   const int S = q.S;
-  const int slots = block_slots(q);
-  const int stride = row_stride(q);
-  const int rv = row_vecs(q);
-  float* sx = reinterpret_cast<float*>(smem + (size_t)slots * stride);
-  float* sy = sx + kPatchThreads;
-  int* sok = reinterpret_cast<int*>(sy + kPatchThreads);
-  float* sax = reinterpret_cast<float*>(sok + kPatchThreads);
-  float* say = sax + slots;
-  int* sidx = reinterpret_cast<int*>(say + slots);
-  int* scount = sidx + slots;
+  const int slots = block_slots(R);
+  size_t row_off[NA];
+  size_t off = 0;
+#pragma unroll
+  for (int a = 0; a < NA; ++a) {
+    row_off[a] = off;
+    off += (size_t)slots * row_stride(ax[a].vecs);
+  }
+  float* sc = reinterpret_cast<float*>(smem + off);   // [3][kPatchThreads]
+  int* sok = reinterpret_cast<int*>(sc + 3 * kPatchThreads);
+  float* sax = reinterpret_cast<float*>(sok + kPatchThreads);  // [NA][slots]
+  float* say = sax + NA * slots;
+  int* sidx = reinterpret_cast<int*>(say + NA * slots);
+  int* scount = sidx + NA * slots;
 
   const int tid = threadIdx.x;
   const int slot = t.jb * S + t.s;
-  sx[tid] = xn;
-  sy[tid] = yn;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) sc[c * kPatchThreads + tid] = xyz[c];
   sok[tid] = valid;
   if (tid == 0) *scount = 0;
   __syncthreads();
 
   if (t.p == 0) {
-    int idx = 0;
-    float x0 = 0.0f, y0 = 0.0f;
-    if (t.live) {
-      const int base = t.jb * R * S + t.s;
-      float xmin = sx[base], ymin = sy[base];
-      float lox = 0.0f, hix = 0.0f, loy = 0.0f, hiy = 0.0f;
-      bool any = false;
+    const int base = t.jb * R * S + t.s;
+    bool violates = false;
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float x = sx[base + r * S], y = sy[base + r * S];
-        xmin = fminf(xmin, x);
-        ymin = fminf(ymin, y);
-        if (sok[base + r * S]) {
-          const float fx = floorf(texel(x, q.W)), fy = floorf(texel(y, q.H));
-          lox = any ? fminf(lox, fx) : fx;
-          hix = any ? fmaxf(hix, fx) : fx;
-          loy = any ? fminf(loy, fy) : fy;
-          hiy = any ? fmaxf(hiy, fy) : fy;
-          any = true;
+    for (int a = 0; a < NA; ++a) {
+      const float* sx = sc + ax[a].m0 * kPatchThreads;
+      const float* sy = sc + ax[a].m1 * kPatchThreads;
+      int idx = 0;
+      float x0 = 0.0f, y0 = 0.0f;
+      if (t.live) {
+        float xmin = sx[base], ymin = sy[base];
+        float lox = 0.0f, hix = 0.0f, loy = 0.0f, hiy = 0.0f;
+        bool any = false;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float x = sx[base + r * S], y = sy[base + r * S];
+          xmin = fminf(xmin, x);
+          ymin = fminf(ymin, y);
+          if (sok[base + r * S]) {
+            const float fx = floorf(texel(x, ax[a].W));
+            const float fy = floorf(texel(y, ax[a].H));
+            lox = any ? fminf(lox, fx) : fx;
+            hix = any ? fmaxf(hix, fx) : fx;
+            loy = any ? fminf(loy, fy) : fy;
+            hiy = any ? fmaxf(hiy, fy) : fy;
+            any = true;
+          }
         }
+        violates |= any && (hix - lox > (float)(q.px - 2) ||
+                            hiy - loy > (float)(q.py - 2));
+        x0 = fminf(fmaxf(floorf(texel(xmin, ax[a].W)), -1.0f),
+                   (float)(ax[a].W - 1));
+        y0 = fminf(fmaxf(floorf(texel(ymin, ax[a].H)), -1.0f),
+                   (float)(ax[a].H - 1));
+        idx = ((int)y0 + 1) * (ax[a].W + 1) + ((int)x0 + 1);
       }
-      if (any && (hix - lox > (float)(q.px - 2) ||
-                  hiy - loy > (float)(q.py - 2))) {
-        atomicAdd(scount, 1);
-      }
-      x0 = fminf(fmaxf(floorf(texel(xmin, q.W)), -1.0f), (float)(q.W - 1));
-      y0 = fminf(fmaxf(floorf(texel(ymin, q.H)), -1.0f), (float)(q.H - 1));
-      idx = ((int)y0 + 1) * (q.W + 1) + ((int)x0 + 1);
+      sax[a * slots + slot] = x0;
+      say[a * slots + slot] = y0;
+      sidx[a * slots + slot] = idx;
     }
-    sax[slot] = x0;
-    say[slot] = y0;
-    sidx[slot] = idx;
+    if (violates) {
+      atomicAdd(scount, 1);
+      if (flags) flags[t.j * S + t.s] = 1;
+    }
   }
   __syncthreads();
 
-  for (int i = tid; i < slots * rv; i += kPatchThreads) {
-    const int sl = i / rv, k = i - sl * rv;
-    smem[sl * stride + k] = __ldg(ptab + (int64_t)sidx[sl] * rv + k);
+#pragma unroll
+  for (int a = 0; a < NA; ++a) {
+    const int rv = ax[a].vecs, stride = row_stride(rv);
+    uint4* dst = smem + row_off[a];
+    const int* idx = sidx + a * slots;
+    for (int i = tid; i < slots * rv; i += kPatchThreads) {
+      const int sl = i / rv, k = i - sl * rv;
+      dst[sl * stride + k] = __ldg(ax[a].ptab + (int64_t)idx[sl] * rv + k);
+    }
   }
   if (tid == 0 && *scount) atomicAdd(viol, *scount);
   __syncthreads();
 
-  // op order of the JAX kernels: ((xn + 1) * 0.5) * (W - 1) - x0, with no
+  // op order of the JAX kernels: ((x + 1) * 0.5) * (W - 1) - x0, with no
   // fused multiply-add
-  u = __fmul_rn((xn + 1.0f) * 0.5f, (float)(q.W - 1)) - sax[slot];
-  v = __fmul_rn((yn + 1.0f) * 0.5f, (float)(q.H - 1)) - say[slot];
-  return smem + slot * stride;
+#pragma unroll
+  for (int a = 0; a < NA; ++a) {
+    u[a] = __fmul_rn((pick3(xyz, ax[a].m0) + 1.0f) * 0.5f,
+                     (float)(ax[a].W - 1)) -
+           sax[a * slots + slot];
+    v[a] = __fmul_rn((pick3(xyz, ax[a].m1) + 1.0f) * 0.5f,
+                     (float)(ax[a].H - 1)) -
+           say[a * slots + slot];
+    rows[a] = smem + row_off[a] + slot * row_stride(ax[a].vecs);
+  }
 }
 
 // The hat blend of one sample from its slot's patch row (see the top).
@@ -196,6 +243,19 @@ __device__ __forceinline__ void patch_features(const uint4* row, float u,
       }
     }
   }
+}
+
+// The one plane axis of a K3/K4 launch, from its PatchParams
+__device__ __forceinline__ PatchAxis single_axis(const void* ptab,
+                                                 const PatchParams& q) {
+  return PatchAxis{static_cast<const uint4*>(ptab), q.W, q.H, q.m0, q.m1,
+                   q.px * q.py * q.C / 8};
+}
+
+// K3/K4's shared memory (one axis)
+inline size_t single_smem_bytes(const PatchParams& q) {
+  const int vecs = q.px * q.py * q.C / 8;
+  return smem_bytes(&vecs, 1, q.R);
 }
 
 }  // namespace patch_core

@@ -90,15 +90,8 @@ __global__ void shade_kernel(const uint4* __restrict__ space,
     shade_sample<C>(feat, pk, ray, ttab, p, sigma, rgb);
   }
 
-  const float dist = pk[3];
-  const float w = composite_weight(sigma, dist, p.distance_scale, s, S);
-  float v[5] = {w * rgb[0], w * rgb[1], w * rgb[2], w, w * dist};
-  segment_sum<5>(v, S);
-  if (live && s == 0) {
-    float* o = out + (g / S) * 5;
-#pragma unroll
-    for (int i = 0; i < 5; ++i) o[i] = v[i];
-  }
+  composite_store(sigma, rgb, pk[3], p.distance_scale, s, S, live,
+                  out + (live ? g / S : 0) * 5);
 }
 
 template <bool kPre>

@@ -1,8 +1,9 @@
-// Device code shared by the shade kernels (K2 shade.cu, K3 shade_patch.cu)
-// and the standalone composite (K7 composite.cu): the per-sample shading
-// that follows the space features (time-plane taps, density, SH-2 colour,
-// colour scale/shift) and the per-ray log-space composite over an S-lane
-// segment of a warp.
+// Device code shared by the shade kernels (K2 shade.cu, K3 shade_patch.cu,
+// K5 shade_multi.cu, K6 shade_multi_patch.cu) and the standalone composite
+// (K7 composite.cu): the per-sample shading that follows the space
+// features (time-plane taps and density for K2/K3; the SH-2 colour with
+// its colour scale/shift for all four) and the per-ray log-space composite
+// over an S-lane segment of a warp.
 
 #pragma once
 
@@ -120,10 +121,37 @@ __device__ __forceinline__ bool sample_valid(const float* pk) {
          fabsf(pk[2]) <= 1.0f && pk[3] > 0.0f;
 }
 
+// The SH-2 colour of one valid sample from its C features:
+// rgb = max(sum_k (wb @ feat)_k Y_k + 0.5, 0) * (scale + 1) + shift, with
+// wb [3 * kBasis, C] (rows ch * kBasis + k, colour channel ch; zero on the
+// density channels where feat holds them), Y the bases of the ray's view
+// direction (ray pack row o xyz, d xyz, dt, tn) and the scale and shift
+// in pack rows 4..9.
+template <int C>
+__device__ __forceinline__ void sh_colour(const float* feat, const float* wb,
+                                          const float* pk, const float* ray,
+                                          float* rgb) {
+  constexpr int K = kBasis;
+  float Y[K];
+  sh_basis2(__ldg(ray + 3), __ldg(ray + 4), __ldg(ray + 5), Y);
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    float e = 0.0f;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      float app = 0.0f;
+#pragma unroll
+      for (int c = 0; c < C; ++c) app += wb[(ch * K + k) * C + c] * feat[c];
+      e += app * Y[k];
+    }
+    rgb[ch] = fmaxf(e + 0.5f, 0.0f) * (pk[4 + ch] + 1.0f) + pk[7 + ch];
+  }
+}
+
 // Everything after the space features of one valid sample: the time
 // features (z taps, then t taps, or z taps on a table premixed for one t
 // when p.TH == 0), density = relu of the summed density channels, and the
-// SH-2 colour max(sum_k (wb @ prod)_k Y_k + 0.5, 0) * (scale + 1) + shift.
+// SH-2 colour of the products (sh_colour).
 // `feat` holds the C space features and is overwritten; `pk` the sample's
 // 10 pack rows, `ray` its ray pack row (o xyz, d xyz, dt, tn).
 template <int C>
@@ -132,7 +160,6 @@ __device__ __forceinline__ void shade_sample(float* feat, const float* pk,
                                              const float* ttab,
                                              const ShadeParams& p,
                                              float& sigma, float* rgb) {
-  constexpr int K = kBasis;
   const Taps tz = taps(pk[2], p.TW);
   float ft[C];
   if (p.TH == 0) {
@@ -161,22 +188,7 @@ __device__ __forceinline__ void shade_sample(float* feat, const float* pk,
     if (c < p.nd) dsum += feat[c];
   }
   sigma = fmaxf(dsum, 0.0f);
-  float Y[K];
-  sh_basis2(__ldg(ray + 3), __ldg(ray + 4), __ldg(ray + 5), Y);
-#pragma unroll
-  for (int ch = 0; ch < 3; ++ch) {
-    float e = 0.0f;
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      float app = 0.0f;
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        app += p.wb[(ch * K + k) * C + c] * feat[c];
-      }
-      e += app * Y[k];
-    }
-    rgb[ch] = fmaxf(e + 0.5f, 0.0f) * (pk[4 + ch] + 1.0f) + pk[7 + ch];
-  }
+  sh_colour<C>(feat, p.wb, pk, ray, rgb);
 }
 
 // The composite weight of this lane's sample in its ray, over the S-lane
@@ -212,6 +224,23 @@ __device__ __forceinline__ void segment_sum(float* v, int S) {
   for (int off = S >> 1; off >= 1; off >>= 1) {
 #pragma unroll
     for (int i = 0; i < NV; ++i) v[i] += __shfl_xor_sync(full, v[i], off, S);
+  }
+}
+
+// The per-ray tail every shade kernel ends with: this lane's composite
+// weight, the segment's sums r, g, b, acc, depth, and lane 0 of the
+// segment writes them to `out` (f32 [5]) when `store`. Every lane of the
+// warp must call it.
+__device__ __forceinline__ void composite_store(float sigma, const float* rgb,
+                                                float dist, float scale, int s,
+                                                int S, bool store,
+                                                float* out) {
+  const float w = composite_weight(sigma, dist, scale, s, S);
+  float v[5] = {w * rgb[0], w * rgb[1], w * rgb[2], w, w * dist};
+  segment_sum<5>(v, S);
+  if (store && s == 0) {
+#pragma unroll
+    for (int i = 0; i < 5; ++i) out[i] = v[i];
   }
 }
 

@@ -49,9 +49,11 @@ __global__ void __launch_bounds__(kPatchThreads)
     pk[i] = t.live ? __ldg(pack + (int64_t)i * N + g) : 0.0f;
   }
   const bool valid = t.live && sample_valid(pk);
+  const PatchAxis ax = single_axis(ptab, q);
+  const uint4* row;
   float u, v;
-  const uint4* row =
-      stage_patch<R>(ptab, q, t, pk[0], pk[1], valid, smem, viol, u, v);
+  stage_patches<R, 1>(&ax, q, t, pk, valid, smem, viol, nullptr, &row, &u,
+                      &v);
 
   float sigma = 0.0f;
   float rgb[3] = {0.0f, 0.0f, 0.0f};
@@ -61,15 +63,8 @@ __global__ void __launch_bounds__(kPatchThreads)
     shade_sample<C>(feat, pk, rays + t.pos * 8, ttab, p, sigma, rgb);
   }
 
-  const float dist = pk[3];
-  const float w = composite_weight(sigma, dist, p.distance_scale, t.s, S);
-  float o5[5] = {w * rgb[0], w * rgb[1], w * rgb[2], w, w * dist};
-  segment_sum<5>(o5, S);
-  if (t.live && t.s == 0) {
-    float* o = out + t.pos * 5;
-#pragma unroll
-    for (int i = 0; i < 5; ++i) o[i] = o5[i];
-  }
+  composite_store(sigma, rgb, pk[3], p.distance_scale, t.s, S, t.live,
+                  out + t.pos * 5);
 }
 
 template <int C, int R>
@@ -77,7 +72,7 @@ cudaError_t launch(const uint4* ptab, const float* pack, const float* rays,
                    const float* ttab, float* out, int* viol,
                    const ShadeParams& p, const PatchParams& q,
                    cudaStream_t st) {
-  const size_t smem = smem_bytes(q);
+  const size_t smem = single_smem_bytes(q);
   const int64_t J = q.B / R;
   const int per_block = kPatchThreads / (R * q.S);
   const unsigned blocks = (unsigned)((J + per_block - 1) / per_block);
@@ -96,7 +91,7 @@ extern "C" int shade_patch_launch(const void* ptab, const float* pack,
   const int S = q->S;
   if (S < 1 || S > 32 || (S & (S - 1)) || p->S != S || p->B != q->B ||
       p->C != q->C || (q->R != 4 && q->R != 8) || q->B % q->R ||
-      smem_bytes(*q) > 48 * 1024) {
+      single_smem_bytes(*q) > 48 * 1024) {
     return (int)cudaErrorInvalidValue;
   }
   if (q->B == 0) return 0;

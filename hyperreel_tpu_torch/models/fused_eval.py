@@ -1,17 +1,26 @@
-"""Fused eval render of the flagship dynamic model on CUDA kernels (port of
-hyperreel_tpu/models/fused_eval.py FusedCFEval, dyn1 routes).
+"""Fused eval render on CUDA kernels (port of hyperreel_tpu/models/
+fused_eval.py FusedCFEval): the flagship's dynamic single-axis routes and
+the static multi-axis routes of the llff_z_plane family.
 
   rays -> encodings -> K1 pack_build (the prediction MLP, its last
   layer's columns permuted field-major on the host; field activations, z,
-  distances, sort, advection, offsets, normalisation: the per-sample
-  pack) -> the space features, the time features, density, SH colour,
-  composite -> rgb, on one of three routes:
+  the scene contraction, distances, sort, advection, offsets,
+  normalisation: the per-sample pack) -> the grid features, density, SH
+  colour, composite -> rgb, on one of three routes.
 
+The flagship (dynamic, one space plane x one time plane):
   quad   K2 shade reads each sample's quad-table row;
   patch  (coherent_gather [px, py, R] in the net config) K3 shade_patch
          blends each (block, slot)'s patch row inside the shade kernel;
          with HYPERREEL_FUSED_PATCH=0 (or false), K4 patch_blend writes
          bf16 features and K2 shade_preblended reads them.
+The static VM net (three plane x line axes):
+  quad   K5 shade_multi reads each sample's three quad-table rows;
+  patch  K4 patch_blend once per plane (bf16 features) then K5
+         shade_multi_preblended (the JAX package's default multi-axis
+         patch route); with HYPERREEL_FUSED_PATCH_MULTI=1, K6
+         shade_multi_patch blends the three planes inside the shade
+         kernel.
 
 The patch route is the JAX package's coherent patch-gather: coherent
 block j is the caller's rays R*j .. R*j+R-1 (R = 8 when the config asks
@@ -19,20 +28,23 @@ for 8, else 4); `render_kwargs["rays_phase_major"]` says the caller
 delivers them phase-major (ray R*j+p at position p*(B/R)+j, as bench.py
 does) and takes the outputs in that order. The kernels find a block's
 rays by that stride, so no ray is permuted. The port takes the patch
-route whenever B % R == 0 (the JAX package also needs its tile to
-divide). It is exact where every block's footprint fits the patch and
+route whenever B % R == 0 (the JAX package also needs its tile to divide)
+and every plane's channel count is a multiple of 8 (the JAX package's
+structural gate, fused_eval.py:688-695; other counts take the quad
+route). It is exact where every block's footprint fits the patch and
 zero-degrades where it does not; the call returns the witness
 outputs["patch_coverage_viol"] = the fraction of (block, slot) pairs
-whose valid samples' footprint exits the patch (ops/kernels/
-patch_blend.py), for the caller to gate on (bench.py holds it to 1e-4).
+whose valid samples' footprint exits the patch on some plane axis
+(ops/kernels/patch_blend.py), for the caller to gate on (bench.py holds
+it to 1e-4).
 
 `uniform_time` (every ray of the call shares one t, as in a frame render)
-premixes the keyframe rows of the time plane for that t on the device,
-and the call returns the witness outputs["uniform_time_viol"] = max |tn -
-tn[0]|. Configurations that the JAX package renders on another fused
-route raise NotImplementedError; chains that are not the flagship pattern
-have no fused path and take the general stage chain, as in the JAX
-package.
+premixes the flagship's keyframe rows of the time plane for that t on the
+device, and the call returns the witness outputs["uniform_time_viol"] =
+max |tn - tn[0]|; static nets have no time and ignore it. Dynamic
+multi-axis nets (K5/K6 with time planes) and more than 32 samples per ray
+raise NotImplementedError; chains that are not the two fused patterns have
+no fused path and take the general stage chain, as in the JAX package.
 """
 
 import os
@@ -42,17 +54,25 @@ import torch
 
 from hyperreel_tpu_torch.models.activations import Activation
 from hyperreel_tpu_torch.models.embeddings import get_base_time
+from hyperreel_tpu_torch.models.tensorf import (
+    TensorVMKeyframeTime, TensorVMNoSample)
 from hyperreel_tpu_torch.ops.kernels.pack_build import (
-    PackSpec, mlp_tables, pack_build)
+    MAX_S, PackSpec, mlp_tables, pack_build)
 from hyperreel_tpu_torch.ops.kernels.patch_blend import PatchSpec, patch_blend
 from hyperreel_tpu_torch.ops.kernels.shade import (
     ShadeSpec, basis_table, premix_time, quad_table, shade, shade_preblended,
     time_table)
+from hyperreel_tpu_torch.ops.kernels.shade_multi import (
+    AxisSpec, MultiSpec, line_table, multi_basis_table, shade_multi,
+    shade_multi_preblended)
+from hyperreel_tpu_torch.ops.kernels.shade_multi_patch import (
+    shade_multi_patch)
 from hyperreel_tpu_torch.ops.kernels.shade_patch import shade_patch
 from hyperreel_tpu_torch.ops.patch_gather import build_patch_table_2d
 
 DYN_CHAIN = ["ray_prediction_0", "ray_intersect_0", "flow_0",
              "point_offset_0", "add_point_outputs_0", "extract_fields"]
+STATIC_CHAIN = [n for n in DYN_CHAIN if n != "flow_0"]
 
 
 def _stages(model):
@@ -60,26 +80,36 @@ def _stages(model):
 
 
 def cf_eligible(model):
-    """Structural eligibility: the technicolor_z_plane-family chain
-    (hyperreel_tpu/models/fused_eval.py cf_eligible, dynamic chain)."""
+    """Structural eligibility: the technicolor_z_plane-family dynamic chain
+    or the llff_z_plane-family static chain (hyperreel_tpu/models/
+    fused_eval.py cf_eligible:45-159, without the compaction and stride
+    stages the port does not have)."""
     names = [n for n, _ in model.embedding.stages]
-    if names != DYN_CHAIN:
+    if names not in (DYN_CHAIN, STATIC_CHAIN):
         return False
     st = _stages(model)
     pred, isect = st["ray_prediction_0"], st["ray_intersect_0"].intersect
-    flow, po = st["flow_0"], st["point_offset_0"]
+    po = st["point_offset_0"]
     net = model.color_net
-    return (model.ray_param.name == "identity"
+    if names == DYN_CHAIN:
+        flow = st["flow_0"]
+        chain_ok = (isinstance(net, TensorVMKeyframeTime)
+                    and flow.use_spatial_flow
+                    and "spatial_flow" in pred.output_names)
+    else:
+        chain_ok = isinstance(net, TensorVMNoSample)
+    S = pred.z_channels
+    return (chain_ok
+            and model.ray_param.name == "identity"
             and pred.net.activation == "identity"
             and isect.sort and isect.near == 0.0
             and isect.far == float("inf")
             and isect.mask_stop_iters == float("inf")
             and not np.any(isect.origin != 0.0)
-            and flow.use_spatial_flow
-            and "spatial_flow" in pred.output_names
             and "point_offset" in pred.output_names
             and (not po.use_sigma or po.in_density_field
                  in pred.output_names)
+            and S & (S - 1) == 0
             and net.fused_eligible and net.fused_render)
 
 
@@ -91,37 +121,48 @@ class FusedCFEval:
         st = _stages(model)
         self.pred = st["ray_prediction_0"]
         self.isect = st["ray_intersect_0"].intersect
-        self.flow = st["flow_0"]
+        self.flow = st.get("flow_0")          # None for static chains
         self.po = st["point_offset_0"]
         self.net = model.color_net
-        if len(self.net.active_density) != 1:
-            raise NotImplementedError(
-                "multi-axis fused render is not ported (ROADMAP.md: K5/K6 "
-                "and the other net families)")
-        # coherent patch-gather: [px, py] and the block size R (8 when
-        # the config says 8, else 4, as the JAX package takes it)
-        pc = self.net.cfg.get("coherent_gather")
-        self.patch_cfg = (int(pc[0]), int(pc[1])) if pc else None
-        self.patch_block = 8 if pc and len(pc) > 2 and int(pc[2]) == 8 \
-            else 4
         self.S = self.pred.z_channels
         self.P = self.pred.preds_per_z
+        if self.flow is not None and len(self.net.active_density) != 1:
+            raise NotImplementedError(
+                "the fused render of dynamic multi-axis nets (K5/K6 with "
+                "time planes, TH > 0) is not ported (ROADMAP.md: the "
+                "neural_3d slice)")
+        if self.S > MAX_S:
+            raise NotImplementedError(
+                f"S={self.S}: the kernels hold one ray per warp segment, S "
+                f"<= {MAX_S} (ROADMAP.md: the neural_3d slice, S = 64)")
+        # coherent patch-gather: [px, py] and the block size R (8 when
+        # the config says 8, else 4, as the JAX package takes it); planes
+        # whose channel count is not a multiple of 8 take the quad route
+        # (the JAX package's structural gate, fused_eval.py:688-695)
+        pc = self.net.cfg.get("coherent_gather")
+        chans = [self.net.density_n_comp[i] + self.net.app_n_comp[i]
+                 for i in self.net.active_density]
+        self.patch_cfg = (int(pc[0]), int(pc[1])) \
+            if pc and not any(c % 8 for c in chans) else None
+        self.patch_block = 8 if pc and len(pc) > 2 and int(pc[2]) == 8 \
+            else 4
         offs, off = {}, 0
         for name, width in zip(self.pred.output_names,
                                self.pred.output_shapes):
             offs[name] = off
             off += width
         acts = dict(zip(self.pred.output_names, self.pred.activations))
-        slots = {"z": "z_vals", "sigma": "sigma", "flow": "spatial_flow",
-                 "poff": "point_offset", "cs": "color_scale",
-                 "csh": "color_shift"}
+        slots = {"z": "z_vals", "sigma": "sigma", "poff": "point_offset",
+                 "cs": "color_scale", "csh": "color_shift"}
+        if self.flow is not None:
+            slots["flow"] = "spatial_flow"
         if self.po.use_sigma:
             slots["psig"] = self.po.in_density_field
         foff = {k: offs[n] for k, n in slots.items() if n in offs}
         fa = {k: acts[n] for k, n in slots.items() if n in offs}
-        fa.update(isect=self.isect.activation,
-                  flow_stage=self.flow.spatial_flow_activation,
-                  po_stage=self.po.activation)
+        fa.update(isect=self.isect.activation, po_stage=self.po.activation)
+        if self.flow is not None:
+            fa["flow_stage"] = self.flow.spatial_flow_activation
         for k, a in fa.items():
             if not isinstance(a, Activation):
                 raise NotImplementedError(
@@ -135,7 +176,8 @@ class FusedCFEval:
             z_scale=np.broadcast_to(
                 np.asarray(self.isect.z_scale, np.float32).reshape(-1),
                 (self.S,)).copy(),
-            aabb=np.asarray(self.net.aabb, np.float32))
+            aabb=np.asarray(self.net.aabb, np.float32),
+            contract=self.isect.contract)
 
     def ok(self, ctx, render_kwargs):
         """Per-call gate (hyperreel_tpu FusedCFEval.ok)."""
@@ -147,23 +189,32 @@ class FusedCFEval:
                     or render_kwargs.get("no_over_fields"))
 
     def prepare(self, params):
-        """Per-checkpoint tables: K1's MLP tables (last layer field-major),
-        the bf16 quad table of the space plane (and its bf16 patch table
-        on the patch route), the f32 time plane and the host basis
-        table."""
-        cp = params["color"]
+        """Per-checkpoint tables: K1's MLP tables (last layer field-major)
+        and the grid tables of the net's shade kernels (with the patch
+        tables on the patch route)."""
         # field-major column c*S + s <- the MLP's output column s*P + c
         perm = torch.as_tensor(np.arange(self.S * self.P).reshape(
             self.S, self.P).T.reshape(-1))
-        mlp = mlp_tables(self.pred.net,
-                         params["embedding"]["ray_prediction_0"]["net"], perm)
+        prep = {"mlp": mlp_tables(
+            self.pred.net, params["embedding"]["ray_prediction_0"]["net"],
+            perm)}
+        cp = params["color"]
+        if self.flow is not None:
+            prep.update(self._prepare_dyn1(cp))
+        else:
+            prep.update(self._prepare_multi(cp))
+        return prep
+
+    def _prepare_dyn1(self, cp):
+        """The bf16 quad table of the space plane (and its bf16 patch
+        table on the patch route), the f32 time plane and the host basis
+        table."""
         space = torch.cat([cp["density"]["space_0"], cp["app"]["space_0"]],
                           -1)
         timep = torch.cat([cp["density"]["time_0"], cp["app"]["time_0"]],
                           -1)
         nd = self.net.density_n_comp[0]
-        prep = {"mlp": mlp, "quad": quad_table(space),
-                "ttab": time_table(timep),
+        prep = {"quad": quad_table(space), "ttab": time_table(timep),
                 "wb": basis_table(cp["basis_mat"]["weight"], nd),
                 "dims": (space.shape[0], space.shape[1], timep.shape[0],
                          timep.shape[1], space.shape[2], nd)}
@@ -172,15 +223,50 @@ class FusedCFEval:
                                                  *self.patch_cfg)
         return prep
 
+    def _prepare_multi(self, cp):
+        """Per axis the bf16 quad table of its plane (and its bf16 patch
+        table on the patch route) and its f32 line; the host basis table
+        over the concatenated appearance channels."""
+        quads, lines, ptabs, axes = [], [], [], []
+        for i in self.net.active_density:
+            plane = torch.cat([cp["density"][f"plane_{i}"],
+                               cp["app"][f"plane_{i}"]], -1)
+            line = torch.cat([cp["density"][f"line_{i}"],
+                              cp["app"][f"line_{i}"]], -1)
+            H, W, C = plane.shape
+            axes.append(AxisSpec(index=i, W=W, H=H, L=line.shape[0], C=C,
+                                 nd=self.net.density_n_comp[i]))
+            quads.append(quad_table(plane))
+            lines.append(line_table(line))
+            if self.patch_cfg is not None:
+                ptabs.append(build_patch_table_2d(plane.to(torch.bfloat16),
+                                                  *self.patch_cfg))
+        prep = {"quads": quads, "lines": lines, "axes": tuple(axes),
+                "wb": multi_basis_table(cp["basis_mat"]["weight"])}
+        if ptabs:
+            prep["ptabs"] = ptabs
+        return prep
+
     def ray_pack(self, rays):
         """[B, 8] rows o xyz, d xyz, dt = t - base_t, tn (keyframe time
-        coordinate of base_t)."""
-        t = rays[:, 7] if rays.shape[1] > 7 else rays.new_zeros(rays.shape[0])
+        coordinate of base_t); dt = tn = 0 for static chains."""
+        B = rays.shape[0]
+        if self.flow is None:
+            return torch.cat([rays[:, :6], rays.new_zeros(B, 2)],
+                             1).contiguous()
+        t = rays[:, 7] if rays.shape[1] > 7 else rays.new_zeros(B)
         base_t = get_base_time(t, self.flow.num_keyframes,
                                self.flow.num_frames)
         tn = self.net.normalize_time_coord(base_t)
         return torch.cat([rays[:, :6], (t - base_t)[:, None], tn[:, None]],
                          1).contiguous()
+
+    def patch_specs(self, axes, phase_major):
+        """One PatchSpec per plane: (W, H, C, coordinate rows m0, m1)."""
+        return [PatchSpec(R=self.patch_block, px=self.patch_cfg[0],
+                          py=self.patch_cfg[1], W=W, H=H, C=C, S=self.S,
+                          phase_major=phase_major, m0=m0, m1=m1)
+                for W, H, C, m0, m1 in axes]
 
     def apply(self, params, rays, ctx, render_kwargs=None):
         render_kwargs = render_kwargs or {}
@@ -188,35 +274,18 @@ class FusedCFEval:
         net_in = self.pred.net_input(rays, ctx).float().contiguous()
         rp = self.ray_pack(rays)
         pack = pack_build(net_in, prep["mlp"], rp, self.spec, ctx.it)
-
-        H, W, TH, TW, C, nd = prep["dims"]
-        ttab = prep["ttab"]
-        outputs = {}
-        if render_kwargs.get("uniform_time"):
-            tn = rp[:, 7]
-            outputs["uniform_time_viol"] = (tn - tn[0]).abs().max()
-            ttab, TH = premix_time(ttab, tn[0]), 0
-        spec = ShadeSpec(S=self.S, W=W, H=H, TW=TW, TH=TH, C=C, nd=nd,
-                         deg=self.net.sh_deg,
-                         distance_scale=self.net.distance_scale)
         B = rays.shape[0]
-        if self.patch_cfg is not None and B % self.patch_block == 0:
-            pspec = PatchSpec(
-                R=self.patch_block, px=self.patch_cfg[0],
-                py=self.patch_cfg[1], W=W, H=H, C=C, S=self.S,
-                phase_major=bool(render_kwargs.get("rays_phase_major")))
-            if os.environ.get("HYPERREEL_FUSED_PATCH", "1") not in (
-                    "0", "false"):
-                out, viol = shade_patch(prep["patch"], pack, rp, ttab,
-                                        prep["wb"], spec, pspec)
-            else:
-                feats, viol = patch_blend(prep["patch"], pack, pspec)
-                out = shade_preblended(feats, pack, rp, ttab, prep["wb"],
-                                       spec)
-            outputs["patch_coverage_viol"] = viol[0].float() / (
-                B // pspec.R * self.S)
+        patch = self.patch_cfg is not None and B % self.patch_block == 0
+        pm = bool(render_kwargs.get("rays_phase_major"))
+        outputs = {}
+        if self.flow is not None:
+            out, viol = self._shade_dyn1(prep, pack, rp, render_kwargs,
+                                         outputs, patch, pm)
         else:
-            out = shade(prep["quad"], pack, rp, ttab, prep["wb"], spec)
+            out, viol = self._shade_multi(prep, pack, rp, patch, pm)
+        if patch:
+            outputs["patch_coverage_viol"] = viol.float() / (
+                B // self.patch_block * self.S)
         rgb = out[:, :3]
         if not self.net.black_bg and self.net.white_bg:
             rgb = rgb + (1.0 - out[:, 3:4])
@@ -224,3 +293,53 @@ class FusedCFEval:
         if "distances" in render_kwargs.get("fields", []):
             outputs["distances"] = out[:, 4:5]
         return outputs
+
+    def _shade_dyn1(self, prep, pack, rp, render_kwargs, outputs, patch, pm):
+        """K2, K3 or K4 + K2-preblended: (out [B, 5], the coverage count
+        or None)."""
+        H, W, TH, TW, C, nd = prep["dims"]
+        ttab = prep["ttab"]
+        if render_kwargs.get("uniform_time"):
+            tn = rp[:, 7]
+            outputs["uniform_time_viol"] = (tn - tn[0]).abs().max()
+            ttab, TH = premix_time(ttab, tn[0]), 0
+        spec = ShadeSpec(S=self.S, W=W, H=H, TW=TW, TH=TH, C=C, nd=nd,
+                         deg=self.net.sh_deg,
+                         distance_scale=self.net.distance_scale)
+        if not patch:
+            return shade(prep["quad"], pack, rp, ttab, prep["wb"],
+                         spec), None
+        pspec, = self.patch_specs([(W, H, C, 0, 1)], pm)
+        if os.environ.get("HYPERREEL_FUSED_PATCH", "1") not in ("0",
+                                                                "false"):
+            out, viol = shade_patch(prep["patch"], pack, rp, ttab,
+                                    prep["wb"], spec, pspec)
+        else:
+            feats, viol = patch_blend(prep["patch"], pack, pspec)
+            out = shade_preblended(feats, pack, rp, ttab, prep["wb"], spec)
+        return out, viol[0]
+
+    def _shade_multi(self, prep, pack, rp, patch, pm):
+        """K5, K6 or K4 per plane + K5-preblended: (out [B, 5], the
+        coverage count or None)."""
+        axes = prep["axes"]
+        spec = MultiSpec(S=self.S, axes=axes, deg=self.net.sh_deg,
+                         distance_scale=self.net.distance_scale)
+        lines, wb = prep["lines"], prep["wb"]
+        if not patch:
+            return shade_multi(prep["quads"], lines, pack, rp, wb,
+                               spec), None
+        pspecs = self.patch_specs(
+            [(a.W, a.H, a.C, a.m0, a.m1) for a in axes], pm)
+        if os.environ.get("HYPERREEL_FUSED_PATCH_MULTI") == "1":
+            out, viol = shade_multi_patch(prep["ptabs"], lines, pack, rp,
+                                          wb, spec, pspecs)
+            return out, viol[0]
+        # one count of the slots that violate on any plane, after the
+        # per-plane blends mark them
+        flags = torch.zeros(pack.shape[1] // self.patch_block,
+                            dtype=torch.uint8, device=pack.device)
+        feats = [patch_blend(t, pack, ps, flags)[0]
+                 for t, ps in zip(prep["ptabs"], pspecs)]
+        out = shade_multi_preblended(feats, lines, pack, rp, wb, spec)
+        return out, flags.sum()

@@ -18,11 +18,15 @@ _NOT_PORTED = ("weight_fn", "sort_outputs", "invalid_sort_far", "normalize",
                "use_local_prediction", "use_dataset_bounds")
 
 
-def make_anchor_schedule(z_channels, cfg):
+def make_anchor_schedule(z_channels, cfg, contract):
     """linspace anchors [S, 1] and z_scale [1, 1] (reference
-    nlf/intersect/z.py:26-71)."""
+    nlf/intersect/z.py:26-71), in contracted space when the contraction
+    has contract_samples."""
     initial = float(cfg.get("initial", 0.0))
     end = float(cfg.get("end", 1.0))
+    if contract.contract_samples:
+        initial, end = (float(contract.contract_distance(
+            torch.tensor(v, dtype=torch.float32))) for v in (initial, end))
     num_repeat = int(cfg.get("num_repeat", 1))
     n = z_channels // num_repeat
     samples = np.linspace(initial, end, n)
@@ -67,16 +71,25 @@ class IntersectZPlane:
         self.mask_stop_iters = float(
             cfg.get("mask", {}).get("stop_iters", float("inf")))
         self.contract = get_contract(cfg.get("contract", None))
+        if cfg.get("contract", {}).get("stop_iters") is not None:
+            raise NotImplementedError(
+                "a scheduled contraction is not ported (ROADMAP.md: long "
+                "tail)")
         self.activation = get_activation(cfg.get("activation", "identity"))
         self.samples, self.z_scale, self.initial, self.end = \
-            make_anchor_schedule(z_channels, cfg)
+            make_anchor_schedule(z_channels, cfg, self.contract)
 
     def process_z_vals(self, z_vals):
+        """Scale and shift against the anchors, then undo the sample-space
+        contraction (reference nlf/intersect/base.py:128-140)."""
         B = z_vals.shape[0]
         z = z_vals.reshape(B, -1, self.z_scale.shape[-1])
         z = z * torch.as_tensor(self.z_scale, device=z.device)[None] \
             + torch.as_tensor(self.samples, device=z.device)[None]
-        return z.reshape(B, -1)
+        z = z.reshape(B, -1)
+        if self.contract.contract_samples:
+            z = self.contract.inverse_contract_distance(z)
+        return z
 
     def apply(self, rays, x, ctx):
         rays = torch.cat([rays[..., :3] - rays.new_tensor(self.origin),
@@ -102,6 +115,13 @@ class IntersectZPlane:
             dists = torch.sort(dists, dim=-1).values      # values only
         dists = dists[..., None]
         points = rays[..., None, :3] + rays[..., None, 3:6] * dists
+        if self.contract.name != "identity":
+            # contract the points and measure the distances in contracted
+            # space (reference nlf/intersect/base.py:242-246)
+            points, dists_c = self.contract.contract_points_and_distance(
+                rays[..., :3], points)
+            dists = torch.where(dists == 0.0, torch.zeros_like(dists),
+                                dists_c)
         if self.out_points is not None:
             x[self.out_points] = points
         if self.out_distance is not None:

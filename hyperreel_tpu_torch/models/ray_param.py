@@ -1,5 +1,5 @@
-"""Ray parameterizations (port of identity and two_plane from
-hyperreel_tpu/models/ray_param.py; reference nlf/param.py:63-118)."""
+"""Ray parameterizations (port of identity, two_plane and pluecker from
+hyperreel_tpu/models/ray_param.py; reference nlf/param.py)."""
 
 from dataclasses import dataclass
 from typing import Callable
@@ -54,12 +54,40 @@ def two_plane_param(cfg):
     return RayParam("two_plane", 6, int(cfg.get("n_dims", 4)), apply)
 
 
+def pluecker_param(cfg):
+    """(d, o x d) with the unit direction d (reference nlf/param.py:
+    223-257)."""
+    d_mult = float(cfg.get("direction_multiplier", 1.0))
+    m_mult = float(cfg.get("moment_multiplier", 1.0))
+    origin = [float(v) for v in cfg.get("origin", [0.0, 0.0, 0.0])]
+    if cfg.get("use_local_param", False):
+        raise NotImplementedError(
+            "pluecker use_local_param is not ported (ROADMAP.md: long tail)")
+    origin_on = {}
+
+    def apply(rays):
+        key = (rays.device, rays.dtype)
+        o = origin_on.get(key)
+        if o is None:
+            o = origin_on[key] = rays.new_tensor(origin)
+        rays_o = rays[..., :3] - o
+        d = rays[..., 3:6]
+        d = d / torch.sqrt(torch.clamp_min((d * d).sum(-1, keepdim=True),
+                                           1e-24))
+        m = torch.linalg.cross(rays_o, d, dim=-1)
+        return torch.cat([d * d_mult, m * m_mult], -1)
+
+    return RayParam("pluecker", 6, int(cfg.get("n_dims", 6)), apply)
+
+
 def get_ray_param(cfg):
     fn = (cfg or {}).get("fn", "identity")
     if fn == "identity":
         return identity_param(cfg or {})
     if fn == "two_plane":
         return two_plane_param(cfg)
+    if fn == "pluecker":
+        return pluecker_param(cfg)
     raise NotImplementedError(
-        f"ray parameterization {fn!r} is not ported "
-        "(ROADMAP.md: K5/K6 and the other net families)")
+        f"ray parameterization {fn!r} is not ported (ROADMAP.md: long "
+        "tail)")

@@ -1,11 +1,13 @@
-"""Dynamic factored feature-grid colour net (port of
-hyperreel_tpu/models/tensorf.py TensorVMKeyframeTime with the parts of
-TensorVMNoSample it uses: init and the general apply; reference
-nlf/nets/tensorf_dynamic.py, nlf/nets/tensorf_no_sample.py).
+"""Factored feature-grid colour nets (port of hyperreel_tpu/models/tensorf.py
+TensorVMKeyframeTime and TensorVMNoSample: init and the general eval
+apply; reference nlf/nets/tensorf_dynamic.py, nlf/nets/tensorf_no_sample.py).
 
-Grids are channels-last, as in the JAX package: per active axis i a space
-plane [H, W, C] and a time plane [num_keyframes, TW, C] for each of the
-density and appearance families; `basis_mat` is {"weight": [app_dim,
+Grids are channels-last, as in the JAX package. The dynamic net holds per
+active axis i a space plane [H, W, C] and a time plane [num_keyframes, TW,
+C] for each of the density and appearance families ("space_i",
+"time_i"); the static net a plane [H, W, C] and a line [L, C] ("plane_i",
+"line_i"), axis i's plane spanning the points' components MAT_MODE[i] and
+its line component VEC_MODE[i]. `basis_mat` is {"weight": [app_dim,
 sum(app comps)]} (nn.Linear layout).
 """
 
@@ -15,13 +17,15 @@ import numpy as np
 import torch
 
 from hyperreel_tpu_torch.models.mlp import linear_init
-from hyperreel_tpu_torch.ops.grid_sample import grid_sample_2d
+from hyperreel_tpu_torch.ops.grid_sample import grid_sample_1d, grid_sample_2d
 from hyperreel_tpu_torch.ops.render_math import (
     raw2alpha, scale_shift_color_all)
 from hyperreel_tpu_torch.ops.sh import sh_render
 
 MAT_MODE_SPACE = ((0, 1), (0, 2), (1, 2))
 MAT_MODE_TIME = ((2, 3), (1, 3), (0, 3))
+MAT_MODE = ((0, 1), (0, 2), (1, 2))
+VEC_MODE = (2, 1, 0)
 
 
 def n_to_reso(n_voxels, aabb):
@@ -34,21 +38,21 @@ def n_to_reso(n_voxels, aabb):
     return [int(x) for x in (ext / voxel_size)]
 
 
-class TensorVMKeyframeTime:
-    def __init__(self, cfg, num_keyframes=1, total_num_frames=1):
+class FactoredNet:
+    """What the two nets share: the config, validity, normalisation, the
+    parameter init of one family, and the shading and composite after
+    the grid lookups (SH colour, per-sample colour scale/shift)."""
+
+    def __init__(self, cfg):
         self.cfg = dict(cfg)
-        self.num_keyframes = num_keyframes
-        self.total_num_frames = total_num_frames
-        self.time_scale_factor = (total_num_frames - 1) / total_num_frames
-        self.time_pixel_offset = 0.5 / num_keyframes
         self.density_mode = cfg.get("densityMode", "Density")
         self.shading_mode = cfg.get("shadingMode", "SH")
         self.fea2dense = cfg.get("fea2denseAct", "softplus")
         if self.density_mode != "Density" or self.shading_mode != "SH" \
                 or self.fea2dense != "relu" or cfg.get("filter"):
             raise NotImplementedError(
-                "only the flagship's Density/SH/relu colour net is ported "
-                "(ROADMAP.md: K5/K6 and the other net families)")
+                "only the Density/SH/relu colour nets are ported "
+                "(ROADMAP.md: long tail)")
         self.table_dtype = torch.bfloat16 if cfg.get("bf16_tables", True) \
             else torch.float32
         self.white_bg = int(cfg.get("white_bg", 0))
@@ -72,9 +76,83 @@ class TensorVMKeyframeTime:
             and self.table_dtype == torch.bfloat16
             and self.ray_march_weight_thres == 0.0)
 
-    # -- params ------------------------------------------------------------
+    def grid_value(self, gen, device, shape, scale, uniform):
+        """scale * U[0, 1) clipped to [1e-2, 1e8] (the relu density init),
+        or scale * N(0, 1)."""
+        if uniform:
+            return torch.clamp(scale * torch.rand(shape, generator=gen),
+                               1e-2, 1e8).to(device)
+        return (scale * torch.randn(shape, generator=gen)).to(device)
 
-    def _init_family(self, gen, device, n_comp, scale, uniform):
+    def init(self, gen, device):
+        """Reference init scales (tensorf_base.py:895-991); relu density
+        grids start uniform and clipped at 1e-2."""
+        return {
+            "density": self.init_family(gen, device, self.density_n_comp,
+                                        1e-2, True),
+            "app": self.init_family(gen, device, self.app_n_comp, 0.1,
+                                    False),
+            "basis_mat": linear_init(gen, sum(self.app_n_comp),
+                                     self.app_dim, device, bias=False),
+        }
+
+    def normalize_coord(self, pts):
+        aabb = torch.as_tensor(self.aabb, device=pts.device)
+        return (pts - aabb[0]) * (2.0 / (aabb[1] - aabb[0])) - 1.0
+
+    def valid_mask(self, pts):
+        aabb = torch.as_tensor(self.aabb, device=pts.device)
+        return ~((pts < aabb[0]) | (pts > aabb[1])).any(-1)
+
+    def check_eval(self, ctx, render_kwargs):
+        if ctx.training:
+            raise NotImplementedError(
+                "training is not ported (ROADMAP.md: flagship training "
+                "step)")
+        fields = list(render_kwargs.get("fields", []))
+        if any(f != "distances" for f in fields):
+            raise NotImplementedError(
+                f"render fields {fields} are not ported "
+                "(ROADMAP.md: render CLI and viewer)")
+        return fields
+
+    def shade(self, x, feat, app, ray_valid, dists, fields):
+        """density feature [B, S] and appearance [B*S, app_dim] -> the
+        composited outputs."""
+        B, S = dists.shape
+        deltas = torch.cat([dists[:, 1:] - dists[:, :-1],
+                            torch.full_like(dists[:, :1], 1e10)], -1)
+        sigma = torch.where(ray_valid, torch.clamp_min(feat, 0.0), 0.0)
+        alpha, weight, _ = raw2alpha(sigma, deltas * self.distance_scale)
+        viewdirs = x["viewdirs"].reshape(B * S, 3)
+        rgb = sh_render(viewdirs, app, deg=self.sh_deg).reshape(B, S, 3)
+        rgb = torch.where((weight > self.ray_march_weight_thres)[..., None],
+                          rgb, 0.0)
+        if "color_scale" in x:
+            rgb = scale_shift_color_all(rgb, x["color_scale"].reshape(B, S, 3),
+                                        x["color_shift"].reshape(B, S, 3))
+        acc_map = weight.sum(-1)
+        rgb_map = (weight[..., None] * rgb).sum(-2)
+        if not self.black_bg and self.white_bg:
+            rgb_map = rgb_map + (1.0 - acc_map[:, None])
+        outputs = {"rgb": torch.clamp(rgb_map, 0.0, 1.0)}
+        if fields:
+            outputs["distances"] = (weight * dists).sum(-1, keepdim=True)
+        return outputs
+
+
+class TensorVMKeyframeTime(FactoredNet):
+    """The dynamic net: per active axis a space plane times a keyframe time
+    plane (reference nlf/nets/tensorf_dynamic.py)."""
+
+    def __init__(self, cfg, num_keyframes=1, total_num_frames=1):
+        super().__init__(cfg)
+        self.num_keyframes = num_keyframes
+        self.total_num_frames = total_num_frames
+        self.time_scale_factor = (total_num_frames - 1) / total_num_frames
+        self.time_pixel_offset = 0.5 / num_keyframes
+
+    def init_family(self, gen, device, n_comp, scale, uniform):
         params = {}
         gs, K = self.grid_size, self.num_keyframes
         for i in range(3):
@@ -85,40 +163,14 @@ class TensorVMKeyframeTime:
             shapes = {"space": (gs[ms1], gs[ms0], n_comp[i]),
                       "time": (K, gs[mt0], n_comp[i])}
             for kind, shape in shapes.items():
-                if uniform:
-                    v = torch.clamp(scale * torch.rand(shape, generator=gen),
-                                    1e-2, 1e8)
-                else:
-                    v = scale * torch.randn(shape, generator=gen)
-                params[f"{kind}_{i}"] = v.to(device)
+                params[f"{kind}_{i}"] = self.grid_value(gen, device, shape,
+                                                        scale, uniform)
         return params
-
-    def init(self, gen, device):
-        """Reference init scales (tensorf_base.py:895-991); relu density
-        grids start uniform and clipped at 1e-2."""
-        return {
-            "density": self._init_family(gen, device, self.density_n_comp,
-                                         1e-2, True),
-            "app": self._init_family(gen, device, self.app_n_comp, 0.1,
-                                     False),
-            "basis_mat": linear_init(gen, sum(self.app_n_comp),
-                                     self.app_dim, device, bias=False),
-        }
-
-    # -- general eval path -------------------------------------------------
-
-    def normalize_coord(self, pts):
-        aabb = torch.as_tensor(self.aabb, device=pts.device)
-        return (pts - aabb[0]) * (2.0 / (aabb[1] - aabb[0])) - 1.0
 
     def normalize_time_coord(self, t):
         """(reference tensorf_dynamic.py:615-616)."""
         return (t * self.time_scale_factor + self.time_pixel_offset) \
             * 2.0 - 1.0
-
-    def valid_mask(self, pts):
-        aabb = torch.as_tensor(self.aabb, device=pts.device)
-        return ~((pts < aabb[0]) | (pts > aabb[1])).any(-1)
 
     def sample(self, params, xyzt):
         """xyzt [N, 4] normalized -> (density feature [N], app [N, app_dim])
@@ -143,55 +195,84 @@ class TensorVMKeyframeTime:
             feat @ params["basis_mat"]["weight"].t()
 
     def apply(self, params, x, ctx, render_kwargs=None):
-        if ctx.training:
-            raise NotImplementedError(
-                "training is not ported (ROADMAP.md: flagship training "
-                "step)")
-        render_kwargs = render_kwargs or {}
-        fields = list(render_kwargs.get("fields", []))
-        if any(f != "distances" for f in fields):
-            raise NotImplementedError(
-                f"render fields {fields} are not ported "
-                "(ROADMAP.md: render CLI and viewer)")
+        fields = self.check_eval(ctx, render_kwargs or {})
         B = x["viewdirs"].shape[0]
         pts = x["points"].reshape(B, -1, 3)
         S = pts.shape[1]
         base_times = x["base_times"].reshape(B, S, 1)
         dists = x["distances"].reshape(B, S)
-        deltas = torch.cat([dists[:, 1:] - dists[:, :-1],
-                            torch.full_like(dists[:, :1], 1e10)], -1)
-        viewdirs = x["viewdirs"].reshape(B, S, 3)
         ray_valid = self.valid_mask(pts) & (dists > 0)
-
         xyzt = torch.cat([self.normalize_coord(pts),
                           self.normalize_time_coord(base_times)], -1)
         dens, app = self.sample(params, xyzt.reshape(-1, 4))
-        sigma = torch.where(ray_valid,
-                            torch.clamp_min(dens.reshape(B, S), 0.0), 0.0)
-        alpha, weight, _ = raw2alpha(sigma, deltas * self.distance_scale)
-        rgb = sh_render(viewdirs.reshape(-1, 3), app,
-                        deg=self.sh_deg).reshape(B, S, 3)
-        rgb = torch.where((weight > self.ray_march_weight_thres)[..., None],
-                          rgb, 0.0)
-        if "color_scale" in x:
-            rgb = scale_shift_color_all(rgb, x["color_scale"].reshape(B, S, 3),
-                                        x["color_shift"].reshape(B, S, 3))
-        acc_map = weight.sum(-1)
-        rgb_map = (weight[..., None] * rgb).sum(-2)
-        if not self.black_bg and self.white_bg:
-            rgb_map = rgb_map + (1.0 - acc_map[:, None])
-        outputs = {"rgb": torch.clamp(rgb_map, 0.0, 1.0)}
-        if fields:
-            outputs["distances"] = (weight * dists).sum(-1, keepdim=True)
-        return outputs
+        return self.shade(x, dens.reshape(B, S), app, ray_valid, dists,
+                          fields)
+
+
+class TensorVMNoSample(FactoredNet):
+    """The static net: per active axis a plane times a line, the full VM
+    decomposition (reference nlf/nets/tensorf_no_sample.py)."""
+
+    def init_family(self, gen, device, n_comp, scale, uniform):
+        params = {}
+        gs = self.grid_size
+        for i in range(3):
+            if n_comp[i] == 0:
+                continue
+            m0, m1 = MAT_MODE[i]
+            params[f"plane_{i}"] = self.grid_value(
+                gen, device, (gs[m1], gs[m0], n_comp[i]), scale, uniform)
+            params[f"line_{i}"] = self.grid_value(
+                gen, device, (gs[VEC_MODE[i]], n_comp[i]), scale, uniform)
+        return params
+
+    def sample(self, params, xyz):
+        """xyz [N, 3] normalized -> (density feature [N], app [N, app_dim]):
+        per axis the density and appearance planes and lines packed
+        channel-wise, looked up at table precision (hyperreel_tpu
+        TensorVMNoSample._sample_density_and_app_cf)."""
+        dens, app = 0.0, []
+        for i in self.active_density:
+            m0, m1 = MAT_MODE[i]
+            nd = self.density_n_comp[i]
+            plane = torch.cat([params["density"][f"plane_{i}"],
+                               params["app"][f"plane_{i}"]], -1)
+            line = torch.cat([params["density"][f"line_{i}"],
+                              params["app"][f"line_{i}"]], -1)
+            prod = grid_sample_2d(plane.to(self.table_dtype),
+                                  xyz[:, [m0, m1]]) \
+                * grid_sample_1d(line.to(self.table_dtype),
+                                 xyz[:, VEC_MODE[i]])
+            dens = dens + prod[:, :nd].sum(-1)
+            app.append(prod[:, nd:])
+        return dens, torch.cat(app, -1) @ params["basis_mat"]["weight"].t()
+
+    def apply(self, params, x, ctx, render_kwargs=None):
+        fields = self.check_eval(ctx, render_kwargs or {})
+        B = x["viewdirs"].shape[0]
+        pts = x["points"].reshape(B, -1, 3)
+        S = pts.shape[1]
+        dists = x["distances"].reshape(B, S)
+        ray_valid = self.valid_mask(pts) & (dists > 0)
+        dens, app = self.sample(params,
+                                self.normalize_coord(pts).reshape(-1, 3))
+        # the predicted sample weights scale the density feature before
+        # the activation (reference tensorf_no_sample.py:184-192)
+        feat = dens.reshape(B, S)
+        if "weights" in x:
+            feat = feat * x["weights"].reshape(B, S)
+        return self.shade(x, feat, app, ray_valid, dists, fields)
 
 
 def build_color_net(cfg, dataset_info=None):
     dataset_info = dataset_info or {}
-    if cfg["type"] != "tensor_vm_split_time":
-        raise NotImplementedError(
-            f"colour net {cfg['type']!r} is not ported "
-            "(ROADMAP.md: K5/K6 and the other net families)")
-    return TensorVMKeyframeTime(
-        cfg, num_keyframes=int(dataset_info.get("num_keyframes", 1)),
-        total_num_frames=int(dataset_info.get("num_frames", 1)))
+    if cfg["type"] == "tensor_vm_split_time":
+        return TensorVMKeyframeTime(
+            cfg, num_keyframes=int(dataset_info.get("num_keyframes", 1)),
+            total_num_frames=int(dataset_info.get("num_frames", 1)))
+    if cfg["type"] == "tensor_vm_split_no_sample":
+        if cfg.get("shadingMode", "SH") != "SH":
+            raise NotImplementedError("only SH shading is ported")
+        return TensorVMNoSample(cfg)
+    raise NotImplementedError(
+        f"colour net {cfg['type']!r} is not ported (ROADMAP.md: long tail)")

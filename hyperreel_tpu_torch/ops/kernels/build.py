@@ -50,7 +50,11 @@ class PackParams(ctypes.Structure):
                 ("samples", ctypes.c_float * 32),
                 ("z_scale", ctypes.c_float * 32),
                 ("aabb_lo", ctypes.c_float * 3),
-                ("aabb_inv", ctypes.c_float * 3)]
+                ("aabb_inv", ctypes.c_float * 3),
+                ("contract", ctypes.c_int), ("contract_samples", ctypes.c_int)
+                ] + [(n, ctypes.c_float) for n in (
+                    "c_start_r", "c_inv_end_r", "c_r_scale", "c_start_d",
+                    "c_inv_end_d", "c_d_scale")]
 
 
 SHADE_MAX_WB = 432
@@ -67,7 +71,21 @@ class ShadeParams(ctypes.Structure):
 class PatchParams(ctypes.Structure):
     """Mirror of csrc/patch_core.cuh PatchParams."""
     _fields_ = [(n, ctypes.c_int) for n in
-                ("B", "S", "W", "H", "C", "R", "px", "py", "phase_major")]
+                ("B", "S", "W", "H", "C", "R", "px", "py", "phase_major",
+                 "m0", "m1")]
+
+
+class MultiAxis(ctypes.Structure):
+    """Mirror of csrc/multi_core.cuh MultiAxis."""
+    _fields_ = [("table", ctypes.c_void_p), ("line", ctypes.c_void_p)] + [
+        (n, ctypes.c_int) for n in ("W", "H", "L")]
+
+
+class MultiParams(ctypes.Structure):
+    """Mirror of csrc/multi_core.cuh MultiParams."""
+    _fields_ = [(n, ctypes.c_int) for n in ("B", "S")] + [
+        ("distance_scale", ctypes.c_float), ("axis", MultiAxis * 3),
+        ("wb", ctypes.c_float * SHADE_MAX_WB)]
 
 
 @dataclass
@@ -75,6 +93,9 @@ class KernelLibrary:
     lib: ctypes.CDLL
     build_seconds: float     # 0.0 when an up-to-date library was reused
     compiler_log: str
+    # (axis, C, density channels) of each plane the multi-axis kernels are
+    # built for (csrc/multi_core.cuh owns the layout)
+    multi_layout: tuple
 
 
 _LOADED = None
@@ -140,6 +161,7 @@ def load_library():
     lib = ctypes.CDLL(str(out))
     vp = ctypes.c_void_p
     shade_p, patch_p = ctypes.POINTER(ShadeParams), ctypes.POINTER(PatchParams)
+    multi_p = ctypes.POINTER(MultiParams)
     for fn, args in (
             (lib.pack_build_launch,
              [vp, vp, vp, ctypes.POINTER(PackParams), vp]),
@@ -147,21 +169,31 @@ def load_library():
             (lib.shade_preblended_launch, [vp, vp, vp, vp, vp, shade_p, vp]),
             (lib.shade_patch_launch,
              [vp, vp, vp, vp, vp, vp, shade_p, patch_p, vp]),
-            (lib.patch_blend_launch, [vp, vp, vp, vp, patch_p, vp]),
+            (lib.patch_blend_launch, [vp, vp, vp, vp, vp, patch_p, vp]),
+            (lib.shade_multi_launch, [vp, vp, vp, multi_p, vp]),
+            (lib.shade_multi_preblended_launch, [vp, vp, vp, multi_p, vp]),
+            (lib.shade_multi_patch_launch,
+             [vp, vp, vp, vp, multi_p, patch_p, vp]),
             (lib.composite_launch, [vp, vp, vp, vp, ctypes.c_int,
                                     ctypes.c_int, ctypes.c_float, vp])):
         fn.argtypes = args
         fn.restype = ctypes.c_int
     for fn, struct in ((lib.pack_params_size, PackParams),
                        (lib.shade_params_size, ShadeParams),
-                       (lib.patch_params_size, PatchParams)):
+                       (lib.patch_params_size, PatchParams),
+                       (lib.multi_params_size, MultiParams)):
         fn.argtypes = []
         fn.restype = ctypes.c_int
         if fn() != ctypes.sizeof(struct):
             raise RuntimeError(
                 f"{struct.__name__}: C size {fn()} != ctypes size "
                 f"{ctypes.sizeof(struct)}")
-    _LOADED = KernelLibrary(lib, seconds, log)
+    c_nd = (ctypes.c_int * 6)()
+    lib.multi_layout.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.multi_layout.restype = ctypes.c_int
+    layout = tuple((a, c_nd[2 * a], c_nd[2 * a + 1])
+                   for a in range(lib.multi_layout(c_nd)))
+    _LOADED = KernelLibrary(lib, seconds, log, layout)
     return _LOADED
 
 

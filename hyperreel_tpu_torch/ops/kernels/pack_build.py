@@ -1,5 +1,7 @@
-"""Pack-build (K1): the flagship's prediction MLP and eval embedding tail,
-from the encoded rays to the per-sample pack of ops/kernels/layout.py.
+"""Pack-build (K1): the prediction MLP and eval embedding tail of the
+z-plane chains (the flagship's, and the static llff_z_plane family's with
+its scene contraction), from the encoded rays to the per-sample pack of
+ops/kernels/layout.py.
 
 Replaces hyperreel_tpu/ops/pallas/pack_build.py:_pack_build_kernel with
 its in-kernel MLP (_mlp_rows, the JAX package's default HYPERREEL_PK_MLP
@@ -16,10 +18,14 @@ and an f32 last layer (bf16 storage at that boundary cost 3.2e-4 of rgb on
 the TPU against the 2e-4 gate). Under the f32 policy nothing is rounded.
 
 The tail, per sample, in order: the field activations; z = act(z)*(1 -
-sigma)*z_scale + anchor; dist = (z - o_z)/d_z (d_z guarded at 1e-5, dist
-<= 0 -> 0); the values-only ascending sort of the S distances (the flow,
-offset and colour fields stay in prediction order); p = o + d*dist; p +=
-flow*dt; p += offset*(1 - point_sigma); aabb normalisation; the pack.
+sigma)*z_scale + anchor, then z = inverse_contract_distance(z) when the
+contraction places the anchors in contracted space; dist = (z - o_z)/d_z
+(d_z guarded at 1e-5, dist <= 0 -> 0); the values-only ascending sort of
+the S distances (the flow, offset and colour fields stay in prediction
+order); p = o + d*dist; under the mipnerf contraction p = contract_rows(p)
+and dist = |p - contract_rows(o)| (0 where the sorted dist was 0); p +=
+flow*dt (chains with a flow stage); p += offset*(1 - point_sigma); aabb
+normalisation; the pack.
 
 `pack_build(x0, mlp, ray_pack, spec, it)` takes
   x0       f32 [B, cin], the MLP's encoded input;
@@ -38,6 +44,7 @@ import torch.nn.functional as F
 
 from hyperreel_tpu_torch.models.activations import LeakyRelu
 from hyperreel_tpu_torch.models.mlp import round_to
+from hyperreel_tpu_torch.ops.contract import IdentityContract
 from hyperreel_tpu_torch.ops.kernels import build
 from hyperreel_tpu_torch.ops.kernels.layout import PACK_ROWS, check_ray_pack
 
@@ -126,9 +133,11 @@ class PackSpec:
     """Static description of one chain's embedding tail.
 
     foff: field slot -> channel offset in the MLP row; every slot of
-          FIELDS is required (the flagship's chain).
+          FIELDS but "flow" is required (static chains have no flow).
     acts: activation slot -> models.activations.Activation (absent slots
           are identity).
+    contract: the intersect's ops.contract contraction (identity or
+          mipnerf).
     """
     S: int
     P: int
@@ -137,13 +146,14 @@ class PackSpec:
     samples: np.ndarray      # [S] z anchors
     z_scale: np.ndarray      # [S]
     aabb: np.ndarray         # [2, 3]
+    contract: object = IdentityContract()
 
     def __post_init__(self):
         if self.S > MAX_S or self.S & (self.S - 1):
             raise NotImplementedError(
                 f"S={self.S}: the kernel takes a power of two <= {MAX_S} "
                 "(one warp lane per sample)")
-        missing = [k for k in FIELDS if k not in self.foff]
+        missing = [k for k in FIELDS if k not in self.foff and k != "flow"]
         if missing:
             raise NotImplementedError(
                 f"chain without {missing}: K1 takes the flagship's fields "
@@ -164,7 +174,13 @@ class PackSpec:
                                         l.w.shape[0], l.w.shape[1],
                                         int(l.act))
         for i, k in enumerate(FIELDS):
-            p.foff[i] = self.foff[k]
+            p.foff[i] = self.foff.get(k, -1)
+        c = self.contract
+        if c.name == "mipnerf":
+            p.contract, p.contract_samples = 1, int(c.contract_samples)
+            for k in ("start_r", "inv_end_r", "r_scale", "start_d",
+                      "inv_end_d", "d_scale"):
+                setattr(p, "c_" + k, float(getattr(c, k)))
         for i, d in enumerate(self.descriptors(it).values()):
             p.act[i] = build.Act(int(d[0]), *(float(v) for v in d[1:]))
         for s in range(self.S):
@@ -222,19 +238,33 @@ def tail_plain(mlp_out, ray_pack, spec, it):
     dev = mlp_out.device
     z = z * torch.as_tensor(spec.z_scale, dtype=torch.float32, device=dev) \
         + torch.as_tensor(spec.samples, dtype=torch.float32, device=dev)
+    contract = spec.contract
+    if contract.contract_samples:
+        z = contract.inverse_contract_distance(z)
     dz = torch.where(d[:, 2:3].abs() < 1e-5,
                      torch.full_like(d[:, 2:3], 1e12), d[:, 2:3])
     dist = (z - o[:, 2:3]) / dz
     dist = torch.where(dist <= 0.0, torch.zeros_like(dist), dist)
     dist = torch.sort(dist, dim=-1).values
 
+    base = [o[:, c:c + 1] + d[:, c:c + 1] * dist for c in range(3)]
+    if contract.name != "identity":
+        pc = contract.contract_rows(*base)
+        oc = contract.contract_rows(o[:, 0:1], o[:, 1:2], o[:, 2:3])
+        d_c = torch.sqrt(torch.clamp_min(
+            (pc[0] - oc[0]) ** 2 + (pc[1] - oc[1]) ** 2
+            + (pc[2] - oc[2]) ** 2, 1e-24))
+        dist = torch.where(dist <= 0.0, torch.zeros_like(dist), d_c)
+        base = list(pc)
     po_fac = 1.0 - field("psig", "psig")
     aabb = np.asarray(spec.aabb, np.float32)
     inv = (2.0 / (aabb[1] - aabb[0])).astype(np.float32)
     pts = []
     for c in range(3):
-        p = o[:, c:c + 1] + d[:, c:c + 1] * dist
-        p = p + _apply_desc(field("flow", "flow", c), dsc["flow_stage"]) * dt
+        p = base[c]
+        if "flow" in spec.foff:
+            p = p + _apply_desc(field("flow", "flow", c),
+                                dsc["flow_stage"]) * dt
         p = p + _apply_desc(field("poff", "poff", c),
                             dsc["po_stage"]) * po_fac
         pts.append((p - float(aabb[0][c])) * float(inv[c]) - 1.0)

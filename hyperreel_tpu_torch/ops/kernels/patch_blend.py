@@ -1,6 +1,10 @@
-"""Patch blend (K4): the space features of the coherent patch-gather route
-(ops/patch_gather.py), one bf16 row of C channels per sample, for the
-pre-blended shade kernel (ops/kernels/shade.py `shade_preblended`).
+"""Patch blend (K4): the features of one plane of the coherent patch-gather
+route (ops/patch_gather.py), one bf16 row of C channels per sample, for the
+pre-blended shade kernels (ops/kernels/shade.py `shade_preblended`, the
+flagship's space plane; ops/kernels/shade_multi.py
+`shade_multi_preblended`, each of the static net's three planes). The
+plane's coordinates are pack rows (m0, m1) of its PatchSpec: (0, 1) for
+the flagship's space plane, MAT_MODE of the static net's axis otherwise.
 
 Replaces hyperreel_tpu/ops/pallas/patch_blend.py:_patch_blend_kernel with
 patch_anchor_idx and the XLA patch-row gather before it. CUDA source:
@@ -15,7 +19,7 @@ or at p*(B/R) + j when the caller delivers the rays phase-major
 (`PatchSpec.phase_major`, the `rays_phase_major` render contract). Per
 slot (j, s) the anchor is clip(floor(min over the R rays of the
 unnormalised coordinate), -1, W-1 / H-1), every sample counted; per
-sample u = (xn+1)*0.5*(W-1) - x0 (v likewise), and the feature is
+sample u = (x+1)*0.5*(W-1) - x0 (v likewise), and the feature is
 sum over ty < py, tx < px of max(0,1-|u-tx|)*max(0,1-|v-ty|)*patch[t].
 The features are rounded to bf16 where the JAX route rounds them
 (models/fused_eval.py `out_dtype=jnp.bfloat16`), and stored ray-major in
@@ -49,6 +53,8 @@ class PatchSpec:
     C: int
     S: int
     phase_major: bool = False
+    m0: int = 0                 # pack rows of the plane's coordinates
+    m1: int = 1
 
 
 def grouped(row, spec):
@@ -72,9 +78,9 @@ def patch_anchors(pack, spec):
     """Per slot (j, s): the anchors x0, y0 f32 [J, S] and the patch-table
     row (y0+1)*(W+1) + (x0+1) int64 [J, S] (patch_anchor_idx)."""
     x0 = torch.clamp(torch.floor(unnormalize(
-        grouped(pack[0], spec).amin(0), spec.W)), -1, spec.W - 1)
+        grouped(pack[spec.m0], spec).amin(0), spec.W)), -1, spec.W - 1)
     y0 = torch.clamp(torch.floor(unnormalize(
-        grouped(pack[1], spec).amin(0), spec.H)), -1, spec.H - 1)
+        grouped(pack[spec.m1], spec).amin(0), spec.H)), -1, spec.H - 1)
     idx = ((y0 + 1) * (spec.W + 1) + (x0 + 1)).long()
     return x0, y0, idx
 
@@ -84,19 +90,24 @@ def _per_sample(slot_vals, spec):
     return ungrouped(slot_vals[None].expand(spec.R, -1, -1), spec)
 
 
-def coverage_count(pack, spec):
-    """int32 [1]: the slots whose valid samples' footprint exits the
-    patch on some axis."""
+def coverage_flags(pack, spec):
+    """bool [J, S]: the slots whose valid samples' footprint exits the
+    patch on either of the plane's coordinates."""
     ok = grouped((pack[0].abs() <= 1.0) & (pack[1].abs() <= 1.0)
                  & (pack[2].abs() <= 1.0) & (pack[3] > 0.0), spec)
     viol = torch.zeros(ok.shape[1:], dtype=torch.bool, device=pack.device)
-    for row, size, budget in ((pack[0], spec.W, spec.px),
-                              (pack[1], spec.H, spec.py)):
+    for row, size, budget in ((pack[spec.m0], spec.W, spec.px),
+                              (pack[spec.m1], spec.H, spec.py)):
         f = grouped(torch.floor(unnormalize(row, size)), spec)
         lo = torch.where(ok, f, float("inf")).amin(0)
         hi = torch.where(ok, f, float("-inf")).amax(0)
         viol |= hi - lo > budget - 2
-    return viol.sum().reshape(1).to(torch.int32)
+    return viol
+
+
+def coverage_count(pack, spec):
+    """int32 [1]: the number of `coverage_flags`."""
+    return coverage_flags(pack, spec).sum().reshape(1).to(torch.int32)
 
 
 def patch_features_plain(ptab, pack, spec):
@@ -104,8 +115,8 @@ def patch_features_plain(ptab, pack, spec):
     in the JAX kernels' order."""
     C = spec.C
     x0, y0, idx = patch_anchors(pack, spec)
-    u = unnormalize(pack[0], spec.W) - _per_sample(x0, spec)
-    v = unnormalize(pack[1], spec.H) - _per_sample(y0, spec)
+    u = unnormalize(pack[spec.m0], spec.W) - _per_sample(x0, spec)
+    v = unnormalize(pack[spec.m1], spec.H) - _per_sample(y0, spec)
     rows = _per_sample(idx, spec)
     wx, wy = hat_weights(u, spec.px), hat_weights(v, spec.py)
     feat = torch.zeros(pack.shape[1], C, device=pack.device)
@@ -117,10 +128,13 @@ def patch_features_plain(ptab, pack, spec):
     return feat
 
 
-def patch_blend_plain(ptab, pack, spec):
+def patch_blend_plain(ptab, pack, spec, flags=None):
     """Plain PyTorch version of the kernel (same inputs and outputs)."""
+    viol = coverage_flags(pack, spec)
+    if flags is not None:
+        flags |= viol.reshape(-1).to(flags.dtype)
     return (patch_features_plain(ptab, pack, spec).to(torch.bfloat16),
-            coverage_count(pack, spec))
+            viol.sum().reshape(1).to(torch.int32))
 
 
 def check_patch(ptab, pack, spec):
@@ -135,7 +149,21 @@ def check_patch(ptab, pack, spec):
     B = check_pack(pack, spec.S)
     if B % spec.R:
         raise ValueError(f"{B} rays are not whole blocks of R={spec.R}")
+    if not (0 <= spec.m0 <= 2 and 0 <= spec.m1 <= 2):
+        raise ValueError(f"plane coordinates ({spec.m0}, {spec.m1}) are "
+                         "not point rows of the pack")
     return B
+
+
+def check_flags(flags, B, spec, device):
+    """Raise unless `flags` is a contiguous uint8 [J*S] buffer on
+    `device`."""
+    n = B // spec.R * spec.S
+    if flags.dtype != torch.uint8 or tuple(flags.shape) != (n,) \
+            or not flags.is_contiguous() or flags.device != device:
+        raise ValueError(f"flags must be a contiguous uint8 ({n},) buffer "
+                         f"on {device}, got {flags.dtype} "
+                         f"{tuple(flags.shape)} on {flags.device}")
 
 
 def check_patch_kernel(ptab, spec, name):
@@ -156,17 +184,21 @@ def patch_params(B, spec):
     q = build.PatchParams()
     q.B, q.S, q.W, q.H, q.C, q.R = B, spec.S, spec.W, spec.H, spec.C, spec.R
     q.px, q.py, q.phase_major = spec.px, spec.py, int(spec.phase_major)
+    q.m0, q.m1 = spec.m0, spec.m1
     return q
 
 
-def patch_blend(ptab, pack, spec):
+def patch_blend(ptab, pack, spec, flags=None):
     """Run K4: returns (features bf16 [B*S, C] in the pack's order,
-    coverage violations int32 [1]). A CPU pack goes to
+    coverage violations int32 [1]); with `flags` (uint8 [J*S]) also sets
+    the flag of each violating slot. A CPU pack goes to
     `patch_blend_plain`; a CUDA pack launches the kernel or raises. Counts
     launches in `patch_blend.launches`."""
     B = check_patch(ptab, pack, spec)
+    if flags is not None:
+        check_flags(flags, B, spec, pack.device)
     if pack.device.type == "cpu":
-        return patch_blend_plain(ptab, pack, spec)
+        return patch_blend_plain(ptab, pack, spec, flags)
     if pack.device.type != "cuda":
         raise ValueError(f"patch_blend has no kernel for {pack.device}")
     check_patch_kernel(ptab, spec, "patch_blend")
@@ -178,7 +210,8 @@ def patch_blend(ptab, pack, spec):
         stream = torch.cuda.current_stream().cuda_stream
         build.check_launch(lib.patch_blend_launch(
             ptab.data_ptr(), pack.data_ptr(), feats.data_ptr(),
-            viol.data_ptr(), patch_params(B, spec), stream), "patch_blend")
+            viol.data_ptr(), None if flags is None else flags.data_ptr(),
+            patch_params(B, spec), stream), "patch_blend")
     patch_blend.launches += 1
     return feats, viol
 

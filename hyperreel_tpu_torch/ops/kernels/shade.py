@@ -111,7 +111,7 @@ def basis_table(basis_weight, nd):
     return torch.cat([w.new_zeros(w.shape[0], nd), w], 1).contiguous()
 
 
-def _taps(coord, size):
+def taps(coord, size):
     """Linear taps along one axis (align_corners=True, zero padding):
     (index of the low tap clamped to [-1, size-1], its weight, the high
     tap's weight), weights zero off-grid."""
@@ -123,7 +123,7 @@ def _taps(coord, size):
     return torch.clamp(p0, -1.0, size - 1.0).long(), w0, w1
 
 
-def _line(table_lc, i0, w0, w1):
+def line_lookup(table_lc, i0, w0, w1):
     """sum of w0 * table[i0] + w1 * table[i0 + 1] over [L, C] rows."""
     L = table_lc.shape[0]
     lo = table_lc[torch.clamp(i0, 0, L - 1)]
@@ -131,35 +131,61 @@ def _line(table_lc, i0, w0, w1):
     return lo * w0[:, None] + hi * w1[:, None]
 
 
-def quad_features(quad, pack, spec):
-    """The space features f32 [B*S, C] of every sample: bilinear from the
-    4 corners of its quad-table row."""
-    C = spec.C
-    xi, wx0, wx1 = _taps(pack[0], spec.W)
-    yi, wy0, wy1 = _taps(pack[1], spec.H)
-    rows = quad[(yi + 1) * (spec.W + 1) + (xi + 1)].float()
+def quad_features(quad, x, y, W, H, C):
+    """The plane features f32 [N, C] of every sample at normalised plane
+    coordinates x, y [N]: bilinear from the 4 corners of its quad-table
+    row."""
+    xi, wx0, wx1 = taps(x, W)
+    yi, wy0, wy1 = taps(y, H)
+    rows = quad[(yi + 1) * (W + 1) + (xi + 1)].float()
     q = rows.reshape(-1, 4, C)
     return (q[:, 0] * (wy0 * wx0)[:, None] + q[:, 1] * (wy0 * wx1)[:, None]
             + q[:, 2] * (wy1 * wx0)[:, None]
             + q[:, 3] * (wy1 * wx1)[:, None])
 
 
-def shade_features_plain(feat, pack, ray_pack, ttab, wb, spec):
-    """Everything after the space features f32 [B*S, C]: validity, the
-    time features, density, the SH colour and the per-ray composite ->
-    f32 [B, 5] (csrc/shade_core.cuh shade_sample and composite_weight)."""
-    S, C = spec.S, spec.C
+def shade_tail_plain(dens, feat, wb, pack, ray_pack, S, deg, distance_scale):
+    """The density feature [B*S] and the features [B*S, A] of every sample
+    -> f32 [B, 5]: validity (|xn|, |yn|, |zn| <= 1 and dist > 0), relu
+    density, the SH colour of wb [3K, A] @ feat with the colour scale and
+    shift, and the per-ray composite (csrc/shade_core.cuh sh_colour and
+    composite_store)."""
     B = check_pack(pack, S)
     xn, yn, zn, dist = pack[0], pack[1], pack[2], pack[3]
     per_sample = ray_pack.repeat_interleave(S, 0)         # [B*S, 8]
     valid = (xn.abs() <= 1.0) & (yn.abs() <= 1.0) & (zn.abs() <= 1.0) \
         & (dist > 0.0)
+    sigma = torch.clamp_min(dens, 0.0) * valid.float()
+    app = feat @ wb.to(feat.device).t()                   # [N, 3K]
+    K = (deg + 1) ** 2
+    Y = eval_sh_bases(deg, per_sample[:, 3:6])            # [N, K]
+    e = (app.reshape(-1, 3, K) * Y[:, None, :]).sum(-1)
+    rgb = torch.clamp_min(e + 0.5, 0.0) * (pack[4:7].t() + 1.0) \
+        + pack[7:10].t()
+    rgb = torch.where(valid[:, None], rgb, 0.0)
 
-    zi, wz0, wz1 = _taps(zn, spec.TW)
+    d = dist.reshape(B, S)
+    delta = torch.cat([d[:, 1:] - d[:, :-1],
+                       torch.full_like(d[:, :1], 1e10)], -1)
+    _, w, _ = raw2alpha(sigma.reshape(B, S), delta * distance_scale)
+    rgb_map = (w[..., None] * rgb.reshape(B, S, 3)).sum(1)
+    return torch.cat([rgb_map, w.sum(-1, keepdim=True),
+                      (w * d).sum(-1, keepdim=True)], -1)
+
+
+def shade_features_plain(feat, pack, ray_pack, ttab, wb, spec):
+    """Everything after the space features f32 [B*S, C]: the time
+    features, their product with the space features, and
+    `shade_tail_plain` -> f32 [B, 5] (csrc/shade_core.cuh
+    shade_sample)."""
+    S, C = spec.S, spec.C
+    check_pack(pack, S)
+    zi, wz0, wz1 = taps(pack[2], spec.TW)
     if spec.TH == 0:
-        ft = _line(ttab, zi, wz0, wz1)
+        ft = line_lookup(ttab, zi, wz0, wz1)
     else:
-        ti, wt0, wt1 = _taps(per_sample[:, 7], spec.TH)
+        tn = ray_pack[:, 7].repeat_interleave(S, 0)
+        ti, wt0, wt1 = taps(tn, spec.TH)
         flat = ttab.reshape(spec.TH, spec.TW, C)
         ft = torch.zeros_like(feat)
         for dt, wt in ((0, wt0), (1, wt1)):
@@ -169,28 +195,14 @@ def shade_features_plain(feat, pack, ray_pack, ttab, wb, spec):
                   * wz1[:, None])
             ft = ft + zf * wt[:, None]
     prod = feat * ft
-    sigma = torch.clamp_min(prod[:, :spec.nd].sum(-1), 0.0) * valid.float()
-    app = prod @ wb.to(prod.device).t()                   # [N, 3K]
-    K = spec.n_basis
-    Y = eval_sh_bases(spec.deg, per_sample[:, 3:6])       # [N, K]
-    e = (app.reshape(-1, 3, K) * Y[:, None, :]).sum(-1)
-    rgb = torch.clamp_min(e + 0.5, 0.0) * (pack[4:7].t() + 1.0) \
-        + pack[7:10].t()
-    rgb = torch.where(valid[:, None], rgb, 0.0)
-
-    d = dist.reshape(B, S)
-    delta = torch.cat([d[:, 1:] - d[:, :-1],
-                       torch.full_like(d[:, :1], 1e10)], -1)
-    _, w, _ = raw2alpha(sigma.reshape(B, S), delta * spec.distance_scale)
-    rgb_map = (w[..., None] * rgb.reshape(B, S, 3)).sum(1)
-    return torch.cat([rgb_map, w.sum(-1, keepdim=True),
-                      (w * d).sum(-1, keepdim=True)], -1)
+    return shade_tail_plain(prod[:, :spec.nd].sum(-1), prod, wb, pack,
+                            ray_pack, S, spec.deg, spec.distance_scale)
 
 
 def shade_plain(quad, pack, ray_pack, ttab, wb, spec):
     """Plain PyTorch version of the kernel (same inputs and output)."""
-    return shade_features_plain(quad_features(quad, pack, spec), pack,
-                                ray_pack, ttab, wb, spec)
+    feat = quad_features(quad, pack[0], pack[1], spec.W, spec.H, spec.C)
+    return shade_features_plain(feat, pack, ray_pack, ttab, wb, spec)
 
 
 def shade_preblended_plain(feats, pack, ray_pack, ttab, wb, spec):

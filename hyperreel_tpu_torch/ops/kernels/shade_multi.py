@@ -1,0 +1,239 @@
+"""Multi-axis shade + composite (K5): from the per-sample pack
+(ops/kernels/layout.py) to the per-ray colour, for the static VM net
+(TensorVMNoSample with its three plane x line axes, the llff_z_plane
+family).
+
+Replaces hyperreel_tpu/ops/pallas/shade.py:_shade_kernel_multi (with
+_multi_core for static nets, the wrapper fused_shade_composite_multi) and
+the XLA quad-row gathers before it. CUDA source: csrc/shade_multi.cu (the
+per-axis body in csrc/multi_core.cuh, the colour and composite in
+csrc/shade_core.cuh). Bound on the H100 by its f32 operations while the
+quad tables stay in L2; at a trained checkpoint's grid they exceed it (see
+the source). `shade_multi_preblended` is the same kernel reading the three
+planes' features that K4 (ops/kernels/patch_blend.py) wrote, bf16 [B*S,
+C_a] one row per sample, instead of the quad tables (the two-kernel patch
+route; shade.py `preblended="phase_major"`).
+
+Per valid sample and axis a (MAT_MODE plane coordinates m0, m1, VEC_MODE
+line coordinate v): the plane features, bilinear from one quad-table row;
+the line factor, linear between two rows of the line [L, C_a]; their
+product; the first nd_a channels sum into the density feature, the rest
+append to the appearance vector in axis order. Then relu density, the SH
+colour of the [3K, A] basis (no density columns) times the appearance
+vector, and the composite (ops/kernels/shade.py `shade_tail_plain`).
+
+Tables (built once per checkpoint): the quad tables `shade.quad_table`
+of each plane, the lines f32 [L, C_a] as they are (`line_table`), and
+`multi_basis_table`, on the host (it rides in the kernel's parameters).
+The kernels are built for the llff_z_plane layout (csrc/multi_core.cuh,
+read back by the loader as `build.load_library().multi_layout`); other
+layouts run the plain version on the CPU and raise on the card.
+"""
+
+from dataclasses import dataclass
+from typing import Tuple
+
+import torch
+
+from hyperreel_tpu_torch.models.tensorf import MAT_MODE, VEC_MODE
+from hyperreel_tpu_torch.ops.kernels import build
+from hyperreel_tpu_torch.ops.kernels.layout import check_pack, check_ray_pack
+from hyperreel_tpu_torch.ops.kernels.shade import (
+    KERNEL_SH_DEG, line_lookup, quad_features, shade_tail_plain, taps)
+
+
+@dataclass(frozen=True)
+class AxisSpec:
+    """One plane x line axis: the plane [H, W, C], the line [L, C], and
+    the first nd channels being density."""
+    index: int                  # i of MAT_MODE[i], VEC_MODE[i]
+    W: int
+    H: int
+    L: int
+    C: int
+    nd: int
+
+    @property
+    def m0(self):
+        return MAT_MODE[self.index][0]
+
+    @property
+    def m1(self):
+        return MAT_MODE[self.index][1]
+
+    @property
+    def v(self):
+        return VEC_MODE[self.index]
+
+
+@dataclass(frozen=True)
+class MultiSpec:
+    S: int
+    axes: Tuple[AxisSpec, ...]
+    deg: int                    # SH degree
+    distance_scale: float
+
+    @property
+    def n_app(self):
+        return sum(a.C - a.nd for a in self.axes)
+
+
+def line_table(line_lc):
+    """[L, C] line -> the f32 table the kernels read."""
+    return line_lc.float().contiguous()
+
+
+def multi_basis_table(basis_weight):
+    """basis [3K, A] (nn.Linear layout over the concatenated appearance
+    channels) -> f32 [3K, A] on the host; unlike `shade.basis_table` it has
+    no density columns."""
+    return basis_weight.detach().float().cpu().contiguous()
+
+
+def axis_products(feats, lines, pack, spec):
+    """Per-axis plane features f32 [B*S, C_a] -> (density feature [B*S],
+    appearance [B*S, A]): the line taps, the products and the sums."""
+    dens, app = 0.0, []
+    for f, line, ax in zip(feats, lines, spec.axes):
+        prod = f * line_lookup(line, *taps(pack[ax.v], ax.L))
+        dens = dens + prod[:, :ax.nd].sum(-1)
+        app.append(prod[:, ax.nd:])
+    return dens, torch.cat(app, -1)
+
+
+def shade_multi_features_plain(feats, lines, pack, ray_pack, wb, spec):
+    """Everything after the plane features -> f32 [B, 5]."""
+    dens, app = axis_products(feats, lines, pack, spec)
+    return shade_tail_plain(dens, app, wb, pack, ray_pack, spec.S, spec.deg,
+                            spec.distance_scale)
+
+
+def shade_multi_plain(quads, lines, pack, ray_pack, wb, spec):
+    """Plain PyTorch version of the kernel (same inputs and output)."""
+    feats = [quad_features(q, pack[ax.m0], pack[ax.m1], ax.W, ax.H, ax.C)
+             for q, ax in zip(quads, spec.axes)]
+    return shade_multi_features_plain(feats, lines, pack, ray_pack, wb, spec)
+
+
+def shade_multi_preblended_plain(feats, lines, pack, ray_pack, wb, spec):
+    """Plain PyTorch version of the pre-blended kernel."""
+    return shade_multi_features_plain([f.float() for f in feats], lines,
+                                      pack, ray_pack, wb, spec)
+
+
+def check_lines(lines, wb, spec, device):
+    """Raise unless the lines and the basis fit `spec` (lines contiguous
+    f32 on `device`, wb on the host)."""
+    if len(lines) != len(spec.axes):
+        raise ValueError(f"{len(lines)} lines for {len(spec.axes)} axes")
+    K = (spec.deg + 1) ** 2
+    shapes = [(f"line {a.index}", t, (a.L, a.C))
+              for t, a in zip(lines, spec.axes)]
+    for name, t, shape in shapes + [("wb", wb, (3 * K, spec.n_app))]:
+        if t.dtype != torch.float32 or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous f32 {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if any(t.device != device for t in lines):
+        raise ValueError("the lines lie on another device than the pack")
+    if wb.device.type != "cpu":
+        raise ValueError("wb must lie on the host")
+
+
+def check_tables(tables, shapes, name):
+    """Raise unless each table is a contiguous bf16 tensor of its shape."""
+    for t, shape in zip(tables, shapes):
+        if t.dtype != torch.bfloat16 or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous bf16 {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+
+
+def _check(tables, shapes, lines, pack, ray_pack, wb, spec):
+    check_tables(tables, shapes, "each plane's table")
+    B = check_pack(pack, spec.S)
+    check_ray_pack(ray_pack, B)
+    check_lines(lines, wb, spec, pack.device)
+    if any(t.device != pack.device for t in tables) \
+            or ray_pack.device != pack.device:
+        raise ValueError("the tables, ray_pack and pack lie on different "
+                         "devices")
+    return B
+
+
+def check_kernel(spec, name):
+    """Raise unless the kernels are built for spec's layout."""
+    layout = tuple((a.index, a.C, a.nd) for a in spec.axes)
+    built = build.load_library().multi_layout
+    if layout != built or spec.deg != KERNEL_SH_DEG \
+            or spec.S > 32 or spec.S & (spec.S - 1):
+        raise NotImplementedError(
+            f"{name} kernel: layout {layout}, SH degree {spec.deg}, "
+            f"S={spec.S} not built (layout {built}, degree "
+            f"{KERNEL_SH_DEG}, S a power of two <= 32; ROADMAP.md: the "
+            "other static multi-axis presets)")
+
+
+def multi_params(B, spec, tables, lines, wb):
+    """The kernels' MultiParams for B rays (the basis rides in them)."""
+    p = build.MultiParams()
+    p.B, p.S = B, spec.S
+    p.distance_scale = float(spec.distance_scale)
+    for i, (ax, t, line) in enumerate(zip(spec.axes, tables, lines)):
+        p.axis[i] = build.MultiAxis(t.data_ptr(), line.data_ptr(), ax.W,
+                                    ax.H, ax.L)
+    vals = wb.reshape(-1).tolist()
+    p.wb[:len(vals)] = vals
+    return p
+
+
+def _launch(name, fn, tables, lines, pack, ray_pack, wb, spec, B):
+    if pack.device.type != "cuda":
+        raise ValueError(f"{name} has no kernel for {pack.device}")
+    check_kernel(spec, name)
+    if any(t.data_ptr() % 16 for t in list(tables) + list(lines)):
+        raise ValueError(f"{name}: tables must be 16-byte aligned")
+    out = torch.empty((B, 5), dtype=torch.float32, device=pack.device)
+    with torch.cuda.device(pack.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        build.check_launch(fn(
+            pack.data_ptr(), ray_pack.data_ptr(), out.data_ptr(),
+            multi_params(B, spec, tables, lines, wb), stream), name)
+    return out
+
+
+def shade_multi(quads, lines, pack, ray_pack, wb, spec):
+    """Run K5: returns f32 [B, 5] = r, g, b, acc, depth per ray. A CPU pack
+    goes to `shade_multi_plain`; a CUDA pack launches the kernel or
+    raises. Counts launches in `shade_multi.launches`."""
+    B = _check(quads, [((a.H + 1) * (a.W + 1), 4 * a.C) for a in spec.axes],
+               lines, pack, ray_pack, wb, spec)
+    if pack.device.type == "cpu":
+        return shade_multi_plain(quads, lines, pack, ray_pack, wb, spec)
+    out = _launch("shade_multi", build.load_library().lib.shade_multi_launch,
+                  quads, lines, pack, ray_pack, wb, spec, B)
+    shade_multi.launches += 1
+    return out
+
+
+shade_multi.launches = 0
+
+
+def shade_multi_preblended(feats, lines, pack, ray_pack, wb, spec):
+    """Run K5 on pre-blended plane features, bf16 [B*S, C_a] per axis (one
+    row per sample, in the pack's order): returns f32 [B, 5]. A CPU pack
+    goes to `shade_multi_preblended_plain`; a CUDA pack launches the kernel
+    or raises. Counts launches in `shade_multi_preblended.launches`."""
+    B = _check(feats, [(pack.shape[1], a.C) for a in spec.axes], lines,
+               pack, ray_pack, wb, spec)
+    if pack.device.type == "cpu":
+        return shade_multi_preblended_plain(feats, lines, pack, ray_pack, wb,
+                                            spec)
+    out = _launch("shade_multi_preblended",
+                  build.load_library().lib.shade_multi_preblended_launch,
+                  feats, lines, pack, ray_pack, wb, spec, B)
+    shade_multi_preblended.launches += 1
+    return out
+
+
+shade_multi_preblended.launches = 0

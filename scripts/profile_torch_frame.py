@@ -1,10 +1,13 @@
 """Where the time of the PyTorch/CUDA port's frame goes, on one NVIDIA GPU.
 
-Renders chip_smoke.py's configuration (technicolor_z_plane at full width,
-bf16 MLP policy, the 1024x1024 bench frame in 4 chunks at t=0.3) on one
-route (--route: quad, K1 then K2; fused, the coherent patch-gather route
-at R=8 (5, 2) with bench.py's phase-major rays, K1 then K3; two, the same
-route on K1, K4 and K2-preblended) and prints:
+Renders one of chip_smoke.py's configurations (--model flagship:
+technicolor_z_plane at full width, bf16 MLP policy, the 1024x1024 bench
+frame in 4 chunks at t=0.3; --model llff: llff_z_plane at full width on a
+trained checkpoint's grid, the same frame's origins and directions) on one
+route (--route: quad, K1 then K2 (flagship) or K5 (llff); fused, the
+coherent patch-gather route at R=8 (5, 2) with bench.py's phase-major
+rays, K1 then K3 or K6; two, the same route on K1, K4 and K2-preblended,
+or K1, K4 on each of the three planes and K5-preblended) and prints:
   * the card's name and power limit (nvidia-smi);
   * frame time from CUDA events over back-to-back frames, and the host's
     time to enqueue one frame onto an idle card (when the two are close,
@@ -15,8 +18,8 @@ route on K1, K4 and K2-preblended) and prints:
     and the idle share of that span; then the host operators by their
     own CPU time.
 
-    python3 scripts/profile_torch_frame.py [--route quad|fused|two]
-        [--frames 3] [--trace FILE]
+    python3 scripts/profile_torch_frame.py [--model flagship|llff]
+        [--route quad|fused|two] [--frames 3] [--trace FILE]
 
 --trace writes the profiler's Chrome trace to FILE.
 """
@@ -50,6 +53,8 @@ def busy_ms(intervals):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=("flagship", "llff"),
+                    default="flagship")
     ap.add_argument("--route", choices=("quad", "fused", "two"),
                     default="quad")
     ap.add_argument("--frames", type=int, default=3)
@@ -73,18 +78,26 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
-    cfg, info, model, params, prep = cs.flagship(dev)
     frame = torch.from_numpy(cs.bench_frame()).to(dev)
     ctx = StepCtx(it=cs.IT)
-    rk = {"cf_prepared": prep, "uniform_time": True}
-    if args.route != "quad":
-        os.environ["HYPERREEL_FUSED_PATCH"] = \
-            "1" if args.route == "fused" else "0"
-        model, prep = cs.patch_model(cfg, info, params, cs.PATCH_R8)
+    fused = "1" if args.route == "fused" else "0"
+    patch = args.route != "quad"
+    if args.model == "flagship":
+        cfg, info, model, params, prep = cs.flagship(dev)
+        rk = {"cf_prepared": prep, "uniform_time": True}
+        os.environ["HYPERREEL_FUSED_PATCH"] = fused
+        if patch:
+            model, prep = cs.patch_model(cfg, info, params, cs.PATCH_R8)
+    else:
+        _, model, params, prep = cs.llff(
+            dev, patch=cs.PATCH_R8 if patch else None)
+        rk = {"cf_prepared": prep}
+        frame = frame[..., :6].contiguous()     # a static scene: o, d
+        os.environ["HYPERREEL_FUSED_PATCH_MULTI"] = fused
+    if patch:
         frame = cs.phase_major(frame, cs.PATCH_R8[2]).contiguous()
-        rk = {"cf_prepared": prep, "uniform_time": True,
-              "rays_phase_major": True}
-    print(f"# route {args.route}", flush=True)
+        rk["rays_phase_major"] = True
+    print(f"# model {args.model}, route {args.route}", flush=True)
 
     def render():
         return [model.apply(params, frame[i], ctx, rk)

@@ -2,8 +2,9 @@
 card. Marked `cuda`: without an NVIDIA card every test here skips (CUDA
 kernels have no CPU mode; the plain versions are held against the JAX
 package by tests/test_torch_pack_build.py, test_torch_shade.py,
-test_torch_slice.py, test_torch_patch.py, test_torch_patch_route.py and
-test_torch_composite.py). Run on the card with
+test_torch_slice.py, test_torch_patch.py, test_torch_patch_route.py,
+test_torch_composite.py, test_torch_static.py and test_torch_multi.py).
+Run on the card with
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 
@@ -16,10 +17,11 @@ import pytest
 import torch
 
 from hyperreel_tpu_torch.configs.presets import (
-    convert_epochs_to_iters, technicolor_z_plane, tiny_dynamic,
+    convert_epochs_to_iters, technicolor_z_plane, tiny_dynamic, tiny_static,
     with_coherent_gather)
 from hyperreel_tpu_torch.models.ctx import StepCtx
 from hyperreel_tpu_torch.models.model import build_model
+from hyperreel_tpu_torch.ops.kernels import build
 from hyperreel_tpu_torch.ops.kernels.composite import (
     composite, composite_plain)
 from hyperreel_tpu_torch.ops.kernels.pack_build import (
@@ -29,6 +31,11 @@ from hyperreel_tpu_torch.ops.kernels.patch_blend import (
 from hyperreel_tpu_torch.ops.kernels.shade import (
     ShadeSpec, premix_time, shade, shade_plain, shade_preblended,
     shade_preblended_plain)
+from hyperreel_tpu_torch.ops.kernels.shade_multi import (
+    MultiSpec, shade_multi, shade_multi_plain, shade_multi_preblended,
+    shade_multi_preblended_plain)
+from hyperreel_tpu_torch.ops.kernels.shade_multi_patch import (
+    shade_multi_patch, shade_multi_patch_plain)
 from hyperreel_tpu_torch.ops.kernels.shade_patch import (
     shade_patch, shade_patch_plain)
 
@@ -246,3 +253,140 @@ def test_composite_matches_plain(dev, S, B):
     want = composite_plain(sigma, dist, rgb, 16.0)
     for g, w in zip(got, want):
         assert (g - w).abs().max() <= 1e-5
+
+
+def _static_model(dev, S, bf16=False, patch=None):
+    """tiny_static with the llff_z_plane family's [8, 4, 4] components (the
+    layout the multi-axis kernels are built for), bf16 tables, density
+    planes and lines redrawn uniform in [0, 0.4)."""
+    cfg = convert_epochs_to_iters(tiny_static(z_channels=S), 4000)
+    cfg["color"]["net"].update(fused_render=True, bf16_tables=True,
+                               n_lamb_sigma=[8, 4, 4], n_lamb_sh=[8, 4, 4])
+    if patch:
+        cfg = with_coherent_gather(cfg, *patch)
+    model = build_model(cfg, compute_dtype=torch.bfloat16 if bf16 else None)
+    gen = torch.Generator().manual_seed(0)
+    params = model.init(gen, dev)
+    for k, v in params["color"]["density"].items():
+        params["color"]["density"][k] = 0.4 * torch.rand(
+            v.shape, generator=gen).to(dev)
+    return cfg, model, params
+
+
+# K1 with the mipnerf contraction and no flow stage: the same tolerances as
+# the flagship's. K5, K5-preblended and K6 hold the per-ray sums at K2's
+# 1e-4; K4's bf16 features may differ by one bf16 ulp on each plane; the
+# coverage counts are exact.
+@pytest.mark.parametrize("pm", [True, False], ids=["phase_major", "scanline"])
+@pytest.mark.parametrize("S,bf16", [(8, False), (32, True)],
+                         ids=["S8_f32", "S32_bf16"])
+def test_multi_kernels_match_plain(dev, S, bf16, pm):
+    _, model, params = _static_model(dev, S, bf16, patch=(5, 2, 8))
+    cf = model._cf_eval
+    prep = cf.prepare(params)
+    rays = _frame_rays(40, dev, 8 if pm else None)[:, :6].contiguous()
+    x0 = cf.pred.net_input(rays, StepCtx(it=20000)).float().contiguous()
+    rp = cf.ray_pack(rays)
+    pack = pack_build(x0, prep["mlp"], rp, cf.spec, 20000)
+    pack_p = pack_build_plain(x0, prep["mlp"], rp, cf.spec, 20000)
+    assert (pack - pack_p).abs().max() <= (2e-3 if bf16 else 1e-5)
+    spec = MultiSpec(S=S, axes=prep["axes"], deg=cf.net.sh_deg,
+                     distance_scale=cf.net.distance_scale)
+    args = (prep["lines"], pack, rp, prep["wb"], spec)
+    out = shade_multi(prep["quads"], *args)
+    ref = shade_multi_plain(prep["quads"], *args)
+    torch.cuda.synchronize()
+    assert ref[:, 3].max() > 0.5              # the scene is not transparent
+    assert (out[:, :4] - ref[:, :4]).abs().max() <= 1e-4
+    assert (out[:, 4] - ref[:, 4]).abs().max() <= 1e-3
+    pspecs = cf.patch_specs([(a.W, a.H, a.C, a.m0, a.m1)
+                             for a in prep["axes"]], pm)
+    flags = torch.zeros(pack.shape[1] // 8, dtype=torch.uint8, device=dev)
+    flags_p = flags.clone()
+    feats = []
+    for t, ps in zip(prep["ptabs"], pspecs):
+        f, v = patch_blend(t, pack, ps, flags)
+        fp, vp = patch_blend_plain(t, pack, ps, flags_p)
+        assert int(v) == int(vp) and _ulps(f, fp) <= 1.0
+        feats.append(f)
+    assert torch.equal(flags, flags_p)
+    pre = shade_multi_preblended(feats, *args)
+    ref = shade_multi_preblended_plain(feats, *args)
+    assert (pre[:, :4] - ref[:, :4]).abs().max() <= 1e-4
+    fused, v = shade_multi_patch(prep["ptabs"], *args, pspecs)
+    ref, vp = shade_multi_patch_plain(prep["ptabs"], *args, pspecs)
+    torch.cuda.synchronize()
+    assert int(v) == int(vp) == int(flags.sum())
+    assert (fused[:, :4] - ref[:, :4]).abs().max() <= 1e-4
+    assert (fused[:, 4] - ref[:, 4]).abs().max() <= 1e-3
+    # the routes agree with each other at the bench's pixel density
+    assert (fused[:, :4] - out[:, :4]).abs().max() <= 2e-4
+    assert (pre[:, :4] - out[:, :4]).abs().max() <= 2e-4
+
+
+def test_multi_kernels_refuse_another_layout(dev):
+    # the library reports the layout of csrc/multi_core.cuh; a spec with
+    # another one raises before any launch
+    assert build.load_library().multi_layout == (
+        (0, 16, 8), (1, 8, 4), (2, 8, 4))
+    _, model, params = _static_model(dev, 8)
+    cf = model._cf_eval
+    prep = cf.prepare(params)
+    axes = prep["axes"]
+    spec = MultiSpec(S=8, axes=(axes[0], axes[2], axes[1]), deg=2,
+                     distance_scale=cf.net.distance_scale)
+    rays = _frame_rays(8, dev)[:, :6].contiguous()
+    rp = cf.ray_pack(rays)
+    pack = pack_build(cf.pred.net_input(rays, StepCtx(it=20000)).float()
+                      .contiguous(), prep["mlp"], rp, cf.spec, 20000)
+    quads = [prep["quads"][i] for i in (0, 2, 1)]
+    lines = [prep["lines"][i] for i in (0, 2, 1)]
+    before = shade_multi.launches
+    with pytest.raises(NotImplementedError):
+        shade_multi(quads, lines, pack, rp, prep["wb"], spec)
+    assert shade_multi.launches == before
+
+
+@pytest.mark.parametrize("route,kernels", [
+    ("quad", {"shade_multi": 1}),
+    ("two", {"patch_blend": 3, "shade_multi_preblended": 1}),
+    ("fused", {"shade_multi_patch": 1})])
+def test_multi_routes_launch_on_card(dev, route, kernels, monkeypatch):
+    monkeypatch.setenv("HYPERREEL_FUSED_PATCH_MULTI",
+                       "1" if route == "fused" else "0")
+    _, model, params = _static_model(
+        dev, 32, patch=None if route == "quad" else (5, 2, 8))
+    fns = (pack_build, shade_multi, shade_multi_preblended,
+           shade_multi_patch, patch_blend)
+    before = {f.__name__: f.launches for f in fns}
+    rays = _frame_rays(64, dev, 8)[:, :6].contiguous()
+    rk = {"rays_phase_major": True}
+    out = model.apply(params, rays, StepCtx(it=20000), rk)
+    got = {f.__name__: f.launches - before[f.__name__] for f in fns}
+    want = dict.fromkeys(got, 0)
+    want.update(pack_build=1, **kernels)
+    assert got == want
+    plain = model.apply(_to(params, "cpu"), rays.cpu(), StepCtx(it=20000),
+                        rk)
+    assert (out["rgb"].cpu() - plain["rgb"]).abs().max() <= 2e-4
+    if route != "quad":
+        # K1 and its plain version differ by ~1e-7, which can move a
+        # sample across a texel edge
+        assert abs(float(plain["patch_coverage_viol"])
+                   - float(out["patch_coverage_viol"])) <= 1e-3
+
+
+def test_static_fused_model_matches_general_on_card(dev):
+    import copy
+    cfg, model, params = _static_model(dev, 32)
+    cfg_g = copy.deepcopy(cfg)
+    cfg_g["color"]["net"]["fused_render_cf"] = False
+    general = build_model(cfg_g)
+    rays = _rays(4096, dev, seed=1)[:, :6].contiguous()
+    ctx = StepCtx(it=20000)
+    before = (pack_build.launches, shade_multi.launches)
+    a = model.apply(params, rays, ctx)["rgb"]
+    assert (pack_build.launches, shade_multi.launches) == (before[0] + 1,
+                                                           before[1] + 1)
+    b = general.apply(params, rays, ctx)["rgb"]
+    assert (a - b).abs().max() <= 2e-4

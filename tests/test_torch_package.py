@@ -47,6 +47,9 @@ def test_port_imports_no_jax():
         "       'triton.', 'hyperreel_tpu.'))]\n"
         "assert not bad, bad\n"
         "assert len(mods) > 25, mods\n"
+        "assert {'hyperreel_tpu_torch.ops.kernels.shade_multi',\n"
+        "        'hyperreel_tpu_torch.ops.kernels.shade_multi_patch',\n"
+        "        'hyperreel_tpu_torch.ops.contract'} <= set(mods), mods\n"
         "print('clean')\n", cwd=ROOT)
     assert res.returncode == 0 and "clean" in res.stdout, res.stderr
 
@@ -62,6 +65,14 @@ def test_port_imports_no_jax():
         P.tiny_dynamic())),
     ("epochs_to_iters", lambda P: P.convert_epochs_to_iters(
         P.technicolor_z_plane(), 4000)),
+    ("llff_z_plane", lambda P: P.llff_z_plane()),
+    ("llff_z_plane_z16", lambda P: P.llff_z_plane(16)),
+    ("tiny_static", lambda P: P.tiny_static()),
+    ("tiny_static_z32_grid16", lambda P: P.tiny_static(32, 16)),
+    ("llff_patch_route", lambda P: P.with_coherent_gather(
+        P.llff_z_plane(), 5, 2, 8)),
+    ("llff_epochs_to_iters", lambda P: P.convert_epochs_to_iters(
+        P.llff_z_plane(), 4000)),
 ])
 def test_presets_equal_the_jax_packages(name, make):
     assert make(TP) == make(JP)

@@ -11,7 +11,8 @@ import jax.numpy as jnp
 import torch
 
 from hyperreel_tpu.configs.presets import (
-    convert_epochs_to_iters, technicolor_z_plane, tiny_dynamic)
+    convert_epochs_to_iters, llff_z_plane, technicolor_z_plane, tiny_dynamic,
+    tiny_static)
 from hyperreel_tpu.models.model import build_model as build_jax
 from hyperreel_tpu_torch.convert import params_from_jax
 from hyperreel_tpu_torch.models.model import build_model as build_torch
@@ -37,6 +38,25 @@ def flagship_cfg(tiny=False, fused=True, bf16_tables=True):
     return cfg
 
 
+def static_cfg(S=8, comps=(8, 4, 4), full=False, fused=True,
+               bf16_tables=True):
+    """tiny_static (S samples, `comps` density and appearance components
+    per axis; the llff_z_plane family's [8, 4, 4] by default) or, with
+    `full`, llff_z_plane's 6x256 MLP on tiny_static's 32^3 grid; fused and
+    bf16_tables as flagship_cfg takes them."""
+    cfg = convert_epochs_to_iters(tiny_static(z_channels=S), ITERS_PER_EPOCH)
+    if full:
+        cfg["embedding"]["embeddings"]["ray_prediction_0"]["net"] = \
+            llff_z_plane()["embedding"]["embeddings"]["ray_prediction_0"][
+                "net"]
+    net = cfg["color"]["net"]
+    net.update(n_lamb_sigma=list(comps), n_lamb_sh=list(comps),
+               fused_render=fused, bf16_tables=bf16_tables)
+    if not fused:
+        net["fused_render_cf"] = False
+    return cfg
+
+
 def models(cfg, bf16):
     """(JAX model, port model) for one config and precision policy."""
     return (build_jax(copy.deepcopy(cfg), dataset_info=INFO,
@@ -45,15 +65,15 @@ def models(cfg, bf16):
                         compute_dtype=torch.bfloat16 if bf16 else None))
 
 
-def weights(jax_model, seed=0):
-    """JAX init weights with the density grids redrawn uniform in [0, 1)
-    (the relu init is a constant 1e-2, an almost transparent scene that
-    would leave the compositing untested). Returns (jax params, port
-    params)."""
+def weights(jax_model, seed=0, density=1.0):
+    """JAX init weights with the density grids redrawn uniform in [0,
+    density) (the relu init is a constant 1e-2, an almost transparent
+    scene that would leave the compositing untested). Returns (jax params,
+    port params)."""
     pn = jax.tree.map(np.asarray, jax_model.init(jax.random.PRNGKey(seed)))
     rng = np.random.default_rng(seed + 1)
     for k, v in pn["color"]["density"].items():
-        pn["color"]["density"][k] = rng.uniform(0, 1, v.shape).astype(
+        pn["color"]["density"][k] = rng.uniform(0, density, v.shape).astype(
             np.float32)
     return jax.tree.map(jnp.asarray, pn), params_from_jax(pn, device="cpu")
 
@@ -71,6 +91,12 @@ def entry_rays(n, seed=0, t=None):
     times = rng.uniform(0, 1, (n, 1)).astype(np.float32) if t is None \
         else np.full((n, 1), t, np.float32)
     return np.concatenate([o, d, cam, times], -1)
+
+
+def static_rays(n, seed=0):
+    """entry_rays' origins and directions (a static scene has no camera
+    index or time column)."""
+    return np.ascontiguousarray(entry_rays(n, seed)[:, :6])
 
 
 def smajor(cols, S, tile):
