@@ -1,9 +1,10 @@
 """Smoke run of the PyTorch/CUDA port (hyperreel_tpu_torch) on one NVIDIA
-GPU: the flagship eval render (technicolor_z_plane) and the static
-multi-axis family's (llff_z_plane) at full width through the hand-written
-kernels, checked against their plain PyTorch versions and against the
-port's general path, on the quad route and on the coherent patch-gather
-routes; and the standalone composite entry point.
+GPU: the flagship eval render (technicolor_z_plane), the static
+multi-axis family's (llff_z_plane) and the dynamic multi-axis family's
+(neural_3d_z_plane, 64 samples per ray) at full width through the
+hand-written kernels, checked against their plain PyTorch versions and
+against the port's general path, on the quad route and on the coherent
+patch-gather routes; and the standalone composite entry point.
 
     python3 chip_smoke.py
 
@@ -58,7 +59,30 @@ no result line):
      where the witness is <= 1e-4 (printed where it is not; at R=4 the
      witness must be <= 1e-4);
  12. llff fused vs general path on 4096 rays, f32 MLP policy (<= 2e-4);
- 13. frame time of llff's routes in turns, as phase 8.
+ 13. frame time of llff's routes in turns, as phase 8;
+ 14. neural_3d_z_plane (bf16 MLP policy, S=64, flow and mipnerf
+     contraction, [8, 4, 4] components on three space-plane x time-plane
+     axes, 12 keyframes of a 50-frame window) on a trained checkpoint's
+     grid (N_voxel_init set to N_voxel_final), weights from a seeded
+     torch.Generator with the density grids redrawn uniform in [0, 0.05);
+ 15. on one chunk of the bench frame (t = 0.3): K1 at S=64 (bf16 and f32
+     MLP policies), K5 on the time planes (TH=12, the time coordinate
+     mixed per sample) and on the planes premixed for t, K4 on each plane
+     and K5-preblended at R=8 (5, 3) on the phase-major chunk, K6 at R=8
+     (5, 3) and at R=4 (4, 3), each against its plain version, the witness
+     counts equal; the share of valid samples (>= 25 %); each kernel's
+     CUDA-event time in turns, and its plain version's;
+ 16. the bench frame through model.apply with uniform_time (the time
+     planes premixed) and without it (K5/K6 on the time planes), on the
+     quad route (K1, K5), the two-kernel (K1, K4 x 3, K5-preblended) and
+     the fused (K1, K6) patch routes at R=8 (5, 3) and R=4 (4, 3): finite,
+     in [0, 1], the launches per chunk, both witnesses, and the rgb within
+     2e-4 of the quad route's frame with one t where the coverage witness
+     is <= 1e-4 (at R=4 it must be);
+ 17. n3d fused vs general path on 4096 rays with random times, f32 MLP
+     policy (<= 2e-4);
+ 18. frame time of n3d's quad route with one t and with a t per ray, and
+     of its patch routes with one t, in turns.
 The line before the last is the kernels' JSON record (launches on their
 main path, error against the plain version, ms and the plain version's
 ms, and the least time the card could take, counting of each table only
@@ -66,8 +90,10 @@ the rows the chunk reads); the last line is
 {"ok": true, "device": {...}}.
 """
 
+import dataclasses
 import json
 import os
+import re
 import subprocess
 import time
 
@@ -96,6 +122,15 @@ F32_RAYS = 16384               # K1's f32-policy check (plain FMA layers)
 COMPOSITE_S = 32
 # llff_z_plane's density planes and lines are redrawn uniform in [0, this)
 LLFF_DENSITY = 0.05
+# neural_3d_z_plane: the 50-frame window of data/neural_3d.py with
+# keyframe_step 4 (:34, :137); its density grids redrawn uniform in [0,
+# this); the JAX test's patch candidate (tests/test_fused_cf.py:1100-1107)
+# and the shape that keeps llff_z_plane's frame inside its patches
+N3D_INFO = {"num_keyframes": 12, "num_frames": 50}
+N3D_DENSITY = 0.05
+N3D_PATCH_R8 = (5, 3, 8)
+N3D_PATCH_R4 = (4, 3, 4)
+N3D_TIMED_FRAMES = 5
 
 # The card's published peaks (NVIDIA H100 SXM data sheet, 700 W): device
 # memory bytes/s, f32 operations/s outside the tensor cores, dense bf16
@@ -298,11 +333,14 @@ def valid_count(pack):
 
 def multi_ops(axes, blend):
     """f32 operations per valid sample after the pack of K5/K6: per axis
-    the plane features (`blend(C)`), the line taps (4C+6), the product (C)
-    and the density sum (nd), then the basis (54A for A appearance
-    channels), SH basis 20, SH sums 54, colour 12, validity 8."""
+    the plane features (`blend(C)`), the second factor (a line's taps
+    4C+6; a time plane's z and t taps and its two rows' blends and mix
+    12C+12), the product (C) and the density sum (nd), then the basis (54A
+    for A appearance channels), SH basis 20, SH sums 54, colour 12,
+    validity 8."""
     A = sum(a.C - a.nd for a in axes)
-    return sum(blend(a.C) + 5 * a.C + 6 + a.nd for a in axes) + 54 * A + 94
+    return sum(blend(a.C) + (12 * a.C + 12 if a.TH else 4 * a.C + 6) + a.C
+               + a.nd for a in axes) + 54 * A + 94
 
 
 def llff_phases(torch, dev, card, frame, reset_counts, read_counts):
@@ -665,6 +703,444 @@ def llff_phases(torch, dev, card, frame, reset_counts, read_counts):
               k6_plain_ms, k6_bound)], frame_ms
 
 
+def n3d(dev, bf16=True, patch=None, params=None):
+    """neural_3d_z_plane at full width (6x256 MLP on 23 inputs, S=64,
+    mipnerf contraction, spatial flow, [8, 4, 4] components on three
+    space-plane x time-plane axes, SH degree 2) on a trained checkpoint's
+    grid: N_voxel_init set to N_voxel_final (262,144,000 voxels: space
+    planes 617x823, 514x823, 514x617; time planes of N3D_INFO's 12
+    keyframes along z, y and x), whose bf16 quad tables exceed the 50 MB
+    L2. The bf16 (or f32) MLP policy; with `patch` the coherent
+    patch-gather route (px, py, R). Weights from torch.Generator seed SEED
+    (or the given params) with the density grids redrawn uniform in
+    [0, N3D_DENSITY): (cfg, model, params, prepared tables)."""
+    import torch
+
+    from hyperreel_tpu_torch.configs.presets import (
+        convert_epochs_to_iters, neural_3d_z_plane, with_coherent_gather)
+    from hyperreel_tpu_torch.models.model import build_model
+
+    cfg = convert_epochs_to_iters(neural_3d_z_plane(), iters_per_epoch=4000)
+    net = cfg["color"]["net"]
+    net["N_voxel_init"] = net["N_voxel_final"]
+    if patch:
+        cfg = with_coherent_gather(cfg, *patch)
+    model = build_model(cfg, dataset_info=N3D_INFO,
+                        compute_dtype=torch.bfloat16 if bf16 else None)
+    if params is None:
+        gen = torch.Generator().manual_seed(SEED)
+        params = model.init(gen, dev)
+        for k, v in params["color"]["density"].items():
+            params["color"]["density"][k] = N3D_DENSITY * torch.rand(
+                v.shape, generator=gen).to(dev)
+    return cfg, model, params, model.prepare_eval(params)
+
+
+def k1_tail_ops(S):
+    """K1's f32 tail operations per sample: K1_TAIL_OPS at 32 samples, one
+    compare-exchange more per sort stage beyond the 15 of S = 32."""
+    n = S.bit_length() - 1
+    return K1_TAIL_OPS - 15 + n * (n + 1) // 2
+
+
+def n3d_phases(torch, dev, card, frame, reset_counts, read_counts):
+    """Phases 14-18: neural_3d_z_plane's kernels on one chunk against their
+    plain versions and timed in turns, the bench frame on its routes with
+    one t per frame and with a t per ray, fused vs general path, and the
+    routes' frame times. Returns (the kernels' JSON records, {route:
+    ms/frame})."""
+    from hyperreel_tpu_torch.models.ctx import StepCtx
+    from hyperreel_tpu_torch.ops.kernels import build
+    from hyperreel_tpu_torch.ops.kernels.pack_build import (
+        pack_build, pack_build_plain)
+    from hyperreel_tpu_torch.ops.kernels.patch_blend import (
+        patch_blend, patch_blend_plain)
+    from hyperreel_tpu_torch.ops.kernels.shade import premix_time
+    from hyperreel_tpu_torch.ops.kernels.shade_multi import (
+        MultiSpec, shade_multi, shade_multi_plain, shade_multi_preblended,
+        shade_multi_preblended_plain)
+    from hyperreel_tpu_torch.ops.kernels.shade_multi_patch import (
+        shade_multi_patch, shade_multi_patch_plain)
+
+    ctx = StepCtx(it=IT)
+    # ---- 14. the model at the checkpoint grid, quad and patch routes
+    cfg, model, params, prep = n3d(dev)
+    _, model8, _, prep8 = n3d(dev, patch=N3D_PATCH_R8, params=params)
+    _, model4, _, prep4 = n3d(dev, patch=N3D_PATCH_R4, params=params)
+    cf = model._cf_eval
+    axes = prep["axes"]
+    print("# neural_3d_z_plane: space planes " + ", ".join(
+        f"{a.H}x{a.W}x{a.C}" for a in axes) + "; time planes " + ", ".join(
+        "x".join(map(str, t.shape)) for t in prep["lines"]) + "; quad "
+        f"tables {nbytes(*prep['quads']) / 1e6:.1f} MB, time planes "
+        f"{nbytes(*prep['lines']) / 1e6:.2f} MB, patch tables (5,3) "
+        f"{nbytes(*prep8['ptabs']) / 1e6:.1f} MB", flush=True)
+
+    # ---- 15. one chunk (the frame's t = 0.3 on every ray): K1 at S = 64
+    # under both MLP policies; K5 on the time planes (TH = 12) and on the
+    # planes premixed for t; K4 on each plane, K5-preblended and K6 at
+    # R=8 (5, 3) on the chunk in bench.py's phase-major order, K6 also at
+    # R=4 (4, 3); each against its plain version
+    chunk = frame[0]
+    net_in = cf.pred.net_input(chunk, ctx).float().contiguous()
+    rp = cf.ray_pack(chunk)
+    tabs = prep["mlp"]
+    pack = pack_build(net_in, tabs, rp, cf.spec, IT)
+    pack_p = pack_build_plain(net_in, tabs, rp, cf.spec, IT)
+    torch.cuda.synchronize()
+    k1_err = (pack - pack_p).abs().max().item()
+    del pack_p
+    cf32 = n3d(dev, bf16=False, params=params)[1]._cf_eval
+    tabs32 = cf32.prepare(params)["mlp"]
+    x32, rp32 = net_in[:F32_RAYS].contiguous(), rp[:F32_RAYS].contiguous()
+    k1_err32 = (pack_build(x32, tabs32, rp32, cf32.spec, IT)
+                - pack_build_plain(x32, tabs32, rp32, cf32.spec, IT)
+                ).abs().max().item()
+    lib = build.load_library().lib
+    rpb = [lib.pack_rays_per_block(c.spec.params(1, t, IT))
+           for c, t in ((cf, tabs), (cf32, tabs32))]
+    print(f"# n3d K1 pack_build S={cf.S} (flow + mipnerf contraction; "
+          f"{rpb[0]} rays per block bf16, {rpb[1]} f32): max |kernel - "
+          f"plain| {k1_err:.3e} bf16 MLP (tol {PACK_TOL_BF16}), "
+          f"{k1_err32:.3e} f32 MLP on {F32_RAYS} rays (tol {PACK_TOL})",
+          flush=True)
+    if not (k1_err <= PACK_TOL_BF16 and k1_err32 <= PACK_TOL):
+        raise AssertionError(f"n3d K1 disagrees with its plain version: "
+                             f"{k1_err}, {k1_err32}")
+    del cf32, tabs32
+    N = pack.shape[1]
+    valid = valid_count(pack)
+    print(f"# n3d chunk: {valid} of {N} samples valid "
+          f"({100 * valid / N:.1f} %)", flush=True)
+    if valid < N // 4:
+        raise AssertionError("under a quarter of the samples are valid: "
+                             "move the camera")
+
+    lines, wb = prep["lines"], prep["wb"]
+    spec = MultiSpec(S=cf.S, axes=axes, deg=cf.net.sh_deg,
+                     distance_scale=cf.net.distance_scale)
+    lines0 = [premix_time(t, rp[0, 7]) for t in lines]
+    axes0 = tuple(dataclasses.replace(a, TH=0) for a in axes)
+    spec0 = dataclasses.replace(spec, axes=axes0)
+    k5_err = {}
+    for name, ls, sp in (("TH=12", lines, spec), ("premixed", lines0, spec0)):
+        out = shade_multi(prep["quads"], ls, pack, rp, wb, sp)
+        out_p = shade_multi_plain(prep["quads"], ls, pack, rp, wb, sp)
+        torch.cuda.synchronize()
+        err = (out[:, :4] - out_p[:, :4]).abs().max().item()
+        derr = (out[:, 4] - out_p[:, 4]).abs().max().item()
+        print(f"# n3d K5 shade_multi {name}: max |kernel - plain| rgb/acc "
+              f"{err:.3e}, depth {derr:.3e} (tol {SHADE_TOL}); acc mean "
+              f"{out[:, 3].mean().item():.4f}", flush=True)
+        if not (err <= SHADE_TOL and derr <= 10 * SHADE_TOL):
+            raise AssertionError(f"n3d K5 ({name}) disagrees with its plain "
+                                 f"version: {err}, {derr}")
+        k5_err[name] = err
+        del out, out_p
+    R8 = N3D_PATCH_R8[2]
+    frame_pm = phase_major(frame, R8).contiguous()
+    chunk_pm = frame_pm[0]
+    rp_pm = cf.ray_pack(chunk_pm)
+    pack_pm = pack_build(cf.pred.net_input(chunk_pm, ctx).float()
+                         .contiguous(), tabs, rp_pm, cf.spec, IT)
+    pspecs = model8._cf_eval.patch_specs(
+        [(a.W, a.H, a.C, a.m0, a.m1) for a in axes], True)
+    flags = torch.zeros(N // R8, dtype=torch.uint8, device=dev)
+    flags_p = flags.clone()
+    feats, k4_err = [], 0.0
+    for ptab, ps in zip(prep8["ptabs"], pspecs):
+        f, vk = patch_blend(ptab, pack_pm, ps, flags)
+        fp, vp = patch_blend_plain(ptab, pack_pm, ps, flags_p)
+        fk, fpl = f.float(), fp.float()
+        ratio = ((fk - fpl).abs() / (bf16_ulp(torch, torch.maximum(
+            fk.abs(), fpl.abs())) + 1e-6)).max().item()
+        print(f"# n3d K4 patch_blend plane ({ps.m0}, {ps.m1}) C={ps.C}: max "
+              f"|kernel - plain| {(fk - fpl).abs().max().item():.3e}, "
+              f"{ratio:.3f} bf16 ulps at most (tol 1); violations {int(vk)} "
+              f"(plain {int(vp)})", flush=True)
+        if not (ratio <= 1.0 and int(vk) == int(vp)):
+            raise AssertionError(f"n3d K4 on plane ({ps.m0}, {ps.m1}) "
+                                 f"disagrees with its plain version: {ratio}")
+        k4_err = max(k4_err, (fk - fpl).abs().max().item())
+        feats.append(f)
+        del fp, fk, fpl
+    viol_k4, viol_p = int(flags.sum()), int(flags_p.sum())
+    del flags_p
+    pre = shade_multi_preblended(feats, lines, pack_pm, rp_pm, wb, spec)
+    pre_p = shade_multi_preblended_plain(feats, lines, pack_pm, rp_pm, wb,
+                                         spec)
+    torch.cuda.synchronize()
+    pre_err = (pre[:, :4] - pre_p[:, :4]).abs().max().item()
+    del pre_p
+    # K6 at R=8 (5, 3) on the phase-major chunk and at R=4 (4, 3) on the
+    # chunk in scanline order
+    k6 = {}
+    pspecs4 = model4._cf_eval.patch_specs(
+        [(a.W, a.H, a.C, a.m0, a.m1) for a in axes], False)
+    for name, ptabs, pk, rpk, pss in (
+            ("R=8 (5,3)", prep8["ptabs"], pack_pm, rp_pm, pspecs),
+            ("R=4 (4,3)", prep4["ptabs"], pack, rp, pspecs4)):
+        fused, vk = shade_multi_patch(ptabs, lines, pk, rpk, wb, spec, pss)
+        fused_p, vp = shade_multi_patch_plain(ptabs, lines, pk, rpk, wb,
+                                              spec, pss)
+        quad = shade_multi(prep["quads"], lines, pk, rpk, wb, spec)
+        torch.cuda.synchronize()
+        err = (fused[:, :4] - fused_p[:, :4]).abs().max().item()
+        derr = (fused[:, 4] - fused_p[:, 4]).abs().max().item()
+        print(f"# n3d K6 shade_multi_patch {name}: max |kernel - plain| "
+              f"rgb/acc {err:.3e}, depth {derr:.3e} (tol {SHADE_TOL}); "
+              f"violations {int(vk)} (plain {int(vp)}) of "
+              f"{N // pss[0].R} slots; vs K5 "
+              f"{(fused[:, :4] - quad[:, :4]).abs().max().item():.3e}",
+              flush=True)
+        if not (err <= SHADE_TOL and derr <= 10 * SHADE_TOL
+                and int(vk) == int(vp)):
+            raise AssertionError(f"n3d K6 ({name}) disagrees with its plain "
+                                 f"version: {err}, {derr}, {int(vk)}, "
+                                 f"{int(vp)}")
+        k6[name] = (err, int(vk))
+        del fused, fused_p, quad
+    print(f"# n3d K5-preblended TH=12: max |kernel - plain| {pre_err:.3e} "
+          f"(tol {SHADE_TOL}); K4 flags {viol_k4} (plain {viol_p}), K6 R=8 "
+          f"{k6['R=8 (5,3)'][1]}", flush=True)
+    if not (pre_err <= SHADE_TOL and viol_k4 == viol_p
+            == k6["R=8 (5,3)"][1]):
+        raise AssertionError(f"n3d K5-preblended / the witness counts "
+                             f"disagree: {pre_err}, {viol_k4}, {viol_p}")
+    torch.cuda.empty_cache()
+
+    # the chunk's kernels timed in turns (K1, K5 TH=12, K5 premixed, K4
+    # x3, K5-pre, K6 R=8, K6 R=4, and back), 20 calls each time; then
+    # each plain version twice
+    def blend3():
+        fl = torch.zeros(N // R8, dtype=torch.uint8, device=dev)
+        return [patch_blend(t, pack_pm, ps, fl) for t, ps in
+                zip(prep8["ptabs"], pspecs)]
+
+    kernels = {
+        "K1": lambda: pack_build(net_in, tabs, rp, cf.spec, IT),
+        "K5 TH=12": lambda: shade_multi(prep["quads"], lines, pack, rp, wb,
+                                        spec),
+        "K5 premixed": lambda: shade_multi(prep["quads"], lines0, pack, rp,
+                                           wb, spec0),
+        "K4x3": blend3,
+        "K5-pre": lambda: shade_multi_preblended(feats, lines, pack_pm,
+                                                 rp_pm, wb, spec),
+        "K6 R=8": lambda: shade_multi_patch(prep8["ptabs"], lines, pack_pm,
+                                            rp_pm, wb, spec, pspecs),
+        "K6 R=4": lambda: shade_multi_patch(prep4["ptabs"], lines, pack, rp,
+                                            wb, spec, pspecs4)}
+    turns = {name: [] for name in kernels}
+    for name in list(kernels) + list(kernels)[::-1]:
+        turns[name].append(cuda_ms(torch, kernels[name], 20))
+    print("# n3d chunk, in turns: " + "; ".join(
+        f"{name} " + ", ".join(f"{t:.4f}" for t in ts) + " ms"
+        for name, ts in turns.items()), flush=True)
+    ms = {name: sum(ts) / 2 for name, ts in turns.items()}
+    plains = {
+        "K1": lambda: pack_build_plain(net_in, tabs, rp, cf.spec, IT),
+        "K5 TH=12": lambda: shade_multi_plain(prep["quads"], lines, pack, rp,
+                                              wb, spec),
+        "K5 premixed": lambda: shade_multi_plain(prep["quads"], lines0, pack,
+                                                 rp, wb, spec0),
+        "K4x3": lambda: [patch_blend_plain(t, pack_pm, ps) for t, ps in
+                         zip(prep8["ptabs"], pspecs)],
+        "K5-pre": lambda: shade_multi_preblended_plain(
+            feats, lines, pack_pm, rp_pm, wb, spec),
+        "K6 R=8": lambda: shade_multi_patch_plain(
+            prep8["ptabs"], lines, pack_pm, rp_pm, wb, spec, pspecs),
+        "K6 R=4": lambda: shade_multi_patch_plain(
+            prep4["ptabs"], lines, pack, rp, wb, spec, pspecs4)}
+    plain_ms = {}
+    for name, fn in plains.items():
+        plain_ms[name] = cuda_ms(torch, fn, 2)
+        torch.cuda.empty_cache()
+
+    valid_pm = valid_count(pack_pm)
+    out_bytes = CHUNK * 5 * 4
+    mlp_ops = 2 * CHUNK * sum(
+        p["weight"].numel() for p in
+        params["embedding"]["ray_prediction_0"]["net"].values())
+    bounds = {"K1": bound(
+        nbytes(net_in, rp, pack) + sum(nbytes(l.w, l.b) for l in tabs.layers),
+        [(mlp_ops, BF16_OPS_PER_S),
+         (N * (k1_tail_ops(cf.S) + K1_CONTRACT_OPS), F32_OPS_PER_S)])}
+    # the table bytes: only the rows this chunk reads, each once; the time
+    # planes (or their premixed lines) whole
+    quad_bytes = sum(rows_bytes(q, quad_rows(pack, a.m0, a.m1, a.W, a.H))
+                     for q, a in zip(prep["quads"], axes))
+    quad_ops = lambda C: 8 * C + 10                       # noqa: E731
+    hat_ops = lambda C: 8 * C + 22                        # noqa: E731
+    for name, ls, axs in (("K5 TH=12", lines, axes),
+                          ("K5 premixed", lines0, axes0)):
+        bounds[name] = bound(
+            nbytes(pack, rp, *ls) + out_bytes + quad_bytes,
+            [(valid * multi_ops(axs, quad_ops) + N * COMPOSITE_OPS,
+              F32_OPS_PER_S)])
+    bounds["K5-pre"] = bound(
+        nbytes(pack_pm, rp_pm, *lines, *feats) + out_bytes,
+        [(valid_pm * multi_ops(axes, lambda C: C) + N * COMPOSITE_OPS,
+          F32_OPS_PER_S)])
+    bounds["K4x3"] = bound(
+        nbytes(pack_pm[:4], *feats) + 3 * 4 + sum(
+            rows_bytes(t, patch_rows(pack_pm, ps, True))
+            for t, ps in zip(prep8["ptabs"], pspecs)),
+        [(N * sum(hat_ops(a.C) for a in axes), F32_OPS_PER_S)])
+    for name, ptabs, pk, rpk, pss in (
+            ("K6 R=8", prep8["ptabs"], pack_pm, rp_pm, pspecs),
+            ("K6 R=4", prep4["ptabs"], pack, rp, pspecs4)):
+        bounds[name] = bound(
+            nbytes(pk, rpk, *lines) + out_bytes + 4 + sum(
+                rows_bytes(t, patch_rows(pk, ps, False))
+                for t, ps in zip(ptabs, pss)),
+            [(valid_count(pk) * multi_ops(axes, hat_ops)
+              + N * COMPOSITE_OPS, F32_OPS_PER_S)])
+    print(f"# n3d chunk ({card}): " + "; ".join(
+        f"{name} {ms[name]:.3f} ms (plain {plain_ms[name]:.3f}, bound "
+        f"{bounds[name][0]:.4f} {bounds[name][1]})" for name in kernels)
+        + f"; {valid_pm} of {N} samples valid; MLP {mlp_ops / 1e9:.1f} "
+        f"GFLOP ({mlp_ops / ms['K1'] / 1e9:.1f} TFLOP/s at K1's time); quad "
+        f"rows the chunk reads {quad_bytes / 1e6:.1f} of "
+        f"{nbytes(*prep['quads']) / 1e6:.1f} MB", flush=True)
+    del feats, pre, pack_pm, pack, flags, lines0
+    torch.cuda.empty_cache()
+
+    # ---- 16. the bench frame through model.apply on each route, with one
+    # t for the frame (uniform_time: the time planes premixed) and with a
+    # t per ray (the same t, but mixed per sample by the TH = 12 kernels)
+    def render(m, frames, rkw):
+        return [m.apply(params, frames[i], ctx, rkw)
+                for i in range(frames.shape[0])]
+
+    n_chunks = frame.shape[0]
+    R4 = N3D_PATCH_R4[2]
+    frame_pm4 = phase_major(frame, R4).contiguous()
+    two = {"patch_blend": 3 * n_chunks, "shade_multi_preblended": n_chunks}
+    fused_k = {"shade_multi_patch": n_chunks}
+    # name: (HYPERREEL_FUSED_PATCH_MULTI, model, frame, render_kwargs,
+    # launches per frame, R of the phase-major rays)
+    routes = {}
+    for ut in (True, False):
+        tag = "one t" if ut else "t per ray"
+        routes[f"n3d quad, {tag}"] = (
+            "0", model, frame, {"cf_prepared": prep, "uniform_time": ut},
+            {"shade_multi": n_chunks}, None)
+        for kind, env, kern in (("two-kernel", "0", two),
+                                ("fused", "1", fused_k)):
+            for R, m, pr, fr in ((R8, model8, prep8, frame_pm),
+                                 (R4, model4, prep4, frame_pm4)):
+                shape = N3D_PATCH_R8 if R == R8 else N3D_PATCH_R4
+                routes[f"n3d {kind} patch R={R} {shape[:2]}, {tag}"] = (
+                    env, m, fr, {"cf_prepared": pr, "uniform_time": ut,
+                                 "rays_phase_major": True}, kern, R)
+    counts, rgb_quad = {}, None
+    for name, (env, m, frames, rkw, kern, R) in routes.items():
+        with EnvVar("HYPERREEL_FUSED_PATCH_MULTI", env):
+            reset_counts()
+            outs = render(m, frames, rkw)
+            torch.cuda.synchronize()
+            got = read_counts()
+        want = dict.fromkeys(got, 0)
+        want.update(pack_build=n_chunks, **kern)
+        counts[name] = got
+        rgb = torch.cat([scanline(o["rgb"], R) if R else o["rgb"]
+                         for o in outs])
+        if not (torch.isfinite(rgb).all() and rgb.min() >= 0
+                and rgb.max() <= 1 and rgb.shape == (SIDE * SIDE, 3)):
+            raise AssertionError(f"{name}: frame rgb is not finite in [0, 1]")
+        if got != want:
+            raise AssertionError(f"{name}: kernel launches {got}, want {want}")
+        ut = rkw["uniform_time"]
+        uviol = max(float(o["uniform_time_viol"]) for o in outs) if ut \
+            else None
+        if (ut and uviol != 0.0) or (not ut and "uniform_time_viol"
+                                     in outs[0]):
+            raise AssertionError(f"{name}: uniform-time witness {uviol}")
+        if rgb_quad is None:
+            rgb_quad = rgb
+            print(f"# frame {SIDE}x{SIDE} ({name}): rgb min "
+                  f"{rgb.min().item():.4f} max {rgb.max().item():.4f} mean "
+                  f"{rgb.mean().item():.4f}; launches {got}; uniform-time "
+                  f"witness {uviol}", flush=True)
+            continue
+        err = (rgb - rgb_quad).abs().max().item()
+        pviol = max(float(o["patch_coverage_viol"]) for o in outs) if R \
+            else 0.0
+        print(f"# frame ({name}): launches {got}; coverage witness "
+              f"{pviol:.3e} (gate {PVIOL_EXACT}); rgb vs the quad route's "
+              f"frame with one t {err:.3e} (tol {PATH_TOL})", flush=True)
+        # the frame's footprints stay inside their patches at R=4 (4, 3)
+        # (as for llff_z_plane), so those routes must render the quad
+        # route's frame; where a witness exceeds the gate it says so
+        exact = pviol <= PVIOL_EXACT
+        if (R == R4 and not exact) or (exact and not err <= PATH_TOL):
+            raise AssertionError(f"{name}: witness {pviol}, rgb error {err}")
+    del rgb_quad
+    torch.cuda.empty_cache()
+
+    # ---- 17. fused vs general path on 4096 rays with a t per ray, f32 MLP
+    # policy
+    import copy
+    from hyperreel_tpu_torch.models.model import build_model
+    cfg_g = copy.deepcopy(cfg)
+    cfg_g["color"]["net"]["fused_render_cf"] = False
+    fused_m = build_model(cfg, dataset_info=N3D_INFO)
+    general = build_model(cfg_g, dataset_info=N3D_INFO)
+    rays = torch.from_numpy(entry_rays(4096)).to(dev)
+    a = fused_m.apply(params, rays, ctx)["rgb"]
+    b = general.apply(params, rays, ctx)["rgb"]
+    path_err = (a - b).abs().max().item()
+    print(f"# n3d fused vs general, 4096 entry() rays with a t each: max "
+          f"|diff| {path_err:.3e} (tol {PATH_TOL})", flush=True)
+    if not path_err <= PATH_TOL:
+        raise AssertionError(f"n3d fused and general paths disagree: "
+                             f"{path_err}")
+    del fused_m, general, a, b
+
+    # ---- 18. frame time of the routes, in turns
+    timed = ["n3d quad, one t", "n3d quad, t per ray"] + [
+        f"n3d {kind} patch R={sh[2]} {sh[:2]}, one t"
+        for sh in (N3D_PATCH_R8, N3D_PATCH_R4)
+        for kind in ("fused", "two-kernel")]
+    times = {name: [] for name in timed}
+    for name in (timed + timed[::-1]) * 2:
+        env, m, frames, rkw = routes[name][:4]
+        with EnvVar("HYPERREEL_FUSED_PATCH_MULTI", env):
+            times[name].append(cuda_ms(
+                torch, lambda: render(m, frames, rkw), N3D_TIMED_FRAMES))
+    frame_ms = {}
+    for name, ts in times.items():
+        frame_ms[name] = sum(ts) / len(ts)
+        print(f"# {card}: {name} route {frame_ms[name]:.3f} ms/frame, "
+              f"{SIDE * SIDE / frame_ms[name] / 1e3:.3f} Mrays/s "
+              f"({N3D_TIMED_FRAMES} frames after a warm-up frame, 4 times: "
+              + ", ".join(f"{t:.3f}" for t in ts) + ")", flush=True)
+
+    src = "hyperreel_tpu/ops/pallas/"
+    t1, t0 = "n3d quad, t per ray", "n3d quad, one t"
+    two8 = f"n3d two-kernel patch R={R8} {N3D_PATCH_R8[:2]}, t per ray"
+    fu8 = f"n3d fused patch R={R8} {N3D_PATCH_R8[:2]}, t per ray"
+    fu4 = f"n3d fused patch R={R4} {N3D_PATCH_R4[:2]}, t per ray"
+    rec = [
+        ("pack_build_n3d", "pack_build.cu", "pack_build.py:137", t1,
+         "pack_build", k1_err, "K1"),
+        ("shade_multi_n3d_time_planes", "shade_multi.cu", "shade.py:742", t1,
+         "shade_multi", k5_err["TH=12"], "K5 TH=12"),
+        ("shade_multi_n3d_premixed", "shade_multi.cu", "shade.py:742", t0,
+         "shade_multi", k5_err["premixed"], "K5 premixed"),
+        ("shade_multi_preblended_n3d", "shade_multi.cu", "shade.py:761",
+         two8, "shade_multi_preblended", pre_err, "K5-pre"),
+        ("patch_blend_n3d_3_planes", "patch_blend.cu", "patch_blend.py:51",
+         two8, "patch_blend", k4_err, "K4x3"),
+        ("shade_multi_patch_n3d_r8", "shade_multi_patch.cu", "shade.py:786",
+         fu8, "shade_multi_patch", k6["R=8 (5,3)"][0], "K6 R=8"),
+        ("shade_multi_patch_n3d_r4", "shade_multi_patch.cu", "shade.py:786",
+         fu4, "shade_multi_patch", k6["R=4 (4,3)"][0], "K6 R=4")]
+    return [entry(name, source, src + line, counts[route][fn], err, ms[key],
+                  plain_ms[key], bounds[key])
+            for name, source, line, route, fn, err, key in rec], frame_ms
+
+
 def patch_model(cfg, info, params, shape):
     """The flagship with the coherent patch-gather route (px, py, R) on the
     same weights: (model, prepared tables)."""
@@ -755,10 +1231,15 @@ def main():
     lib = build.load_library()
     print(f"# kernels built in {lib.build_seconds:.1f} s "
           f"(loaded after {time.perf_counter() - t0:.1f} s)", flush=True)
+    # each kernel's registers and spills, under its name and its mangled
+    # template arguments (Li2E: the int 2, Lb1E: true)
     source = ""
     for line in lib.compiler_log.splitlines():
         if line.startswith("== "):
             source = line[3:]
+        elif "Compiling entry function" in line:
+            m = re.search(r"\d([a-z_]+_kernel)(I.*?E)E", line)
+            source = f"{m.group(1)}<{m.group(2)}>" if m else line.strip()
         elif "registers" in line or "spill" in line:
             print(f"# {source}: {line.strip()}")
 
@@ -1104,6 +1585,11 @@ def main():
     llff_entries, llff_frame_ms = llff_phases(
         torch, dev, card.splitlines()[0], frame, reset_counts, read_counts)
     frame_ms.update(llff_frame_ms)
+
+    # ---- 14-18. the dynamic multi-axis family (neural_3d_z_plane)
+    n3d_entries, n3d_frame_ms = n3d_phases(
+        torch, dev, card.splitlines()[0], frame, reset_counts, read_counts)
+    frame_ms.update(n3d_frame_ms)
     print(f"# chip_smoke took {time.perf_counter() - t_start:.1f} s after "
           "the card check", flush=True)
 
@@ -1128,7 +1614,8 @@ def main():
               k4_plain_ms, k4_bound),
         entry("composite", "composite.cu",
               "hyperreel_tpu/ops/pallas/composite.py:26", k7_launches,
-              k7_err, k7_ms, k7_plain_ms, k7_bound)] + llff_entries,
+              k7_err, k7_ms, k7_plain_ms, k7_bound)] + llff_entries
+        + n3d_entries,
         "frame_ms": frame_ms}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

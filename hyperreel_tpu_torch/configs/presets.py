@@ -284,6 +284,42 @@ def llff_z_plane(z_channels=32):
     }
 
 
+def neural_3d_z_plane(z_channels=64):
+    """Dynamic HyperReel model for the Neural 3D Video scenes (reference
+    conf/experiment/model/neural_3d_z_plane.yaml): pluecker rays with a
+    1-frequency PE, 64 z-planes with the mipnerf contraction, spatial flow
+    (outer_fac 4), a soft sigma gate (sigmoid shift 1), and [8, 4, 4]
+    keyframe grids on all three axes."""
+    cfg = technicolor_z_plane(z_channels=z_channels)
+    pred = cfg["embedding"]["embeddings"]["ray_prediction_0"]
+    pred["params"]["ray"] = {
+        "start": 0, "end": 6,
+        "param": {"n_dims": 6, "fn": "pluecker",
+                  "direction_multiplier": 1.0, "moment_multiplier": 1.0},
+        "pe": {"type": "windowed", "n_freqs": 1, "freq_multiplier": 2.0,
+               "wait_iters": 0, "max_freq_epoch": 0},
+    }
+    pred["outputs"]["spatial_flow"]["activation"]["outer_fac"] = 4.0
+    pred["outputs"]["sigma"]["activation"] = _ease_sigmoid(3, 0, shift=1.0)
+    isect = cfg["embedding"]["embeddings"]["ray_intersect_0"]["intersect"]
+    isect["outward_facing"] = False
+    isect["contract"] = {
+        "type": "mipnerf",
+        "contract_samples": True,
+        "contract_start_radius": 1.0,
+        "contract_end_radius": 8.0,
+    }
+    net = cfg["color"]["net"]
+    net.update({
+        "aabb": [[-2.0, -1.5, -1.25], [2.0, 1.5, 1.25]],
+        "N_voxel_final": 262144000,
+        "update_AlphaMask_list": [],
+        "n_lamb_sigma": [8, 4, 4],
+        "n_lamb_sh": [8, 4, 4],
+    })
+    return cfg
+
+
 def with_coherent_gather(cfg, px=4, py=3, block=4):
     """Enable the coherent patch-gather render path (one (px x py)-texel
     row per `block`-consecutive-ray block and sample slot —
@@ -315,6 +351,26 @@ def tiny_static(z_channels=8, grid=32):
     cfg["embedding"]["embeddings"]["ray_prediction_0"]["net"].update(
         {"depth": 4, "hidden_channels": 64, "skips": [2]})
     return cfg
+
+
+def _shrink_for_tests(cfg, grid=32):
+    net = cfg["color"]["net"]
+    net["bf16_tables"] = False
+    net["N_voxel_init"] = grid ** 3
+    net["N_voxel_final"] = grid ** 3
+    net["upsamp_list"] = []
+    net["update_AlphaMask_list"] = []
+    n_ax = [1 if c else 0 for c in net["n_lamb_sigma"]]
+    net["n_lamb_sigma"] = [4 * c for c in n_ax]
+    net["n_lamb_sh"] = [4 * c for c in n_ax]
+    cfg["embedding"]["embeddings"]["ray_prediction_0"]["net"].update(
+        {"depth": 4, "hidden_channels": 64, "skips": [2]})
+    return cfg
+
+
+def tiny_neural_3d(z_channels=8, grid=32):
+    """Miniature neural_3d_z_plane for tests."""
+    return _shrink_for_tests(neural_3d_z_plane(z_channels=z_channels), grid)
 
 
 def tiny_dynamic(z_channels=8, grid=32):

@@ -1,26 +1,37 @@
-// Device code shared by the multi-axis shade kernels of the static VM net
-// (TensorVMNoSample, the llff_z_plane family): K5 shade_multi.cu (quad
-// rows, or the pre-blended features of K4) and K6 shade_multi_patch.cu (the
-// patch blend inside). Port of the per-axis body of
-// hyperreel_tpu/ops/pallas/shade.py:_multi_core for static nets (time_hs
-// all 0: a plane times a line per axis).
+// Device code shared by the multi-axis shade kernels of the VM nets: the
+// static net (TensorVMNoSample, the llff_z_plane family: a plane times a
+// line per axis) and the dynamic one (TensorVMKeyframeTime with three
+// axes, the neural_3d_z_plane family: a space plane times a keyframe time
+// plane per axis). K5 shade_multi.cu (quad rows, or the pre-blended
+// features of K4) and K6 shade_multi_patch.cu (the patch blend inside).
+// Port of the per-axis body of hyperreel_tpu/ops/pallas/shade.py:
+// _multi_core (and of _shade_kernel_multi_fused_patch's second factor).
 //
 // Axis i of the VM decomposition spans the point components MAT_MODE[i] =
 // (0, 1), (0, 2), (1, 2) with its plane and VEC_MODE[i] = 2, 1, 0 with its
-// line. Per valid sample and axis: the plane features (C channels), the
-// line's two linear taps at (c + 1) * 0.5 * (L - 1) (zero off the line, as
-// the JAX kernel's ring-padded two-hot), their product; the first nd
+// second factor. Per valid sample and axis: the plane features (C
+// channels); the second factor: for a static net the line's two linear
+// taps at (c + 1) * 0.5 * (L - 1) (zero off the line, as the JAX kernel's
+// ring-padded two-hot), for a dynamic net (TH > 0) the same z taps on the
+// two keyframe rows of the time plane [TH, L, C] around the ray's time
+// coordinate tn, blended by tn's two taps (the JAX kernel's :711-722 with
+// its TH + 2 ring padding replaced by zero-weight taps, as
+// shade_core.cuh shade_sample does for the flagship; a time plane
+// premixed for one t is a line, TH = 0); their product; the first nd
 // channels sum into the density feature (per axis, then across axes, as
 // JAX adds each axis's sum), the rest append to one appearance vector in
 // axis order; then one SH-2 colour from it (shade_core.cuh sh_colour with
 // the [3 * kBasis, A] basis, A the appearance channels) and relu density.
-// The kernels are built for the llff_z_plane family's layout, axes 0, 1, 2
-// with C = 16, 8, 8 of which 8, 4, 4 density channels (the [8, 4, 4]
-// presets and tiny_static with those components). The constants below are
-// the layout's one owner: shade_multi.cu exports them (multi_layout), and
-// the loader (ops/kernels/build.py) hands them to the wrappers' check.
+// The kernels are built for the [8, 4, 4] layout of both families, axes 0,
+// 1, 2 with C = 16, 8, 8 of which 8, 4, 4 density channels (the
+// llff_z_plane and neural_3d_z_plane presets, and tiny_static with those
+// components). The constants below are the layout's one owner:
+// shade_multi.cu exports them (multi_layout), and the loader
+// (ops/kernels/build.py) hands them to the wrappers' check.
 
 #pragma once
+
+#include <type_traits>
 
 #include "shade_core.cuh"
 
@@ -30,8 +41,10 @@ struct MultiAxis {
   // [B*S, C] in the pack's order; K6: bf16 patch table [(H+1)*(W+1),
   // px*py*C]
   const void* table;
-  const float* line;  // f32 [L, C]
-  int W, H, L;
+  // f32 second factor: the line [L, C] (TH = 0), or the time plane
+  // [TH, L, C] (L its length along VEC_MODE)
+  const float* line;
+  int W, H, L, TH;
 };
 
 struct MultiParams {
@@ -46,6 +59,8 @@ namespace multi_core {
 constexpr int kCh0 = 16, kCh1 = 8, kCh2 = 8;  // channels of axes 0, 1, 2
 constexpr int kNd0 = 8, kNd1 = 4, kNd2 = 4;   // of which density channels
 constexpr int kApp = kCh0 - kNd0 + kCh1 - kNd1 + kCh2 - kNd2;
+template <int A>
+constexpr int kChOf = A == 0 ? kCh0 : A == 1 ? kCh1 : kCh2;
 
 // the pack rows of axis A's plane coordinates and of its line coordinate
 template <int A>
@@ -91,16 +106,37 @@ __device__ __forceinline__ void row_features(const MultiAxis& ax, int64_t g,
   }
 }
 
-// Axis A's line factor times its plane features `feat`: the density
-// channels' sum is added to dsum, the rest written to app[0 .. C - ND).
-template <int A, int C, int ND>
+// Axis A's second factor (the line, or the time plane at the ray's time
+// coordinate tn) times its plane features `feat`: the density channels'
+// sum is added to dsum, the rest written to app[0 .. C - ND). kTime:
+// compiled with the time-plane branch (a launch with some TH > 0), so that
+// the static nets' kernels keep their registers.
+template <int A, int C, int ND, bool kTime>
 __device__ __forceinline__ void line_product(const MultiAxis& ax,
-                                             const float* pk,
+                                             const float* pk, float tn,
                                              const float* feat, float& dsum,
                                              float* app) {
   using namespace shade_core;
   float lf[C];
-  z_blend<C>(lf, ax.line, taps(pk[Mode<A>::v], ax.L));
+  if (!kTime || ax.TH == 0) {
+    z_blend<C>(lf, ax.line, taps(pk[Mode<A>::v], ax.L));
+  } else {
+    const Taps tz = taps(pk[Mode<A>::v], ax.L);
+    const Taps tt = taps(tn, ax.TH);
+#pragma unroll
+    for (int c = 0; c < C; ++c) lf[c] = 0.0f;
+    float zf[C];
+    if (tt.w0 != 0.0f) {
+      z_blend<C>(zf, ax.line + (int64_t)tt.i0 * ax.L * C, tz);
+#pragma unroll
+      for (int c = 0; c < C; ++c) lf[c] += zf[c] * tt.w0;
+    }
+    if (tt.w1 != 0.0f) {
+      z_blend<C>(zf, ax.line + (int64_t)(tt.i0 + 1) * ax.L * C, tz);
+#pragma unroll
+      for (int c = 0; c < C; ++c) lf[c] += zf[c] * tt.w1;
+    }
+  }
   float ds = 0.0f;
 #pragma unroll
   for (int c = 0; c < C; ++c) {
@@ -112,6 +148,43 @@ __device__ __forceinline__ void line_product(const MultiAxis& ax,
     }
   }
   dsum += ds;
+}
+
+// Everything after the three planes' features of one valid sample (the
+// per-axis products, relu density, the SH colour): `feat(A, f)` writes
+// axis A's C_A plane features to f (A a std::integral_constant).
+template <bool kTime, typename Feat>
+__device__ __forceinline__ void shade_axes(const MultiParams& p,
+                                           const float* pk, const float* ray,
+                                           Feat feat, float& sigma,
+                                           float* rgb) {
+  const float tn = kTime ? __ldg(ray + 7) : 0.0f;
+  float dsum = 0.0f;
+  float app[kApp];
+  {
+    float f[kCh0];
+    feat(std::integral_constant<int, 0>{}, f);
+    line_product<0, kCh0, kNd0, kTime>(p.axis[0], pk, tn, f, dsum, app);
+  }
+  {
+    float f[kCh1];
+    feat(std::integral_constant<int, 1>{}, f);
+    line_product<1, kCh1, kNd1, kTime>(p.axis[1], pk, tn, f, dsum,
+                                app + kCh0 - kNd0);
+  }
+  {
+    float f[kCh2];
+    feat(std::integral_constant<int, 2>{}, f);
+    line_product<2, kCh2, kNd2, kTime>(p.axis[2], pk, tn, f, dsum,
+                                app + kCh0 - kNd0 + kCh1 - kNd1);
+  }
+  sigma = fmaxf(dsum, 0.0f);
+  shade_core::sh_colour<kApp>(app, p.wb, pk, ray, rgb);
+}
+
+// Does any axis of p have a time plane (TH > 0)?
+inline bool has_time(const MultiParams& p) {
+  return p.axis[0].TH > 0 || p.axis[1].TH > 0 || p.axis[2].TH > 0;
 }
 
 }  // namespace multi_core

@@ -7,31 +7,39 @@
 // its in-kernel MLP (_mlp_rows, the HYPERREEL_PK_MLP route the JAX package
 // takes by default) and _bitonic_sublane.
 //
-// Bound on the H100: the MLP's tensor-core work (about 0.8 MFLOP per ray),
-// about two thirds of the kernel's time on an H100 80GB HBM3 at 700 W
-// (prefetching weight fragments deeper does not shorten it); the tail is
-// a few dozen flops per sample against 40 bytes of pack written. Design: a
-// block of 16 warps takes 64 rays (32 under the f32 policy). Their
-// activations never leave shared memory: two operand buffers (bf16 under
-// the bench policy, f32 under the f32 policy) hold a layer's input and
-// the next layer's, with the encoded rays parked in columns [xcol, xcol +
-// cin) of both for the first and the skip layer, and `out` holds the f32
-// sums. A warp takes a 16-column strip of a layer for all the block's
-// rays: WMMA m16n16k16 (bf16 operands, f32 accumulation) with the weights
-// [k, n] read as fragments from global memory, where the 0.8 MB of the
-// flagship's weights stay in L2, the next k-step's fragment loaded while
-// this one's products run (the f32 policy runs the strip as plain FMAs).
-// The warp then adds the bias, applies the leaky relu and rounds the
-// strip into the next layer's operand buffer at once, so one barrier per
-// layer remains; the last layer stays f32 in `out`. The tail then runs
-// one S-lane segment of a warp per ray, one lane per sample, reading its
-// fields from `out` (columns field-major: the host permutes the last
-// layer), sorting the distances with __shfl_xor_sync and writing pack
-// column r*S + s of each row, 128 contiguous bytes per warp. The mipnerf
-// contraction (hyperreel_tpu/ops/contract.py inverse_contract_distance and
-// contract_rows, the JAX kernel's :191-194 and :209-221) runs per lane in
-// the JAX operation order, with __f*_rn intrinsics so that no multiply-add
-// is fused where the JAX and plain versions round twice.
+// Bound on the H100: the MLP's tensor-core work (about 0.8 MFLOP per ray,
+// 1.04 at the neural_3d width), about two thirds of the kernel's time on
+// an H100 80GB HBM3 at 700 W (prefetching weight fragments deeper does not
+// shorten it); the tail is a few dozen flops per sample against 40 bytes
+// of pack written. Design: a block of 16 warps takes 64 rays (32 under
+// the f32 policy). Their activations never leave shared memory: two
+// operand buffers (bf16 under the bench policy, f32 under the f32 policy)
+// hold a layer's input and the next layer's, with the encoded rays parked
+// in columns [xcol, xcol + cin) of both for the first and the skip layer,
+// and `out` holds the f32 sums. A warp takes a 16-column strip of a layer
+// for all the block's rays: WMMA m16n16k16 (bf16 operands, f32
+// accumulation) with the weights [k, n] read as fragments from global
+// memory, where the 0.8 MB of the flagship's weights stay in L2, the next
+// k-step's fragment loaded while this one's products run (the f32 policy
+// runs the strip as plain FMAs). The warp then adds the bias, applies the
+// leaky relu and rounds the strip into the next layer's operand buffer at
+// once, so one barrier per layer remains; the last layer stays f32 in
+// `out`. Where the last layer is too wide for `out` at that many rays (64
+// samples: 15 x 64 = 960 columns, 250 KB for 64 rays in bf16), the block
+// takes half as many rays (32; 16 under the f32 policy), so each weight
+// fragment feeds half as many products (chosen at launch from the widths;
+// the flagship and llff_z_plane keep 64 / 32). The tail then runs one
+// warp segment per ray: one lane per sample for S <= 32, and for S = 64 a
+// whole warp with two samples per lane (samples 2l and 2l + 1 in lane l),
+// reading its fields from `out` (columns field-major: the host permutes
+// the last layer), sorting the distances with __shfl_xor_sync (at S = 64
+// the j = 1 stages compare the lane's own pair, the others shuffle both
+// values) and writing pack column r*S + s of each row, 128 contiguous
+// bytes per warp (256 at S = 64). The mipnerf contraction
+// (hyperreel_tpu/ops/contract.py inverse_contract_distance and
+// contract_rows, the JAX kernel's :191-194 and :209-221) runs per sample
+// in the JAX operation order, with __f*_rn intrinsics so that no
+// multiply-add is fused where the JAX and plain versions round twice.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -44,7 +52,7 @@
 enum PackField { F_Z, F_SIGMA, F_FLOW, F_PSIG, F_POFF, F_CS, F_CSH, F_N };
 enum PackActSlot { A_Z, A_ISECT, A_SIGMA, A_FLOW, A_FLOW_STAGE, A_PSIG, A_POFF,
                A_PO_STAGE, A_CS, A_CSH, A_N };
-constexpr int kPackMaxS = 32;
+constexpr int kPackMaxS = 64;
 constexpr int kMaxLayers = 12;
 
 // The C interface's types live at global scope: a signature naming a type
@@ -90,7 +98,8 @@ constexpr int kStrip = 16;      // output columns per warp task
 constexpr size_t kMaxSmem = 227 * 1024;
 
 // rays per block: the operand buffers and the f32 sums of a block's rays
-// fit shared memory at 64 rays in bf16 and 32 in f32
+// fit shared memory at 64 rays in bf16 and 32 in f32 up to the flagship's
+// and llff_z_plane's widths; a wider last layer halves them (plan)
 template <typename T>
 constexpr int kRaysOf = std::is_same_v<T, __nv_bfloat16> ? 64 : 32;
 
@@ -193,12 +202,124 @@ __device__ __forceinline__ void store_operand(__nv_bfloat16* p, float v) {
 }
 __device__ __forceinline__ void store_operand(float* p, float v) { *p = v; }
 
-template <typename T>
+// The tail of this lane's SPL samples of ray r: lane l of the ray's warp
+// segment holds samples SPL*l + j, j < SPL (SPL = 1 for S <= 32, 2 for
+// S = 64); `row` is the ray's f32 MLP output in `out`. z, the distance,
+// the ascending values-only sort over the ray's S samples, the points
+// and the pack. Every lane of the warp must call it (the sort shuffles);
+// a lane past B (live = false) runs on with the last ray's data and
+// stores nothing.
+template <int SPL>
+__device__ __forceinline__ void tail(const PackParams& p,
+                                     const float* row, const float* ray,
+                                     int64_t r, bool live, int l,
+                                     float* __restrict__ pack) {
+  const int S = p.S;
+  const int64_t N = (int64_t)p.B * S;
+  const float o[3] = {__ldg(ray + 0), __ldg(ray + 1), __ldg(ray + 2)};
+  const float d[3] = {__ldg(ray + 3), __ldg(ray + 4), __ldg(ray + 5)};
+  const float dt = __ldg(ray + 6);
+
+  // z processing (intersect.py z_plane): act(z) * (1 - sigma)
+  float dist[SPL];
+#pragma unroll
+  for (int j = 0; j < SPL; ++j) {
+    const int s = SPL * l + j;
+    auto field = [&](int f, int c) { return row[(p.foff[f] + c) * S + s]; };
+    float z = apply_act(p.act[A_ISECT], apply_act(p.act[A_Z], field(F_Z, 0)));
+    z = z * (1.0f - apply_act(p.act[A_SIGMA], field(F_SIGMA, 0)));
+    z = z * p.z_scale[s] + p.samples[s];
+    if (p.contract_samples) z = inverse_contract_distance(z, p);
+    const float dz = fabsf(d[2]) < 1e-5f ? 1e12f : d[2];
+    dist[j] = (z - o[2]) / dz;
+    if (dist[j] <= 0.0f) dist[j] = 0.0f;
+  }
+
+  // values-only ascending bitonic sort over the ray's S samples
+  if constexpr (SPL == 1) {
+    const int s = l;
+    for (int k = 2; k <= S; k <<= 1) {
+      for (int j = k >> 1; j >= 1; j >>= 1) {
+        const float partner = __shfl_xor_sync(0xffffffffu, dist[0], j);
+        const bool lo_half = (s & j) == 0;
+        const bool take_min = ((s & k) == 0) == lo_half;
+        dist[0] = take_min ? fminf(dist[0], partner) : fmaxf(dist[0], partner);
+      }
+    }
+  } else {
+    // S = 64 over a whole warp: the stage j = 1 compares the lane's own
+    // pair (positions 2l, 2l + 1); a stage j >= 2 pairs position 2l + i
+    // with 2(l ^ j/2) + i, the same register of lane l ^ j/2
+    static_assert(SPL == 2, "two samples per lane");
+    for (int k = 2; k <= 64; k <<= 1) {
+      const bool asc = ((2 * l) & k) == 0;
+      for (int j = k >> 1; j >= 2; j >>= 1) {
+        const int m = j >> 1;
+        const bool take_min = asc == ((l & m) == 0);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float partner = __shfl_xor_sync(0xffffffffu, dist[i], m);
+          dist[i] = take_min ? fminf(dist[i], partner)
+                             : fmaxf(dist[i], partner);
+        }
+      }
+      const float lo = fminf(dist[0], dist[1]), hi = fmaxf(dist[0], dist[1]);
+      dist[0] = asc ? lo : hi;
+      dist[1] = asc ? hi : lo;
+    }
+  }
+
+#pragma unroll
+  for (int j = 0; j < SPL; ++j) {
+    const int s = SPL * l + j;
+    auto field = [&](int f, int c) { return row[(p.foff[f] + c) * S + s]; };
+    // points; flow / offset / colour fields stay in prediction order
+    float base[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) base[c] = o[c] + d[c] * dist[j];
+    if (p.contract) {
+      // contract the point and measure its distance from the contracted
+      // origin (hyperreel_tpu/ops/pallas/pack_build.py:209-221)
+      float oc[3] = {o[0], o[1], o[2]};
+      contract_rows(base, p);
+      contract_rows(oc, p);
+      float sq = 0.0f;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float e = __fsub_rn(base[c], oc[c]);
+        sq = c == 0 ? __fmul_rn(e, e) : __fadd_rn(sq, __fmul_rn(e, e));
+      }
+      dist[j] = dist[j] <= 0.0f ? 0.0f : __fsqrt_rn(fmaxf(sq, 1e-24f));
+    }
+    const float po_fac = 1.0f - apply_act(p.act[A_PSIG], field(F_PSIG, 0));
+    float vals[kPackRows];
+    for (int c = 0; c < 3; ++c) {
+      float v = base[c];
+      if (p.foff[F_FLOW] >= 0) {
+        v = v + apply_act(p.act[A_FLOW_STAGE],
+                          apply_act(p.act[A_FLOW], field(F_FLOW, c))) * dt;
+      }
+      v = v + apply_act(p.act[A_PO_STAGE],
+                        apply_act(p.act[A_POFF], field(F_POFF, c))) * po_fac;
+      vals[c] = (v - p.aabb_lo[c]) * p.aabb_inv[c] - 1.0f;
+      vals[4 + c] = apply_act(p.act[A_CS], field(F_CS, c));
+      vals[7 + c] = apply_act(p.act[A_CSH], field(F_CSH, c));
+    }
+    vals[3] = dist[j];
+    if (live) {
+      const int64_t g = r * S + s;
+#pragma unroll
+      for (int i = 0; i < kPackRows; ++i) pack[(int64_t)i * N + g] = vals[i];
+    }
+  }
+}
+
+// R rays per block (a multiple of 16: WMMA row tiles)
+template <typename T, int R>
 __global__ void __launch_bounds__(kThreads)
 pack_build_kernel(const float* __restrict__ x0, const float* __restrict__ rays,
                   float* __restrict__ pack, const __grid_constant__ PackParams p,
                   int lda, int lds) {
-  constexpr int R = kRaysOf<T>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* bufs[2] = {reinterpret_cast<T*>(smem),
                 reinterpret_cast<T*>(smem) + (size_t)R * lda};
@@ -250,95 +371,82 @@ pack_build_kernel(const float* __restrict__ x0, const float* __restrict__ rays,
     __syncthreads();
   }
 
-  // ---- the tail: one S-lane segment per ray. R * S and kThreads are
-  // multiples of 32, so a warp enters and leaves the loop as a whole.
+  // ---- the tail: one warp segment per ray, S lanes (S <= 32) or the
+  // whole warp with two samples per lane (S = 64). R * lanes and kThreads
+  // are multiples of 32, so a warp enters and leaves the loop as a whole.
   const int S = p.S;
-  const int64_t N = (int64_t)p.B * S;
-  for (int i = tid; i < R * S; i += kThreads) {
-    const int rl = i / S, s = i % S;
+  const int lanes = S < 32 ? S : 32;
+  for (int i = tid; i < R * lanes; i += kThreads) {
+    const int rl = i / lanes, l = i % lanes;
     const int64_t r = r0 + rl;
     const bool live = r < p.B;
     // rows past B run on (with the last ray's data) so that every lane
     // takes part in the shuffles; they store nothing
     const float* ray = rays + (live ? r : (int64_t)p.B - 1) * 8;
-    const float* row = out + rl * lds;
-    auto field = [&](int f, int c) { return row[(p.foff[f] + c) * S + s]; };
-    const float o[3] = {__ldg(ray + 0), __ldg(ray + 1), __ldg(ray + 2)};
-    const float d[3] = {__ldg(ray + 3), __ldg(ray + 4), __ldg(ray + 5)};
-    const float dt = __ldg(ray + 6);
-
-    // z processing (intersect.py z_plane): act(z) * (1 - sigma)
-    float z = apply_act(p.act[A_ISECT], apply_act(p.act[A_Z], field(F_Z, 0)));
-    z = z * (1.0f - apply_act(p.act[A_SIGMA], field(F_SIGMA, 0)));
-    z = z * p.z_scale[s] + p.samples[s];
-    if (p.contract_samples) z = inverse_contract_distance(z, p);
-    const float dz = fabsf(d[2]) < 1e-5f ? 1e12f : d[2];
-    float dist = (z - o[2]) / dz;
-    if (dist <= 0.0f) dist = 0.0f;
-
-    // values-only ascending bitonic sort over the S-lane segment
-    for (int k = 2; k <= S; k <<= 1) {
-      for (int j = k >> 1; j >= 1; j >>= 1) {
-        const float partner = __shfl_xor_sync(0xffffffffu, dist, j);
-        const bool lo_half = (s & j) == 0;
-        const bool take_min = ((s & k) == 0) == lo_half;
-        dist = take_min ? fminf(dist, partner) : fmaxf(dist, partner);
-      }
-    }
-
-    // points; flow / offset / colour fields stay in prediction order
-    float base[3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) base[c] = o[c] + d[c] * dist;
-    if (p.contract) {
-      // contract the point and measure its distance from the contracted
-      // origin (hyperreel_tpu/ops/pallas/pack_build.py:209-221)
-      float oc[3] = {o[0], o[1], o[2]};
-      contract_rows(base, p);
-      contract_rows(oc, p);
-      float sq = 0.0f;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const float e = __fsub_rn(base[c], oc[c]);
-        sq = c == 0 ? __fmul_rn(e, e) : __fadd_rn(sq, __fmul_rn(e, e));
-      }
-      dist = dist <= 0.0f ? 0.0f : __fsqrt_rn(fmaxf(sq, 1e-24f));
-    }
-    const float po_fac = 1.0f - apply_act(p.act[A_PSIG], field(F_PSIG, 0));
-    float vals[kPackRows];
-    for (int c = 0; c < 3; ++c) {
-      float v = base[c];
-      if (p.foff[F_FLOW] >= 0) {
-        v = v + apply_act(p.act[A_FLOW_STAGE],
-                          apply_act(p.act[A_FLOW], field(F_FLOW, c))) * dt;
-      }
-      v = v + apply_act(p.act[A_PO_STAGE],
-                        apply_act(p.act[A_POFF], field(F_POFF, c))) * po_fac;
-      vals[c] = (v - p.aabb_lo[c]) * p.aabb_inv[c] - 1.0f;
-      vals[4 + c] = apply_act(p.act[A_CS], field(F_CS, c));
-      vals[7 + c] = apply_act(p.act[A_CSH], field(F_CSH, c));
-    }
-    vals[3] = dist;
-    if (live) {
-      const int64_t g = r * S + s;
-#pragma unroll
-      for (int j = 0; j < kPackRows; ++j) pack[(int64_t)j * N + g] = vals[j];
+    if (S <= 32) {
+      tail<1>(p, out + rl * lds, ray, r, live, l, pack);
+    } else {
+      tail<2>(p, out + rl * lds, ray, r, live, l, pack);
     }
   }
 }
 
-template <typename T>
+// The launch plan for p's widths: the operand and `out` row strides
+// (padded against bank conflicts: operand rows 8 elements past a multiple
+// of 16, `out` rows 16 floats past a multiple of 32), the rays per block
+// (kRaysOf, or half as many where those do not fit shared memory) and the
+// shared memory; R = 0 where p is not a valid layout or nothing fits.
+struct Plan {
+  int lda, lds, R;
+  size_t smem;
+};
+
+Plan plan(const PackParams& p) {
+  Plan pl{0, 0, 0, 0};
+  const int S = p.S;
+  if (S < 1 || S > kPackMaxS || (S & (S - 1)) || p.n_layers < 1 ||
+      p.n_layers > kMaxLayers) {
+    return pl;
+  }
+  // the operand buffers' width covers every layer's input columns; `out`
+  // every layer's n. Hidden outputs stay left of the encoded rays.
+  int cols = 0, width = 0;
+  for (int l = 0; l < p.n_layers; ++l) {
+    const MlpLayer& L = p.layer[l];
+    if (L.k < 16 || L.k % 16 || L.n < kStrip || L.n % kStrip || L.k0 % 16 ||
+        (l + 1 < p.n_layers && L.n > p.xcol)) {
+      return pl;
+    }
+    cols = L.k0 + L.k > cols ? L.k0 + L.k : cols;
+    width = L.n > width ? L.n : width;
+  }
+  if (p.P * S > p.layer[p.n_layers - 1].n) return pl;
+  pl.lda = cols + 8;
+  pl.lds = (width + 31) / 32 * 32 + 16;
+  const size_t esize = p.bf16 ? 2 : 4;
+  const int full = p.bf16 ? kRaysOf<__nv_bfloat16> : kRaysOf<float>;
+  for (int R = full; R >= full / 2; R /= 2) {
+    const size_t smem =
+        2 * (size_t)R * pl.lda * esize + (size_t)R * pl.lds * 4;
+    if (smem <= kMaxSmem && R * (S < 32 ? S : 32) % 32 == 0) {
+      pl.R = R;
+      pl.smem = smem;
+      break;
+    }
+  }
+  return pl;
+}
+
+template <typename T, int R>
 cudaError_t launch(const float* x0, const float* rays, float* pack,
-                   const PackParams& p, int lda, int lds, size_t smem,
-                   cudaStream_t st) {
+                   const PackParams& p, const Plan& pl, cudaStream_t st) {
   cudaError_t e = cudaFuncSetAttribute(
-      pack_build_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      pack_build_kernel<T, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)pl.smem);
   if (e != cudaSuccess) return e;
-  constexpr int R = kRaysOf<T>;
   const unsigned blocks = (unsigned)((p.B + R - 1) / R);
-  pack_build_kernel<T><<<blocks, kThreads, smem, st>>>(x0, rays, pack, p, lda,
-                                                        lds);
+  pack_build_kernel<T, R><<<blocks, kThreads, pl.smem, st>>>(
+      x0, rays, pack, p, pl.lda, pl.lds);
   return cudaGetLastError();
 }
 
@@ -347,36 +455,22 @@ cudaError_t launch(const float* x0, const float* rays, float* pack,
 extern "C" int pack_build_launch(const float* x0, const float* rays,
                                  float* pack, const PackParams* p,
                                  void* stream) {
-  const int S = p->S;
-  if (S < 1 || S > kPackMaxS || (S & (S - 1)) || p->n_layers < 1 ||
-      p->n_layers > kMaxLayers) {
-    return (int)cudaErrorInvalidValue;
-  }
-  // the operand buffers' width covers every layer's input columns; `out`
-  // every layer's n. Hidden outputs stay left of the encoded rays.
-  int cols = 0, width = 0;
-  for (int l = 0; l < p->n_layers; ++l) {
-    const MlpLayer& L = p->layer[l];
-    if (L.k < 16 || L.k % 16 || L.n < kStrip || L.n % kStrip || L.k0 % 16 ||
-        (l + 1 < p->n_layers && L.n > p->xcol)) {
-      return (int)cudaErrorInvalidValue;
-    }
-    cols = L.k0 + L.k > cols ? L.k0 + L.k : cols;
-    width = L.n > width ? L.n : width;
-  }
-  if (p->P * S > p->layer[p->n_layers - 1].n) return (int)cudaErrorInvalidValue;
-  // row strides padded against bank conflicts: operand rows 8 elements
-  // past a multiple of 16, `out` rows 16 floats past a multiple of 32
-  const int lda = cols + 8, lds = (width + 31) / 32 * 32 + 16;
-  const int R = p->bf16 ? kRaysOf<__nv_bfloat16> : kRaysOf<float>;
-  const size_t smem = 2 * (size_t)R * lda * (p->bf16 ? 2 : 4) +
-                      (size_t)R * lds * 4;
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const Plan pl = plan(*p);
+  if (pl.R == 0) return (int)cudaErrorInvalidValue;
   if (p->B == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  return p->bf16
-      ? (int)launch<__nv_bfloat16>(x0, rays, pack, *p, lda, lds, smem, st)
-      : (int)launch<float>(x0, rays, pack, *p, lda, lds, smem, st);
+  if (p->bf16) {
+    return pl.R == 64
+        ? (int)launch<__nv_bfloat16, 64>(x0, rays, pack, *p, pl, st)
+        : (int)launch<__nv_bfloat16, 32>(x0, rays, pack, *p, pl, st);
+  }
+  return pl.R == 32 ? (int)launch<float, 32>(x0, rays, pack, *p, pl, st)
+                    : (int)launch<float, 16>(x0, rays, pack, *p, pl, st);
+}
+
+// The rays per block that pack_build_launch takes for p (0: p is refused)
+extern "C" int pack_rays_per_block(const PackParams* p) {
+  return plan(*p).R;
 }
 
 extern "C" int pack_params_size() { return (int)sizeof(PackParams); }

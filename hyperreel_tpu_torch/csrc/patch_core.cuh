@@ -27,9 +27,12 @@
 // floor(max) - floor(min) > p - 2 (hyperreel_tpu/models/fused_eval.py
 // patch_coverage_viol, the OR over every plane's two coordinates).
 //
-// Thread layout of a CUDA block of kPatchThreads threads: G = kPatchThreads
-// / (R*S) coherent blocks; thread (jb*R + p)*S + s holds sample s of ray p
-// of coherent block jb, so a ray is an S-lane segment of a warp.
+// Thread layout of a CUDA block of kPatchThreads threads, with SPL = 1
+// sample per lane for S <= 32 and 2 for S = 64 (lanes = S / SPL per ray):
+// G = kPatchThreads / (R*lanes) coherent blocks; thread (jb*R + p)*lanes + l
+// holds samples SPL*l + i (i < SPL) of ray p of coherent block jb, so a ray
+// is a warp segment (a whole warp at S = 64). Sample s of ray p of block jb
+// is sample (jb*R + p)*S + s of the CUDA block, in shared memory too.
 
 #pragma once
 
@@ -59,39 +62,46 @@ struct PatchAxis {
 // neighbouring slots fall in distinct banks
 __host__ __device__ inline int row_stride(int vecs) { return vecs | 1; }
 
+// samples per lane for S samples per ray
+__host__ __device__ inline int samples_per_lane(int S) {
+  return S > 32 ? S / 32 : 1;
+}
+
 // slots (coherent block, sample slot) of one CUDA block
-__host__ __device__ inline int block_slots(int R) {
-  return kPatchThreads / R;
+__host__ __device__ inline int block_slots(int R, int SPL) {
+  return kPatchThreads * SPL / R;
 }
 
 // dynamic shared memory: each axis's patch rows for the block's slots, then
-// per thread x, y, z and valid; per axis and slot x0, y0 and the row index;
+// per sample x, y, z and valid; per axis and slot x0, y0 and the row index;
 // one violation count
-__host__ __device__ inline size_t smem_bytes(const int* vecs, int na, int R) {
+__host__ __device__ inline size_t smem_bytes(const int* vecs, int na, int R,
+                                             int SPL) {
   size_t rows = 0;
   for (int a = 0; a < na; ++a) rows += (size_t)row_stride(vecs[a]);
-  return (size_t)block_slots(R) * rows * 16 + (size_t)kPatchThreads * 4 * 4 +
-         (size_t)na * block_slots(R) * 3 * 4 + 16;
+  return (size_t)block_slots(R, SPL) * rows * 16 +
+         (size_t)kPatchThreads * SPL * 4 * 4 +
+         (size_t)na * block_slots(R, SPL) * 3 * 4 + 16;
 }
 
-// the thread's coherent block, ray and sample slot, and its ray's position
-// in the caller's order
+// the thread's coherent block, ray and lane in the ray's segment (s), and
+// its ray's position in the caller's order
 struct Slot {
   int jb, p, s;
   int64_t j, pos;
   bool live;
 };
 
-template <int R>
+template <int R, int SPL>
 __device__ __forceinline__ Slot thread_slot(const PatchParams& q) {
-  const int S = q.S;
+  const int lanes = q.S / SPL;
   const int tid = threadIdx.x;
   Slot t;
-  t.s = tid % S;
-  t.p = (tid / S) % R;
-  t.jb = tid / (S * R);
+  t.s = tid % lanes;
+  t.p = (tid / lanes) % R;
+  t.jb = tid / (lanes * R);
   const int64_t J = q.B / R;
-  t.j = (int64_t)blockIdx.x * (kPatchThreads / (R * S)) + t.jb;
+  t.j = (int64_t)blockIdx.x * (kPatchThreads / (R * lanes)) + t.jb;
   t.live = t.j < J;
   t.pos = !t.live ? 0 : q.phase_major ? t.p * J + t.j : t.j * R + t.p;
   return t;
@@ -108,20 +118,22 @@ __device__ __forceinline__ float texel(float coord, int size) {
 }
 
 // The collective prologue; every thread of the CUDA block calls it with its
-// sample's normalised point (pack rows 0..2) and validity. For each of the
-// NA plane axes it computes each slot's anchor (the min over its R rays,
-// every sample counted, as the JAX anchors do) and stages each slot's patch
-// row in shared memory; it adds the block's coverage violations (slots that
-// violate on any axis) to *viol, sets flags[j*S + s] = 1 for each such slot
-// when `flags` is not null, and returns per axis the thread's row and its
-// offsets (u, v) inside the patch.
-template <int R, int NA>
+// SPL samples' normalised points (pack rows 0..2 of sample i at xyz + i *
+// PKS) and validity. For each of the NA plane axes it computes each slot's
+// anchor (the min over its R rays, every sample counted, as the JAX anchors
+// do) and stages each slot's patch row in shared memory; it adds the
+// block's coverage violations (slots that violate on any axis) to *viol,
+// sets flags[j*S + s] = 1 for each such slot when `flags` is not null, and
+// returns per sample i and axis a (index i * NA + a) the sample's row and
+// its offsets (u, v) inside the patch.
+template <int R, int NA, int SPL, int PKS>
 __device__ __forceinline__ void stage_patches(
     const PatchAxis* ax, const PatchParams& q, const Slot& t, const float* xyz,
-    bool valid, uint4* smem, int* viol, unsigned char* flags,
+    const bool* valid, uint4* smem, int* viol, unsigned char* flags,
     const uint4** rows, float* u, float* v) {
+  constexpr int NS = kPatchThreads * SPL;   // samples of the CUDA block
   const int S = q.S;
-  const int slots = block_slots(R);
+  const int slots = block_slots(R, SPL);
   size_t row_off[NA];
   size_t off = 0;
 #pragma unroll
@@ -129,64 +141,71 @@ __device__ __forceinline__ void stage_patches(
     row_off[a] = off;
     off += (size_t)slots * row_stride(ax[a].vecs);
   }
-  float* sc = reinterpret_cast<float*>(smem + off);   // [3][kPatchThreads]
-  int* sok = reinterpret_cast<int*>(sc + 3 * kPatchThreads);
-  float* sax = reinterpret_cast<float*>(sok + kPatchThreads);  // [NA][slots]
+  float* sc = reinterpret_cast<float*>(smem + off);   // [3][NS]
+  int* sok = reinterpret_cast<int*>(sc + 3 * NS);
+  float* sax = reinterpret_cast<float*>(sok + NS);  // [NA][slots]
   float* say = sax + NA * slots;
   int* sidx = reinterpret_cast<int*>(say + NA * slots);
   int* scount = sidx + NA * slots;
 
   const int tid = threadIdx.x;
-  const int slot = t.jb * S + t.s;
 #pragma unroll
-  for (int c = 0; c < 3; ++c) sc[c * kPatchThreads + tid] = xyz[c];
-  sok[tid] = valid;
+  for (int i = 0; i < SPL; ++i) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) sc[c * NS + tid * SPL + i] = xyz[i * PKS + c];
+    sok[tid * SPL + i] = valid[i];
+  }
   if (tid == 0) *scount = 0;
   __syncthreads();
 
   if (t.p == 0) {
-    const int base = t.jb * R * S + t.s;
-    bool violates = false;
 #pragma unroll
-    for (int a = 0; a < NA; ++a) {
-      const float* sx = sc + ax[a].m0 * kPatchThreads;
-      const float* sy = sc + ax[a].m1 * kPatchThreads;
-      int idx = 0;
-      float x0 = 0.0f, y0 = 0.0f;
-      if (t.live) {
-        float xmin = sx[base], ymin = sy[base];
-        float lox = 0.0f, hix = 0.0f, loy = 0.0f, hiy = 0.0f;
-        bool any = false;
+    for (int i = 0; i < SPL; ++i) {
+      const int s = SPL * t.s + i;
+      const int slot = t.jb * S + s;
+      const int base = t.jb * R * S + s;
+      bool violates = false;
 #pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const float x = sx[base + r * S], y = sy[base + r * S];
-          xmin = fminf(xmin, x);
-          ymin = fminf(ymin, y);
-          if (sok[base + r * S]) {
-            const float fx = floorf(texel(x, ax[a].W));
-            const float fy = floorf(texel(y, ax[a].H));
-            lox = any ? fminf(lox, fx) : fx;
-            hix = any ? fmaxf(hix, fx) : fx;
-            loy = any ? fminf(loy, fy) : fy;
-            hiy = any ? fmaxf(hiy, fy) : fy;
-            any = true;
+      for (int a = 0; a < NA; ++a) {
+        const float* sx = sc + ax[a].m0 * NS;
+        const float* sy = sc + ax[a].m1 * NS;
+        int idx = 0;
+        float x0 = 0.0f, y0 = 0.0f;
+        if (t.live) {
+          float xmin = sx[base], ymin = sy[base];
+          float lox = 0.0f, hix = 0.0f, loy = 0.0f, hiy = 0.0f;
+          bool any = false;
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const float x = sx[base + r * S], y = sy[base + r * S];
+            xmin = fminf(xmin, x);
+            ymin = fminf(ymin, y);
+            if (sok[base + r * S]) {
+              const float fx = floorf(texel(x, ax[a].W));
+              const float fy = floorf(texel(y, ax[a].H));
+              lox = any ? fminf(lox, fx) : fx;
+              hix = any ? fmaxf(hix, fx) : fx;
+              loy = any ? fminf(loy, fy) : fy;
+              hiy = any ? fmaxf(hiy, fy) : fy;
+              any = true;
+            }
           }
+          violates |= any && (hix - lox > (float)(q.px - 2) ||
+                              hiy - loy > (float)(q.py - 2));
+          x0 = fminf(fmaxf(floorf(texel(xmin, ax[a].W)), -1.0f),
+                     (float)(ax[a].W - 1));
+          y0 = fminf(fmaxf(floorf(texel(ymin, ax[a].H)), -1.0f),
+                     (float)(ax[a].H - 1));
+          idx = ((int)y0 + 1) * (ax[a].W + 1) + ((int)x0 + 1);
         }
-        violates |= any && (hix - lox > (float)(q.px - 2) ||
-                            hiy - loy > (float)(q.py - 2));
-        x0 = fminf(fmaxf(floorf(texel(xmin, ax[a].W)), -1.0f),
-                   (float)(ax[a].W - 1));
-        y0 = fminf(fmaxf(floorf(texel(ymin, ax[a].H)), -1.0f),
-                   (float)(ax[a].H - 1));
-        idx = ((int)y0 + 1) * (ax[a].W + 1) + ((int)x0 + 1);
+        sax[a * slots + slot] = x0;
+        say[a * slots + slot] = y0;
+        sidx[a * slots + slot] = idx;
       }
-      sax[a * slots + slot] = x0;
-      say[a * slots + slot] = y0;
-      sidx[a * slots + slot] = idx;
-    }
-    if (violates) {
-      atomicAdd(scount, 1);
-      if (flags) flags[t.j * S + t.s] = 1;
+      if (violates) {
+        atomicAdd(scount, 1);
+        if (flags) flags[t.j * S + s] = 1;
+      }
     }
   }
   __syncthreads();
@@ -207,14 +226,19 @@ __device__ __forceinline__ void stage_patches(
   // op order of the JAX kernels: ((x + 1) * 0.5) * (W - 1) - x0, with no
   // fused multiply-add
 #pragma unroll
-  for (int a = 0; a < NA; ++a) {
-    u[a] = __fmul_rn((pick3(xyz, ax[a].m0) + 1.0f) * 0.5f,
-                     (float)(ax[a].W - 1)) -
-           sax[a * slots + slot];
-    v[a] = __fmul_rn((pick3(xyz, ax[a].m1) + 1.0f) * 0.5f,
-                     (float)(ax[a].H - 1)) -
-           say[a * slots + slot];
-    rows[a] = smem + row_off[a] + slot * row_stride(ax[a].vecs);
+  for (int i = 0; i < SPL; ++i) {
+    const int slot = t.jb * S + SPL * t.s + i;
+    const float* p = xyz + i * PKS;
+#pragma unroll
+    for (int a = 0; a < NA; ++a) {
+      u[i * NA + a] = __fmul_rn((pick3(p, ax[a].m0) + 1.0f) * 0.5f,
+                                (float)(ax[a].W - 1)) -
+                      sax[a * slots + slot];
+      v[i * NA + a] = __fmul_rn((pick3(p, ax[a].m1) + 1.0f) * 0.5f,
+                                (float)(ax[a].H - 1)) -
+                      say[a * slots + slot];
+      rows[i * NA + a] = smem + row_off[a] + slot * row_stride(ax[a].vecs);
+    }
   }
 }
 
@@ -255,7 +279,7 @@ __device__ __forceinline__ PatchAxis single_axis(const void* ptab,
 // K3/K4's shared memory (one axis)
 inline size_t single_smem_bytes(const PatchParams& q) {
   const int vecs = q.px * q.py * q.C / 8;
-  return smem_bytes(&vecs, 1, q.R);
+  return smem_bytes(&vecs, 1, q.R, samples_per_lane(q.S));
 }
 
 }  // namespace patch_core

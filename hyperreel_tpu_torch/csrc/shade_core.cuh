@@ -3,7 +3,8 @@
 // (K7 composite.cu): the per-sample shading that follows the space
 // features (time-plane taps and density for K2/K3; the SH-2 colour with
 // its colour scale/shift for all four) and the per-ray log-space composite
-// over an S-lane segment of a warp.
+// over an S-lane segment of a warp (S <= 32), or over a whole warp with two
+// samples per lane (S = 64, K5 and K6).
 
 #pragma once
 
@@ -239,6 +240,46 @@ __device__ __forceinline__ void composite_store(float sigma, const float* rgb,
   float v[5] = {w * rgb[0], w * rgb[1], w * rgb[2], w, w * dist};
   segment_sum<5>(v, S);
   if (store && s == 0) {
+#pragma unroll
+    for (int i = 0; i < 5; ++i) out[i] = v[i];
+  }
+}
+
+// composite_store for a ray of 64 samples over a whole warp, two samples
+// per lane: lane l holds samples 2l and 2l + 1 (sigma[i], rgb[3i .. 3i + 2]
+// and dist[i] of sample 2l + i). The lane first combines its own pair (the delta of sample 2l is
+// in the lane, that of 2l + 1 reaches to lane l + 1's first sample; the
+// log-transmittance of the pair sums before the scan), then runs the warp
+// scan and butterfly of composite_weight and segment_sum over 32 lanes.
+// Every lane of the warp must call it.
+__device__ __forceinline__ void composite_store_pair(
+    const float* sigma, const float* rgb, const float* dist,
+    float scale, int l, bool store, float* out) {
+  const unsigned full = 0xffffffffu;
+  const float nxt = __shfl_down_sync(full, dist[0], 1);
+  const float delta[2] = {dist[1] - dist[0],
+                          l == 31 ? 1e10f : nxt - dist[1]};
+  float alpha[2], a[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const float x = fminf(fmaxf(sigma[j] * (delta[j] * scale), -kExpClamp),
+                          kExpClamp);
+    alpha[j] = 1.0f - expf(-x);
+    a[j] = fmaxf(-x, kLogEps);
+  }
+  float acc = a[0] + a[1];
+  for (int off = 1; off < 32; off <<= 1) {
+    const float y = __shfl_up_sync(full, acc, off);
+    if (l >= off) acc += y;
+  }
+  const float prev = __shfl_up_sync(full, acc, 1);
+  const float before = l == 0 ? 0.0f : prev;
+  const float w[2] = {alpha[0] * expf(before), alpha[1] * expf(before + a[0])};
+  float v[5] = {w[0] * rgb[0] + w[1] * rgb[3], w[0] * rgb[1] + w[1] * rgb[4],
+                w[0] * rgb[2] + w[1] * rgb[5], w[0] + w[1],
+                w[0] * dist[0] + w[1] * dist[1]};
+  segment_sum<5>(v, 32);
+  if (store && l == 0) {
 #pragma unroll
     for (int i = 0; i < 5; ++i) out[i] = v[i];
   }

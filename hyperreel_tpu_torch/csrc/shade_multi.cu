@@ -1,29 +1,38 @@
-// Multi-axis shade + composite kernel (K5): the static VM net's eval render
-// from the per-sample pack to the per-ray colour (the llff_z_plane family),
-// one S-lane segment of a warp per ray, one lane per sample.
+// Multi-axis shade + composite kernel (K5): the VM nets' eval render from
+// the per-sample pack to the per-ray colour (the static llff_z_plane
+// family, and the dynamic neural_3d_z_plane family whose second factors
+// are time planes), one warp segment per ray: one lane per sample for S
+// <= 32, a whole warp with two samples per lane for S = 64.
 //
 // Replaces hyperreel_tpu/ops/pallas/shade.py:_shade_kernel_multi (with
-// _multi_core for time_hs all 0, _corner_weights, _twohot_matmul,
-// _shade_tail and _compact_rows) together with the XLA quad-row gathers
-// that fed it (models/fused_eval.py `tabs[a][0][idx8[a]]`, one per axis);
-// and, as the pre-blended variant, the same kernel with
-// `preblended="phase_major"` (shade.py :759-763, :1000-1008), which reads
-// the three planes' features that the patch-blend kernel (K4,
-// patch_blend.cu) wrote.
+// _multi_core, its time-plane branch for time_hs > 0 included,
+// _corner_weights, _twohot_matmul, _shade_tail and _compact_rows) together
+// with the XLA quad-row gathers that fed it (models/fused_eval.py
+// `tabs[a][0][idx8[a]]`, one per axis); and, as the pre-blended variant,
+// the same kernel with `preblended="phase_major"` (shade.py :759-763,
+// :1000-1008), which reads the three planes' features that the
+// patch-blend kernel (K4, patch_blend.cu) wrote.
 //
-// Bound on the H100: by its f32 operations at the llff layout (~1,000 per
-// valid sample, the 27 x 16 basis product the largest part) when the quad
-// tables stay in L2; at a trained checkpoint's grid the three bf16 quad
-// tables come to ~116 MB, more than the 50 MB L2, so the 256 bytes of quad
-// rows a valid sample reads may come from device memory. Design: per valid
-// sample a lane computes each plane's texel row from its two pack
-// coordinates and loads it with 16-byte vector loads (no gather kernel, no
-// index array), takes the line's two taps through the read-only cache (the
-// lines are a few dozen KB), multiplies, and keeps the density sum and the
-// 16 appearance channels in registers; samples outside the aabb load
-// nothing. The basis rides in the kernel parameters (constant bank). The
-// composite and per-ray sums are K2's warp scan and butterfly
-// (shade_core.cuh). Built for the layout of multi_core.cuh.
+// Bound on the H100: by its f32 operations at the [8, 4, 4] layout
+// (~1,000 per valid sample, the 27 x 16 basis product the largest part;
+// a time plane adds a second z blend and the t blend per axis) when the
+// quad rows a chunk reads stay in L2; at a trained checkpoint's grid the
+// three bf16 quad tables come to ~113-116 MB, more than the 50 MB L2, so
+// the 256 bytes of quad rows a valid sample reads may come from device
+// memory. Design: per valid sample a lane computes each plane's texel row
+// from its two pack coordinates and loads it with 16-byte vector loads
+// (no gather kernel, no index array), takes the second factor's taps
+// through the read-only cache (a line is a few dozen KB, a time plane 12
+// times that), multiplies, and keeps the density sum and the 16
+// appearance channels in registers; samples outside the aabb load
+// nothing. The time coordinate is per ray (ray pack row 7); the
+// time-plane branch is compiled only into the launches whose net has time
+// planes (kTime), so that the static nets' kernels keep their registers
+// (64/72, against 80 with the branch, which cost llff's K5 8 % and its
+// pre-blended variant 17 % on the H100). The basis rides in the kernel
+// parameters (constant bank). The composite and per-ray sums are K2's
+// warp scan and butterfly (shade_core.cuh; at S = 64 each lane first
+// combines its pair). Built for the layout of multi_core.cuh.
 
 #include "multi_core.cuh"
 
@@ -34,80 +43,84 @@ using namespace multi_core;
 
 constexpr int kThreads = 128;
 
-// kPre: each axis's `table` is its pre-blended bf16 features [B*S, C]
-template <bool kPre>
+// kPre: each axis's `table` is its pre-blended bf16 features [B*S, C].
+// SPL samples per lane: lane l of ray r's segment of S / SPL lanes holds
+// samples SPL*l + j. kTime: some axis has a time plane (TH > 0).
+template <bool kPre, int SPL, bool kTime>
 __global__ void __launch_bounds__(kThreads)
     shade_multi_kernel(const float* __restrict__ pack,
                        const float* __restrict__ rays,
                        float* __restrict__ out,
                        const __grid_constant__ MultiParams p) {
-  const int S = p.S;
-  const int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int S = p.S, lanes = S / SPL;
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t N = (int64_t)p.B * S;
-  const bool live = g < N;
-  const int s = (int)(g % S);
+  const int64_t ray_i = t / lanes;
+  const bool live = ray_i < p.B;
+  const int l = (int)(t % lanes);
+  const float* ray = rays + (live ? ray_i : 0) * 8;
 
-  float pk[kPackRows];
+  float sigma[SPL], rgb[SPL][3], dist[SPL];
 #pragma unroll
-  for (int i = 0; i < kPackRows; ++i) {
-    pk[i] = live ? __ldg(pack + (int64_t)i * N + g) : 0.0f;
+  for (int j = 0; j < SPL; ++j) {
+    const int64_t g = ray_i * S + SPL * l + j;
+    float pk[kPackRows];
+#pragma unroll
+    for (int i = 0; i < kPackRows; ++i) {
+      pk[i] = live ? __ldg(pack + (int64_t)i * N + g) : 0.0f;
+    }
+    sigma[j] = 0.0f;
+    rgb[j][0] = rgb[j][1] = rgb[j][2] = 0.0f;
+    dist[j] = pk[3];
+    if (live && sample_valid(pk)) {
+      auto feat = [&](auto A, float* f) {
+        constexpr int a = decltype(A)::value;
+        if (kPre) {
+          row_features<kChOf<a>>(p.axis[a], g, f);
+        } else {
+          quad_features<a, kChOf<a>>(p.axis[a], pk, f);
+        }
+      };
+      shade_axes<kTime>(p, pk, ray, feat, sigma[j], rgb[j]);
+    }
   }
-  const float* ray = rays + (live ? g / S : 0) * 8;
-  const bool valid = live && sample_valid(pk);
+  float* o = out + (live ? ray_i : 0) * 5;
+  if constexpr (SPL == 1) {
+    composite_store(sigma[0], rgb[0], dist[0], p.distance_scale, l, S, live,
+                    o);
+  } else {
+    composite_store_pair(sigma, &rgb[0][0], dist, p.distance_scale, l, live,
+                         o);
+  }
+}
 
-  float sigma = 0.0f;
-  float rgb[3] = {0.0f, 0.0f, 0.0f};
-  if (valid) {
-    float dsum = 0.0f;
-    float app[kApp];
-    {
-      float feat[kCh0];
-      if (kPre) {
-        row_features<kCh0>(p.axis[0], g, feat);
-      } else {
-        quad_features<0, kCh0>(p.axis[0], pk, feat);
-      }
-      line_product<0, kCh0, kNd0>(p.axis[0], pk, feat, dsum, app);
-    }
-    {
-      float feat[kCh1];
-      if (kPre) {
-        row_features<kCh1>(p.axis[1], g, feat);
-      } else {
-        quad_features<1, kCh1>(p.axis[1], pk, feat);
-      }
-      line_product<1, kCh1, kNd1>(p.axis[1], pk, feat, dsum,
-                                  app + kCh0 - kNd0);
-    }
-    {
-      float feat[kCh2];
-      if (kPre) {
-        row_features<kCh2>(p.axis[2], g, feat);
-      } else {
-        quad_features<2, kCh2>(p.axis[2], pk, feat);
-      }
-      line_product<2, kCh2, kNd2>(p.axis[2], pk, feat, dsum,
-                                  app + kCh0 - kNd0 + kCh1 - kNd1);
-    }
-    sigma = fmaxf(dsum, 0.0f);
-    sh_colour<kApp>(app, p.wb, pk, ray, rgb);
-  }
-  composite_store(sigma, rgb, pk[3], p.distance_scale, s, S, live,
-                  out + (live ? g / S : 0) * 5);
+template <bool kPre, int SPL, bool kTime>
+void run(unsigned blocks, const float* pack, const float* rays, float* out,
+         const MultiParams* p, cudaStream_t st) {
+  shade_multi_kernel<kPre, SPL, kTime><<<blocks, kThreads, 0, st>>>(
+      pack, rays, out, *p);
 }
 
 template <bool kPre>
 int launch(const float* pack, const float* rays, float* out,
            const MultiParams* p, void* stream) {
   const int S = p->S;
-  if (S < 1 || S > 32 || (S & (S - 1))) {
-    return (int)cudaErrorInvalidValue;
+  if (S < 1 || S > 64 || (S & (S - 1))) return (int)cudaErrorInvalidValue;
+  for (int a = 0; a < 3; ++a) {
+    if (p->axis[a].TH < 0) return (int)cudaErrorInvalidValue;
   }
-  const int64_t n = (int64_t)p->B * S;
+  const int64_t n = (int64_t)p->B * (S < 32 ? S : 32);
   if (n == 0) return 0;
   const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
-  shade_multi_kernel<kPre><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      pack, rays, out, *p);
+  cudaStream_t st = (cudaStream_t)stream;
+  const bool time = has_time(*p);
+  if (S <= 32) {
+    time ? run<kPre, 1, true>(blocks, pack, rays, out, p, st)
+         : run<kPre, 1, false>(blocks, pack, rays, out, p, st);
+  } else {
+    time ? run<kPre, 2, true>(blocks, pack, rays, out, p, st)
+         : run<kPre, 2, false>(blocks, pack, rays, out, p, st);
+  }
   return (int)cudaGetLastError();
 }
 

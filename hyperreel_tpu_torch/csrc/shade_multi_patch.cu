@@ -1,11 +1,13 @@
 // Fused multi-axis patch-blend + shade kernel (K6): the coherent
-// patch-gather route of the static VM net's eval render (the llff_z_plane
-// family) in one kernel, from the per-sample pack and the three planes'
-// patch tables to the per-ray colour.
+// patch-gather route of the VM nets' eval render (the static llff_z_plane
+// family, and the dynamic neural_3d_z_plane family with its time planes)
+// in one kernel, from the per-sample pack and the three planes' patch
+// tables to the per-ray colour.
 //
 // Replaces hyperreel_tpu/ops/pallas/shade.py:_shade_kernel_multi_fused_patch
-// (time_hs all 0: per axis the blend of ops/pallas/patch_blend.py, the line
-// factor, the density and appearance sums, then _shade_tail) together with
+// (per axis the blend of ops/pallas/patch_blend.py, the second factor: a
+// line, or a time plane for time_hs > 0 (:861-873), the density and
+// appearance sums, then _shade_tail) together with
 // the XLA patch-row gathers and patch_anchor_idx (one per axis) that fed
 // it. The JAX kernel walks the axes outside and its R phases inside so that
 // one axis's patch transpose fits the TPU's VMEM; here every thread shades
@@ -15,15 +17,19 @@
 // plus the hat blend of at most four texels per plane; the bytes are the
 // pack and ray-pack reads and px*py*(16+8+8)*2 / R bytes of patch rows per
 // sample (80 at R = 8, (5, 2)) where K5 reads 256 bytes of quad rows.
-// Design (patch_core.cuh): one CUDA block of 256 threads holds 256 / (R*S)
-// coherent blocks, a warp segment per ray and a lane per sample slot; each
-// slot's anchors are a min over its R rays per plane, and its three patch
-// rows (320 + 160 + 160 bytes at (5, 2)) are staged once in shared memory
-// with coalesced 16-byte loads behind one set of barriers; the R rays blend
-// from them. Everything after the plane features is K5's (multi_core.cuh)
-// and K2's composite (shade_core.cuh). The kernel also counts the coverage
-// violations (slots whose footprint exits the patch on any plane). Built
-// for the layout of multi_core.cuh and R in {4, 8}.
+// Design (patch_core.cuh): one CUDA block of 256 threads holds 256 /
+// (R*lanes) coherent blocks, a warp segment per ray and a lane per sample
+// slot (two slots per lane at S = 64, so that a ray is one warp and R = 8
+// still fits); each slot's anchors are a min over its R rays per plane,
+// and its three patch rows (320 + 160 + 160 bytes at (5, 2)) are staged
+// once in shared memory with coalesced 16-byte loads behind one set of
+// barriers; the R rays blend from them. Everything after the plane
+// features is K5's (multi_core.cuh, the time-plane branch compiled only
+// into launches with a time plane) and K2's composite (shade_core.cuh).
+// The kernel also counts the coverage violations (slots whose footprint
+// exits the patch on any plane). Built for the layout of multi_core.cuh, R
+// in {4, 8} and S a power of two <= 64; at S = 64 and R = 4 (4, 3) the
+// block's 128 slots take 117 KB of shared memory, one block per SM.
 
 #include "multi_core.cuh"
 #include "patch_core.cuh"
@@ -34,7 +40,7 @@ using namespace shade_core;
 using namespace multi_core;
 using namespace patch_core;
 
-template <int R>
+template <int R, int SPL, bool kTime>
 __global__ void __launch_bounds__(kPatchThreads)
     shade_multi_patch_kernel(const float* __restrict__ pack,
                              const float* __restrict__ rays,
@@ -42,17 +48,21 @@ __global__ void __launch_bounds__(kPatchThreads)
                              const __grid_constant__ MultiParams p,
                              const __grid_constant__ PatchParams q) {
   extern __shared__ uint4 smem[];
-  const Slot t = thread_slot<R>(q);
+  const Slot t = thread_slot<R, SPL>(q);
   const int S = q.S;
   const int64_t N = (int64_t)q.B * S;
-  const int64_t g = t.pos * S + t.s;
 
-  float pk[kPackRows];
+  float pk[SPL][kPackRows];
+  bool valid[SPL];
 #pragma unroll
-  for (int i = 0; i < kPackRows; ++i) {
-    pk[i] = t.live ? __ldg(pack + (int64_t)i * N + g) : 0.0f;
+  for (int i = 0; i < SPL; ++i) {
+    const int64_t g = t.pos * S + SPL * t.s + i;
+#pragma unroll
+    for (int r = 0; r < kPackRows; ++r) {
+      pk[i][r] = t.live ? __ldg(pack + (int64_t)r * N + g) : 0.0f;
+    }
+    valid[i] = t.live && sample_valid(pk[i]);
   }
-  const bool valid = t.live && sample_valid(pk);
   const int pp = q.px * q.py;
   const PatchAxis ax[3] = {
       {static_cast<const uint4*>(p.axis[0].table), p.axis[0].W, p.axis[0].H,
@@ -61,61 +71,72 @@ __global__ void __launch_bounds__(kPatchThreads)
        Mode<1>::m0, Mode<1>::m1, pp * kCh1 / 8},
       {static_cast<const uint4*>(p.axis[2].table), p.axis[2].W, p.axis[2].H,
        Mode<2>::m0, Mode<2>::m1, pp * kCh2 / 8}};
-  const uint4* rows[3];
-  float u[3], v[3];
-  stage_patches<R, 3>(ax, q, t, pk, valid, smem, viol, nullptr, rows, u, v);
+  const uint4* rows[SPL * 3];
+  float u[SPL * 3], v[SPL * 3];
+  stage_patches<R, 3, SPL, kPackRows>(ax, q, t, &pk[0][0], valid, smem, viol,
+                                      nullptr, rows, u, v);
 
-  float sigma = 0.0f;
-  float rgb[3] = {0.0f, 0.0f, 0.0f};
-  if (valid) {
-    float dsum = 0.0f;
-    float app[kApp];
-    {
-      float feat[kCh0];
-      patch_features<kCh0>(rows[0], u[0], v[0], q.px, q.py, feat);
-      line_product<0, kCh0, kNd0>(p.axis[0], pk, feat, dsum, app);
+  const float* ray = rays + t.pos * 8;
+  float sigma[SPL], rgb[SPL][3], dist[SPL];
+#pragma unroll
+  for (int i = 0; i < SPL; ++i) {
+    sigma[i] = 0.0f;
+    rgb[i][0] = rgb[i][1] = rgb[i][2] = 0.0f;
+    dist[i] = pk[i][3];
+    if (valid[i]) {
+      auto feat = [&](auto A, float* f) {
+        constexpr int a = decltype(A)::value;
+        patch_features<kChOf<a>>(rows[i * 3 + a], u[i * 3 + a],
+                                 v[i * 3 + a], q.px, q.py, f);
+      };
+      shade_axes<kTime>(p, pk[i], ray, feat, sigma[i], rgb[i]);
     }
-    {
-      float feat[kCh1];
-      patch_features<kCh1>(rows[1], u[1], v[1], q.px, q.py, feat);
-      line_product<1, kCh1, kNd1>(p.axis[1], pk, feat, dsum,
-                                  app + kCh0 - kNd0);
-    }
-    {
-      float feat[kCh2];
-      patch_features<kCh2>(rows[2], u[2], v[2], q.px, q.py, feat);
-      line_product<2, kCh2, kNd2>(p.axis[2], pk, feat, dsum,
-                                  app + kCh0 - kNd0 + kCh1 - kNd1);
-    }
-    sigma = fmaxf(dsum, 0.0f);
-    sh_colour<kApp>(app, p.wb, pk, rays + t.pos * 8, rgb);
   }
-  composite_store(sigma, rgb, pk[3], p.distance_scale, t.s, S, t.live,
-                  out + t.pos * 5);
+  if constexpr (SPL == 1) {
+    composite_store(sigma[0], rgb[0], dist[0], p.distance_scale, t.s, S,
+                    t.live, out + t.pos * 5);
+  } else {
+    composite_store_pair(sigma, &rgb[0][0], dist, p.distance_scale, t.s, t.live,
+                         out + t.pos * 5);
+  }
 }
 
 size_t multi_smem_bytes(const PatchParams& q) {
   const int pp = q.px * q.py;
   const int vecs[3] = {pp * kCh0 / 8, pp * kCh1 / 8, pp * kCh2 / 8};
-  return smem_bytes(vecs, 3, q.R);
+  return smem_bytes(vecs, 3, q.R, samples_per_lane(q.S));
 }
 
-template <int R>
+template <int R, int SPL, bool kTime>
 cudaError_t launch(const float* pack, const float* rays, float* out,
                    int* viol, const MultiParams& p, const PatchParams& q,
                    cudaStream_t st) {
   const size_t smem = multi_smem_bytes(q);
   // above 48 KB only as dynamic shared memory, after opting in
   cudaError_t e = cudaFuncSetAttribute(
-      shade_multi_patch_kernel<R>,
+      shade_multi_patch_kernel<R, SPL, kTime>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   const int64_t J = q.B / R;
-  const int per_block = kPatchThreads / (R * q.S);
+  const int per_block = kPatchThreads / (R * (q.S / SPL));
   const unsigned blocks = (unsigned)((J + per_block - 1) / per_block);
-  shade_multi_patch_kernel<R><<<blocks, kPatchThreads, smem, st>>>(
-      pack, rays, out, viol, p, q);
+  shade_multi_patch_kernel<R, SPL, kTime>
+      <<<blocks, kPatchThreads, smem, st>>>(pack, rays, out, viol, p, q);
   return cudaGetLastError();
+}
+
+// the instantiation for q's samples per lane and p's second factors
+template <int R>
+cudaError_t launch_s(const float* pack, const float* rays, float* out,
+                     int* viol, const MultiParams& p, const PatchParams& q,
+                     cudaStream_t st) {
+  const bool time = has_time(p);
+  if (q.S <= 32) {
+    return time ? launch<R, 1, true>(pack, rays, out, viol, p, q, st)
+                : launch<R, 1, false>(pack, rays, out, viol, p, q, st);
+  }
+  return time ? launch<R, 2, true>(pack, rays, out, viol, p, q, st)
+              : launch<R, 2, false>(pack, rays, out, viol, p, q, st);
 }
 
 }  // namespace
@@ -125,13 +146,16 @@ extern "C" int shade_multi_patch_launch(const float* pack, const float* rays,
                                         const MultiParams* p,
                                         const PatchParams* q, void* stream) {
   const int S = q->S;
-  if (S < 1 || S > 32 || (S & (S - 1)) || p->S != S || p->B != q->B ||
+  if (S < 1 || S > 64 || (S & (S - 1)) || p->S != S || p->B != q->B ||
       (q->R != 4 && q->R != 8) || q->B % q->R ||
       multi_smem_bytes(*q) > 227 * 1024) {
     return (int)cudaErrorInvalidValue;
   }
   if (q->B == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  return q->R == 8 ? (int)launch<8>(pack, rays, out, viol, *p, *q, st)
-                   : (int)launch<4>(pack, rays, out, viol, *p, *q, st);
+  for (int a = 0; a < 3; ++a) {
+    if (p->axis[a].TH < 0) return (int)cudaErrorInvalidValue;
+  }
+  return q->R == 8 ? (int)launch_s<8>(pack, rays, out, viol, *p, *q, st)
+                   : (int)launch_s<4>(pack, rays, out, viol, *p, *q, st);
 }

@@ -38,7 +38,7 @@ __global__ void __launch_bounds__(kPatchThreads)
                        const __grid_constant__ ShadeParams p,
                        const __grid_constant__ PatchParams q) {
   extern __shared__ uint4 smem[];
-  const Slot t = thread_slot<R>(q);
+  const Slot t = thread_slot<R, 1>(q);
   const int S = q.S;
   const int64_t N = (int64_t)q.B * S;
   const int64_t g = t.pos * S + t.s;
@@ -52,8 +52,8 @@ __global__ void __launch_bounds__(kPatchThreads)
   const PatchAxis ax = single_axis(ptab, q);
   const uint4* row;
   float u, v;
-  stage_patches<R, 1>(&ax, q, t, pk, valid, smem, viol, nullptr, &row, &u,
-                      &v);
+  stage_patches<R, 1, 1, kPackRows>(&ax, q, t, pk, &valid, smem, viol,
+                                    nullptr, &row, &u, &v);
 
   float sigma = 0.0f;
   float rgb[3] = {0.0f, 0.0f, 0.0f};

@@ -1,6 +1,7 @@
 """Fused eval render on CUDA kernels (port of hyperreel_tpu/models/
 fused_eval.py FusedCFEval): the flagship's dynamic single-axis routes and
-the static multi-axis routes of the llff_z_plane family.
+the multi-axis routes of the static llff_z_plane family and of the
+dynamic neural_3d_z_plane family.
 
   rays -> encodings -> K1 pack_build (the prediction MLP, its last
   layer's columns permuted field-major on the host; field activations, z,
@@ -14,7 +15,8 @@ The flagship (dynamic, one space plane x one time plane):
          blends each (block, slot)'s patch row inside the shade kernel;
          with HYPERREEL_FUSED_PATCH=0 (or false), K4 patch_blend writes
          bf16 features and K2 shade_preblended reads them.
-The static VM net (three plane x line axes):
+The multi-axis VM nets (three axes: a plane times a line for the static
+net, a space plane times a keyframe time plane for the dynamic one):
   quad   K5 shade_multi reads each sample's three quad-table rows;
   patch  K4 patch_blend once per plane (bf16 features) then K5
          shade_multi_preblended (the JAX package's default multi-axis
@@ -39,14 +41,19 @@ whose valid samples' footprint exits the patch on some plane axis
 it to 1e-4).
 
 `uniform_time` (every ray of the call shares one t, as in a frame render)
-premixes the flagship's keyframe rows of the time plane for that t on the
-device, and the call returns the witness outputs["uniform_time_viol"] =
-max |tn - tn[0]|; static nets have no time and ignore it. Dynamic
-multi-axis nets (K5/K6 with time planes) and more than 32 samples per ray
-raise NotImplementedError; chains that are not the two fused patterns have
-no fused path and take the general stage chain, as in the JAX package.
+premixes the keyframe rows of each time plane for that t on the device
+(a line, so K5/K6 run with TH = 0; otherwise they mix the two keyframe
+rows around each ray's own t), and the call returns the witness
+outputs["uniform_time_viol"] = max |tn - tn[0]|; static nets have no time
+and ignore it. The kernels take S a power of two up to 64 (K2/K3 up to
+32) and the [8, 4, 4] multi-axis layout; on a CUDA tensor anything else
+raises NotImplementedError at the launch, never falling back to the
+plain versions or the general path. Chains that are not the two fused
+patterns have no fused path and take the general stage chain, as in the
+JAX package.
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -57,7 +64,7 @@ from hyperreel_tpu_torch.models.embeddings import get_base_time
 from hyperreel_tpu_torch.models.tensorf import (
     TensorVMKeyframeTime, TensorVMNoSample)
 from hyperreel_tpu_torch.ops.kernels.pack_build import (
-    MAX_S, PackSpec, mlp_tables, pack_build)
+    PackSpec, mlp_tables, pack_build)
 from hyperreel_tpu_torch.ops.kernels.patch_blend import PatchSpec, patch_blend
 from hyperreel_tpu_torch.ops.kernels.shade import (
     ShadeSpec, basis_table, premix_time, quad_table, shade, shade_preblended,
@@ -80,10 +87,10 @@ def _stages(model):
 
 
 def cf_eligible(model):
-    """Structural eligibility: the technicolor_z_plane-family dynamic chain
-    or the llff_z_plane-family static chain (hyperreel_tpu/models/
-    fused_eval.py cf_eligible:45-159, without the compaction and stride
-    stages the port does not have)."""
+    """Structural eligibility: the dynamic chain (the technicolor_z_plane
+    and neural_3d_z_plane families) or the static chain (the llff_z_plane
+    family) (hyperreel_tpu/models/fused_eval.py cf_eligible:45-159,
+    without the compaction and stride stages the port does not have)."""
     names = [n for n, _ in model.embedding.stages]
     if names not in (DYN_CHAIN, STATIC_CHAIN):
         return False
@@ -126,15 +133,11 @@ class FusedCFEval:
         self.net = model.color_net
         self.S = self.pred.z_channels
         self.P = self.pred.preds_per_z
-        if self.flow is not None and len(self.net.active_density) != 1:
-            raise NotImplementedError(
-                "the fused render of dynamic multi-axis nets (K5/K6 with "
-                "time planes, TH > 0) is not ported (ROADMAP.md: the "
-                "neural_3d slice)")
-        if self.S > MAX_S:
-            raise NotImplementedError(
-                f"S={self.S}: the kernels hold one ray per warp segment, S "
-                f"<= {MAX_S} (ROADMAP.md: the neural_3d slice, S = 64)")
+        # one space plane x one time plane (the flagship's K2/K3 routes);
+        # otherwise the multi-axis routes (K5/K6), with time planes when
+        # the chain is dynamic (hyperreel_tpu _plan_meta `dyn1`)
+        self.dyn1 = self.flow is not None \
+            and len(self.net.active_density) == 1
         # coherent patch-gather: [px, py] and the block size R (8 when
         # the config says 8, else 4, as the JAX package takes it); planes
         # whose channel count is not a multiple of 8 take the quad route
@@ -199,7 +202,7 @@ class FusedCFEval:
             self.pred.net, params["embedding"]["ray_prediction_0"]["net"],
             perm)}
         cp = params["color"]
-        if self.flow is not None:
+        if self.dyn1:
             prep.update(self._prepare_dyn1(cp))
         else:
             prep.update(self._prepare_multi(cp))
@@ -225,17 +228,21 @@ class FusedCFEval:
 
     def _prepare_multi(self, cp):
         """Per axis the bf16 quad table of its plane (and its bf16 patch
-        table on the patch route) and its f32 line; the host basis table
-        over the concatenated appearance channels."""
+        table on the patch route) and its f32 second factor: the line of
+        a static net, the time plane [TH, TW, C] of a dynamic one; the host
+        basis table over the concatenated appearance channels."""
+        dynamic = self.flow is not None
+        fam, second = ("space", "time") if dynamic else ("plane", "line")
         quads, lines, ptabs, axes = [], [], [], []
         for i in self.net.active_density:
-            plane = torch.cat([cp["density"][f"plane_{i}"],
-                               cp["app"][f"plane_{i}"]], -1)
-            line = torch.cat([cp["density"][f"line_{i}"],
-                              cp["app"][f"line_{i}"]], -1)
+            plane = torch.cat([cp["density"][f"{fam}_{i}"],
+                               cp["app"][f"{fam}_{i}"]], -1)
+            line = torch.cat([cp["density"][f"{second}_{i}"],
+                              cp["app"][f"{second}_{i}"]], -1)
             H, W, C = plane.shape
-            axes.append(AxisSpec(index=i, W=W, H=H, L=line.shape[0], C=C,
-                                 nd=self.net.density_n_comp[i]))
+            TH = line.shape[0] if dynamic else 0
+            axes.append(AxisSpec(index=i, W=W, H=H, L=line.shape[-2], C=C,
+                                 nd=self.net.density_n_comp[i], TH=TH))
             quads.append(quad_table(plane))
             lines.append(line_table(line))
             if self.patch_cfg is not None:
@@ -278,11 +285,9 @@ class FusedCFEval:
         patch = self.patch_cfg is not None and B % self.patch_block == 0
         pm = bool(render_kwargs.get("rays_phase_major"))
         outputs = {}
-        if self.flow is not None:
-            out, viol = self._shade_dyn1(prep, pack, rp, render_kwargs,
-                                         outputs, patch, pm)
-        else:
-            out, viol = self._shade_multi(prep, pack, rp, patch, pm)
+        shade_fn = self._shade_dyn1 if self.dyn1 else self._shade_multi
+        out, viol = shade_fn(prep, pack, rp, render_kwargs, outputs, patch,
+                             pm)
         if patch:
             outputs["patch_coverage_viol"] = viol.float() / (
                 B // self.patch_block * self.S)
@@ -294,15 +299,23 @@ class FusedCFEval:
             outputs["distances"] = out[:, 4:5]
         return outputs
 
+    def _uniform_tn(self, rp, render_kwargs, outputs):
+        """With `uniform_time` on a dynamic chain: the witness into
+        `outputs` and the 0-d time coordinate to premix for; else None."""
+        if self.flow is None or not render_kwargs.get("uniform_time"):
+            return None
+        tn = rp[:, 7]
+        outputs["uniform_time_viol"] = (tn - tn[0]).abs().max()
+        return tn[0]
+
     def _shade_dyn1(self, prep, pack, rp, render_kwargs, outputs, patch, pm):
         """K2, K3 or K4 + K2-preblended: (out [B, 5], the coverage count
         or None)."""
         H, W, TH, TW, C, nd = prep["dims"]
         ttab = prep["ttab"]
-        if render_kwargs.get("uniform_time"):
-            tn = rp[:, 7]
-            outputs["uniform_time_viol"] = (tn - tn[0]).abs().max()
-            ttab, TH = premix_time(ttab, tn[0]), 0
+        tn0 = self._uniform_tn(rp, render_kwargs, outputs)
+        if tn0 is not None:
+            ttab, TH = premix_time(ttab, tn0), 0
         spec = ShadeSpec(S=self.S, W=W, H=H, TW=TW, TH=TH, C=C, nd=nd,
                          deg=self.net.sh_deg,
                          distance_scale=self.net.distance_scale)
@@ -319,13 +332,17 @@ class FusedCFEval:
             out = shade_preblended(feats, pack, rp, ttab, prep["wb"], spec)
         return out, viol[0]
 
-    def _shade_multi(self, prep, pack, rp, patch, pm):
+    def _shade_multi(self, prep, pack, rp, render_kwargs, outputs, patch,
+                     pm):
         """K5, K6 or K4 per plane + K5-preblended: (out [B, 5], the
         coverage count or None)."""
-        axes = prep["axes"]
+        axes, lines, wb = prep["axes"], prep["lines"], prep["wb"]
+        tn0 = self._uniform_tn(rp, render_kwargs, outputs)
+        if tn0 is not None:
+            lines = [premix_time(t, tn0) for t in lines]
+            axes = tuple(dataclasses.replace(a, TH=0) for a in axes)
         spec = MultiSpec(S=self.S, axes=axes, deg=self.net.sh_deg,
                          distance_scale=self.net.distance_scale)
-        lines, wb = prep["lines"], prep["wb"]
         if not patch:
             return shade_multi(prep["quads"], lines, pack, rp, wb,
                                spec), None

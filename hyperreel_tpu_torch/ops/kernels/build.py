@@ -38,6 +38,7 @@ class MlpLayer(ctypes.Structure):
 
 
 PACK_MAX_LAYERS = 12
+PACK_MAX_S = 64
 
 
 class PackParams(ctypes.Structure):
@@ -47,8 +48,8 @@ class PackParams(ctypes.Structure):
         ("leaky", ctypes.c_float),
         ("layer", MlpLayer * PACK_MAX_LAYERS),
         ("foff", ctypes.c_int * 7), ("act", Act * 10),
-                ("samples", ctypes.c_float * 32),
-                ("z_scale", ctypes.c_float * 32),
+                ("samples", ctypes.c_float * PACK_MAX_S),
+                ("z_scale", ctypes.c_float * PACK_MAX_S),
                 ("aabb_lo", ctypes.c_float * 3),
                 ("aabb_inv", ctypes.c_float * 3),
                 ("contract", ctypes.c_int), ("contract_samples", ctypes.c_int)
@@ -78,7 +79,7 @@ class PatchParams(ctypes.Structure):
 class MultiAxis(ctypes.Structure):
     """Mirror of csrc/multi_core.cuh MultiAxis."""
     _fields_ = [("table", ctypes.c_void_p), ("line", ctypes.c_void_p)] + [
-        (n, ctypes.c_int) for n in ("W", "H", "L")]
+        (n, ctypes.c_int) for n in ("W", "H", "L", "TH")]
 
 
 class MultiParams(ctypes.Structure):
@@ -178,6 +179,8 @@ def load_library():
                                     ctypes.c_int, ctypes.c_float, vp])):
         fn.argtypes = args
         fn.restype = ctypes.c_int
+    lib.pack_rays_per_block.argtypes = [ctypes.POINTER(PackParams)]
+    lib.pack_rays_per_block.restype = ctypes.c_int
     for fn, struct in ((lib.pack_params_size, PackParams),
                        (lib.shade_params_size, ShadeParams),
                        (lib.patch_params_size, PatchParams),

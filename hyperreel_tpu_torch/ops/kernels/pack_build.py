@@ -1,7 +1,8 @@
 """Pack-build (K1): the prediction MLP and eval embedding tail of the
-z-plane chains (the flagship's, and the static llff_z_plane family's with
-its scene contraction), from the encoded rays to the per-sample pack of
-ops/kernels/layout.py.
+z-plane chains (the flagship's; the static llff_z_plane family's with its
+scene contraction; the dynamic neural_3d_z_plane family's with the
+contraction and a flow stage, 64 samples per ray), from the encoded rays
+to the per-sample pack of ops/kernels/layout.py.
 
 Replaces hyperreel_tpu/ops/pallas/pack_build.py:_pack_build_kernel with
 its in-kernel MLP (_mlp_rows, the JAX package's default HYPERREEL_PK_MLP
@@ -9,8 +10,11 @@ route) and _bitonic_sublane. CUDA source: csrc/pack_build.cu. Bound on the
 H100 by the MLP's tensor-core products (about two thirds of the kernel's
 time on an H100 80GB HBM3 at 700 W); each block keeps its rays'
 activations in shared memory from the encoded input to the last layer,
-runs the layers as bf16 WMMA tiles with f32 accumulation, and then the
-tail with one warp lane per sample. See the source for the design.
+runs the layers as bf16 WMMA tiles with f32 accumulation (64 rays per
+block, 32 where the last layer is too wide for that: neural_3d_z_plane's
+960 columns), and then the tail with one warp lane per sample (two at S =
+64, a ray per warp). The kernel takes S a power of two <= MAX_S; the plain
+version any S. See the source for the design.
 
 The MLP, under the bf16 policy as the JAX kernel's `_mlp_rows`: one bf16
 rounding of each layer's input, weight and bias, f32 sums, f32 leaky relu
@@ -54,7 +58,7 @@ FIELDS = ("z", "sigma", "flow", "psig", "poff", "cs", "csh")
 ACTS = ("z", "isect", "sigma", "flow", "flow_stage", "psig", "poff",
         "po_stage", "cs", "csh")
 _IDENTITY = (0, 1.0, 1.0, 0.0, 1.0, 0.0)
-MAX_S = 32
+MAX_S = build.PACK_MAX_S
 MAX_LAYERS = build.PACK_MAX_LAYERS
 
 
@@ -149,10 +153,6 @@ class PackSpec:
     contract: object = IdentityContract()
 
     def __post_init__(self):
-        if self.S > MAX_S or self.S & (self.S - 1):
-            raise NotImplementedError(
-                f"S={self.S}: the kernel takes a power of two <= {MAX_S} "
-                "(one warp lane per sample)")
         missing = [k for k in FIELDS if k not in self.foff and k != "flow"]
         if missing:
             raise NotImplementedError(
@@ -309,6 +309,10 @@ def pack_build(x0, mlp, ray_pack, spec, it):
         return pack_build_plain(x0, mlp, ray_pack, spec, it)
     if x0.device.type != "cuda":
         raise ValueError(f"pack_build has no kernel for {x0.device}")
+    if spec.S > MAX_S or spec.S & (spec.S - 1):
+        raise NotImplementedError(
+            f"pack_build kernel: S={spec.S} not built (a power of two <= "
+            f"{MAX_S}: a warp lane per sample, two at S = 64)")
     lib = build.load_library().lib
     pack = torch.empty((PACK_ROWS, B * spec.S), dtype=torch.float32,
                        device=x0.device)

@@ -2,9 +2,10 @@
 route (ops/patch_gather.py), one bf16 row of C channels per sample, for the
 pre-blended shade kernels (ops/kernels/shade.py `shade_preblended`, the
 flagship's space plane; ops/kernels/shade_multi.py
-`shade_multi_preblended`, each of the static net's three planes). The
+`shade_multi_preblended`, each of the multi-axis nets' three planes). The
 plane's coordinates are pack rows (m0, m1) of its PatchSpec: (0, 1) for
-the flagship's space plane, MAT_MODE of the static net's axis otherwise.
+the flagship's space plane, MAT_MODE of the multi-axis net's axis
+otherwise.
 
 Replaces hyperreel_tpu/ops/pallas/patch_blend.py:_patch_blend_kernel with
 patch_anchor_idx and the XLA patch-row gather before it. CUDA source:
@@ -41,6 +42,7 @@ from hyperreel_tpu_torch.ops.patch_gather import hat_weights, unnormalize
 
 KERNEL_BLOCKS = (4, 8)          # R, as the JAX package takes it
 KERNEL_CHANNELS = (8, 16)
+MAX_S = 64                      # a warp lane per sample, two at S = 64
 
 
 @dataclass(frozen=True)
@@ -167,15 +169,16 @@ def check_flags(flags, B, spec, device):
 
 
 def check_patch_kernel(ptab, spec, name):
-    """Raise unless the patch kernels are built for `spec` (the launchers
-    also refuse a patch row too wide for 48 KB of shared memory)."""
+    """Raise unless the patch kernels are built for `spec` (K3's shade
+    check also holds it to S <= 32; the launchers refuse patch rows too
+    wide for shared memory)."""
     S = spec.S
     if spec.R not in KERNEL_BLOCKS or spec.C not in KERNEL_CHANNELS \
-            or S > 32 or S & (S - 1):
+            or S > MAX_S or S & (S - 1):
         raise NotImplementedError(
             f"{name} kernel: R={spec.R}, C={spec.C}, S={S} not built (R in "
             f"{KERNEL_BLOCKS}, C in {KERNEL_CHANNELS}, S a power of two "
-            "<= 32)")
+            f"<= {MAX_S})")
     if ptab.data_ptr() % 16:
         raise ValueError(f"{name}: ptab must be 16-byte aligned")
 

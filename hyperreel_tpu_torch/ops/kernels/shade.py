@@ -54,6 +54,7 @@ from hyperreel_tpu_torch.ops.sh import eval_sh_bases
 # ported configurations (technicolor_z_plane C=16, tiny_dynamic C=8)
 KERNEL_CHANNELS = (8, 16)
 KERNEL_SH_DEG = 2
+KERNEL_MAX_S = 32          # one warp lane per sample (K2, K3)
 
 
 @dataclass(frozen=True)
@@ -228,12 +229,13 @@ def check_tables(ttab, wb, spec, device):
 
 
 def check_kernel(spec, name):
-    """Raise unless the kernels are built for spec's C and SH degree."""
-    if spec.C not in KERNEL_CHANNELS or spec.deg != KERNEL_SH_DEG:
+    """Raise unless the kernels are built for spec's C, SH degree and S."""
+    if spec.C not in KERNEL_CHANNELS or spec.deg != KERNEL_SH_DEG \
+            or spec.S > KERNEL_MAX_S or spec.S & (spec.S - 1):
         raise NotImplementedError(
-            f"{name} kernel: C={spec.C}, SH degree {spec.deg} not built "
-            f"(C in {KERNEL_CHANNELS}, degree {KERNEL_SH_DEG}; ROADMAP.md: "
-            "long tail)")
+            f"{name} kernel: C={spec.C}, SH degree {spec.deg}, S={spec.S} "
+            f"not built (C in {KERNEL_CHANNELS}, degree {KERNEL_SH_DEG}, S a "
+            f"power of two <= {KERNEL_MAX_S}; ROADMAP.md: long tail)")
 
 
 def shade_params(B, spec, wb):

@@ -1,13 +1,14 @@
 """Multi-axis shade + composite (K5): from the per-sample pack
-(ops/kernels/layout.py) to the per-ray colour, for the static VM net
-(TensorVMNoSample with its three plane x line axes, the llff_z_plane
-family).
+(ops/kernels/layout.py) to the per-ray colour, for the VM nets with three
+axes: the static net (TensorVMNoSample, a plane times a line per axis, the
+llff_z_plane family) and the dynamic one (TensorVMKeyframeTime, a space
+plane times a keyframe time plane per axis, the neural_3d_z_plane family).
 
 Replaces hyperreel_tpu/ops/pallas/shade.py:_shade_kernel_multi (with
-_multi_core for static nets, the wrapper fused_shade_composite_multi) and
-the XLA quad-row gathers before it. CUDA source: csrc/shade_multi.cu (the
-per-axis body in csrc/multi_core.cuh, the colour and composite in
-csrc/shade_core.cuh). Bound on the H100 by its f32 operations while the
+_multi_core and its time-plane branch, the wrapper
+fused_shade_composite_multi) and the XLA quad-row gathers before it. CUDA
+source: csrc/shade_multi.cu (the per-axis body in csrc/multi_core.cuh, the
+colour and composite in csrc/shade_core.cuh). Bound on the H100 by its f32 operations while the
 quad tables stay in L2; at a trained checkpoint's grid they exceed it (see
 the source). `shade_multi_preblended` is the same kernel reading the three
 planes' features that K4 (ops/kernels/patch_blend.py) wrote, bf16 [B*S,
@@ -16,18 +17,24 @@ route; shade.py `preblended="phase_major"`).
 
 Per valid sample and axis a (MAT_MODE plane coordinates m0, m1, VEC_MODE
 line coordinate v): the plane features, bilinear from one quad-table row;
-the line factor, linear between two rows of the line [L, C_a]; their
-product; the first nd_a channels sum into the density feature, the rest
-append to the appearance vector in axis order. Then relu density, the SH
-colour of the [3K, A] basis (no density columns) times the appearance
-vector, and the composite (ops/kernels/shade.py `shade_tail_plain`).
+the second factor: linear between two rows of the line [L, C_a], or, for
+a dynamic net (AxisSpec.TH > 0), the same on the two keyframe rows of the
+time plane [TH, L, C_a] around the ray's time coordinate tn (ray pack row
+7), mixed linearly in tn (a time plane premixed for one t, `premix_time`,
+is a line: TH = 0); their product; the first nd_a channels sum into the
+density feature, the rest append to the appearance vector in axis order.
+Then relu density, the SH colour of the [3K, A] basis (no density
+columns) times the appearance vector, and the composite
+(ops/kernels/shade.py `shade_tail_plain`).
 
 Tables (built once per checkpoint): the quad tables `shade.quad_table`
-of each plane, the lines f32 [L, C_a] as they are (`line_table`), and
-`multi_basis_table`, on the host (it rides in the kernel's parameters).
-The kernels are built for the llff_z_plane layout (csrc/multi_core.cuh,
-read back by the loader as `build.load_library().multi_layout`); other
-layouts run the plain version on the CPU and raise on the card.
+of each plane, the lines f32 [L, C_a] or time planes f32 [TH, L, C_a] as
+they are (`line_table`), and `multi_basis_table`, on the host (it rides in
+the kernel's parameters). The kernels are built for the [8, 4, 4] layout
+of both families (csrc/multi_core.cuh, read back by the loader as
+`build.load_library().multi_layout`) and S a power of two <= 64 (a warp
+lane per sample, two at S = 64); other layouts and S run the plain
+version on the CPU and raise on the card.
 """
 
 from dataclasses import dataclass
@@ -41,17 +48,21 @@ from hyperreel_tpu_torch.ops.kernels.layout import check_pack, check_ray_pack
 from hyperreel_tpu_torch.ops.kernels.shade import (
     KERNEL_SH_DEG, line_lookup, quad_features, shade_tail_plain, taps)
 
+MAX_S = 64
+
 
 @dataclass(frozen=True)
 class AxisSpec:
-    """One plane x line axis: the plane [H, W, C], the line [L, C], and
-    the first nd channels being density."""
+    """One axis: the plane [H, W, C], the second factor (the line [L, C],
+    or the time plane [TH, L, C] when TH > 0), and the first nd channels
+    being density."""
     index: int                  # i of MAT_MODE[i], VEC_MODE[i]
     W: int
     H: int
     L: int
     C: int
     nd: int
+    TH: int = 0
 
     @property
     def m0(self):
@@ -78,9 +89,10 @@ class MultiSpec:
         return sum(a.C - a.nd for a in self.axes)
 
 
-def line_table(line_lc):
-    """[L, C] line -> the f32 table the kernels read."""
-    return line_lc.float().contiguous()
+def line_table(line):
+    """[L, C] line or [TH, L, C] time plane -> the f32 table the kernels
+    read."""
+    return line.float().contiguous()
 
 
 def multi_basis_table(basis_weight):
@@ -90,12 +102,33 @@ def multi_basis_table(basis_weight):
     return basis_weight.detach().float().cpu().contiguous()
 
 
-def axis_products(feats, lines, pack, spec):
+def second_factor(line, pack, tn, ax):
+    """Axis ax's second factor f32 [B*S, C] at every sample: the line's
+    taps, or on a time plane the z taps of the two keyframe rows around
+    the per-sample time coordinate tn [B*S], mixed by tn's taps
+    (csrc/multi_core.cuh line_product)."""
+    zi, wz0, wz1 = taps(pack[ax.v], ax.L)
+    if ax.TH == 0:
+        return line_lookup(line, zi, wz0, wz1)
+    ti, wt0, wt1 = taps(tn, ax.TH)
+    flat = line.reshape(ax.TH * ax.L, ax.C)
+    out = torch.zeros(pack.shape[1], ax.C, device=pack.device)
+    for dk, wt in ((0, wt0), (1, wt1)):
+        k = torch.clamp(ti + dk, 0, ax.TH - 1) * ax.L
+        zf = flat[k + torch.clamp(zi, 0, ax.L - 1)] * wz0[:, None] \
+            + flat[k + torch.clamp(zi + 1, 0, ax.L - 1)] * wz1[:, None]
+        out = out + zf * wt[:, None]
+    return out
+
+
+def axis_products(feats, lines, pack, ray_pack, spec):
     """Per-axis plane features f32 [B*S, C_a] -> (density feature [B*S],
-    appearance [B*S, A]): the line taps, the products and the sums."""
+    appearance [B*S, A]): the second factors, the products and the
+    sums."""
+    tn = ray_pack[:, 7].repeat_interleave(spec.S, 0)
     dens, app = 0.0, []
     for f, line, ax in zip(feats, lines, spec.axes):
-        prod = f * line_lookup(line, *taps(pack[ax.v], ax.L))
+        prod = f * second_factor(line, pack, tn, ax)
         dens = dens + prod[:, :ax.nd].sum(-1)
         app.append(prod[:, ax.nd:])
     return dens, torch.cat(app, -1)
@@ -103,7 +136,7 @@ def axis_products(feats, lines, pack, spec):
 
 def shade_multi_features_plain(feats, lines, pack, ray_pack, wb, spec):
     """Everything after the plane features -> f32 [B, 5]."""
-    dens, app = axis_products(feats, lines, pack, spec)
+    dens, app = axis_products(feats, lines, pack, ray_pack, spec)
     return shade_tail_plain(dens, app, wb, pack, ray_pack, spec.S, spec.deg,
                             spec.distance_scale)
 
@@ -122,13 +155,14 @@ def shade_multi_preblended_plain(feats, lines, pack, ray_pack, wb, spec):
 
 
 def check_lines(lines, wb, spec, device):
-    """Raise unless the lines and the basis fit `spec` (lines contiguous
-    f32 on `device`, wb on the host)."""
+    """Raise unless the second factors and the basis fit `spec` (lines
+    [L, C] or time planes [TH, L, C], contiguous f32 on `device`; wb on
+    the host)."""
     if len(lines) != len(spec.axes):
         raise ValueError(f"{len(lines)} lines for {len(spec.axes)} axes")
     K = (spec.deg + 1) ** 2
-    shapes = [(f"line {a.index}", t, (a.L, a.C))
-              for t, a in zip(lines, spec.axes)]
+    shapes = [(f"line {a.index}", t, (a.TH, a.L, a.C) if a.TH else
+               (a.L, a.C)) for t, a in zip(lines, spec.axes)]
     for name, t, shape in shapes + [("wb", wb, (3 * K, spec.n_app))]:
         if t.dtype != torch.float32 or tuple(t.shape) != shape \
                 or not t.is_contiguous():
@@ -166,12 +200,12 @@ def check_kernel(spec, name):
     layout = tuple((a.index, a.C, a.nd) for a in spec.axes)
     built = build.load_library().multi_layout
     if layout != built or spec.deg != KERNEL_SH_DEG \
-            or spec.S > 32 or spec.S & (spec.S - 1):
+            or spec.S > MAX_S or spec.S & (spec.S - 1):
         raise NotImplementedError(
             f"{name} kernel: layout {layout}, SH degree {spec.deg}, "
             f"S={spec.S} not built (layout {built}, degree "
-            f"{KERNEL_SH_DEG}, S a power of two <= 32; ROADMAP.md: the "
-            "other static multi-axis presets)")
+            f"{KERNEL_SH_DEG}, S a power of two <= {MAX_S}; ROADMAP.md: "
+            "the other multi-axis presets)")
 
 
 def multi_params(B, spec, tables, lines, wb):
@@ -181,7 +215,7 @@ def multi_params(B, spec, tables, lines, wb):
     p.distance_scale = float(spec.distance_scale)
     for i, (ax, t, line) in enumerate(zip(spec.axes, tables, lines)):
         p.axis[i] = build.MultiAxis(t.data_ptr(), line.data_ptr(), ax.W,
-                                    ax.H, ax.L)
+                                    ax.H, ax.L, ax.TH)
     vals = wb.reshape(-1).tolist()
     p.wb[:len(vals)] = vals
     return p

@@ -1,7 +1,8 @@
 """Fused multi-axis patch-blend + shade (K6): the coherent patch-gather
-route of the static VM net's eval render (the llff_z_plane family) in one
-kernel, from the per-sample pack and the three planes' patch tables to the
-per-ray colour; the plane features never reach device memory.
+route of the VM nets' eval render (the static llff_z_plane family, and the
+dynamic neural_3d_z_plane family with its time planes) in one kernel,
+from the per-sample pack and the three planes' patch tables to the per-ray
+colour; the plane features never reach device memory.
 
 Replaces hyperreel_tpu/ops/pallas/shade.py:_shade_kernel_multi_fused_patch
 (the JAX route with HYPERREEL_FUSED_PATCH_MULTI=1) with the XLA patch-row
@@ -12,8 +13,9 @@ operations. See the sources for the design.
 
 The plane features are K4's (ops/kernels/patch_blend.py: the same
 grouping, anchors and hat blend, per plane with its PatchSpec) kept in
-f32; everything after them is K5's math (ops/kernels/shade_multi.py
-`shade_multi_features_plain`, one basis product over the concatenated
+f32; everything after them is K5's math, time planes included
+(ops/kernels/shade_multi.py `shade_multi_features_plain`, one basis
+product over the concatenated
 appearance channels where the JAX kernel adds one per axis: the same sum in
 another f32 order). Also returns the coverage violation count: the slots
 whose footprint exits the patch on any plane.

@@ -1,0 +1,142 @@
+"""Compare two checkouts of hyperreel_tpu_torch on one NVIDIA GPU: the
+outputs and the frame times of the routes that both render.
+
+Run from the root of a checkout (its chip_smoke.py and hyperreel_tpu_torch
+are the ones imported, its kernels are built into its own build/):
+
+    python3 /path/to/scripts/compare_trees.py --save OUT.pt [--frames 10]
+
+renders with chip_smoke.py's flagship (technicolor_z_plane) and
+llff_z_plane models, weights from its seed: K1's pack of the bench frame's
+first chunk for each model, the bench frame's rgb on every route (flagship
+quad, fused and two-kernel patch at R=8 (5, 2); llff quad, fused and
+two-kernel patch at R=8 (5, 2) and R=4 (4, 3)) and K7's output on seeded
+inputs, and saves them with each route's frame time (CUDA events, after a
+warm-up frame). Then
+
+    python3 scripts/compare_trees.py --compare A.pt B.pt [C.pt ...]
+
+prints, for every saved output, the largest |difference| of each file
+from the first (0 where the kernels' arithmetic is unchanged), and every
+file's frame times. Run the checkouts' --save in turns (A, B, B, A) in
+one call so that the times share a card.
+"""
+
+import argparse
+import os
+import subprocess
+import sys
+
+
+def save(path, frames):
+    sys.path.insert(0, os.getcwd())
+    import torch
+
+    import chip_smoke as cs
+    from hyperreel_tpu_torch.models.ctx import StepCtx
+    from hyperreel_tpu_torch.ops.kernels.composite import composite
+    from hyperreel_tpu_torch.ops.kernels.pack_build import pack_build
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("compare_trees needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    ctx = StepCtx(it=cs.IT)
+    frame = torch.from_numpy(cs.bench_frame()).to(dev)
+    out, times = {}, {}
+
+    def run(name, model, params, frames_in, rkw, env, R=None):
+        with cs.EnvVar(*env):
+            def render():
+                return [model.apply(params, frames_in[i], ctx, rkw)
+                        for i in range(frames_in.shape[0])]
+            outs = render()
+            rgb = torch.cat([cs.scanline(o["rgb"], R) if R else o["rgb"]
+                             for o in outs])
+            out[name] = rgb.cpu()
+            times[name] = cs.cuda_ms(torch, render, frames)
+
+    def pack_of(model, prep, chunk):
+        cf = model._cf_eval
+        return pack_build(cf.pred.net_input(chunk, ctx).float().contiguous(),
+                          prep["mlp"], cf.ray_pack(chunk), cf.spec,
+                          cs.IT).cpu()
+
+    cfg, info, model, params, prep = cs.flagship(dev)
+    out["flagship K1 pack"] = pack_of(model, prep, frame[0])
+    rk = {"cf_prepared": prep, "uniform_time": True}
+    run("flagship quad", model, params, frame, rk,
+        ("HYPERREEL_FUSED_PATCH", "1"))
+    model8, prep8 = cs.patch_model(cfg, info, params, cs.PATCH_R8)
+    frame_pm = cs.phase_major(frame, cs.PATCH_R8[2]).contiguous()
+    rk8 = {"cf_prepared": prep8, "uniform_time": True,
+           "rays_phase_major": True}
+    for env, name in (("1", "fused"), ("0", "two-kernel")):
+        run(f"flagship {name} patch", model8, params, frame_pm, rk8,
+            ("HYPERREEL_FUSED_PATCH", env), cs.PATCH_R8[2])
+    del model, model8, prep, prep8, params
+    torch.cuda.empty_cache()
+
+    frame6 = frame[..., :6].contiguous()
+    _, model, params, prep = cs.llff(dev)
+    out["llff K1 pack"] = pack_of(model, prep, frame6[0])
+    run("llff quad", model, params, frame6, {"cf_prepared": prep},
+        ("HYPERREEL_FUSED_PATCH_MULTI", "0"))
+    for shape in (cs.PATCH_R8, cs.PATCH_R4):
+        _, m, _, pr = cs.llff(dev, patch=shape, params=params)
+        fr = cs.phase_major(frame6, shape[2]).contiguous()
+        for env, name in (("1", "fused"), ("0", "two-kernel")):
+            run(f"llff {name} patch R={shape[2]}", m, params, fr,
+                {"cf_prepared": pr, "rays_phase_major": True},
+                ("HYPERREEL_FUSED_PATCH_MULTI", env), shape[2])
+        del m, pr
+        torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    sig = 0.05 * torch.rand(cs.CHUNK, 32, device=dev, generator=gen)
+    dst = torch.sort(0.1 + 2.9 * torch.rand(cs.CHUNK, 32, device=dev,
+                                            generator=gen), -1).values
+    col = torch.rand(cs.CHUNK, 32, 3, device=dev, generator=gen)
+    out["K7 composite"] = torch.cat(
+        [t.reshape(cs.CHUNK, -1) for t in composite(sig, dst, col, 16.0)],
+        1).cpu()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    torch.save({"out": out, "times": times, "card": card,
+                "tree": os.getcwd()}, path)
+    print(f"# {os.getcwd()}: saved {len(out)} outputs to {path}")
+
+
+def compare(paths):
+    import torch
+
+    runs = [torch.load(p) for p in paths]
+    first = runs[0]["out"]
+    print(f"# {runs[0]['card']}; files: " + ", ".join(
+        f"{p} ({r['tree']})" for p, r in zip(paths, runs)))
+    for name, ref in first.items():
+        diffs = [(r["out"][name] - ref).abs().max().item()
+                 if name in r["out"] else float("nan") for r in runs[1:]]
+        print(f"{name}: max |diff| from the first file "
+              + ", ".join(f"{d:.3e}" for d in diffs))
+    for name in runs[0]["times"]:
+        print(f"{name}: ms/frame " + ", ".join(
+            f"{r['times'].get(name, float('nan')):.3f}" for r in runs))
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--save")
+    ap.add_argument("--compare", nargs="+")
+    ap.add_argument("--frames", type=int, default=10)
+    args = ap.parse_args()
+    if args.save:
+        save(args.save, args.frames)
+    if args.compare:
+        compare(args.compare)
+
+
+if __name__ == "__main__":
+    main()

@@ -3,11 +3,15 @@
 Renders one of chip_smoke.py's configurations (--model flagship:
 technicolor_z_plane at full width, bf16 MLP policy, the 1024x1024 bench
 frame in 4 chunks at t=0.3; --model llff: llff_z_plane at full width on a
-trained checkpoint's grid, the same frame's origins and directions) on one
-route (--route: quad, K1 then K2 (flagship) or K5 (llff); fused, the
-coherent patch-gather route at R=8 (5, 2) with bench.py's phase-major
-rays, K1 then K3 or K6; two, the same route on K1, K4 and K2-preblended,
-or K1, K4 on each of the three planes and K5-preblended) and prints:
+trained checkpoint's grid, the same frame's origins and directions;
+--model n3d: neural_3d_z_plane at full width, S=64, on a trained
+checkpoint's grid, the frame at t=0.3 with uniform_time, or with
+--per-ray-time without it, so that K5/K6 mix the time planes per sample)
+on one route (--route: quad, K1 then K2 (flagship) or K5 (llff, n3d);
+fused, the coherent patch-gather route with bench.py's phase-major rays
+at R=8 (5, 2) (n3d: (5, 3)), K1 then K3 or K6; two, the same route on K1,
+K4 and K2-preblended, or K1, K4 on each of the three planes and
+K5-preblended) and prints:
   * the card's name and power limit (nvidia-smi);
   * frame time from CUDA events over back-to-back frames, and the host's
     time to enqueue one frame onto an idle card (when the two are close,
@@ -18,8 +22,9 @@ or K1, K4 on each of the three planes and K5-preblended) and prints:
     and the idle share of that span; then the host operators by their
     own CPU time.
 
-    python3 scripts/profile_torch_frame.py [--model flagship|llff]
-        [--route quad|fused|two] [--frames 3] [--trace FILE]
+    python3 scripts/profile_torch_frame.py [--model flagship|llff|n3d]
+        [--route quad|fused|two] [--per-ray-time] [--frames 3]
+        [--trace FILE]
 
 --trace writes the profiler's Chrome trace to FILE.
 """
@@ -53,10 +58,11 @@ def busy_ms(intervals):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=("flagship", "llff"),
+    ap.add_argument("--model", choices=("flagship", "llff", "n3d"),
                     default="flagship")
     ap.add_argument("--route", choices=("quad", "fused", "two"),
                     default="quad")
+    ap.add_argument("--per-ray-time", action="store_true")
     ap.add_argument("--frames", type=int, default=3)
     ap.add_argument("--trace", default=None)
     args = ap.parse_args()
@@ -82,22 +88,30 @@ def main():
     ctx = StepCtx(it=cs.IT)
     fused = "1" if args.route == "fused" else "0"
     patch = args.route != "quad"
+    shape = cs.PATCH_R8
     if args.model == "flagship":
         cfg, info, model, params, prep = cs.flagship(dev)
         rk = {"cf_prepared": prep, "uniform_time": True}
         os.environ["HYPERREEL_FUSED_PATCH"] = fused
         if patch:
             model, prep = cs.patch_model(cfg, info, params, cs.PATCH_R8)
-    else:
+    elif args.model == "llff":
         _, model, params, prep = cs.llff(
             dev, patch=cs.PATCH_R8 if patch else None)
         rk = {"cf_prepared": prep}
         frame = frame[..., :6].contiguous()     # a static scene: o, d
         os.environ["HYPERREEL_FUSED_PATCH_MULTI"] = fused
+    else:
+        shape = cs.N3D_PATCH_R8
+        _, model, params, prep = cs.n3d(dev, patch=shape if patch else None)
+        rk = {"cf_prepared": prep, "uniform_time": not args.per_ray_time}
+        os.environ["HYPERREEL_FUSED_PATCH_MULTI"] = fused
     if patch:
-        frame = cs.phase_major(frame, cs.PATCH_R8[2]).contiguous()
+        frame = cs.phase_major(frame, shape[2]).contiguous()
         rk["rays_phase_major"] = True
-    print(f"# model {args.model}, route {args.route}", flush=True)
+    print(f"# model {args.model}, route {args.route}"
+          + (f" {shape}" if patch else "")
+          + (", a t per ray" if args.per_ray_time else ""), flush=True)
 
     def render():
         return [model.apply(params, frame[i], ctx, rk)

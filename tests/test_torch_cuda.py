@@ -3,7 +3,8 @@ card. Marked `cuda`: without an NVIDIA card every test here skips (CUDA
 kernels have no CPU mode; the plain versions are held against the JAX
 package by tests/test_torch_pack_build.py, test_torch_shade.py,
 test_torch_slice.py, test_torch_patch.py, test_torch_patch_route.py,
-test_torch_composite.py, test_torch_static.py and test_torch_multi.py).
+test_torch_composite.py, test_torch_static.py, test_torch_multi.py and
+test_torch_dynamic_multi.py).
 Run on the card with
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
@@ -12,13 +13,15 @@ Run on the card with
 use and the machine with the card may not have.)
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from hyperreel_tpu_torch.configs.presets import (
-    convert_epochs_to_iters, technicolor_z_plane, tiny_dynamic, tiny_static,
-    with_coherent_gather)
+    convert_epochs_to_iters, neural_3d_z_plane, technicolor_z_plane,
+    tiny_dynamic, tiny_neural_3d, tiny_static, with_coherent_gather)
 from hyperreel_tpu_torch.models.ctx import StepCtx
 from hyperreel_tpu_torch.models.model import build_model
 from hyperreel_tpu_torch.ops.kernels import build
@@ -390,3 +393,193 @@ def test_static_fused_model_matches_general_on_card(dev):
                                                            before[1] + 1)
     b = general.apply(params, rays, ctx)["rgb"]
     assert (a - b).abs().max() <= 2e-4
+
+
+N3D_INFO = {"num_keyframes": 12, "num_frames": 50}
+
+
+def _n3d_model(dev, S, bf16=False, patch=None, full_mlp=False):
+    """tiny_neural_3d with neural_3d_z_plane's [8, 4, 4] components, bf16
+    tables, 12 keyframes; with `full_mlp` the preset's 6x256 MLP (K1 then
+    takes 32 rays per block under the bf16 policy at S = 64); density
+    grids redrawn uniform in [0, 2.4 / S)."""
+    cfg = convert_epochs_to_iters(tiny_neural_3d(z_channels=S), 4000)
+    cfg["color"]["net"].update(fused_render=True, bf16_tables=True,
+                               n_lamb_sigma=[8, 4, 4], n_lamb_sh=[8, 4, 4])
+    if full_mlp:
+        cfg["embedding"]["embeddings"]["ray_prediction_0"]["net"] = \
+            neural_3d_z_plane()["embedding"]["embeddings"][
+                "ray_prediction_0"]["net"]
+    if patch:
+        cfg = with_coherent_gather(cfg, *patch)
+    model = build_model(cfg, dataset_info=N3D_INFO,
+                        compute_dtype=torch.bfloat16 if bf16 else None)
+    gen = torch.Generator().manual_seed(0)
+    params = model.init(gen, dev)
+    for k, v in params["color"]["density"].items():
+        params["color"]["density"][k] = 2.4 / S * torch.rand(
+            v.shape, generator=gen).to(dev)
+    return cfg, model, params
+
+
+# K1 with flow and the contraction at S = 64: the same tolerances as the
+# flagship's; at the preset's MLP width under the bf16 policy the block
+# takes 32 rays (the 960-column last layer), under the f32 policy 32.
+@pytest.mark.parametrize("S,bf16,full", [(64, False, False),
+                                         (64, True, True), (8, True, True)],
+                         ids=["S64_f32", "S64_bf16_full", "S8_bf16_full"])
+@pytest.mark.parametrize("n", [1000, 4096])
+def test_n3d_pack_build_matches_plain(dev, S, bf16, full, n):
+    _, model, params = _n3d_model(dev, S, bf16, full_mlp=full)
+    cf = model._cf_eval
+    prep = cf.prepare(params)
+    rays = _rays(n, dev)
+    x0 = cf.pred.net_input(rays, StepCtx(it=20000)).float().contiguous()
+    rp = cf.ray_pack(rays)
+    before = pack_build.launches
+    pack = pack_build(x0, prep["mlp"], rp, cf.spec, 20000)
+    assert pack_build.launches == before + 1
+    pack_p = pack_build_plain(x0, prep["mlp"], rp, cf.spec, 20000)
+    torch.cuda.synchronize()
+    assert (pack - pack_p).abs().max() <= (2e-3 if bf16 else 1e-5)
+    assert (pack[3].reshape(n, S).diff(dim=1) >= 0).all()
+    rpb = build.load_library().lib.pack_rays_per_block(
+        cf.spec.params(n, prep["mlp"], 20000))
+    assert rpb == (32 if full and S == 64 or not bf16 else 64)
+
+
+def _time_rays(n, dev, R=None, seed=0):
+    """bench.py's camera crop of n = side^2 rays with a random t per ray
+    (phase-major for blocks of R)."""
+    rays = _frame_rays(int(round(n ** 0.5)), dev, R)
+    rng = np.random.default_rng(seed)
+    rays[:, 7] = torch.from_numpy(rng.uniform(0, 1, rays.shape[0]).astype(
+        np.float32)).to(dev)
+    return rays
+
+
+# K5 and K5-preblended on the time planes (TH = 12) and premixed, K4 on
+# each plane, K6 at S = 64 and S = 8: the multi-axis tolerances above.
+@pytest.mark.parametrize("S,R", [(64, 8), (64, 4), (8, 8)])
+def test_n3d_shade_kernels_match_plain(dev, S, R):
+    patch = (5, 3, 8) if R == 8 else (4, 3, 4)
+    _, model, params = _n3d_model(dev, S, patch=patch)
+    cf = model._cf_eval
+    prep = cf.prepare(params)
+    axes = prep["axes"]
+    assert [a.TH for a in axes] == [12, 12, 12]
+    rays = _time_rays(1600, dev, R)
+    rp = cf.ray_pack(rays)
+    pack = pack_build(cf.pred.net_input(rays, StepCtx(it=20000)).float()
+                      .contiguous(), prep["mlp"], rp, cf.spec, 20000)
+    spec = MultiSpec(S=S, axes=axes, deg=cf.net.sh_deg,
+                     distance_scale=cf.net.distance_scale)
+    lines0 = [premix_time(t, rp[0, 7]) for t in prep["lines"]]
+    spec0 = dataclasses.replace(spec, axes=tuple(
+        dataclasses.replace(a, TH=0) for a in axes))
+    for lines, sp in ((prep["lines"], spec), (lines0, spec0)):
+        out = shade_multi(prep["quads"], lines, pack, rp, prep["wb"], sp)
+        ref = shade_multi_plain(prep["quads"], lines, pack, rp, prep["wb"],
+                                sp)
+        torch.cuda.synchronize()
+        assert ref[:, 3].max() > 0.5
+        assert (out[:, :4] - ref[:, :4]).abs().max() <= 1e-4
+        assert (out[:, 4] - ref[:, 4]).abs().max() <= 1e-3
+    args = (prep["lines"], pack, rp, prep["wb"], spec)
+    quad = shade_multi(prep["quads"], *args)
+    pspecs = cf.patch_specs([(a.W, a.H, a.C, a.m0, a.m1) for a in axes],
+                            True)
+    flags = torch.zeros(pack.shape[1] // R, dtype=torch.uint8, device=dev)
+    flags_p = flags.clone()
+    feats = []
+    for t, ps in zip(prep["ptabs"], pspecs):
+        f, v = patch_blend(t, pack, ps, flags)
+        fp, vp = patch_blend_plain(t, pack, ps, flags_p)
+        assert int(v) == int(vp) and _ulps(f, fp) <= 1.0
+        feats.append(f)
+    assert torch.equal(flags, flags_p)
+    pre = shade_multi_preblended(feats, *args)
+    ref = shade_multi_preblended_plain(feats, *args)
+    assert (pre[:, :4] - ref[:, :4]).abs().max() <= 1e-4
+    fused, v = shade_multi_patch(prep["ptabs"], *args, pspecs)
+    ref, vp = shade_multi_patch_plain(prep["ptabs"], *args, pspecs)
+    torch.cuda.synchronize()
+    assert int(v) == int(vp) == int(flags.sum())
+    assert (fused[:, :4] - ref[:, :4]).abs().max() <= 1e-4
+    assert (fused[:, 4] - ref[:, 4]).abs().max() <= 1e-3
+    if int(v) == 0:
+        # every block inside its patches: the routes render alike
+        assert (fused[:, :4] - quad[:, :4]).abs().max() <= 2e-4
+        assert (pre[:, :4] - quad[:, :4]).abs().max() <= 2e-4
+
+
+@pytest.mark.parametrize("ut", [True, False], ids=["one_t", "t_per_ray"])
+@pytest.mark.parametrize("route,kernels", [
+    ("quad", {"shade_multi": 1}),
+    ("two", {"patch_blend": 3, "shade_multi_preblended": 1}),
+    ("fused", {"shade_multi_patch": 1})])
+def test_n3d_routes_launch_on_card(dev, route, kernels, ut, monkeypatch):
+    """Each route at S = 64 launches its kernels once per call, never the
+    general path or a plain version, and renders what the same route
+    renders on the CPU (its kernels' plain versions), 2e-4."""
+    monkeypatch.setenv("HYPERREEL_FUSED_PATCH_MULTI",
+                       "1" if route == "fused" else "0")
+    _, model, params = _n3d_model(
+        dev, 64, patch=None if route == "quad" else (5, 3, 8))
+    fns = (pack_build, shade_multi, shade_multi_preblended,
+           shade_multi_patch, patch_blend)
+    before = {f.__name__: f.launches for f in fns}
+    rays = _frame_rays(64, dev, 8) if ut else _time_rays(4096, dev, 8)
+    rk = {"rays_phase_major": True, "uniform_time": ut}
+    out = model.apply(params, rays, StepCtx(it=20000), rk)
+    got = {f.__name__: f.launches - before[f.__name__] for f in fns}
+    want = dict.fromkeys(got, 0)
+    want.update(pack_build=1, **kernels)
+    assert got == want
+    assert ("uniform_time_viol" in out) == ut
+    plain = model.apply(_to(params, "cpu"), rays.cpu(), StepCtx(it=20000),
+                        rk)
+    assert (out["rgb"].cpu() - plain["rgb"]).abs().max() <= 2e-4
+    if route != "quad":
+        assert abs(float(plain["patch_coverage_viol"])
+                   - float(out["patch_coverage_viol"])) <= 1e-3
+
+
+def test_n3d_fused_model_matches_general_on_card(dev):
+    import copy
+    cfg, model, params = _n3d_model(dev, 64)
+    cfg_g = copy.deepcopy(cfg)
+    cfg_g["color"]["net"]["fused_render_cf"] = False
+    general = build_model(cfg_g, dataset_info=N3D_INFO)
+    rays = _rays(4096, dev, seed=1)
+    ctx = StepCtx(it=20000)
+    before = (pack_build.launches, shade_multi.launches)
+    a = model.apply(params, rays, ctx)["rgb"]
+    assert (pack_build.launches, shade_multi.launches) == (before[0] + 1,
+                                                           before[1] + 1)
+    b = general.apply(params, rays, ctx)["rgb"]
+    assert (a - b).abs().max() <= 2e-4
+
+
+def test_unsupported_sample_count_raises_on_card(dev):
+    """S = 128: the plain versions take it on the CPU, but on the card K1
+    and K5 raise before any launch; nothing falls back."""
+    _, model, params = _n3d_model(dev, 128)
+    cf = model._cf_eval
+    prep = cf.prepare(params)
+    rays = _rays(256, dev)
+    rp = cf.ray_pack(rays)
+    x0 = cf.pred.net_input(rays, StepCtx(it=20000)).float().contiguous()
+    before = (pack_build.launches, shade_multi.launches)
+    with pytest.raises(NotImplementedError):
+        pack_build(x0, prep["mlp"], rp, cf.spec, 20000)
+    with pytest.raises(NotImplementedError):
+        model.apply(params, rays, StepCtx(it=20000))
+    pack = pack_build_plain(x0, prep["mlp"], rp, cf.spec, 20000)
+    spec = MultiSpec(S=128, axes=prep["axes"], deg=2,
+                     distance_scale=cf.net.distance_scale)
+    with pytest.raises(NotImplementedError):
+        shade_multi(prep["quads"], prep["lines"], pack, rp, prep["wb"], spec)
+    assert (pack_build.launches, shade_multi.launches) == before
+    cpu = model.apply(_to(params, "cpu"), rays.cpu(), StepCtx(it=20000))
+    assert torch.isfinite(cpu["rgb"]).all()

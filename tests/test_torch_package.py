@@ -73,6 +73,14 @@ def test_port_imports_no_jax():
         P.llff_z_plane(), 5, 2, 8)),
     ("llff_epochs_to_iters", lambda P: P.convert_epochs_to_iters(
         P.llff_z_plane(), 4000)),
+    ("neural_3d_z_plane", lambda P: P.neural_3d_z_plane()),
+    ("neural_3d_z_plane_z32", lambda P: P.neural_3d_z_plane(32)),
+    ("tiny_neural_3d", lambda P: P.tiny_neural_3d()),
+    ("tiny_neural_3d_z64_grid16", lambda P: P.tiny_neural_3d(64, 16)),
+    ("n3d_patch_route", lambda P: P.with_coherent_gather(
+        P.neural_3d_z_plane(), 5, 3, 8)),
+    ("n3d_epochs_to_iters", lambda P: P.convert_epochs_to_iters(
+        P.neural_3d_z_plane(), 4000)),
 ])
 def test_presets_equal_the_jax_packages(name, make):
     assert make(TP) == make(JP)
