@@ -18,7 +18,9 @@ no result line):
      on one 262,144-ray chunk of the bench frame, K1 and K2 against their
      plain versions (error and CUDA-event times), K1 also under the f32
      MLP policy, and the chunk's colour through both kernels against the
-     colour through both plain versions;
+     colour through both plain versions; K1's plan (rays per block, the
+     weight slabs' bytes per chunk from L2, TFLOP/s) beside six bf16
+     torch.matmul calls at the chunk's shapes, a cuBLAS yardstick;
   4. the 1024x1024 bench frame (4 chunks, t=0.3) through model.apply on
      the quad route: finite, in [0, 1], K1 and K2 launched once per chunk;
   5. fused vs general path on 4096 rays of __graft_entry__.entry()'s
@@ -50,7 +52,7 @@ no result line):
      witness counts equal; the share of valid samples (>= 25 %); each
      kernel's CUDA-event time in turns, and its plain version's; K5 on the
      same pack with the init grid's L2-resident tables, in turns with the
-     checkpoint grid's;
+     checkpoint grid's; K1's plan and yardstick as phase 3;
  11. the bench frame on llff's routes through model.apply: quad (K1, K5),
      fused patch (HYPERREEL_FUSED_PATCH_MULTI=1: K1, K6) and two-kernel
      patch (K1, K4 x 3, K5-preblended) at R=8 (5, 2), and both patch
@@ -71,7 +73,8 @@ no result line):
      and K5-preblended at R=8 (5, 3) on the phase-major chunk, K6 at R=8
      (5, 3) and at R=4 (4, 3), each against its plain version, the witness
      counts equal; the share of valid samples (>= 25 %); each kernel's
-     CUDA-event time in turns, and its plain version's;
+     CUDA-event time in turns, and its plain version's; K1's plan and
+     yardstick as phase 3;
  16. the bench frame through model.apply with uniform_time (the time
      planes premixed) and without it (K5/K6 on the time planes), on the
      quad route (K1, K5), the two-kernel (K1, K4 x 3, K5-preblended) and
@@ -219,6 +222,32 @@ def cuda_ms(torch, fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def k1_plan(torch, name, cf, tabs, mlp_ops, k1_ms):
+    """K1's plan and yardsticks on one chunk, printed: its rays per block,
+    the bytes of weight slabs that the chunk's tiles read from L2 (every
+    tile reads them once), the MLP's TFLOP/s at K1's time, and the six
+    bf16 torch.matmul calls at the chunk's shapes (cuBLAS: a yardstick that
+    the port never calls, without K1's tail)."""
+    from hyperreel_tpu_torch.ops.kernels import build
+
+    rpb = build.load_library().lib.pack_rays_per_block(
+        cf.spec.params(CHUNK, tabs, IT))
+    l2 = -(-CHUNK // rpb) * nbytes(tabs.tiled)
+    gen = torch.Generator(device=tabs.tiled.device).manual_seed(SEED)
+    mats = [(torch.randn(CHUNK, l.w.shape[0], device=l.w.device,
+                         generator=gen).to(torch.bfloat16), l.w)
+            for l in tabs.layers]
+    mm_ms = cuda_ms(torch, lambda: [a @ w for a, w in mats], 10)
+    print(f"# {name} K1 plan: {rpb} rays per block, "
+          f"{nbytes(tabs.tiled) / 1e6:.3f} MB of weight slabs per tile, "
+          f"{l2 / 1e9:.3f} GB per chunk from L2; MLP {mlp_ops / 1e9:.1f} "
+          f"GFLOP at {mlp_ops / k1_ms / 1e9:.1f} TFLOP/s of K1's {k1_ms:.3f} "
+          f"ms; yardstick: the six bf16 torch.matmul at the chunk's shapes "
+          f"{mm_ms:.3f} ms ({mlp_ops / mm_ms / 1e9:.1f} TFLOP/s)", flush=True)
+    del mats
+    torch.cuda.empty_cache()
 
 
 def bench_frame():
@@ -569,6 +598,7 @@ def llff_phases(torch, dev, card, frame, reset_counts, read_counts):
     k4_bound = bound(
         nbytes(pack_pm[:4], *feats) + ptab_bytes[1] + 3 * 4,
         [(N * sum(8 * a.C + 22 for a in axes), F32_OPS_PER_S)])
+    k1_plan(torch, "llff", cf, tabs, mlp_ops, k1_ms)
     print(f"# llff chunk ({card}): K1 {k1_ms:.3f} ms (plain "
           f"{k1_plain_ms:.3f}, bound {k1_bound[0]:.4f} {k1_bound[1]}); K5 "
           f"{k5_ms:.3f} (plain {k5_plain_ms:.3f}, bound {k5_bound[0]:.4f} "
@@ -1002,6 +1032,7 @@ def n3d_phases(torch, dev, card, frame, reset_counts, read_counts):
         f"GFLOP ({mlp_ops / ms['K1'] / 1e9:.1f} TFLOP/s at K1's time); quad "
         f"rows the chunk reads {quad_bytes / 1e6:.1f} of "
         f"{nbytes(*prep['quads']) / 1e6:.1f} MB", flush=True)
+    k1_plan(torch, "n3d", cf, tabs, mlp_ops, ms["K1"])
     del feats, pre, pack_pm, pack, flags, lines0
     torch.cuda.empty_cache()
 
@@ -1335,6 +1366,7 @@ def main():
     print(f"# chunk: {valid} of {N} samples valid; MLP {mlp_ops / 1e9:.1f} "
           f"GFLOP; bounds K1 {k1_bound[0]:.4f} ms ({k1_bound[1]}), K2 "
           f"{k2_bound[0]:.4f} ms ({k2_bound[1]})", flush=True)
+    k1_plan(torch, "flagship", cf, tabs, mlp_ops, k1_ms)
     del pack_p, out_p
     torch.cuda.empty_cache()
 

@@ -200,7 +200,7 @@ class FusedCFEval:
             self.S, self.P).T.reshape(-1))
         prep = {"mlp": mlp_tables(
             self.pred.net, params["embedding"]["ray_prediction_0"]["net"],
-            perm)}
+            perm, self.spec)}
         cp = params["color"]
         if self.dyn1:
             prep.update(self._prepare_dyn1(cp))

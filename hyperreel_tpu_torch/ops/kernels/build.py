@@ -55,7 +55,8 @@ class PackParams(ctypes.Structure):
                 ("contract", ctypes.c_int), ("contract_samples", ctypes.c_int)
                 ] + [(n, ctypes.c_float) for n in (
                     "c_start_r", "c_inv_end_r", "c_r_scale", "c_start_d",
-                    "c_inv_end_d", "c_d_scale")]
+                    "c_inv_end_d", "c_d_scale")] + [
+        ("wt", ctypes.c_void_p), ("wt_rows", ctypes.c_int)]
 
 
 SHADE_MAX_WB = 432

@@ -6,15 +6,16 @@ to the per-sample pack of ops/kernels/layout.py.
 
 Replaces hyperreel_tpu/ops/pallas/pack_build.py:_pack_build_kernel with
 its in-kernel MLP (_mlp_rows, the JAX package's default HYPERREEL_PK_MLP
-route) and _bitonic_sublane. CUDA source: csrc/pack_build.cu. Bound on the
-H100 by the MLP's tensor-core products (about two thirds of the kernel's
-time on an H100 80GB HBM3 at 700 W); each block keeps its rays'
-activations in shared memory from the encoded input to the last layer,
-runs the layers as bf16 WMMA tiles with f32 accumulation (64 rays per
-block, 32 where the last layer is too wide for that: neural_3d_z_plane's
-960 columns), and then the tail with one warp lane per sample (two at S =
-64, a ray per warp). The kernel takes S a power of two <= MAX_S; the plain
-version any S. See the source for the design.
+route) and _bitonic_sublane. CUDA source: csrc/pack_build.cuh (host side
+csrc/pack_build.cu). Bound on the H100 by the MLP's tensor-core products.
+Under the bf16 policy a persistent block takes tiles of 128 rays: two
+warpgroups of 64 rays run the layers as wgmma products on their
+activations in shared memory and on weight slabs that TMA stages there
+(`mlp_tables` lays the slabs out once per checkpoint, `tile_weights`), and
+drain the last layer in strips of whole fields (`kernel_strips`) into the
+tail. The f32 policy runs plain FMAs, 64 rays per block, through the same
+tail. The kernels take S in 8, 32, 64; the plain version any S. See the
+source for the design.
 
 The MLP, under the bf16 policy as the JAX kernel's `_mlp_rows`: one bf16
 rounding of each layer's input, weight and bias, f32 sums, f32 leaky relu
@@ -40,7 +41,7 @@ and returns the pack f32 [PACK_ROWS, B*S]. A CPU tensor goes to
 """
 
 from dataclasses import dataclass
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -58,8 +59,10 @@ FIELDS = ("z", "sigma", "flow", "psig", "poff", "cs", "csh")
 ACTS = ("z", "isect", "sigma", "flow", "flow_stage", "psig", "poff",
         "po_stage", "cs", "csh")
 _IDENTITY = (0, 1.0, 1.0, 0.0, 1.0, 0.0)
-MAX_S = build.PACK_MAX_S
+KERNEL_S = (8, 32, 64)
 MAX_LAYERS = build.PACK_MAX_LAYERS
+SLAB_K = 64          # the weight slabs' K rows: one 128-byte swizzle row
+HIDDEN_BLOCK = 128   # hidden-layer columns per product (csrc kHiddenBlock)
 
 
 def _ceil(x, m):
@@ -88,11 +91,72 @@ class MlpTables:
     xcol: int
     leaky: float
     compute_dtype: object    # torch.bfloat16 or None (f32)
+    # the bf16 kernel's weight slabs (`tile_weights`); None under the f32
+    # policy or where the widths do not slab
+    tiled: Optional[torch.Tensor] = None
 
 
-def mlp_tables(net, params, perm):
+def kernel_strips():
+    """The last layer's strips in the bf16 kernel's order
+    (csrc/pack_build.cuh strip_channel): each a list of (field, component)
+    channels of S columns: z and sigma, point sigma, per coordinate flow
+    and offset, then each component of colour scale and colour shift."""
+    return [[("z", 0), ("sigma", 0)], [("psig", 0)],
+            *[[("flow", c), ("poff", c)] for c in range(3)],
+            *[[(f, c)] for f in ("cs", "csh") for c in range(3)]]
+
+
+def strip_columns(spec):
+    """Per strip, the field-major last-layer column of each of its columns
+    (channel-major, sample-minor); -1 for a field the chain lacks (flow in
+    a static chain) and for the pad up to a multiple of 32."""
+    out = []
+    for chans in kernel_strips():
+        cols = [(spec.foff[f] + c) * spec.S + s if f in spec.foff else -1
+                for f, c in chans for s in range(spec.S)]
+        out.append(cols + [-1] * (_ceil(len(cols), 32) - len(cols)))
+    return out
+
+
+def tile_weights(layers, xcol, strips):
+    """The bf16 kernel's weights as slabs of SLAB_K k-rows, each stored
+    transposed ([n, SLAB_K], K-major: what one TMA load puts in a ring
+    stage, the hardware adding the 128-byte swizzle), in the order the
+    kernel consumes them per ray tile: per hidden layer and column block
+    of HIDDEN_BLOCK the slabs of its hidden rows, then one of its
+    encoded-ray rows where it reads them; per strip of the last layer
+    (`strip_columns`) the slabs of its columns. Pad rows and columns are
+    zero. None where the hidden width is not a multiple of SLAB_K or the
+    encoded rays exceed SLAB_K columns."""
+    H = layers[0].w.shape[1]
+    cp = layers[0].w.shape[0]
+    if H % SLAB_K or cp > SLAB_K:
+        return None
+
+    def slab(rows):                           # [k <= SLAB_K, n] -> [n, K]
+        return F.pad(rows, (0, 0, 0, SLAB_K - rows.shape[0])).t()
+
+    slabs = []
+    hb = min(H, HIDDEN_BLOCK)
+    for l in layers[:-1]:
+        for c in range(0, H, hb):             # the kernel's column blocks
+            w = l.w[:, c:c + hb]
+            if l.k0 == 0:
+                slabs += [slab(w[j:j + SLAB_K]) for j in range(0, H, SLAB_K)]
+            if l.k0 + l.w.shape[0] > xcol:
+                slabs.append(slab(w[xcol - l.k0:xcol - l.k0 + cp]))
+    w = layers[-1].w
+    for cols in strips:
+        idx = torch.as_tensor(cols, device=w.device)
+        ws = w[:, idx.clamp(min=0)] * (idx >= 0).to(w.dtype)
+        slabs += [slab(ws[j:j + SLAB_K]) for j in range(0, H, SLAB_K)]
+    return torch.cat(slabs).contiguous()
+
+
+def mlp_tables(net, params, perm, spec):
     """BaseMLP `net` with nn.Linear-layout `params` -> MlpTables; `perm`
-    maps field-major output column -> the MLP's own column."""
+    maps field-major output column -> the MLP's own column; `spec` (the
+    chain's PackSpec) gives the last layer's strips."""
     if not isinstance(net.layer_act, LeakyRelu) or net.activation != \
             "identity":
         raise NotImplementedError(
@@ -129,7 +193,9 @@ def mlp_tables(net, params, perm):
             w=wt.to(cd or torch.float32).contiguous(),
             b=round_to(F.pad(b, (0, n - b.shape[0])), cd).contiguous(),
             k0=k0, act=i < net.act_until))
-    return MlpTables(layers, cin, hp, float(net.layer_act.a), cd)
+    tiled = tile_weights(layers, hp, strip_columns(spec)) \
+        if cd is not None else None
+    return MlpTables(layers, cin, hp, float(net.layer_act.a), cd, tiled)
 
 
 @dataclass
@@ -191,6 +257,8 @@ class PackSpec:
         for c in range(3):
             p.aabb_lo[c] = float(lo[0][c])
             p.aabb_inv[c] = float(inv[c])
+        if mlp.tiled is not None:
+            p.wt, p.wt_rows = mlp.tiled.data_ptr(), mlp.tiled.shape[0]
         return p
 
 
@@ -296,6 +364,8 @@ def _check(x0, mlp, ray_pack, spec):
             raise ValueError("MLP tables lie on another device than x0")
     if spec.P * spec.S > mlp.layers[-1].w.shape[1]:
         raise ValueError("the MLP's last layer is narrower than P*S")
+    if mlp.tiled is not None and mlp.tiled.device != x0.device:
+        raise ValueError("MLP tables lie on another device than x0")
     if x0.device != ray_pack.device:
         raise ValueError("x0 and ray_pack lie on different devices")
     return B
@@ -309,10 +379,15 @@ def pack_build(x0, mlp, ray_pack, spec, it):
         return pack_build_plain(x0, mlp, ray_pack, spec, it)
     if x0.device.type != "cuda":
         raise ValueError(f"pack_build has no kernel for {x0.device}")
-    if spec.S > MAX_S or spec.S & (spec.S - 1):
+    if spec.S not in KERNEL_S:
         raise NotImplementedError(
-            f"pack_build kernel: S={spec.S} not built (a power of two <= "
-            f"{MAX_S}: a warp lane per sample, two at S = 64)")
+            f"pack_build kernel: S={spec.S} not built (S in {KERNEL_S}: "
+            "channels of whole 8-column accumulator blocks, a warp lane per "
+            "sample, two at S = 64)")
+    if mlp.compute_dtype is not None and mlp.tiled is None:
+        raise NotImplementedError(
+            "pack_build kernel: the MLP's widths do not slab (hidden width "
+            f"a multiple of {SLAB_K}, at most {SLAB_K} encoded columns)")
     lib = build.load_library().lib
     pack = torch.empty((PACK_ROWS, B * spec.S), dtype=torch.float32,
                        device=x0.device)

@@ -6,13 +6,14 @@ are the ones imported, its kernels are built into its own build/):
 
     python3 /path/to/scripts/compare_trees.py --save OUT.pt [--frames 10]
 
-renders with chip_smoke.py's flagship (technicolor_z_plane) and
-llff_z_plane models, weights from its seed: K1's pack of the bench frame's
-first chunk for each model, the bench frame's rgb on every route (flagship
-quad, fused and two-kernel patch at R=8 (5, 2); llff quad, fused and
-two-kernel patch at R=8 (5, 2) and R=4 (4, 3)) and K7's output on seeded
-inputs, and saves them with each route's frame time (CUDA events, after a
-warm-up frame). Then
+renders with chip_smoke.py's flagship (technicolor_z_plane), llff_z_plane
+and neural_3d_z_plane models, weights from its seed: K1's pack of the
+bench frame's first chunk for each model, the bench frame's rgb on every
+route (flagship quad, fused and two-kernel patch at R=8 (5, 2); llff quad,
+fused and two-kernel patch at R=8 (5, 2) and R=4 (4, 3); n3d quad with one
+t) and K7's output on seeded inputs, and saves them with each route's frame
+time and each model's K1 time per chunk (CUDA events, after a warm-up
+frame or launch; K1 over 20 launches). Then
 
     python3 scripts/compare_trees.py --compare A.pt B.pt [C.pt ...]
 
@@ -56,14 +57,17 @@ def save(path, frames):
             out[name] = rgb.cpu()
             times[name] = cs.cuda_ms(torch, render, frames)
 
-    def pack_of(model, prep, chunk):
+    def k1(name, model, prep, chunk):
         cf = model._cf_eval
-        return pack_build(cf.pred.net_input(chunk, ctx).float().contiguous(),
-                          prep["mlp"], cf.ray_pack(chunk), cf.spec,
-                          cs.IT).cpu()
+        x0 = cf.pred.net_input(chunk, ctx).float().contiguous()
+        rp = cf.ray_pack(chunk)
+        out[f"{name} K1 pack"] = pack_build(x0, prep["mlp"], rp, cf.spec,
+                                            cs.IT).cpu()
+        times[f"{name} K1 chunk"] = cs.cuda_ms(torch, lambda: pack_build(
+            x0, prep["mlp"], rp, cf.spec, cs.IT), 20)
 
     cfg, info, model, params, prep = cs.flagship(dev)
-    out["flagship K1 pack"] = pack_of(model, prep, frame[0])
+    k1("flagship", model, prep, frame[0])
     rk = {"cf_prepared": prep, "uniform_time": True}
     run("flagship quad", model, params, frame, rk,
         ("HYPERREEL_FUSED_PATCH", "1"))
@@ -79,7 +83,7 @@ def save(path, frames):
 
     frame6 = frame[..., :6].contiguous()
     _, model, params, prep = cs.llff(dev)
-    out["llff K1 pack"] = pack_of(model, prep, frame6[0])
+    k1("llff", model, prep, frame6[0])
     run("llff quad", model, params, frame6, {"cf_prepared": prep},
         ("HYPERREEL_FUSED_PATCH_MULTI", "0"))
     for shape in (cs.PATCH_R8, cs.PATCH_R4):
@@ -91,6 +95,16 @@ def save(path, frames):
                 ("HYPERREEL_FUSED_PATCH_MULTI", env), shape[2])
         del m, pr
         torch.cuda.empty_cache()
+    del model, params, prep
+    torch.cuda.empty_cache()
+
+    _, model, params, prep = cs.n3d(dev)
+    k1("n3d", model, prep, frame[0])
+    run("n3d quad one t", model, params, frame,
+        {"cf_prepared": prep, "uniform_time": True},
+        ("HYPERREEL_FUSED_PATCH_MULTI", "0"))
+    del model, params, prep
+    torch.cuda.empty_cache()
 
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
     sig = 0.05 * torch.rand(cs.CHUNK, 32, device=dev, generator=gen)
@@ -122,7 +136,8 @@ def compare(paths):
         print(f"{name}: max |diff| from the first file "
               + ", ".join(f"{d:.3e}" for d in diffs))
     for name in runs[0]["times"]:
-        print(f"{name}: ms/frame " + ", ".join(
+        unit = "ms/chunk" if name.endswith("K1 chunk") else "ms/frame"
+        print(f"{name}: {unit} " + ", ".join(
             f"{r['times'].get(name, float('nan')):.3f}" for r in runs))
 
 

@@ -20,15 +20,16 @@ import pytest
 import torch
 
 from hyperreel_tpu_torch.configs.presets import (
-    convert_epochs_to_iters, neural_3d_z_plane, technicolor_z_plane,
-    tiny_dynamic, tiny_neural_3d, tiny_static, with_coherent_gather)
+    convert_epochs_to_iters, llff_z_plane, neural_3d_z_plane,
+    technicolor_z_plane, tiny_dynamic, tiny_neural_3d, tiny_static,
+    with_coherent_gather)
 from hyperreel_tpu_torch.models.ctx import StepCtx
 from hyperreel_tpu_torch.models.model import build_model
 from hyperreel_tpu_torch.ops.kernels import build
 from hyperreel_tpu_torch.ops.kernels.composite import (
     composite, composite_plain)
 from hyperreel_tpu_torch.ops.kernels.pack_build import (
-    pack_build, pack_build_plain)
+    mlp_tables, pack_build, pack_build_plain)
 from hyperreel_tpu_torch.ops.kernels.patch_blend import (
     PatchSpec, patch_blend, patch_blend_plain)
 from hyperreel_tpu_torch.ops.kernels.shade import (
@@ -87,10 +88,21 @@ def _rays(n, dev, seed=0):
 # K1 under the f32 MLP policy runs the same f32 math as its plain version
 # (1e-5); under the bf16 policy both sum exact bf16 products in another
 # order, and a rounding flip in a hidden layer moves the pack by up to
-# ~1e-3 (chip_smoke.py PACK_TOL_BF16).
+# ~1e-3 (chip_smoke.py PACK_TOL_BF16). Ray counts: one ray, one 128-ray
+# tile less one, ragged and whole tiles, and (test_n3d_pack_build_...)
+# more tiles than a persistent grid of 132 blocks takes in one round, its
+# last tile ragged. The chunk-colour gate below holds both kernels to both
+# plain versions at 2e-4; over tens of thousands of random rays a sample
+# that a bf16 rounding flip moves across the aabb's face changes its ray's
+# colour by more (0.058 at 33,869 tiny rays), so the pack alone is held
+# there.
+RAGGED_PERSISTENT = 2 * 132 * 128 + 77
+K1_RAYS = [1, 127, 1000, 4096]
+
+
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
 @pytest.mark.parametrize("tiny", [True, False], ids=["S8", "S32"])
-@pytest.mark.parametrize("n", [1000, 4096])       # ragged and whole blocks
+@pytest.mark.parametrize("n", K1_RAYS)
 def test_kernels_match_plain(dev, tiny, n, bf16):
     _, model, params = _model(tiny, dev, bf16)
     cf = model._cf_eval
@@ -422,13 +434,16 @@ def _n3d_model(dev, S, bf16=False, patch=None, full_mlp=False):
     return cfg, model, params
 
 
-# K1 with flow and the contraction at S = 64: the same tolerances as the
-# flagship's; at the preset's MLP width under the bf16 policy the block
-# takes 32 rays (the 960-column last layer), under the f32 policy 32.
-@pytest.mark.parametrize("S,bf16,full", [(64, False, False),
-                                         (64, True, True), (8, True, True)],
-                         ids=["S64_f32", "S64_bf16_full", "S8_bf16_full"])
-@pytest.mark.parametrize("n", [1000, 4096])
+# K1 with flow and the contraction at S = 8, 32 and 64: the same
+# tolerances as the flagship's; under the bf16 policy a block takes 128
+# rays at every width (the last layer drained in strips), under the f32
+# policy 64.
+@pytest.mark.parametrize("S,bf16,full", [
+    (64, False, False), (64, True, True), (8, True, True), (64, True, False),
+    (32, True, True), (8, False, False)],
+    ids=["S64_f32", "S64_bf16_full", "S8_bf16_full", "S64_bf16",
+         "S32_bf16_full", "S8_f32"])
+@pytest.mark.parametrize("n", K1_RAYS + [RAGGED_PERSISTENT])
 def test_n3d_pack_build_matches_plain(dev, S, bf16, full, n):
     _, model, params = _n3d_model(dev, S, bf16, full_mlp=full)
     cf = model._cf_eval
@@ -445,7 +460,26 @@ def test_n3d_pack_build_matches_plain(dev, S, bf16, full, n):
     assert (pack[3].reshape(n, S).diff(dim=1) >= 0).all()
     rpb = build.load_library().lib.pack_rays_per_block(
         cf.spec.params(n, prep["mlp"], 20000))
-    assert rpb == (32 if full and S == 64 or not bf16 else 64)
+    assert rpb == (128 if bf16 else 64)
+
+
+@pytest.mark.parametrize("family", ["flagship", "llff", "n3d"])
+def test_pack_plan_takes_128_rays_at_full_width(dev, family):
+    """The bf16 plan's ray tile at the three models' full widths (P*S =
+    480, 384 and 960 last-layer columns) is at least 128 rays."""
+    cfg = convert_epochs_to_iters(
+        {"flagship": technicolor_z_plane, "llff": llff_z_plane,
+         "n3d": neural_3d_z_plane}[family](), 4000)
+    cfg["color"]["net"].update(fused_render=True, bf16_tables=True)
+    model = build_model(cfg, dataset_info={**INFO, **N3D_INFO},
+                        compute_dtype=torch.bfloat16)
+    cf = model._cf_eval
+    tabs = mlp_tables(cf.pred.net, model.init(
+        torch.Generator().manual_seed(0), dev)["embedding"][
+            "ray_prediction_0"]["net"], torch.arange(cf.S * cf.P), cf.spec)
+    rpb = build.load_library().lib.pack_rays_per_block(
+        cf.spec.params(1, tabs, 20000))
+    assert rpb >= 128
 
 
 def _time_rays(n, dev, R=None, seed=0):

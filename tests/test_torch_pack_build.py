@@ -182,3 +182,142 @@ def test_layout_mismatch_fails_loudly():
     with pytest.raises(ValueError):
         shade(torch.zeros(9, 32, dtype=torch.bfloat16), pack, rp[:-1],
               torch.zeros(2, 8), torch.zeros(27, 8), sspec)
+
+
+# ---- the bf16 kernel's weight slabs (csrc/pack_build.cu pack_build_wgmma)
+
+
+def _port_chain(family, S):
+    """A port model of one K1 chain under the bf16 policy, its weights from
+    torch.Generator seed S: the flagship's (flow, no contraction), llff's
+    (no flow, mipnerf contraction) or neural_3d's (both); full widths
+    (6x256 MLP) and the tiny presets' (4x64)."""
+    from hyperreel_tpu_torch.configs.presets import (
+        convert_epochs_to_iters, llff_z_plane, neural_3d_z_plane,
+        technicolor_z_plane, tiny_dynamic, tiny_neural_3d, tiny_static)
+    from hyperreel_tpu_torch.models.model import build_model
+    make = {"flagship": technicolor_z_plane, "llff": llff_z_plane,
+            "n3d": neural_3d_z_plane, "tiny_flagship": tiny_dynamic,
+            "tiny_llff": tiny_static, "tiny_n3d": tiny_neural_3d}[family]
+    cfg = convert_epochs_to_iters(make(z_channels=S), 4000)
+    cfg["color"]["net"].update(fused_render=True, bf16_tables=True,
+                               n_lamb_sigma=[8, 4, 4], n_lamb_sh=[8, 4, 4])
+    info = {"num_keyframes": 12, "num_frames": 50, "num_views": 16}
+    tm = build_model(cfg, dataset_info=info, compute_dtype=torch.bfloat16)
+    params = tm.init(torch.Generator().manual_seed(S), "cpu")
+    return tm._cf_eval, params
+
+
+def _walk_slabs(tabs, spec):
+    """Un-tile `tabs.tiled` in the kernel's consumption order: per hidden
+    layer (its hidden rows [H, n] or None, its encoded-ray rows [64, n] or
+    None), each gathered from the column blocks, and per strip of the last
+    layer its [H, width] columns."""
+    H = tabs.layers[0].w.shape[1]
+    hb = min(H, PB.HIDDEN_BLOCK)
+    rows = iter(tabs.tiled.split(
+        [hb] * sum(H // hb * ((l.k0 == 0) * (H // 64)
+                              + (l.k0 + l.w.shape[0] > tabs.xcol))
+                   for l in tabs.layers[:-1])
+        + [len(c) for c in PB.strip_columns(spec) for _ in range(H // 64)]))
+    hidden = []
+    for l in tabs.layers[:-1]:
+        hs, xs = [], []
+        for _ in range(H // hb):
+            if l.k0 == 0:
+                hs.append(torch.cat([next(rows).t() for _ in range(H // 64)]))
+            if l.k0 + l.w.shape[0] > tabs.xcol:
+                xs.append(next(rows).t())
+        hidden.append((torch.cat(hs, 1) if hs else None,
+                       torch.cat(xs, 1) if xs else None))
+    strips = [torch.cat([next(rows).t() for _ in range(H // 64)])
+              for _ in PB.strip_columns(spec)]
+    assert next(rows, None) is None
+    return hidden, strips
+
+
+@pytest.mark.parametrize("family,S", [
+    ("flagship", 32), ("llff", 32), ("n3d", 64), ("tiny_flagship", 8),
+    ("tiny_llff", 64), ("tiny_n3d", 8)])
+def test_tiled_weights_untile_to_linear_weights(family, S):
+    """The slabs that mlp_tables lays out, turned back by a plain
+    un-tiler, are the nn.Linear weights (bf16) in the kernel's order: the
+    hidden layers' hidden and encoded-ray rows, the last layer's strips
+    (z and sigma first) column by column; pad rows and columns are zero."""
+    cf, params = _port_chain(family, S)
+    spec, tabs = cf.spec, cf.prepare(params)["mlp"]
+    net = params["embedding"]["ray_prediction_0"]["net"]
+    cin, skips = cf.pred.net.in_channels, cf.pred.net.skips
+    hidden, strips = _walk_slabs(tabs, spec)
+    for i, (h, x) in enumerate(hidden):
+        w = net[f"layer_{i}"]["weight"].to(torch.bfloat16).t()   # [in, out]
+        if i == 0:
+            assert h is None and torch.equal(x[:cin], w)
+        elif i in skips:
+            assert torch.equal(h, w[cin:]) and torch.equal(x[:cin], w[:cin])
+        else:
+            assert x is None and torch.equal(h, w)
+        if x is not None:
+            assert not x[cin:].any()
+    w = net[f"layer_{len(hidden)}"]["weight"].to(torch.bfloat16)  # [out, in]
+    chans = PB.kernel_strips()
+    assert chans[0] == [("z", 0), ("sigma", 0)]
+    for q, (cols, ws) in enumerate(zip(PB.strip_columns(spec), strips)):
+        assert ws.shape == (w.shape[1], len(cols)) and len(cols) % 32 == 0
+        for n, c in enumerate(cols):
+            if c < 0:
+                assert not ws[:, n].any()
+                continue
+            f, comp = chans[q][n // S]
+            assert f in spec.foff and c == (spec.foff[f] + comp) * S + n % S
+            # the MLP's own column of sample s, field f, component comp
+            assert torch.equal(ws[:, n], w[(n % S) * spec.P + spec.foff[f]
+                                           + comp])
+
+
+@pytest.mark.parametrize("family,S", [
+    ("tiny_flagship", 8), ("tiny_flagship", 64), ("tiny_llff", 8),
+    ("tiny_llff", 64), ("tiny_n3d", 8), ("tiny_n3d", 64)])
+def test_kernel_slab_order_reproduces_the_plain_pack(family, S):
+    """The bf16 kernel's MLP walked slab by slab (f32 sums of the bf16
+    products, the last layer strip by strip into the field-major columns)
+    gives the plain version's MLP output, and the plain tail on it the
+    plain pack, with and without flow and contraction, at S = 8 and 64.
+    2e-3: the two sum the same exact products in another order, and a
+    hidden value may round to the neighbouring bf16 (chip_smoke.py
+    PACK_TOL_BF16); a slab out of place is O(1)."""
+    cf, params = _port_chain(family, S)
+    spec, tabs = cf.spec, cf.prepare(params)["mlp"]
+    x0, rp = _encoded_port(cf, entry_rays(128, seed=S))
+    hidden, strips = _walk_slabs(tabs, spec)
+    bf = lambda t: t.to(torch.bfloat16).float()          # noqa: E731
+    cp = tabs.layers[0].w.shape[0]
+    x = bf(torch.nn.functional.pad(x0, (0, cp - x0.shape[1])))
+    h = None
+    for (wh, wx), l in zip(hidden, tabs.layers):
+        acc = 0.0
+        if wh is not None:
+            acc = acc + h @ wh.float()
+        if wx is not None:
+            acc = acc + x @ wx[:cp].float()
+        y = acc + l.b
+        h = bf(torch.where(y < 0, y * tabs.leaky, y) if l.act else y)
+    last = tabs.layers[-1]
+    out = torch.zeros(x0.shape[0], last.w.shape[1])
+    for cols, ws in zip(PB.strip_columns(spec), strips):
+        acc = h @ ws.float()
+        for n, c in enumerate(cols):
+            if c >= 0:
+                out[:, c] = acc[:, n] + last.b[c]
+    plain = PB.mlp_plain(x0, tabs)
+    assert (out - plain).abs().max().item() <= 2e-3
+    got = PB.tail_plain(out, rp, spec, 20000)
+    want = PB.pack_build_plain(x0, tabs, rp, spec, 20000)
+    assert (got - want).abs().max().item() <= 2e-3
+    assert (got[3].reshape(128, S).diff(dim=1) >= 0).all()
+
+
+def _encoded_port(cf, rays):
+    r = torch.from_numpy(rays)
+    return (cf.pred.net_input(r, StepCtx(it=20000)).float().contiguous(),
+            cf.ray_pack(r))
