@@ -714,7 +714,7 @@ def llff_phases(torch, dev, card, frame, reset_counts, read_counts):
 
     src = "hyperreel_tpu/ops/pallas/"
     return [
-        entry("pack_build_llff", "pack_build.cu", src + "pack_build.py:137",
+        entry("pack_build_llff", "pack_build.cuh", src + "pack_build.py:137",
               counts["llff quad"]["pack_build"], k1_err, k1_ms, k1_plain_ms,
               k1_bound),
         entry("shade_multi", "shade_multi.cu", src + "shade.py:742",
@@ -1153,7 +1153,7 @@ def n3d_phases(torch, dev, card, frame, reset_counts, read_counts):
     fu8 = f"n3d fused patch R={R8} {N3D_PATCH_R8[:2]}, t per ray"
     fu4 = f"n3d fused patch R={R4} {N3D_PATCH_R4[:2]}, t per ray"
     rec = [
-        ("pack_build_n3d", "pack_build.cu", "pack_build.py:137", t1,
+        ("pack_build_n3d", "pack_build.cuh", "pack_build.py:137", t1,
          "pack_build", k1_err, "K1"),
         ("shade_multi_n3d_time_planes", "shade_multi.cu", "shade.py:742", t1,
          "shade_multi", k5_err["TH=12"], "K5 TH=12"),
@@ -1626,7 +1626,7 @@ def main():
           "the card check", flush=True)
 
     record = {"kernels": [
-        entry("pack_build", "pack_build.cu",
+        entry("pack_build", "pack_build.cuh",
               "hyperreel_tpu/ops/pallas/pack_build.py:137",
               quad_counts["pack_build"], k1_err, k1_ms, k1_plain_ms,
               k1_bound),

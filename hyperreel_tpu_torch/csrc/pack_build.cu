@@ -6,7 +6,9 @@
 
 namespace {
 
-bool sample_count_ok(int S) { return S == 8 || S == 32 || S == 64; }
+bool sample_count_ok(int S) {
+  return S == 8 || S == 16 || S == 32 || S == 64;
+}
 
 bool fields_ok(const PackParams& p) {
   const int need[] = {F_Z, F_SIGMA, F_PSIG, F_POFF, F_CS, F_CSH};
@@ -56,12 +58,24 @@ K1Plan plan_wgmma(const PackParams& p) {
   }
   const MlpLayer& last = p.layer[p.n_layers - 1];
   if (last.k0 != 0 || last.k != H) return pl;
-  for (int q = 0; q < kStrips; ++q) {
-    push(strip_width(strip_channels(q), p.S), H / kChunkK);
+  if (p.n_strips != n_strips(p.S)) return pl;
+  for (int q = 0; q < n_strips(p.S); ++q) {
+    const StripDesc d = strip_desc(q, p.S);
+    push(strip_width(d.nch, d.ns), H / kChunkK);
+    // the host's strips are the tail's (strip_desc, strip_channel)
+    if (p.strip_s[q][0] != d.s0 || p.strip_s[q][1] != d.ns) return pl;
+    for (int j = 0; j < kStripChannels; ++j) {
+      int f = 0, c = 0;
+      const int fc = strip_channel(q, j, p.S, &f, &c) ? 4 * f + c : -1;
+      if (p.strip_fc[q][j] != fc) return pl;
+    }
   }
   if (sp.n == kMaxSlabs) return pl;   // a layout this kernel does not hold
+  // the host's slabs, one by one, are the ones this kernel consumes
+  if (p.n_slabs != sp.n) return pl;
   int rows = 0;
   for (int j = 0; j < sp.n; ++j) {
+    if (p.slab_rows[j] != sp.rows[j] || sp.rows[j] > kStageRows) return pl;
     sp.row0[j] = rows;
     rows += sp.rows[j];
   }
@@ -145,6 +159,7 @@ extern "C" int pack_build_launch(const float* x0, const float* rays,
   cudaStream_t st = (cudaStream_t)stream;
   switch (p->S) {
     case 8: return (int)k1_launch_s8(x0, rays, pack, *p, pl, map, st);
+    case 16: return (int)k1_launch_s16(x0, rays, pack, *p, pl, map, st);
     case 32: return (int)k1_launch_s32(x0, rays, pack, *p, pl, map, st);
     default: return (int)k1_launch_s64(x0, rays, pack, *p, pl, map, st);
   }

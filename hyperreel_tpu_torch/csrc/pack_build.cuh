@@ -29,30 +29,47 @@
 //   products run as rolled loops over descriptors, which keeps the build
 //   under a minute.
 // - The weights are staged in shared memory by TMA: cp.async.bulk.tensor
-//   loads of weight slabs (K = 64 rows x N <= 192 columns, 128-byte
-//   swizzle) through a ring of 2-4 32 KB stages on mbarriers; the second of
-//   the two warpgroups to release a slab refills its stage, so the block
-//   needs no producer warps and keeps 255 registers a thread (with a
-//   producer warpgroup ptxas held every thread to 168 and spilled). Each
-//   slab feeds both warpgroups, so the weights are read from L2 once per
-//   128 rays (not once per 64 rays and per warp as with WMMA fragments).
-//   The host (mlp_tables) lays the slabs out in the order the kernel
-//   consumes them, once per checkpoint; TMA applies the swizzle.
-// - The last layer is drained in strips of whole fields (the kernel's
-//   column order: z and sigma, point sigma, then per coordinate flow and
-//   offset, then each colour component), so no [R, P*S] f32 buffer exists
-//   and the ray tile does not depend on P*S. z and sigma give the distances
-//   in the accumulator layout; the values-only sort runs on a warp segment
-//   per ray (one lane per sample, two at S = 64) over a [64, S] buffer in
-//   shared memory, which then keeps the sorted distances; point sigma gives
-//   the offsets' factor in a second [64, S] buffer; the flow and offset
-//   strips recompute each sample's (contracted) base point from its
-//   distance, and they and the colour strips are consumed elementwise in
-//   the accumulator layout and written to the pack.
+//   loads of weight slabs (K = 64 rows x N <= 128 columns, 128-byte
+//   swizzle) through a ring of 16 KB stages on mbarriers, as many as the
+//   block's shared memory holds (5 at S = 64, 7 at S <= 32): the ring's
+//   depth is what keeps the products fed, a slab's TMA round trip from L2
+//   lasting several slabs' products. The second of the two warpgroups to
+//   release a slab refills its stage, so the block needs no producer warps
+//   and keeps 255 registers a thread (with a producer warpgroup ptxas held
+//   every thread to 168 and spilled). Each slab feeds both warpgroups, so
+//   the weights are read from L2 once per 128 rays (not once per 64 rays
+//   and per warp as with WMMA fragments). The host (mlp_tables) lays the
+//   slabs out in the order the kernel consumes them, once per checkpoint,
+//   and passes that order with them (PackParams.slab_rows, strip_fc); the
+//   launch plan refuses a layout whose slabs or strips differ from what
+//   this kernel consumes (pack_build.cu plan_wgmma). TMA applies the
+//   swizzle.
+// - The last layer is drained in strips (the kernel's column order,
+//   strip_desc: z and sigma, point sigma, the six point channels per group
+//   of 16 samples, then each colour component), so no [R, P*S] f32 buffer
+//   exists and the ray tile does not depend on P*S. z and sigma give the
+//   distances in the accumulator layout; the values-only sort runs on a
+//   warp segment per ray (one lane per sample, two at S = 64) over a [64,
+//   S] buffer in shared memory, which then keeps the sorted distances;
+//   point sigma gives the offsets' factor in a second [64, S] buffer; a
+//   point strip holds all six point channels of its samples, so each
+//   sample's (contracted) base point and distance are computed once, from
+//   its sorted distance; they and the colour strips are consumed
+//   elementwise in the accumulator layout and written to the pack. A
+//   strip's accumulators start from its bias (strip_bias), loaded before
+//   its products, so that the tail reads no bias.
 // - The two warpgroups share the weight ring but not their barriers (named
-//   barriers per warpgroup). The ring keeps them within a few slabs of
-//   each other, so their tails mostly coincide: the tail, latency-bound at
-//   8 warps per SM, is not hidden behind the products (PERF.md).
+//   barriers per warpgroup), and issue their products as they come: the
+//   tail is two to three times as long as the products, so the tensor
+//   cores idle through much of it whatever the order. Turns on the tensor
+//   cores (FlashAttention-3's ping-pong: one warpgroup's product block
+//   after the other's, so that one's tail runs under the other's products)
+//   were measured 3-7 % slower and are not used (PERF.md).
+// - Chains without a flow stage keep zero flow columns in the point
+//   strips (6 % more last-layer products for llff_z_plane): a strip's
+//   width is a compile-time accumulator size, so dropping them would need
+//   a second instantiation of the kernel per sample count, and the build
+//   time with it.
 // The f32-policy kernel (pack_build_f32, the 1e-5 check against the plain
 // version) runs its layers as plain f32 FMAs over operand buffers in shared
 // memory, 64 rays per block, and its last layer through the same strip
@@ -80,6 +97,9 @@ enum PackActSlot { A_Z, A_ISECT, A_SIGMA, A_FLOW, A_FLOW_STAGE, A_PSIG, A_POFF,
                A_PO_STAGE, A_CS, A_CSH, A_N };
 constexpr int kPackMaxS = 64;
 constexpr int kMaxLayers = 12;
+constexpr int kMaxSlabs = 96;
+constexpr int kMaxStrips = 2 + 4 + 6;   // S = 64: four point strips
+constexpr int kStripChannels = 6;
 
 // The C interface's types live at global scope: a signature naming a type
 // of an unnamed namespace would give the extern "C" entry internal linkage.
@@ -113,9 +133,16 @@ struct PackParams {
   int contract, contract_samples;
   float c_start_r, c_inv_end_r, c_r_scale, c_start_d, c_inv_end_d, c_d_scale;
   // the bf16 kernel's weights: every slab of a tile's sequence, bf16 rows
-  // of 64 (SlabPlan)
+  // of 64 (SlabPlan), as the host laid them out: the rows (N) of each
+  // slab; each strip's channels (4 field + component, -1 past the strip's
+  // channels) and samples (s0, ns). The plan checks them against its own.
   const void* wt;
   int wt_rows;
+  int n_slabs;
+  int slab_rows[kMaxSlabs];
+  int n_strips;
+  int strip_fc[kMaxStrips][kStripChannels];
+  int strip_s[kMaxStrips][2];
 };
 
 
@@ -127,14 +154,15 @@ constexpr int kThreadsWg = kConsumers * kWgThreads;
 constexpr int kChunkK = 64;          // K columns of a slab or A chunk:
                                      // one 128-byte swizzle row of bf16
 constexpr int kChunkBytes = kWgRays * kChunkK * 2;         // 8 KB
-constexpr int kStageBytes = 256 * kChunkK * 2;             // 32 KB
-constexpr int kABytes = 5 * kChunkBytes;  // 256 hidden + the encoded rays
-constexpr int kBoxRows = 32;         // TMA box: 32 rows x 64 bf16
-constexpr int kMaxStages = 4;
-constexpr int kMaxSlabs = 96;
-constexpr int kStrips = 11;
 constexpr int kXCols = 32;           // encoded-ray columns (k of layer 0)
 constexpr int kHiddenBlock = 128;    // hidden-layer columns per product
+constexpr int kStageRows = 128;      // the widest slab: a hidden block,
+                                     // or z and sigma at S = 64
+constexpr int kStageBytes = kStageRows * kChunkK * 2;      // 16 KB
+// 256 hidden columns, then the encoded rays' 32 (half a chunk)
+constexpr int kABytes = 4 * kChunkBytes + kWgRays * kXCols * 2;
+constexpr int kBoxRows = 32;         // TMA box: 32 rows x 64 bf16
+constexpr int kMaxStages = 8;
 constexpr size_t kMaxSmem = 232448;  // 227 KB
 
 // per-warpgroup tail buffers [64, S]: the distances (sorted in place) and
@@ -152,32 +180,67 @@ __host__ __device__ constexpr int strip_width(int channels, int S) {
   return (channels * S + 31) / 32 * 32;
 }
 
-// The last layer's strips in the kernel's order: channel j of strip q is
-// field *f, component *c (false past the strip's channels). A chain
-// without a flow stage keeps the flow channels as zero columns. mlp_tables
-// (ops/kernels/pack_build.py kernel_strips) lays the slabs out in this
-// order.
-__host__ __device__ constexpr int strip_channels(int q) {
-  return q == 0 ? 2 : q == 1 ? 1 : q < 5 ? 2 : 1;
+// The last layer's strips in the kernel's order: z and sigma; point
+// sigma; per group of point_group(S) samples the six point channels (flow
+// xyz, offset xyz), so that a thread holds every point channel of its
+// samples and computes each sample's base point once; then each component
+// of colour scale and colour shift. A strip takes samples [s0, s0 + ns)
+// of each of its nch channels, channel-major; its width is rounded up to
+// whole 32-row TMA boxes. A chain without a flow stage keeps the flow
+// channels as zero columns. mlp_tables (ops/kernels/pack_build.py
+// kernel_strips) lays the slabs out in this order and passes it with them
+// (PackParams.strip_fc, strip_s), and the plan checks the two agree.
+struct StripDesc {
+  int nch, s0, ns;
+};
+
+__host__ __device__ constexpr int point_group(int S) { return S < 16 ? S : 16; }
+__host__ __device__ constexpr int point_strips(int S) {
+  return S / point_group(S);
+}
+__host__ __device__ constexpr int n_strips(int S) {
+  return 2 + point_strips(S) + 6;
 }
 
-__host__ __device__ __forceinline__ bool strip_channel(int q, int j, int* f,
-                                                       int* c) {
-  if (j >= strip_channels(q)) return false;
+__host__ __device__ constexpr StripDesc strip_desc(int q, int S) {
+  return q == 0 ? StripDesc{2, 0, S}
+         : q == 1 ? StripDesc{1, 0, S}
+         : q < 2 + point_strips(S)
+             ? StripDesc{6, (q - 2) * point_group(S), point_group(S)}
+             : StripDesc{1, 0, S};
+}
+
+// channel j of strip q: field *f, component *c (false past the strip's
+// channels)
+__host__ __device__ __forceinline__ bool strip_channel(int q, int j, int S,
+                                                       int* f, int* c) {
+  if (j >= strip_desc(q, S).nch) return false;
+  const int np = point_strips(S);
   if (q == 0) {
     *f = j == 0 ? F_Z : F_SIGMA;
     *c = 0;
   } else if (q == 1) {
     *f = F_PSIG;
     *c = 0;
-  } else if (q < 5) {
-    *f = j == 0 ? F_FLOW : F_POFF;
-    *c = q - 2;
+  } else if (q < 2 + np) {
+    *f = j < 3 ? F_FLOW : F_POFF;
+    *c = j % 3;
   } else {
-    *f = q < 8 ? F_CS : F_CSH;
-    *c = (q - 5) % 3;
+    *f = q - 2 - np < 3 ? F_CS : F_CSH;
+    *c = (q - 2 - np) % 3;
   }
   return true;
+}
+
+// column n of strip q -> the last layer's field-major column (-1: a pad
+// column, or a field the chain lacks)
+__host__ __device__ __forceinline__ int strip_column(const int* foff, int q,
+                                                     int n, int S) {
+  const StripDesc d = strip_desc(q, S);
+  int f, c;
+  return strip_channel(q, n / d.ns, S, &f, &c) && foff[f] >= 0
+             ? (foff[f] + c) * S + d.s0 + n % d.ns
+             : -1;
 }
 
 // The weight slabs of one tile, in the order the consumers take them
@@ -202,7 +265,7 @@ struct K1Plan {
 // One sample count's launcher (the bf16 and the f32 kernel), each compiled
 // in its own pack_build_s<S>.cu so that the sample counts build in
 // parallel.
-#define K1_LAUNCHERS(X) X(8) X(32) X(64)
+#define K1_LAUNCHERS(X) X(8) X(16) X(32) X(64)
 #define K1_DECLARE(S)                                                    \
   cudaError_t k1_launch_s##S(const float* x0, const float* rays,         \
                              float* pack, const PackParams& p,          \
@@ -277,15 +340,29 @@ __device__ __forceinline__ void named_bar(int id) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(kWgThreads) : "memory");
 }
 
-// the last layer's column (field f, component c, sample s): bias, and the
-// leaky relu where the layer has one
-template <int S>
-__device__ __forceinline__ float last_value(const PackParams& p, float sum,
-                                            int f, int c, int s) {
-  const MlpLayer& L = p.layer[p.n_layers - 1];
-  float v = sum + __ldg(L.b + (p.foff[f] + c) * S + s);
-  if (L.act && v < 0.0f) v *= p.leaky;
-  return v;
+// a last-layer column from its biased sum: the leaky relu where the layer
+// has one
+__device__ __forceinline__ float last_value(const PackParams& p, float v) {
+  return p.layer[p.n_layers - 1].act && v < 0.0f ? v * p.leaky : v;
+}
+
+// strip q's bias in the accumulator layout (0 in pad columns and in the
+// columns of a field the chain lacks): the products accumulate onto it
+template <int S, int W>
+__device__ __forceinline__ void strip_bias(const PackParams& p, int q,
+                                           float (&acc)[W / 2], int wtid) {
+  const float* b = p.layer[p.n_layers - 1].b;
+  const int t = wtid % 4;
+#pragma unroll
+  for (int i = 0; i < W / 8; ++i) {
+    // columns n and n + 1 are samples s, s + 1 of one channel
+    const int col = strip_column(p.foff, q, 8 * i + 2 * t, S);
+    const float2 v = col >= 0
+        ? __ldg(reinterpret_cast<const float2*>(b + col))
+        : make_float2(0.0f, 0.0f);
+    acc[4 * i] = acc[4 * i + 2] = v.x;
+    acc[4 * i + 1] = acc[4 * i + 3] = v.y;
+  }
 }
 
 __device__ __forceinline__ const float* ray_row(const PackParams& p,
@@ -338,10 +415,9 @@ __device__ __forceinline__ void strip_z(const PackParams& p,
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int s = 8 * i + 2 * t + e;
-        v[e] = sample_dist(
-            p, last_value<S>(p, acc[4 * i + 2 * h + e], F_Z, 0, s),
-            last_value<S>(p, acc[4 * (i + S / 8) + 2 * h + e], F_SIGMA, 0, s),
-            s, oz, dz);
+        v[e] = sample_dist(p, last_value(p, acc[4 * i + 2 * h + e]),
+                           last_value(p, acc[4 * (i + S / 8) + 2 * h + e]),
+                           s, oz, dz);
       }
       store2(T.D + r * RF + 8 * i + 2 * t, v[0], v[1]);
       bound_live();
@@ -426,37 +502,24 @@ __device__ __forceinline__ void ray_od(const PackParams& p, const float* ray,
   if (p.contract) contract_rows(oc, p);
 }
 
-// D -> the sort over each ray's samples, the sorted distances back into D
-// and pack row 3 (the distance, contracted where the chain contracts). A
-// warp segment per ray; rows past B run on with the last ray's data so that
-// every lane takes part in the shuffles, and store nothing to the pack.
+// D -> the sort over each ray's samples, the sorted distances back into D.
+// A warp segment per ray; rows past B sort the last ray's distances.
 template <int S>
-__device__ __forceinline__ void sort_rays(const PackParams& p,
-                                          const Tail& T) {
+__device__ __forceinline__ void sort_rays(const Tail& T) {
   constexpr int RF = kRowF<S>;
   constexpr int SPL = S > 32 ? 2 : 1;
   constexpr int LANES = S / SPL;
   constexpr int PER_PASS = kWgThreads / LANES;
-  const int64_t N = (int64_t)p.B * S;
   const int l = T.wtid % LANES;
 #pragma unroll 1
   for (int pass = 0; pass < kWgRays / PER_PASS; ++pass) {
-    const int rl = pass * PER_PASS + T.wtid / LANES;
-    const int64_t r = T.ray0 + rl;
-    float o[3], d[3], oc[3];
-    ray_od(p, ray_row(p, T.rays, r), o, d, oc);
+    float* row = T.D + (pass * PER_PASS + T.wtid / LANES) * RF + SPL * l;
     float dist[SPL];
 #pragma unroll
-    for (int j = 0; j < SPL; ++j) dist[j] = T.D[rl * RF + SPL * l + j];
+    for (int j = 0; j < SPL; ++j) dist[j] = row[j];
     bitonic<S>(dist, l);
 #pragma unroll
-    for (int j = 0; j < SPL; ++j) {
-      const int s = SPL * l + j;
-      T.D[rl * RF + s] = dist[j];
-      float base[3], dc = dist[j];
-      base_point(p, o, d, oc, dc, base);
-      if (r < p.B) T.pack[3 * N + r * S + s] = dc;
-    }
+    for (int j = 0; j < SPL; ++j) row[j] = dist[j];
   }
 }
 
@@ -475,10 +538,8 @@ __device__ __forceinline__ void strip_psig(const PackParams& p,
       float v[2];
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int s = 8 * i + 2 * t + e;
         v[e] = 1.0f - apply_act(p.act[A_PSIG],
-                                last_value<S>(p, acc[4 * i + 2 * h + e],
-                                              F_PSIG, 0, s));
+                                last_value(p, acc[4 * i + 2 * h + e]));
       }
       store2(T.PF + (r0 + 8 * h) * RF + 8 * i + 2 * t, v[0], v[1]);
       bound_live();
@@ -486,14 +547,18 @@ __device__ __forceinline__ void strip_psig(const PackParams& p,
   }
 }
 
-// strip 2 + c (flow c, offset c) -> pack row c: the base point from the
-// sorted distance, + flow * dt (chains with a flow stage), + offset * (1 -
+// point strip g (the six point channels of samples [16g, 16g + 16), or
+// of all S < 16) -> pack rows 0-3: per sample the base point and distance
+// from the sorted distance (contracted where the chain contracts), then
+// per coordinate + flow * dt (chains with a flow stage), + offset * (1 -
 // point sigma), the aabb normalisation; the fields in prediction order
 template <int S, int W>
 __device__ __forceinline__ void strip_point(const PackParams& p,
-                                            const float (&acc)[W / 2], int c,
+                                            const float (&acc)[W / 2], int g,
                                             const Tail& T) {
   constexpr int RF = kRowF<S>;
+  constexpr int G = point_group(S);
+  constexpr int GB = G / 8;   // a channel's 8-column blocks
   const int64_t N = (int64_t)p.B * S;
   const bool flow = p.foff[F_FLOW] >= 0;
   const int lane = T.wtid % 32, t = lane % 4;
@@ -507,42 +572,49 @@ __device__ __forceinline__ void strip_point(const PackParams& p,
     ray_od(p, rp, o, d, oc);
     const float dt = __ldg(rp + 6);
 #pragma unroll
-    for (int i = 0; i < S / 8; ++i) {
-      float v[2];
+    for (int i = 0; i < GB; ++i) {
+      const int s0 = g * G + 8 * i + 2 * t;
+      float v[4][2];   // pack rows 0-3 of samples s0, s0 + 1
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int s = 8 * i + 2 * t + e;
-        float base[3], dist = T.D[r * RF + s];
+        float base[3], dist = T.D[r * RF + s0 + e];
         base_point(p, o, d, oc, dist, base);
-        // c is a run-time value: select, not index (an indexed array would
-        // live in local memory)
-        float x = c == 0 ? base[0] : c == 1 ? base[1] : base[2];
-        if (flow) {
-          x = x + apply_act(p.act[A_FLOW_STAGE],
-                            apply_act(p.act[A_FLOW],
-                                      last_value<S>(p, acc[4 * i + 2 * h + e],
-                                                    F_FLOW, c, s))) * dt;
+        const float pf = T.PF[r * RF + s0 + e];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          float x = base[c];
+          if (flow) {
+            x = x + apply_act(p.act[A_FLOW_STAGE],
+                              apply_act(p.act[A_FLOW],
+                                        last_value(p, acc[4 * (c * GB + i) +
+                                                          2 * h + e]))) * dt;
+          }
+          x = x + apply_act(p.act[A_PO_STAGE],
+                            apply_act(p.act[A_POFF],
+                                      last_value(p, acc[4 * ((3 + c) * GB +
+                                                             i) + 2 * h + e])))
+                      * pf;
+          v[c][e] = (x - p.aabb_lo[c]) * p.aabb_inv[c] - 1.0f;
         }
-        x = x + apply_act(p.act[A_PO_STAGE],
-                          apply_act(p.act[A_POFF],
-                                    last_value<S>(
-                                        p, acc[4 * (i + S / 8) + 2 * h + e],
-                                        F_POFF, c, s))) * T.PF[r * RF + s];
-        v[e] = (x - p.aabb_lo[c]) * p.aabb_inv[c] - 1.0f;
+        v[3][e] = dist;
       }
-      if (ray < p.B) store2(T.pack + c * N + ray * S + 8 * i + 2 * t, v[0], v[1]);
+      if (ray < p.B) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          store2(T.pack + c * N + ray * S + s0, v[c][0], v[c][1]);
+        }
+      }
       bound_live();
     }
   }
 }
 
-// strips 5 .. 10 (colour scale, colour shift; a component each) -> pack
+// the colour strips (colour scale, colour shift; a component each) -> pack
 // row `row`
 template <int S, int W>
 __device__ __forceinline__ void strip_colour(const PackParams& p,
-                                             const float (&acc)[W / 2], int f,
-                                             int a, int c, int row,
-                                             const Tail& T) {
+                                             const float (&acc)[W / 2], int a,
+                                             int row, const Tail& T) {
   const int64_t N = (int64_t)p.B * S;
   const int lane = T.wtid % 32, t = lane % 4;
   const int r0 = 16 * (T.wtid / 32) + lane / 4;
@@ -555,9 +627,7 @@ __device__ __forceinline__ void strip_colour(const PackParams& p,
       float v[2];
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int s = 8 * i + 2 * t + e;
-        v[e] = apply_act(p.act[a],
-                         last_value<S>(p, acc[4 * i + 2 * h + e], f, c, s));
+        v[e] = apply_act(p.act[a], last_value(p, acc[4 * i + 2 * h + e]));
       }
       store2(T.pack + row * N + ray * S + 8 * i + 2 * t, v[0], v[1]);
       bound_live();
@@ -565,22 +635,24 @@ __device__ __forceinline__ void strip_colour(const PackParams& p,
   }
 }
 
-// The last layer, strip by strip: `mma(acc, q)` leaves strip q's f32 sums
-// in acc (the wgmma accumulator layout, acc's extent the strip's width / 2)
+// The last layer, strip by strip: `mma(acc, q)` leaves strip q's f32 sums,
+// bias included, in acc (the wgmma accumulator layout, acc's extent the
+// strip's width / 2)
 template <int S, class Mma>
 __device__ __forceinline__ void drain_last_layer(const PackParams& p,
                                                  const Tail& T, Mma&& mma) {
-  constexpr int WZ = strip_width(strip_channels(0), S);
-  constexpr int WS = strip_width(strip_channels(1), S);
-  constexpr int WP = strip_width(strip_channels(2), S);
-  constexpr int WC = strip_width(strip_channels(5), S);
+  constexpr int NP = point_strips(S);
+  constexpr int WZ = strip_width(2, S);
+  constexpr int WS = strip_width(1, S);
+  constexpr int WP = strip_width(6, point_group(S));
+  constexpr int WC = strip_width(1, S);
   {
     float acc[WZ / 2];
     mma(acc, 0);
     strip_z<S, WZ>(p, acc, T);
   }
   named_bar(T.bar);
-  sort_rays<S>(p, T);
+  sort_rays<S>(T);
   {
     float acc[WS / 2];
     mma(acc, 1);
@@ -588,20 +660,18 @@ __device__ __forceinline__ void drain_last_layer(const PackParams& p,
   }
   named_bar(T.bar);
 #pragma unroll 1
-  for (int c = 0; c < 3; ++c) {
+  for (int g = 0; g < NP; ++g) {
     float acc[WP / 2];
-    mma(acc, 2 + c);
-    strip_point<S, WP>(p, acc, c, T);
+    mma(acc, 2 + g);
+    strip_point<S, WP>(p, acc, g, T);
   }
 #pragma unroll 1
-  for (int q = 5; q < kStrips; ++q) {
+  for (int k = 0; k < 6; ++k) {
     // colour scale components 0-2 (pack rows 4-6), then colour shift
     // (rows 7-9), a strip each: the smallest accumulators of the layer
     float acc[WC / 2];
-    mma(acc, q);
-    const bool cs = q < 8;
-    strip_colour<S, WC>(p, acc, cs ? F_CS : F_CSH, cs ? A_CS : A_CSH,
-                        (q - 5) % 3, q - 1, T);
+    mma(acc, 2 + NP + k);
+    strip_colour<S, WC>(p, acc, k < 3 ? A_CS : A_CSH, 4 + k, T);
   }
 }
 
@@ -955,17 +1025,18 @@ pack_build_wgmma(const float* __restrict__ x0, const float* __restrict__ rays,
     } else {
       hidden_layers<64>(p, A, scratch, ring, T.bar, r0, t);
     }
-    drain_last_layer<S>(p, T, [&](auto& acc, int) {
+    drain_last_layer<S>(p, T, [&](auto& acc, int q) {
       constexpr int W =
           2 * std::extent_v<std::remove_reference_t<decltype(acc)>>;
-      mma_ss<W, kChunkK / 16>(acc, a, 0, XC, false, ring);
+      strip_bias<S, W>(p, q, acc, wtid);
+      mma_ss<W, kChunkK / 16>(acc, a, 0, XC, true, ring);
     });
   }
 }
 
 // ------------------------------------------------------- the f32 kernel
-// acc (wgmma accumulator layout, N columns) = A[:, L.k0:L.k0 + L.k] @
-// w[:, col(n)] in plain f32 FMAs, sums in k order (col < 0: a pad column)
+// acc (wgmma accumulator layout, N columns) += A[:, L.k0:L.k0 + L.k] @
+// w[:, col(n)] in plain f32 FMAs, in k order (col < 0: a pad column)
 template <int N, class Col>
 __device__ __forceinline__ void fma_cols(float (&acc)[N / 2], const float* A,
                                          int lda, const MlpLayer& L, Col col,
@@ -976,8 +1047,6 @@ __device__ __forceinline__ void fma_cols(float (&acc)[N / 2], const float* A,
 #pragma unroll
     for (int e = 0; e < 2; ++e) cols[i][e] = col(8 * i + 2 * t + e);
   }
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i) acc[i] = 0.0f;
   const float* w = static_cast<const float*>(L.w);
   const float* a0 = A + r0 * lda + L.k0;
   const float* a1 = a0 + 8 * lda;
@@ -1035,7 +1104,7 @@ pack_build_f32(const float* __restrict__ x0, const float* __restrict__ rays,
     float* out = bufs[(l + 1) & 1];
 #pragma unroll 1
     for (int c0 = 0; c0 < L.n; c0 += 32) {
-      float acc[16];
+      float acc[16] = {};
       fma_cols<32>(acc, in, lda, L, [&](int n) { return c0 + n; }, r0, t);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -1061,11 +1130,9 @@ pack_build_f32(const float* __restrict__ x0, const float* __restrict__ rays,
   drain_last_layer<S>(p, T, [&](auto& acc, int q) {
     constexpr int W =
         2 * std::extent_v<std::remove_reference_t<decltype(acc)>>;
-    fma_cols<W>(acc, A, lda, L, [&](int n) {
-      int f, c;
-      return strip_channel(q, n / S, &f, &c) && p.foff[f] >= 0
-                 ? (p.foff[f] + c) * S + n % S : -1;
-    }, r0, t);
+    strip_bias<S, W>(p, q, acc, T.wtid);
+    fma_cols<W>(acc, A, lda, L,
+                [&](int n) { return strip_column(p.foff, q, n, S); }, r0, t);
   });
 }
 

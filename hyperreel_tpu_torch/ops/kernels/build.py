@@ -39,6 +39,9 @@ class MlpLayer(ctypes.Structure):
 
 PACK_MAX_LAYERS = 12
 PACK_MAX_S = 64
+PACK_MAX_SLABS = 96
+PACK_MAX_STRIPS = 12
+PACK_STRIP_CHANNELS = 6
 
 
 class PackParams(ctypes.Structure):
@@ -56,7 +59,12 @@ class PackParams(ctypes.Structure):
                 ] + [(n, ctypes.c_float) for n in (
                     "c_start_r", "c_inv_end_r", "c_r_scale", "c_start_d",
                     "c_inv_end_d", "c_d_scale")] + [
-        ("wt", ctypes.c_void_p), ("wt_rows", ctypes.c_int)]
+        ("wt", ctypes.c_void_p), ("wt_rows", ctypes.c_int),
+        ("n_slabs", ctypes.c_int),
+        ("slab_rows", ctypes.c_int * PACK_MAX_SLABS),
+        ("n_strips", ctypes.c_int),
+        ("strip_fc", (ctypes.c_int * PACK_STRIP_CHANNELS) * PACK_MAX_STRIPS),
+        ("strip_s", (ctypes.c_int * 2) * PACK_MAX_STRIPS)]
 
 
 SHADE_MAX_WB = 432

@@ -12,10 +12,10 @@ Under the bf16 policy a persistent block takes tiles of 128 rays: two
 warpgroups of 64 rays run the layers as wgmma products on their
 activations in shared memory and on weight slabs that TMA stages there
 (`mlp_tables` lays the slabs out once per checkpoint, `tile_weights`), and
-drain the last layer in strips of whole fields (`kernel_strips`) into the
+drain the last layer in strips of its columns (`kernel_strips`) into the
 tail. The f32 policy runs plain FMAs, 64 rays per block, through the same
-tail. The kernels take S in 8, 32, 64; the plain version any S. See the
-source for the design.
+tail. The kernels take S in 8, 16, 32, 64; the plain version any S. See
+the source for the design.
 
 The MLP, under the bf16 policy as the JAX kernel's `_mlp_rows`: one bf16
 rounding of each layer's input, weight and bias, f32 sums, f32 leaky relu
@@ -59,10 +59,11 @@ FIELDS = ("z", "sigma", "flow", "psig", "poff", "cs", "csh")
 ACTS = ("z", "isect", "sigma", "flow", "flow_stage", "psig", "poff",
         "po_stage", "cs", "csh")
 _IDENTITY = (0, 1.0, 1.0, 0.0, 1.0, 0.0)
-KERNEL_S = (8, 32, 64)
+KERNEL_S = (8, 16, 32, 64)
 MAX_LAYERS = build.PACK_MAX_LAYERS
 SLAB_K = 64          # the weight slabs' K rows: one 128-byte swizzle row
 HIDDEN_BLOCK = 128   # hidden-layer columns per product (csrc kHiddenBlock)
+POINT_GROUP = 16     # samples per point strip (csrc point_group)
 
 
 def _ceil(x, m):
@@ -91,19 +92,26 @@ class MlpTables:
     xcol: int
     leaky: float
     compute_dtype: object    # torch.bfloat16 or None (f32)
-    # the bf16 kernel's weight slabs (`tile_weights`); None under the f32
-    # policy or where the widths do not slab
+    # the bf16 kernel's weight slabs (`tile_weights`) and the rows of each;
+    # None under the f32 policy or where the widths do not slab
     tiled: Optional[torch.Tensor] = None
+    slab_rows: Optional[List[int]] = None
 
 
-def kernel_strips():
-    """The last layer's strips in the bf16 kernel's order
-    (csrc/pack_build.cuh strip_channel): each a list of (field, component)
-    channels of S columns: z and sigma, point sigma, per coordinate flow
-    and offset, then each component of colour scale and colour shift."""
-    return [[("z", 0), ("sigma", 0)], [("psig", 0)],
-            *[[("flow", c), ("poff", c)] for c in range(3)],
-            *[[(f, c)] for f in ("cs", "csh") for c in range(3)]]
+def kernel_strips(S):
+    """The last layer's strips in the bf16 kernel's order, each
+    (channels, s0, ns): its (field, component) channels, each over samples
+    [s0, s0 + ns): z and sigma, point sigma, per group of POINT_GROUP
+    samples (all S if fewer) the six point channels (flow xyz, offset xyz),
+    then each component of colour scale and colour shift. The kernel's
+    tail is written for this order (csrc/pack_build.cuh strip_desc,
+    strip_channel); PackSpec.params passes it with the slabs, and the
+    launch is refused where the two differ."""
+    g = min(S, POINT_GROUP)
+    point = [("flow", c) for c in range(3)] + [("poff", c) for c in range(3)]
+    return [([("z", 0), ("sigma", 0)], 0, S), ([("psig", 0)], 0, S),
+            *[(point, s0, g) for s0 in range(0, S, g)],
+            *[([(f, c)], 0, S) for f in ("cs", "csh") for c in range(3)]]
 
 
 def strip_columns(spec):
@@ -111,9 +119,9 @@ def strip_columns(spec):
     (channel-major, sample-minor); -1 for a field the chain lacks (flow in
     a static chain) and for the pad up to a multiple of 32."""
     out = []
-    for chans in kernel_strips():
-        cols = [(spec.foff[f] + c) * spec.S + s if f in spec.foff else -1
-                for f, c in chans for s in range(spec.S)]
+    for chans, s0, ns in kernel_strips(spec.S):
+        cols = [(spec.foff[f] + c) * spec.S + s0 + s if f in spec.foff
+                else -1 for f, c in chans for s in range(ns)]
         out.append(cols + [-1] * (_ceil(len(cols), 32) - len(cols)))
     return out
 
@@ -126,8 +134,10 @@ def tile_weights(layers, xcol, strips):
     of HIDDEN_BLOCK the slabs of its hidden rows, then one of its
     encoded-ray rows where it reads them; per strip of the last layer
     (`strip_columns`) the slabs of its columns. Pad rows and columns are
-    zero. None where the hidden width is not a multiple of SLAB_K or the
-    encoded rays exceed SLAB_K columns."""
+    zero. Returns the slabs [sum of n, SLAB_K] and the n of each, which
+    the launch checks slab by slab against the kernel's order; None where
+    the hidden width is not a multiple of SLAB_K or the encoded rays exceed
+    SLAB_K columns."""
     H = layers[0].w.shape[1]
     cp = layers[0].w.shape[0]
     if H % SLAB_K or cp > SLAB_K:
@@ -150,7 +160,7 @@ def tile_weights(layers, xcol, strips):
         idx = torch.as_tensor(cols, device=w.device)
         ws = w[:, idx.clamp(min=0)] * (idx >= 0).to(w.dtype)
         slabs += [slab(ws[j:j + SLAB_K]) for j in range(0, H, SLAB_K)]
-    return torch.cat(slabs).contiguous()
+    return torch.cat(slabs).contiguous(), [s.shape[0] for s in slabs]
 
 
 def mlp_tables(net, params, perm, spec):
@@ -195,7 +205,8 @@ def mlp_tables(net, params, perm, spec):
             k0=k0, act=i < net.act_until))
     tiled = tile_weights(layers, hp, strip_columns(spec)) \
         if cd is not None else None
-    return MlpTables(layers, cin, hp, float(net.layer_act.a), cd, tiled)
+    return MlpTables(layers, cin, hp, float(net.layer_act.a), cd,
+                     *(tiled or (None, None)))
 
 
 @dataclass
@@ -259,6 +270,17 @@ class PackSpec:
             p.aabb_inv[c] = float(inv[c])
         if mlp.tiled is not None:
             p.wt, p.wt_rows = mlp.tiled.data_ptr(), mlp.tiled.shape[0]
+            p.n_slabs = len(mlp.slab_rows)
+            for j, n in enumerate(mlp.slab_rows[:build.PACK_MAX_SLABS]):
+                p.slab_rows[j] = n
+            strips = kernel_strips(self.S)[:build.PACK_MAX_STRIPS]
+            p.n_strips = len(strips)
+            for q, (chans, s0, ns) in enumerate(strips):
+                p.strip_s[q][0], p.strip_s[q][1] = s0, ns
+                for j in range(build.PACK_STRIP_CHANNELS):
+                    p.strip_fc[q][j] = (4 * FIELDS.index(chans[j][0])
+                                        + chans[j][1]) if j < len(chans) \
+                        else -1
         return p
 
 

@@ -43,19 +43,19 @@ __device__ __forceinline__ void sink(const float (&acc)[W / 2], const Tail& T) {
 }
 
 // The last layer, strip by strip"""
-COLOUR = """    strip_colour<S, WC>(p, acc, cs ? F_CS : F_CSH, cs ? A_CS : A_CSH,
-                        (q - 5) % 3, q - 1, T);"""
+COLOUR = "strip_colour<S, WC>(p, acc, k < 3 ? A_CS : A_CSH, 4 + k, T);"
 
 
 def notail(t):
     t = t.replace("// The last layer, strip by strip", SINK, 1)
     for a, w in (("strip_z<S, WZ>(p, acc, T);", "WZ"),
                  ("strip_psig<S, WS>(p, acc, T);", "WS"),
-                 ("strip_point<S, WP>(p, acc, c, T);", "WP"),
+                 ("strip_point<S, WP>(p, acc, g, T);", "WP"),
                  (COLOUR, "WC")):
         assert a in t, a
         t = t.replace(a, f"sink<{w}>(acc, T);")
-    t = t.replace("  sort_rays<S>(p, T);\n", "")
+    assert "  sort_rays<S>(T);\n" in t
+    t = t.replace("  sort_rays<S>(T);\n", "")
     return t
 def nobound_tail(t):
     i = t.index("// strip 0 (z, sigma)")

@@ -412,9 +412,9 @@ N3D_INFO = {"num_keyframes": 12, "num_frames": 50}
 
 def _n3d_model(dev, S, bf16=False, patch=None, full_mlp=False):
     """tiny_neural_3d with neural_3d_z_plane's [8, 4, 4] components, bf16
-    tables, 12 keyframes; with `full_mlp` the preset's 6x256 MLP (K1 then
-    takes 32 rays per block under the bf16 policy at S = 64); density
-    grids redrawn uniform in [0, 2.4 / S)."""
+    tables, 12 keyframes; with `full_mlp` the preset's 6x256 MLP (K1's
+    full width, 960 last-layer columns at S = 64); density grids redrawn
+    uniform in [0, 2.4 / S)."""
     cfg = convert_epochs_to_iters(tiny_neural_3d(z_channels=S), 4000)
     cfg["color"]["net"].update(fused_render=True, bf16_tables=True,
                                n_lamb_sigma=[8, 4, 4], n_lamb_sh=[8, 4, 4])
@@ -434,15 +434,15 @@ def _n3d_model(dev, S, bf16=False, patch=None, full_mlp=False):
     return cfg, model, params
 
 
-# K1 with flow and the contraction at S = 8, 32 and 64: the same
+# K1 with flow and the contraction at S = 8, 16, 32 and 64: the same
 # tolerances as the flagship's; under the bf16 policy a block takes 128
 # rays at every width (the last layer drained in strips), under the f32
 # policy 64.
 @pytest.mark.parametrize("S,bf16,full", [
     (64, False, False), (64, True, True), (8, True, True), (64, True, False),
-    (32, True, True), (8, False, False)],
+    (32, True, True), (8, False, False), (16, True, True), (16, False, False)],
     ids=["S64_f32", "S64_bf16_full", "S8_bf16_full", "S64_bf16",
-         "S32_bf16_full", "S8_f32"])
+         "S32_bf16_full", "S8_f32", "S16_bf16_full", "S16_f32"])
 @pytest.mark.parametrize("n", K1_RAYS + [RAGGED_PERSISTENT])
 def test_n3d_pack_build_matches_plain(dev, S, bf16, full, n):
     _, model, params = _n3d_model(dev, S, bf16, full_mlp=full)
@@ -477,9 +477,41 @@ def test_pack_plan_takes_128_rays_at_full_width(dev, family):
     tabs = mlp_tables(cf.pred.net, model.init(
         torch.Generator().manual_seed(0), dev)["embedding"][
             "ray_prediction_0"]["net"], torch.arange(cf.S * cf.P), cf.spec)
-    rpb = build.load_library().lib.pack_rays_per_block(
-        cf.spec.params(1, tabs, 20000))
-    assert rpb >= 128
+    lib = build.load_library().lib
+    assert lib.pack_rays_per_block(cf.spec.params(1, tabs, 20000)) >= 128
+
+
+@pytest.mark.parametrize("change", ["strips", "slabs"])
+def test_pack_plan_refuses_another_slab_order(dev, change):
+    """A slab layout that differs from the kernel's (the last two strips,
+    of the same width, swapped, or a slab's rows moved to its neighbour
+    with the total kept) is refused: no rays per block, and the launch
+    raises before any kernel runs."""
+    _, model, params = _n3d_model(dev, 64, True, full_mlp=True)
+    cf = model._cf_eval
+    tabs = cf.prepare(params)["mlp"]
+    lib = build.load_library().lib
+    p = cf.spec.params(256, tabs, 20000)
+    assert lib.pack_rays_per_block(p) == 128
+    if change == "strips":
+        q = p.n_strips - 1
+        a, b = list(p.strip_fc[q - 1]), list(p.strip_fc[q])
+        for j in range(len(a)):
+            p.strip_fc[q - 1][j], p.strip_fc[q][j] = b[j], a[j]
+    else:
+        p.slab_rows[0] += 32
+        p.slab_rows[1] -= 32
+    assert lib.pack_rays_per_block(p) == 0
+    rays = _rays(256, dev)
+    x0 = cf.pred.net_input(rays, StepCtx(it=20000)).float().contiguous()
+    rp = cf.ray_pack(rays)
+    out = torch.empty(10, 256 * 64, device=dev)
+    before = pack_build.launches
+    with pytest.raises(RuntimeError):
+        build.check_launch(lib.pack_build_launch(
+            x0.data_ptr(), rp.data_ptr(), out.data_ptr(), p,
+            torch.cuda.current_stream().cuda_stream), "pack_build")
+    assert pack_build.launches == before
 
 
 def _time_rays(n, dev, R=None, seed=0):

@@ -260,19 +260,26 @@ def test_tiled_weights_untile_to_linear_weights(family, S):
         if x is not None:
             assert not x[cin:].any()
     w = net[f"layer_{len(hidden)}"]["weight"].to(torch.bfloat16)  # [out, in]
-    chans = PB.kernel_strips()
-    assert chans[0] == [("z", 0), ("sigma", 0)]
-    for q, (cols, ws) in enumerate(zip(PB.strip_columns(spec), strips)):
+    layout = PB.kernel_strips(S)
+    assert layout[0] == ([("z", 0), ("sigma", 0)], 0, S)
+    seen = set()
+    for (chans, s0, ns), cols, ws in zip(layout, PB.strip_columns(spec),
+                                         strips):
         assert ws.shape == (w.shape[1], len(cols)) and len(cols) % 32 == 0
         for n, c in enumerate(cols):
             if c < 0:
                 assert not ws[:, n].any()
                 continue
-            f, comp = chans[q][n // S]
-            assert f in spec.foff and c == (spec.foff[f] + comp) * S + n % S
+            f, comp = chans[n // ns]
+            s = s0 + n % ns
+            assert f in spec.foff and c == (spec.foff[f] + comp) * S + s
             # the MLP's own column of sample s, field f, component comp
-            assert torch.equal(ws[:, n], w[(n % S) * spec.P + spec.foff[f]
-                                           + comp])
+            assert torch.equal(ws[:, n], w[s * spec.P + spec.foff[f] + comp])
+            seen.add(c)
+    # every column of the chain's fields, once
+    assert seen == {(spec.foff[f] + c) * S + s for f in spec.foff
+                    for c in range({"flow": 3, "poff": 3, "cs": 3,
+                                    "csh": 3}.get(f, 1)) for s in range(S)}
 
 
 @pytest.mark.parametrize("family,S", [
@@ -315,6 +322,30 @@ def test_kernel_slab_order_reproduces_the_plain_pack(family, S):
     want = PB.pack_build_plain(x0, tabs, rp, spec, 20000)
     assert (got - want).abs().max().item() <= 2e-3
     assert (got[3].reshape(128, S).diff(dim=1) >= 0).all()
+
+
+@pytest.mark.parametrize("family,S", [
+    ("flagship", 32), ("tiny_llff", 16), ("tiny_n3d", 64)])
+def test_params_carry_the_slab_layout(family, S):
+    """PackSpec.params hands the kernel the rows of every slab that
+    mlp_tables laid out and the channels of every strip, which the launch
+    plan (csrc/pack_build.cu plan_wgmma) checks against its own order."""
+    cf, params = _port_chain(family, S)
+    spec, tabs = cf.spec, cf.prepare(params)["mlp"]
+    p = spec.params(1, tabs, 20000)
+    assert p.n_slabs == len(tabs.slab_rows)
+    assert list(p.slab_rows[:p.n_slabs]) == tabs.slab_rows
+    assert sum(tabs.slab_rows) == p.wt_rows == tabs.tiled.shape[0]
+    H = tabs.layers[0].w.shape[1]
+    strips = PB.strip_columns(spec)
+    assert tabs.slab_rows[-len(strips) * (H // 64):] == [
+        len(c) for c in strips for _ in range(H // 64)]
+    layout = PB.kernel_strips(S)
+    assert p.n_strips == len(layout)
+    for q, (chans, s0, ns) in enumerate(layout):
+        want = [4 * PB.FIELDS.index(f) + c for f, c in chans]
+        assert list(p.strip_fc[q]) == want + [-1] * (6 - len(want))
+        assert list(p.strip_s[q]) == [s0, ns]
 
 
 def _encoded_port(cf, rays):
