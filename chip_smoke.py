@@ -1,10 +1,12 @@
 """Smoke run of the PyTorch/CUDA port (hyperreel_tpu_torch) on one NVIDIA
 GPU: the flagship eval render (technicolor_z_plane), the static
-multi-axis family's (llff_z_plane) and the dynamic multi-axis family's
-(neural_3d_z_plane, 64 samples per ray) at full width through the
-hand-written kernels, checked against their plain PyTorch versions and
-against the port's general path, on the quad route and on the coherent
-patch-gather routes; and the standalone composite entry point.
+multi-axis families' (llff_z_plane; shiny_z_plane, RGB colour), the
+dynamic multi-axis family's (neural_3d_z_plane, 64 samples per ray) and
+the single-axis RGB net's own fused route (stanford_llff_z_plane) at full
+width through the hand-written kernels, checked against their plain
+PyTorch versions and against the port's general path, on the quad route
+and on the coherent patch-gather routes; and the standalone composite
+entry point.
 
     python3 chip_smoke.py
 
@@ -28,9 +30,10 @@ no result line):
   6. the patch route's kernels on the same chunk: K3 (fused blend+shade)
      at R=8 (5, 2) on the chunk in bench.py's phase-major order and at
      R=4 (4, 3) in scanline order, K4 (patch blend) and K2 reading its
-     pre-blended features, each against its plain version, and timed in
-     turns with K2; K7 (composite) at B=262,144, S=32 through its entry
-     point;
+     pre-blended features, each against its plain version; K2, K2
+     reading K4's features and K3 with RGB colour (a random [3, C] basis)
+     against their plain versions; the patch kernels timed in turns with
+     K2; K7 (composite) at B=262,144, S=32 through its entry point;
   7. the bench frame on the patch route, R=8 (5, 2) as bench.py renders it
      (phase-major rays, rays_phase_major=True) and in scanline order, on
      K3 and on the two-kernel route (HYPERREEL_FUSED_PATCH=0, K4 then
@@ -85,7 +88,28 @@ no result line):
  17. n3d fused vs general path on 4096 rays with random times, f32 MLP
      policy (<= 2e-4);
  18. frame time of n3d's quad route with one t and with a t per ray, and
-     of its patch routes with one t, in turns.
+     of its patch routes with one t, in turns;
+ 19-23. shiny_z_plane (two-plane rays, identity contraction, RGB colour,
+     the llff layout) as phases 9-13, on its checkpoint grid (planes
+     806x806, 403x806, 403x806; ~125 MB of quad tables), the density
+     planes and lines redrawn uniform in [0, 0.2); K1, K5, K4 x 3,
+     K5-preblended and K6 with RGB colour against their plain versions,
+     K5 also with the weights row, the valid share, the frames on the
+     three routes with their witnesses and rgb gates, fused vs general
+     path, one chunk through the general chain and the net's own fused
+     route (fused_render_cf off: K5 with the weights row, launched once)
+     against the quad route, and the routes' frame times;
+ 24. stanford_llff_z_plane (two-plane rays with near/far, one plane x line
+     axis, RGB colour) on its checkpoint grid (the plane 1007x1007, the
+     line 503; a ~130 MB quad table), the density plane and line redrawn
+     uniform in [0, 0.3); it takes the general stage chain and its net's
+     own fused route;
+ 25. on one chunk: K2 with RGB colour, the weights row and the z line as
+     its premixed table against its plain version; the valid share;
+ 26. the bench frame through model.apply: finite, in [0, 1], K2 launched
+     once per chunk and nothing else;
+ 27. the frame against the general colour net (<= 2e-4);
+ 28. frame time of the own route and of the general path, in turns.
 The line before the last is the kernels' JSON record (launches on their
 main path, error against the plain version, ms and the plain version's
 ms, and the least time the card could take, counting of each table only
@@ -125,6 +149,10 @@ F32_RAYS = 16384               # K1's f32-policy check (plain FMA layers)
 COMPOSITE_S = 32
 # llff_z_plane's density planes and lines are redrawn uniform in [0, this)
 LLFF_DENSITY = 0.05
+# shiny_z_plane's and stanford_llff_z_plane's (their acc mean on the bench
+# frame ~0.92 and ~0.93, measured on the CPU at a small grid)
+SHINY_DENSITY = 0.2
+STANFORD_DENSITY = 0.3
 # neural_3d_z_plane: the 50-frame window of data/neural_3d.py with
 # keyframe_step 4 (:34, :137); its density grids redrawn uniform in [0,
 # this); the JAX test's patch candidate (tests/test_fused_cf.py:1100-1107)
@@ -156,8 +184,11 @@ K1_CONTRACT_OPS = 57
 COMPOSITE_OPS, COMPOSITE4_OPS = 46, 40
 
 
-def shade_ops(C, nd):
-    return 59 * C + nd + 100
+def shade_ops(C, nd, rgb=False, weights=False):
+    """K2/K3's f32 operations per valid sample after its space features:
+    time taps 4C+6, the product C, density nd (and the weight), the colour
+    of the C features, validity 8."""
+    return 5 * C + nd + 14 + colour_ops(C, rgb) + int(weights)
 
 
 def bound(nbytes, ops):
@@ -314,29 +345,42 @@ def flagship(dev):
     return cfg, info, model, params, model.prepare_eval(params)
 
 
-def llff(dev, bf16=True, patch=None, params=None, grid="checkpoint"):
-    """llff_z_plane at full width (6x256 MLP, S=32, [8, 4, 4] components,
-    SH degree 2) on a trained checkpoint's grid: N_voxel_init set to
-    N_voxel_final (262,144,000 voxels: planes 786x706, 471x706, 471x786,
-    lines 471, 786, 706), so that the bf16 quad tables (~116 MB) exceed the
-    50 MB L2; with grid="init" the preset's own N_voxel_init (128^3 voxels,
-    ~4.7 MB of tables, which stay in L2). The bf16 (or f32) MLP policy;
-    with `patch` the coherent patch-gather route (px, py, R). Weights from
+# the static z-plane families on the channels-first route: their presets
+# and the bound their density planes and lines are redrawn uniform below
+# (llff_z_plane: acc mean 0.995 on the bench frame; shiny_z_plane: ~0.92,
+# a forward-facing scene whose rays end mostly opaque)
+STATIC = {"llff": ("llff_z_plane", LLFF_DENSITY),
+          "shiny": ("shiny_z_plane", SHINY_DENSITY)}
+
+
+def static_model(dev, family="llff", bf16=True, patch=None, params=None,
+                 grid="checkpoint"):
+    """llff_z_plane (6x256 MLP on pluecker rays, mipnerf contraction) or
+    shiny_z_plane (6x256 MLP on two-plane rays, identity contraction, RGB
+    colour) at full width, S=32, [8, 4, 4] components, on a trained
+    checkpoint's grid: N_voxel_init set to N_voxel_final (262,144,000
+    voxels; llff: planes 786x706, 471x706, 471x786, lines 471, 786, 706;
+    shiny: planes 806x806, 403x806, 403x806, lines 403, 806, 806), so that
+    the bf16 quad tables (~116 / ~125 MB) exceed the 50 MB L2; with
+    grid="init" the preset's own N_voxel_init (128^3 voxels, a few MB of
+    tables, which stay in L2). The bf16 (or f32) MLP policy; with `patch`
+    the coherent patch-gather route (px, py, R). Weights from
     torch.Generator seed SEED (or the given params) with the density planes
-    and lines redrawn uniform in [0, LLFF_DENSITY): (cfg, model, params,
-    prepared tables)."""
+    and lines redrawn uniform in [0, STATIC[family][1]): (cfg, model,
+    params, prepared tables)."""
     import torch
 
-    from hyperreel_tpu_torch.configs.presets import (
-        convert_epochs_to_iters, llff_z_plane, with_coherent_gather)
+    from hyperreel_tpu_torch.configs import presets
     from hyperreel_tpu_torch.models.model import build_model
 
-    cfg = convert_epochs_to_iters(llff_z_plane(), iters_per_epoch=4000)
+    preset, density = STATIC[family]
+    cfg = presets.convert_epochs_to_iters(getattr(presets, preset)(),
+                                          iters_per_epoch=4000)
     net = cfg["color"]["net"]
     if grid == "checkpoint":
         net["N_voxel_init"] = net["N_voxel_final"]
     if patch:
-        cfg = with_coherent_gather(cfg, *patch)
+        cfg = presets.with_coherent_gather(cfg, *patch)
     model = build_model(cfg, compute_dtype=torch.bfloat16 if bf16 else None)
     if params is None:
         gen = torch.Generator().manual_seed(SEED)
@@ -345,7 +389,7 @@ def llff(dev, bf16=True, patch=None, params=None, grid="checkpoint"):
         # transparent scene); redrawn, the bench frame's rays end mostly
         # opaque over several samples
         for k, v in params["color"]["density"].items():
-            params["color"]["density"][k] = LLFF_DENSITY * torch.rand(
+            params["color"]["density"][k] = density * torch.rand(
                 v.shape, generator=gen).to(dev)
     return cfg, model, params, model.prepare_eval(params)
 
@@ -360,23 +404,33 @@ def valid_count(pack):
     return valid_mask(pack).sum().item()
 
 
-def multi_ops(axes, blend):
+def colour_ops(A, rgb):
+    """f32 operations of one valid sample's colour from A features: SH of
+    degree 2 (the basis 54A, SH basis 20, SH sums 54, colour 12) or RGB
+    (the basis 6A, the sigmoids 12, colour 12)."""
+    return 6 * A + 24 if rgb else 54 * A + 86
+
+
+def multi_ops(axes, blend, rgb=False, weights=False):
     """f32 operations per valid sample after the pack of K5/K6: per axis
     the plane features (`blend(C)`), the second factor (a line's taps
     4C+6; a time plane's z and t taps and its two rows' blends and mix
-    12C+12), the product (C) and the density sum (nd), then the basis (54A
-    for A appearance channels), SH basis 20, SH sums 54, colour 12,
+    12C+12), the product (C) and the density sum (nd), then the weight
+    (1, with the weights row), the colour of the A appearance channels,
     validity 8."""
     A = sum(a.C - a.nd for a in axes)
     return sum(blend(a.C) + (12 * a.C + 12 if a.TH else 4 * a.C + 6) + a.C
-               + a.nd for a in axes) + 54 * A + 94
+               + a.nd for a in axes) + colour_ops(A, rgb) + int(weights) + 8
 
 
-def llff_phases(torch, dev, card, frame, reset_counts, read_counts):
-    """Phases 9-13: llff_z_plane's kernels on one chunk against their plain
-    versions and timed in turns, the bench frame on its routes, fused vs
-    general path, and the routes' frame times. Returns (the
-    kernels' JSON records, {route: ms/frame})."""
+def static_phases(torch, dev, card, frame, reset_counts, read_counts,
+                  family):
+    """Phases 9-13 (llff_z_plane) or 19-23 (shiny_z_plane): the family's
+    kernels on one chunk against their plain versions and timed in turns,
+    the bench frame on its routes, fused vs general path, and the routes'
+    frame times; for shiny also K5 with the weights row, and one chunk
+    through the net's own fused route. Returns (the kernels' JSON records,
+    {route: ms/frame})."""
     from hyperreel_tpu_torch.models.ctx import StepCtx
     from hyperreel_tpu_torch.ops.kernels.pack_build import (
         pack_build, pack_build_plain)
@@ -390,11 +444,13 @@ def llff_phases(torch, dev, card, frame, reset_counts, read_counts):
 
     ctx = StepCtx(it=IT)
     # ---- 9. the model at the checkpoint grid, quad and patch routes
-    cfg, model, params, prep = llff(dev)
-    _, model8, _, prep8 = llff(dev, patch=PATCH_R8, params=params)
+    cfg, model, params, prep = static_model(dev, family)
+    _, model8, _, prep8 = static_model(dev, family, patch=PATCH_R8,
+                                       params=params)
     cf = model._cf_eval
+    rgb_colour = cf.net.shading == "rgb"
     axes = prep["axes"]
-    print("# llff_z_plane: planes " + ", ".join(
+    print(f"# {STATIC[family][0]}: planes " + ", ".join(
         f"{a.H}x{a.W}x{a.C}" for a in axes) + "; lines " + ", ".join(
         str(a.L) for a in axes) + f"; quad tables "
         f"{sum(nbytes(q) for q in prep['quads']) / 1e6:.1f} MB", flush=True)
@@ -413,43 +469,78 @@ def llff_phases(torch, dev, card, frame, reset_counts, read_counts):
     pack_p = pack_build_plain(net_in, tabs, rp, cf.spec, IT)
     torch.cuda.synchronize()
     k1_err = (pack - pack_p).abs().max().item()
-    cf32 = llff(dev, bf16=False, params=params)[1]._cf_eval
+    cf32 = static_model(dev, family, bf16=False, params=params)[1]._cf_eval
     tabs32 = cf32.prepare(params)["mlp"]
     x32, rp32 = net_in[:F32_RAYS].contiguous(), rp[:F32_RAYS].contiguous()
     k1_err32 = (pack_build(x32, tabs32, rp32, cf32.spec, IT)
                 - pack_build_plain(x32, tabs32, rp32, cf32.spec, IT)
                 ).abs().max().item()
-    print(f"# llff K1 pack_build (mipnerf contraction): max |kernel - "
-          f"plain| {k1_err:.3e} bf16 MLP (tol {PACK_TOL_BF16}), "
-          f"{k1_err32:.3e} f32 MLP on {F32_RAYS} rays (tol {PACK_TOL})",
-          flush=True)
+    print(f"# {family} K1 pack_build ({cf.spec.contract.name} "
+          f"contraction, no flow): max |kernel - plain| {k1_err:.3e} bf16 "
+          f"MLP (tol {PACK_TOL_BF16}), {k1_err32:.3e} f32 MLP on "
+          f"{F32_RAYS} rays (tol {PACK_TOL})", flush=True)
     if not (k1_err <= PACK_TOL_BF16 and k1_err32 <= PACK_TOL):
-        raise AssertionError(f"llff K1 disagrees with its plain version: "
+        raise AssertionError(f"{family} K1 disagrees with its plain version: "
                              f"{k1_err}, {k1_err32}")
     del pack_p
     N = pack.shape[1]
     valid = valid_count(pack)
-    print(f"# llff chunk: {valid} of {N} samples valid "
+    print(f"# {family} chunk: {valid} of {N} samples valid "
           f"({100 * valid / N:.1f} %)", flush=True)
     if valid < N // 4:
         raise AssertionError("under a quarter of the samples are valid: "
                              "move the camera")
 
     spec = MultiSpec(S=cf.S, axes=axes, deg=cf.net.sh_deg,
-                     distance_scale=cf.net.distance_scale)
+                     distance_scale=cf.net.distance_scale,
+                     shading=cf.net.shading)
     lines, wb = prep["lines"], prep["wb"]
     out = shade_multi(prep["quads"], lines, pack, rp, wb, spec)
     out_p = shade_multi_plain(prep["quads"], lines, pack, rp, wb, spec)
     torch.cuda.synchronize()
     k5_err = (out[:, :4] - out_p[:, :4]).abs().max().item()
     k5_derr = (out[:, 4] - out_p[:, 4]).abs().max().item()
-    print(f"# K5 shade_multi: max |kernel - plain| rgb/acc {k5_err:.3e}, "
+    print(f"# {family} K5 shade_multi ({cf.net.shading}): max |kernel - "
+          f"plain| rgb/acc {k5_err:.3e}, "
           f"depth {k5_derr:.3e} (tol {SHADE_TOL}); acc mean "
           f"{out[:, 3].mean().item():.4f}", flush=True)
     if not (k5_err <= SHADE_TOL and k5_derr <= 10 * SHADE_TOL):
         raise AssertionError(f"K5 disagrees with its plain version: "
                              f"{k5_err}, {k5_derr}")
     del out_p
+    if family == "shiny":
+        # K5 with the weights row (the net's own fused route's pack) on the
+        # same samples, the weights drawn uniform in [0, 2)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        pack_w = torch.cat([pack, 2 * torch.rand(1, N, device=dev,
+                                                 generator=gen)])
+        wspec = dataclasses.replace(spec, weights=True)
+        out_w = shade_multi(prep["quads"], lines, pack_w, rp, wb, wspec)
+        out_wp = shade_multi_plain(prep["quads"], lines, pack_w, rp, wb,
+                                   wspec)
+        torch.cuda.synchronize()
+        k5w_err = (out_w[:, :4] - out_wp[:, :4]).abs().max().item()
+        k5w_derr = (out_w[:, 4] - out_wp[:, 4]).abs().max().item()
+        k5w_ms = cuda_ms(torch, lambda: shade_multi(
+            prep["quads"], lines, pack_w, rp, wb, wspec), 20)
+        k5w_plain_ms = cuda_ms(torch, lambda: shade_multi_plain(
+            prep["quads"], lines, pack_w, rp, wb, wspec), 2)
+        k5w_bound = bound(
+            nbytes(pack_w, rp, *lines) + CHUNK * 5 * 4 + sum(
+                rows_bytes(q, quad_rows(pack, a.m0, a.m1, a.W, a.H))
+                for q, a in zip(prep["quads"], axes)),
+            [(valid * multi_ops(axes, lambda C: 8 * C + 10, rgb_colour,
+                                    True)
+              + N * COMPOSITE_OPS, F32_OPS_PER_S)])
+        print(f"# {family} K5 shade_multi ({cf.net.shading}, weights row): "
+              f"max |kernel - plain| rgb/acc {k5w_err:.3e}, depth "
+              f"{k5w_derr:.3e} (tol {SHADE_TOL}); {k5w_ms:.3f} ms (plain "
+              f"{k5w_plain_ms:.3f}, bound {k5w_bound[0]:.4f} "
+              f"{k5w_bound[1]})", flush=True)
+        if not (k5w_err <= SHADE_TOL and k5w_derr <= 10 * SHADE_TOL):
+            raise AssertionError(f"K5 with the weights row disagrees with "
+                                 f"its plain version: {k5w_err}, {k5w_derr}")
+        del pack_w, out_w, out_wp
 
     rp_pm = cf.ray_pack(chunk_pm)
     pack_pm = pack_build(cf.pred.net_input(chunk_pm, ctx).float()
@@ -525,34 +616,35 @@ def llff_phases(torch, dev, card, frame, reset_counts, read_counts):
     turns = {name: [] for name in kernels}
     for name in list(kernels) + list(kernels)[::-1]:
         turns[name].append(cuda_ms(torch, kernels[name], 20))
-    print("# llff chunk, in turns: " + "; ".join(
+    print(f"# {family} chunk, in turns: " + "; ".join(
         f"{name} " + ", ".join(f"{t:.4f}" for t in ts) + " ms"
         for name, ts in turns.items()), flush=True)
     k5_ms, k6_ms, k4_ms, pre_ms = (sum(turns[n]) / 2 for n in kernels)
-    # K5 on the same pack with the tables of the preset's init grid
-    # (N_voxel_init: ~4.7 MB of quad tables, which stay in L2), in turns
-    # with the checkpoint grid's: how much of K5's time the quad-row reads
-    # from device memory cost
-    _, small, small_params, _ = llff(dev, grid="init")
-    sprep = small.prepare_eval(small_params)
-    sspec = MultiSpec(S=cf.S, axes=sprep["axes"], deg=cf.net.sh_deg,
-                      distance_scale=cf.net.distance_scale)
-    grids = {
-        "checkpoint": lambda: shade_multi(prep["quads"], lines, pack_pm,
-                                          rp_pm, wb, spec),
-        "init": lambda: shade_multi(sprep["quads"], sprep["lines"], pack_pm,
-                                    rp_pm, sprep["wb"], sspec)}
-    gturns = {name: [] for name in grids}
-    for name in list(grids) + list(grids)[::-1]:
-        gturns[name].append(cuda_ms(torch, grids[name], 20))
-    print(f"# K5 by grid, in turns: checkpoint grid ("
-          f"{sum(nbytes(q) for q in prep['quads']) / 1e6:.1f} MB of quad "
-          f"tables) " + ", ".join(f"{t:.4f}" for t in gturns["checkpoint"])
-          + f" ms; init grid ("
-          f"{sum(nbytes(q) for q in sprep['quads']) / 1e6:.1f} MB) "
-          + ", ".join(f"{t:.4f}" for t in gturns["init"]) + " ms",
-          flush=True)
-    del small, small_params, sprep
+    if family == "llff":
+        # K5 on the same pack with the tables of the preset's init grid
+        # (N_voxel_init: ~4.7 MB of quad tables, which stay in L2), in turns
+        # with the checkpoint grid's: how much of K5's time the quad-row reads
+        # from device memory cost
+        _, small, small_params, _ = static_model(dev, "llff", grid="init")
+        sprep = small.prepare_eval(small_params)
+        sspec = MultiSpec(S=cf.S, axes=sprep["axes"], deg=cf.net.sh_deg,
+                          distance_scale=cf.net.distance_scale)
+        grids = {
+            "checkpoint": lambda: shade_multi(prep["quads"], lines, pack_pm,
+                                              rp_pm, wb, spec),
+            "init": lambda: shade_multi(sprep["quads"], sprep["lines"],
+                                        pack_pm, rp_pm, sprep["wb"], sspec)}
+        gturns = {name: [] for name in grids}
+        for name in list(grids) + list(grids)[::-1]:
+            gturns[name].append(cuda_ms(torch, grids[name], 20))
+        print(f"# K5 by grid, in turns: checkpoint grid ("
+              f"{sum(nbytes(q) for q in prep['quads']) / 1e6:.1f} MB of quad "
+              f"tables) " + ", ".join(f"{t:.4f}" for t in gturns["checkpoint"])
+              + f" ms; init grid ("
+              f"{sum(nbytes(q) for q in sprep['quads']) / 1e6:.1f} MB) "
+              + ", ".join(f"{t:.4f}" for t in gturns["init"]) + " ms",
+              flush=True)
+        del small, small_params, sprep
     k1_ms = cuda_ms(torch, lambda: pack_build(net_in, tabs, rp, cf.spec, IT),
                     20)
     k1_plain_ms = cuda_ms(
@@ -575,7 +667,8 @@ def llff_phases(torch, dev, card, frame, reset_counts, read_counts):
     k1_bound = bound(
         nbytes(net_in, rp, pack) + sum(nbytes(l.w, l.b) for l in tabs.layers),
         [(mlp_ops, BF16_OPS_PER_S),
-         (N * (K1_TAIL_OPS + K1_CONTRACT_OPS), F32_OPS_PER_S)])
+         (N * (K1_TAIL_OPS + (K1_CONTRACT_OPS if cf.spec.contract.name
+                              != "identity" else 0)), F32_OPS_PER_S)])
     # the table bytes: only the rows this chunk reads, each once
     quad_bytes = sum(rows_bytes(q, quad_rows(pack_pm, a.m0, a.m1, a.W, a.H))
                      for q, a in zip(prep["quads"], axes))
@@ -585,21 +678,21 @@ def llff_phases(torch, dev, card, frame, reset_counts, read_counts):
     shared = nbytes(pack_pm, rp_pm, *lines) + out_bytes
     k5_bound = bound(
         shared + quad_bytes,
-        [(valid_pm * multi_ops(axes, lambda C: 8 * C + 10)
+        [(valid_pm * multi_ops(axes, lambda C: 8 * C + 10, rgb_colour)
           + N * COMPOSITE_OPS, F32_OPS_PER_S)])
     pre_bound = bound(
         shared + nbytes(*feats),
-        [(valid_pm * multi_ops(axes, lambda C: C) + N * COMPOSITE_OPS,
-          F32_OPS_PER_S)])
+        [(valid_pm * multi_ops(axes, lambda C: C, rgb_colour)
+          + N * COMPOSITE_OPS, F32_OPS_PER_S)])
     k6_bound = bound(
         shared + ptab_bytes[0] + 4,
-        [(valid_pm * multi_ops(axes, lambda C: 8 * C + 22)
+        [(valid_pm * multi_ops(axes, lambda C: 8 * C + 22, rgb_colour)
           + N * COMPOSITE_OPS, F32_OPS_PER_S)])
     k4_bound = bound(
         nbytes(pack_pm[:4], *feats) + ptab_bytes[1] + 3 * 4,
         [(N * sum(8 * a.C + 22 for a in axes), F32_OPS_PER_S)])
-    k1_plan(torch, "llff", cf, tabs, mlp_ops, k1_ms)
-    print(f"# llff chunk ({card}): K1 {k1_ms:.3f} ms (plain "
+    k1_plan(torch, family, cf, tabs, mlp_ops, k1_ms)
+    print(f"# {family} chunk ({card}): K1 {k1_ms:.3f} ms (plain "
           f"{k1_plain_ms:.3f}, bound {k1_bound[0]:.4f} {k1_bound[1]}); K5 "
           f"{k5_ms:.3f} (plain {k5_plain_ms:.3f}, bound {k5_bound[0]:.4f} "
           f"{k5_bound[1]}); K6 {k6_ms:.3f} (plain {k6_plain_ms:.3f}, bound "
@@ -621,7 +714,8 @@ def llff_phases(torch, dev, card, frame, reset_counts, read_counts):
                 for i in range(frames.shape[0])]
 
     n_chunks = frame6.shape[0]
-    _, model4, _, prep4 = llff(dev, patch=PATCH_R4, params=params)
+    _, model4, _, prep4 = static_model(dev, family, patch=PATCH_R4,
+                                       params=params)
     rk = {"cf_prepared": prep}
     rk8 = {"cf_prepared": prep8, "rays_phase_major": True}
     rk4 = {"cf_prepared": prep4, "rays_phase_major": True}
@@ -630,16 +724,16 @@ def llff_phases(torch, dev, card, frame, reset_counts, read_counts):
     # name: (HYPERREEL_FUSED_PATCH_MULTI, model, frame, render_kwargs,
     # launches per frame, R of the phase-major rays)
     routes = {
-        "llff quad": ("0", model, frame6, rk,
+        f"{family} quad": ("0", model, frame6, rk,
                       {"shade_multi": n_chunks}, None),
-        "llff fused patch": ("1", model8, frame_pm, rk8,
+        f"{family} fused patch": ("1", model8, frame_pm, rk8,
                              {"shade_multi_patch": n_chunks}, R8),
-        "llff two-kernel patch": ("0", model8, frame_pm, rk8,
+        f"{family} two-kernel patch": ("0", model8, frame_pm, rk8,
                                   {"patch_blend": 3 * n_chunks,
                                    "shade_multi_preblended": n_chunks}, R8),
-        "llff fused patch R=4 (4,3)": (
+        f"{family} fused patch R=4 (4,3)": (
             "1", model4, frame_pm4, rk4, {"shade_multi_patch": n_chunks}, R4),
-        "llff two-kernel patch R=4 (4,3)": (
+        f"{family} two-kernel patch R=4 (4,3)": (
             "0", model4, frame_pm4, rk4,
             {"patch_blend": 3 * n_chunks,
              "shade_multi_preblended": n_chunks}, R4)}
@@ -678,22 +772,51 @@ def llff_phases(torch, dev, card, frame, reset_counts, read_counts):
         if (R == R4 and not exact) or (exact and not err <= PATH_TOL):
             raise AssertionError(f"{name}: witness {pviol}, rgb error {err}")
 
-    # ---- 12. fused vs general path on 4096 rays, f32 MLP policy
+    # ---- 12. fused vs general path on 4096 rays, f32 MLP policy (the
+    # general chain and the general colour net)
     import copy
     from hyperreel_tpu_torch.models.model import build_model
     cfg_g = copy.deepcopy(cfg)
-    cfg_g["color"]["net"]["fused_render_cf"] = False
+    cfg_g["color"]["net"].update(fused_render_cf=False, fused_render=False)
     fused_m = build_model(cfg)
     general = build_model(cfg_g)
     rays = torch.from_numpy(entry_rays(4096)[:, :6].copy()).to(dev)
     a = fused_m.apply(params, rays, ctx)["rgb"]
     b = general.apply(params, rays, ctx)["rgb"]
     path_err = (a - b).abs().max().item()
-    print(f"# llff fused vs general, 4096 entry() rays: max |diff| "
+    print(f"# {family} fused vs general, 4096 entry() rays: max |diff| "
           f"{path_err:.3e} (tol {PATH_TOL})", flush=True)
     if not path_err <= PATH_TOL:
-        raise AssertionError(f"llff fused and general paths disagree: "
+        raise AssertionError(f"{family} fused and general paths disagree: "
                              f"{path_err}")
+    own = {}
+    if family == "shiny":
+        # one chunk of the frame through the general chain and the net's
+        # own fused route (fused_render_cf off: K5 with the weights row),
+        # against the channels-first quad route's chunk, f32 MLP policy
+        cfg_o = copy.deepcopy(cfg)
+        cfg_o["color"]["net"]["fused_render_cf"] = False
+        own_m = build_model(cfg_o)
+        prep_o = own_m.prepare_eval(params)
+        rko = {"cf_prepared": prep_o}
+        reset_counts()
+        a = own_m.apply(params, frame6[0], ctx, rko)["rgb"]
+        torch.cuda.synchronize()
+        own["counts"] = read_counts()
+        b = fused_m.apply(params, frame6[0], ctx)["rgb"]
+        own_err = (a - b).abs().max().item()
+        own["ms"] = cuda_ms(torch, lambda: own_m.apply(params, frame6[0],
+                                                       ctx, rko), 5)
+        want = dict.fromkeys(own["counts"], 0)
+        want.update(shade_multi=1)
+        print(f"# {family} own fused route (general chain + K5 with the "
+              f"weights row), one chunk: launches {own['counts']}; rgb vs "
+              f"the channels-first quad route {own_err:.3e} (tol "
+              f"{PATH_TOL}); {own['ms']:.3f} ms per chunk", flush=True)
+        if own["counts"] != want or not own_err <= PATH_TOL:
+            raise AssertionError(f"{family} own fused route: launches "
+                                 f"{own['counts']}, rgb error {own_err}")
+        del own_m, prep_o
     del fused_m, general, a, b
 
     # ---- 13. frame time of the routes, in turns
@@ -713,24 +836,188 @@ def llff_phases(torch, dev, card, frame, reset_counts, read_counts):
               + ", ".join(f"{t:.3f}" for t in ts) + ")", flush=True)
 
     src = "hyperreel_tpu/ops/pallas/"
-    return [
-        entry("pack_build_llff", "pack_build.cuh", src + "pack_build.py:137",
-              counts["llff quad"]["pack_build"], k1_err, k1_ms, k1_plain_ms,
-              k1_bound),
-        entry("shade_multi", "shade_multi.cu", src + "shade.py:742",
-              counts["llff quad"]["shade_multi"], k5_err, k5_ms,
+    # llff keeps the names of earlier records; shiny's are the RGB forms
+    sfx = "_rgb" if rgb_colour else ""
+    records = [
+        entry(f"pack_build_{family}", "pack_build.cuh",
+              src + "pack_build.py:137",
+              counts[f"{family} quad"]["pack_build"], k1_err, k1_ms,
+              k1_plain_ms, k1_bound),
+        entry(f"shade_multi{sfx}", "shade_multi.cu", src + "shade.py:742",
+              counts[f"{family} quad"]["shade_multi"], k5_err, k5_ms,
               k5_plain_ms, k5_bound),
-        entry("shade_multi_preblended", "shade_multi.cu", src + "shade.py:761",
-              counts["llff two-kernel patch"]["shade_multi_preblended"],
+        entry(f"shade_multi_preblended{sfx}", "shade_multi.cu",
+              src + "shade.py:761",
+              counts[f"{family} two-kernel patch"]["shade_multi_preblended"],
               pre_err, pre_ms, pre_plain_ms, pre_bound),
-        entry("patch_blend_llff_3_planes", "patch_blend.cu",
+        entry(f"patch_blend_{family}_3_planes", "patch_blend.cu",
               src + "patch_blend.py:51",
-              counts["llff two-kernel patch"]["patch_blend"], k4_err, k4_ms,
-              k4_plain_ms, k4_bound),
-        entry("shade_multi_patch", "shade_multi_patch.cu",
+              counts[f"{family} two-kernel patch"]["patch_blend"], k4_err,
+              k4_ms, k4_plain_ms, k4_bound),
+        entry(f"shade_multi_patch{sfx}", "shade_multi_patch.cu",
               src + "shade.py:786",
-              counts["llff fused patch"]["shade_multi_patch"], k6_err, k6_ms,
-              k6_plain_ms, k6_bound)], frame_ms
+              counts[f"{family} fused patch"]["shade_multi_patch"], k6_err,
+              k6_ms, k6_plain_ms, k6_bound)]
+    if own:
+        records.append(entry(
+            f"shade_multi{sfx}_weights", "shade_multi.cu",
+            src + "shade.py:742", own["counts"]["shade_multi"], k5w_err,
+            k5w_ms, k5w_plain_ms, k5w_bound))
+    return records, frame_ms
+
+def stanford(dev, bf16=True):
+    """stanford_llff_z_plane at full width (6x256 MLP on two-plane rays,
+    S=32, one plane x line axis [8, 0, 0], RGB colour) on a trained
+    checkpoint's grid: N_voxel_init set to N_voxel_final (512,000,000
+    voxels: the plane 1007x1007, the line 503), whose bf16 quad table
+    (~130 MB) exceeds the 50 MB L2. The bf16 (or f32) MLP policy; weights
+    from torch.Generator seed SEED with the density plane and line redrawn
+    uniform in [0, STANFORD_DENSITY): (cfg, model, params, the tables of
+    the net's own fused route)."""
+    import torch
+
+    from hyperreel_tpu_torch.configs.presets import (
+        convert_epochs_to_iters, stanford_llff_z_plane)
+    from hyperreel_tpu_torch.models.model import build_model
+
+    cfg = convert_epochs_to_iters(stanford_llff_z_plane(),
+                                  iters_per_epoch=4000)
+    net = cfg["color"]["net"]
+    net["N_voxel_init"] = net["N_voxel_final"]
+    model = build_model(cfg, compute_dtype=torch.bfloat16 if bf16 else None)
+    gen = torch.Generator().manual_seed(SEED)
+    params = model.init(gen, dev)
+    for k, v in params["color"]["density"].items():
+        params["color"]["density"][k] = STANFORD_DENSITY * torch.rand(
+            v.shape, generator=gen).to(dev)
+    return cfg, model, params, model.prepare_eval(params)
+
+
+def stanford_phases(torch, dev, card, frame, reset_counts, read_counts):
+    """Phases 24-27: stanford_llff_z_plane through the general stage chain
+    and its net's own fused route (K2 with RGB colour, the weights row and
+    the z line as the premixed table): K2 against its plain version on one
+    chunk of the bench frame, the frame through model.apply, against the
+    general colour net, and the frame times of both. Returns (the kernel's
+    JSON record, {route: ms/frame})."""
+    import copy
+
+    from hyperreel_tpu_torch.models.ctx import StepCtx
+    from hyperreel_tpu_torch.models.model import build_model
+    from hyperreel_tpu_torch.ops.kernels.shade import shade, shade_plain
+
+    ctx = StepCtx(it=IT)
+    # ---- 24. the model at the checkpoint grid
+    cfg, model, params, prep = stanford(dev)
+    net = model.color_net
+    if model._cf_eval is not None:
+        raise AssertionError("stanford_llff_z_plane took the channels-first "
+                             "route")
+    ax, = prep["axes"]
+    quad, line, wb = prep["quads"][0], prep["lines"][0], prep["wb"]
+    print(f"# stanford_llff_z_plane: plane {ax.H}x{ax.W}x{ax.C}; line "
+          f"{ax.L}; quad table {nbytes(quad) / 1e6:.1f} MB", flush=True)
+    frame6 = frame[..., :6].contiguous()
+
+    # ---- 25. one chunk: the general chain, then K2 (RGB, weights row)
+    # against its plain version
+    chunk = frame6[0]
+
+    def chain(rays):
+        return model.embedding.apply(params["embedding"],
+                                     model.ray_param.apply(rays), ctx, {})
+
+    pack, rp = net.fused_pack(chain(chunk))
+    spec = net.fused_spec(prep, pack.shape[1] // CHUNK)
+    N = pack.shape[1]
+    valid = valid_count(pack)
+    out = shade(quad, pack, rp, line, wb, spec)
+    out_p = shade_plain(quad, pack, rp, line, wb, spec)
+    torch.cuda.synchronize()
+    k2_err = (out[:, :4] - out_p[:, :4]).abs().max().item()
+    k2_derr = (out[:, 4] - out_p[:, 4]).abs().max().item()
+    print(f"# stanford chunk: {valid} of {N} samples valid "
+          f"({100 * valid / N:.1f} %); K2 shade (RGB, weights row, the z "
+          f"line as its TH = 0 table): max |kernel - plain| rgb/acc "
+          f"{k2_err:.3e}, depth {k2_derr:.3e} (tol {SHADE_TOL}); acc mean "
+          f"{out[:, 3].mean().item():.4f}", flush=True)
+    if valid < N // 4:
+        raise AssertionError("under a quarter of the samples are valid: "
+                             "move the camera")
+    if not (k2_err <= SHADE_TOL and k2_derr <= 10 * SHADE_TOL):
+        raise AssertionError(f"K2 (RGB, weights row) disagrees with its "
+                             f"plain version: {k2_err}, {k2_derr}")
+    k2_ms = cuda_ms(torch, lambda: shade(quad, pack, rp, line, wb, spec),
+                    20)
+    k2_plain_ms = cuda_ms(torch, lambda: shade_plain(quad, pack, rp, line,
+                                                     wb, spec), 2)
+    chain_ms = cuda_ms(torch, lambda: chain(chunk), 5)
+    k2_bound = bound(
+        nbytes(pack, rp, line) + CHUNK * 5 * 4
+        + rows_bytes(quad, quad_rows(pack, 0, 1, ax.W, ax.H)),
+        [(valid * (shade_ops(ax.C, ax.nd, True, True) + 8 * ax.C + 10)
+          + N * COMPOSITE_OPS, F32_OPS_PER_S)])
+    print(f"# stanford chunk ({card}): K2 {k2_ms:.3f} ms (plain "
+          f"{k2_plain_ms:.3f}, bound {k2_bound[0]:.4f} {k2_bound[1]}); the "
+          f"general chain before it {chain_ms:.3f} ms", flush=True)
+    del out, out_p, pack, rp
+    torch.cuda.empty_cache()
+
+    # ---- 26. the bench frame through model.apply (the general chain and
+    # K2), and through the general colour net
+    def render(m, rkw):
+        return [m.apply(params, frame6[i], ctx, rkw)
+                for i in range(frame6.shape[0])]
+
+    cfg_g = copy.deepcopy(cfg)
+    cfg_g["color"]["net"]["fused_render"] = False
+    general = build_model(cfg_g, compute_dtype=torch.bfloat16)
+    rk = {"cf_prepared": prep}
+    n_chunks = frame6.shape[0]
+    reset_counts()
+    outs = render(model, rk)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    rgb = torch.cat([o["rgb"] for o in outs])
+    want = dict.fromkeys(counts, 0)
+    want.update(shade=n_chunks)
+    if not (torch.isfinite(rgb).all() and rgb.min() >= 0 and rgb.max() <= 1
+            and rgb.shape == (SIDE * SIDE, 3)):
+        raise AssertionError("stanford: frame rgb is not finite in [0, 1]")
+    if counts != want:
+        raise AssertionError(f"stanford: kernel launches {counts}, want "
+                             f"{want}")
+    # ---- 27. against the general colour net on the same chain
+    rgb_g = torch.cat([o["rgb"] for o in render(general, {})])
+    path_err = (rgb - rgb_g).abs().max().item()
+    print(f"# frame {SIDE}x{SIDE} (stanford own fused route): rgb min "
+          f"{rgb.min().item():.4f} max {rgb.max().item():.4f} mean "
+          f"{rgb.mean().item():.4f}; launches {counts}; vs the general "
+          f"colour net {path_err:.3e} (tol {PATH_TOL})", flush=True)
+    if not path_err <= PATH_TOL:
+        raise AssertionError(f"stanford fused and general paths disagree: "
+                             f"{path_err}")
+    del outs, rgb, rgb_g
+
+    # ---- 28. frame time of the own route and of the general path, in
+    # turns
+    routes = {"stanford own fused route": (model, rk),
+              "stanford general path": (general, {})}
+    times = {name: [] for name in routes}
+    for name in (list(routes) + list(routes)[::-1]) * 2:
+        m, rkw = routes[name]
+        times[name].append(cuda_ms(torch, lambda: render(m, rkw),
+                                   N3D_TIMED_FRAMES))
+    frame_ms = {}
+    for name, ts in times.items():
+        frame_ms[name] = sum(ts) / len(ts)
+        print(f"# {card}: {name} {frame_ms[name]:.3f} ms/frame, "
+              f"{SIDE * SIDE / frame_ms[name] / 1e3:.3f} Mrays/s "
+              f"({N3D_TIMED_FRAMES} frames after a warm-up frame, 4 times: "
+              + ", ".join(f"{t:.3f}" for t in ts) + ")", flush=True)
+    return [entry("shade_rgb_weights", "shade.cu",
+                  "hyperreel_tpu/ops/pallas/shade.py:238", counts["shade"],
+                  k2_err, k2_ms, k2_plain_ms, k2_bound)], frame_ms
 
 
 def n3d(dev, bf16=True, patch=None, params=None):
@@ -1483,6 +1770,38 @@ def main():
                              f"plain versions: {f_ratio}, {pre_err}, "
                              f"{chain_err}")
 
+    # the RGB colour of K2, K2-preblended and K3 on the same inputs (no
+    # ported preset runs them: the dynamic single-axis net is SH), with a
+    # random [3, C] basis, zero on the density channels
+    gen = torch.Generator().manual_seed(SEED)
+    wb_rgb = torch.cat([torch.zeros(3, nd), torch.randn(3, C - nd,
+                                                        generator=gen)], 1)
+    spec_rgb = dataclasses.replace(spec, shading="rgb")
+    rgb_errs = {}
+    for name, fn, fn_p, args in (
+            ("K2", shade, shade_plain, (prep["quad"], pack, rp)),
+            ("K2-preblended", shade_preblended, shade_preblended_plain,
+             (feats, pack_pm, rp_pm))):
+        o = fn(*args, ttab, wb_rgb, spec_rgb)
+        o_p = fn_p(*args, ttab, wb_rgb, spec_rgb)
+        torch.cuda.synchronize()
+        rgb_errs[name] = (o[:, :4] - o_p[:, :4]).abs().max().item()
+    o, vk = shade_patch(prep8["patch"], pack_pm, rp_pm, ttab, wb_rgb,
+                        spec_rgb, ps8)
+    o_p, vp = shade_patch_plain(prep8["patch"], pack_pm, rp_pm, ttab, wb_rgb,
+                                spec_rgb, ps8)
+    torch.cuda.synchronize()
+    rgb_errs["K3 R=8 (5,2)"] = (o[:, :4] - o_p[:, :4]).abs().max().item()
+    print("# RGB colour on the flagship's chunk, max |kernel - plain| "
+          "rgb/acc: " + ", ".join(f"{k} {v:.3e}" for k, v in
+                                  rgb_errs.items())
+          + f" (tol {SHADE_TOL}); K3 violations {int(vk)} (plain "
+          f"{int(vp)})", flush=True)
+    if not (max(rgb_errs.values()) <= SHADE_TOL and int(vk) == int(vp)):
+        raise AssertionError(f"the RGB colour of K2 / K2-preblended / K3 "
+                             f"disagrees with the plain versions: {rgb_errs}")
+    del o, o_p
+
     # the patch kernels and K2 on the same chunk, timed in turns
     # (K2, K3, K4, K2-pre, K2-pre, K4, K3, K2), 20 calls each time
     kernels = {
@@ -1614,14 +1933,29 @@ def main():
     torch.cuda.empty_cache()
 
     # ---- 9-13. the static multi-axis family (llff_z_plane)
-    llff_entries, llff_frame_ms = llff_phases(
-        torch, dev, card.splitlines()[0], frame, reset_counts, read_counts)
+    gpu = card.splitlines()[0]
+    llff_entries, llff_frame_ms = static_phases(
+        torch, dev, gpu, frame, reset_counts, read_counts, "llff")
     frame_ms.update(llff_frame_ms)
 
     # ---- 14-18. the dynamic multi-axis family (neural_3d_z_plane)
     n3d_entries, n3d_frame_ms = n3d_phases(
-        torch, dev, card.splitlines()[0], frame, reset_counts, read_counts)
+        torch, dev, gpu, frame, reset_counts, read_counts)
     frame_ms.update(n3d_frame_ms)
+    torch.cuda.empty_cache()
+
+    # ---- 19-23. the static RGB family on the channels-first route
+    # (shiny_z_plane)
+    shiny_entries, shiny_frame_ms = static_phases(
+        torch, dev, gpu, frame, reset_counts, read_counts, "shiny")
+    frame_ms.update(shiny_frame_ms)
+    torch.cuda.empty_cache()
+
+    # ---- 24-28. the single-axis RGB net through its own fused route
+    # (stanford_llff_z_plane)
+    stanford_entries, stanford_frame_ms = stanford_phases(
+        torch, dev, gpu, frame, reset_counts, read_counts)
+    frame_ms.update(stanford_frame_ms)
     print(f"# chip_smoke took {time.perf_counter() - t_start:.1f} s after "
           "the card check", flush=True)
 
@@ -1647,7 +1981,7 @@ def main():
         entry("composite", "composite.cu",
               "hyperreel_tpu/ops/pallas/composite.py:26", k7_launches,
               k7_err, k7_ms, k7_plain_ms, k7_bound)] + llff_entries
-        + n3d_entries,
+        + n3d_entries + shiny_entries + stanford_entries,
         "frame_ms": frame_ms}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -320,6 +320,129 @@ def neural_3d_z_plane(z_channels=64):
     return cfg
 
 
+def stanford_llff_z_plane(z_channels=32):
+    """Stanford light fields, two-plane NDC parameterization + z-planes
+    (reference conf/experiment/model/stanford_llff_z_plane.yaml): one
+    plane x line axis ([8, 0, 0]) with RGB colour."""
+    return {
+        "type": "lightfield",
+        "param": {"n_dims": 6, "fn": "identity"},
+        "embedding": {
+            "type": "ray_point",
+            "embeddings": {
+                "ray_prediction_0": {
+                    "type": "ray_prediction",
+                    "params": {
+                        "ray": {
+                            "start": 0, "end": 6,
+                            "param": {"n_dims": 4, "fn": "two_plane",
+                                      "near": -1.0, "far": 0.0},
+                            "pe": {"type": "windowed", "n_freqs": 1,
+                                   "freq_multiplier": 2.0,
+                                   "wait_iters": 0, "max_freq_epoch": 0},
+                        },
+                    },
+                    "net": {"type": "base", "group": "embedding_impl",
+                            "depth": 6, "hidden_channels": 256, "skips": [3]},
+                    "z_channels": z_channels,
+                    "outputs": {
+                        "z_vals": {"channels": 1},
+                        "sigma": {"channels": 1,
+                                  "activation": _ease_sigmoid(0, 0)},
+                        "point_sigma": {"channels": 1,
+                                        "activation": _ease_sigmoid(0, 0)},
+                        "point_offset": {
+                            "channels": 3,
+                            "activation": {"type": "tanh",
+                                           "outer_fac": 0.25},
+                        },
+                        "color_scale": {"channels": 3,
+                                        "activation": _ease_zero()},
+                        "color_shift": {"channels": 3,
+                                        "activation": _ease_zero()},
+                    },
+                },
+                "ray_intersect_0": {
+                    "type": "ray_intersect",
+                    "z_channels": z_channels,
+                    "intersect": {
+                        "type": "z_plane",
+                        "sort": True,
+                        "outward_facing": False,
+                        "use_disparity": False,
+                        "use_sigma": True,
+                        "out_points": "raw_points",
+                        "out_distance": "raw_distance",
+                        "initial": -1.0,
+                        "end": 1.0,
+                        "mask": {"stop_iters": -1},
+                        "activation": {"type": "identity", "fac": 0.5},
+                    },
+                },
+                "point_offset_0": {
+                    "type": "point_offset",
+                    "in_density_field": "point_sigma",
+                    "use_sigma": True,
+                },
+                "add_point_outputs_0": {
+                    "type": "add_point_outputs",
+                    "extra_outputs": ["viewdirs"],
+                },
+                "extract_fields": {
+                    "type": "extract_fields",
+                    "fields": ["points", "distances", "viewdirs", "weights",
+                               "color_scale", "color_shift"],
+                },
+            },
+        },
+        "color": {
+            "type": "base",
+            "net": {
+                "type": "tensor_vm_split_no_sample",
+                "white_bg": 0,
+                "black_bg": 0,
+                "fea2denseAct": "relu",
+                "distance_scale": 8.0,
+                "density_shift": 0.0,
+                "aabb": [[-2.0, -2.0, -1.0], [2.0, 2.0, 1.0]],
+                "N_voxel_init": 512000,
+                "N_voxel_final": 512000000,
+                "upsamp_list": [4000, 6000, 8000, 10000, 12000],
+                "lr_upsample_reset": True,
+                "update_AlphaMask_list": [4000, 8000],
+                "rm_weight_mask_thre": 0,
+                "alpha_mask_thre": 1e-3,
+                "n_lamb_sigma": [8, 0, 0],
+                "n_lamb_sh": [8, 0, 0],
+                "shadingMode": "RGB",
+                "data_dim_color": 3,
+                # the net's own fused route (TensorVMNoSample.apply_fused)
+                "fused_render": True,
+            },
+        },
+    }
+
+
+def shiny_z_plane(z_channels=32):
+    """Shiny dense scenes, two-plane rays + z-planes (reference
+    conf/experiment/model/shiny_z_plane.yaml, whose sample stages are
+    commented out upstream): stanford_llff_z_plane's chain with ease
+    windows on the sigmas, no near/far mask, num_samples_for_scale 32, and
+    [8, 4, 4] components (the llff layout) with RGB colour."""
+    cfg = stanford_llff_z_plane(z_channels=z_channels)
+    emb = cfg["embedding"]["embeddings"]
+    pred = emb["ray_prediction_0"]
+    pred["params"]["ray"]["param"] = {"n_dims": 4, "fn": "two_plane"}
+    pred["outputs"]["sigma"]["activation"] = _ease_sigmoid(3, 0)
+    pred["outputs"]["point_sigma"]["activation"] = _ease_sigmoid(3, 1)
+    isect = emb["ray_intersect_0"]["intersect"]
+    del isect["mask"]
+    isect["num_samples_for_scale"] = 32
+    cfg["color"]["net"].update(N_voxel_init=2097152, N_voxel_final=262144000,
+                               n_lamb_sigma=[8, 4, 4], n_lamb_sh=[8, 4, 4])
+    return cfg
+
+
 def with_coherent_gather(cfg, px=4, py=3, block=4):
     """Enable the coherent patch-gather render path (one (px x py)-texel
     row per `block`-consecutive-ray block and sample slot —
@@ -386,4 +509,24 @@ def tiny_dynamic(z_channels=8, grid=32):
     net["n_lamb_sh"] = [4, 0, 0]
     cfg["embedding"]["embeddings"]["ray_prediction_0"]["net"].update(
         {"depth": 4, "hidden_channels": 64, "skips": [2]})
+    return cfg
+
+
+def tiny_stanford_llff(z_channels=8, grid=32):
+    """Miniature stanford_llff_z_plane for tests, with bf16 tables: the
+    net's own fused route needs them (as the JAX package's
+    _fused_eligible), where the JAX package's tiny version turns them
+    off."""
+    cfg = _shrink_for_tests(stanford_llff_z_plane(z_channels=z_channels),
+                            grid)
+    cfg["color"]["net"]["bf16_tables"] = True
+    return cfg
+
+
+def tiny_shiny(z_channels=8, grid=32):
+    """Miniature shiny_z_plane for tests, without the sample stages (not
+    ported) and with bf16 tables, which the channels-first route
+    (cf_eligible) and the net's own fused route need."""
+    cfg = _shrink_for_tests(shiny_z_plane(z_channels=z_channels), grid)
+    cfg["color"]["net"]["bf16_tables"] = True
     return cfg

@@ -20,8 +20,10 @@
 // premixed for one t is a line, TH = 0); their product; the first nd
 // channels sum into the density feature (per axis, then across axes, as
 // JAX adds each axis's sum), the rest append to one appearance vector in
-// axis order; then one SH-2 colour from it (shade_core.cuh sh_colour with
-// the [3 * kBasis, A] basis, A the appearance channels) and relu density.
+// axis order; then one colour from it (shade_core.cuh colour: SH of
+// degree 2 with the [3 * kBasis, A] basis, or RGB with a [3, A] one, A the
+// appearance channels) and relu density (of the density sum times the
+// sample's weight where the pack has the weights row).
 // The kernels are built for the [8, 4, 4] layout of both families, axes 0,
 // 1, 2 with C = 16, 8, 8 of which 8, 4, 4 density channels (the
 // llff_z_plane and neural_3d_z_plane presets, and tiny_static with those
@@ -51,7 +53,10 @@ struct MultiParams {
   int B, S;
   float distance_scale;
   MultiAxis axis[3];
-  float wb[kMaxWb];  // [3 * kBasis, A], rows ch * kBasis + k
+  float wb[kMaxWb];  // SH: [3 * kBasis, A], rows ch * kBasis + k; RGB [3, A]
+  // the host's choice of instantiation: 1 = RGB colour (kRgb); 1 = the
+  // pack has the weights row (kWeights, the quad kernel only)
+  int rgb, weights;
 };
 
 namespace multi_core {
@@ -151,12 +156,13 @@ __device__ __forceinline__ void line_product(const MultiAxis& ax,
 }
 
 // Everything after the three planes' features of one valid sample (the
-// per-axis products, relu density, the SH colour): `feat(A, f)` writes
-// axis A's C_A plane features to f (A a std::integral_constant).
-template <bool kTime, typename Feat>
+// per-axis products, relu density of their sum (times the sample's weight
+// `wt` with kWeights), the colour): `feat(A, f)` writes axis A's C_A plane
+// features to f (A a std::integral_constant).
+template <bool kTime, bool kRgb, bool kWeights, typename Feat>
 __device__ __forceinline__ void shade_axes(const MultiParams& p,
                                            const float* pk, const float* ray,
-                                           Feat feat, float& sigma,
+                                           Feat feat, float wt, float& sigma,
                                            float* rgb) {
   const float tn = kTime ? __ldg(ray + 7) : 0.0f;
   float dsum = 0.0f;
@@ -178,8 +184,8 @@ __device__ __forceinline__ void shade_axes(const MultiParams& p,
     line_product<2, kCh2, kNd2, kTime>(p.axis[2], pk, tn, f, dsum,
                                 app + kCh0 - kNd0 + kCh1 - kNd1);
   }
-  sigma = fmaxf(dsum, 0.0f);
-  shade_core::sh_colour<kApp>(app, p.wb, pk, ray, rgb);
+  sigma = fmaxf(kWeights ? dsum * wt : dsum, 0.0f);
+  shade_core::colour<kApp, kRgb>(app, p.wb, pk, ray, rgb);
 }
 
 // Does any axis of p have a time plane (TH > 0)?

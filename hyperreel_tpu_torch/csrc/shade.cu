@@ -23,8 +23,13 @@
 // compiles to FMAs with constant operands. The per-ray composite is a
 // log-space inclusive scan over __shfl_up_sync inside the segment, and the
 // per-ray sums a butterfly of __shfl_xor_sync: nothing per-sample is
-// written to memory. Built for SH degree 2 and C in {8, 16}, the
-// (C, degree) pairs of the ported configurations.
+// written to memory. Built for C in {8, 16} with SH of degree 2 or RGB
+// colour (a template argument), those of the ported configurations; the
+// quad kernel with the weights row (kWeights) scales the density feature
+// by the sample's predicted weight before the relu, as the static net's
+// own fused route asks (shade.py:223-224; there the z line of
+// stanford_llff_z_plane is the premixed table, TH = 0). Both are template
+// arguments, so that the SH routes' kernels are the ones they were.
 
 #include "shade_core.cuh"
 
@@ -35,8 +40,9 @@ using namespace shade_core;
 constexpr int kThreads = 128;
 
 // kPre: `space` is the bf16 feature array [B*S, C] (one row per sample)
-// instead of the quad table [(H+1)*(W+1), 4C]
-template <int C, bool kPre>
+// instead of the quad table [(H+1)*(W+1), 4C]; kRgb: RGB colour, else SH;
+// kWeights: the pack has the weights row
+template <int C, bool kPre, bool kRgb, bool kWeights>
 __global__ void shade_kernel(const uint4* __restrict__ space,
                              const float* __restrict__ pack,
                              const float* __restrict__ rays,
@@ -87,11 +93,40 @@ __global__ void shade_kernel(const uint4* __restrict__ space,
         }
       }
     }
-    shade_sample<C>(feat, pk, ray, ttab, p, sigma, rgb);
+    const float wt =
+        kWeights ? __ldg(pack + (int64_t)kWeightsRow * N + g) : 1.0f;
+    shade_sample<C, kRgb, kWeights>(feat, pk, ray, ttab, p, wt, sigma, rgb);
   }
 
   composite_store(sigma, rgb, pk[3], p.distance_scale, s, S, live,
                   out + (live ? g / S : 0) * 5);
+}
+
+template <int C, bool kPre, bool kRgb, bool kWeights>
+void run(unsigned blocks, const uint4* sp, const float* pack,
+         const float* rays, const float* ttab, float* out,
+         const ShadeParams* p, cudaStream_t st) {
+  shade_kernel<C, kPre, kRgb, kWeights><<<blocks, kThreads, 0, st>>>(
+      sp, pack, rays, ttab, out, *p);
+}
+
+// the instantiation for p's colour and weights row (the pre-blended
+// kernel has none)
+template <int C, bool kPre>
+void run_c(unsigned blocks, const uint4* sp, const float* pack,
+           const float* rays, const float* ttab, float* out,
+           const ShadeParams* p, cudaStream_t st) {
+  if (!kPre && p->weights) {
+    p->rgb ? run<C, false, true, true>(blocks, sp, pack, rays, ttab, out, p,
+                                       st)
+           : run<C, false, false, true>(blocks, sp, pack, rays, ttab, out, p,
+                                        st);
+  } else {
+    p->rgb ? run<C, kPre, true, false>(blocks, sp, pack, rays, ttab, out, p,
+                                       st)
+           : run<C, kPre, false, false>(blocks, sp, pack, rays, ttab, out, p,
+                                        st);
+  }
 }
 
 template <bool kPre>
@@ -99,7 +134,9 @@ int launch(const void* space, const float* pack, const float* rays,
            const float* ttab, float* out, const ShadeParams* p,
            void* stream) {
   const int S = p->S;
-  if (S < 1 || S > 32 || (S & (S - 1))) return (int)cudaErrorInvalidValue;
+  if (S < 1 || S > 32 || (S & (S - 1)) || (kPre && p->weights)) {
+    return (int)cudaErrorInvalidValue;
+  }
   const int64_t n = (int64_t)p->B * S;
   if (n == 0) return 0;
   const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
@@ -107,12 +144,10 @@ int launch(const void* space, const float* pack, const float* rays,
   cudaStream_t st = (cudaStream_t)stream;
   switch (p->C) {
     case 8:
-      shade_kernel<8, kPre><<<blocks, kThreads, 0, st>>>(sp, pack, rays,
-                                                         ttab, out, *p);
+      run_c<8, kPre>(blocks, sp, pack, rays, ttab, out, p, st);
       break;
     case 16:
-      shade_kernel<16, kPre><<<blocks, kThreads, 0, st>>>(sp, pack, rays,
-                                                          ttab, out, *p);
+      run_c<16, kPre>(blocks, sp, pack, rays, ttab, out, p, st);
       break;
     default:
       return (int)cudaErrorInvalidValue;

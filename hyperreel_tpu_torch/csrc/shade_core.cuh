@@ -1,10 +1,11 @@
 // Device code shared by the shade kernels (K2 shade.cu, K3 shade_patch.cu,
 // K5 shade_multi.cu, K6 shade_multi_patch.cu) and the standalone composite
 // (K7 composite.cu): the per-sample shading that follows the space
-// features (time-plane taps and density for K2/K3; the SH-2 colour with
-// its colour scale/shift for all four) and the per-ray log-space composite
-// over an S-lane segment of a warp (S <= 32), or over a whole warp with two
-// samples per lane (S = 64, K5 and K6).
+// features (time-plane taps and density for K2/K3; for all four the
+// colour, SH of degree 2 or RGB (a template argument, kRgb), with its
+// colour scale/shift) and the per-ray log-space composite over an S-lane
+// segment of a warp (S <= 32), or over a whole warp with two samples per
+// lane (S = 64, K5 and K6).
 
 #pragma once
 
@@ -18,12 +19,20 @@ constexpr int kMaxWb = 3 * kBasis * 16;      // [3 * kBasis, C] floats
 struct ShadeParams {
   int B, S, W, H, TW, TH, C, nd;
   float distance_scale;
-  float wb[kMaxWb];  // [3 * kBasis, C], rows ch * kBasis + k (colour ch)
+  // SH: [3 * kBasis, C], rows ch * kBasis + k (colour ch); RGB: [3, C]
+  float wb[kMaxWb];
+  // the host's choice of instantiation: 1 = RGB colour (kRgb); 1 = the
+  // pack has the weights row (kWeights, quad kernels only)
+  int rgb, weights;
 };
 
 namespace shade_core {
 
 constexpr int kPackRows = 10;
+// the predicted per-sample weight, in a pack with the weights row (the
+// static net's own fused route); it scales the density feature before
+// the relu
+constexpr int kWeightsRow = 10;
 constexpr float kLogEps = -23.025850929940457f;  // log(1e-10)
 constexpr float kExpClamp = 70.0f;
 
@@ -149,17 +158,48 @@ __device__ __forceinline__ void sh_colour(const float* feat, const float* wb,
   }
 }
 
+// The RGB colour of one valid sample from its C features:
+// rgb = sigmoid(wb @ feat) * (scale + 1) + shift, with wb [3, C] (zero on
+// the density channels where feat holds them) and sigmoid(x) = 1 / (1 +
+// exp(-x)), as the JAX kernel computes it (shade.py:369); the scale and
+// shift in pack rows 4..9.
+template <int C>
+__device__ __forceinline__ void rgb_colour(const float* feat, const float* wb,
+                                           const float* pk, float* rgb) {
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    float app = 0.0f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) app += wb[ch * C + c] * feat[c];
+    rgb[ch] = (1.0f / (1.0f + expf(-app))) * (pk[4 + ch] + 1.0f) +
+              pk[7 + ch];
+  }
+}
+
+// The colour of one valid sample: RGB (kRgb) or SH of degree 2.
+template <int C, bool kRgb>
+__device__ __forceinline__ void colour(const float* feat, const float* wb,
+                                       const float* pk, const float* ray,
+                                       float* rgb) {
+  if constexpr (kRgb) {
+    rgb_colour<C>(feat, wb, pk, rgb);
+  } else {
+    sh_colour<C>(feat, wb, pk, ray, rgb);
+  }
+}
+
 // Everything after the space features of one valid sample: the time
-// features (z taps, then t taps, or z taps on a table premixed for one t
-// when p.TH == 0), density = relu of the summed density channels, and the
-// SH-2 colour of the products (sh_colour).
+// features (z taps, then t taps, or z taps on a table premixed for one t,
+// or on a static net's z line, when p.TH == 0), density = relu of the
+// summed density channels (times the sample's weight `wt` with kWeights),
+// and the colour of the products.
 // `feat` holds the C space features and is overwritten; `pk` the sample's
 // 10 pack rows, `ray` its ray pack row (o xyz, d xyz, dt, tn).
-template <int C>
+template <int C, bool kRgb, bool kWeights>
 __device__ __forceinline__ void shade_sample(float* feat, const float* pk,
                                              const float* ray,
                                              const float* ttab,
-                                             const ShadeParams& p,
+                                             const ShadeParams& p, float wt,
                                              float& sigma, float* rgb) {
   const Taps tz = taps(pk[2], p.TW);
   float ft[C];
@@ -188,8 +228,8 @@ __device__ __forceinline__ void shade_sample(float* feat, const float* pk,
     feat[c] *= ft[c];
     if (c < p.nd) dsum += feat[c];
   }
-  sigma = fmaxf(dsum, 0.0f);
-  sh_colour<C>(feat, p.wb, pk, ray, rgb);
+  sigma = fmaxf(kWeights ? dsum * wt : dsum, 0.0f);
+  colour<C, kRgb>(feat, p.wb, pk, ray, rgb);
 }
 
 // The composite weight of this lane's sample in its ray, over the S-lane

@@ -32,7 +32,12 @@
 // pre-blended variant 17 % on the H100). The basis rides in the kernel
 // parameters (constant bank). The composite and per-ray sums are K2's
 // warp scan and butterfly (shade_core.cuh; at S = 64 each lane first
-// combines its pair). Built for the layout of multi_core.cuh.
+// combines its pair). Built for the layout of multi_core.cuh, with SH of
+// degree 2 or RGB colour (a template argument, like kTime); the quad
+// kernel with the weights row (kWeights: the static net's own fused route,
+// shade.py:728-729) scales the density sum by the sample's predicted
+// weight before the relu. Template arguments all, so that the SH routes'
+// kernels are the ones they were.
 
 #include "multi_core.cuh"
 
@@ -45,8 +50,9 @@ constexpr int kThreads = 128;
 
 // kPre: each axis's `table` is its pre-blended bf16 features [B*S, C].
 // SPL samples per lane: lane l of ray r's segment of S / SPL lanes holds
-// samples SPL*l + j. kTime: some axis has a time plane (TH > 0).
-template <bool kPre, int SPL, bool kTime>
+// samples SPL*l + j. kTime: some axis has a time plane (TH > 0). kRgb:
+// RGB colour, else SH. kWeights: the pack has the weights row.
+template <bool kPre, int SPL, bool kTime, bool kRgb, bool kWeights>
 __global__ void __launch_bounds__(kThreads)
     shade_multi_kernel(const float* __restrict__ pack,
                        const float* __restrict__ rays,
@@ -81,7 +87,10 @@ __global__ void __launch_bounds__(kThreads)
           quad_features<a, kChOf<a>>(p.axis[a], pk, f);
         }
       };
-      shade_axes<kTime>(p, pk, ray, feat, sigma[j], rgb[j]);
+      const float wt =
+          kWeights ? __ldg(pack + (int64_t)kWeightsRow * N + g) : 1.0f;
+      shade_axes<kTime, kRgb, kWeights>(p, pk, ray, feat, wt, sigma[j],
+                                        rgb[j]);
     }
   }
   float* o = out + (live ? ray_i : 0) * 5;
@@ -94,18 +103,46 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <bool kPre, int SPL, bool kTime>
+template <bool kPre, int SPL, bool kTime, bool kRgb, bool kWeights>
 void run(unsigned blocks, const float* pack, const float* rays, float* out,
          const MultiParams* p, cudaStream_t st) {
-  shade_multi_kernel<kPre, SPL, kTime><<<blocks, kThreads, 0, st>>>(
-      pack, rays, out, *p);
+  shade_multi_kernel<kPre, SPL, kTime, kRgb, kWeights>
+      <<<blocks, kThreads, 0, st>>>(pack, rays, out, *p);
+}
+
+// the instantiation for p's colour and weights row (the pre-blended
+// kernel has none)
+template <bool kPre, int SPL, bool kTime>
+void run_c(unsigned blocks, const float* pack, const float* rays, float* out,
+           const MultiParams* p, cudaStream_t st) {
+  if (!kPre && p->weights) {
+    p->rgb ? run<false, SPL, kTime, true, true>(blocks, pack, rays, out, p,
+                                                st)
+           : run<false, SPL, kTime, false, true>(blocks, pack, rays, out, p,
+                                                 st);
+  } else {
+    p->rgb ? run<kPre, SPL, kTime, true, false>(blocks, pack, rays, out, p,
+                                                st)
+           : run<kPre, SPL, kTime, false, false>(blocks, pack, rays, out, p,
+                                                 st);
+  }
+}
+
+// the instantiation for p's time planes
+template <bool kPre, int SPL>
+void run_s(unsigned blocks, const float* pack, const float* rays, float* out,
+           const MultiParams* p, cudaStream_t st) {
+  has_time(*p) ? run_c<kPre, SPL, true>(blocks, pack, rays, out, p, st)
+               : run_c<kPre, SPL, false>(blocks, pack, rays, out, p, st);
 }
 
 template <bool kPre>
 int launch(const float* pack, const float* rays, float* out,
            const MultiParams* p, void* stream) {
   const int S = p->S;
-  if (S < 1 || S > 64 || (S & (S - 1))) return (int)cudaErrorInvalidValue;
+  if (S < 1 || S > 64 || (S & (S - 1)) || (kPre && p->weights)) {
+    return (int)cudaErrorInvalidValue;
+  }
   for (int a = 0; a < 3; ++a) {
     if (p->axis[a].TH < 0) return (int)cudaErrorInvalidValue;
   }
@@ -113,13 +150,10 @@ int launch(const float* pack, const float* rays, float* out,
   if (n == 0) return 0;
   const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
   cudaStream_t st = (cudaStream_t)stream;
-  const bool time = has_time(*p);
   if (S <= 32) {
-    time ? run<kPre, 1, true>(blocks, pack, rays, out, p, st)
-         : run<kPre, 1, false>(blocks, pack, rays, out, p, st);
+    run_s<kPre, 1>(blocks, pack, rays, out, p, st);
   } else {
-    time ? run<kPre, 2, true>(blocks, pack, rays, out, p, st)
-         : run<kPre, 2, false>(blocks, pack, rays, out, p, st);
+    run_s<kPre, 2>(blocks, pack, rays, out, p, st);
   }
   return (int)cudaGetLastError();
 }

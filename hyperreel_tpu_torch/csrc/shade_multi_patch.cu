@@ -28,8 +28,10 @@
 // into launches with a time plane) and K2's composite (shade_core.cuh).
 // The kernel also counts the coverage violations (slots whose footprint
 // exits the patch on any plane). Built for the layout of multi_core.cuh, R
-// in {4, 8} and S a power of two <= 64; at S = 64 and R = 4 (4, 3) the
-// block's 128 slots take 117 KB of shared memory, one block per SM.
+// in {4, 8}, S a power of two <= 64 and SH of degree 2 or RGB colour (a
+// template argument); at S = 64 and R = 4 (4, 3) the block's 128 slots
+// take 117 KB of shared memory, one block per SM. A pack with the weights
+// row is refused (not built: ROADMAP.md 2a).
 
 #include "multi_core.cuh"
 #include "patch_core.cuh"
@@ -40,7 +42,7 @@ using namespace shade_core;
 using namespace multi_core;
 using namespace patch_core;
 
-template <int R, int SPL, bool kTime>
+template <int R, int SPL, bool kTime, bool kRgb>
 __global__ void __launch_bounds__(kPatchThreads)
     shade_multi_patch_kernel(const float* __restrict__ pack,
                              const float* __restrict__ rays,
@@ -89,7 +91,8 @@ __global__ void __launch_bounds__(kPatchThreads)
         patch_features<kChOf<a>>(rows[i * 3 + a], u[i * 3 + a],
                                  v[i * 3 + a], q.px, q.py, f);
       };
-      shade_axes<kTime>(p, pk[i], ray, feat, sigma[i], rgb[i]);
+      shade_axes<kTime, kRgb, false>(p, pk[i], ray, feat, 1.0f, sigma[i],
+                                     rgb[i]);
     }
   }
   if constexpr (SPL == 1) {
@@ -107,36 +110,46 @@ size_t multi_smem_bytes(const PatchParams& q) {
   return smem_bytes(vecs, 3, q.R, samples_per_lane(q.S));
 }
 
-template <int R, int SPL, bool kTime>
+template <int R, int SPL, bool kTime, bool kRgb>
 cudaError_t launch(const float* pack, const float* rays, float* out,
                    int* viol, const MultiParams& p, const PatchParams& q,
                    cudaStream_t st) {
   const size_t smem = multi_smem_bytes(q);
   // above 48 KB only as dynamic shared memory, after opting in
   cudaError_t e = cudaFuncSetAttribute(
-      shade_multi_patch_kernel<R, SPL, kTime>,
+      shade_multi_patch_kernel<R, SPL, kTime, kRgb>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   const int64_t J = q.B / R;
   const int per_block = kPatchThreads / (R * (q.S / SPL));
   const unsigned blocks = (unsigned)((J + per_block - 1) / per_block);
-  shade_multi_patch_kernel<R, SPL, kTime>
+  shade_multi_patch_kernel<R, SPL, kTime, kRgb>
       <<<blocks, kPatchThreads, smem, st>>>(pack, rays, out, viol, p, q);
   return cudaGetLastError();
 }
 
-// the instantiation for q's samples per lane and p's second factors
+// the instantiation for p's second factors and colour
+template <int R, int SPL>
+cudaError_t launch_c(const float* pack, const float* rays, float* out,
+                     int* viol, const MultiParams& p, const PatchParams& q,
+                     cudaStream_t st) {
+  if (has_time(p)) {
+    return p.rgb ? launch<R, SPL, true, true>(pack, rays, out, viol, p, q, st)
+                 : launch<R, SPL, true, false>(pack, rays, out, viol, p, q,
+                                               st);
+  }
+  return p.rgb ? launch<R, SPL, false, true>(pack, rays, out, viol, p, q, st)
+               : launch<R, SPL, false, false>(pack, rays, out, viol, p, q,
+                                              st);
+}
+
+// the instantiation for q's samples per lane
 template <int R>
 cudaError_t launch_s(const float* pack, const float* rays, float* out,
                      int* viol, const MultiParams& p, const PatchParams& q,
                      cudaStream_t st) {
-  const bool time = has_time(p);
-  if (q.S <= 32) {
-    return time ? launch<R, 1, true>(pack, rays, out, viol, p, q, st)
-                : launch<R, 1, false>(pack, rays, out, viol, p, q, st);
-  }
-  return time ? launch<R, 2, true>(pack, rays, out, viol, p, q, st)
-              : launch<R, 2, false>(pack, rays, out, viol, p, q, st);
+  return q.S <= 32 ? launch_c<R, 1>(pack, rays, out, viol, p, q, st)
+                   : launch_c<R, 2>(pack, rays, out, viol, p, q, st);
 }
 
 }  // namespace
@@ -147,7 +160,7 @@ extern "C" int shade_multi_patch_launch(const float* pack, const float* rays,
                                         const PatchParams* q, void* stream) {
   const int S = q->S;
   if (S < 1 || S > 64 || (S & (S - 1)) || p->S != S || p->B != q->B ||
-      (q->R != 4 && q->R != 8) || q->B % q->R ||
+      p->weights || (q->R != 4 && q->R != 8) || q->B % q->R ||
       multi_smem_bytes(*q) > 227 * 1024) {
     return (int)cudaErrorInvalidValue;
   }

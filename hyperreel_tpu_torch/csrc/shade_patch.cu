@@ -19,7 +19,9 @@
 // into shared memory with coalesced 16-byte loads, and the R rays blend
 // from it; the features never reach device memory. Everything after the
 // space features is K2's per-sample shading and warp composite
-// (shade_core.cuh). Built for C in {8, 16} and R in {4, 8}.
+// (shade_core.cuh). Built for C in {8, 16}, R in {4, 8} and SH of degree 2
+// or RGB colour (a template argument); a pack with the weights row is
+// refused (not built: ROADMAP.md 2a).
 
 #include "patch_core.cuh"
 
@@ -28,7 +30,7 @@ namespace {
 using namespace shade_core;
 using namespace patch_core;
 
-template <int C, int R>
+template <int C, int R, bool kRgb>
 __global__ void __launch_bounds__(kPatchThreads)
     shade_patch_kernel(const uint4* __restrict__ ptab,
                        const float* __restrict__ pack,
@@ -60,7 +62,8 @@ __global__ void __launch_bounds__(kPatchThreads)
   if (valid) {
     float feat[C];
     patch_features<C>(row, u, v, q.px, q.py, feat);
-    shade_sample<C>(feat, pk, rays + t.pos * 8, ttab, p, sigma, rgb);
+    shade_sample<C, kRgb, false>(feat, pk, rays + t.pos * 8, ttab, p, 1.0f,
+                                 sigma, rgb);
   }
 
   composite_store(sigma, rgb, pk[3], p.distance_scale, t.s, S, t.live,
@@ -76,8 +79,13 @@ cudaError_t launch(const uint4* ptab, const float* pack, const float* rays,
   const int64_t J = q.B / R;
   const int per_block = kPatchThreads / (R * q.S);
   const unsigned blocks = (unsigned)((J + per_block - 1) / per_block);
-  shade_patch_kernel<C, R><<<blocks, kPatchThreads, smem, st>>>(
-      ptab, pack, rays, ttab, out, viol, p, q);
+  if (p.rgb) {
+    shade_patch_kernel<C, R, true><<<blocks, kPatchThreads, smem, st>>>(
+        ptab, pack, rays, ttab, out, viol, p, q);
+  } else {
+    shade_patch_kernel<C, R, false><<<blocks, kPatchThreads, smem, st>>>(
+        ptab, pack, rays, ttab, out, viol, p, q);
+  }
   return cudaGetLastError();
 }
 
@@ -90,7 +98,8 @@ extern "C" int shade_patch_launch(const void* ptab, const float* pack,
                                   void* stream) {
   const int S = q->S;
   if (S < 1 || S > 32 || (S & (S - 1)) || p->S != S || p->B != q->B ||
-      p->C != q->C || (q->R != 4 && q->R != 8) || q->B % q->R ||
+      p->C != q->C || p->weights || (q->R != 4 && q->R != 8) ||
+      q->B % q->R ||
       single_smem_bytes(*q) > 48 * 1024) {
     return (int)cudaErrorInvalidValue;
   }

@@ -7,7 +7,7 @@ dynamic neural_3d_z_plane family.
   layer's columns permuted field-major on the host; field activations, z,
   the scene contraction, distances, sort, advection, offsets,
   normalisation: the per-sample pack) -> the grid features, density, SH
-  colour, composite -> rgb, on one of three routes.
+  or RGB colour, composite -> rgb, on one of three routes.
 
 The flagship (dynamic, one space plane x one time plane):
   quad   K2 shade reads each sample's quad-table row;
@@ -16,7 +16,8 @@ The flagship (dynamic, one space plane x one time plane):
          with HYPERREEL_FUSED_PATCH=0 (or false), K4 patch_blend writes
          bf16 features and K2 shade_preblended reads them.
 The multi-axis VM nets (three axes: a plane times a line for the static
-net, a space plane times a keyframe time plane for the dynamic one):
+net, the llff_z_plane and shiny_z_plane families, a space plane times a
+keyframe time plane for the dynamic one):
   quad   K5 shade_multi reads each sample's three quad-table rows;
   patch  K4 patch_blend once per plane (bf16 features) then K5
          shade_multi_preblended (the JAX package's default multi-axis
@@ -70,7 +71,7 @@ from hyperreel_tpu_torch.ops.kernels.shade import (
     ShadeSpec, basis_table, premix_time, quad_table, shade, shade_preblended,
     time_table)
 from hyperreel_tpu_torch.ops.kernels.shade_multi import (
-    AxisSpec, MultiSpec, line_table, multi_basis_table, shade_multi,
+    MultiSpec, axis_tables, multi_basis_table, shade_multi,
     shade_multi_preblended)
 from hyperreel_tpu_torch.ops.kernels.shade_multi_patch import (
     shade_multi_patch)
@@ -89,7 +90,8 @@ def _stages(model):
 def cf_eligible(model):
     """Structural eligibility: the dynamic chain (the technicolor_z_plane
     and neural_3d_z_plane families) or the static chain (the llff_z_plane
-    family) (hyperreel_tpu/models/fused_eval.py cf_eligible:45-159,
+    and shiny_z_plane families; not stanford_llff_z_plane, whose intersect
+    masks near/far) (hyperreel_tpu/models/fused_eval.py cf_eligible:45-159,
     without the compaction and stride stages the port does not have)."""
     names = [n for n, _ in model.embedding.stages]
     if names not in (DYN_CHAIN, STATIC_CHAIN):
@@ -212,10 +214,7 @@ class FusedCFEval:
         """The bf16 quad table of the space plane (and its bf16 patch
         table on the patch route), the f32 time plane and the host basis
         table."""
-        space = torch.cat([cp["density"]["space_0"], cp["app"]["space_0"]],
-                          -1)
-        timep = torch.cat([cp["density"]["time_0"], cp["app"]["time_0"]],
-                          -1)
+        (_, space, timep), = self.net.axis_grids(cp)
         nd = self.net.density_n_comp[0]
         prep = {"quad": quad_table(space), "ttab": time_table(timep),
                 "wb": basis_table(cp["basis_mat"]["weight"], nd),
@@ -231,24 +230,10 @@ class FusedCFEval:
         table on the patch route) and its f32 second factor: the line of
         a static net, the time plane [TH, TW, C] of a dynamic one; the host
         basis table over the concatenated appearance channels."""
-        dynamic = self.flow is not None
-        fam, second = ("space", "time") if dynamic else ("plane", "line")
-        quads, lines, ptabs, axes = [], [], [], []
-        for i in self.net.active_density:
-            plane = torch.cat([cp["density"][f"{fam}_{i}"],
-                               cp["app"][f"{fam}_{i}"]], -1)
-            line = torch.cat([cp["density"][f"{second}_{i}"],
-                              cp["app"][f"{second}_{i}"]], -1)
-            H, W, C = plane.shape
-            TH = line.shape[0] if dynamic else 0
-            axes.append(AxisSpec(index=i, W=W, H=H, L=line.shape[-2], C=C,
-                                 nd=self.net.density_n_comp[i], TH=TH))
-            quads.append(quad_table(plane))
-            lines.append(line_table(line))
-            if self.patch_cfg is not None:
-                ptabs.append(build_patch_table_2d(plane.to(torch.bfloat16),
-                                                  *self.patch_cfg))
-        prep = {"quads": quads, "lines": lines, "axes": tuple(axes),
+        axes, quads, lines, ptabs = axis_tables(
+            self.net.axis_grids(cp), self.net.density_n_comp,
+            self.flow is not None, self.patch_cfg)
+        prep = {"quads": quads, "lines": lines, "axes": axes,
                 "wb": multi_basis_table(cp["basis_mat"]["weight"])}
         if ptabs:
             prep["ptabs"] = ptabs
@@ -318,7 +303,8 @@ class FusedCFEval:
             ttab, TH = premix_time(ttab, tn0), 0
         spec = ShadeSpec(S=self.S, W=W, H=H, TW=TW, TH=TH, C=C, nd=nd,
                          deg=self.net.sh_deg,
-                         distance_scale=self.net.distance_scale)
+                         distance_scale=self.net.distance_scale,
+                         shading=self.net.shading)
         if not patch:
             return shade(prep["quad"], pack, rp, ttab, prep["wb"],
                          spec), None
@@ -342,7 +328,8 @@ class FusedCFEval:
             lines = [premix_time(t, tn0) for t in lines]
             axes = tuple(dataclasses.replace(a, TH=0) for a in axes)
         spec = MultiSpec(S=self.S, axes=axes, deg=self.net.sh_deg,
-                         distance_scale=self.net.distance_scale)
+                         distance_scale=self.net.distance_scale,
+                         shading=self.net.shading)
         if not patch:
             return shade_multi(prep["quads"], lines, pack, rp, wb,
                                spec), None

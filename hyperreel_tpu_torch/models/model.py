@@ -4,14 +4,18 @@ nlf/models/models.py): rgb = color_net(embedding_chain(param(rays))).
 Functional, like the JAX package: `init(gen, device) -> params`,
 `apply(params, rays, ctx, render_kwargs) -> {"rgb": [B, 3], ...}`.
 Eval calls take the fused path (models/fused_eval.py, the CUDA kernels)
-when the chain is the flagship pattern and `fused_render_cf` is on; the
-general stage chain is the other route and the fused path's reference.
+when the chain is one of its patterns and `fused_render_cf` is on;
+otherwise the general stage chain runs, and a static net with
+`fused_render` on then takes its own fused route after it
+(models/tensorf.py TensorVMNoSample.apply_fused). The general chain with
+the general colour net is the fused paths' reference.
 """
 
 from hyperreel_tpu_torch.models import fused_eval
 from hyperreel_tpu_torch.models.embeddings import build_embedding_chain
 from hyperreel_tpu_torch.models.ray_param import get_ray_param
-from hyperreel_tpu_torch.models.tensorf import build_color_net
+from hyperreel_tpu_torch.models.tensorf import (
+    TensorVMNoSample, build_color_net)
 
 
 class LightfieldModel:
@@ -40,15 +44,24 @@ class LightfieldModel:
         rays = self.ray_param.apply(rays)
         x = self.embedding.apply(params["embedding"], rays, ctx,
                                  render_kwargs)
+        if self._cf_eval is not None:
+            # the tables are the channels-first route's, not the net's
+            render_kwargs = {k: v for k, v in render_kwargs.items()
+                             if k != "cf_prepared"}
         return self.color_net.apply(params["color"], x, ctx, render_kwargs)
 
     def prepare_eval(self, params):
-        """Per-checkpoint tables of the fused path (FusedCFEval.prepare),
-        or None when the model has no fused path. Pass the result as
-        render_kwargs["cf_prepared"]."""
-        if self._cf_eval is None:
-            return None
-        return self._cf_eval.prepare(params)
+        """Per-checkpoint tables of the model's fused route: the
+        channels-first path's (FusedCFEval.prepare), else the static net's
+        own route's (TensorVMNoSample.prepare_fused), else None. Pass the
+        result as render_kwargs["cf_prepared"]."""
+        if self._cf_eval is not None:
+            return self._cf_eval.prepare(params)
+        net = self.color_net
+        if isinstance(net, TensorVMNoSample) and net.fused_render \
+                and net.fused_eligible:
+            return net.prepare_fused(params["color"])
+        return None
 
 
 def build_model(cfg, dataset_info=None, compute_dtype=None):

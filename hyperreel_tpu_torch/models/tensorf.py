@@ -1,6 +1,7 @@
 """Factored feature-grid colour nets (port of hyperreel_tpu/models/tensorf.py
 TensorVMKeyframeTime and TensorVMNoSample: init and the general eval
-apply; reference nlf/nets/tensorf_dynamic.py, nlf/nets/tensorf_no_sample.py).
+apply, SH or RGB shading, and the static net's own fused route;
+reference nlf/nets/tensorf_dynamic.py, nlf/nets/tensorf_no_sample.py).
 
 Grids are channels-last, as in the JAX package. The dynamic net holds per
 active axis i a space plane [H, W, C] and a time plane [num_keyframes, TW,
@@ -8,7 +9,8 @@ C] for each of the density and appearance families ("space_i",
 "time_i"); the static net a plane [H, W, C] and a line [L, C] ("plane_i",
 "line_i"), axis i's plane spanning the points' components MAT_MODE[i] and
 its line component VEC_MODE[i]. `basis_mat` is {"weight": [app_dim,
-sum(app comps)]} (nn.Linear layout).
+sum(app comps)]} (nn.Linear layout): app_dim 27 for SH of degree 2, 3 for
+RGB.
 """
 
 import math
@@ -41,18 +43,25 @@ def n_to_reso(n_voxels, aabb):
 class FactoredNet:
     """What the two nets share: the config, validity, normalisation, the
     parameter init of one family, and the shading and composite after
-    the grid lookups (SH colour, per-sample colour scale/shift)."""
+    the grid lookups (SH or RGB colour, per-sample colour scale/shift).
+    GRIDS names the two factors of an axis in the params."""
+
+    GRIDS = None
 
     def __init__(self, cfg):
         self.cfg = dict(cfg)
         self.density_mode = cfg.get("densityMode", "Density")
         self.shading_mode = cfg.get("shadingMode", "SH")
         self.fea2dense = cfg.get("fea2denseAct", "softplus")
-        if self.density_mode != "Density" or self.shading_mode != "SH" \
+        if self.density_mode != "Density" \
+                or self.shading_mode not in ("SH", "RGB") \
                 or self.fea2dense != "relu" or cfg.get("filter"):
             raise NotImplementedError(
-                "only the Density/SH/relu colour nets are ported "
-                "(ROADMAP.md: long tail)")
+                "only the Density/relu colour nets with SH or RGB shading "
+                "are ported (ROADMAP.md: long tail)")
+        # the kernels' shading flag: SH of degree sh_deg, or RGB =
+        # sigmoid of the basis product (JAX tensorf.py _shading_rgb)
+        self.shading = self.shading_mode.lower()
         self.table_dtype = torch.bfloat16 if cfg.get("bf16_tables", True) \
             else torch.float32
         self.white_bg = int(cfg.get("white_bg", 0))
@@ -96,6 +105,17 @@ class FactoredNet:
                                      self.app_dim, device, bias=False),
         }
 
+    def axis_grids(self, params):
+        """Per active axis (i, its plane [H, W, C], its second factor: the
+        line [L, C] or the time plane [TH, TW, C]), the density and
+        appearance channels concatenated, density first; a generator, so
+        that a caller building tables frees each axis's before the next."""
+        first, second = self.GRIDS
+        for i in self.active_density:
+            yield (i, *(torch.cat([params["density"][f"{g}_{i}"],
+                                   params["app"][f"{g}_{i}"]], -1)
+                        for g in (first, second)))
+
     def normalize_coord(self, pts):
         aabb = torch.as_tensor(self.aabb, device=pts.device)
         return (pts - aabb[0]) * (2.0 / (aabb[1] - aabb[0])) - 1.0
@@ -124,8 +144,11 @@ class FactoredNet:
                             torch.full_like(dists[:, :1], 1e10)], -1)
         sigma = torch.where(ray_valid, torch.clamp_min(feat, 0.0), 0.0)
         alpha, weight, _ = raw2alpha(sigma, deltas * self.distance_scale)
-        viewdirs = x["viewdirs"].reshape(B * S, 3)
-        rgb = sh_render(viewdirs, app, deg=self.sh_deg).reshape(B, S, 3)
+        if self.shading == "rgb":
+            rgb = torch.sigmoid(app).reshape(B, S, 3)
+        else:
+            viewdirs = x["viewdirs"].reshape(B * S, 3)
+            rgb = sh_render(viewdirs, app, deg=self.sh_deg).reshape(B, S, 3)
         rgb = torch.where((weight > self.ray_march_weight_thres)[..., None],
                           rgb, 0.0)
         if "color_scale" in x:
@@ -144,6 +167,8 @@ class FactoredNet:
 class TensorVMKeyframeTime(FactoredNet):
     """The dynamic net: per active axis a space plane times a keyframe time
     plane (reference nlf/nets/tensorf_dynamic.py)."""
+
+    GRIDS = ("space", "time")
 
     def __init__(self, cfg, num_keyframes=1, total_num_frames=1):
         super().__init__(cfg)
@@ -176,14 +201,10 @@ class TensorVMKeyframeTime(FactoredNet):
         """xyzt [N, 4] normalized -> (density feature [N], app [N, app_dim])
         from the products of space and time lookups at table precision."""
         dens, app = [], []
-        for i in self.active_density:
+        for i, space, timep in self.axis_grids(params):
             ms0, ms1 = MAT_MODE_SPACE[i]
             mt0, mt1 = MAT_MODE_TIME[i]
             nd = self.density_n_comp[i]
-            space = torch.cat([params["density"][f"space_{i}"],
-                               params["app"][f"space_{i}"]], -1)
-            timep = torch.cat([params["density"][f"time_{i}"],
-                               params["app"][f"time_{i}"]], -1)
             prod = grid_sample_2d(space.to(self.table_dtype),
                                   xyzt[:, [ms0, ms1]]) \
                 * grid_sample_2d(timep.to(self.table_dtype),
@@ -213,6 +234,8 @@ class TensorVMNoSample(FactoredNet):
     """The static net: per active axis a plane times a line, the full VM
     decomposition (reference nlf/nets/tensorf_no_sample.py)."""
 
+    GRIDS = ("plane", "line")
+
     def init_family(self, gen, device, n_comp, scale, uniform):
         params = {}
         gs = self.grid_size
@@ -232,13 +255,9 @@ class TensorVMNoSample(FactoredNet):
         channel-wise, looked up at table precision (hyperreel_tpu
         TensorVMNoSample._sample_density_and_app_cf)."""
         dens, app = 0.0, []
-        for i in self.active_density:
+        for i, plane, line in self.axis_grids(params):
             m0, m1 = MAT_MODE[i]
             nd = self.density_n_comp[i]
-            plane = torch.cat([params["density"][f"plane_{i}"],
-                               params["app"][f"plane_{i}"]], -1)
-            line = torch.cat([params["density"][f"line_{i}"],
-                              params["app"][f"line_{i}"]], -1)
             prod = grid_sample_2d(plane.to(self.table_dtype),
                                   xyz[:, [m0, m1]]) \
                 * grid_sample_1d(line.to(self.table_dtype),
@@ -248,7 +267,10 @@ class TensorVMNoSample(FactoredNet):
         return dens, torch.cat(app, -1) @ params["basis_mat"]["weight"].t()
 
     def apply(self, params, x, ctx, render_kwargs=None):
-        fields = self.check_eval(ctx, render_kwargs or {})
+        render_kwargs = render_kwargs or {}
+        fields = self.check_eval(ctx, render_kwargs)
+        if self.fused_ok(x, render_kwargs):
+            return self.apply_fused(params, x, render_kwargs)
         B = x["viewdirs"].shape[0]
         pts = x["points"].reshape(B, -1, 3)
         S = pts.shape[1]
@@ -263,6 +285,104 @@ class TensorVMNoSample(FactoredNet):
             feat = feat * x["weights"].reshape(B, S)
         return self.shade(x, feat, app, ray_valid, dists, fields)
 
+    # -- the net's own fused route (hyperreel_tpu TensorVMNoSample
+    # _fused_ok, apply_fused, _apply_fused_multi, _fused_out) ------------
+
+    def fused_ok(self, x, render_kwargs):
+        """Whether an eval call (check_eval has passed) takes the fused
+        route: the config asks for it, the net is eligible, and neither x
+        nor render_kwargs asks for what the kernels do not compute."""
+        return (self.fused_render and self.fused_eligible
+                and "weights_shift" not in x and "color_transform" not in x
+                and not render_kwargs.get("pred_weights_fields")
+                and not render_kwargs.get("no_over_fields"))
+
+    def prepare_fused(self, params):
+        """Per-checkpoint tables of the fused route: per active axis the
+        plane's bf16 quad table and its f32 line, and the basis table on
+        the host (with zero density columns for the single-axis form,
+        which runs K2; over the appearance channels for K5)."""
+        # imported here: the kernel modules import this one
+        from hyperreel_tpu_torch.ops.kernels.shade import basis_table
+        from hyperreel_tpu_torch.ops.kernels.shade_multi import (
+            axis_tables, multi_basis_table)
+        axes, quads, lines, _ = axis_tables(self.axis_grids(params),
+                                            self.density_n_comp, False)
+        w = params["basis_mat"]["weight"]
+        wb = basis_table(w, axes[0].nd) if len(axes) == 1 \
+            else multi_basis_table(w)
+        return {"axes": axes, "quads": quads, "lines": lines, "wb": wb}
+
+    def fused_pack(self, x):
+        """The general chain's fields x -> (the pack with the weights row
+        f32 [11, B*S]: points normalised, distances, colour scale and
+        shift, the predicted weights; the ray pack f32 [B, 8] with the
+        view direction of each ray's sample 0 and zero origin and time)."""
+        B = x["viewdirs"].shape[0]
+        pts = x["points"].reshape(B, -1, 3)
+        N = pts.shape[0] * pts.shape[1]
+        rows = [self.normalize_coord(pts).reshape(N, 3).t(),
+                x["distances"].reshape(1, N)]
+        for key in ("color_scale", "color_shift"):
+            rows.append(x[key].reshape(N, 3).t() if key in x
+                        else pts.new_zeros(3, N))
+        rows.append(x["weights"].reshape(1, N) if "weights" in x
+                    else pts.new_ones(1, N))
+        vd = x["viewdirs"].reshape(B, -1, 3)[:, 0].float()
+        ray_pack = torch.cat([torch.zeros_like(vd), vd, vd.new_zeros(B, 2)],
+                             1).contiguous()
+        return torch.cat(rows).float().contiguous(), ray_pack
+
+    def fused_spec(self, prep, S):
+        """The kernel spec of the fused route for S samples per ray: K2's
+        ShadeSpec for one axis (its z line the premixed table), K5's
+        MultiSpec for more; RGB or SH, with the weights row."""
+        from hyperreel_tpu_torch.ops.kernels.shade import ShadeSpec
+        from hyperreel_tpu_torch.ops.kernels.shade_multi import MultiSpec
+        axes = prep["axes"]
+        if len(axes) > 1:
+            return MultiSpec(S=S, axes=axes, deg=self.sh_deg,
+                             distance_scale=self.distance_scale,
+                             shading=self.shading, weights=True)
+        a, = axes
+        if a.index != 0:
+            raise NotImplementedError(
+                f"the single-axis fused route takes axis 0, not {a.index} "
+                "(as the JAX package's apply_fused)")
+        return ShadeSpec(S=S, W=a.W, H=a.H, TW=a.L, TH=0, C=a.C, nd=a.nd,
+                         deg=self.sh_deg, distance_scale=self.distance_scale,
+                         shading=self.shading, weights=True)
+
+    def apply_fused(self, params, x, render_kwargs):
+        """The fused eval render after the general stage chain: the
+        samples' pack with the weights row (points normalised, distances,
+        colour scale and shift, the predicted weights) and a ray pack
+        holding the view direction of sample 0, then one kernel. One axis
+        (a plane over x, y times a z line) runs K2 with the line as its
+        premixed [L, C] table (TH = 0), which computes what the JAX
+        package's degenerate TH = 1 time plane does (its t weights put 1
+        on the one row); more axes run K5. Both kernels load their texels
+        themselves, where the JAX route gathers the quad rows in the host
+        graph. The tables come from render_kwargs["cf_prepared"]
+        (prepare_fused) or are built here."""
+        from hyperreel_tpu_torch.ops.kernels.shade import shade
+        from hyperreel_tpu_torch.ops.kernels.shade_multi import shade_multi
+        prep = render_kwargs.get("cf_prepared") or self.prepare_fused(params)
+        pack, ray_pack = self.fused_pack(x)
+        spec = self.fused_spec(prep, pack.shape[1] // ray_pack.shape[0])
+        if len(prep["axes"]) == 1:
+            out = shade(prep["quads"][0], pack, ray_pack, prep["lines"][0],
+                        prep["wb"], spec)
+        else:
+            out = shade_multi(prep["quads"], prep["lines"], pack, ray_pack,
+                              prep["wb"], spec)
+        rgb = out[:, :3]
+        if not self.black_bg and self.white_bg:
+            rgb = rgb + (1.0 - out[:, 3:4])
+        outputs = {"rgb": torch.clamp(rgb, 0.0, 1.0)}
+        if "distances" in render_kwargs.get("fields", []):
+            outputs["distances"] = out[:, 4:5]
+        return outputs
 
 def build_color_net(cfg, dataset_info=None):
     dataset_info = dataset_info or {}
@@ -271,8 +391,6 @@ def build_color_net(cfg, dataset_info=None):
             cfg, num_keyframes=int(dataset_info.get("num_keyframes", 1)),
             total_num_frames=int(dataset_info.get("num_frames", 1)))
     if cfg["type"] == "tensor_vm_split_no_sample":
-        if cfg.get("shadingMode", "SH") != "SH":
-            raise NotImplementedError("only SH shading is ported")
         return TensorVMNoSample(cfg)
     raise NotImplementedError(
         f"colour net {cfg['type']!r} is not ported (ROADMAP.md: long tail)")

@@ -75,7 +75,8 @@ class ShadeParams(ctypes.Structure):
     _fields_ = [(n, ctypes.c_int) for n in
                 ("B", "S", "W", "H", "TW", "TH", "C", "nd")] + [
         ("distance_scale", ctypes.c_float),
-        ("wb", ctypes.c_float * SHADE_MAX_WB)]
+        ("wb", ctypes.c_float * SHADE_MAX_WB),
+        ("rgb", ctypes.c_int), ("weights", ctypes.c_int)]
 
 
 class PatchParams(ctypes.Structure):
@@ -95,7 +96,8 @@ class MultiParams(ctypes.Structure):
     """Mirror of csrc/multi_core.cuh MultiParams."""
     _fields_ = [(n, ctypes.c_int) for n in ("B", "S")] + [
         ("distance_scale", ctypes.c_float), ("axis", MultiAxis * 3),
-        ("wb", ctypes.c_float * SHADE_MAX_WB)]
+        ("wb", ctypes.c_float * SHADE_MAX_WB),
+        ("rgb", ctypes.c_int), ("weights", ctypes.c_int)]
 
 
 @dataclass

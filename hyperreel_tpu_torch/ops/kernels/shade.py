@@ -24,9 +24,11 @@ come from the ray pack f32 [B, 8] (o xyz, d xyz, dt, tn) that K1 read.
 Per sample: validity (|xn|, |yn|, |zn| <= 1 and dist > 0); the space
 features, bilinear from the 4 corners of one quad-table row; the time
 features, linear in z and then in t on the time plane (or linear in z on
-a table premixed for one t); prod = space * time; density =
-relu(sum of the first nd channels) * valid; SH colour
-max(sum_k (wb @ prod)_k Y_k + 0.5, 0) * (scale + 1) + shift. Per ray: the
+a table premixed for one t, or on the z line of a static net); prod =
+space * time; density = relu(sum of the first nd channels, times the
+sample's weight when the pack has the weights row) * valid; the colour,
+SH max(sum_k (wb @ prod)_k Y_k + 0.5, 0) or RGB sigmoid(wb @ prod),
+times (scale + 1) plus shift. Per ray: the
 log-space composite (last delta 1e10, x = clip(sigma*delta*distance_scale,
 +-70), exclusive log-transmittance floored at log 1e-10) and the sums
 r, g, b, acc, depth.
@@ -38,7 +40,12 @@ Tables (built once per checkpoint by `quad_table`, `time_table`,
   ttab  f32 [TH, TW, C] (the time plane as is), or [TW, C] premixed when
         the caller passes TH = 0;
   wb    f32 [3*K, C] on the host (it rides in the kernel's parameters):
-        basis rows c*K + k, zero on the nd density columns.
+        basis rows c*K + k, zero on the nd density columns (K = 9 for SH
+        of degree 2, 1 for RGB).
+
+The static net's own fused route (models/tensorf.py TensorVMNoSample
+apply_fused) runs K2 with RGB shading, the weights row, and its z line as
+the premixed table.
 """
 
 from dataclasses import dataclass
@@ -46,15 +53,24 @@ from dataclasses import dataclass
 import torch
 
 from hyperreel_tpu_torch.ops.kernels import build
-from hyperreel_tpu_torch.ops.kernels.layout import check_pack, check_ray_pack
+from hyperreel_tpu_torch.ops.kernels.layout import (
+    WEIGHTS_ROW, check_pack, check_ray_pack)
 from hyperreel_tpu_torch.ops.render_math import raw2alpha
 from hyperreel_tpu_torch.ops.sh import eval_sh_bases
 
-# the (C, SH degree) pairs csrc/shade.cu is built for: those of the
-# ported configurations (technicolor_z_plane C=16, tiny_dynamic C=8)
+# the channel counts and colours csrc/shade.cu is built for: those of the
+# ported configurations (technicolor_z_plane and stanford_llff_z_plane C=16,
+# tiny_dynamic C=8; SH of degree 2 or RGB)
 KERNEL_CHANNELS = (8, 16)
 KERNEL_SH_DEG = 2
 KERNEL_MAX_S = 32          # one warp lane per sample (K2, K3)
+
+
+def shading_built(spec):
+    """Whether the shade kernels are built for spec's colour: SH of
+    degree KERNEL_SH_DEG (9 basis rows per channel) or RGB (1)."""
+    return (spec.shading, spec.n_basis) in (
+        ("sh", (KERNEL_SH_DEG + 1) ** 2), ("rgb", 1))
 
 
 @dataclass(frozen=True)
@@ -66,12 +82,14 @@ class ShadeSpec:
     TH: int          # 0: ttab is premixed [TW, C]
     C: int
     nd: int
-    deg: int         # SH degree
+    deg: int         # SH degree (unused by RGB)
     distance_scale: float
+    shading: str = "sh"      # or "rgb"
+    weights: bool = False    # the pack has the weights row
 
     @property
     def n_basis(self):
-        return (self.deg + 1) ** 2
+        return 1 if self.shading == "rgb" else (self.deg + 1) ** 2
 
 
 def quad_table(plane_hwc):
@@ -145,30 +163,37 @@ def quad_features(quad, x, y, W, H, C):
             + q[:, 3] * (wy1 * wx1)[:, None])
 
 
-def shade_tail_plain(dens, feat, wb, pack, ray_pack, S, deg, distance_scale):
+def shade_tail_plain(dens, feat, wb, pack, ray_pack, spec):
     """The density feature [B*S] and the features [B*S, A] of every sample
     -> f32 [B, 5]: validity (|xn|, |yn|, |zn| <= 1 and dist > 0), relu
-    density, the SH colour of wb [3K, A] @ feat with the colour scale and
-    shift, and the per-ray composite (csrc/shade_core.cuh sh_colour and
+    density (of the feature times the weights row where spec.weights), the
+    SH or RGB colour of wb [3K, A] @ feat with the colour scale and shift,
+    and the per-ray composite (csrc/shade_core.cuh colour and
     composite_store)."""
-    B = check_pack(pack, S)
+    S = spec.S
+    B = check_pack(pack, S, spec.weights)
     xn, yn, zn, dist = pack[0], pack[1], pack[2], pack[3]
-    per_sample = ray_pack.repeat_interleave(S, 0)         # [B*S, 8]
     valid = (xn.abs() <= 1.0) & (yn.abs() <= 1.0) & (zn.abs() <= 1.0) \
         & (dist > 0.0)
+    if spec.weights:
+        dens = dens * pack[WEIGHTS_ROW]
     sigma = torch.clamp_min(dens, 0.0) * valid.float()
     app = feat @ wb.to(feat.device).t()                   # [N, 3K]
-    K = (deg + 1) ** 2
-    Y = eval_sh_bases(deg, per_sample[:, 3:6])            # [N, K]
-    e = (app.reshape(-1, 3, K) * Y[:, None, :]).sum(-1)
-    rgb = torch.clamp_min(e + 0.5, 0.0) * (pack[4:7].t() + 1.0) \
-        + pack[7:10].t()
+    if spec.shading == "rgb":
+        v = 1.0 / (1.0 + torch.exp(-app))
+    else:
+        K = spec.n_basis
+        Y = eval_sh_bases(spec.deg, ray_pack[:, 3:6].repeat_interleave(
+            S, 0))                                        # [N, K]
+        e = (app.reshape(-1, 3, K) * Y[:, None, :]).sum(-1)
+        v = torch.clamp_min(e + 0.5, 0.0)
+    rgb = v * (pack[4:7].t() + 1.0) + pack[7:10].t()
     rgb = torch.where(valid[:, None], rgb, 0.0)
 
     d = dist.reshape(B, S)
     delta = torch.cat([d[:, 1:] - d[:, :-1],
                        torch.full_like(d[:, :1], 1e10)], -1)
-    _, w, _ = raw2alpha(sigma.reshape(B, S), delta * distance_scale)
+    _, w, _ = raw2alpha(sigma.reshape(B, S), delta * spec.distance_scale)
     rgb_map = (w[..., None] * rgb.reshape(B, S, 3)).sum(1)
     return torch.cat([rgb_map, w.sum(-1, keepdim=True),
                       (w * d).sum(-1, keepdim=True)], -1)
@@ -180,7 +205,7 @@ def shade_features_plain(feat, pack, ray_pack, ttab, wb, spec):
     `shade_tail_plain` -> f32 [B, 5] (csrc/shade_core.cuh
     shade_sample)."""
     S, C = spec.S, spec.C
-    check_pack(pack, S)
+    check_pack(pack, S, spec.weights)
     zi, wz0, wz1 = taps(pack[2], spec.TW)
     if spec.TH == 0:
         ft = line_lookup(ttab, zi, wz0, wz1)
@@ -197,7 +222,7 @@ def shade_features_plain(feat, pack, ray_pack, ttab, wb, spec):
             ft = ft + zf * wt[:, None]
     prod = feat * ft
     return shade_tail_plain(prod[:, :spec.nd].sum(-1), prod, wb, pack,
-                            ray_pack, S, spec.deg, spec.distance_scale)
+                            ray_pack, spec)
 
 
 def shade_plain(quad, pack, ray_pack, ttab, wb, spec):
@@ -228,14 +253,20 @@ def check_tables(ttab, wb, spec, device):
         raise ValueError("wb must lie on the host")
 
 
-def check_kernel(spec, name):
-    """Raise unless the kernels are built for spec's C, SH degree and S."""
-    if spec.C not in KERNEL_CHANNELS or spec.deg != KERNEL_SH_DEG \
+def check_kernel(spec, name, weights=True):
+    """Raise unless the kernels are built for spec's C, colour and S (and,
+    where `weights` is False, unless spec has no weights row)."""
+    if spec.C not in KERNEL_CHANNELS or not shading_built(spec) \
             or spec.S > KERNEL_MAX_S or spec.S & (spec.S - 1):
         raise NotImplementedError(
-            f"{name} kernel: C={spec.C}, SH degree {spec.deg}, S={spec.S} "
-            f"not built (C in {KERNEL_CHANNELS}, degree {KERNEL_SH_DEG}, S a "
+            f"{name} kernel: C={spec.C}, {spec.shading} with "
+            f"{spec.n_basis} basis rows, S={spec.S} not built (C in "
+            f"{KERNEL_CHANNELS}, SH of degree {KERNEL_SH_DEG} or RGB, S a "
             f"power of two <= {KERNEL_MAX_S}; ROADMAP.md: long tail)")
+    if spec.weights and not weights:
+        raise NotImplementedError(
+            f"{name} kernel: the weights row is built into the quad "
+            "kernels of K2 and K5 only (ROADMAP.md 2a: use_weights_row)")
 
 
 def shade_params(B, spec, wb):
@@ -244,6 +275,7 @@ def shade_params(B, spec, wb):
     p.B, p.S, p.W, p.H, p.TW, p.TH = B, spec.S, spec.W, spec.H, spec.TW, \
         spec.TH
     p.C, p.nd = spec.C, spec.nd
+    p.rgb, p.weights = int(spec.shading == "rgb"), int(spec.weights)
     p.distance_scale = float(spec.distance_scale)
     vals = wb.reshape(-1).tolist()
     p.wb[:len(vals)] = vals
@@ -256,7 +288,7 @@ def _check(space, space_shape, pack, ray_pack, ttab, wb, spec):
         raise ValueError(f"space table must be contiguous bf16 "
                          f"{space_shape}, got {space.dtype} "
                          f"{tuple(space.shape)}")
-    B = check_pack(pack, spec.S)
+    B = check_pack(pack, spec.S, spec.weights)
     check_ray_pack(ray_pack, B)
     check_tables(ttab, wb, spec, pack.device)
     if space.device != pack.device or ray_pack.device != pack.device:
@@ -265,10 +297,11 @@ def _check(space, space_shape, pack, ray_pack, ttab, wb, spec):
     return B
 
 
-def _launch(name, fn, space, pack, ray_pack, ttab, wb, spec, B):
+def _launch(name, fn, space, pack, ray_pack, ttab, wb, spec, B,
+            weights=True):
     if pack.device.type != "cuda":
         raise ValueError(f"{name} has no kernel for {pack.device}")
-    check_kernel(spec, name)
+    check_kernel(spec, name, weights)
     for t in (space, ttab):
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: tables must be 16-byte aligned")
@@ -310,7 +343,7 @@ def shade_preblended(feats, pack, ray_pack, ttab, wb, spec):
         return shade_preblended_plain(feats, pack, ray_pack, ttab, wb, spec)
     out = _launch("shade_preblended",
                   build.load_library().lib.shade_preblended_launch, feats,
-                  pack, ray_pack, ttab, wb, spec, B)
+                  pack, ray_pack, ttab, wb, spec, B, weights=False)
     shade_preblended.launches += 1
     return out
 

@@ -23,9 +23,11 @@ time plane [TH, L, C_a] around the ray's time coordinate tn (ray pack row
 7), mixed linearly in tn (a time plane premixed for one t, `premix_time`,
 is a line: TH = 0); their product; the first nd_a channels sum into the
 density feature, the rest append to the appearance vector in axis order.
-Then relu density, the SH colour of the [3K, A] basis (no density
-columns) times the appearance vector, and the composite
-(ops/kernels/shade.py `shade_tail_plain`).
+Then relu density (of the density feature times the sample's weight when
+the pack has the weights row: the static net's own fused route,
+models/tensorf.py TensorVMNoSample apply_fused), the SH or RGB colour of
+the [3K, A] basis (no density columns) times the appearance vector, and
+the composite (ops/kernels/shade.py `shade_tail_plain`).
 
 Tables (built once per checkpoint): the quad tables `shade.quad_table`
 of each plane, the lines f32 [L, C_a] or time planes f32 [TH, L, C_a] as
@@ -46,7 +48,9 @@ from hyperreel_tpu_torch.models.tensorf import MAT_MODE, VEC_MODE
 from hyperreel_tpu_torch.ops.kernels import build
 from hyperreel_tpu_torch.ops.kernels.layout import check_pack, check_ray_pack
 from hyperreel_tpu_torch.ops.kernels.shade import (
-    KERNEL_SH_DEG, line_lookup, quad_features, shade_tail_plain, taps)
+    line_lookup, quad_features, quad_table, shade_tail_plain, shading_built,
+    taps)
+from hyperreel_tpu_torch.ops.patch_gather import build_patch_table_2d
 
 MAX_S = 64
 
@@ -81,18 +85,44 @@ class AxisSpec:
 class MultiSpec:
     S: int
     axes: Tuple[AxisSpec, ...]
-    deg: int                    # SH degree
+    deg: int                    # SH degree (unused by RGB)
     distance_scale: float
+    shading: str = "sh"         # or "rgb"
+    weights: bool = False       # the pack has the weights row
 
     @property
     def n_app(self):
         return sum(a.C - a.nd for a in self.axes)
+
+    @property
+    def n_basis(self):
+        return 1 if self.shading == "rgb" else (self.deg + 1) ** 2
 
 
 def line_table(line):
     """[L, C] line or [TH, L, C] time plane -> the f32 table the kernels
     read."""
     return line.float().contiguous()
+
+
+def axis_tables(grids, density_n_comp, time_planes, patch=None):
+    """A VM net's axes (FactoredNet.axis_grids: (i, plane [H, W, C],
+    second factor)) -> (their AxisSpecs, the planes' quad tables, the
+    second factors' f32 tables, and with `patch` = (px, py) the planes'
+    bf16 patch tables); `time_planes`: the second factors are time planes
+    [TH, L, C], else lines [L, C]."""
+    axes, quads, lines, ptabs = [], [], [], []
+    for i, plane, second in grids:
+        H, W, C = plane.shape
+        axes.append(AxisSpec(index=i, W=W, H=H, L=second.shape[-2], C=C,
+                             nd=density_n_comp[i],
+                             TH=second.shape[0] if time_planes else 0))
+        quads.append(quad_table(plane))
+        lines.append(line_table(second))
+        if patch is not None:
+            ptabs.append(build_patch_table_2d(plane.to(torch.bfloat16),
+                                              *patch))
+    return tuple(axes), quads, lines, ptabs
 
 
 def multi_basis_table(basis_weight):
@@ -137,8 +167,7 @@ def axis_products(feats, lines, pack, ray_pack, spec):
 def shade_multi_features_plain(feats, lines, pack, ray_pack, wb, spec):
     """Everything after the plane features -> f32 [B, 5]."""
     dens, app = axis_products(feats, lines, pack, ray_pack, spec)
-    return shade_tail_plain(dens, app, wb, pack, ray_pack, spec.S, spec.deg,
-                            spec.distance_scale)
+    return shade_tail_plain(dens, app, wb, pack, ray_pack, spec)
 
 
 def shade_multi_plain(quads, lines, pack, ray_pack, wb, spec):
@@ -160,7 +189,7 @@ def check_lines(lines, wb, spec, device):
     the host)."""
     if len(lines) != len(spec.axes):
         raise ValueError(f"{len(lines)} lines for {len(spec.axes)} axes")
-    K = (spec.deg + 1) ** 2
+    K = spec.n_basis
     shapes = [(f"line {a.index}", t, (a.TH, a.L, a.C) if a.TH else
                (a.L, a.C)) for t, a in zip(lines, spec.axes)]
     for name, t, shape in shapes + [("wb", wb, (3 * K, spec.n_app))]:
@@ -185,7 +214,7 @@ def check_tables(tables, shapes, name):
 
 def _check(tables, shapes, lines, pack, ray_pack, wb, spec):
     check_tables(tables, shapes, "each plane's table")
-    B = check_pack(pack, spec.S)
+    B = check_pack(pack, spec.S, spec.weights)
     check_ray_pack(ray_pack, B)
     check_lines(lines, wb, spec, pack.device)
     if any(t.device != pack.device for t in tables) \
@@ -195,23 +224,29 @@ def _check(tables, shapes, lines, pack, ray_pack, wb, spec):
     return B
 
 
-def check_kernel(spec, name):
-    """Raise unless the kernels are built for spec's layout."""
+def check_kernel(spec, name, weights=True):
+    """Raise unless the kernels are built for spec's layout, colour and S
+    (and, where `weights` is False, unless spec has no weights row)."""
     layout = tuple((a.index, a.C, a.nd) for a in spec.axes)
     built = build.load_library().multi_layout
-    if layout != built or spec.deg != KERNEL_SH_DEG \
+    if layout != built or not shading_built(spec) \
             or spec.S > MAX_S or spec.S & (spec.S - 1):
         raise NotImplementedError(
-            f"{name} kernel: layout {layout}, SH degree {spec.deg}, "
-            f"S={spec.S} not built (layout {built}, degree "
-            f"{KERNEL_SH_DEG}, S a power of two <= {MAX_S}; ROADMAP.md: "
-            "the other multi-axis presets)")
+            f"{name} kernel: layout {layout}, {spec.shading} with "
+            f"{spec.n_basis} basis rows, S={spec.S} not built (layout "
+            f"{built}, SH of degree 2 or RGB, S a power of two <= {MAX_S}; "
+            "ROADMAP.md: the other multi-axis presets)")
+    if spec.weights and not weights:
+        raise NotImplementedError(
+            f"{name} kernel: the weights row is built into the quad "
+            "kernels of K2 and K5 only (ROADMAP.md 2a: use_weights_row)")
 
 
 def multi_params(B, spec, tables, lines, wb):
     """The kernels' MultiParams for B rays (the basis rides in them)."""
     p = build.MultiParams()
     p.B, p.S = B, spec.S
+    p.rgb, p.weights = int(spec.shading == "rgb"), int(spec.weights)
     p.distance_scale = float(spec.distance_scale)
     for i, (ax, t, line) in enumerate(zip(spec.axes, tables, lines)):
         p.axis[i] = build.MultiAxis(t.data_ptr(), line.data_ptr(), ax.W,
@@ -221,10 +256,11 @@ def multi_params(B, spec, tables, lines, wb):
     return p
 
 
-def _launch(name, fn, tables, lines, pack, ray_pack, wb, spec, B):
+def _launch(name, fn, tables, lines, pack, ray_pack, wb, spec, B,
+            weights=True):
     if pack.device.type != "cuda":
         raise ValueError(f"{name} has no kernel for {pack.device}")
-    check_kernel(spec, name)
+    check_kernel(spec, name, weights)
     if any(t.data_ptr() % 16 for t in list(tables) + list(lines)):
         raise ValueError(f"{name}: tables must be 16-byte aligned")
     out = torch.empty((B, 5), dtype=torch.float32, device=pack.device)
@@ -265,7 +301,7 @@ def shade_multi_preblended(feats, lines, pack, ray_pack, wb, spec):
                                             spec)
     out = _launch("shade_multi_preblended",
                   build.load_library().lib.shade_multi_preblended_launch,
-                  feats, lines, pack, ray_pack, wb, spec, B)
+                  feats, lines, pack, ray_pack, wb, spec, B, weights=False)
     shade_multi_preblended.launches += 1
     return out
 

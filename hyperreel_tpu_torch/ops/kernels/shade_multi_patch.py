@@ -82,7 +82,7 @@ def shade_multi_patch(ptabs, lines, pack, ray_pack, wb, spec, pspecs):
                                        spec, pspecs)
     if pack.device.type != "cuda":
         raise ValueError(f"shade_multi_patch has no kernel for {pack.device}")
-    check_kernel(spec, "shade_multi_patch")
+    check_kernel(spec, "shade_multi_patch", weights=False)
     if pspecs[0].R not in (4, 8):
         raise NotImplementedError(f"shade_multi_patch kernel: R="
                                   f"{pspecs[0].R} not built (R in 4, 8)")

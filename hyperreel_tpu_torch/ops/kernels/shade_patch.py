@@ -54,7 +54,7 @@ def shade_patch(ptab, pack, ray_pack, ttab, wb, spec, pspec):
         return shade_patch_plain(ptab, pack, ray_pack, ttab, wb, spec, pspec)
     if pack.device.type != "cuda":
         raise ValueError(f"shade_patch has no kernel for {pack.device}")
-    check_kernel(spec, "shade_patch")
+    check_kernel(spec, "shade_patch", weights=False)
     check_patch_kernel(ptab, pspec, "shade_patch")
     if ttab.data_ptr() % 16:
         raise ValueError("shade_patch: ttab must be 16-byte aligned")

@@ -82,12 +82,13 @@ def save(path, frames):
     torch.cuda.empty_cache()
 
     frame6 = frame[..., :6].contiguous()
-    _, model, params, prep = cs.llff(dev)
+    _, model, params, prep = cs.static_model(dev, "llff")
     k1("llff", model, prep, frame6[0])
     run("llff quad", model, params, frame6, {"cf_prepared": prep},
         ("HYPERREEL_FUSED_PATCH_MULTI", "0"))
     for shape in (cs.PATCH_R8, cs.PATCH_R4):
-        _, m, _, pr = cs.llff(dev, patch=shape, params=params)
+        _, m, _, pr = cs.static_model(dev, "llff", patch=shape,
+                                      params=params)
         fr = cs.phase_major(frame6, shape[2]).contiguous()
         for env, name in (("1", "fused"), ("0", "two-kernel")):
             run(f"llff {name} patch R={shape[2]}", m, params, fr,

@@ -4,10 +4,14 @@ Renders one of chip_smoke.py's configurations (--model flagship:
 technicolor_z_plane at full width, bf16 MLP policy, the 1024x1024 bench
 frame in 4 chunks at t=0.3; --model llff: llff_z_plane at full width on a
 trained checkpoint's grid, the same frame's origins and directions;
---model n3d: neural_3d_z_plane at full width, S=64, on a trained
-checkpoint's grid, the frame at t=0.3 with uniform_time, or with
---per-ray-time without it, so that K5/K6 mix the time planes per sample)
-on one route (--route: quad, K1 then K2 (flagship) or K5 (llff, n3d);
+--model shiny: shiny_z_plane (RGB colour) likewise; --model n3d:
+neural_3d_z_plane at full width, S=64, on a trained checkpoint's grid,
+the frame at t=0.3 with uniform_time, or with --per-ray-time without it,
+so that K5/K6 mix the time planes per sample; --model stanford:
+stanford_llff_z_plane at full width on a trained checkpoint's grid,
+whose one route is the general stage chain and its net's own fused route,
+K2) on one route (--route: quad, K1 then K2 (flagship) or K5 (llff,
+shiny, n3d), or stanford's own route;
 fused, the coherent patch-gather route with bench.py's phase-major rays
 at R=8 (5, 2) (n3d: (5, 3)), K1 then K3 or K6; two, the same route on K1,
 K4 and K2-preblended, or K1, K4 on each of the three planes and
@@ -22,7 +26,8 @@ K5-preblended) and prints:
     and the idle share of that span; then the host operators by their
     own CPU time.
 
-    python3 scripts/profile_torch_frame.py [--model flagship|llff|n3d]
+    python3 scripts/profile_torch_frame.py
+        [--model flagship|llff|shiny|n3d|stanford]
         [--route quad|fused|two] [--per-ray-time] [--frames 3]
         [--trace FILE]
 
@@ -58,8 +63,8 @@ def busy_ms(intervals):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=("flagship", "llff", "n3d"),
-                    default="flagship")
+    ap.add_argument("--model", choices=("flagship", "llff", "shiny", "n3d",
+                                        "stanford"), default="flagship")
     ap.add_argument("--route", choices=("quad", "fused", "two"),
                     default="quad")
     ap.add_argument("--per-ray-time", action="store_true")
@@ -95,12 +100,18 @@ def main():
         os.environ["HYPERREEL_FUSED_PATCH"] = fused
         if patch:
             model, prep = cs.patch_model(cfg, info, params, cs.PATCH_R8)
-    elif args.model == "llff":
-        _, model, params, prep = cs.llff(
-            dev, patch=cs.PATCH_R8 if patch else None)
+    elif args.model in ("llff", "shiny"):
+        _, model, params, prep = cs.static_model(
+            dev, args.model, patch=cs.PATCH_R8 if patch else None)
         rk = {"cf_prepared": prep}
         frame = frame[..., :6].contiguous()     # a static scene: o, d
         os.environ["HYPERREEL_FUSED_PATCH_MULTI"] = fused
+    elif args.model == "stanford":
+        if patch:
+            raise ValueError("stanford_llff_z_plane has one route (quad)")
+        _, model, params, prep = cs.stanford(dev)
+        rk = {"cf_prepared": prep}
+        frame = frame[..., :6].contiguous()
     else:
         shape = cs.N3D_PATCH_R8
         _, model, params, prep = cs.n3d(dev, patch=shape if patch else None)

@@ -3,8 +3,8 @@ card. Marked `cuda`: without an NVIDIA card every test here skips (CUDA
 kernels have no CPU mode; the plain versions are held against the JAX
 package by tests/test_torch_pack_build.py, test_torch_shade.py,
 test_torch_slice.py, test_torch_patch.py, test_torch_patch_route.py,
-test_torch_composite.py, test_torch_static.py, test_torch_multi.py and
-test_torch_dynamic_multi.py).
+test_torch_composite.py, test_torch_static.py, test_torch_multi.py,
+test_torch_dynamic_multi.py and test_torch_rgb.py).
 Run on the card with
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
@@ -20,9 +20,9 @@ import pytest
 import torch
 
 from hyperreel_tpu_torch.configs.presets import (
-    convert_epochs_to_iters, llff_z_plane, neural_3d_z_plane,
-    technicolor_z_plane, tiny_dynamic, tiny_neural_3d, tiny_static,
-    with_coherent_gather)
+    convert_epochs_to_iters, llff_z_plane, neural_3d_z_plane, shiny_z_plane,
+    stanford_llff_z_plane, technicolor_z_plane, tiny_dynamic, tiny_neural_3d,
+    tiny_shiny, tiny_stanford_llff, tiny_static, with_coherent_gather)
 from hyperreel_tpu_torch.models.ctx import StepCtx
 from hyperreel_tpu_torch.models.model import build_model
 from hyperreel_tpu_torch.ops.kernels import build
@@ -395,7 +395,8 @@ def test_static_fused_model_matches_general_on_card(dev):
     import copy
     cfg, model, params = _static_model(dev, 32)
     cfg_g = copy.deepcopy(cfg)
-    cfg_g["color"]["net"]["fused_render_cf"] = False
+    # the general colour net too, not the net's own fused route
+    cfg_g["color"]["net"].update(fused_render_cf=False, fused_render=False)
     general = build_model(cfg_g)
     rays = _rays(4096, dev, seed=1)[:, :6].contiguous()
     ctx = StepCtx(it=20000)
@@ -463,13 +464,13 @@ def test_n3d_pack_build_matches_plain(dev, S, bf16, full, n):
     assert rpb == (128 if bf16 else 64)
 
 
-@pytest.mark.parametrize("family", ["flagship", "llff", "n3d"])
+@pytest.mark.parametrize("family", ["flagship", "llff", "n3d", "shiny"])
 def test_pack_plan_takes_128_rays_at_full_width(dev, family):
-    """The bf16 plan's ray tile at the three models' full widths (P*S =
-    480, 384 and 960 last-layer columns) is at least 128 rays."""
+    """The bf16 plan's ray tile at the four models' full widths (P*S =
+    480, 384, 960 and 384 last-layer columns) is at least 128 rays."""
     cfg = convert_epochs_to_iters(
         {"flagship": technicolor_z_plane, "llff": llff_z_plane,
-         "n3d": neural_3d_z_plane}[family](), 4000)
+         "n3d": neural_3d_z_plane, "shiny": shiny_z_plane}[family](), 4000)
     cfg["color"]["net"].update(fused_render=True, bf16_tables=True)
     model = build_model(cfg, dataset_info={**INFO, **N3D_INFO},
                         compute_dtype=torch.bfloat16)
@@ -649,3 +650,286 @@ def test_unsupported_sample_count_raises_on_card(dev):
     assert (pack_build.launches, shade_multi.launches) == before
     cpu = model.apply(_to(params, "cpu"), rays.cpu(), StepCtx(it=20000))
     assert torch.isfinite(cpu["rgb"]).all()
+
+
+# ---- K1 beside its plain version on many rays: the colour
+
+# Over tens of thousands of random rays a sample whose |xn|, |yn| or |zn|
+# lies on the aabb's face in one pack can lie an ulp or a few outside it in
+# the other (the z-planes at -1 and 1 put samples on the z faces), and the
+# reference's hard validity step (hyperreel_tpu/ops/pallas/shade.py
+# :175-176) then drops or keeps the sample, which moves its ray's colour by
+# up to 0.058 (scripts/face_crossing.py on the card: 33,869 tiny rays under
+# the bf16 policy, the worst ray's sample at zn = 1.0 in K1's pack and 4
+# ulps above 1 in the plain pack). So the chunk-colour gate, both kernels
+# against both plain versions at 2e-4, holds every ray that has no sample
+# within 2 ulps of a face in either pack: it leaves out 6 of the 33,869
+# tiny rays under the bf16 policy and 9 under the f32 one, and 47 and 58
+# at full width (measured on the card), and at most 1 % of the rays here.
+FACE_ULPS = 2
+
+
+def _near_face(pack, S):
+    """[B]: rays with a sample whose |xn|, |yn| or |zn| lies within
+    FACE_ULPS f32 ulps of 1."""
+    one = torch.tensor(1.0).view(torch.int32).item()
+    bits = pack[:3].abs().contiguous().view(torch.int32).long()
+    return ((bits - one).abs().amin(0) <= FACE_ULPS).reshape(-1, S).any(1)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("tiny", [True, False], ids=["S8", "S32"])
+def test_ragged_persistent_chunk_colour(dev, tiny, bf16):
+    _, model, params = _model(tiny, dev, bf16)
+    cf = model._cf_eval
+    prep = cf.prepare(params)
+    rays = _rays(RAGGED_PERSISTENT, dev)
+    x0 = cf.pred.net_input(rays, StepCtx(it=20000)).float().contiguous()
+    rp = cf.ray_pack(rays)
+    pack = pack_build(x0, prep["mlp"], rp, cf.spec, 20000)
+    pack_p = pack_build_plain(x0, prep["mlp"], rp, cf.spec, 20000)
+    H, W, TH, TW, C, nd = prep["dims"]
+    spec = ShadeSpec(S=cf.S, W=W, H=H, TW=TW, TH=TH, C=C, nd=nd,
+                     deg=cf.net.sh_deg, distance_scale=cf.net.distance_scale)
+    out = shade(prep["quad"], pack, rp, prep["ttab"], prep["wb"], spec)
+    ref = shade_plain(prep["quad"], pack_p, rp, prep["ttab"], prep["wb"],
+                      spec)
+    torch.cuda.synchronize()
+    near = _near_face(pack, cf.S) | _near_face(pack_p, cf.S)
+    print(f"rays within {FACE_ULPS} ulps of a face: {int(near.sum())} of "
+          f"{RAGGED_PERSISTENT}")
+    assert int(near.sum()) <= RAGGED_PERSISTENT // 100
+    assert (out[~near, :4] - ref[~near, :4]).abs().max() <= 2e-4
+
+
+# ---- the static RGB families (shiny_z_plane, stanford_llff_z_plane)
+
+RGB_DENSITY = {"shiny": 0.2, "stanford": 0.3}    # chip_smoke.py
+
+
+def _rgb_model(dev, family, bf16=True, patch=None, cf=True):
+    """shiny_z_plane or stanford_llff_z_plane at full width on its trained
+    checkpoint's grid (N_voxel_init set to N_voxel_final), density planes
+    and lines redrawn uniform in [0, RGB_DENSITY); `cf=False` turns the
+    channels-first route off."""
+    make = {"shiny": shiny_z_plane, "stanford": stanford_llff_z_plane}
+    cfg = convert_epochs_to_iters(make[family](), 4000)
+    net = cfg["color"]["net"]
+    net["N_voxel_init"] = net["N_voxel_final"]
+    if not cf:
+        net["fused_render_cf"] = False
+    if patch:
+        cfg = with_coherent_gather(cfg, *patch)
+    model = build_model(cfg, compute_dtype=torch.bfloat16 if bf16 else None)
+    gen = torch.Generator().manual_seed(0)
+    params = model.init(gen, dev)
+    for k, v in params["color"]["density"].items():
+        params["color"]["density"][k] = RGB_DENSITY[family] * torch.rand(
+            v.shape, generator=gen).to(dev)
+    return cfg, model, params
+
+
+# shiny at full width on one chunk of the bench camera (a 512x512 crop,
+# 262,144 rays): K1 on its chain (static, identity contraction, S = 32,
+# two-plane + PE inputs) under both MLP policies at the flagship's
+# tolerances; K5, K4 x 3 + K5-preblended and K6 with RGB colour, and K5
+# with the weights row (random weights in [0, 2)), at the multi-axis
+# tolerances.
+@pytest.mark.parametrize("pm", [True, False], ids=["phase_major", "scanline"])
+def test_shiny_kernels_match_plain_at_full_width(dev, pm):
+    _, model, params = _rgb_model(dev, "shiny", patch=(5, 2, 8))
+    cf = model._cf_eval
+    prep = cf.prepare(params)
+    rays = _frame_rays(512, dev, 8 if pm else None)[:, :6].contiguous()
+    x0 = cf.pred.net_input(rays, StepCtx(it=20000)).float().contiguous()
+    rp = cf.ray_pack(rays)
+    pack = pack_build(x0, prep["mlp"], rp, cf.spec, 20000)
+    pack_p = pack_build_plain(x0, prep["mlp"], rp, cf.spec, 20000)
+    assert (pack - pack_p).abs().max() <= 2e-3
+    cf32 = build_model(model.cfg)._cf_eval
+    tabs32 = cf32.prepare(params)["mlp"]
+    x32, rp32 = x0[:4096].contiguous(), rp[:4096].contiguous()
+    assert (pack_build(x32, tabs32, rp32, cf32.spec, 20000)
+            - pack_build_plain(x32, tabs32, rp32, cf32.spec, 20000)
+            ).abs().max() <= 1e-5
+    del pack_p
+    spec = MultiSpec(S=cf.S, axes=prep["axes"], deg=cf.net.sh_deg,
+                     distance_scale=cf.net.distance_scale, shading="rgb")
+    args = (prep["lines"], pack, rp, prep["wb"], spec)
+    out = shade_multi(prep["quads"], *args)
+    ref = shade_multi_plain(prep["quads"], *args)
+    torch.cuda.synchronize()
+    assert ref[:, 3].mean() > 0.5             # the scene is not transparent
+    assert (out[:, :4] - ref[:, :4]).abs().max() <= 1e-4
+    assert (out[:, 4] - ref[:, 4]).abs().max() <= 1e-3
+    gen = torch.Generator(device=dev).manual_seed(1)
+    pack_w = torch.cat([pack, 2 * torch.rand(1, pack.shape[1], device=dev,
+                                             generator=gen)])
+    wspec = dataclasses.replace(spec, weights=True)
+    wargs = (prep["lines"], pack_w, rp, prep["wb"], wspec)
+    out_w = shade_multi(prep["quads"], *wargs)
+    ref_w = shade_multi_plain(prep["quads"], *wargs)
+    torch.cuda.synchronize()
+    assert (out_w[:, :4] - ref_w[:, :4]).abs().max() <= 1e-4
+    assert (out_w[:, :4] - out[:, :4]).abs().max() > 0.05
+    del pack_w, out_w, ref_w
+    pspecs = cf.patch_specs([(a.W, a.H, a.C, a.m0, a.m1)
+                             for a in prep["axes"]], pm)
+    flags = torch.zeros(pack.shape[1] // 8, dtype=torch.uint8, device=dev)
+    flags_p = flags.clone()
+    feats = []
+    for t, ps in zip(prep["ptabs"], pspecs):
+        f, v = patch_blend(t, pack, ps, flags)
+        fp, vp = patch_blend_plain(t, pack, ps, flags_p)
+        assert int(v) == int(vp) and _ulps(f, fp) <= 1.0
+        feats.append(f)
+    assert torch.equal(flags, flags_p)
+    pre = shade_multi_preblended(feats, *args)
+    ref = shade_multi_preblended_plain(feats, *args)
+    assert (pre[:, :4] - ref[:, :4]).abs().max() <= 1e-4
+    fused, v = shade_multi_patch(prep["ptabs"], *args, pspecs)
+    ref, vp = shade_multi_patch_plain(prep["ptabs"], *args, pspecs)
+    torch.cuda.synchronize()
+    assert int(v) == int(vp) == int(flags.sum())
+    assert (fused[:, :4] - ref[:, :4]).abs().max() <= 1e-4
+    assert (fused[:, 4] - ref[:, 4]).abs().max() <= 1e-3
+
+
+def test_stanford_k2_matches_plain_at_full_width(dev):
+    """stanford at full width on one chunk of the bench camera: the
+    general chain, then K2 with RGB colour, the weights row and the z line
+    as its TH = 0 table against its plain version; through model.apply K2
+    launches once and nothing else, and the colour matches the general
+    colour net's at the fused-path gate."""
+    import copy
+    cfg, model, params = _rgb_model(dev, "stanford")
+    assert model._cf_eval is None
+    net = model.color_net
+    prep = model.prepare_eval(params)
+    rays = _frame_rays(512, dev)[:, :6].contiguous()
+    ctx = StepCtx(it=20000)
+    x = model.embedding.apply(params["embedding"],
+                              model.ray_param.apply(rays), ctx, {})
+    pack, rp = net.fused_pack(x)
+    assert pack.shape == (11, rays.shape[0] * 32)
+    spec = net.fused_spec(prep, 32)
+    args = (prep["quads"][0], pack, rp, prep["lines"][0], prep["wb"], spec)
+    out = shade(*args)
+    ref = shade_plain(*args)
+    torch.cuda.synchronize()
+    assert ref[:, 3].mean() > 0.5
+    assert (out[:, :4] - ref[:, :4]).abs().max() <= 1e-4
+    assert (out[:, 4] - ref[:, 4]).abs().max() <= 1e-3
+    fns = (pack_build, shade, shade_multi)
+    before = {f.__name__: f.launches for f in fns}
+    a = model.apply(params, rays, ctx, {"cf_prepared": prep})["rgb"]
+    got = {f.__name__: f.launches - before[f.__name__] for f in fns}
+    assert got == {"pack_build": 0, "shade": 1, "shade_multi": 0}
+    cfg_g = copy.deepcopy(cfg)
+    cfg_g["color"]["net"]["fused_render"] = False
+    general = build_model(cfg_g, compute_dtype=torch.bfloat16)
+    b = general.apply(params, rays, ctx)["rgb"]
+    assert (a - b).abs().max() <= 2e-4
+
+
+def test_rgb_single_axis_kernels_match_plain(dev):
+    """K2, K2-preblended and K3 with RGB colour (a random [3, C] basis with
+    zero density columns), and K2 with the weights row, on the tiny
+    flagship's time planes, at K2's tolerances."""
+    _, model, params = _model(True, dev, patch=(5, 2, 8))
+    cf = model._cf_eval
+    prep = cf.prepare(params)
+    H, W, TH, TW, C, nd = prep["dims"]
+    gen = torch.Generator().manual_seed(2)
+    wb = torch.cat([torch.zeros(3, nd),
+                    torch.randn(3, C - nd, generator=gen)], 1)
+    spec = ShadeSpec(S=cf.S, W=W, H=H, TW=TW, TH=TH, C=C, nd=nd, deg=0,
+                     distance_scale=cf.net.distance_scale, shading="rgb")
+    rays = _frame_rays(64, dev, 8)
+    x0 = cf.pred.net_input(rays, StepCtx(it=20000)).float().contiguous()
+    rp = cf.ray_pack(rays)
+    pack = pack_build(x0, prep["mlp"], rp, cf.spec, 20000)
+    targs = (prep["ttab"], wb, spec)
+    out = shade(prep["quad"], pack, rp, *targs)
+    ref = shade_plain(prep["quad"], pack, rp, *targs)
+    assert (out[:, :4] - ref[:, :4]).abs().max() <= 1e-4
+    w = torch.rand(1, pack.shape[1], device=dev)
+    pack_w = torch.cat([pack, 2 * w])
+    wspec = dataclasses.replace(spec, weights=True)
+    out_w = shade(prep["quad"], pack_w, rp, prep["ttab"], wb, wspec)
+    ref_w = shade_plain(prep["quad"], pack_w, rp, prep["ttab"], wb, wspec)
+    assert (out_w[:, :4] - ref_w[:, :4]).abs().max() <= 1e-4
+    ps = PatchSpec(R=8, px=5, py=2, W=W, H=H, C=C, S=cf.S, phase_major=True)
+    feats, _ = patch_blend(prep["patch"], pack, ps)
+    pre = shade_preblended(feats, pack, rp, *targs)
+    ref = shade_preblended_plain(feats, pack, rp, *targs)
+    assert (pre[:, :4] - ref[:, :4]).abs().max() <= 1e-4
+    fused, v = shade_patch(prep["patch"], pack, rp, *targs, ps)
+    ref, vp = shade_patch_plain(prep["patch"], pack, rp, *targs, ps)
+    torch.cuda.synchronize()
+    assert int(v) == int(vp)
+    assert (fused[:, :4] - ref[:, :4]).abs().max() <= 1e-4
+    # K3 and K2-preblended have no weights row (ROADMAP.md 2a): refused
+    # before a launch
+    before = (shade_patch.launches, shade_preblended.launches)
+    with pytest.raises((NotImplementedError, ValueError)):
+        shade_patch(prep["patch"], pack_w, rp, prep["ttab"], wb, wspec, ps)
+    with pytest.raises(NotImplementedError):
+        shade_preblended(feats, pack_w, rp, prep["ttab"], wb, wspec)
+    assert (shade_patch.launches, shade_preblended.launches) == before
+
+
+def _tiny_rgb_model(dev, family, S=32, patch=None, cf=True):
+    """tiny_shiny with the [8, 4, 4] layout the multi-axis kernels are
+    built for, or tiny_stanford_llff ([4, 0, 0]: C = 8, a K2 layout), bf16
+    tables, density planes and lines redrawn uniform in [0, 0.4)."""
+    make = {"shiny": tiny_shiny, "stanford": tiny_stanford_llff}
+    cfg = convert_epochs_to_iters(make[family](z_channels=S), 4000)
+    if family == "shiny":
+        cfg["color"]["net"].update(n_lamb_sigma=[8, 4, 4],
+                                   n_lamb_sh=[8, 4, 4])
+    if not cf:
+        cfg["color"]["net"]["fused_render_cf"] = False
+    if patch:
+        cfg = with_coherent_gather(cfg, *patch)
+    model = build_model(cfg)
+    gen = torch.Generator().manual_seed(0)
+    params = model.init(gen, dev)
+    for k, v in params["color"]["density"].items():
+        params["color"]["density"][k] = 0.4 * torch.rand(
+            v.shape, generator=gen).to(dev)
+    return cfg, model, params
+
+
+# The RGB routes through model.apply on the card: the channels-first
+# routes of tiny_shiny, and the nets' own fused routes after the general
+# chain (stanford: K2; shiny with fused_render_cf off: K5 with the weights
+# row); the launches, and the colour against the same route on the CPU
+# (the plain versions) at the fused-path gate.
+@pytest.mark.parametrize("family,route,kernels", [
+    ("shiny", "quad", {"pack_build": 1, "shade_multi": 1}),
+    ("shiny", "two", {"pack_build": 1, "patch_blend": 3,
+                      "shade_multi_preblended": 1}),
+    ("shiny", "fused", {"pack_build": 1, "shade_multi_patch": 1}),
+    ("shiny", "own", {"shade_multi": 1}),
+    ("stanford", "own", {"shade": 1})])
+def test_rgb_routes_launch_on_card(dev, family, route, kernels,
+                                   monkeypatch):
+    monkeypatch.setenv("HYPERREEL_FUSED_PATCH_MULTI",
+                       "1" if route == "fused" else "0")
+    _, model, params = _tiny_rgb_model(
+        dev, family, patch=(5, 2, 8) if route in ("two", "fused") else None,
+        cf=route != "own")
+    fns = (pack_build, shade, shade_multi, shade_multi_preblended,
+           shade_multi_patch, patch_blend)
+    before = {f.__name__: f.launches for f in fns}
+    rays = _frame_rays(64, dev, 8)[:, :6].contiguous()
+    rk = {"rays_phase_major": True}
+    out = model.apply(params, rays, StepCtx(it=20000), rk)
+    got = {f.__name__: f.launches - before[f.__name__] for f in fns}
+    want = dict.fromkeys(got, 0)
+    want.update(kernels)
+    assert got == want
+    plain = model.apply(_to(params, "cpu"), rays.cpu(), StepCtx(it=20000),
+                        rk)
+    assert (out["rgb"].cpu() - plain["rgb"]).abs().max() <= 2e-4

@@ -5,6 +5,8 @@ the embedding tail alone (`mlp=None`, the same MLP output on both sides),
 and the whole kernel with the prediction MLP inside it (the JAX default
 HYPERREEL_PK_MLP route), fed the same encoded rays and weights."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -17,6 +19,8 @@ from hyperreel_tpu_torch.models.ctx import StepCtx
 from hyperreel_tpu_torch.ops.kernels.layout import (
     JAX_PACK_ROWS, PACK_ROWS, check_pack, pack_from_smajor)
 from hyperreel_tpu_torch.ops.kernels.shade import ShadeSpec, shade
+from hyperreel_tpu_torch.ops.kernels.shade_multi import (
+    AxisSpec, MultiSpec, shade_multi)
 
 from torch_parity import entry_rays, flagship_cfg, models, weights
 
@@ -160,7 +164,8 @@ def test_cpu_tensors_take_the_plain_version():
 def test_layout_mismatch_fails_loudly():
     """A pack of another sample count, or a transposed one, is refused
     instead of compositing the wrong lanes; so are encoded rays of the
-    wrong width and a ray pack of the wrong length."""
+    wrong width, a ray pack of the wrong length, and a pack without the
+    weights row given to a launch that reads it (K2, K5) or the reverse."""
     cf, tabs, x0, rp = _tiny_k1(4)
     spec = cf.spec
     pack = PB.pack_build(x0, tabs, rp, spec, 20000)
@@ -182,6 +187,22 @@ def test_layout_mismatch_fails_loudly():
     with pytest.raises(ValueError):
         shade(torch.zeros(9, 32, dtype=torch.bfloat16), pack, rp[:-1],
               torch.zeros(2, 8), torch.zeros(27, 8), sspec)
+    # a pack without the weights row given to a weights-row launch, and the
+    # reverse (the static net's own fused route packs 11 rows)
+    wspec = dataclasses.replace(sspec, weights=True)
+    pack11 = torch.cat([pack, torch.ones_like(pack[:1])]).contiguous()
+    for p, sp in ((pack, wspec), (pack11, sspec)):
+        with pytest.raises(ValueError):
+            shade(torch.zeros(9, 32, dtype=torch.bfloat16), p, rp,
+                  torch.zeros(2, 8), torch.zeros(27, 8), sp)
+    check_pack(pack11, spec.S, weights=True)
+    mspec = MultiSpec(S=spec.S, axes=(AxisSpec(0, 2, 2, 2, 8, 4),),
+                      deg=0, distance_scale=8.0, shading="rgb")
+    for p, sp in ((pack, dataclasses.replace(mspec, weights=True)),
+                  (pack11, mspec)):
+        with pytest.raises(ValueError):
+            shade_multi([torch.zeros(9, 32, dtype=torch.bfloat16)],
+                        [torch.zeros(2, 8)], p, rp, torch.zeros(3, 4), sp)
 
 
 # ---- the bf16 kernel's weight slabs (csrc/pack_build.cu pack_build_wgmma)

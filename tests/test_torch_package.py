@@ -81,9 +81,28 @@ def test_port_imports_no_jax():
         P.neural_3d_z_plane(), 5, 3, 8)),
     ("n3d_epochs_to_iters", lambda P: P.convert_epochs_to_iters(
         P.neural_3d_z_plane(), 4000)),
+    ("shiny_z_plane", lambda P: P.shiny_z_plane()),
+    ("shiny_z_plane_z16", lambda P: P.shiny_z_plane(16)),
+    ("shiny_patch_route", lambda P: P.with_coherent_gather(
+        P.shiny_z_plane(), 5, 2, 8)),
+    ("stanford_llff_z_plane", lambda P: P.stanford_llff_z_plane()),
+    ("stanford_epochs_to_iters", lambda P: P.convert_epochs_to_iters(
+        P.stanford_llff_z_plane(), 4000)),
+    # the port's tiny RGB presets keep bf16 tables (the fused routes need
+    # them) and have no sample stages (not ported), where the JAX
+    # package's turn the tables off and tiny_shiny adds the stages
+    ("tiny_shiny", lambda P: P.tiny_shiny() if P is TP else _bf16_tables(
+        P.tiny_shiny(sample_stages=False))),
+    ("tiny_stanford_llff", lambda P: P.tiny_stanford_llff() if P is TP
+     else _bf16_tables(P.tiny_stanford_llff())),
 ])
 def test_presets_equal_the_jax_packages(name, make):
     assert make(TP) == make(JP)
+
+
+def _bf16_tables(cfg):
+    cfg["color"]["net"]["bf16_tables"] = True
+    return cfg
 
 
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):

@@ -240,7 +240,8 @@ def test_fused_path_matches_general_path():
     tests/test_fused_cf.py TestStaticCFChain)."""
     cfg = static_cfg(S=32)
     cfg_g = copy.deepcopy(cfg)
-    cfg_g["color"]["net"]["fused_render_cf"] = False
+    # the general colour net too, not the net's own fused route
+    cfg_g["color"]["net"].update(fused_render_cf=False, fused_render=False)
     jm, fused = models(cfg, bf16=False)
     _, general = models(cfg_g, bf16=False)
     assert fused._cf_eval is not None and general._cf_eval is None

@@ -12,7 +12,7 @@ import torch
 
 from hyperreel_tpu.configs.presets import (
     convert_epochs_to_iters, llff_z_plane, technicolor_z_plane, tiny_dynamic,
-    tiny_static)
+    tiny_shiny, tiny_stanford_llff, tiny_static)
 from hyperreel_tpu.models.model import build_model as build_jax
 from hyperreel_tpu_torch.convert import params_from_jax
 from hyperreel_tpu_torch.models.model import build_model as build_torch
@@ -53,6 +53,23 @@ def static_cfg(S=8, comps=(8, 4, 4), full=False, fused=True,
     net.update(n_lamb_sigma=list(comps), n_lamb_sh=list(comps),
                fused_render=fused, bf16_tables=bf16_tables)
     if not fused:
+        net["fused_render_cf"] = False
+    return cfg
+
+
+def rgb_cfg(family, S=8, cf=True, fused=True):
+    """The static RGB families at test size: tiny_shiny (without its
+    sample stages; [4, 4, 4] components) or tiny_stanford_llff ([4, 0,
+    0]), with bf16 tables, which the fused routes need (the port's tiny
+    presets set them). `cf=False` turns the channels-first route off (the
+    net's own fused route then runs after the general chain), `fused=False`
+    both fused routes."""
+    cfg = tiny_shiny(z_channels=S, sample_stages=False) \
+        if family == "shiny" else tiny_stanford_llff(z_channels=S)
+    cfg = convert_epochs_to_iters(cfg, ITERS_PER_EPOCH)
+    net = cfg["color"]["net"]
+    net.update(bf16_tables=True, fused_render=fused)
+    if not (cf and fused):
         net["fused_render_cf"] = False
     return cfg
 
