@@ -96,9 +96,9 @@ no result line):
      K5-preblended and K6 with RGB colour against their plain versions,
      K5 also with the weights row, the valid share, the frames on the
      three routes with their witnesses and rgb gates, fused vs general
-     path, one chunk through the general chain and the net's own fused
-     route (fused_render_cf off: K5 with the weights row, launched once)
-     against the quad route, and the routes' frame times;
+     path, the frame through the general chain and the net's own fused
+     route (fused_render_cf off: K5 with the weights row, once per chunk),
+     its first chunk against the quad route, and the routes' frame times;
  24. stanford_llff_z_plane (two-plane rays with near/far, one plane x line
      axis, RGB colour) on its checkpoint grid (the plane 1007x1007, the
      line 503; a ~130 MB quad table), the density plane and line redrawn
@@ -208,6 +208,23 @@ def rows_bytes(table, rows):
     """Bytes of the rows of a [n, width] table that the flat row indices
     `rows` touch, each row counted once."""
     return rows.unique().numel() * table.shape[1] * table.element_size()
+
+
+def ray_bytes(rp, rgb, timed):
+    """Bytes of the ray pack [B, 8] that a shade kernel reads: the view
+    direction for SH colour, the time for a time plane; a static net with
+    RGB colour reads none of it (csrc/shade_core.cuh colour, shade_sample;
+    multi_core.cuh shade_axes)."""
+    return 0 if rgb and not timed else nbytes(rp)
+
+
+def pack_bytes(pack, valid):
+    """Bytes of the pack that a shade kernel reads: its 10 rows for every
+    sample and, in a pack with the weights row, that row only for the
+    `valid` samples (csrc/shade.cu, shade_multi.cu load it under the
+    validity test)."""
+    from hyperreel_tpu_torch.ops.kernels.layout import PACK_ROWS
+    return nbytes(pack[:PACK_ROWS]) + (pack.shape[0] - PACK_ROWS) * valid * 4
 
 
 def quad_rows(pack, m0, m1, W, H):
@@ -345,29 +362,33 @@ def flagship(dev):
     return cfg, info, model, params, model.prepare_eval(params)
 
 
-# the static z-plane families on the channels-first route: their presets
-# and the bound their density planes and lines are redrawn uniform below
-# (llff_z_plane: acc mean 0.995 on the bench frame; shiny_z_plane: ~0.92,
-# a forward-facing scene whose rays end mostly opaque)
+# the static z-plane families: their presets and the bound their density
+# planes and lines are redrawn uniform below (llff_z_plane: acc mean 0.995
+# on the bench frame; shiny_z_plane: ~0.92, a forward-facing scene whose
+# rays end mostly opaque); llff and shiny take the channels-first route,
+# stanford_llff_z_plane its net's own fused route
 STATIC = {"llff": ("llff_z_plane", LLFF_DENSITY),
-          "shiny": ("shiny_z_plane", SHINY_DENSITY)}
+          "shiny": ("shiny_z_plane", SHINY_DENSITY),
+          "stanford": ("stanford_llff_z_plane", STANFORD_DENSITY)}
 
 
 def static_model(dev, family="llff", bf16=True, patch=None, params=None,
                  grid="checkpoint"):
     """llff_z_plane (6x256 MLP on pluecker rays, mipnerf contraction) or
     shiny_z_plane (6x256 MLP on two-plane rays, identity contraction, RGB
-    colour) at full width, S=32, [8, 4, 4] components, on a trained
-    checkpoint's grid: N_voxel_init set to N_voxel_final (262,144,000
-    voxels; llff: planes 786x706, 471x706, 471x786, lines 471, 786, 706;
-    shiny: planes 806x806, 403x806, 403x806, lines 403, 806, 806), so that
-    the bf16 quad tables (~116 / ~125 MB) exceed the 50 MB L2; with
-    grid="init" the preset's own N_voxel_init (128^3 voxels, a few MB of
-    tables, which stay in L2). The bf16 (or f32) MLP policy; with `patch`
-    the coherent patch-gather route (px, py, R). Weights from
-    torch.Generator seed SEED (or the given params) with the density planes
-    and lines redrawn uniform in [0, STATIC[family][1]): (cfg, model,
-    params, prepared tables)."""
+    colour) at full width, S=32, [8, 4, 4] components, or
+    stanford_llff_z_plane (as shiny, one plane x line axis [8, 0, 0]), on
+    a trained checkpoint's grid: N_voxel_init set to N_voxel_final
+    (262,144,000 voxels; llff: planes 786x706, 471x706, 471x786, lines
+    471, 786, 706; shiny: planes 806x806, 403x806, 403x806, lines 403,
+    806, 806; stanford: 512,000,000 voxels, the plane 1007x1007, the line
+    503), so that the bf16 quad tables (~116 / ~125 / ~130 MB) exceed the
+    50 MB L2; with grid="init" the preset's own N_voxel_init (128^3
+    voxels, a few MB of tables, which stay in L2). The bf16 (or f32) MLP
+    policy; with `patch` the coherent patch-gather route (px, py, R).
+    Weights from torch.Generator seed SEED (or the given params) with the
+    density planes and lines redrawn uniform in [0, STATIC[family][1]):
+    (cfg, model, params, prepared tables)."""
     import torch
 
     from hyperreel_tpu_torch.configs import presets
@@ -428,7 +449,7 @@ def static_phases(torch, dev, card, frame, reset_counts, read_counts,
     """Phases 9-13 (llff_z_plane) or 19-23 (shiny_z_plane): the family's
     kernels on one chunk against their plain versions and timed in turns,
     the bench frame on its routes, fused vs general path, and the routes'
-    frame times; for shiny also K5 with the weights row, and one chunk
+    frame times; for shiny also K5 with the weights row, and the frame
     through the net's own fused route. Returns (the kernels' JSON records,
     {route: ms/frame})."""
     from hyperreel_tpu_torch.models.ctx import StepCtx
@@ -450,6 +471,7 @@ def static_phases(torch, dev, card, frame, reset_counts, read_counts,
     cf = model._cf_eval
     rgb_colour = cf.net.shading == "rgb"
     axes = prep["axes"]
+    timed = any(a.TH for a in axes)
     print(f"# {STATIC[family][0]}: planes " + ", ".join(
         f"{a.H}x{a.W}x{a.C}" for a in axes) + "; lines " + ", ".join(
         str(a.L) for a in axes) + f"; quad tables "
@@ -526,7 +548,8 @@ def static_phases(torch, dev, card, frame, reset_counts, read_counts,
         k5w_plain_ms = cuda_ms(torch, lambda: shade_multi_plain(
             prep["quads"], lines, pack_w, rp, wb, wspec), 2)
         k5w_bound = bound(
-            nbytes(pack_w, rp, *lines) + CHUNK * 5 * 4 + sum(
+            pack_bytes(pack_w, valid) + ray_bytes(rp, rgb_colour, timed)
+            + nbytes(*lines) + CHUNK * 5 * 4 + sum(
                 rows_bytes(q, quad_rows(pack, a.m0, a.m1, a.W, a.H))
                 for q, a in zip(prep["quads"], axes)),
             [(valid * multi_ops(axes, lambda C: 8 * C + 10, rgb_colour,
@@ -675,7 +698,8 @@ def static_phases(torch, dev, card, frame, reset_counts, read_counts,
     ptab_bytes = [sum(rows_bytes(t, patch_rows(pack_pm, ps, every))
                       for t, ps in zip(prep8["ptabs"], pspecs))
                   for every in (False, True)]
-    shared = nbytes(pack_pm, rp_pm, *lines) + out_bytes
+    shared = (nbytes(pack_pm, *lines) + ray_bytes(rp_pm, rgb_colour, timed)
+              + out_bytes)
     k5_bound = bound(
         shared + quad_bytes,
         [(valid_pm * multi_ops(axes, lambda C: 8 * C + 10, rgb_colour)
@@ -791,16 +815,16 @@ def static_phases(torch, dev, card, frame, reset_counts, read_counts,
                              f"{path_err}")
     own = {}
     if family == "shiny":
-        # one chunk of the frame through the general chain and the net's
-        # own fused route (fused_render_cf off: K5 with the weights row),
-        # against the channels-first quad route's chunk, f32 MLP policy
+        # the bench frame through the general chain and the net's own fused
+        # route (fused_render_cf off: K5 with the weights row), f32 MLP
+        # policy; its first chunk against the channels-first quad route's
         cfg_o = copy.deepcopy(cfg)
         cfg_o["color"]["net"]["fused_render_cf"] = False
         own_m = build_model(cfg_o)
         prep_o = own_m.prepare_eval(params)
         rko = {"cf_prepared": prep_o}
         reset_counts()
-        a = own_m.apply(params, frame6[0], ctx, rko)["rgb"]
+        a = render(own_m, frame6, rko)[0]["rgb"]
         torch.cuda.synchronize()
         own["counts"] = read_counts()
         b = fused_m.apply(params, frame6[0], ctx)["rgb"]
@@ -808,11 +832,12 @@ def static_phases(torch, dev, card, frame, reset_counts, read_counts,
         own["ms"] = cuda_ms(torch, lambda: own_m.apply(params, frame6[0],
                                                        ctx, rko), 5)
         want = dict.fromkeys(own["counts"], 0)
-        want.update(shade_multi=1)
+        want.update(shade_multi=n_chunks)
         print(f"# {family} own fused route (general chain + K5 with the "
-              f"weights row), one chunk: launches {own['counts']}; rgb vs "
-              f"the channels-first quad route {own_err:.3e} (tol "
-              f"{PATH_TOL}); {own['ms']:.3f} ms per chunk", flush=True)
+              f"weights row), the frame: launches {own['counts']}; its "
+              f"first chunk's rgb vs the channels-first quad route "
+              f"{own_err:.3e} (tol {PATH_TOL}); {own['ms']:.3f} ms per "
+              f"chunk", flush=True)
         if own["counts"] != want or not own_err <= PATH_TOL:
             raise AssertionError(f"{family} own fused route: launches "
                                  f"{own['counts']}, rgb error {own_err}")
@@ -865,34 +890,6 @@ def static_phases(torch, dev, card, frame, reset_counts, read_counts,
             k5w_ms, k5w_plain_ms, k5w_bound))
     return records, frame_ms
 
-def stanford(dev, bf16=True):
-    """stanford_llff_z_plane at full width (6x256 MLP on two-plane rays,
-    S=32, one plane x line axis [8, 0, 0], RGB colour) on a trained
-    checkpoint's grid: N_voxel_init set to N_voxel_final (512,000,000
-    voxels: the plane 1007x1007, the line 503), whose bf16 quad table
-    (~130 MB) exceeds the 50 MB L2. The bf16 (or f32) MLP policy; weights
-    from torch.Generator seed SEED with the density plane and line redrawn
-    uniform in [0, STANFORD_DENSITY): (cfg, model, params, the tables of
-    the net's own fused route)."""
-    import torch
-
-    from hyperreel_tpu_torch.configs.presets import (
-        convert_epochs_to_iters, stanford_llff_z_plane)
-    from hyperreel_tpu_torch.models.model import build_model
-
-    cfg = convert_epochs_to_iters(stanford_llff_z_plane(),
-                                  iters_per_epoch=4000)
-    net = cfg["color"]["net"]
-    net["N_voxel_init"] = net["N_voxel_final"]
-    model = build_model(cfg, compute_dtype=torch.bfloat16 if bf16 else None)
-    gen = torch.Generator().manual_seed(SEED)
-    params = model.init(gen, dev)
-    for k, v in params["color"]["density"].items():
-        params["color"]["density"][k] = STANFORD_DENSITY * torch.rand(
-            v.shape, generator=gen).to(dev)
-    return cfg, model, params, model.prepare_eval(params)
-
-
 def stanford_phases(torch, dev, card, frame, reset_counts, read_counts):
     """Phases 24-27: stanford_llff_z_plane through the general stage chain
     and its net's own fused route (K2 with RGB colour, the weights row and
@@ -908,7 +905,7 @@ def stanford_phases(torch, dev, card, frame, reset_counts, read_counts):
 
     ctx = StepCtx(it=IT)
     # ---- 24. the model at the checkpoint grid
-    cfg, model, params, prep = stanford(dev)
+    cfg, model, params, prep = static_model(dev, "stanford")
     net = model.color_net
     if model._cf_eval is not None:
         raise AssertionError("stanford_llff_z_plane took the channels-first "
@@ -953,7 +950,8 @@ def stanford_phases(torch, dev, card, frame, reset_counts, read_counts):
                                                      wb, spec), 2)
     chain_ms = cuda_ms(torch, lambda: chain(chunk), 5)
     k2_bound = bound(
-        nbytes(pack, rp, line) + CHUNK * 5 * 4
+        pack_bytes(pack, valid) + ray_bytes(rp, True, spec.TH > 0)
+        + nbytes(line) + CHUNK * 5 * 4
         + rows_bytes(quad, quad_rows(pack, 0, 1, ax.W, ax.H)),
         [(valid * (shade_ops(ax.C, ax.nd, True, True) + 8 * ax.C + 10)
           + N * COMPOSITE_OPS, F32_OPS_PER_S)])

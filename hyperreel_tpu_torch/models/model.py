@@ -44,10 +44,6 @@ class LightfieldModel:
         rays = self.ray_param.apply(rays)
         x = self.embedding.apply(params["embedding"], rays, ctx,
                                  render_kwargs)
-        if self._cf_eval is not None:
-            # the tables are the channels-first route's, not the net's
-            render_kwargs = {k: v for k, v in render_kwargs.items()
-                             if k != "cf_prepared"}
         return self.color_net.apply(params["color"], x, ctx, render_kwargs)
 
     def prepare_eval(self, params):

@@ -100,18 +100,14 @@ def main():
         os.environ["HYPERREEL_FUSED_PATCH"] = fused
         if patch:
             model, prep = cs.patch_model(cfg, info, params, cs.PATCH_R8)
-    elif args.model in ("llff", "shiny"):
+    elif args.model in ("llff", "shiny", "stanford"):
+        if patch and args.model == "stanford":
+            raise ValueError("stanford_llff_z_plane has one route (quad)")
         _, model, params, prep = cs.static_model(
             dev, args.model, patch=cs.PATCH_R8 if patch else None)
         rk = {"cf_prepared": prep}
         frame = frame[..., :6].contiguous()     # a static scene: o, d
         os.environ["HYPERREEL_FUSED_PATCH_MULTI"] = fused
-    elif args.model == "stanford":
-        if patch:
-            raise ValueError("stanford_llff_z_plane has one route (quad)")
-        _, model, params, prep = cs.stanford(dev)
-        rk = {"cf_prepared": prep}
-        frame = frame[..., :6].contiguous()
     else:
         shape = cs.N3D_PATCH_R8
         _, model, params, prep = cs.n3d(dev, patch=shape if patch else None)
