@@ -49,13 +49,15 @@ no result line):
      the density planes and lines redrawn uniform in [0, 0.05);
  10. on one chunk of the bench frame (o, d only: a static scene): K1 with
      the contraction and no flow stage (bf16 and f32 MLP policies), K5
-     (multi-axis shade), K4 on each of the three planes, K5 reading their
-     pre-blended features, and K6 (fused multi-axis patch shade) at R=8
-     (5, 2) on the phase-major chunk, each against its plain version, the
-     witness counts equal; the share of valid samples (>= 25 %); each
-     kernel's CUDA-event time in turns, and its plain version's; K5 on the
-     same pack with the init grid's L2-resident tables, in turns with the
-     checkpoint grid's; K1's plan and yardstick as phase 3;
+     (multi-axis shade; its persistent grid and carve-out), K4 on each of
+     the three planes, K5 reading their pre-blended features, and K6
+     (fused multi-axis patch shade) at R=8 (5, 2) on the phase-major
+     chunk, each against its plain version, the witness counts equal; the
+     share of valid samples (>= 25 %); each kernel's CUDA-event time in
+     turns on the phase-major chunk, K5's also on the chunk in scanline
+     order (as the quad route gives it), and its plain version's; K5 on
+     the same pack with the init grid's L2-resident tables, in turns with
+     the checkpoint grid's; K1's plan and yardstick as phase 3;
  11. the bench frame on llff's routes through model.apply: quad (K1, K5),
      fused patch (HYPERREEL_FUSED_PATCH_MULTI=1: K1, K6) and two-kernel
      patch (K1, K4 x 3, K5-preblended) at R=8 (5, 2), and both patch
@@ -72,7 +74,8 @@ no result line):
      torch.Generator with the density grids redrawn uniform in [0, 0.05);
  15. on one chunk of the bench frame (t = 0.3): K1 at S=64 (bf16 and f32
      MLP policies), K5 on the time planes (TH=12, the time coordinate
-     mixed per sample) and on the planes premixed for t, K4 on each plane
+     mixed per sample), on the same chunk with a t per ray spread over
+     all 12 keyframes and on the planes premixed for t, K4 on each plane
      and K5-preblended at R=8 (5, 3) on the phase-major chunk, K6 at R=8
      (5, 3) and at R=4 (4, 3), each against its plain version, the witness
      counts equal; the share of valid samples (>= 25 %); each kernel's
@@ -184,11 +187,27 @@ K1_CONTRACT_OPS = 57
 COMPOSITE_OPS, COMPOSITE4_OPS = 46, 40
 
 
-def shade_ops(C, nd, rgb=False, weights=False):
+def shade_ops(C, nd, rgb=False, weights=False, fold=None):
     """K2/K3's f32 operations per valid sample after its space features:
     time taps 4C+6, the product C, density nd (and the weight), the colour
-    of the C features, validity 8."""
-    return 5 * C + nd + 14 + colour_ops(C, rgb) + int(weights)
+    of the C features (`colour_ops`), validity 8."""
+    return 5 * C + nd + 14 + colour_ops(C, rgb, fold) + int(weights)
+
+
+# the bounds of the SH rows by both counts of the colour (sh_bound): name
+# -> (bound ms with the basis folded per ray, bound ms without)
+SH_BOUNDS = {}
+
+
+def sh_bound(name, nbytes, ops, S):
+    """bound(nbytes, ops(S)), the least work with the SH basis folded once
+    per ray over its S samples; the bound by the count without the fold,
+    ops(None), is kept beside it in SH_BOUNDS where the two differ."""
+    new = bound(nbytes, ops(S))
+    old = bound(nbytes, ops(None))[0]
+    if old != new[0]:
+        SH_BOUNDS[name] = (new[0], old)
+    return new
 
 
 def bound(nbytes, ops):
@@ -425,14 +444,22 @@ def valid_count(pack):
     return valid_mask(pack).sum().item()
 
 
-def colour_ops(A, rgb):
-    """f32 operations of one valid sample's colour from A features: SH of
-    degree 2 (the basis 54A, SH basis 20, SH sums 54, colour 12) or RGB
-    (the basis 6A, the sigmoids 12, colour 12)."""
-    return 6 * A + 24 if rgb else 54 * A + 86
+def colour_ops(A, rgb, fold=None):
+    """f32 operations of one valid sample's colour from A features: RGB
+    (the basis 6A, the sigmoids 12, colour 12); SH of degree 2 with `fold`
+    = S, the least work for the function: the [3 * 9, A] basis folded with
+    the ray's view direction once per ray (54A, and its SH basis 20),
+    spread over the ray's S samples, then a [3, A] product (6A) and the
+    colour 12 per sample; with fold None the count without the fold (the
+    basis 54A, SH basis 20, SH sums 54, colour 12)."""
+    if rgb:
+        return 6 * A + 24
+    if fold:
+        return 6 * A + 12 + (54 * A + 20) / fold
+    return 54 * A + 86
 
 
-def multi_ops(axes, blend, rgb=False, weights=False):
+def multi_ops(axes, blend, rgb=False, weights=False, fold=None):
     """f32 operations per valid sample after the pack of K5/K6: per axis
     the plane features (`blend(C)`), the second factor (a line's taps
     4C+6; a time plane's z and t taps and its two rows' blends and mix
@@ -441,7 +468,17 @@ def multi_ops(axes, blend, rgb=False, weights=False):
     validity 8."""
     A = sum(a.C - a.nd for a in axes)
     return sum(blend(a.C) + (12 * a.C + 12 if a.TH else 4 * a.C + 6) + a.C
-               + a.nd for a in axes) + colour_ops(A, rgb) + int(weights) + 8
+               + a.nd for a in axes) + colour_ops(A, rgb, fold) \
+        + int(weights) + 8
+
+
+def k5_launch(shade_multi):
+    """The persistent grid K5's last launch chose
+    (ops/kernels/shade_multi.py `shade_multi.last_launch`)."""
+    lc = shade_multi.last_launch
+    return (f"grid {lc['grid']} ({lc['blocks_per_sm']} blocks of 256 per "
+            f"SM), carve-out {lc['carveout']} %, {lc['smem_bytes']} bytes "
+            f"of shared memory per block")
 
 
 def static_phases(torch, dev, card, frame, reset_counts, read_counts,
@@ -525,7 +562,8 @@ def static_phases(torch, dev, card, frame, reset_counts, read_counts,
     print(f"# {family} K5 shade_multi ({cf.net.shading}): max |kernel - "
           f"plain| rgb/acc {k5_err:.3e}, "
           f"depth {k5_derr:.3e} (tol {SHADE_TOL}); acc mean "
-          f"{out[:, 3].mean().item():.4f}", flush=True)
+          f"{out[:, 3].mean().item():.4f}; {k5_launch(shade_multi)}",
+          flush=True)
     if not (k5_err <= SHADE_TOL and k5_derr <= 10 * SHADE_TOL):
         raise AssertionError(f"K5 disagrees with its plain version: "
                              f"{k5_err}, {k5_derr}")
@@ -621,8 +659,12 @@ def static_phases(torch, dev, card, frame, reset_counts, read_counts,
                              f"{int(vk)}, {int(vp)}, {viol_k4}, {viol_p}")
     del pre_p, fused_p, flags_p
 
-    # the chunk's kernels, timed in turns (K5, K6, K4 x3, K5-pre, and
-    # back), 20 calls each time; then each plain version once or twice
+    # the chunk's kernels, timed in turns (K5, K5 scanline, K6, K4 x3,
+    # K5-pre, and back), 20 calls each time; then each plain version once
+    # or twice. The kernels on the phase-major chunk, as the patch routes
+    # give it; K5 also on the chunk in scanline order, as the quad route
+    # gives it (its warps take neighbouring rays). The same rays: the
+    # bounds below count the same samples and rows for both orders.
     def blend3():
         fl = torch.zeros(N // R8, dtype=torch.uint8, device=dev)
         return [patch_blend(t, pack_pm, ps, fl) for t, ps in
@@ -631,6 +673,8 @@ def static_phases(torch, dev, card, frame, reset_counts, read_counts,
     kernels = {
         "K5": lambda: shade_multi(prep["quads"], lines, pack_pm, rp_pm, wb,
                                   spec),
+        "K5 scanline": lambda: shade_multi(prep["quads"], lines, pack, rp,
+                                           wb, spec),
         "K6": lambda: shade_multi_patch(prep8["ptabs"], lines, pack_pm,
                                         rp_pm, wb, spec, pspecs),
         "K4x3": blend3,
@@ -642,7 +686,8 @@ def static_phases(torch, dev, card, frame, reset_counts, read_counts,
     print(f"# {family} chunk, in turns: " + "; ".join(
         f"{name} " + ", ".join(f"{t:.4f}" for t in ts) + " ms"
         for name, ts in turns.items()), flush=True)
-    k5_ms, k6_ms, k4_ms, pre_ms = (sum(turns[n]) / 2 for n in kernels)
+    k5_ms, k5_scan_ms, k6_ms, k4_ms, pre_ms = (sum(turns[n]) / 2
+                                               for n in kernels)
     if family == "llff":
         # K5 on the same pack with the tables of the preset's init grid
         # (N_voxel_init: ~4.7 MB of quad tables, which stay in L2), in turns
@@ -700,26 +745,30 @@ def static_phases(torch, dev, card, frame, reset_counts, read_counts,
                   for every in (False, True)]
     shared = (nbytes(pack_pm, *lines) + ray_bytes(rp_pm, rgb_colour, timed)
               + out_bytes)
-    k5_bound = bound(
-        shared + quad_bytes,
-        [(valid_pm * multi_ops(axes, lambda C: 8 * C + 10, rgb_colour)
-          + N * COMPOSITE_OPS, F32_OPS_PER_S)])
-    pre_bound = bound(
-        shared + nbytes(*feats),
-        [(valid_pm * multi_ops(axes, lambda C: C, rgb_colour)
-          + N * COMPOSITE_OPS, F32_OPS_PER_S)])
-    k6_bound = bound(
-        shared + ptab_bytes[0] + 4,
-        [(valid_pm * multi_ops(axes, lambda C: 8 * C + 22, rgb_colour)
-          + N * COMPOSITE_OPS, F32_OPS_PER_S)])
+    k5_bound = sh_bound(
+        f"{family} K5", shared + quad_bytes,
+        lambda f: [(valid_pm * multi_ops(axes, lambda C: 8 * C + 10,
+                                         rgb_colour, fold=f)
+                    + N * COMPOSITE_OPS, F32_OPS_PER_S)], cf.S)
+    pre_bound = sh_bound(
+        f"{family} K5-pre", shared + nbytes(*feats),
+        lambda f: [(valid_pm * multi_ops(axes, lambda C: C, rgb_colour,
+                                         fold=f)
+                    + N * COMPOSITE_OPS, F32_OPS_PER_S)], cf.S)
+    k6_bound = sh_bound(
+        f"{family} K6", shared + ptab_bytes[0] + 4,
+        lambda f: [(valid_pm * multi_ops(axes, lambda C: 8 * C + 22,
+                                         rgb_colour, fold=f)
+                    + N * COMPOSITE_OPS, F32_OPS_PER_S)], cf.S)
     k4_bound = bound(
         nbytes(pack_pm[:4], *feats) + ptab_bytes[1] + 3 * 4,
         [(N * sum(8 * a.C + 22 for a in axes), F32_OPS_PER_S)])
     k1_plan(torch, family, cf, tabs, mlp_ops, k1_ms)
     print(f"# {family} chunk ({card}): K1 {k1_ms:.3f} ms (plain "
           f"{k1_plain_ms:.3f}, bound {k1_bound[0]:.4f} {k1_bound[1]}); K5 "
-          f"{k5_ms:.3f} (plain {k5_plain_ms:.3f}, bound {k5_bound[0]:.4f} "
-          f"{k5_bound[1]}); K6 {k6_ms:.3f} (plain {k6_plain_ms:.3f}, bound "
+          f"{k5_ms:.3f}, on the scanline chunk {k5_scan_ms:.3f} (plain "
+          f"{k5_plain_ms:.3f}, bound {k5_bound[0]:.4f} {k5_bound[1]}); K6 "
+          f"{k6_ms:.3f} (plain {k6_plain_ms:.3f}, bound "
           f"{k6_bound[0]:.4f} {k6_bound[1]}); K4 x3 {k4_ms:.3f} (plain "
           f"{k4_plain_ms:.3f}, bound {k4_bound[0]:.4f} {k4_bound[1]}); "
           f"K5-preblended {pre_ms:.3f} (plain {pre_plain_ms:.3f}, bound "
@@ -1137,16 +1186,25 @@ def n3d_phases(torch, dev, card, frame, reset_counts, read_counts):
     lines0 = [premix_time(t, rp[0, 7]) for t in lines]
     axes0 = tuple(dataclasses.replace(a, TH=0) for a in axes)
     spec0 = dataclasses.replace(spec, axes=axes0)
+    # the chunk with a t per ray spread over every keyframe interval,
+    # beside the frame's one t
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rp_spread = rp.clone()
+    rp_spread[:, 7] = 2.0 * torch.rand(N // cf.S, device=dev,
+                                       generator=gen) - 1.0
     k5_err = {}
-    for name, ls, sp in (("TH=12", lines, spec), ("premixed", lines0, spec0)):
-        out = shade_multi(prep["quads"], ls, pack, rp, wb, sp)
-        out_p = shade_multi_plain(prep["quads"], ls, pack, rp, wb, sp)
+    for name, ls, sp, r in (("TH=12", lines, spec, rp),
+                            ("premixed", lines0, spec0, rp),
+                            ("TH=12 t spread", lines, spec, rp_spread)):
+        out = shade_multi(prep["quads"], ls, pack, r, wb, sp)
+        out_p = shade_multi_plain(prep["quads"], ls, pack, r, wb, sp)
         torch.cuda.synchronize()
         err = (out[:, :4] - out_p[:, :4]).abs().max().item()
         derr = (out[:, 4] - out_p[:, 4]).abs().max().item()
         print(f"# n3d K5 shade_multi {name}: max |kernel - plain| rgb/acc "
               f"{err:.3e}, depth {derr:.3e} (tol {SHADE_TOL}); acc mean "
-              f"{out[:, 3].mean().item():.4f}", flush=True)
+              f"{out[:, 3].mean().item():.4f}; {k5_launch(shade_multi)}",
+              flush=True)
         if not (err <= SHADE_TOL and derr <= 10 * SHADE_TOL):
             raise AssertionError(f"n3d K5 ({name}) disagrees with its plain "
                                  f"version: {err}, {derr}")
@@ -1238,6 +1296,8 @@ def n3d_phases(torch, dev, card, frame, reset_counts, read_counts):
                                         spec),
         "K5 premixed": lambda: shade_multi(prep["quads"], lines0, pack, rp,
                                            wb, spec0),
+        "K5 TH=12 t spread": lambda: shade_multi(prep["quads"], lines, pack,
+                                                 rp_spread, wb, spec),
         "K4x3": blend3,
         "K5-pre": lambda: shade_multi_preblended(feats, lines, pack_pm,
                                                  rp_pm, wb, spec),
@@ -1258,6 +1318,8 @@ def n3d_phases(torch, dev, card, frame, reset_counts, read_counts):
                                               wb, spec),
         "K5 premixed": lambda: shade_multi_plain(prep["quads"], lines0, pack,
                                                  rp, wb, spec0),
+        "K5 TH=12 t spread": lambda: shade_multi_plain(
+            prep["quads"], lines, pack, rp_spread, wb, spec),
         "K4x3": lambda: [patch_blend_plain(t, pack_pm, ps) for t, ps in
                          zip(prep8["ptabs"], pspecs)],
         "K5-pre": lambda: shade_multi_preblended_plain(
@@ -1287,15 +1349,16 @@ def n3d_phases(torch, dev, card, frame, reset_counts, read_counts):
     quad_ops = lambda C: 8 * C + 10                       # noqa: E731
     hat_ops = lambda C: 8 * C + 22                        # noqa: E731
     for name, ls, axs in (("K5 TH=12", lines, axes),
-                          ("K5 premixed", lines0, axes0)):
-        bounds[name] = bound(
-            nbytes(pack, rp, *ls) + out_bytes + quad_bytes,
-            [(valid * multi_ops(axs, quad_ops) + N * COMPOSITE_OPS,
-              F32_OPS_PER_S)])
-    bounds["K5-pre"] = bound(
-        nbytes(pack_pm, rp_pm, *lines, *feats) + out_bytes,
-        [(valid_pm * multi_ops(axes, lambda C: C) + N * COMPOSITE_OPS,
-          F32_OPS_PER_S)])
+                          ("K5 premixed", lines0, axes0),
+                          ("K5 TH=12 t spread", lines, axes)):
+        bounds[name] = sh_bound(
+            f"n3d {name}", nbytes(pack, rp, *ls) + out_bytes + quad_bytes,
+            lambda f: [(valid * multi_ops(axs, quad_ops, fold=f)
+                        + N * COMPOSITE_OPS, F32_OPS_PER_S)], cf.S)
+    bounds["K5-pre"] = sh_bound(
+        "n3d K5-pre", nbytes(pack_pm, rp_pm, *lines, *feats) + out_bytes,
+        lambda f: [(valid_pm * multi_ops(axes, lambda C: C, fold=f)
+                    + N * COMPOSITE_OPS, F32_OPS_PER_S)], cf.S)
     bounds["K4x3"] = bound(
         nbytes(pack_pm[:4], *feats) + 3 * 4 + sum(
             rows_bytes(t, patch_rows(pack_pm, ps, True))
@@ -1304,12 +1367,13 @@ def n3d_phases(torch, dev, card, frame, reset_counts, read_counts):
     for name, ptabs, pk, rpk, pss in (
             ("K6 R=8", prep8["ptabs"], pack_pm, rp_pm, pspecs),
             ("K6 R=4", prep4["ptabs"], pack, rp, pspecs4)):
-        bounds[name] = bound(
-            nbytes(pk, rpk, *lines) + out_bytes + 4 + sum(
+        nv = valid_count(pk)
+        bounds[name] = sh_bound(
+            f"n3d {name}", nbytes(pk, rpk, *lines) + out_bytes + 4 + sum(
                 rows_bytes(t, patch_rows(pk, ps, False))
                 for t, ps in zip(ptabs, pss)),
-            [(valid_count(pk) * multi_ops(axes, hat_ops)
-              + N * COMPOSITE_OPS, F32_OPS_PER_S)])
+            lambda f: [(nv * multi_ops(axes, hat_ops, fold=f)
+                        + N * COMPOSITE_OPS, F32_OPS_PER_S)], cf.S)
     print(f"# n3d chunk ({card}): " + "; ".join(
         f"{name} {ms[name]:.3f} ms (plain {plain_ms[name]:.3f}, bound "
         f"{bounds[name][0]:.4f} {bounds[name][1]})" for name in kernels)
@@ -1318,7 +1382,7 @@ def n3d_phases(torch, dev, card, frame, reset_counts, read_counts):
         f"rows the chunk reads {quad_bytes / 1e6:.1f} of "
         f"{nbytes(*prep['quads']) / 1e6:.1f} MB", flush=True)
     k1_plan(torch, "n3d", cf, tabs, mlp_ops, ms["K1"])
-    del feats, pre, pack_pm, pack, flags, lines0
+    del feats, pre, pack_pm, pack, flags, lines0, rp_spread
     torch.cuda.empty_cache()
 
     # ---- 16. the bench frame through model.apply on each route, with one
@@ -1643,11 +1707,11 @@ def main():
     k1_bound = bound(
         nbytes(net_in, rp, pack) + sum(nbytes(l.w, l.b) for l in tabs.layers),
         [(mlp_ops, BF16_OPS_PER_S), (N * K1_TAIL_OPS, F32_OPS_PER_S)])
-    k2_bound = bound(
-        nbytes(pack, rp, ttab) + CHUNK * 5 * 4
+    k2_bound = sh_bound(
+        "flagship K2", nbytes(pack, rp, ttab) + CHUNK * 5 * 4
         + rows_bytes(prep["quad"], quad_rows(pack, 0, 1, W, H)),
-        [(valid * (shade_ops(C, nd) + 8 * C + 10) + N * COMPOSITE_OPS,
-          F32_OPS_PER_S)])
+        lambda f: [(valid * (shade_ops(C, nd, fold=f) + 8 * C + 10)
+                    + N * COMPOSITE_OPS, F32_OPS_PER_S)], cf.S)
     print(f"# chunk: {valid} of {N} samples valid; MLP {mlp_ops / 1e9:.1f} "
           f"GFLOP; bounds K1 {k1_bound[0]:.4f} ms ({k1_bound[1]}), K2 "
           f"{k2_bound[0]:.4f} ms ({k2_bound[1]})", flush=True)
@@ -1826,18 +1890,19 @@ def main():
         feats, pack_pm, rp_pm, ttab, prep["wb"], spec), 2)
     valid_pm = valid_count(pack_pm)
     out_bytes = CHUNK * 5 * 4
-    k3_bound = bound(
-        nbytes(pack_pm, rp_pm, ttab) + out_bytes + 4
+    k3_bound = sh_bound(
+        "flagship K3", nbytes(pack_pm, rp_pm, ttab) + out_bytes + 4
         + rows_bytes(prep8["patch"], patch_rows(pack_pm, ps8, False)),
-        [(valid_pm * (shade_ops(C, nd) + 8 * C + 22) + N * COMPOSITE_OPS,
-          F32_OPS_PER_S)])
+        lambda f: [(valid_pm * (shade_ops(C, nd, fold=f) + 8 * C + 22)
+                    + N * COMPOSITE_OPS, F32_OPS_PER_S)], cf.S)
     k4_bound = bound(
         nbytes(pack_pm[:4], feats) + 4
         + rows_bytes(prep8["patch"], patch_rows(pack_pm, ps8, True)),
         [(N * (8 * C + 22), F32_OPS_PER_S)])
-    pre_bound = bound(
-        nbytes(feats, pack_pm, rp_pm, ttab) + out_bytes,
-        [(valid_pm * shade_ops(C, nd) + N * COMPOSITE_OPS, F32_OPS_PER_S)])
+    pre_bound = sh_bound(
+        "flagship K2-pre", nbytes(feats, pack_pm, rp_pm, ttab) + out_bytes,
+        lambda f: [(valid_pm * shade_ops(C, nd, fold=f) + N * COMPOSITE_OPS,
+                    F32_OPS_PER_S)], cf.S)
     print(f"# one chunk: K3 {k3_ms:.3f} ms (plain {k3_plain_ms:.3f}, bound "
           f"{k3_bound[0]:.4f} {k3_bound[1]}), K4 {k4_ms:.3f} ms (plain "
           f"{k4_plain_ms:.3f}, bound {k4_bound[0]:.4f} {k4_bound[1]}), "
@@ -1954,6 +2019,10 @@ def main():
     stanford_entries, stanford_frame_ms = stanford_phases(
         torch, dev, gpu, frame, reset_counts, read_counts)
     frame_ms.update(stanford_frame_ms)
+    print("# SH bounds, ms with the basis folded per ray (the least work, "
+          "the kernels' line) / by the unfolded count: " + "; ".join(
+              f"{name} {new:.4f} / {old:.4f}"
+              for name, (new, old) in SH_BOUNDS.items()), flush=True)
     print(f"# chip_smoke took {time.perf_counter() - t_start:.1f} s after "
           "the card check", flush=True)
 

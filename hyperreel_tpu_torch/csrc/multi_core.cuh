@@ -193,4 +193,110 @@ inline bool has_time(const MultiParams& p) {
   return p.axis[0].TH > 0 || p.axis[1].TH > 0 || p.axis[2].TH > 0;
 }
 
+// ---- K5's per-sample body (shade_multi.cu): the second factors through
+// L1 without branches on their taps, and the colour from the ray's folded
+// basis. line_product and shade_axes above stay K6's.
+
+// out[c] (+)= w0 * r0[c] + w1 * r1[c] for C contiguous f32 of two 16-byte
+// aligned rows in device memory (kAcc: added to out)
+template <int C, bool kAcc>
+__device__ __forceinline__ void blend_rows(float* out, const float* r0,
+                                           const float* r1, float w0,
+                                           float w1) {
+  const float4* a = reinterpret_cast<const float4*>(r0);
+  const float4* b = reinterpret_cast<const float4*>(r1);
+#pragma unroll
+  for (int q = 0; q < C / 4; ++q) {
+    const float4 u = __ldg(a + q);
+    const float4 v = __ldg(b + q);
+    const float s[4] = {u.x * w0 + v.x * w1, u.y * w0 + v.y * w1,
+                        u.z * w0 + v.z * w1, u.w * w0 + v.w * w1};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      out[4 * q + i] = (kAcc ? out[4 * q + i] : 0.0f) + s[i];
+    }
+  }
+}
+
+// Axis A's second factor at one sample: the line's two z taps (!kTime),
+// or those taps on the two keyframe rows around the ray's tn (kTime: every
+// axis has a time plane) mixed by tn's taps `tt` (the four rows' weights
+// the products of a z and a t tap). Each index is clamped onto the table
+// (where a tap is clamped its weight is 0), so that a zero-weight tap
+// still reads a valid row and no branch depends on a tap's weight.
+template <int A, int C, bool kTime>
+__device__ __forceinline__ void second_factor(const MultiAxis& ax,
+                                              const float* pk,
+                                              const shade_core::Taps& tt,
+                                              float* lf) {
+  using namespace shade_core;
+  const Taps tz = taps(pk[Mode<A>::v], ax.L);
+  const int z0 = max(tz.i0, 0) * C, z1 = min(tz.i0 + 1, ax.L - 1) * C;
+  if constexpr (!kTime) {
+    blend_rows<C, false>(lf, ax.line + z0, ax.line + z1, tz.w0, tz.w1);
+    return;
+  }
+  const float* k0 = ax.line + (int64_t)max(tt.i0, 0) * ax.L * C;
+  const float* k1 = ax.line + (int64_t)min(tt.i0 + 1, ax.TH - 1) * ax.L * C;
+  blend_rows<C, false>(lf, k0 + z0, k0 + z1, tz.w0 * tt.w0, tz.w1 * tt.w0);
+  blend_rows<C, true>(lf, k1 + z0, k1 + z1, tz.w0 * tt.w1, tz.w1 * tt.w1);
+}
+
+// The product of one axis's plane features and second factor: the first ND
+// channels' sum added to dsum, the rest written to app[0 .. C - ND).
+template <int C, int ND>
+__device__ __forceinline__ void axis_product(const float* feat,
+                                             const float* lf, float& dsum,
+                                             float* app) {
+  float ds = 0.0f;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const float pr = feat[c] * lf[c];
+    if (c < ND) {
+      ds += pr;
+    } else {
+      app[c - ND] = pr;
+    }
+  }
+  dsum += ds;
+}
+
+// One valid sample of the quad K5 after its pack rows: each axis's plane
+// features (`feat(A, f)`, A a std::integral_constant) times its second
+// factor (tt[A] the ray's time taps), relu density of the density sum
+// (times the sample's weight `wt` with kWeights), and the colour: RGB
+// from the [3, A] basis in the parameters, or SH from the ray's folded
+// basis M (sh_fold).
+template <bool kTime, bool kRgb, bool kWeights, typename Feat>
+__device__ __forceinline__ void shade_k5_sample(
+    const MultiParams& p, const float* pk, const shade_core::Taps* tt,
+    Feat feat, const float* M, float wt, float& sigma, float* rgb) {
+  float dsum = 0.0f;
+  float app[kApp];
+  {
+    float f[kCh0], lf[kCh0];
+    feat(std::integral_constant<int, 0>{}, f);
+    second_factor<0, kCh0, kTime>(p.axis[0], pk, tt[0], lf);
+    axis_product<kCh0, kNd0>(f, lf, dsum, app);
+  }
+  {
+    float f[kCh1], lf[kCh1];
+    feat(std::integral_constant<int, 1>{}, f);
+    second_factor<1, kCh1, kTime>(p.axis[1], pk, tt[1], lf);
+    axis_product<kCh1, kNd1>(f, lf, dsum, app + kCh0 - kNd0);
+  }
+  {
+    float f[kCh2], lf[kCh2];
+    feat(std::integral_constant<int, 2>{}, f);
+    second_factor<2, kCh2, kTime>(p.axis[2], pk, tt[2], lf);
+    axis_product<kCh2, kNd2>(f, lf, dsum, app + kCh0 - kNd0 + kCh1 - kNd1);
+  }
+  sigma = fmaxf(kWeights ? dsum * wt : dsum, 0.0f);
+  if constexpr (kRgb) {
+    shade_core::rgb_colour<kApp>(app, p.wb, pk, rgb);
+  } else {
+    shade_core::sh_folded_colour<kApp>(app, M, pk, rgb);
+  }
+}
+
 }  // namespace multi_core

@@ -176,6 +176,70 @@ __device__ __forceinline__ void rgb_colour(const float* feat, const float* wb,
   }
 }
 
+// The SH-2 basis weights folded with one ray's view direction (x, y, z):
+// M[ch * A + a] = sum_k Y_k wb[(ch * kBasis + k) * A + a], 27 x A FMAs
+// once per ray, so that each sample's colour takes the [3, A] product
+// M @ feat (sh_folded_colour) instead of sh_colour's [3 * kBasis, A] one.
+// The same function as sh_colour up to the order of the sums.
+template <int A>
+__device__ __forceinline__ void sh_fold(const float* wb, float x, float y,
+                                        float z, float* M) {
+  float Y[kBasis];
+  sh_basis2(x, y, z, Y);
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+#pragma unroll
+    for (int a = 0; a < A; ++a) {
+      float m = 0.0f;
+#pragma unroll
+      for (int k = 0; k < kBasis; ++k) {
+        m += wb[(ch * kBasis + k) * A + a] * Y[k];
+      }
+      M[ch * A + a] = m;
+    }
+  }
+}
+
+// The SH-2 colour of one valid sample from its A features and its ray's
+// folded basis M [3, A] (sh_fold): rgb = max(M @ feat + 0.5, 0) * (scale +
+// 1) + shift, the scale and shift in pack rows 4..9.
+template <int A>
+__device__ __forceinline__ void sh_folded_colour(const float* feat,
+                                                 const float* M,
+                                                 const float* pk, float* rgb) {
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    float e = 0.0f;
+#pragma unroll
+    for (int a = 0; a < A; ++a) e += M[ch * A + a] * feat[a];
+    rgb[ch] = fmaxf(e + 0.5f, 0.0f) * (pk[4 + ch] + 1.0f) + pk[7 + ch];
+  }
+}
+
+// The per-ray composite taken by one thread over its ray's samples in
+// order (the sequential form of composite_weight and segment_sum): the
+// log-transmittance so far and the sums r, g, b, acc, depth.
+struct RayComposite {
+  float log_t = 0.0f;
+  float v[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+};
+
+// Add one sample (delta: the next sample's dist minus its own, 1e10 for
+// the last) to the ray's composite.
+__device__ __forceinline__ void composite_add(RayComposite& c, float sigma,
+                                              const float* rgb, float dist,
+                                              float delta, float scale) {
+  const float x = fminf(fmaxf(sigma * (delta * scale), -kExpClamp),
+                        kExpClamp);
+  const float w = (1.0f - expf(-x)) * expf(c.log_t);
+  c.log_t += fmaxf(-x, kLogEps);
+  c.v[0] += w * rgb[0];
+  c.v[1] += w * rgb[1];
+  c.v[2] += w * rgb[2];
+  c.v[3] += w;
+  c.v[4] += w * dist;
+}
+
 // The colour of one valid sample: RGB (kRgb) or SH of degree 2.
 template <int C, bool kRgb>
 __device__ __forceinline__ void colour(const float* feat, const float* wb,

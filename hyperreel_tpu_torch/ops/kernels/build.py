@@ -182,7 +182,8 @@ def load_library():
             (lib.shade_patch_launch,
              [vp, vp, vp, vp, vp, vp, shade_p, patch_p, vp]),
             (lib.patch_blend_launch, [vp, vp, vp, vp, vp, patch_p, vp]),
-            (lib.shade_multi_launch, [vp, vp, vp, multi_p, vp]),
+            (lib.shade_multi_launch,
+             [vp, vp, vp, multi_p, ctypes.POINTER(ctypes.c_int), vp]),
             (lib.shade_multi_preblended_launch, [vp, vp, vp, multi_p, vp]),
             (lib.shade_multi_patch_launch,
              [vp, vp, vp, vp, multi_p, patch_p, vp]),

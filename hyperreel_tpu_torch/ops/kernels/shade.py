@@ -172,9 +172,8 @@ def shade_tail_plain(dens, feat, wb, pack, ray_pack, spec):
     composite_store)."""
     S = spec.S
     B = check_pack(pack, S, spec.weights)
-    xn, yn, zn, dist = pack[0], pack[1], pack[2], pack[3]
-    valid = (xn.abs() <= 1.0) & (yn.abs() <= 1.0) & (zn.abs() <= 1.0) \
-        & (dist > 0.0)
+    dist = pack[3]
+    valid = sample_validity(pack)
     if spec.weights:
         dens = dens * pack[WEIGHTS_ROW]
     sigma = torch.clamp_min(dens, 0.0) * valid.float()
@@ -189,7 +188,20 @@ def shade_tail_plain(dens, feat, wb, pack, ray_pack, spec):
         v = torch.clamp_min(e + 0.5, 0.0)
     rgb = v * (pack[4:7].t() + 1.0) + pack[7:10].t()
     rgb = torch.where(valid[:, None], rgb, 0.0)
+    return composite_plain(sigma, rgb, dist, B, spec)
 
+
+def sample_validity(pack):
+    """Samples inside the aabb (|xn|, |yn|, |zn| <= 1) with dist > 0."""
+    return (pack[0].abs() <= 1.0) & (pack[1].abs() <= 1.0) \
+        & (pack[2].abs() <= 1.0) & (pack[3] > 0.0)
+
+
+def composite_plain(sigma, rgb, dist, B, spec):
+    """Per-sample density [B*S], colour [B*S, 3] and dist [B*S] -> f32
+    [B, 5]: the per-ray log-space composite (last delta 1e10) and the sums
+    r, g, b, acc, depth (csrc/shade_core.cuh composite_store)."""
+    S = spec.S
     d = dist.reshape(B, S)
     delta = torch.cat([d[:, 1:] - d[:, :-1],
                        torch.full_like(d[:, :1], 1e10)], -1)

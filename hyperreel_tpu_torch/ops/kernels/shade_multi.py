@@ -34,10 +34,20 @@ of each plane, the lines f32 [L, C_a] or time planes f32 [TH, L, C_a] as
 they are (`line_table`), and `multi_basis_table`, on the host (it rides in
 the kernel's parameters). The kernels are built for the [8, 4, 4] layout
 of both families (csrc/multi_core.cuh, read back by the loader as
-`build.load_library().multi_layout`) and S a power of two <= 64 (a warp
-lane per sample, two at S = 64); other layouts and S run the plain
-version on the CPU and raise on the card.
+`build.load_library().multi_layout`) and S a power of two <= 64 (at
+least 4 for the quad kernel); other layouts and S run the plain version
+on the CPU and raise on the card.
+
+On the card the quad kernel runs a thread per ray over its samples (S a
+multiple of 4); it folds the SH basis with the ray's view direction once
+per ray (`fold_sh_basis` is the plain form of the fold) and reads the
+lines and time planes through L1. Each launch reports its persistent grid,
+blocks per SM, L1/shared carve-out and shared memory per block in
+`shade_multi.last_launch`. The pre-blended kernel runs a warp segment per
+ray.
 """
+
+import ctypes
 
 from dataclasses import dataclass
 from typing import Tuple
@@ -46,13 +56,18 @@ import torch
 
 from hyperreel_tpu_torch.models.tensorf import MAT_MODE, VEC_MODE
 from hyperreel_tpu_torch.ops.kernels import build
-from hyperreel_tpu_torch.ops.kernels.layout import check_pack, check_ray_pack
+from hyperreel_tpu_torch.ops.kernels.layout import (
+    WEIGHTS_ROW, check_pack, check_ray_pack)
 from hyperreel_tpu_torch.ops.kernels.shade import (
-    line_lookup, quad_features, quad_table, shade_tail_plain, shading_built,
-    taps)
+    composite_plain, line_lookup, quad_features, quad_table,
+    sample_validity, shade_tail_plain, shading_built, taps)
 from hyperreel_tpu_torch.ops.patch_gather import build_patch_table_2d
+from hyperreel_tpu_torch.ops.sh import eval_sh_bases
 
 MAX_S = 64
+# the quad kernel's pack tiles take 4 samples at a time
+# (csrc/shade_multi.cu kStageS)
+MIN_QUAD_S = 4
 
 
 @dataclass(frozen=True)
@@ -183,6 +198,40 @@ def shade_multi_preblended_plain(feats, lines, pack, ray_pack, wb, spec):
                                       pack, ray_pack, wb, spec)
 
 
+def fold_sh_basis(wb, dirs, deg=2):
+    """The SH basis [3K, A] (rows ch * K + k) folded with each ray's view
+    direction dirs [B, 3]: f32 [B, 3, A], M[b, ch, a] = sum_k Y_k(dirs[b])
+    wb[ch * K + k, a] (csrc/shade_core.cuh sh_fold). A sample's colour is
+    then M @ app instead of the sum over k of Y_k (wb @ app)_k."""
+    K = (deg + 1) ** 2
+    Y = eval_sh_bases(deg, dirs.float())                   # [B, K]
+    return torch.einsum("bk,cka->bca", Y, wb.to(dirs.device).float()
+                        .reshape(3, K, -1))
+
+
+def shade_multi_folded_plain(quads, lines, pack, ray_pack, wb, spec):
+    """`shade_multi_plain` with the SH colour taken from the folded basis
+    (`fold_sh_basis`), as the kernels take it: the same function up to the
+    order of the sums. RGB colour has nothing to fold and is
+    `shade_multi_plain`."""
+    if spec.shading == "rgb":
+        return shade_multi_plain(quads, lines, pack, ray_pack, wb, spec)
+    feats = [quad_features(q, pack[ax.m0], pack[ax.m1], ax.W, ax.H, ax.C)
+             for q, ax in zip(quads, spec.axes)]
+    dens, app = axis_products(feats, lines, pack, ray_pack, spec)
+    B = ray_pack.shape[0]
+    valid = sample_validity(pack)
+    if spec.weights:
+        dens = dens * pack[WEIGHTS_ROW]
+    sigma = torch.clamp_min(dens, 0.0) * valid.float()
+    M = fold_sh_basis(wb, ray_pack[:, 3:6], spec.deg)      # [B, 3, A]
+    e = (M.repeat_interleave(spec.S, 0) @ app[..., None])[..., 0]
+    rgb = torch.clamp_min(e + 0.5, 0.0) * (pack[4:7].t() + 1.0) \
+        + pack[7:10].t()
+    rgb = torch.where(valid[:, None], rgb, 0.0)
+    return composite_plain(sigma, rgb, pack[3], B, spec)
+
+
 def check_lines(lines, wb, spec, device):
     """Raise unless the second factors and the basis fit `spec` (lines
     [L, C] or time planes [TH, L, C], contiguous f32 on `device`; wb on
@@ -224,18 +273,19 @@ def _check(tables, shapes, lines, pack, ray_pack, wb, spec):
     return B
 
 
-def check_kernel(spec, name, weights=True):
+def check_kernel(spec, name, weights=True, min_s=1):
     """Raise unless the kernels are built for spec's layout, colour and S
-    (and, where `weights` is False, unless spec has no weights row)."""
+    (at least `min_s`), and, where `weights` is False, unless spec has no
+    weights row."""
     layout = tuple((a.index, a.C, a.nd) for a in spec.axes)
     built = build.load_library().multi_layout
     if layout != built or not shading_built(spec) \
-            or spec.S > MAX_S or spec.S & (spec.S - 1):
+            or not min_s <= spec.S <= MAX_S or spec.S & (spec.S - 1):
         raise NotImplementedError(
             f"{name} kernel: layout {layout}, {spec.shading} with "
             f"{spec.n_basis} basis rows, S={spec.S} not built (layout "
-            f"{built}, SH of degree 2 or RGB, S a power of two <= {MAX_S}; "
-            "ROADMAP.md: the other multi-axis presets)")
+            f"{built}, SH of degree 2 or RGB, S a power of two in "
+            f"[{min_s}, {MAX_S}]; ROADMAP.md: the other multi-axis presets)")
     if spec.weights and not weights:
         raise NotImplementedError(
             f"{name} kernel: the weights row is built into the quad "
@@ -256,19 +306,32 @@ def multi_params(B, spec, tables, lines, wb):
     return p
 
 
-def _launch(name, fn, tables, lines, pack, ray_pack, wb, spec, B,
-            weights=True):
+def _launch(name, fn, tables, lines, pack, ray_pack, wb, spec, B, pre):
+    """Launch K5 (pre: the pre-blended kernel); what the quad kernel's
+    launch chose goes to `shade_multi.last_launch`."""
     if pack.device.type != "cuda":
         raise ValueError(f"{name} has no kernel for {pack.device}")
-    check_kernel(spec, name, weights)
-    if any(t.data_ptr() % 16 for t in list(tables) + list(lines)):
-        raise ValueError(f"{name}: tables must be 16-byte aligned")
+    check_kernel(spec, name, weights=not pre,
+                 min_s=1 if pre else MIN_QUAD_S)
+    if len({bool(a.TH) for a in spec.axes}) > 1:
+        raise NotImplementedError(
+            f"{name} kernel: built for lines on every axis or time planes "
+            "on every axis, not a mix")
+    if any(t.data_ptr() % 16 for t in list(tables) + list(lines) + [pack]):
+        raise ValueError(f"{name}: the tables and the pack must be 16-byte "
+                         "aligned")
+    args = [multi_params(B, spec, tables, lines, wb)]
+    if not pre:
+        chosen = (ctypes.c_int * 4)()
+        args.append(chosen)
     out = torch.empty((B, 5), dtype=torch.float32, device=pack.device)
     with torch.cuda.device(pack.device):
         stream = torch.cuda.current_stream().cuda_stream
-        build.check_launch(fn(
-            pack.data_ptr(), ray_pack.data_ptr(), out.data_ptr(),
-            multi_params(B, spec, tables, lines, wb), stream), name)
+        build.check_launch(fn(pack.data_ptr(), ray_pack.data_ptr(),
+                              out.data_ptr(), *args, stream), name)
+    if not pre and B:
+        shade_multi.last_launch = dict(zip(
+            ("grid", "blocks_per_sm", "carveout", "smem_bytes"), chosen))
     return out
 
 
@@ -281,12 +344,13 @@ def shade_multi(quads, lines, pack, ray_pack, wb, spec):
     if pack.device.type == "cpu":
         return shade_multi_plain(quads, lines, pack, ray_pack, wb, spec)
     out = _launch("shade_multi", build.load_library().lib.shade_multi_launch,
-                  quads, lines, pack, ray_pack, wb, spec, B)
+                  quads, lines, pack, ray_pack, wb, spec, B, pre=False)
     shade_multi.launches += 1
     return out
 
 
 shade_multi.launches = 0
+shade_multi.last_launch = None
 
 
 def shade_multi_preblended(feats, lines, pack, ray_pack, wb, spec):
@@ -301,7 +365,7 @@ def shade_multi_preblended(feats, lines, pack, ray_pack, wb, spec):
                                             spec)
     out = _launch("shade_multi_preblended",
                   build.load_library().lib.shade_multi_preblended_launch,
-                  feats, lines, pack, ray_pack, wb, spec, B, weights=False)
+                  feats, lines, pack, ray_pack, wb, spec, B, pre=True)
     shade_multi_preblended.launches += 1
     return out
 

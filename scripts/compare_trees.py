@@ -6,14 +6,20 @@ are the ones imported, its kernels are built into its own build/):
 
     python3 /path/to/scripts/compare_trees.py --save OUT.pt [--frames 10]
 
-renders with chip_smoke.py's flagship (technicolor_z_plane), llff_z_plane
-and neural_3d_z_plane models, weights from its seed: K1's pack of the
-bench frame's first chunk for each model, the bench frame's rgb on every
-route (flagship quad, fused and two-kernel patch at R=8 (5, 2); llff quad,
-fused and two-kernel patch at R=8 (5, 2) and R=4 (4, 3); n3d quad with one
-t) and K7's output on seeded inputs, and saves them with each route's frame
-time and each model's K1 time per chunk (CUDA events, after a warm-up
-frame or launch; K1 over 20 launches). Then
+renders with chip_smoke.py's flagship (technicolor_z_plane), llff_z_plane,
+neural_3d_z_plane and shiny_z_plane models, weights from its seed: K1's
+pack of the bench frame's first chunk for each model, the bench frame's
+rgb on every route (flagship quad, fused and two-kernel patch at R=8 (5,
+2); llff quad, fused and two-kernel patch at R=8 (5, 2) and R=4 (4, 3);
+n3d quad with one t and with a t per ray (K5 on the time planes); shiny
+quad), K5's and K5-preblended's output on the first chunk of llff, shiny
+and n3d (K5 on the chunk in scanline and in phase-major order, on n3d's
+time planes also with a t per ray spread over the keyframes and on the
+planes premixed; K5-preblended reading K4's features of the phase-major
+chunk), and K7's output on seeded inputs, and
+saves them with each route's frame time and the kernels' times per chunk
+(CUDA events, after a warm-up frame or launch; K1, K5 and K5-preblended
+over 20 launches). Then
 
     python3 scripts/compare_trees.py --compare A.pt B.pt [C.pt ...]
 
@@ -24,6 +30,7 @@ one call so that the times share a card.
 """
 
 import argparse
+import dataclasses
 import os
 import subprocess
 import sys
@@ -37,6 +44,10 @@ def save(path, frames):
     from hyperreel_tpu_torch.models.ctx import StepCtx
     from hyperreel_tpu_torch.ops.kernels.composite import composite
     from hyperreel_tpu_torch.ops.kernels.pack_build import pack_build
+    from hyperreel_tpu_torch.ops.kernels.patch_blend import patch_blend
+    from hyperreel_tpu_torch.ops.kernels.shade import premix_time
+    from hyperreel_tpu_torch.ops.kernels.shade_multi import (
+        MultiSpec, shade_multi, shade_multi_preblended)
 
     if not torch.cuda.is_available():
         raise RuntimeError("compare_trees needs a CUDA card")
@@ -66,6 +77,59 @@ def save(path, frames):
         times[f"{name} K1 chunk"] = cs.cuda_ms(torch, lambda: pack_build(
             x0, prep["mlp"], rp, cf.spec, cs.IT), 20)
 
+    def k5(name, model, prep, chunk, R):
+        """K5 on the chunk's pack and on the pack of the chunk in
+        phase-major order for blocks of R, and K5-preblended on K4's
+        features of the phase-major chunk; on time planes also K5 on the
+        planes premixed for the chunk's first t and with a t per ray
+        spread over every keyframe interval."""
+        cf = model._cf_eval
+        rp = cf.ray_pack(chunk)
+        pack = pack_build(cf.pred.net_input(chunk, ctx).float().contiguous(),
+                          prep["mlp"], rp, cf.spec, cs.IT)
+        spec = MultiSpec(S=cf.S, axes=prep["axes"], deg=cf.net.sh_deg,
+                         distance_scale=cf.net.distance_scale,
+                         shading=cf.net.shading)
+        chunk_pm = cs.phase_major(chunk[None], R)[0].contiguous()
+        rp_pm = cf.ray_pack(chunk_pm)
+        pack_pm = pack_build(cf.pred.net_input(chunk_pm, ctx).float()
+                             .contiguous(), prep["mlp"], rp_pm, cf.spec,
+                             cs.IT)
+        runs = {f"{name} K5": (prep["lines"], spec, pack, rp),
+                f"{name} K5 phase-major": (prep["lines"], spec, pack_pm,
+                                           rp_pm)}
+        if any(a.TH for a in spec.axes):
+            gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+            rp_spread = rp.clone()
+            rp_spread[:, 7] = 2.0 * torch.rand(
+                rp.shape[0], device=dev, generator=gen) - 1.0
+            th = f"{name} K5 TH={spec.axes[0].TH}"
+            runs = {th: runs[f"{name} K5"],
+                    f"{th} phase-major": runs[f"{name} K5 phase-major"],
+                    f"{th} t spread": (prep["lines"], spec, pack, rp_spread),
+                    f"{name} K5 premixed": (
+                        [premix_time(t, rp[0, 7]) for t in prep["lines"]],
+                        dataclasses.replace(spec, axes=tuple(
+                            dataclasses.replace(a, TH=0)
+                            for a in spec.axes)), pack, rp)}
+        for key, (lines, sp, pk, r) in runs.items():
+            def fn():
+                return shade_multi(prep["quads"], lines, pk, r, prep["wb"],
+                                   sp)
+            out[key] = fn().cpu()
+            times[f"{key} chunk"] = cs.cuda_ms(torch, fn, 20)
+        flags = torch.zeros(pack_pm.shape[1] // R, dtype=torch.uint8,
+                            device=dev)
+        feats = [patch_blend(t, pack_pm, ps, flags)[0] for t, ps in zip(
+            prep["ptabs"], model._cf_eval.patch_specs(
+                [(a.W, a.H, a.C, a.m0, a.m1) for a in spec.axes], True))]
+
+        def pre():
+            return shade_multi_preblended(feats, prep["lines"], pack_pm,
+                                          rp_pm, prep["wb"], spec)
+        out[f"{name} K5-pre"] = pre().cpu()
+        times[f"{name} K5-pre chunk"] = cs.cuda_ms(torch, pre, 20)
+
     cfg, info, model, params, prep = cs.flagship(dev)
     k1("flagship", model, prep, frame[0])
     rk = {"cf_prepared": prep, "uniform_time": True}
@@ -89,6 +153,8 @@ def save(path, frames):
     for shape in (cs.PATCH_R8, cs.PATCH_R4):
         _, m, _, pr = cs.static_model(dev, "llff", patch=shape,
                                       params=params)
+        if shape == cs.PATCH_R8:
+            k5("llff", m, pr, frame6[0], shape[2])
         fr = cs.phase_major(frame6, shape[2]).contiguous()
         for env, name in (("1", "fused"), ("0", "two-kernel")):
             run(f"llff {name} patch R={shape[2]}", m, params, fr,
@@ -101,10 +167,22 @@ def save(path, frames):
 
     _, model, params, prep = cs.n3d(dev)
     k1("n3d", model, prep, frame[0])
-    run("n3d quad one t", model, params, frame,
-        {"cf_prepared": prep, "uniform_time": True},
+    for ut, tag in ((True, "one t"), (False, "t per ray")):
+        run(f"n3d quad {tag}", model, params, frame,
+            {"cf_prepared": prep, "uniform_time": ut},
+            ("HYPERREEL_FUSED_PATCH_MULTI", "0"))
+    _, m8, _, pr8 = cs.n3d(dev, patch=cs.N3D_PATCH_R8, params=params)
+    k5("n3d", m8, pr8, frame[0], cs.N3D_PATCH_R8[2])
+    del model, params, prep, m8, pr8
+    torch.cuda.empty_cache()
+
+    _, model, params, prep = cs.static_model(dev, "shiny")
+    run("shiny quad", model, params, frame6, {"cf_prepared": prep},
         ("HYPERREEL_FUSED_PATCH_MULTI", "0"))
-    del model, params, prep
+    _, m8, _, pr8 = cs.static_model(dev, "shiny", patch=cs.PATCH_R8,
+                                    params=params)
+    k5("shiny", m8, pr8, frame6[0], cs.PATCH_R8[2])
+    del model, params, prep, m8, pr8
     torch.cuda.empty_cache()
 
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
@@ -137,7 +215,7 @@ def compare(paths):
         print(f"{name}: max |diff| from the first file "
               + ", ".join(f"{d:.3e}" for d in diffs))
     for name in runs[0]["times"]:
-        unit = "ms/chunk" if name.endswith("K1 chunk") else "ms/frame"
+        unit = "ms/chunk" if name.endswith(" chunk") else "ms/frame"
         print(f"{name}: {unit} " + ", ".join(
             f"{r['times'].get(name, float('nan')):.3f}" for r in runs))
 

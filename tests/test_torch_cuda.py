@@ -33,11 +33,11 @@ from hyperreel_tpu_torch.ops.kernels.pack_build import (
 from hyperreel_tpu_torch.ops.kernels.patch_blend import (
     PatchSpec, patch_blend, patch_blend_plain)
 from hyperreel_tpu_torch.ops.kernels.shade import (
-    ShadeSpec, premix_time, shade, shade_plain, shade_preblended,
+    ShadeSpec, premix_time, quad_table, shade, shade_plain, shade_preblended,
     shade_preblended_plain)
 from hyperreel_tpu_torch.ops.kernels.shade_multi import (
-    MultiSpec, shade_multi, shade_multi_plain, shade_multi_preblended,
-    shade_multi_preblended_plain)
+    AxisSpec, MultiSpec, shade_multi, shade_multi_plain,
+    shade_multi_preblended, shade_multi_preblended_plain)
 from hyperreel_tpu_torch.ops.kernels.shade_multi_patch import (
     shade_multi_patch, shade_multi_patch_plain)
 from hyperreel_tpu_torch.ops.kernels.shade_patch import (
@@ -933,3 +933,118 @@ def test_rgb_routes_launch_on_card(dev, family, route, kernels,
     plain = model.apply(_to(params, "cpu"), rays.cpu(), StepCtx(it=20000),
                         rk)
     assert (out["rgb"].cpu() - plain["rgb"]).abs().max() <= 2e-4
+
+
+# ---- K5 and K5-preblended at every instantiation, on synthetic inputs at
+# the [8, 4, 4] layout: SH, RGB and RGB with the weights row (the quad
+# kernel only); lines, and time planes with one t for every ray (between
+# two keyframes; on the first and last frames, tn = -1 and 1, where the
+# tap past the last keyframe lies off the plane; on a keyframe) or with tn
+# spread over all 12 keyframes; S = 8, 16, 32, 64. The multi-axis
+# tolerances above.
+K5_TH = 12
+# each case's time coordinate: None for lines, one t, or "spread"
+K5_SECOND = {"lines": None, "time_one_t": 0.37, "time_first": -1.0,
+             "time_last": 1.0, "time_on_key": 3 * 2.0 / (K5_TH - 1) - 1.0,
+             "time_spread": "spread"}
+
+
+def _k5_inputs(dev, S, B, colour, second, seed=0):
+    rng = np.random.default_rng(seed)
+    tn = K5_SECOND[second]
+    TH = 0 if tn is None else K5_TH
+    axes, quads, lines = [], [], []
+    for i, ((W, H, L), C) in enumerate(zip(
+            ((60, 50, 70), (60, 40, 90), (50, 40, 80)), (16, 8, 8))):
+        axes.append(AxisSpec(index=i, W=W, H=H, L=L, C=C, nd=C // 2, TH=TH))
+        quads.append(quad_table(torch.from_numpy(rng.normal(
+            0, 0.5, (H, W, C)).astype(np.float32))).to(dev))
+        lines.append(torch.from_numpy(rng.uniform(
+            0, 0.4, ((TH, L, C) if TH else (L, C))).astype(np.float32))
+            .to(dev))
+    # rays in scanline order of a 64-pixel-wide image, their samples on S
+    # z-planes slightly past the aabb at both ends
+    u = (np.arange(B) % 64) / 32.0 - 1.0
+    v = (np.arange(B) // 64) / (B / 64 / 2.0) - 1.0
+    z = np.linspace(-1.05, 1.05, S)
+    x = u[:, None] * (1.0 + 0.1 * z[None])
+    y = v[:, None] * (1.0 + 0.1 * z[None])
+    dist = np.broadcast_to(0.1 + 0.05 * np.arange(S), (B, S)).copy()
+    dist[rng.uniform(0, 1, B) < 0.05, :2] = 0.0       # a few invalid
+    pack = np.concatenate([x[None], y[None], np.broadcast_to(z, (B, S))[None],
+                           dist[None], rng.normal(0, 0.1, (6, B, S))])
+    pack = pack.reshape(10, B * S)
+    weights = colour == "rgb_weights"
+    if weights:
+        pack = np.concatenate([pack, rng.uniform(0, 2, (1, B * S))])
+    d = rng.normal(0, 1, (B, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tn = rng.uniform(-1.0, 1.0, B) if tn == "spread" \
+        else np.full(B, 0.37 if tn is None else tn)
+    rays = np.concatenate([rng.normal(0, 1, (B, 3)), d,
+                           np.zeros((B, 1)), tn[:, None]], 1)
+    rgb = colour != "sh"
+    wb = torch.from_numpy(rng.normal(0, 0.3, (3 if rgb else 27, 16)).astype(
+        np.float32))
+    spec = MultiSpec(S=S, axes=tuple(axes), deg=2, distance_scale=25.0,
+                     shading="rgb" if rgb else "sh", weights=weights)
+    feats = [torch.from_numpy(rng.normal(0, 0.5, (B * S, a.C)).astype(
+        np.float32)).to(torch.bfloat16).to(dev) for a in axes]
+    f32 = lambda a: torch.from_numpy(np.ascontiguousarray(  # noqa: E731
+        a, dtype=np.float32)).to(dev)
+    return quads, lines, f32(pack), f32(rays), wb, spec, feats
+
+
+@pytest.mark.parametrize("second", list(K5_SECOND))
+@pytest.mark.parametrize("colour", ["sh", "rgb", "rgb_weights"])
+@pytest.mark.parametrize("S", [8, 16, 32, 64])
+def test_k5_instantiations_match_plain(dev, S, colour, second):
+    B = 3000                                # not a multiple of a block's run
+    quads, lines, pack, rays, wb, spec, feats = _k5_inputs(
+        dev, S, B, colour, second, seed=S)
+    n = shade_multi.launches
+    out = shade_multi(quads, lines, pack, rays, wb, spec)
+    ref = shade_multi_plain(quads, lines, pack, rays, wb, spec)
+    torch.cuda.synchronize()
+    assert shade_multi.launches == n + 1
+    assert 0 < shade_multi.last_launch["grid"] <= -(-B // 256)
+    assert ref[:, 3].max() > 0.5 and ref[:, 3].min() < 0.5
+    assert (out[:, :4] - ref[:, :4]).abs().max() <= 1e-4
+    assert (out[:, 4] - ref[:, 4]).abs().max() <= 1e-3
+    if spec.weights:
+        return
+    pre = shade_multi_preblended(feats, lines, pack, rays, wb, spec)
+    ref = shade_multi_preblended_plain(feats, lines, pack, rays, wb, spec)
+    torch.cuda.synchronize()
+    assert (pre[:, :4] - ref[:, :4]).abs().max() <= 1e-4
+    assert (pre[:, 4] - ref[:, 4]).abs().max() <= 1e-3
+
+
+def test_k5_quad_refuses_fewer_than_4_samples(dev):
+    """The quad kernel stages its pack 4 samples at a time."""
+    quads, lines, pack, rays, wb, spec, _ = _k5_inputs(dev, 2, 256, "sh",
+                                                       "lines")
+    with pytest.raises(NotImplementedError, match="S=2"):
+        shade_multi(quads, lines, pack, rays, wb, spec)
+
+
+# more rays than the persistent grid takes in one round (at most 132 SMs
+# x 2 blocks x 256 rays), B odd
+RAGGED_K5 = 2 * 132 * 256 + 77
+
+
+@pytest.mark.parametrize("S", [32, 64])
+def test_k5_ragged_persistent_runs_match_plain(dev, S):
+    quads, lines, pack, rays, wb, spec, feats = _k5_inputs(
+        dev, S, RAGGED_K5, "sh", "time_one_t", seed=1)
+    out = shade_multi(quads, lines, pack, rays, wb, spec)
+    assert shade_multi.last_launch["grid"] * 256 < RAGGED_K5
+    pre = shade_multi_preblended(feats, lines, pack, rays, wb, spec)
+    ref = shade_multi_plain(quads, lines, pack, rays, wb, spec)
+    ref_pre = shade_multi_preblended_plain(feats, lines, pack, rays, wb,
+                                           spec)
+    torch.cuda.synchronize()
+    assert (out[:, :4] - ref[:, :4]).abs().max() <= 1e-4
+    assert (out[:, 4] - ref[:, 4]).abs().max() <= 1e-3
+    assert (pre[:, :4] - ref_pre[:, :4]).abs().max() <= 1e-4
+    assert (pre[:, 4] - ref_pre[:, 4]).abs().max() <= 1e-3
