@@ -1,12 +1,14 @@
 """Smoke run of the PyTorch/CUDA port (hyperreel_tpu_torch) on one NVIDIA
 GPU: the flagship eval render (technicolor_z_plane), the static
 multi-axis families' (llff_z_plane; shiny_z_plane, RGB colour), the
-dynamic multi-axis family's (neural_3d_z_plane, 64 samples per ray) and
-the single-axis RGB net's own fused route (stanford_llff_z_plane) at full
-width through the hand-written kernels, checked against their plain
-PyTorch versions and against the port's general path, on the quad route
-and on the coherent patch-gather routes; and the standalone composite
-entry point.
+dynamic multi-axis family's (neural_3d_z_plane, 64 samples per ray), the
+single-axis RGB net's own fused route (stanford_llff_z_plane), the
+non-planar primitive presets' own fused routes (catacaustics_distance at
+the [8, 8, 8] layout, immersive_sphere_new on time planes, donerf_sphere)
+and the flagship's single-axis own route, at full width through the
+hand-written kernels, checked against their plain PyTorch versions and
+against the port's general path, on the quad route and on the coherent
+patch-gather routes; and the standalone composite entry point.
 
     python3 chip_smoke.py
 
@@ -112,7 +114,31 @@ no result line):
  26. the bench frame through model.apply: finite, in [0, 1], K2 launched
      once per chunk and nothing else;
  27. the frame against the general colour net (<= 2e-4);
- 28. frame time of the own route and of the general path, in turns.
+ 28. frame time of the own route and of the general path, in turns;
+ 29-32. catacaustics_distance (static, euclidean distance intersect with
+     the dataset bounds near 0.1, far 10, depth range (0.1, 10), mipnerf,
+     SH, [8, 8, 8] components, S = 64, the global colour scale and shift)
+     on its checkpoint grid (400^3: three 400x400x16 planes, ~62 MB of
+     quad tables), the camera at (0, 0, -8): on one chunk the general
+     chain, then K5 at [8, 8, 8] with the weights row against its plain
+     version, the valid share (>= 50 %); the frame through model.apply
+     (K5 once per chunk, no K1); against the general colour net (<= 2e-4);
+     the frame times of both and where the own route's goes;
+ 33-36. immersive_sphere_new (dynamic, outward-facing sphere_new
+     intersect with near/far (1, 10), depth range (2, 10), flow, [8, 4, 4]
+     on time planes, 12 keyframes of 50 frames, S = 32) on its checkpoint
+     grid (640^3, ~105 MB of quad tables), the camera inside the spheres:
+     as 29-32, with one t and with a t per ray (K5 on the time planes);
+ 37-40. donerf_sphere (static, sphere intersect, RGB, [8, 4, 4], the
+     weights row, S = 32) on its checkpoint grid (600^3): as 29-32;
+ 41-43. the flagship with fused_render_cf off: the general chain, then K2
+     on its time plane (the net's single-axis own route) against its plain
+     version, the bench frame (K2 once per chunk, nothing else) against
+     the general colour net (<= 2e-4) and the channels-first route's
+     frame (printed), the own and channels-first routes under the f32 MLP
+     policy on 16,384 rays (<= 2e-4 over the rays without a sample on an
+     aabb face), and the frame times of the own route and the general
+     path.
 The line before the last is the kernels' JSON record (launches on their
 main path, error against the plain version, ms and the plain version's
 ms, and the least time the card could take, counting of each table only
@@ -1067,6 +1093,426 @@ def stanford_phases(torch, dev, card, frame, reset_counts, read_counts):
                   k2_err, k2_ms, k2_plain_ms, k2_bound)], frame_ms
 
 
+# The non-planar primitive presets: each renders through the general
+# stage chain and its colour net's own fused route (K5: catacaustics at
+# the [8, 8, 8] layout with SH and the weights row, S = 64; immersive on
+# time planes, S = 32; donerf with RGB and the weights row, S = 32), with
+# the dataset_info the JAX loaders give (catacaustics:
+# hyperreel_tpu/data/catacaustics.py:76-78; immersive 02_Flames, a
+# 50-frame window with keyframe_step 4: data/immersive.py:21-24, 56-57,
+# 164-169; DONeRF reads its depth range from the scene's dataset_info.json,
+# data/donerf.py:41, here the repo's fixture's, tests/test_datasets.py:174),
+# the density grids redrawn uniform in [0, density), and the camera at
+# (0, 0, oz) where most samples are valid: catacaustics' distances are
+# anchored on [-far, far] about each ray's closest point to the origin, so
+# a camera 8 away puts nearly all of them in front of it; the spheres of
+# immersive (outward facing) and donerf are about the origin, and a camera
+# inside them hits every one.
+PRIMITIVES = {
+    "catacaustics": ("catacaustics_distance",
+                     {"near": 0.1, "far": 10.0, "depth_range": (0.1, 10.0)},
+                     0.1, -8.0),
+    "immersive": ("immersive_sphere_new",
+                  {"near": 1.0, "far": 10.0, "depth_range": (2.0, 10.0),
+                   "num_keyframes": 12, "num_frames": 50}, 0.05, -0.5),
+    "donerf": ("donerf_sphere",
+               {"near": 0.5, "far": 6.0, "depth_range": (0.5, 6.0)}, 0.2,
+               0.0)}
+PRIMITIVE_TIMED_FRAMES = 3
+
+
+def bf16_second_factors(torch, params):
+    """The colour params with every line and time plane rounded to bf16:
+    the general colour net reads them at table precision, the own fused
+    route in f32, and on values that bf16 represents both read the same."""
+    color = {fam: dict(v) if isinstance(v, dict) else v
+             for fam, v in params["color"].items()}
+    for fam in ("density", "app"):
+        for k, v in color[fam].items():
+            if k.startswith(("line_", "time_")):
+                color[fam][k] = v.to(torch.bfloat16).float()
+    return dict(params, color=color)
+
+
+def primitive_model(dev, family, fused=True, params=None):
+    """The family's preset at full width under the bf16 MLP policy on a
+    trained checkpoint's grid (N_voxel_init set to N_voxel_final; the
+    port's n_to_reso reads the aabb [-2, 2]^3 as a cube: catacaustics
+    400^3, immersive 640^3, donerf 600^3); with `fused` False the general
+    colour net. Weights from torch.Generator seed SEED (or the given
+    params), the density grids redrawn uniform in [0, density), the lines
+    and time planes bf16-representable: (cfg, model, params)."""
+    import torch
+
+    from hyperreel_tpu_torch.configs import presets
+    from hyperreel_tpu_torch.models.model import build_model
+
+    preset, info, density, _ = PRIMITIVES[family]
+    cfg = presets.convert_epochs_to_iters(getattr(presets, preset)(),
+                                          iters_per_epoch=4000)
+    net = cfg["color"]["net"]
+    net["N_voxel_init"] = net["N_voxel_final"]
+    net["fused_render"] = fused
+    model = build_model(cfg, dataset_info=info, compute_dtype=torch.bfloat16)
+    if params is None:
+        gen = torch.Generator().manual_seed(SEED)
+        params = model.init(gen, dev)
+        for k, v in params["color"]["density"].items():
+            params["color"]["density"][k] = density * torch.rand(
+                v.shape, generator=gen).to(dev)
+        params = bf16_second_factors(torch, params)
+    return cfg, model, params
+
+
+def primitive_phases(torch, dev, card, reset_counts, read_counts, family):
+    """Phases 29-32 (catacaustics_distance), 33-36 (immersive_sphere_new)
+    or 37-40 (donerf_sphere): on one chunk of the family's frame, the
+    general chain then K5 against its plain version (immersive also with a
+    t per ray), the valid share; the frame through model.apply (K5 once
+    per chunk, nothing else); against the general colour net; the frame
+    times of both, and of the chain and K5 per chunk. Returns (the
+    kernel's JSON record, {route: ms/frame})."""
+    from hyperreel_tpu_torch.models.ctx import StepCtx
+    from hyperreel_tpu_torch.ops.kernels.shade_multi import (
+        shade_multi, shade_multi_plain)
+
+    ctx = StepCtx(it=IT)
+    preset, info, _, oz = PRIMITIVES[family]
+    cfg, model, params = primitive_model(dev, family)
+    net = model.color_net
+    if model._cf_eval is not None:
+        raise AssertionError(f"{preset} took the channels-first route")
+    prep = model.prepare_eval(params)
+    axes = prep["axes"]
+    timed = any(a.TH for a in axes)
+    rgb_colour = net.shading == "rgb"
+    layout = "[" + ", ".join(str(a.nd) for a in axes) + "]"
+    print(f"# {preset} ({card}): {layout} {net.shading} planes " + ", ".join(
+        f"{a.H}x{a.W}x{a.C}" for a in axes) + "; " + (
+        f"time planes {axes[0].TH} keyframes x " if timed else "lines ")
+        + ", ".join(str(a.L) for a in axes) + f"; quad tables "
+        f"{sum(nbytes(q) for q in prep['quads']) / 1e6:.1f} MB; camera at "
+        f"(0, 0, {oz}); dataset_info {info}", flush=True)
+    frame = torch.from_numpy(bench_frame()).to(dev)
+    frame[..., 2] = oz
+    if not timed:
+        frame = frame[..., :6].contiguous()       # a static scene: o, d
+
+    # ---- 29 / 33 / 37. one chunk: the general chain, then K5 against its
+    # plain version
+    def chain(rays):
+        return model.embedding.apply(params["embedding"],
+                                     model.ray_param.apply(rays), ctx, {})
+
+    chunk = frame[0]
+    chunks = {"one t" if timed else "chunk": chunk}
+    if timed:
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        chunk_t = chunk.clone()
+        chunk_t[:, 7] = torch.rand(CHUNK, device=dev, generator=gen)
+        chunks["a t per ray"] = chunk_t
+    k5_err = 0.0
+    for name, rays in chunks.items():
+        pack, rp = net.fused_pack(chain(rays))
+        spec = net.fused_spec(prep, pack.shape[1] // CHUNK)
+        out = shade_multi(prep["quads"], prep["lines"], pack, rp, prep["wb"],
+                          spec)
+        out_p = shade_multi_plain(prep["quads"], prep["lines"], pack, rp,
+                                  prep["wb"], spec)
+        torch.cuda.synchronize()
+        err = (out[:, :4] - out_p[:, :4]).abs().max().item()
+        derr = (out[:, 4] - out_p[:, 4]).abs().max().item()
+        N = pack.shape[1]
+        valid = valid_count(pack)
+        print(f"# {family} chunk ({name}): {valid} of {N} samples valid "
+              f"({100 * valid / N:.1f} %); K5 shade_multi {layout} "
+              f"{net.shading}{', weights row' if spec.weights else ''}"
+              f"{', time planes' if timed else ''}, S={spec.S}: max |kernel "
+              f"- plain| rgb/acc {err:.3e}, depth {derr:.3e} (tol "
+              f"{SHADE_TOL}); acc mean {out[:, 3].mean().item():.4f}; "
+              f"{k5_launch(shade_multi)}", flush=True)
+        if valid < N // 2:
+            raise AssertionError(f"{family}: under half of the samples are "
+                                 "valid: move the camera")
+        if not (err <= SHADE_TOL and derr <= 10 * SHADE_TOL):
+            raise AssertionError(f"{family} K5 disagrees with its plain "
+                                 f"version: {err}, {derr}")
+        k5_err = max(k5_err, err)
+        del out, out_p
+    # the chunk with one t (a frame's) for the times and the bound
+    x = chain(chunk)
+    pack, rp = net.fused_pack(x)
+    spec = net.fused_spec(prep, pack.shape[1] // CHUNK)
+    N, valid = pack.shape[1], valid_count(pack)
+    quads, lines, wb = prep["quads"], prep["lines"], prep["wb"]
+    k5_ms = cuda_ms(torch, lambda: shade_multi(quads, lines, pack, rp, wb,
+                                               spec), 20)
+    k5_plain_ms = cuda_ms(torch, lambda: shade_multi_plain(
+        quads, lines, pack, rp, wb, spec), 2)
+    chain_ms = cuda_ms(torch, lambda: chain(chunk), 3)
+    pack_ms = cuda_ms(torch, lambda: net.fused_pack(x), 5)
+    k5_bound = sh_bound(
+        f"{family} K5", pack_bytes(pack, valid)
+        + ray_bytes(rp, rgb_colour, timed) + nbytes(*lines) + CHUNK * 5 * 4
+        + sum(rows_bytes(q, quad_rows(pack, a.m0, a.m1, a.W, a.H))
+              for q, a in zip(quads, axes)),
+        lambda f: [(valid * multi_ops(axes, lambda C: 8 * C + 10,
+                                      rgb_colour, spec.weights, fold=f)
+                    + N * COMPOSITE_OPS, F32_OPS_PER_S)], spec.S)
+    print(f"# {family} chunk ({card}): the general chain {chain_ms:.3f} ms, "
+          f"the pack from its fields {pack_ms:.3f} ms, K5 {k5_ms:.3f} ms "
+          f"(plain {k5_plain_ms:.3f}, bound {k5_bound[0]:.4f} "
+          f"{k5_bound[1]}, {100 * k5_bound[0] / k5_ms:.1f} % of it)",
+          flush=True)
+    del x, pack, rp
+    torch.cuda.empty_cache()
+
+    # ---- 30 / 34 / 38. the frame through model.apply (the general chain
+    # and K5), with one t and, for immersive, a t per ray
+    def render(m, frames, rkw):
+        return [m.apply(params, frames[i], ctx, rkw)
+                for i in range(frames.shape[0])]
+
+    _, general, _ = primitive_model(dev, family, fused=False, params=params)
+    rk = {"cf_prepared": prep}
+    n_chunks = frame.shape[0]
+    frames = {"one t" if timed else "frame": frame}
+    if timed:
+        frame_t = frame.clone()
+        frame_t[..., 7] = torch.rand(frame.shape[:2], device=dev,
+                                     generator=gen)
+        frames["a t per ray"] = frame_t
+    counts = None
+    for name, frm in frames.items():
+        reset_counts()
+        outs = render(model, frm, rk)
+        torch.cuda.synchronize()
+        got = read_counts()
+        rgb = torch.cat([o["rgb"] for o in outs])
+        want = dict.fromkeys(got, 0)
+        want.update(shade_multi=n_chunks)
+        if not (torch.isfinite(rgb).all() and rgb.min() >= 0
+                and rgb.max() <= 1 and rgb.shape == (SIDE * SIDE, 3)):
+            raise AssertionError(f"{family}: frame rgb is not finite in "
+                                 "[0, 1]")
+        if got != want:
+            raise AssertionError(f"{family}: kernel launches {got}, want "
+                                 f"{want}")
+        counts = counts or got
+        # ---- 31 / 35 / 39. against the general colour net on the same
+        # chain
+        rgb_g = torch.cat([o["rgb"] for o in render(general, frm, {})])
+        path_err = (rgb - rgb_g).abs().max().item()
+        print(f"# frame {SIDE}x{SIDE} ({family} own fused route, {name}): "
+              f"rgb min {rgb.min().item():.4f} max {rgb.max().item():.4f} "
+              f"mean {rgb.mean().item():.4f}; launches {got}; vs the general "
+              f"colour net {path_err:.3e} (tol {PATH_TOL})", flush=True)
+        if not path_err <= PATH_TOL:
+            raise AssertionError(f"{family} own route and general colour net "
+                                 f"disagree ({name}): {path_err}")
+        del outs, rgb, rgb_g
+    torch.cuda.empty_cache()
+
+    # ---- 32 / 36 / 40. frame time of the own route and of the general
+    # path, in turns (own, general, general, own)
+    routes = {f"{family} own fused route": model,
+              f"{family} general path": general}
+    times = {name: [] for name in routes}
+    for name in list(routes) + list(routes)[::-1]:
+        times[name].append(cuda_ms(torch, lambda: render(
+            routes[name], frame, rk if routes[name] is model else {}),
+            PRIMITIVE_TIMED_FRAMES))
+    frame_ms = {}
+    for name, ts in times.items():
+        frame_ms[name] = sum(ts) / len(ts)
+        print(f"# {card}: {name} {frame_ms[name]:.3f} ms/frame, "
+              f"{SIDE * SIDE / frame_ms[name] / 1e3:.3f} Mrays/s "
+              f"({PRIMITIVE_TIMED_FRAMES} frames after a warm-up frame, "
+              "twice: " + ", ".join(f"{t:.3f}" for t in ts) + ")",
+              flush=True)
+    own_ms = frame_ms[f"{family} own fused route"]
+    print(f"# {family} where the own route's frame goes ({card}): "
+          f"{n_chunks} x the general chain {n_chunks * chain_ms:.3f} ms "
+          f"({100 * n_chunks * chain_ms / own_ms:.1f} %), the pack "
+          f"{n_chunks * pack_ms:.3f} ms "
+          f"({100 * n_chunks * pack_ms / own_ms:.1f} %), K5 "
+          f"{n_chunks * k5_ms:.3f} ms ({100 * n_chunks * k5_ms / own_ms:.1f} "
+          "%) of the frame", flush=True)
+    name = {"catacaustics": "shade_multi_888_sh_weights",
+            "immersive": "shade_multi_immersive_time_planes",
+            "donerf": "shade_multi_rgb_weights_donerf"}[family]
+    return [entry(name, "shade_multi.cu",
+                  "hyperreel_tpu/ops/pallas/shade.py:742",
+                  counts["shade_multi"], k5_err, k5_ms, k5_plain_ms,
+                  k5_bound)], frame_ms
+
+
+FACE_ULPS = 2
+
+
+def near_face(torch, pack, S):
+    """[B]: rays with a sample whose |xn|, |yn| or |zn| lies within
+    FACE_ULPS f32 ulps of 1 (the reference's hard validity step keeps or
+    drops such a sample by its last ulp, ROADMAP.md 3)."""
+    one = torch.tensor(1.0).view(torch.int32).item()
+    bits = pack[:3].abs().contiguous().view(torch.int32).long()
+    return ((bits - one).abs().amin(0) <= FACE_ULPS).reshape(-1, S).any(1)
+
+
+def flagship_own_phase(torch, dev, card, cfg, info, params, frame,
+                       reset_counts, read_counts):
+    """Phases 41-43: the flagship with fused_render_cf off, through the
+    general stage chain and the dynamic net's single-axis own route (K2 on
+    its time plane, the time coordinate per ray): the bench frame's
+    launches, its rgb against the general colour net and against the
+    channels-first route's frame; under the f32 MLP policy on F32_RAYS rays
+    of the first chunk against the channels-first route; the frame time of
+    both routes. The time plane is rounded to bf16 for all of them (see
+    bf16_second_factors). Returns (the kernel's JSON record, {route:
+    ms/frame})."""
+    import copy
+
+    from hyperreel_tpu_torch.models.ctx import StepCtx
+    from hyperreel_tpu_torch.models.model import build_model
+    from hyperreel_tpu_torch.ops.kernels.pack_build import pack_build
+    from hyperreel_tpu_torch.ops.kernels.shade import shade, shade_plain
+
+    ctx = StepCtx(it=IT)
+    cfg_o = copy.deepcopy(cfg)
+    cfg_o["color"]["net"]["fused_render_cf"] = False
+    cfg_g = copy.deepcopy(cfg_o)
+    cfg_g["color"]["net"]["fused_render"] = False
+    own, general, cf_model = (
+        build_model(c, dataset_info=info, compute_dtype=torch.bfloat16)
+        for c in (cfg_o, cfg_g, cfg))
+    if own._cf_eval is not None:
+        raise AssertionError("the flagship with fused_render_cf off took the "
+                             "channels-first route")
+    p16 = bf16_second_factors(torch, params)
+    prep = own.prepare_eval(p16)
+    ax, = prep["axes"]
+    net = own.color_net
+
+    # ---- 41. K2 on the own route's pack of one chunk; the bench frame
+    chunk = frame[0]
+    x = own.embedding.apply(p16["embedding"], chunk, ctx, {})
+    pack, rp = net.fused_pack(x)
+    spec = net.fused_spec(prep, pack.shape[1] // CHUNK)
+    out = shade(prep["quads"][0], pack, rp, prep["lines"][0], prep["wb"],
+                spec)
+    out_p = shade_plain(prep["quads"][0], pack, rp, prep["lines"][0],
+                        prep["wb"], spec)
+    torch.cuda.synchronize()
+    k2_err = (out[:, :4] - out_p[:, :4]).abs().max().item()
+    if not k2_err <= SHADE_TOL:
+        raise AssertionError(f"K2 on the own route's pack disagrees with its "
+                             f"plain version: {k2_err}")
+    k2_ms = cuda_ms(torch, lambda: shade(prep["quads"][0], pack, rp,
+                                         prep["lines"][0], prep["wb"], spec),
+                    20)
+    k2_plain_ms = cuda_ms(torch, lambda: shade_plain(
+        prep["quads"][0], pack, rp, prep["lines"][0], prep["wb"], spec), 2)
+    N, valid = pack.shape[1], valid_count(pack)
+    k2_bound = sh_bound(
+        "flagship own K2", nbytes(pack, rp, prep["lines"][0])
+        + CHUNK * 5 * 4 + rows_bytes(prep["quads"][0],
+                                     quad_rows(pack, 0, 1, ax.W, ax.H)),
+        lambda f: [(valid * (shade_ops(ax.C, ax.nd, fold=f) + 8 * ax.C + 10)
+                    + N * COMPOSITE_OPS, F32_OPS_PER_S)], spec.S)
+    print(f"# flagship own route chunk ({card}): K2 on the time plane "
+          f"(TH={spec.TH}, t per ray): max |kernel - plain| rgb/acc "
+          f"{k2_err:.3e} (tol {SHADE_TOL}); {k2_ms:.3f} ms (plain "
+          f"{k2_plain_ms:.3f}, bound {k2_bound[0]:.4f} {k2_bound[1]})",
+          flush=True)
+    del x, pack, rp, out, out_p
+
+    def render(m, rkw, prm):
+        return [m.apply(prm, frame[i], ctx, rkw)
+                for i in range(frame.shape[0])]
+
+    rk = {"cf_prepared": prep}
+    reset_counts()
+    outs = render(own, rk, p16)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    rgb = torch.cat([o["rgb"] for o in outs])
+    want = dict.fromkeys(counts, 0)
+    want.update(shade=frame.shape[0])
+    if counts != want:
+        raise AssertionError(f"flagship own route: kernel launches {counts}, "
+                             f"want {want}")
+    if not (torch.isfinite(rgb).all() and rgb.min() >= 0 and rgb.max() <= 1
+            and rgb.shape == (SIDE * SIDE, 3)):
+        raise AssertionError("flagship own route: frame rgb is not finite in "
+                             "[0, 1]")
+    # ---- 42. against the general colour net and the channels-first
+    # route's frame
+    rgb_g = torch.cat([o["rgb"] for o in render(general, {}, p16)])
+    g_err = (rgb - rgb_g).abs().max().item()
+    rgb_cf = torch.cat([o["rgb"] for o in render(
+        cf_model, {"cf_prepared": cf_model.prepare_eval(p16),
+                   "uniform_time": True}, p16)])
+    cf_diff = (rgb - rgb_cf).abs().amax(1)
+    print(f"# frame {SIDE}x{SIDE} (flagship own route, fused_render_cf "
+          f"off): launches {counts}; vs the general colour net {g_err:.3e} "
+          f"(tol {PATH_TOL}); vs the channels-first route's frame (bf16 MLP "
+          f"policy: its general MLP stores each layer in bf16, K1 keeps f32 "
+          f"sums) max {cf_diff.max().item():.3e}, "
+          f"{int((cf_diff > PATH_TOL).sum())} rays above {PATH_TOL}",
+          flush=True)
+    if not g_err <= PATH_TOL:
+        raise AssertionError(f"flagship own route and general colour net "
+                             f"disagree: {g_err}")
+    del outs, rgb_g, rgb_cf, cf_model
+    # under the f32 MLP policy both routes run the same MLP: the own route
+    # against the channels-first route on F32_RAYS rays of the chunk, the
+    # rays with a sample on an aabb face in either pack left out
+    own32 = build_model(cfg_o, dataset_info=info)
+    cf32 = build_model(cfg, dataset_info=info)
+    rays = chunk[:F32_RAYS].contiguous()
+    a = own32.apply(p16, rays, ctx, {"cf_prepared": own32.prepare_eval(p16)})
+    prep32 = cf32.prepare_eval(p16)
+    b = cf32.apply(p16, rays, ctx, {"cf_prepared": prep32,
+                                    "uniform_time": True})
+    pk_own = own32.color_net.fused_pack(own32.embedding.apply(
+        p16["embedding"], rays, ctx, {}))[0]
+    cf = cf32._cf_eval
+    pk_cf = pack_build(cf.pred.net_input(rays, ctx).float().contiguous(),
+                       prep32["mlp"], cf.ray_pack(rays), cf.spec, IT)
+    near = near_face(torch, pk_own, cf.S) | near_face(torch, pk_cf, cf.S)
+    f32_err = (a["rgb"] - b["rgb"])[~near].abs().max().item()
+    print(f"# flagship own vs channels-first route, f32 MLP policy, "
+          f"{F32_RAYS} rays: max |diff| {f32_err:.3e} (tol {PATH_TOL}) over "
+          f"the rays without a sample within {FACE_ULPS} ulps of an aabb "
+          f"face ({int(near.sum())} left out); with them "
+          f"{(a['rgb'] - b['rgb']).abs().max().item():.3e}", flush=True)
+    if not (f32_err <= PATH_TOL and int(near.sum()) <= F32_RAYS // 100):
+        raise AssertionError(f"flagship own and channels-first routes "
+                             f"disagree: {f32_err}, {int(near.sum())} rays "
+                             "near a face")
+    del own32, cf32, a, b, pk_own, pk_cf
+    torch.cuda.empty_cache()
+
+    # ---- 43. frame time of the own route, in turns with the general path
+    routes = {"flagship own route": (own, rk),
+              "flagship general path": (general, {})}
+    times = {name: [] for name in routes}
+    for name in list(routes) + list(routes)[::-1]:
+        m, rkw = routes[name]
+        times[name].append(cuda_ms(torch, lambda: render(m, rkw, p16),
+                                   PRIMITIVE_TIMED_FRAMES))
+    frame_ms = {}
+    for name, ts in times.items():
+        frame_ms[name] = sum(ts) / len(ts)
+        print(f"# {card}: {name} {frame_ms[name]:.3f} ms/frame "
+              f"({PRIMITIVE_TIMED_FRAMES} frames after a warm-up frame, "
+              "twice: " + ", ".join(f"{t:.3f}" for t in ts) + ")",
+              flush=True)
+    return [entry("shade_time_plane_own_route", "shade.cu",
+                  "hyperreel_tpu/ops/pallas/shade.py:238", counts["shade"],
+                  k2_err, k2_ms, k2_plain_ms, k2_bound)], frame_ms
+
+
 def n3d(dev, bf16=True, patch=None, params=None):
     """neural_3d_z_plane at full width (6x256 MLP on 23 inputs, S=64,
     mipnerf contraction, spatial flow, [8, 4, 4] components on three
@@ -1463,7 +1909,7 @@ def n3d_phases(torch, dev, card, frame, reset_counts, read_counts):
     import copy
     from hyperreel_tpu_torch.models.model import build_model
     cfg_g = copy.deepcopy(cfg)
-    cfg_g["color"]["net"]["fused_render_cf"] = False
+    cfg_g["color"]["net"].update(fused_render_cf=False, fused_render=False)
     fused_m = build_model(cfg, dataset_info=N3D_INFO)
     general = build_model(cfg_g, dataset_info=N3D_INFO)
     rays = torch.from_numpy(entry_rays(4096)).to(dev)
@@ -1618,7 +2064,7 @@ def main():
         if line.startswith("== "):
             source = line[3:]
         elif "Compiling entry function" in line:
-            m = re.search(r"\d([a-z_]+_kernel)(I.*?E)E", line)
+            m = re.search(r"\d([a-z_]+_kernel)(I.*?E)Ev", line)
             source = f"{m.group(1)}<{m.group(2)}>" if m else line.strip()
         elif "registers" in line or "spill" in line:
             print(f"# {source}: {line.strip()}")
@@ -1753,7 +2199,7 @@ def main():
     # the fused path keeps f32 sums)
     import copy
     cfg_g = copy.deepcopy(cfg)
-    cfg_g["color"]["net"]["fused_render_cf"] = False
+    cfg_g["color"]["net"].update(fused_render_cf=False, fused_render=False)
     fused = build_model(cfg, dataset_info=info)
     general = build_model(cfg_g, dataset_info=info)
     rays = torch.from_numpy(entry_rays(4096)).to(dev)
@@ -2019,6 +2465,23 @@ def main():
     stanford_entries, stanford_frame_ms = stanford_phases(
         torch, dev, gpu, frame, reset_counts, read_counts)
     frame_ms.update(stanford_frame_ms)
+    torch.cuda.empty_cache()
+
+    # ---- 29-40. the non-planar primitive presets through their colour
+    # nets' own fused routes
+    primitive_entries = []
+    for family in ("catacaustics", "immersive", "donerf"):
+        recs, fms = primitive_phases(torch, dev, gpu, reset_counts,
+                                     read_counts, family)
+        primitive_entries += recs
+        frame_ms.update(fms)
+        torch.cuda.empty_cache()
+
+    # ---- 41-43. the flagship through the dynamic net's single-axis own
+    # route
+    own_entries, own_frame_ms = flagship_own_phase(
+        torch, dev, gpu, cfg, info, params, frame, reset_counts, read_counts)
+    frame_ms.update(own_frame_ms)
     print("# SH bounds, ms with the basis folded per ray (the least work, "
           "the kernels' line) / by the unfolded count: " + "; ".join(
               f"{name} {new:.4f} / {old:.4f}"
@@ -2048,7 +2511,8 @@ def main():
         entry("composite", "composite.cu",
               "hyperreel_tpu/ops/pallas/composite.py:26", k7_launches,
               k7_err, k7_ms, k7_plain_ms, k7_bound)] + llff_entries
-        + n3d_entries + shiny_entries + stanford_entries,
+        + n3d_entries + shiny_entries + stanford_entries
+        + primitive_entries + own_entries,
         "frame_ms": frame_ms}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -443,6 +443,315 @@ def shiny_z_plane(z_channels=32):
     return cfg
 
 
+
+def donerf_sphere(z_channels=32):
+    """Static HyperReel with concentric-sphere primitives + dataset-bound
+    mipnerf contraction (reference conf/experiment/model/donerf_sphere.yaml;
+    BASELINE.md pipeline #2). The reference predicts 4 z-channels per sample
+    (origin scale + radius) but ships origin_scale_factor=0.0, which makes
+    the origin channels inert — we predict the radius channel only."""
+    return {
+        "type": "lightfield",
+        "param": {"n_dims": 6, "fn": "identity"},
+        "embedding": {
+            "type": "ray_point",
+            "embeddings": {
+                "ray_prediction_0": {
+                    "type": "ray_prediction",
+                    "params": {
+                        "ray": {
+                            "start": 0, "end": 6,
+                            "param": {"n_dims": 6, "fn": "pluecker",
+                                      "direction_multiplier": 1.0,
+                                      "moment_multiplier": 1.0},
+                            "pe": {"type": "windowed", "n_freqs": 1,
+                                   "freq_multiplier": 2.0,
+                                   "wait_iters": 0, "max_freq_epoch": 0},
+                        },
+                    },
+                    "net": {"type": "base", "group": "embedding_impl",
+                            "depth": 6, "hidden_channels": 256, "skips": [3]},
+                    "z_channels": z_channels,
+                    "outputs": {
+                        "z_vals": {"channels": 1},
+                        "sigma": {"channels": 1,
+                                  "activation": _ease_sigmoid(3, 0)},
+                        "point_sigma": {"channels": 1,
+                                        "activation": _ease_sigmoid(3, 1)},
+                        "point_offset": {
+                            "channels": 3,
+                            "activation": {"type": "tanh",
+                                           "outer_fac": 0.125},
+                        },
+                        "color_scale": {"channels": 3,
+                                        "activation": _ease_zero()},
+                        "color_shift": {"channels": 3,
+                                        "activation": _ease_zero()},
+                    },
+                },
+                "ray_intersect_0": {
+                    "type": "ray_intersect",
+                    "z_channels": z_channels,
+                    "intersect": {
+                        "type": "sphere",
+                        "sort": True,
+                        "outward_facing": False,
+                        "use_disparity": False,
+                        "max_axis": False,
+                        "use_sigma": True,
+                        "out_points": "raw_points",
+                        "out_distance": "raw_distance",
+                        "use_dataset_bounds": True,
+                        "origin_scale_factor": 0.0,
+                        "contract": {
+                            "type": "mipnerf",
+                            "contract_samples": True,
+                            "use_dataset_bounds": True,
+                        },
+                        "activation": {"type": "identity", "fac": 0.5},
+                    },
+                },
+                "point_offset_0": {
+                    "type": "point_offset",
+                    "use_sigma": True,
+                },
+                "add_point_outputs_0": {
+                    "type": "add_point_outputs",
+                    "extra_outputs": ["viewdirs"],
+                },
+                "extract_fields": {
+                    "type": "extract_fields",
+                    "fields": ["points", "distances", "viewdirs", "weights",
+                               "color_scale", "color_shift"],
+                },
+            },
+        },
+        "color": {
+            "type": "base",
+            "net": {
+                "type": "tensor_vm_split_no_sample",
+                # fused Pallas eval when eligible (single- or multi-axis static kernel)
+                "fused_render": True,
+                "white_bg": 0,
+                "black_bg": 0,
+                "fea2denseAct": "relu",
+                "distance_scale": 16.0,
+                "density_shift": 0.0,
+                "aabb": [[-2.0, -2.0, -2.0], [2.0, 2.0, 2.0]],
+                "N_voxel_init": 3375000,
+                "N_voxel_final": 216000000,
+                "upsamp_list": [4000, 6000, 8000, 10000, 12000],
+                "lr_upsample_reset": True,
+                "update_AlphaMask_list": [4000, 8000],
+                "rm_weight_mask_thre": 0,
+                "alpha_mask_thre": 1e-3,
+                "n_lamb_sigma": [8, 4, 4],
+                "n_lamb_sh": [8, 4, 4],
+                "shadingMode": "RGB",
+                "data_dim_color": 3,
+            },
+        },
+    }
+
+
+def donerf_cylinder(z_channels=32):
+    """donerf_sphere with concentric CYLINDER primitives — the reference
+    configs differ only in the intersect type (diff of
+    conf/experiment/model/donerf_sphere.yaml vs donerf_cylinder.yaml:
+    `type: sphere` -> `type: cylinder`)."""
+    cfg = donerf_sphere(z_channels=z_channels)
+    cfg["embedding"]["embeddings"]["ray_intersect_0"]["intersect"][
+        "type"] = "cylinder"
+    return cfg
+
+
+def catacaustics_distance(z_channels=64):
+    """Static HyperReel with DIRECT per-sample distance prediction
+    (euclidean_distance_unified) + mipnerf contraction on Catacaustics
+    captures (reference conf/experiment/model/catacaustics_distance.yaml).
+    The reference writes the grid schedule as grid_size start/end
+    [100^3 -> 400^3]; with its cubic aabb that is exactly
+    N_voxel_init/final 1e6 -> 6.4e7 through n_to_reso, which is the form
+    used here."""
+    cfg = donerf_sphere(z_channels=z_channels)
+    emb = cfg["embedding"]["embeddings"]
+    pred = emb["ray_prediction_0"]
+    pred["params"]["ray"]["pe"] = {
+        "type": "windowed", "n_freqs": 2, "freq_multiplier": 2.0,
+        "wait_iters": 0, "max_freq_epoch": 0}
+    outs = pred["outputs"]
+    outs.pop("color_scale", None)
+    outs.pop("color_shift", None)
+    outs.pop("point_sigma", None)
+    outs["point_offset"] = {"channels": 3,
+                            "activation": {"type": "tanh",
+                                           "outer_fac": 0.25}}
+    outs["color_scale_global"] = {"channels": 3, "activation": _ease_zero()}
+    outs["color_shift_global"] = {"channels": 3, "activation": _ease_zero()}
+    emb["ray_intersect_0"]["intersect"] = {
+        "type": "euclidean_distance_unified",
+        "sort": True,
+        "outward_facing": False,
+        "use_disparity": False,
+        "use_sigma": True,
+        "out_points": "raw_points",
+        "out_distance": "raw_distance",
+        "use_dataset_bounds": True,
+        "contract": {"type": "mipnerf", "contract_samples": True,
+                     "use_dataset_bounds": True},
+        "activation": {"type": "identity", "fac": 0.5},
+    }
+    emb["point_offset_0"] = {"type": "point_offset", "use_sigma": True}
+    emb["extract_fields"]["fields"] = [
+        "points", "distances", "viewdirs", "weights",
+        "color_scale_global", "color_shift_global"]
+    net = cfg["color"]["net"]
+    net["N_voxel_init"] = 1000000
+    net["N_voxel_final"] = 64000000
+    net["n_lamb_sigma"] = [8, 8, 8]
+    net["n_lamb_sh"] = [8, 8, 8]
+    net["shadingMode"] = "SH"
+    net["data_dim_color"] = 27
+    return cfg
+
+
+def immersive_sphere_new(z_channels=32):
+    """Dynamic HyperReel for Google Immersive scenes: outward-facing
+    concentric spheres with miss fallback (sphere_new), mipnerf
+    contraction to dataset bounds, spatial-flow advection, and 3-axis
+    [8, 4, 4] keyframe grids (reference
+    conf/experiment/model/immersive_sphere_new.yaml; BASELINE.md pipeline
+    #5). Deviation as in donerf_sphere: the reference's multi-channel
+    z_vals (8 per slot) reduce to per-slot radius offsets — its shipped
+    z_scale/origin factors make the extra channels inert."""
+    return {
+        "type": "lightfield",
+        "param": {"n_dims": 6, "fn": "identity"},
+        "embedding": {
+            "type": "ray_point",
+            "embeddings": {
+                "ray_prediction_0": {
+                    "type": "ray_prediction",
+                    "params": {
+                        "ray": {
+                            "start": 0, "end": 6,
+                            "param": {"n_dims": 6, "fn": "pluecker",
+                                      "direction_multiplier": 1.0,
+                                      "moment_multiplier": 1.0},
+                            "pe": {"type": "windowed", "n_freqs": 1,
+                                   "freq_multiplier": 2.0,
+                                   "wait_iters": 0, "max_freq_epoch": 0},
+                        },
+                        "time": {
+                            "start": 7, "end": 8,
+                            "param": {"n_dims": 1, "fn": "identity"},
+                            "pe": {"type": "windowed", "n_freqs": 2,
+                                   "wait_iters": 0, "max_freq_epoch": 0},
+                        },
+                    },
+                    "net": {"type": "base", "group": "embedding_impl",
+                            "depth": 6, "hidden_channels": 256, "skips": [3]},
+                    "z_channels": z_channels,
+                    "outputs": {
+                        "z_vals": {"channels": 1},
+                        "spatial_flow": {
+                            "channels": 3,
+                            "activation": {"type": "identity",
+                                           "outer_fac": 1.0},
+                        },
+                        "sigma": {"channels": 1,
+                                  "activation": _ease_sigmoid(3, 0)},
+                        "point_sigma": {"channels": 1,
+                                        "activation": _ease_sigmoid(3, 1)},
+                        "point_offset": {
+                            "channels": 3,
+                            "activation": {"type": "tanh", "outer_fac": 0.25},
+                        },
+                        "color_scale": {"channels": 3,
+                                        "activation": _ease_zero()},
+                        "color_shift": {"channels": 3,
+                                        "activation": _ease_zero()},
+                    },
+                },
+                "ray_intersect_0": {
+                    "type": "ray_intersect",
+                    "z_channels": z_channels,
+                    "intersect": {
+                        "type": "sphere_new",
+                        "sort": True,
+                        "outward_facing": True,
+                        "use_disparity": False,
+                        "max_axis": False,
+                        "use_sigma": True,
+                        "out_points": "raw_points",
+                        "out_distance": "raw_distance",
+                        "use_dataset_bounds": True,
+                        "resize_scale_factor": 1.0,
+                        "origin_scale_factor": 1.0,
+                        "contract": {
+                            "type": "mipnerf",
+                            "contract_samples": True,
+                            "use_dataset_bounds": True,
+                        },
+                        "activation": {"type": "identity", "fac": 0.5},
+                    },
+                },
+                "flow_0": {
+                    "type": "advect_points",
+                    "use_spatial_flow": True,
+                    "use_angular_flow": False,
+                    "out_flow_field": "raw_flow",
+                    "flow_scale": 0.0,
+                    "spatial_flow_activation": {"type": "identity",
+                                                "fac": 0.25},
+                },
+                "point_offset_0": {
+                    "type": "point_offset",
+                    "in_density_field": "point_sigma",
+                    "use_sigma": True,
+                },
+                "add_point_outputs_0": {
+                    "type": "add_point_outputs",
+                    "extra_outputs": ["viewdirs", "times"],
+                },
+                "extract_fields": {
+                    "type": "extract_fields",
+                    "fields": ["points", "distances", "base_times",
+                               "time_offset", "times", "viewdirs", "weights",
+                               "color_transform_global", "color_scale_global",
+                               "color_shift_global", "color_transform",
+                               "color_scale", "color_shift"],
+                },
+            },
+        },
+        "color": {
+            "type": "base",
+            "net": {
+                "type": "tensor_vm_split_time",
+                # fused Pallas eval when eligible
+                "fused_render": True,
+                "white_bg": 0,
+                "black_bg": 0,
+                "fea2denseAct": "relu",
+                "distance_scale": 16.0,
+                "density_shift": 0.0,
+                "aabb": [[-2.0, -2.0, -2.0], [2.0, 2.0, 2.0]],
+                "N_voxel_init": 2097152,
+                "N_voxel_final": 262144000,
+                "upsamp_list": [4000, 6000, 8000, 10000, 12000],
+                "lr_upsample_reset": True,
+                "update_AlphaMask_list": [4000, 8000],
+                "rm_weight_mask_thre": 0,
+                "alpha_mask_thre": 1e-3,
+                "n_lamb_sigma": [8, 4, 4],
+                "n_lamb_sh": [8, 4, 4],
+                "shadingMode": "SH",
+                "data_dim_color": 27,
+                "densityMode": "Density",
+            },
+        },
+    }
+
 def with_coherent_gather(cfg, px=4, py=3, block=4):
     """Enable the coherent patch-gather render path (one (px x py)-texel
     row per `block`-consecutive-ray block and sample slot —
@@ -512,21 +821,64 @@ def tiny_dynamic(z_channels=8, grid=32):
     return cfg
 
 
+def _bf16_tables(cfg):
+    """The fused routes need bf16 tables (as the JAX package's
+    _fused_eligible), which the JAX package's tiny versions turn off."""
+    cfg["color"]["net"]["bf16_tables"] = True
+    return cfg
+
+
 def tiny_stanford_llff(z_channels=8, grid=32):
     """Miniature stanford_llff_z_plane for tests, with bf16 tables: the
     net's own fused route needs them (as the JAX package's
     _fused_eligible), where the JAX package's tiny version turns them
     off."""
-    cfg = _shrink_for_tests(stanford_llff_z_plane(z_channels=z_channels),
-                            grid)
-    cfg["color"]["net"]["bf16_tables"] = True
-    return cfg
+    return _bf16_tables(_shrink_for_tests(
+        stanford_llff_z_plane(z_channels=z_channels), grid))
 
 
 def tiny_shiny(z_channels=8, grid=32):
     """Miniature shiny_z_plane for tests, without the sample stages (not
     ported) and with bf16 tables, which the channels-first route
     (cf_eligible) and the net's own fused route need."""
-    cfg = _shrink_for_tests(shiny_z_plane(z_channels=z_channels), grid)
-    cfg["color"]["net"]["bf16_tables"] = True
+    return _bf16_tables(_shrink_for_tests(
+        shiny_z_plane(z_channels=z_channels), grid))
+
+
+def tiny_donerf_sphere(z_channels=8, grid=32):
+    """Miniature donerf_sphere for tests, with bf16 tables."""
+    return _bf16_tables(_shrink_for_tests(
+        donerf_sphere(z_channels=z_channels), grid))
+
+
+def tiny_donerf_cylinder(z_channels=8, grid=32):
+    """Miniature donerf_cylinder for tests, with bf16 tables."""
+    return _bf16_tables(_shrink_for_tests(
+        donerf_cylinder(z_channels=z_channels), grid))
+
+
+def tiny_catacaustics_distance(z_channels=8, grid=32):
+    """Miniature catacaustics_distance for tests ([4, 4, 4] components),
+    with bf16 tables."""
+    return _bf16_tables(_shrink_for_tests(
+        catacaustics_distance(z_channels=z_channels), grid))
+
+
+def tiny_immersive_sphere(z_channels=8, grid=32):
+    """Miniature immersive_sphere_new for tests, with bf16 tables."""
+    return _bf16_tables(_shrink_for_tests(
+        immersive_sphere_new(z_channels=z_channels), grid))
+
+
+def small_grid_catacaustics(z_channels=64, grid=32):
+    """catacaustics_distance on a grid^3 grid with the tiny MLP (depth 4,
+    64 wide) but its own [8, 8, 8] components and 64 samples, which
+    _shrink_for_tests would turn into [4, 4, 4]: the test size of K5 at
+    the [8, 8, 8] layout with the weights row."""
+    cfg = catacaustics_distance(z_channels=z_channels)
+    net = cfg["color"]["net"]
+    net.update(N_voxel_init=grid ** 3, N_voxel_final=grid ** 3,
+               upsamp_list=[], update_AlphaMask_list=[])
+    cfg["embedding"]["embeddings"]["ray_prediction_0"]["net"].update(
+        {"depth": 4, "hidden_channels": 64, "skips": [2]})
     return cfg

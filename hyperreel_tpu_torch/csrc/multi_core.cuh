@@ -24,12 +24,19 @@
 // degree 2 with the [3 * kBasis, A] basis, or RGB with a [3, A] one, A the
 // appearance channels) and relu density (of the density sum times the
 // sample's weight where the pack has the weights row).
-// The kernels are built for the [8, 4, 4] layout of both families, axes 0,
-// 1, 2 with C = 16, 8, 8 of which 8, 4, 4 density channels (the
-// llff_z_plane and neural_3d_z_plane presets, and tiny_static with those
-// components). The constants below are the layout's one owner:
-// shade_multi.cu exports them (multi_layout), and the loader
-// (ops/kernels/build.py) hands them to the wrappers' check.
+// The channel layout (C and density channels per axis) is a template
+// argument of every kernel here (Layout below). K5's quad kernel is built
+// for [8, 4, 4] (axes 0, 1, 2 with C = 16, 8, 8 of which 8, 4, 4 density
+// channels: the llff_z_plane, shiny_z_plane, neural_3d_z_plane,
+// donerf_sphere and immersive_sphere_new presets) and [8, 8, 8] (C = 16 on
+// every axis, 8 density: catacaustics_distance); K5's pre-blended kernel
+// and K6 for [8, 4, 4] only, since no route reaches them at [8, 8, 8] (a
+// chain that is not a z-plane chain never takes the channels-first
+// route). The aliases below (Layout844, Layout888, PatchLayout) are the
+// layouts' one owner: the launchers check a launch's layout against them
+// and refuse any other, and shade_multi.cu exports them (multi_layouts) to
+// the loader (ops/kernels/build.py), which hands them to the wrappers'
+// check.
 
 #pragma once
 
@@ -53,6 +60,9 @@ struct MultiParams {
   int B, S;
   float distance_scale;
   MultiAxis axis[3];
+  // the layout: C and density channels of axes 0, 1, 2 (0 for an axis
+  // that is absent); a launcher runs only a layout it is built for
+  int ch[3], nd[3];
   float wb[kMaxWb];  // SH: [3 * kBasis, A], rows ch * kBasis + k; RGB [3, A]
   // the host's choice of instantiation: 1 = RGB colour (kRgb); 1 = the
   // pack has the weights row (kWeights, the quad kernel only)
@@ -61,11 +71,38 @@ struct MultiParams {
 
 namespace multi_core {
 
-constexpr int kCh0 = 16, kCh1 = 8, kCh2 = 8;  // channels of axes 0, 1, 2
-constexpr int kNd0 = 8, kNd1 = 4, kNd2 = 4;   // of which density channels
-constexpr int kApp = kCh0 - kNd0 + kCh1 - kNd1 + kCh2 - kNd2;
-template <int A>
-constexpr int kChOf = A == 0 ? kCh0 : A == 1 ? kCh1 : kCh2;
+// A layout: axes 0, 1, 2 with C0, C1, C2 channels, of which N0, N1, N2
+// density channels; kApp appearance channels in all.
+template <int C0, int N0, int C1, int N1, int C2, int N2>
+struct Layout {
+  static constexpr int kCh0 = C0, kCh1 = C1, kCh2 = C2;
+  static constexpr int kNd0 = N0, kNd1 = N1, kNd2 = N2;
+  static constexpr int kApp = C0 - N0 + C1 - N1 + C2 - N2;
+  template <int A>
+  __host__ __device__ static constexpr int ch() {
+    return A == 0 ? C0 : A == 1 ? C1 : C2;
+  }
+  template <int A>
+  __host__ __device__ static constexpr int nd() {
+    return A == 0 ? N0 : A == 1 ? N1 : N2;
+  }
+  // Is this the layout of p?
+  static bool of(const MultiParams& p) {
+    return p.ch[0] == C0 && p.ch[1] == C1 && p.ch[2] == C2 &&
+           p.nd[0] == N0 && p.nd[1] == N1 && p.nd[2] == N2;
+  }
+  // (C, density channels) of axes 0, 1, 2 into v[0 .. 6)
+  static void write(int* v) {
+    const int c_nd[6] = {C0, N0, C1, N1, C2, N2};
+    for (int i = 0; i < 6; ++i) v[i] = c_nd[i];
+  }
+};
+
+// K5's quad kernel is built for both; K5's pre-blended kernel and K6 for
+// PatchLayout only
+using Layout844 = Layout<16, 8, 8, 4, 8, 4>;
+using Layout888 = Layout<16, 8, 16, 8, 16, 8>;
+using PatchLayout = Layout844;
 
 // the pack rows of axis A's plane coordinates and of its line coordinate
 template <int A>
@@ -157,35 +194,37 @@ __device__ __forceinline__ void line_product(const MultiAxis& ax,
 
 // Everything after the three planes' features of one valid sample (the
 // per-axis products, relu density of their sum (times the sample's weight
-// `wt` with kWeights), the colour): `feat(A, f)` writes axis A's C_A plane
-// features to f (A a std::integral_constant).
-template <bool kTime, bool kRgb, bool kWeights, typename Feat>
+// `wt` with kWeights), the colour) at layout L: `feat(A, f)` writes axis
+// A's C_A plane features to f (A a std::integral_constant).
+template <class L, bool kTime, bool kRgb, bool kWeights, typename Feat>
 __device__ __forceinline__ void shade_axes(const MultiParams& p,
                                            const float* pk, const float* ray,
                                            Feat feat, float wt, float& sigma,
                                            float* rgb) {
   const float tn = kTime ? __ldg(ray + 7) : 0.0f;
   float dsum = 0.0f;
-  float app[kApp];
+  float app[L::kApp];
   {
-    float f[kCh0];
+    float f[L::kCh0];
     feat(std::integral_constant<int, 0>{}, f);
-    line_product<0, kCh0, kNd0, kTime>(p.axis[0], pk, tn, f, dsum, app);
+    line_product<0, L::kCh0, L::kNd0, kTime>(p.axis[0], pk, tn, f, dsum,
+                                             app);
   }
   {
-    float f[kCh1];
+    float f[L::kCh1];
     feat(std::integral_constant<int, 1>{}, f);
-    line_product<1, kCh1, kNd1, kTime>(p.axis[1], pk, tn, f, dsum,
-                                app + kCh0 - kNd0);
+    line_product<1, L::kCh1, L::kNd1, kTime>(p.axis[1], pk, tn, f, dsum,
+                                             app + L::kCh0 - L::kNd0);
   }
   {
-    float f[kCh2];
+    float f[L::kCh2];
     feat(std::integral_constant<int, 2>{}, f);
-    line_product<2, kCh2, kNd2, kTime>(p.axis[2], pk, tn, f, dsum,
-                                app + kCh0 - kNd0 + kCh1 - kNd1);
+    line_product<2, L::kCh2, L::kNd2, kTime>(
+        p.axis[2], pk, tn, f, dsum,
+        app + L::kCh0 - L::kNd0 + L::kCh1 - L::kNd1);
   }
   sigma = fmaxf(kWeights ? dsum * wt : dsum, 0.0f);
-  shade_core::colour<kApp, kRgb>(app, p.wb, pk, ray, rgb);
+  shade_core::colour<L::kApp, kRgb>(app, p.wb, pk, ray, rgb);
 }
 
 // Does any axis of p have a time plane (TH > 0)?
@@ -261,41 +300,42 @@ __device__ __forceinline__ void axis_product(const float* feat,
   dsum += ds;
 }
 
-// One valid sample of the quad K5 after its pack rows: each axis's plane
-// features (`feat(A, f)`, A a std::integral_constant) times its second
-// factor (tt[A] the ray's time taps), relu density of the density sum
-// (times the sample's weight `wt` with kWeights), and the colour: RGB
-// from the [3, A] basis in the parameters, or SH from the ray's folded
-// basis M (sh_fold).
-template <bool kTime, bool kRgb, bool kWeights, typename Feat>
+// One valid sample of the quad K5 after its pack rows, at layout L: each
+// axis's plane features (`feat(A, f)`, A a std::integral_constant) times
+// its second factor (tt[A] the ray's time taps), relu density of the
+// density sum (times the sample's weight `wt` with kWeights), and the
+// colour: RGB from the [3, A] basis in the parameters, or SH from the
+// ray's folded basis M (sh_fold).
+template <class L, bool kTime, bool kRgb, bool kWeights, typename Feat>
 __device__ __forceinline__ void shade_k5_sample(
     const MultiParams& p, const float* pk, const shade_core::Taps* tt,
     Feat feat, const float* M, float wt, float& sigma, float* rgb) {
   float dsum = 0.0f;
-  float app[kApp];
+  float app[L::kApp];
   {
-    float f[kCh0], lf[kCh0];
+    float f[L::kCh0], lf[L::kCh0];
     feat(std::integral_constant<int, 0>{}, f);
-    second_factor<0, kCh0, kTime>(p.axis[0], pk, tt[0], lf);
-    axis_product<kCh0, kNd0>(f, lf, dsum, app);
+    second_factor<0, L::kCh0, kTime>(p.axis[0], pk, tt[0], lf);
+    axis_product<L::kCh0, L::kNd0>(f, lf, dsum, app);
   }
   {
-    float f[kCh1], lf[kCh1];
+    float f[L::kCh1], lf[L::kCh1];
     feat(std::integral_constant<int, 1>{}, f);
-    second_factor<1, kCh1, kTime>(p.axis[1], pk, tt[1], lf);
-    axis_product<kCh1, kNd1>(f, lf, dsum, app + kCh0 - kNd0);
+    second_factor<1, L::kCh1, kTime>(p.axis[1], pk, tt[1], lf);
+    axis_product<L::kCh1, L::kNd1>(f, lf, dsum, app + L::kCh0 - L::kNd0);
   }
   {
-    float f[kCh2], lf[kCh2];
+    float f[L::kCh2], lf[L::kCh2];
     feat(std::integral_constant<int, 2>{}, f);
-    second_factor<2, kCh2, kTime>(p.axis[2], pk, tt[2], lf);
-    axis_product<kCh2, kNd2>(f, lf, dsum, app + kCh0 - kNd0 + kCh1 - kNd1);
+    second_factor<2, L::kCh2, kTime>(p.axis[2], pk, tt[2], lf);
+    axis_product<L::kCh2, L::kNd2>(
+        f, lf, dsum, app + L::kCh0 - L::kNd0 + L::kCh1 - L::kNd1);
   }
   sigma = fmaxf(kWeights ? dsum * wt : dsum, 0.0f);
   if constexpr (kRgb) {
-    shade_core::rgb_colour<kApp>(app, p.wb, pk, rgb);
+    shade_core::rgb_colour<L::kApp>(app, p.wb, pk, rgb);
   } else {
-    shade_core::sh_folded_colour<kApp>(app, M, pk, rgb);
+    shade_core::sh_folded_colour<L::kApp>(app, M, pk, rgb);
   }
 }
 

@@ -13,7 +13,11 @@
 #include <stdint.h>
 
 constexpr int kBasis = 9;                    // SH degree 2
-constexpr int kMaxWb = 3 * kBasis * 16;      // [3 * kBasis, C] floats
+// the largest basis of a kernel's parameters: [3 * kBasis, 24] floats, the
+// SH basis over the 24 appearance channels of K5's [8, 8, 8] layout (K2's
+// [3 * kBasis, C] takes C <= 16); 2592 bytes, well inside the 4 KB of a
+// kernel's parameters
+constexpr int kMaxWb = 3 * kBasis * 24;
 
 // global scope: see the note on PackParams in pack_build.cu
 struct ShadeParams {

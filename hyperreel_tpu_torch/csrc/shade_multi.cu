@@ -55,14 +55,18 @@
 //   quad rows in the SM's own L1; the L1/shared carve-out is the least
 //   that holds those blocks, chosen once per instantiation and card, and
 //   the launch reports it with the grid (launch_config).
-// Template arguments: kTime (every axis a time plane, else every axis a
-// line: a mix is not built), kRgb (RGB colour, else SH of degree 2),
+// Template arguments: L (the channel layout, multi_core.cuh Layout844 or
+// Layout888: [8, 4, 4] or [8, 8, 8]; at [8, 8, 8] the folded basis is 72
+// floats, the appearance vector 24), kTime (every axis a time plane, else
+// every axis a line: a mix is not built), kRgb (RGB colour, else SH of
+// degree 2),
 // kWeights (the pack has the weights row: the static net's own fused
 // route, shade.py:728-729, scales the density sum by the sample's
 // predicted weight before the relu).
 //
-// The pre-blended kernel (shade_multi_pre_kernel) runs a warp segment per
-// ray, a lane per sample (two at S = 64), as before: its feature rows
+// The pre-blended kernel (shade_multi_pre_kernel, built for multi_core.cuh
+// PatchLayout: [8, 4, 4]) runs a warp segment per ray, a lane per sample
+// (two at S = 64), as before: its feature rows
 // [B*S, C] lie in pack order, so that mapping reads them coalesced, and
 // its composite is K2's warp scan. The fold, staged lines and persistent
 // blocks each measured slower there (PERF.md): they raised its registers
@@ -84,7 +88,6 @@ constexpr int kPreThreads = 128;
 // the quad kernel's pack tiles: samples per stage and floats per ray
 constexpr int kStageS = 4;
 constexpr int kTileStride = kStageS + 1;
-constexpr int kFold = 3 * kApp;  // floats of one ray's folded basis
 // the largest dynamic shared memory of a block on the H100
 constexpr int kMaxSmem = 232448;
 // the cards whose launch configurations are kept (launch_config)
@@ -129,8 +132,8 @@ __device__ __forceinline__ void stage_pack(float* tile, const float* pack,
 
 // A thread per ray: each warp takes 32 neighbouring rays of the block's
 // run [lo, hi) at a time and walks their samples in order. Block b of the
-// grid G takes rays [b B / G, (b+1) B / G).
-template <bool kTime, bool kRgb, bool kWeights>
+// grid G takes rays [b B / G, (b+1) B / G). L: the channel layout.
+template <class L, bool kTime, bool kRgb, bool kWeights>
 __global__ void __launch_bounds__(kThreads, 1)
     shade_multi_kernel(const float* __restrict__ pack,
                        const float* __restrict__ rays,
@@ -156,9 +159,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int a = 0; a < 3; ++a) tt[a] = taps(tn, p.axis[a].TH);
     }
-    float M[kRgb ? 1 : kFold];
+    // the ray's folded basis [3, A]
+    float M[kRgb ? 1 : 3 * L::kApp];
     if constexpr (!kRgb) {
-      sh_fold<kApp>(p.wb, __ldg(ray + 3), __ldg(ray + 4), __ldg(ray + 5), M);
+      sh_fold<L::kApp>(p.wb, __ldg(ray + 3), __ldg(ray + 4), __ldg(ray + 5),
+                       M);
     }
     RayComposite acc;
     float prev_sigma = 0.0f, prev_rgb[3] = {0.0f, 0.0f, 0.0f},
@@ -177,12 +182,12 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (live && sample_valid(pk)) {
           auto feat = [&](auto A, float* f) {
             constexpr int a = decltype(A)::value;
-            quad_features<a, kChOf<a>>(p.axis[a], pk, f);
+            quad_features<a, L::template ch<a>()>(p.axis[a], pk, f);
           };
           const float wt =
               kWeights ? mine[kWeightsRow * 32 * kTileStride + j] : 1.0f;
-          shade_k5_sample<kTime, kRgb, kWeights>(p, pk, tt, feat, M, wt,
-                                                 sigma, rgb);
+          shade_k5_sample<L, kTime, kRgb, kWeights>(p, pk, tt, feat, M, wt,
+                                                    sigma, rgb);
         }
         if (s0 + j > 0) {
           composite_add(acc, prev_sigma, prev_rgb, prev_dist,
@@ -209,8 +214,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // Each axis's `table` is its pre-blended bf16 features [B*S, C]. SPL
 // samples per lane: lane l of ray r's segment of S / SPL lanes holds
-// samples SPL*l + j.
-template <int SPL, bool kTime, bool kRgb>
+// samples SPL*l + j. L: the channel layout.
+template <class L, int SPL, bool kTime, bool kRgb>
 __global__ void __launch_bounds__(kPreThreads)
     shade_multi_pre_kernel(const float* __restrict__ pack,
                            const float* __restrict__ rays,
@@ -239,10 +244,10 @@ __global__ void __launch_bounds__(kPreThreads)
     if (live && sample_valid(pk)) {
       auto feat = [&](auto A, float* f) {
         constexpr int a = decltype(A)::value;
-        row_features<kChOf<a>>(p.axis[a], g, f);
+        row_features<L::template ch<a>()>(p.axis[a], g, f);
       };
-      shade_axes<kTime, kRgb, false>(p, pk, ray, feat, 1.0f, sigma[j],
-                                     rgb[j]);
+      shade_axes<L, kTime, kRgb, false>(p, pk, ray, feat, 1.0f, sigma[j],
+                                        rgb[j]);
     }
   }
   float* o = out + (live ? ray_i : 0) * 5;
@@ -268,12 +273,12 @@ struct LaunchConfig {
 // launch there: as many blocks per SM as the occupancy API allows with all
 // of shared memory, then the least carve-out that holds them (the rest
 // stays L1 for the quad rows).
-template <bool kTime, bool kRgb, bool kWeights>
+template <class L, bool kTime, bool kRgb, bool kWeights>
 cudaError_t launch_config(LaunchConfig* c) {
   static LaunchConfig kept[kMaxDevices];
   static bool ready[kMaxDevices];
   static std::mutex mu;
-  auto kern = shade_multi_kernel<kTime, kRgb, kWeights>;
+  auto kern = shade_multi_kernel<L, kTime, kRgb, kWeights>;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -312,11 +317,11 @@ cudaError_t launch_config(LaunchConfig* c) {
 
 // The quad kernel on persistent blocks; chosen[4] gets the grid, blocks per
 // SM, carve-out and shared memory per block.
-template <bool kTime, bool kRgb, bool kWeights>
+template <class L, bool kTime, bool kRgb, bool kWeights>
 int run(const float* pack, const float* rays, float* out,
         const MultiParams* p, int* chosen, cudaStream_t st) {
   LaunchConfig c;
-  const cudaError_t e = launch_config<kTime, kRgb, kWeights>(&c);
+  const cudaError_t e = launch_config<L, kTime, kRgb, kWeights>(&c);
   if (e != cudaSuccess) return (int)e;
   const int64_t want = ((int64_t)p->B + kThreads - 1) / kThreads;
   const int64_t most = (int64_t)c.blocks_per_sm * c.sms;
@@ -325,37 +330,53 @@ int run(const float* pack, const float* rays, float* out,
   chosen[1] = c.blocks_per_sm;
   chosen[2] = c.carveout;
   chosen[3] = c.smem_bytes;
-  shade_multi_kernel<kTime, kRgb, kWeights>
+  shade_multi_kernel<L, kTime, kRgb, kWeights>
       <<<(unsigned)grid, kThreads, c.smem_bytes, st>>>(pack, rays, out, *p);
   return (int)cudaGetLastError();
 }
 
-// the instantiation for p's time planes, colour and weights row
-int run_quad(const float* pack, const float* rays, float* out,
-             const MultiParams* p, int* chosen, cudaStream_t st) {
+// the instantiation for p's layout (Layout844 or Layout888), time planes,
+// colour and weights row
+template <class L>
+int run_layout(const float* pack, const float* rays, float* out,
+               const MultiParams* p, int* chosen, cudaStream_t st) {
   const bool w = p->weights != 0;
   if (has_time(*p)) {
-    return p->rgb ? (w ? run<true, true, true> : run<true, true, false>)(
-                        pack, rays, out, p, chosen, st)
-                  : (w ? run<true, false, true> : run<true, false, false>)(
-                        pack, rays, out, p, chosen, st);
+    return p->rgb
+               ? (w ? run<L, true, true, true> : run<L, true, true, false>)(
+                     pack, rays, out, p, chosen, st)
+               : (w ? run<L, true, false, true> : run<L, true, false, false>)(
+                     pack, rays, out, p, chosen, st);
   }
-  return p->rgb ? (w ? run<false, true, true> : run<false, true, false>)(
-                      pack, rays, out, p, chosen, st)
-                : (w ? run<false, false, true> : run<false, false, false>)(
-                      pack, rays, out, p, chosen, st);
+  return p->rgb
+             ? (w ? run<L, false, true, true> : run<L, false, true, false>)(
+                   pack, rays, out, p, chosen, st)
+             : (w ? run<L, false, false, true> : run<L, false, false, false>)(
+                   pack, rays, out, p, chosen, st);
 }
 
-template <int SPL, bool kTime>
-void run_pre(unsigned blocks, const float* pack, const float* rays,
-             float* out, const MultiParams* p, cudaStream_t st) {
+bool quad_layout(const MultiParams& p) {
+  return Layout844::of(p) || Layout888::of(p);
+}
+
+int run_quad(const float* pack, const float* rays, float* out,
+             const MultiParams* p, int* chosen, cudaStream_t st) {
+  return Layout888::of(*p)
+             ? run_layout<Layout888>(pack, rays, out, p, chosen, st)
+             : run_layout<Layout844>(pack, rays, out, p, chosen, st);
+}
+
+template <class L, int SPL, bool kTime>
+int run_pre(unsigned blocks, const float* pack, const float* rays,
+            float* out, const MultiParams* p, cudaStream_t st) {
   if (p->rgb) {
-    shade_multi_pre_kernel<SPL, kTime, true>
+    shade_multi_pre_kernel<L, SPL, kTime, true>
         <<<blocks, kPreThreads, 0, st>>>(pack, rays, out, *p);
   } else {
-    shade_multi_pre_kernel<SPL, kTime, false>
+    shade_multi_pre_kernel<L, SPL, kTime, false>
         <<<blocks, kPreThreads, 0, st>>>(pack, rays, out, *p);
   }
+  return (int)cudaGetLastError();
 }
 
 // Refuse what is not built: S a power of two <= 64; every axis a line or
@@ -377,7 +398,9 @@ extern "C" int shade_multi_launch(const float* pack, const float* rays,
                                   float* out, const MultiParams* p,
                                   int* chosen, void* stream) {
   // the pack tiles take kStageS samples at a time
-  if (!built(p) || p->S < kStageS) return (int)cudaErrorInvalidValue;
+  if (!built(p) || !quad_layout(*p) || p->S < kStageS) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (p->B == 0) return 0;
   return run_quad(pack, rays, out, p, chosen, (cudaStream_t)stream);
 }
@@ -386,28 +409,40 @@ extern "C" int shade_multi_preblended_launch(const float* pack,
                                              const float* rays, float* out,
                                              const MultiParams* p,
                                              void* stream) {
-  if (!built(p) || p->weights) return (int)cudaErrorInvalidValue;
+  if (!built(p) || !PatchLayout::of(*p) || p->weights) {
+    return (int)cudaErrorInvalidValue;
+  }
   const int S = p->S;
   const int64_t n = (int64_t)p->B * (S < 32 ? S : 32);
   if (n == 0) return 0;
   const unsigned blocks = (unsigned)((n + kPreThreads - 1) / kPreThreads);
   cudaStream_t st = (cudaStream_t)stream;
+  using L = PatchLayout;
   if (S <= 32) {
-    has_time(*p) ? run_pre<1, true>(blocks, pack, rays, out, p, st)
-                 : run_pre<1, false>(blocks, pack, rays, out, p, st);
-  } else {
-    has_time(*p) ? run_pre<2, true>(blocks, pack, rays, out, p, st)
-                 : run_pre<2, false>(blocks, pack, rays, out, p, st);
+    return has_time(*p) ? run_pre<L, 1, true>(blocks, pack, rays, out, p, st)
+                        : run_pre<L, 1, false>(blocks, pack, rays, out, p, st);
   }
-  return (int)cudaGetLastError();
+  return has_time(*p) ? run_pre<L, 2, true>(blocks, pack, rays, out, p, st)
+                      : run_pre<L, 2, false>(blocks, pack, rays, out, p, st);
 }
 
 extern "C" int multi_params_size() { return (int)sizeof(MultiParams); }
 
-// The layout the multi-axis kernels are built for: (C, density channels)
-// of axes 0, 1, 2 into c_nd[6]; returns the number of axes.
-extern "C" int multi_layout(int* c_nd) {
-  const int v[6] = {kCh0, kNd0, kCh1, kNd1, kCh2, kNd2};
-  for (int i = 0; i < 6; ++i) c_nd[i] = v[i];
-  return 3;
+// The layouts a multi-axis kernel is built for (kernel 0: K5's quad
+// kernel, 1: K5's pre-blended kernel, 2: K6): (C, density channels) of
+// axes 0, 1, 2 per layout into c_nd[6 * n] unless c_nd is null; returns n,
+// the number of layouts, or -1 for another kernel.
+extern "C" int multi_layouts(int kernel, int* c_nd) {
+  if (kernel == 0) {
+    if (c_nd) {
+      Layout844::write(c_nd);
+      Layout888::write(c_nd + 6);
+    }
+    return 2;
+  }
+  if (kernel == 1 || kernel == 2) {
+    if (c_nd) PatchLayout::write(c_nd);
+    return 1;
+  }
+  return -1;
 }

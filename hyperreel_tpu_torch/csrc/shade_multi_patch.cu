@@ -27,7 +27,8 @@
 // features is K5's (multi_core.cuh, the time-plane branch compiled only
 // into launches with a time plane) and K2's composite (shade_core.cuh).
 // The kernel also counts the coverage violations (slots whose footprint
-// exits the patch on any plane). Built for the layout of multi_core.cuh, R
+// exits the patch on any plane). Built for multi_core.cuh PatchLayout
+// ([8, 4, 4]; the layout a template argument), R
 // in {4, 8}, S a power of two <= 64 and SH of degree 2 or RGB colour (a
 // template argument); at S = 64 and R = 4 (4, 3) the block's 128 slots
 // take 117 KB of shared memory, one block per SM. A pack with the weights
@@ -42,7 +43,7 @@ using namespace shade_core;
 using namespace multi_core;
 using namespace patch_core;
 
-template <int R, int SPL, bool kTime, bool kRgb>
+template <class L, int R, int SPL, bool kTime, bool kRgb>
 __global__ void __launch_bounds__(kPatchThreads)
     shade_multi_patch_kernel(const float* __restrict__ pack,
                              const float* __restrict__ rays,
@@ -68,11 +69,11 @@ __global__ void __launch_bounds__(kPatchThreads)
   const int pp = q.px * q.py;
   const PatchAxis ax[3] = {
       {static_cast<const uint4*>(p.axis[0].table), p.axis[0].W, p.axis[0].H,
-       Mode<0>::m0, Mode<0>::m1, pp * kCh0 / 8},
+       Mode<0>::m0, Mode<0>::m1, pp * L::kCh0 / 8},
       {static_cast<const uint4*>(p.axis[1].table), p.axis[1].W, p.axis[1].H,
-       Mode<1>::m0, Mode<1>::m1, pp * kCh1 / 8},
+       Mode<1>::m0, Mode<1>::m1, pp * L::kCh1 / 8},
       {static_cast<const uint4*>(p.axis[2].table), p.axis[2].W, p.axis[2].H,
-       Mode<2>::m0, Mode<2>::m1, pp * kCh2 / 8}};
+       Mode<2>::m0, Mode<2>::m1, pp * L::kCh2 / 8}};
   const uint4* rows[SPL * 3];
   float u[SPL * 3], v[SPL * 3];
   stage_patches<R, 3, SPL, kPackRows>(ax, q, t, &pk[0][0], valid, smem, viol,
@@ -88,11 +89,11 @@ __global__ void __launch_bounds__(kPatchThreads)
     if (valid[i]) {
       auto feat = [&](auto A, float* f) {
         constexpr int a = decltype(A)::value;
-        patch_features<kChOf<a>>(rows[i * 3 + a], u[i * 3 + a],
-                                 v[i * 3 + a], q.px, q.py, f);
+        patch_features<L::template ch<a>()>(rows[i * 3 + a], u[i * 3 + a],
+                                            v[i * 3 + a], q.px, q.py, f);
       };
-      shade_axes<kTime, kRgb, false>(p, pk[i], ray, feat, 1.0f, sigma[i],
-                                     rgb[i]);
+      shade_axes<L, kTime, kRgb, false>(p, pk[i], ray, feat, 1.0f, sigma[i],
+                                        rgb[i]);
     }
   }
   if constexpr (SPL == 1) {
@@ -104,52 +105,56 @@ __global__ void __launch_bounds__(kPatchThreads)
   }
 }
 
+template <class L>
 size_t multi_smem_bytes(const PatchParams& q) {
   const int pp = q.px * q.py;
-  const int vecs[3] = {pp * kCh0 / 8, pp * kCh1 / 8, pp * kCh2 / 8};
+  const int vecs[3] = {pp * L::kCh0 / 8, pp * L::kCh1 / 8, pp * L::kCh2 / 8};
   return smem_bytes(vecs, 3, q.R, samples_per_lane(q.S));
 }
 
-template <int R, int SPL, bool kTime, bool kRgb>
+template <class L, int R, int SPL, bool kTime, bool kRgb>
 cudaError_t launch(const float* pack, const float* rays, float* out,
                    int* viol, const MultiParams& p, const PatchParams& q,
                    cudaStream_t st) {
-  const size_t smem = multi_smem_bytes(q);
+  const size_t smem = multi_smem_bytes<L>(q);
   // above 48 KB only as dynamic shared memory, after opting in
   cudaError_t e = cudaFuncSetAttribute(
-      shade_multi_patch_kernel<R, SPL, kTime, kRgb>,
+      shade_multi_patch_kernel<L, R, SPL, kTime, kRgb>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   const int64_t J = q.B / R;
   const int per_block = kPatchThreads / (R * (q.S / SPL));
   const unsigned blocks = (unsigned)((J + per_block - 1) / per_block);
-  shade_multi_patch_kernel<R, SPL, kTime, kRgb>
+  shade_multi_patch_kernel<L, R, SPL, kTime, kRgb>
       <<<blocks, kPatchThreads, smem, st>>>(pack, rays, out, viol, p, q);
   return cudaGetLastError();
 }
 
 // the instantiation for p's second factors and colour
-template <int R, int SPL>
+template <class L, int R, int SPL>
 cudaError_t launch_c(const float* pack, const float* rays, float* out,
                      int* viol, const MultiParams& p, const PatchParams& q,
                      cudaStream_t st) {
   if (has_time(p)) {
-    return p.rgb ? launch<R, SPL, true, true>(pack, rays, out, viol, p, q, st)
-                 : launch<R, SPL, true, false>(pack, rays, out, viol, p, q,
-                                               st);
+    return p.rgb
+               ? launch<L, R, SPL, true, true>(pack, rays, out, viol, p, q,
+                                               st)
+               : launch<L, R, SPL, true, false>(pack, rays, out, viol, p, q,
+                                                st);
   }
-  return p.rgb ? launch<R, SPL, false, true>(pack, rays, out, viol, p, q, st)
-               : launch<R, SPL, false, false>(pack, rays, out, viol, p, q,
-                                              st);
+  return p.rgb
+             ? launch<L, R, SPL, false, true>(pack, rays, out, viol, p, q, st)
+             : launch<L, R, SPL, false, false>(pack, rays, out, viol, p, q,
+                                               st);
 }
 
 // the instantiation for q's samples per lane
-template <int R>
+template <class L, int R>
 cudaError_t launch_s(const float* pack, const float* rays, float* out,
                      int* viol, const MultiParams& p, const PatchParams& q,
                      cudaStream_t st) {
-  return q.S <= 32 ? launch_c<R, 1>(pack, rays, out, viol, p, q, st)
-                   : launch_c<R, 2>(pack, rays, out, viol, p, q, st);
+  return q.S <= 32 ? launch_c<L, R, 1>(pack, rays, out, viol, p, q, st)
+                   : launch_c<L, R, 2>(pack, rays, out, viol, p, q, st);
 }
 
 }  // namespace
@@ -161,14 +166,18 @@ extern "C" int shade_multi_patch_launch(const float* pack, const float* rays,
   const int S = q->S;
   if (S < 1 || S > 64 || (S & (S - 1)) || p->S != S || p->B != q->B ||
       p->weights || (q->R != 4 && q->R != 8) || q->B % q->R ||
-      multi_smem_bytes(*q) > 227 * 1024) {
+      !PatchLayout::of(*p)) {
     return (int)cudaErrorInvalidValue;
   }
-  if (q->B == 0) return 0;
-  cudaStream_t st = (cudaStream_t)stream;
   for (int a = 0; a < 3; ++a) {
     if (p->axis[a].TH < 0) return (int)cudaErrorInvalidValue;
   }
-  return q->R == 8 ? (int)launch_s<8>(pack, rays, out, viol, *p, *q, st)
-                   : (int)launch_s<4>(pack, rays, out, viol, *p, *q, st);
+  cudaStream_t st = (cudaStream_t)stream;
+  using L = PatchLayout;
+  if (multi_smem_bytes<L>(*q) > 227 * 1024) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (q->B == 0) return 0;
+  return q->R == 8 ? (int)launch_s<L, 8>(pack, rays, out, viol, *p, *q, st)
+                   : (int)launch_s<L, 4>(pack, rays, out, viol, *p, *q, st);
 }

@@ -10,6 +10,7 @@ and per-stage wait/stop gating, raise NotImplementedError.
 
 from typing import List
 
+import numpy as np
 import torch
 
 from hyperreel_tpu_torch.models.activations import get_activation
@@ -86,11 +87,36 @@ class RayPredictionEmbedding:
 
 
 class RayIntersectEmbedding:
-    def __init__(self, cfg):
+    """An intersect primitive (reference nlf/embedding/ray.py:366-394),
+    given the dataset's bounds: its near/far as `_dataset_bounds`, its
+    bbox as `_dataset_bbox`, and its depth range as the contraction's
+    `_dataset_depth_range` (the reference reads them off the live
+    datamodule: nlf/intersect/base.py:88, nlf/contract.py:121-125;
+    hyperreel_tpu/models/embeddings.py:683-703)."""
+
+    def __init__(self, cfg, dataset_info=None):
+        dataset_info = dataset_info or {}
+        cfg = dict(cfg)
+        icfg = dict(cfg.get("intersect", {}))
+        if dataset_info.get("near") is not None:
+            icfg.setdefault("_dataset_bounds",
+                            (float(dataset_info["near"]),
+                             float(dataset_info["far"])))
+        if dataset_info.get("bbox") is not None:
+            bb = dataset_info["bbox"]
+            icfg.setdefault("_dataset_bbox",
+                            (np.asarray(bb[0], np.float32),
+                             np.asarray(bb[1], np.float32)))
+        dr = dataset_info.get("depth_range")
+        if isinstance(icfg.get("contract"), dict) and dr is not None:
+            icfg["contract"] = dict(icfg["contract"])
+            icfg["contract"].setdefault("_dataset_depth_range",
+                                        (float(dr[0]), float(dr[1])))
+        cfg["intersect"] = icfg
         self.cfg = cfg
         self.rays_name = cfg.get("rays_name", "rays")
         self.z_channels = int(cfg["z_channels"])
-        self.intersect = build_intersect(self.z_channels, cfg["intersect"])
+        self.intersect = build_intersect(self.z_channels, icfg)
 
     def init(self, gen, device):
         return {"intersect": {}}
@@ -252,7 +278,7 @@ def build_embedding_chain(cfg, dataset_info=None, compute_dtype=None):
         if t == "ray_prediction":
             stage = RayPredictionEmbedding(dict(scfg), compute_dtype)
         elif t == "ray_intersect":
-            stage = RayIntersectEmbedding(dict(scfg))
+            stage = RayIntersectEmbedding(scfg, dataset_info)
         elif t == "advect_points":
             stage = AdvectPointsEmbedding(
                 dict(scfg),

@@ -109,6 +109,7 @@ def cf_eligible(model):
         chain_ok = isinstance(net, TensorVMNoSample)
     S = pred.z_channels
     return (chain_ok
+            and isect.cfg.get("type") == "z_plane"
             and model.ray_param.name == "identity"
             and pred.net.activation == "identity"
             and isect.sort and isect.near == 0.0

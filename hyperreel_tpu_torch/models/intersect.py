@@ -1,9 +1,22 @@
-"""Z-plane intersect stage (port of hyperreel_tpu/models/intersect.py
-IntersectStage + IntersectZPlane + _make_anchor_schedule; reference
-nlf/intersect/base.py:142-259 and nlf/intersect/z.py).
+"""Ray-primitive intersect stages (port of hyperreel_tpu/models/intersect.py
+IntersectStage, _make_anchor_schedule and the z-plane, sphere,
+sphere_new, cylinder and euclidean_distance_unified primitives; reference
+nlf/intersect/base.py:142-259, nlf/intersect/z.py,
+nlf/intersect/primitive.py).
 
+`IntersectStage` is the stage every primitive shares: the predicted
+z values against the anchors (undoing a sample-space contraction), the
+primitive's distances, the near/far mask, the sort, the points and their
+contraction. A primitive supplies its anchors' range and `intersect`.
 Invalid samples keep distance 0 and are masked by the colour net; the
 sort is values-only (the predicted fields stay in prediction order).
+Under `use_dataset_bounds` the anchors and the near default come from the
+dataset's near/far (`_dataset_bounds`, which the embedding chain injects
+from its dataset_info, models/embeddings.py).
+
+Only the one-channel-per-sample z layout is ported: the sphere, cylinder
+and sphere_new stages' blocked layouts (4 or 8 channels per sample:
+origin, resize, raw offset, radius; the JAX stages' `_blocked`) raise.
 """
 
 import numpy as np
@@ -11,19 +24,22 @@ import torch
 
 from hyperreel_tpu_torch.models.activations import get_activation
 from hyperreel_tpu_torch.ops.contract import get_contract
-from hyperreel_tpu_torch.ops.intersect_math import intersect_axis_plane
+from hyperreel_tpu_torch.ops.intersect_math import (
+    intersect_axis_plane, intersect_cylinder, intersect_sphere,
+    min_sphere_radius, pluecker_closest_point, safe_norm)
 
 _NOT_PORTED = ("weight_fn", "sort_outputs", "invalid_sort_far", "normalize",
                "residual_z", "residual_distance", "use_disparity",
-               "use_local_prediction", "use_dataset_bounds")
+               "use_local_prediction")
 
 
-def make_anchor_schedule(z_channels, cfg, contract):
+def make_anchor_schedule(z_channels, cfg, contract, near=None, far=None):
     """linspace anchors [S, 1] and z_scale [1, 1] (reference
-    nlf/intersect/z.py:26-71), in contracted space when the contraction
+    nlf/intersect/z.py:26-71) from cfg's initial/end, or the primitive's
+    near/far where it gives them, in contracted space when the contraction
     has contract_samples."""
-    initial = float(cfg.get("initial", 0.0))
-    end = float(cfg.get("end", 1.0))
+    initial = float(cfg.get("initial", 0.0)) if near is None else near
+    end = float(cfg.get("end", 1.0)) if far is None else far
     if contract.contract_samples:
         initial, end = (float(contract.contract_distance(
             torch.tensor(v, dtype=torch.float32))) for v in (initial, end))
@@ -45,12 +61,17 @@ def make_anchor_schedule(z_channels, cfg, contract):
         initial, end
 
 
-class IntersectZPlane:
+def _dataset_bounds(cfg):
+    return cfg.get("_dataset_bounds", (0.0, 1.0))
+
+
+class IntersectStage:
+    """The stage shared by the primitives (hyperreel_tpu IntersectStage):
+    a subclass sets `anchor_range` (the anchors' near/far under
+    use_dataset_bounds, None for cfg's initial/end) and `intersect(rays,
+    z_vals)` -> distances [B, Z]."""
+
     def __init__(self, z_channels, cfg):
-        if cfg.get("type") != "z_plane":
-            raise NotImplementedError(
-                f"intersect {cfg.get('type')!r} is not ported "
-                "(ROADMAP.md: K5/K6 and the other net families)")
         for key in _NOT_PORTED:
             if cfg.get(key):
                 raise NotImplementedError(
@@ -66,7 +87,14 @@ class IntersectZPlane:
         self.use_sigma = bool(cfg.get("use_sigma", False))
         self.origin = np.asarray(cfg.get("origin", [0.0, 0.0, 0.0]),
                                  np.float32)
-        self.near = float(cfg.get("near", 0.0))
+        # under use_dataset_bounds the mask's near defaults to the
+        # dataset's near (reference nlf/intersect/base.py:87-91)
+        if "near" in cfg:
+            self.near = float(cfg["near"])
+        elif cfg.get("use_dataset_bounds", False):
+            self.near = float(_dataset_bounds(cfg)[0])
+        else:
+            self.near = 0.0
         self.far = float(cfg.get("far", float("inf")))
         self.mask_stop_iters = float(
             cfg.get("mask", {}).get("stop_iters", float("inf")))
@@ -76,8 +104,18 @@ class IntersectZPlane:
                 "a scheduled contraction is not ported (ROADMAP.md: long "
                 "tail)")
         self.activation = get_activation(cfg.get("activation", "identity"))
+        near, far = self.anchor_range() \
+            if cfg.get("use_dataset_bounds", False) else (None, None)
         self.samples, self.z_scale, self.initial, self.end = \
-            make_anchor_schedule(z_channels, cfg, self.contract)
+            make_anchor_schedule(z_channels, cfg, self.contract, near, far)
+
+    def anchor_range(self):
+        """(near, far) of the anchors under use_dataset_bounds; None
+        keeps cfg's initial/end."""
+        return None, None
+
+    def intersect(self, rays, z_vals):
+        raise NotImplementedError
 
     def process_z_vals(self, z_vals):
         """Scale and shift against the anchors, then undo the sample-space
@@ -103,9 +141,7 @@ class IntersectZPlane:
         z3 = z_vals.reshape(B, sigma.shape[1], -1)
         z3 = self.activation(z3, ctx) * (1.0 - sigma[..., None])
         z_vals = self.process_z_vals(z3.reshape(B, -1))
-        planes = torch.clamp(z_vals, self.initial, self.end) \
-            if self.clamp else z_vals
-        dists = intersect_axis_plane(rays[:, None, :], planes, 2)
+        dists = self.intersect(rays, z_vals)
         x["weights"] = torch.ones_like(dists)[..., None]
         mask = (dists <= self.near) | (dists >= self.far)
         if ctx.it > self.mask_stop_iters:
@@ -132,5 +168,129 @@ class IntersectZPlane:
         return x
 
 
+class IntersectZPlane(IntersectStage):
+    """Axis-aligned z-planes (reference nlf/intersect/z.py)."""
+
+    def anchor_range(self):
+        ds = _dataset_bounds(self.cfg)
+        return -float(ds[0]), -float(ds[1])
+
+    def intersect(self, rays, z_vals):
+        planes = torch.clamp(z_vals, self.initial, self.end) \
+            if self.clamp else z_vals
+        return intersect_axis_plane(rays[:, None, :], planes, 2)
+
+
+class _RadiusStage(IntersectStage):
+    """A primitive with one radius per sample: its z width must be
+    z_channels (the blocked layouts are not ported)."""
+
+    def process_z_vals(self, z_vals):
+        if z_vals.shape[-1] != self.z_channels:
+            raise NotImplementedError(
+                f"{self.cfg.get('type')}: {z_vals.shape[-1]} z values for "
+                f"{self.z_channels} samples, a blocked layout (origin, "
+                "resize, offset per sample), is not ported (ROADMAP.md: the "
+                "blocked primitive layouts)")
+        return super().process_z_vals(z_vals)
+
+    def anchor_range(self):
+        # the cfg's initial/end, else 1.5x the dataset bounds (reference
+        # nlf/intersect/primitive.py:370-373)
+        ds = _dataset_bounds(self.cfg)
+        return (float(self.cfg["initial"]) if "initial" in self.cfg
+                else float(ds[0]) * 1.5,
+                float(self.cfg["end"]) if "end" in self.cfg
+                else float(ds[1]) * 1.5)
+
+
+class IntersectSphere(_RadiusStage):
+    """Concentric spheres (reference nlf/intersect/primitive.py:366-441)."""
+
+    def intersect(self, rays, z_vals):
+        radii = torch.clamp(z_vals, self.initial, self.end) \
+            if self.clamp else z_vals
+        return intersect_sphere(rays[:, None, :], rays.new_zeros(3), radii)
+
+
+class IntersectCylinder(_RadiusStage):
+    """Concentric y-axis cylinders (reference
+    nlf/intersect/primitive.py:181-255)."""
+
+    def intersect(self, rays, z_vals):
+        radii = torch.clamp(z_vals, self.initial, self.end) \
+            if self.clamp else z_vals
+        return intersect_cylinder(rays[:, None, :], rays.new_zeros(3), radii)
+
+
+class IntersectSphereNew(_RadiusStage):
+    """Concentric spheres of the rays resized per axis (`resize`), with a
+    miss fallback (reference nlf/intersect/primitive.py:474-545): a sphere
+    smaller than the one the ray touches gives the signed distance to the
+    ray's closest point to the origin instead."""
+
+    def __init__(self, z_channels, cfg):
+        super().__init__(z_channels, cfg)
+        self.resize = np.asarray(cfg.get("resize", [1.0, 1.0, 1.0]),
+                                 np.float32)
+
+    def anchor_range(self):
+        # initial: near * 1.5 when outward facing, else -far * 1.5
+        # (reference primitive.py:479-486)
+        cfg, ds = self.cfg, _dataset_bounds(self.cfg)
+        if "initial" in cfg:
+            near = float(cfg["initial"])
+        elif cfg.get("outward_facing", False):
+            near = float(ds[0]) * 1.5
+        else:
+            near = -float(ds[1]) * 1.5
+        return near, float(cfg["end"]) if "end" in cfg \
+            else float(ds[1]) * 1.5
+
+    def intersect(self, rays, z_vals):
+        resize = rays.new_tensor(self.resize)
+        r = torch.cat([rays[..., :3] * resize, rays[..., 3:6] * resize], -1)
+        zero = rays.new_zeros(3)
+        min_r = min_sphere_radius(r, zero)[:, None]
+        hit = z_vals >= min_r
+        t = intersect_sphere(r[:, None, :], zero,
+                             torch.maximum(z_vals, min_r))
+        p = pluecker_closest_point(r[..., :3], r[..., 3:6])
+        d_unit = r[..., 3:6] / safe_norm(r[..., 3:6])
+        t_base = ((p - r[..., :3]) * d_unit).sum(-1)[:, None]
+        return torch.where(hit, t, t_base)
+
+
+class IntersectEuclideanUnified(IntersectStage):
+    """Distances predicted directly, offset by the signed distance from the
+    ray origin to the ray's closest point to the world origin (reference
+    nlf/intersect/primitive.py:126-179); the anchors span [-far, far]
+    under use_dataset_bounds."""
+
+    def anchor_range(self):
+        cfg, ds = self.cfg, _dataset_bounds(self.cfg)
+        return (float(cfg["initial"]) if "initial" in cfg
+                else -float(ds[1]),
+                float(cfg["end"]) if "end" in cfg else float(ds[1]))
+
+    def intersect(self, rays, z_vals):
+        rays_o, rays_d = rays[..., :3], rays[..., 3:6]
+        diff = pluecker_closest_point(rays_o, rays_d) - rays_o
+        off = torch.sign((rays_d * diff).sum(-1)) \
+            * safe_norm(diff, keepdim=False)
+        return z_vals + off[:, None]
+
+
+INTERSECTS = {"z_plane": IntersectZPlane, "sphere": IntersectSphere,
+              "sphere_new": IntersectSphereNew,
+              "cylinder": IntersectCylinder,
+              "euclidean_distance_unified": IntersectEuclideanUnified}
+
+
 def build_intersect(z_channels, cfg):
-    return IntersectZPlane(z_channels, cfg)
+    kind = cfg.get("type")
+    if kind not in INTERSECTS:
+        raise NotImplementedError(
+            f"intersect {kind!r} is not ported (ROADMAP.md: the deformable "
+            "and voxel primitives, long tail)")
+    return INTERSECTS[kind](z_channels, cfg)

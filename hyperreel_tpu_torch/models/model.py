@@ -5,17 +5,17 @@ Functional, like the JAX package: `init(gen, device) -> params`,
 `apply(params, rays, ctx, render_kwargs) -> {"rgb": [B, 3], ...}`.
 Eval calls take the fused path (models/fused_eval.py, the CUDA kernels)
 when the chain is one of its patterns and `fused_render_cf` is on;
-otherwise the general stage chain runs, and a static net with
+otherwise the general stage chain runs, and a colour net with
 `fused_render` on then takes its own fused route after it
-(models/tensorf.py TensorVMNoSample.apply_fused). The general chain with
+(models/tensorf.py FactoredNet.apply_fused: K2 for one axis, K5 for
+three). The general chain with
 the general colour net is the fused paths' reference.
 """
 
 from hyperreel_tpu_torch.models import fused_eval
 from hyperreel_tpu_torch.models.embeddings import build_embedding_chain
 from hyperreel_tpu_torch.models.ray_param import get_ray_param
-from hyperreel_tpu_torch.models.tensorf import (
-    TensorVMNoSample, build_color_net)
+from hyperreel_tpu_torch.models.tensorf import build_color_net
 
 
 class LightfieldModel:
@@ -48,14 +48,14 @@ class LightfieldModel:
 
     def prepare_eval(self, params):
         """Per-checkpoint tables of the model's fused route: the
-        channels-first path's (FusedCFEval.prepare), else the static net's
-        own route's (TensorVMNoSample.prepare_fused), else None. Pass the
-        result as render_kwargs["cf_prepared"]."""
+        channels-first path's (FusedCFEval.prepare), else the colour net's
+        own route's (prepare_fused of TensorVMNoSample or
+        TensorVMKeyframeTime), else None. Pass the result as
+        render_kwargs["cf_prepared"]."""
         if self._cf_eval is not None:
             return self._cf_eval.prepare(params)
         net = self.color_net
-        if isinstance(net, TensorVMNoSample) and net.fused_render \
-                and net.fused_eligible:
+        if net.fused_render and net.fused_eligible:
             return net.prepare_fused(params["color"])
         return None
 

@@ -1,7 +1,7 @@
 """Factored feature-grid colour nets (port of hyperreel_tpu/models/tensorf.py
 TensorVMKeyframeTime and TensorVMNoSample: init and the general eval
-apply, SH or RGB shading, and the static net's own fused route;
-reference nlf/nets/tensorf_dynamic.py, nlf/nets/tensorf_no_sample.py).
+apply, SH or RGB shading, and each net's own fused route; reference
+nlf/nets/tensorf_dynamic.py, nlf/nets/tensorf_no_sample.py).
 
 Grids are channels-last, as in the JAX package. The dynamic net holds per
 active axis i a space plane [H, W, C] and a time plane [num_keyframes, TW,
@@ -151,16 +151,153 @@ class FactoredNet:
             rgb = sh_render(viewdirs, app, deg=self.sh_deg).reshape(B, S, 3)
         rgb = torch.where((weight > self.ray_march_weight_thres)[..., None],
                           rgb, 0.0)
+        if "color_transform" in x:
+            raise NotImplementedError(
+                "a predicted colour transform is not ported (ROADMAP.md: "
+                "long tail)")
         if "color_scale" in x:
             rgb = scale_shift_color_all(rgb, x["color_scale"].reshape(B, S, 3),
                                         x["color_shift"].reshape(B, S, 3))
         acc_map = weight.sum(-1)
         rgb_map = (weight[..., None] * rgb).sum(-2)
-        if not self.black_bg and self.white_bg:
-            rgb_map = rgb_map + (1.0 - acc_map[:, None])
-        outputs = {"rgb": torch.clamp(rgb_map, 0.0, 1.0)}
+        outputs = {"rgb": self.finish(rgb_map, acc_map, x, B, S)}
         if fields:
             outputs["distances"] = (weight * dists).sum(-1, keepdim=True)
+        return outputs
+
+    def finish(self, rgb_map, acc_map, x, B, S):
+        """The composited colour [B, 3] and opacity [B] -> the eval rgb:
+        the white background where the net has one, the per-ray (global)
+        colour scale and shift of sample 0 where the chain predicts them
+        (reference utils/tensorf_utils.py:275-281), clamped to [0, 1]."""
+        if "color_transform_global" in x:
+            raise NotImplementedError(
+                "a predicted global colour transform is not ported "
+                "(ROADMAP.md: long tail)")
+        if not self.black_bg and self.white_bg:
+            rgb_map = rgb_map + (1.0 - acc_map[:, None])
+        if "color_scale_global" in x:
+            rgb_map = rgb_map * (
+                x["color_scale_global"].reshape(B, S, 3)[:, 0] + 1.0) \
+                + x["color_shift_global"].reshape(B, S, 3)[:, 0]
+        return torch.clamp(rgb_map, 0.0, 1.0)
+
+    # -- the net's own fused route (hyperreel_tpu TensorVMNoSample and
+    # TensorVMKeyframeTime _fused_ok, apply_fused, _apply_fused_multi,
+    # _apply_fused_multi_time, _fused_out) --------------------------------
+
+    # the second factors of the fused route are time planes (the dynamic
+    # net), else lines; the pack has the weights row (the static net's
+    # predicted weights; the dynamic net sets them to ones)
+    TIME_PLANES = False
+    FUSED_WEIGHTS = True
+
+    def fused_ok(self, x, render_kwargs):
+        """Whether an eval call (check_eval has passed) takes the fused
+        route: the config asks for it, the net is eligible, and neither x
+        nor render_kwargs asks for what the kernels do not compute."""
+        return (self.fused_render and self.fused_eligible
+                and "color_transform" not in x
+                and not render_kwargs.get("pred_weights_fields")
+                and not render_kwargs.get("no_over_fields"))
+
+    def prepare_fused(self, params):
+        """Per-checkpoint tables of the fused route: per active axis the
+        plane's bf16 quad table and its f32 second factor (the line, or
+        the time plane [TH, L, C]), and the basis table on the host (with
+        zero density columns for the single-axis form, which runs K2; over
+        the appearance channels for K5)."""
+        # imported here: the kernel modules import this one
+        from hyperreel_tpu_torch.ops.kernels.shade import basis_table
+        from hyperreel_tpu_torch.ops.kernels.shade_multi import (
+            axis_tables, multi_basis_table)
+        axes, quads, lines, _ = axis_tables(self.axis_grids(params),
+                                            self.density_n_comp,
+                                            self.TIME_PLANES)
+        w = params["basis_mat"]["weight"]
+        wb = basis_table(w, axes[0].nd) if len(axes) == 1 \
+            else multi_basis_table(w)
+        return {"axes": axes, "quads": quads, "lines": lines, "wb": wb}
+
+    def fused_time(self, x, B):
+        """The ray pack's time coordinate [B] (0 for a static net)."""
+        return x["viewdirs"].new_zeros(B)
+
+    def fused_pack(self, x):
+        """The general chain's fields x -> (the pack f32 [10, B*S], or [11,
+        B*S] with the weights row: points normalised, distances, colour
+        scale and shift, the predicted weights; the ray pack f32 [B, 8]
+        with the view direction of each ray's sample 0, zero origin, and
+        the time coordinate of its sample 0, `fused_time`)."""
+        B = x["viewdirs"].shape[0]
+        pts = x["points"].reshape(B, -1, 3)
+        N = pts.shape[0] * pts.shape[1]
+        rows = [self.normalize_coord(pts).reshape(N, 3).t(),
+                x["distances"].reshape(1, N)]
+        for key in ("color_scale", "color_shift"):
+            rows.append(x[key].reshape(N, 3).t() if key in x
+                        else pts.new_zeros(3, N))
+        if self.FUSED_WEIGHTS:
+            rows.append(x["weights"].reshape(1, N) if "weights" in x
+                        else pts.new_ones(1, N))
+        vd = x["viewdirs"].reshape(B, -1, 3)[:, 0].float()
+        ray_pack = torch.cat([torch.zeros_like(vd), vd, vd.new_zeros(B, 1),
+                              self.fused_time(x, B).float()[:, None]],
+                             1).contiguous()
+        return torch.cat(rows).float().contiguous(), ray_pack
+
+    def fused_spec(self, prep, S):
+        """The kernel spec of the fused route for S samples per ray: K2's
+        ShadeSpec for one axis (a static net's z line its premixed table,
+        a dynamic net's time plane its time table), K5's MultiSpec for
+        more; RGB or SH, with the weights row on the static net."""
+        from hyperreel_tpu_torch.ops.kernels.shade import ShadeSpec
+        from hyperreel_tpu_torch.ops.kernels.shade_multi import MultiSpec
+        axes = prep["axes"]
+        if len(axes) > 1:
+            return MultiSpec(S=S, axes=axes, deg=self.sh_deg,
+                             distance_scale=self.distance_scale,
+                             shading=self.shading,
+                             weights=self.FUSED_WEIGHTS)
+        a, = axes
+        if a.index != 0:
+            raise NotImplementedError(
+                f"the single-axis fused route takes axis 0, not {a.index} "
+                "(as the JAX package's apply_fused)")
+        return ShadeSpec(S=S, W=a.W, H=a.H, TW=a.L, TH=a.TH, C=a.C, nd=a.nd,
+                         deg=self.sh_deg, distance_scale=self.distance_scale,
+                         shading=self.shading, weights=self.FUSED_WEIGHTS)
+
+    def apply_fused(self, params, x, render_kwargs):
+        """The fused eval render after the general stage chain: the
+        samples' pack (`fused_pack`) and its ray pack, then one kernel. One
+        axis (a plane over x, y times a z line or a z-t time plane) runs K2
+        (a static net's line as its premixed [L, C] table, TH = 0, which
+        computes what the JAX package's degenerate TH = 1 time plane does:
+        its t weights put 1 on the one row); more axes run K5. Both kernels
+        load their texels themselves, where the JAX route gathers the quad
+        rows in the host graph. The kernels read the time coordinate per
+        ray where the JAX route packs it per sample: the chain broadcasts
+        each ray's base time to its samples (AdvectPointsEmbedding,
+        AddPointOutputsEmbedding), so sample 0's is every sample's. The
+        tables come from render_kwargs["cf_prepared"] (prepare_fused) or
+        are built here."""
+        from hyperreel_tpu_torch.ops.kernels.shade import shade
+        from hyperreel_tpu_torch.ops.kernels.shade_multi import shade_multi
+        prep = render_kwargs.get("cf_prepared") or self.prepare_fused(params)
+        pack, ray_pack = self.fused_pack(x)
+        B = ray_pack.shape[0]
+        S = pack.shape[1] // B
+        spec = self.fused_spec(prep, S)
+        if len(prep["axes"]) == 1:
+            out = shade(prep["quads"][0], pack, ray_pack, prep["lines"][0],
+                        prep["wb"], spec)
+        else:
+            out = shade_multi(prep["quads"], prep["lines"], pack, ray_pack,
+                              prep["wb"], spec)
+        outputs = {"rgb": self.finish(out[:, :3], out[:, 3], x, B, S)}
+        if "distances" in render_kwargs.get("fields", []):
+            outputs["distances"] = out[:, 4:5]
         return outputs
 
 
@@ -215,8 +352,22 @@ class TensorVMKeyframeTime(FactoredNet):
         return torch.cat(dens, -1).sum(-1), \
             feat @ params["basis_mat"]["weight"].t()
 
+    # the fused route's second factors are the time planes; the pack has no
+    # weights row (the net sets the predicted weights to ones, JAX
+    # tensorf.py:1484-1486)
+    TIME_PLANES = True
+    FUSED_WEIGHTS = False
+
+    def fused_time(self, x, B):
+        """The normalised base time of each ray's sample 0 [B]."""
+        return self.normalize_time_coord(
+            x["base_times"].reshape(B, -1)[:, 0])
+
     def apply(self, params, x, ctx, render_kwargs=None):
-        fields = self.check_eval(ctx, render_kwargs or {})
+        render_kwargs = render_kwargs or {}
+        fields = self.check_eval(ctx, render_kwargs)
+        if self.fused_ok(x, render_kwargs):
+            return self.apply_fused(params, x, render_kwargs)
         B = x["viewdirs"].shape[0]
         pts = x["points"].reshape(B, -1, 3)
         S = pts.shape[1]
@@ -266,6 +417,9 @@ class TensorVMNoSample(FactoredNet):
             app.append(prod[:, nd:])
         return dens, torch.cat(app, -1) @ params["basis_mat"]["weight"].t()
 
+    def fused_ok(self, x, render_kwargs):
+        return super().fused_ok(x, render_kwargs) and "weights_shift" not in x
+
     def apply(self, params, x, ctx, render_kwargs=None):
         render_kwargs = render_kwargs or {}
         fields = self.check_eval(ctx, render_kwargs)
@@ -285,104 +439,6 @@ class TensorVMNoSample(FactoredNet):
             feat = feat * x["weights"].reshape(B, S)
         return self.shade(x, feat, app, ray_valid, dists, fields)
 
-    # -- the net's own fused route (hyperreel_tpu TensorVMNoSample
-    # _fused_ok, apply_fused, _apply_fused_multi, _fused_out) ------------
-
-    def fused_ok(self, x, render_kwargs):
-        """Whether an eval call (check_eval has passed) takes the fused
-        route: the config asks for it, the net is eligible, and neither x
-        nor render_kwargs asks for what the kernels do not compute."""
-        return (self.fused_render and self.fused_eligible
-                and "weights_shift" not in x and "color_transform" not in x
-                and not render_kwargs.get("pred_weights_fields")
-                and not render_kwargs.get("no_over_fields"))
-
-    def prepare_fused(self, params):
-        """Per-checkpoint tables of the fused route: per active axis the
-        plane's bf16 quad table and its f32 line, and the basis table on
-        the host (with zero density columns for the single-axis form,
-        which runs K2; over the appearance channels for K5)."""
-        # imported here: the kernel modules import this one
-        from hyperreel_tpu_torch.ops.kernels.shade import basis_table
-        from hyperreel_tpu_torch.ops.kernels.shade_multi import (
-            axis_tables, multi_basis_table)
-        axes, quads, lines, _ = axis_tables(self.axis_grids(params),
-                                            self.density_n_comp, False)
-        w = params["basis_mat"]["weight"]
-        wb = basis_table(w, axes[0].nd) if len(axes) == 1 \
-            else multi_basis_table(w)
-        return {"axes": axes, "quads": quads, "lines": lines, "wb": wb}
-
-    def fused_pack(self, x):
-        """The general chain's fields x -> (the pack with the weights row
-        f32 [11, B*S]: points normalised, distances, colour scale and
-        shift, the predicted weights; the ray pack f32 [B, 8] with the
-        view direction of each ray's sample 0 and zero origin and time)."""
-        B = x["viewdirs"].shape[0]
-        pts = x["points"].reshape(B, -1, 3)
-        N = pts.shape[0] * pts.shape[1]
-        rows = [self.normalize_coord(pts).reshape(N, 3).t(),
-                x["distances"].reshape(1, N)]
-        for key in ("color_scale", "color_shift"):
-            rows.append(x[key].reshape(N, 3).t() if key in x
-                        else pts.new_zeros(3, N))
-        rows.append(x["weights"].reshape(1, N) if "weights" in x
-                    else pts.new_ones(1, N))
-        vd = x["viewdirs"].reshape(B, -1, 3)[:, 0].float()
-        ray_pack = torch.cat([torch.zeros_like(vd), vd, vd.new_zeros(B, 2)],
-                             1).contiguous()
-        return torch.cat(rows).float().contiguous(), ray_pack
-
-    def fused_spec(self, prep, S):
-        """The kernel spec of the fused route for S samples per ray: K2's
-        ShadeSpec for one axis (its z line the premixed table), K5's
-        MultiSpec for more; RGB or SH, with the weights row."""
-        from hyperreel_tpu_torch.ops.kernels.shade import ShadeSpec
-        from hyperreel_tpu_torch.ops.kernels.shade_multi import MultiSpec
-        axes = prep["axes"]
-        if len(axes) > 1:
-            return MultiSpec(S=S, axes=axes, deg=self.sh_deg,
-                             distance_scale=self.distance_scale,
-                             shading=self.shading, weights=True)
-        a, = axes
-        if a.index != 0:
-            raise NotImplementedError(
-                f"the single-axis fused route takes axis 0, not {a.index} "
-                "(as the JAX package's apply_fused)")
-        return ShadeSpec(S=S, W=a.W, H=a.H, TW=a.L, TH=0, C=a.C, nd=a.nd,
-                         deg=self.sh_deg, distance_scale=self.distance_scale,
-                         shading=self.shading, weights=True)
-
-    def apply_fused(self, params, x, render_kwargs):
-        """The fused eval render after the general stage chain: the
-        samples' pack with the weights row (points normalised, distances,
-        colour scale and shift, the predicted weights) and a ray pack
-        holding the view direction of sample 0, then one kernel. One axis
-        (a plane over x, y times a z line) runs K2 with the line as its
-        premixed [L, C] table (TH = 0), which computes what the JAX
-        package's degenerate TH = 1 time plane does (its t weights put 1
-        on the one row); more axes run K5. Both kernels load their texels
-        themselves, where the JAX route gathers the quad rows in the host
-        graph. The tables come from render_kwargs["cf_prepared"]
-        (prepare_fused) or are built here."""
-        from hyperreel_tpu_torch.ops.kernels.shade import shade
-        from hyperreel_tpu_torch.ops.kernels.shade_multi import shade_multi
-        prep = render_kwargs.get("cf_prepared") or self.prepare_fused(params)
-        pack, ray_pack = self.fused_pack(x)
-        spec = self.fused_spec(prep, pack.shape[1] // ray_pack.shape[0])
-        if len(prep["axes"]) == 1:
-            out = shade(prep["quads"][0], pack, ray_pack, prep["lines"][0],
-                        prep["wb"], spec)
-        else:
-            out = shade_multi(prep["quads"], prep["lines"], pack, ray_pack,
-                              prep["wb"], spec)
-        rgb = out[:, :3]
-        if not self.black_bg and self.white_bg:
-            rgb = rgb + (1.0 - out[:, 3:4])
-        outputs = {"rgb": torch.clamp(rgb, 0.0, 1.0)}
-        if "distances" in render_kwargs.get("fields", []):
-            outputs["distances"] = out[:, 4:5]
-        return outputs
 
 def build_color_net(cfg, dataset_info=None):
     dataset_info = dataset_info or {}

@@ -1,6 +1,9 @@
 """Scene contraction (port of the identity and mipnerf contractions of
 hyperreel_tpu/ops/contract.py; reference nlf/contract.py). The other
-contractions, and a mipnerf distance activation, raise.
+contractions, and a mipnerf distance activation, raise. Under
+`use_dataset_bounds` mipnerf's radii default to 1.5x the dataset's depth
+range (`_dataset_depth_range`, which the embedding chain injects from its
+dataset_info, models/embeddings.py).
 
 `contract_samples=True` makes the z-plane intersect place its linspace
 anchors in contracted space and invert the predicted z back to metric
@@ -113,12 +116,19 @@ class MipnerfContract:
 
 
 def mipnerf_contract(cfg):
-    if cfg.get("use_dataset_bounds") or cfg.get("distance_activation"):
+    if cfg.get("distance_activation"):
         raise NotImplementedError(
-            "mipnerf dataset bounds / distance activation are not ported "
-            "(ROADMAP.md: long tail)")
-    start_r = float(cfg.get("contract_start_radius", 1.0))
-    end_r = float(cfg.get("contract_end_radius", float("inf")))
+            "a mipnerf distance activation is not ported (ROADMAP.md: long "
+            "tail)")
+    if cfg.get("use_dataset_bounds") and "_dataset_depth_range" in cfg:
+        # reference nlf/contract.py:121-127
+        dr = cfg["_dataset_depth_range"]
+        start_r = float(cfg.get("contract_start_radius",
+                                max(float(dr[0]) * 1.5, 1.0)))
+        end_r = float(cfg.get("contract_end_radius", float(dr[1]) * 1.5))
+    else:
+        start_r = float(cfg.get("contract_start_radius", 1.0))
+        end_r = float(cfg.get("contract_end_radius", float("inf")))
     return MipnerfContract(
         start_r=start_r, end_r=end_r,
         start_d=float(cfg.get("contract_start_distance", start_r)),

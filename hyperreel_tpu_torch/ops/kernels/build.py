@@ -67,7 +67,9 @@ class PackParams(ctypes.Structure):
         ("strip_s", (ctypes.c_int * 2) * PACK_MAX_STRIPS)]
 
 
-SHADE_MAX_WB = 432
+# csrc/shade_core.cuh kMaxWb: the SH basis over K5's [8, 8, 8] appearance
+# channels, [27, 24]
+SHADE_MAX_WB = 648
 
 
 class ShadeParams(ctypes.Structure):
@@ -96,6 +98,7 @@ class MultiParams(ctypes.Structure):
     """Mirror of csrc/multi_core.cuh MultiParams."""
     _fields_ = [(n, ctypes.c_int) for n in ("B", "S")] + [
         ("distance_scale", ctypes.c_float), ("axis", MultiAxis * 3),
+        ("ch", ctypes.c_int * 3), ("nd", ctypes.c_int * 3),
         ("wb", ctypes.c_float * SHADE_MAX_WB),
         ("rgb", ctypes.c_int), ("weights", ctypes.c_int)]
 
@@ -105,12 +108,15 @@ class KernelLibrary:
     lib: ctypes.CDLL
     build_seconds: float     # 0.0 when an up-to-date library was reused
     compiler_log: str
-    # (axis, C, density channels) of each plane the multi-axis kernels are
-    # built for (csrc/multi_core.cuh owns the layout)
-    multi_layout: tuple
+    # per multi-axis kernel (MULTI_KERNELS), the layouts it is built for:
+    # each a tuple of (axis, C, density channels) per plane
+    # (csrc/multi_core.cuh Layout844, Layout888 and PatchLayout own them)
+    multi_layouts: dict
 
 
 _LOADED = None
+# the multi-axis kernels in the order of csrc/shade_multi.cu multi_layouts
+MULTI_KERNELS = ("shade_multi", "shade_multi_preblended", "shade_multi_patch")
 
 
 def _nvcc():
@@ -203,12 +209,19 @@ def load_library():
             raise RuntimeError(
                 f"{struct.__name__}: C size {fn()} != ctypes size "
                 f"{ctypes.sizeof(struct)}")
-    c_nd = (ctypes.c_int * 6)()
-    lib.multi_layout.argtypes = [ctypes.POINTER(ctypes.c_int)]
-    lib.multi_layout.restype = ctypes.c_int
-    layout = tuple((a, c_nd[2 * a], c_nd[2 * a + 1])
-                   for a in range(lib.multi_layout(c_nd)))
-    _LOADED = KernelLibrary(lib, seconds, log, layout)
+    lib.multi_layouts.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.multi_layouts.restype = ctypes.c_int
+    layouts = {}
+    for k, name in enumerate(MULTI_KERNELS):
+        n = lib.multi_layouts(k, None)
+        if n < 1:
+            raise RuntimeError(f"multi_layouts({k}) returned {n}")
+        c_nd = (ctypes.c_int * (6 * n))()
+        lib.multi_layouts(k, c_nd)
+        layouts[name] = tuple(
+            tuple((a, c_nd[6 * i + 2 * a], c_nd[6 * i + 2 * a + 1])
+                  for a in range(3)) for i in range(n))
+    _LOADED = KernelLibrary(lib, seconds, log, layouts)
     return _LOADED
 
 

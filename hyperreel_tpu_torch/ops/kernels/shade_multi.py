@@ -32,11 +32,13 @@ the composite (ops/kernels/shade.py `shade_tail_plain`).
 Tables (built once per checkpoint): the quad tables `shade.quad_table`
 of each plane, the lines f32 [L, C_a] or time planes f32 [TH, L, C_a] as
 they are (`line_table`), and `multi_basis_table`, on the host (it rides in
-the kernel's parameters). The kernels are built for the [8, 4, 4] layout
-of both families (csrc/multi_core.cuh, read back by the loader as
-`build.load_library().multi_layout`) and S a power of two <= 64 (at
-least 4 for the quad kernel); other layouts and S run the plain version
-on the CPU and raise on the card.
+the kernel's parameters). The quad kernel is built for the [8, 4, 4]
+layout of both families and for [8, 8, 8] (the catacaustics_distance
+preset), the pre-blended kernel and K6 for [8, 4, 4] only
+(csrc/multi_core.cuh Layout844, Layout888 and PatchLayout, read back by
+the loader as `build.load_library().multi_layouts`), and S a power of two
+<= 64 (at least 4 for the quad kernel); other layouts and S run the plain
+version on the CPU and raise on the card.
 
 On the card the quad kernel runs a thread per ray over its samples (S a
 multiple of 4); it folds the SH basis with the ray's view direction once
@@ -273,19 +275,24 @@ def _check(tables, shapes, lines, pack, ray_pack, wb, spec):
     return B
 
 
+def spec_layout(spec):
+    """spec's layout: (axis, C, density channels) per plane."""
+    return tuple((a.index, a.C, a.nd) for a in spec.axes)
+
+
 def check_kernel(spec, name, weights=True, min_s=1):
-    """Raise unless the kernels are built for spec's layout, colour and S
-    (at least `min_s`), and, where `weights` is False, unless spec has no
-    weights row."""
-    layout = tuple((a.index, a.C, a.nd) for a in spec.axes)
-    built = build.load_library().multi_layout
-    if layout != built or not shading_built(spec) \
+    """Raise unless kernel `name` (build.MULTI_KERNELS) is built for spec's
+    layout, colour and S (at least `min_s`), and, where `weights` is
+    False, unless spec has no weights row."""
+    layout = spec_layout(spec)
+    built = build.load_library().multi_layouts[name]
+    if layout not in built or not shading_built(spec) \
             or not min_s <= spec.S <= MAX_S or spec.S & (spec.S - 1):
         raise NotImplementedError(
             f"{name} kernel: layout {layout}, {spec.shading} with "
-            f"{spec.n_basis} basis rows, S={spec.S} not built (layout "
+            f"{spec.n_basis} basis rows, S={spec.S} not built (layouts "
             f"{built}, SH of degree 2 or RGB, S a power of two in "
-            f"[{min_s}, {MAX_S}]; ROADMAP.md: the other multi-axis presets)")
+            f"[{min_s}, {MAX_S}]; ROADMAP.md 2a b: the other axis layouts)")
     if spec.weights and not weights:
         raise NotImplementedError(
             f"{name} kernel: the weights row is built into the quad "
@@ -301,6 +308,7 @@ def multi_params(B, spec, tables, lines, wb):
     for i, (ax, t, line) in enumerate(zip(spec.axes, tables, lines)):
         p.axis[i] = build.MultiAxis(t.data_ptr(), line.data_ptr(), ax.W,
                                     ax.H, ax.L, ax.TH)
+        p.ch[i], p.nd[i] = ax.C, ax.nd
     vals = wb.reshape(-1).tolist()
     p.wb[:len(vals)] = vals
     return p

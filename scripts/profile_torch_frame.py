@@ -10,7 +10,12 @@ the frame at t=0.3 with uniform_time, or with --per-ray-time without it,
 so that K5/K6 mix the time planes per sample; --model stanford:
 stanford_llff_z_plane at full width on a trained checkpoint's grid,
 whose one route is the general stage chain and its net's own fused route,
-K2) on one route (--route: quad, K1 then K2 (flagship) or K5 (llff,
+K2; --model catacaustics, immersive, donerf: catacaustics_distance,
+immersive_sphere_new, donerf_sphere as chip_smoke.py renders them, at
+full width on a trained checkpoint's grid from chip_smoke.py's camera,
+whose one route is the general stage chain and the colour net's own
+fused route, K5; immersive with --per-ray-time at a t per ray) on one
+route (--route: quad, K1 then K2 (flagship) or K5 (llff,
 shiny, n3d), or stanford's own route;
 fused, the coherent patch-gather route with bench.py's phase-major rays
 at R=8 (5, 2) (n3d: (5, 3)), K1 then K3 or K6; two, the same route on K1,
@@ -27,7 +32,8 @@ K5-preblended) and prints:
     own CPU time.
 
     python3 scripts/profile_torch_frame.py
-        [--model flagship|llff|shiny|n3d|stanford]
+        [--model flagship|llff|shiny|n3d|stanford|catacaustics|immersive|
+                 donerf]
         [--route quad|fused|two] [--per-ray-time] [--frames 3]
         [--trace FILE]
 
@@ -64,7 +70,9 @@ def busy_ms(intervals):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", choices=("flagship", "llff", "shiny", "n3d",
-                                        "stanford"), default="flagship")
+                                        "stanford", "catacaustics",
+                                        "immersive", "donerf"),
+                    default="flagship")
     ap.add_argument("--route", choices=("quad", "fused", "two"),
                     default="quad")
     ap.add_argument("--per-ray-time", action="store_true")
@@ -108,6 +116,18 @@ def main():
         rk = {"cf_prepared": prep}
         frame = frame[..., :6].contiguous()     # a static scene: o, d
         os.environ["HYPERREEL_FUSED_PATCH_MULTI"] = fused
+    elif args.model in cs.PRIMITIVES:
+        if patch:
+            raise ValueError(f"{args.model} has one route (quad)")
+        _, model, params = cs.primitive_model(dev, args.model)
+        rk = {"cf_prepared": model.prepare_eval(params)}
+        frame[..., 2] = cs.PRIMITIVES[args.model][3]     # the camera
+        if args.per_ray_time:
+            gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+            frame[..., 7] = torch.rand(frame.shape[:2], device=dev,
+                                       generator=gen)
+        if args.model != "immersive":
+            frame = frame[..., :6].contiguous()   # a static scene: o, d
     else:
         shape = cs.N3D_PATCH_R8
         _, model, params, prep = cs.n3d(dev, patch=shape if patch else None)

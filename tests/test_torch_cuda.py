@@ -21,8 +21,9 @@ import torch
 
 from hyperreel_tpu_torch.configs.presets import (
     convert_epochs_to_iters, llff_z_plane, neural_3d_z_plane, shiny_z_plane,
-    stanford_llff_z_plane, technicolor_z_plane, tiny_dynamic, tiny_neural_3d,
-    tiny_shiny, tiny_stanford_llff, tiny_static, with_coherent_gather)
+    stanford_llff_z_plane, technicolor_z_plane, tiny_dynamic,
+    tiny_immersive_sphere, tiny_neural_3d, tiny_shiny, tiny_stanford_llff,
+    tiny_static, with_coherent_gather)
 from hyperreel_tpu_torch.models.ctx import StepCtx
 from hyperreel_tpu_torch.models.model import build_model
 from hyperreel_tpu_torch.ops.kernels import build
@@ -135,7 +136,7 @@ def test_fused_model_matches_general_on_card(dev):
     import copy
     cfg, model, params = _model(True, dev)
     cfg_g = copy.deepcopy(cfg)
-    cfg_g["color"]["net"]["fused_render_cf"] = False
+    cfg_g["color"]["net"].update(fused_render_cf=False, fused_render=False)
     general = build_model(cfg_g, dataset_info=INFO)
     rays = _rays(4096, dev, seed=1)
     ctx = StepCtx(it=20000)
@@ -339,11 +340,16 @@ def test_multi_kernels_match_plain(dev, S, bf16, pm):
     assert (pre[:, :4] - out[:, :4]).abs().max() <= 2e-4
 
 
+L844 = ((0, 16, 8), (1, 8, 4), (2, 8, 4))
+L888 = ((0, 16, 8), (1, 16, 8), (2, 16, 8))
+
+
 def test_multi_kernels_refuse_another_layout(dev):
-    # the library reports the layout of csrc/multi_core.cuh; a spec with
-    # another one raises before any launch
-    assert build.load_library().multi_layout == (
-        (0, 16, 8), (1, 8, 4), (2, 8, 4))
+    # the library reports the layouts of csrc/multi_core.cuh per kernel; a
+    # spec with another one raises before any launch
+    assert build.load_library().multi_layouts == {
+        "shade_multi": (L844, L888), "shade_multi_preblended": (L844,),
+        "shade_multi_patch": (L844,)}
     _, model, params = _static_model(dev, 8)
     cf = model._cf_eval
     prep = cf.prepare(params)
@@ -360,6 +366,37 @@ def test_multi_kernels_refuse_another_layout(dev):
     with pytest.raises(NotImplementedError):
         shade_multi(quads, lines, pack, rp, prep["wb"], spec)
     assert shade_multi.launches == before
+    # [8, 0, 0]: one plane x line axis (no route takes K5 with it)
+    one = dataclasses.replace(spec, axes=axes[:1])
+    wb1 = prep["wb"][:, :axes[0].C - axes[0].nd].contiguous()
+    with pytest.raises(NotImplementedError, match="layout"):
+        shade_multi(prep["quads"][:1], prep["lines"][:1], pack, rp, wb1, one)
+    assert shade_multi.launches == before
+
+
+def test_k5_pre_and_k6_refuse_the_888_layout(dev):
+    """K5's quad kernel takes [8, 8, 8]; its pre-blended kernel and K6 are
+    built for [8, 4, 4] only (no route reaches them at [8, 8, 8]) and
+    refuse it before any launch."""
+    B, S = 256, 8
+    quads, lines, pack, rays, wb, spec, feats = _k5_inputs(
+        dev, S, B, "sh", "lines", layout="888")
+    out = shade_multi(quads, lines, pack, rays, wb, spec)
+    assert out.shape == (B, 5)
+    n_pre = shade_multi_preblended.launches
+    with pytest.raises(NotImplementedError, match="layout"):
+        shade_multi_preblended(feats, lines, pack, rays, wb, spec)
+    assert shade_multi_preblended.launches == n_pre
+    ps = [PatchSpec(R=4, px=4, py=3, W=a.W, H=a.H, C=a.C, S=S,
+                    phase_major=False, m0=a.m0, m1=a.m1)
+          for a in spec.axes]
+    ptabs = [torch.zeros(((a.H + 1) * (a.W + 1), 12 * a.C),
+                         dtype=torch.bfloat16, device=dev)
+             for a in spec.axes]
+    n6 = shade_multi_patch.launches
+    with pytest.raises(NotImplementedError, match="layout"):
+        shade_multi_patch(ptabs, lines, pack, rays, wb, spec, ps)
+    assert shade_multi_patch.launches == n6
 
 
 @pytest.mark.parametrize("route,kernels", [
@@ -616,7 +653,7 @@ def test_n3d_fused_model_matches_general_on_card(dev):
     import copy
     cfg, model, params = _n3d_model(dev, 64)
     cfg_g = copy.deepcopy(cfg)
-    cfg_g["color"]["net"]["fused_render_cf"] = False
+    cfg_g["color"]["net"].update(fused_render_cf=False, fused_render=False)
     general = build_model(cfg_g, dataset_info=N3D_INFO)
     rays = _rays(4096, dev, seed=1)
     ctx = StepCtx(it=20000)
@@ -949,13 +986,17 @@ K5_SECOND = {"lines": None, "time_one_t": 0.37, "time_first": -1.0,
              "time_spread": "spread"}
 
 
-def _k5_inputs(dev, S, B, colour, second, seed=0):
+# the layouts K5 is built for: C per axis (half of it density)
+K5_LAYOUTS = {"844": (16, 8, 8), "888": (16, 16, 16)}
+
+
+def _k5_inputs(dev, S, B, colour, second, seed=0, layout="844"):
     rng = np.random.default_rng(seed)
     tn = K5_SECOND[second]
     TH = 0 if tn is None else K5_TH
     axes, quads, lines = [], [], []
     for i, ((W, H, L), C) in enumerate(zip(
-            ((60, 50, 70), (60, 40, 90), (50, 40, 80)), (16, 8, 8))):
+            ((60, 50, 70), (60, 40, 90), (50, 40, 80)), K5_LAYOUTS[layout])):
         axes.append(AxisSpec(index=i, W=W, H=H, L=L, C=C, nd=C // 2, TH=TH))
         quads.append(quad_table(torch.from_numpy(rng.normal(
             0, 0.5, (H, W, C)).astype(np.float32))).to(dev))
@@ -974,7 +1015,7 @@ def _k5_inputs(dev, S, B, colour, second, seed=0):
     pack = np.concatenate([x[None], y[None], np.broadcast_to(z, (B, S))[None],
                            dist[None], rng.normal(0, 0.1, (6, B, S))])
     pack = pack.reshape(10, B * S)
-    weights = colour == "rgb_weights"
+    weights = colour.endswith("_weights")
     if weights:
         pack = np.concatenate([pack, rng.uniform(0, 2, (1, B * S))])
     d = rng.normal(0, 1, (B, 3))
@@ -983,8 +1024,9 @@ def _k5_inputs(dev, S, B, colour, second, seed=0):
         else np.full(B, 0.37 if tn is None else tn)
     rays = np.concatenate([rng.normal(0, 1, (B, 3)), d,
                            np.zeros((B, 1)), tn[:, None]], 1)
-    rgb = colour != "sh"
-    wb = torch.from_numpy(rng.normal(0, 0.3, (3 if rgb else 27, 16)).astype(
+    rgb = colour.startswith("rgb")
+    A = sum(a.C - a.nd for a in axes)
+    wb = torch.from_numpy(rng.normal(0, 0.3, (3 if rgb else 27, A)).astype(
         np.float32))
     spec = MultiSpec(S=S, axes=tuple(axes), deg=2, distance_scale=25.0,
                      shading="rgb" if rgb else "sh", weights=weights)
@@ -1048,3 +1090,72 @@ def test_k5_ragged_persistent_runs_match_plain(dev, S):
     assert (out[:, 4] - ref[:, 4]).abs().max() <= 1e-3
     assert (pre[:, :4] - ref_pre[:, :4]).abs().max() <= 1e-4
     assert (pre[:, 4] - ref_pre[:, 4]).abs().max() <= 1e-3
+
+
+@pytest.mark.parametrize("second", ["lines", "time_spread"])
+@pytest.mark.parametrize("colour", ["sh", "sh_weights"])
+@pytest.mark.parametrize("S", [8, 64])
+def test_k5_888_matches_plain(dev, S, colour, second):
+    """K5 at the [8, 8, 8] layout (catacaustics_distance: SH, the weights
+    row, S = 64, lines; the time planes are built as well) against its
+    plain version, at the multi-axis tolerances."""
+    B = 3000
+    quads, lines, pack, rays, wb, spec, _ = _k5_inputs(
+        dev, S, B, colour, second, seed=S, layout="888")
+    assert spec.n_app == 24 and tuple(wb.shape) == (27, 24)
+    n = shade_multi.launches
+    out = shade_multi(quads, lines, pack, rays, wb, spec)
+    ref = shade_multi_plain(quads, lines, pack, rays, wb, spec)
+    torch.cuda.synchronize()
+    assert shade_multi.launches == n + 1
+    assert ref[:, 3].max() > 0.5 and ref[:, 3].min() < 0.5
+    assert (out[:, :4] - ref[:, :4]).abs().max() <= 1e-4
+    assert (out[:, 4] - ref[:, 4]).abs().max() <= 1e-3
+
+
+IMMERSIVE_INFO = {"near": 1.0, "far": 10.0, "depth_range": (2.0, 10.0),
+                  "num_keyframes": 12, "num_frames": 50}
+
+
+def test_immersive_own_route_k5_at_s32_on_card(dev):
+    """immersive_sphere_new's chain at test widths with its [8, 4, 4]
+    components, S = 32, 12 keyframes, a t per ray, the camera inside the
+    spheres: the own route launches K5 on the time planes once, K5 agrees
+    with its plain version on the route's pack, and the frame with the
+    general colour net at the fused-path gate."""
+    cfg = convert_epochs_to_iters(tiny_immersive_sphere(z_channels=32), 4000)
+    cfg["color"]["net"].update(n_lamb_sigma=[8, 4, 4], n_lamb_sh=[8, 4, 4])
+    model = build_model(cfg, dataset_info=IMMERSIVE_INFO)
+    gen = torch.Generator().manual_seed(0)
+    params = model.init(gen, dev)
+    for k, v in params["color"]["density"].items():
+        params["color"]["density"][k] = 0.3 * torch.rand(
+            v.shape, generator=gen).to(dev)
+    assert model._cf_eval is None
+    rays = _rays(4096, dev, seed=3)
+    rays[:, :3] *= 0.2                       # inside the smallest sphere
+    ctx = StepCtx(it=20000)
+    net = model.color_net
+    x = model.embedding.apply(params["embedding"], rays, ctx)
+    prep = model.prepare_eval(params)
+    pack, rp = net.fused_pack(x)
+    spec = net.fused_spec(prep, 32)
+    assert [a.TH for a in spec.axes] == [12] * 3 and not spec.weights
+    out = shade_multi(prep["quads"], prep["lines"], pack, rp, prep["wb"],
+                      spec)
+    ref = shade_multi_plain(prep["quads"], prep["lines"], pack, rp,
+                            prep["wb"], spec)
+    torch.cuda.synchronize()
+    assert (out[:, :4] - ref[:, :4]).abs().max() <= 1e-4
+    assert ref[:, 3].mean() > 0.1
+    n = shade_multi.launches
+    a = model.apply(params, rays, ctx, {"cf_prepared": prep})["rgb"]
+    assert shade_multi.launches == n + 1
+    net.fused_render = False
+    try:
+        b = model.apply(params, rays, ctx)["rgb"]
+    finally:
+        net.fused_render = True
+    assert shade_multi.launches == n + 1
+    assert (a - b).abs().max() <= 2e-4
+

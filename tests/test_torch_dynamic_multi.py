@@ -381,7 +381,7 @@ def test_fused_path_matches_general_path():
     cfg = n3d_cfg(64)
     jm, fused = models(cfg, bf16=False)
     cfg_g = copy.deepcopy(cfg)
-    cfg_g["color"]["net"]["fused_render_cf"] = False
+    cfg_g["color"]["net"].update(fused_render_cf=False, fused_render=False)
     _, general = models(cfg_g, bf16=False)
     assert fused._cf_eval is not None and general._cf_eval is None
     _, tp = weights(jm, seed=4, density=0.3)

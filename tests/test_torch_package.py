@@ -95,6 +95,23 @@ def test_port_imports_no_jax():
         P.tiny_shiny(sample_stages=False))),
     ("tiny_stanford_llff", lambda P: P.tiny_stanford_llff() if P is TP
      else _bf16_tables(P.tiny_stanford_llff())),
+    ("donerf_sphere", lambda P: P.donerf_sphere()),
+    ("donerf_cylinder", lambda P: P.donerf_cylinder()),
+    ("catacaustics_distance", lambda P: P.catacaustics_distance()),
+    ("catacaustics_distance_z32", lambda P: P.catacaustics_distance(32)),
+    ("immersive_sphere_new", lambda P: P.immersive_sphere_new()),
+    ("immersive_epochs_to_iters", lambda P: P.convert_epochs_to_iters(
+        P.immersive_sphere_new(), 4000)),
+    # the port's tiny primitive presets keep bf16 tables (the own fused
+    # routes need them)
+    ("tiny_donerf_sphere", lambda P: P.tiny_donerf_sphere() if P is TP
+     else _bf16_tables(P.tiny_donerf_sphere())),
+    ("tiny_donerf_cylinder", lambda P: P.tiny_donerf_cylinder() if P is TP
+     else _bf16_tables(P.tiny_donerf_cylinder())),
+    ("tiny_catacaustics_distance", lambda P: P.tiny_catacaustics_distance()
+     if P is TP else _bf16_tables(P.tiny_catacaustics_distance())),
+    ("tiny_immersive_sphere", lambda P: P.tiny_immersive_sphere() if P is TP
+     else _bf16_tables(P.tiny_immersive_sphere())),
 ])
 def test_presets_equal_the_jax_packages(name, make):
     assert make(TP) == make(JP)

@@ -170,13 +170,13 @@ def _fields(B, S, seed):
 
 
 def _bf16_lines(color):
-    """The colour params with every line rounded to bf16 (the general
-    colour net reads its lines at table precision, the fused routes in
-    f32)."""
+    """The colour params with every line and time plane rounded to bf16
+    (the general colour net reads them at table precision, the fused
+    routes in f32)."""
     out = copy.deepcopy(color)
     for fam in ("density", "app"):
         for k, v in out[fam].items():
-            if k.startswith("line_"):
+            if k.startswith(("line_", "time_")):
                 out[fam][k] = v.to(torch.bfloat16).float()
     return out
 

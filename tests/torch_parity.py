@@ -3,8 +3,10 @@ the same configs, weights and rays for hyperreel_tpu and
 hyperreel_tpu_torch, made with numpy from fixed seeds."""
 
 import copy
+import functools
 
 import numpy as np
+import pytest
 
 import jax
 import jax.numpy as jnp
@@ -14,6 +16,7 @@ from hyperreel_tpu.configs.presets import (
     convert_epochs_to_iters, llff_z_plane, technicolor_z_plane, tiny_dynamic,
     tiny_shiny, tiny_stanford_llff, tiny_static)
 from hyperreel_tpu.models.model import build_model as build_jax
+from hyperreel_tpu.ops.pallas import shade as jax_shade
 from hyperreel_tpu_torch.convert import params_from_jax
 from hyperreel_tpu_torch.models.model import build_model as build_torch
 from hyperreel_tpu_torch.ops.kernels.layout import JAX_PACK_ROWS, PACK_ROWS
@@ -74,12 +77,24 @@ def rgb_cfg(family, S=8, cf=True, fused=True):
     return cfg
 
 
-def models(cfg, bf16):
-    """(JAX model, port model) for one config and precision policy."""
-    return (build_jax(copy.deepcopy(cfg), dataset_info=INFO,
+def models(cfg, bf16, info=INFO):
+    """(JAX model, port model) for one config, precision policy and
+    dataset_info."""
+    return (build_jax(copy.deepcopy(cfg), dataset_info=info,
                       compute_dtype=jnp.bfloat16 if bf16 else None),
-            build_torch(copy.deepcopy(cfg), dataset_info=INFO,
+            build_torch(copy.deepcopy(cfg), dataset_info=info,
                         compute_dtype=torch.bfloat16 if bf16 else None))
+
+
+@pytest.fixture
+def f32_acc(monkeypatch):
+    """The JAX shade kernels with their accumulation in f32 (their
+    acc_dtype, bf16 by default: a bf16 line and time lookup, ROADMAP.md 3),
+    as the port's kernels accumulate, for tests that hold the nets' own
+    fused routes against the JAX package's."""
+    for name in ("fused_shade_composite", "fused_shade_composite_multi"):
+        monkeypatch.setattr(jax_shade, name, functools.partial(
+            getattr(jax_shade, name), acc_dtype=jnp.float32))
 
 
 def weights(jax_model, seed=0, density=1.0):
