@@ -5,10 +5,12 @@ dynamic multi-axis family's (neural_3d_z_plane, 64 samples per ray), the
 single-axis RGB net's own fused route (stanford_llff_z_plane), the
 non-planar primitive presets' own fused routes (catacaustics_distance at
 the [8, 8, 8] layout, immersive_sphere_new on time planes, donerf_sphere)
-and the flagship's single-axis own route, at full width through the
-hand-written kernels, checked against their plain PyTorch versions and
-against the port's general path, on the quad route and on the coherent
-patch-gather routes; and the standalone composite entry point.
+and the flagship's single-axis own route, and the render-time sample
+counts (compaction and the stride) of the flagship, neural_3d_z_plane and
+shiny_z_plane, at full width through the hand-written kernels, checked
+against their plain PyTorch versions and against the port's general path,
+on the quad route and on the coherent patch-gather routes; and the
+standalone composite entry point.
 
     python3 chip_smoke.py
 
@@ -138,7 +140,26 @@ no result line):
      frame (printed), the own and channels-first routes under the f32 MLP
      policy on 16,384 rays (<= 2e-4 over the rays without a sample on an
      aabb face), and the frame times of the own route and the general
-     path.
+     path;
+ 44-53. the render-time sample counts: technicolor_z_plane with
+     with_compact_samples(16) (K1's first-k branch, invalid samples at the
+     far sentinel), with_inference_samples(8) and (16) (K1's positional
+     stride 4 and 2), neural_3d_z_plane with with_inference_samples(16)
+     (stride 4 at S = 64) and shiny_z_plane with with_compact_samples(16),
+     on the weights of the phases above: on one chunk K1's branch against
+     its plain version under both MLP policies (the sentinel samples'
+     points, ~1e8 outside the aabb, held relatively, 1e-6), the shade
+     kernels at S = k against theirs (K2 at S = 8 and 16; with compaction
+     K3, K4 and K2-preblended at R=8 (5, 2) on the phase-major chunk; n3d's
+     K5 on the time planes with one t and a t per ray and premixed;
+     shiny's K5 with RGB colour), each timed in turns, with its plain
+     version's time and its bound counting the k samples; the bench frame
+     through model.apply on the quad route (the flagship with compaction
+     also its two patch routes, with their coverage witness; n3d also with
+     a t per ray): finite, in [0, 1], the launches per chunk; the flagship
+     with compaction fused vs general path under the f32 MLP policy (<=
+     2e-4); the routes' frame times in turns with the family's full-S quad
+     route.
 The line before the last is the kernels' JSON record (launches on their
 main path, error against the plain version, ms and the plain version's
 ms, and the least time the card could take, counting of each table only
@@ -1967,6 +1988,487 @@ def n3d_phases(torch, dev, card, frame, reset_counts, read_counts):
             for name, source, line, route, fn, err, key in rec], frame_ms
 
 
+# ---- 44-53. the render-time sample counts
+
+# The sample-count routes at full width: (family, stage, k), the stage
+# with_compact_samples(k) ("compact": the first k sorted samples, the
+# invalid ones behind the far sentinel) or with_inference_samples(k)
+# ("stride": every (S/k)-th sample)
+SAMPLE_COUNTS = (("flagship", "compact", 16), ("flagship", "stride", 8),
+                 ("flagship", "stride", 16), ("n3d", "stride", 16),
+                 ("shiny", "compact", 16))
+# K1's least f32 operations per kept sample beside the sort: K1_TAIL_OPS
+# without its 15 compare-exchanges of S = 32
+K1_KEPT_OPS = K1_TAIL_OPS - 15
+COUNT_TIMED_FRAMES = 5
+
+
+def sample_count_model(cfg, info, stage, k, params, bf16=True, patch=None):
+    """The model of `cfg` with the sample-count stage (stage, k), and with
+    `patch` the coherent patch-gather route, on `params` with the stage's
+    empty params added: (model, params)."""
+    import torch
+
+    from hyperreel_tpu_torch.configs import presets
+    from hyperreel_tpu_torch.models.model import build_model
+
+    add = presets.with_compact_samples if stage == "compact" \
+        else presets.with_inference_samples
+    cfg = add(cfg, k)
+    if patch:
+        cfg = presets.with_coherent_gather(cfg, *patch)
+    model = build_model(cfg, dataset_info=info,
+                        compute_dtype=torch.bfloat16 if bf16 else None)
+    if model._cf_eval is None or model._cf_eval.k != k:
+        raise AssertionError(f"{stage} {k}: the channels-first route does "
+                             "not take the chain")
+    emb = dict(params["embedding"])
+    for name, _ in model.embedding.stages:
+        emb.setdefault(name, {})
+    return model, {**params, "embedding": emb}
+
+
+def k1_count_ops(params, S, k, P, contract):
+    """K1's least operations per ray with k of S samples kept: (bf16
+    products: the hidden layers and of the last layer only the columns the
+    pack needs, z and sigma of all S samples and the other P - 2 channels
+    of the k kept; f32: the sort over S, the tail of the k kept with their
+    contraction)."""
+    ws = [p["weight"] for p in
+          params["embedding"]["ray_prediction_0"]["net"].values()]
+    H = ws[-1].shape[1]
+    mm = 2 * (sum(w.numel() for w in ws[:-1]) + H * (2 * S + (P - 2) * k))
+    n = S.bit_length() - 1
+    tail = S * n * (n + 1) // 2 + k * (K1_KEPT_OPS + (K1_CONTRACT_OPS
+                                                      if contract else 0))
+    return mm, tail
+
+
+def sample_count_phases(torch, dev, card, frame, reset_counts, read_counts,
+                        family, stage, k, base):
+    """One sample-count route at full width: K1's branch on one chunk
+    against its plain version under both MLP policies; the shade kernels
+    at S = k on its pack against their plain versions (the flagship: K2;
+    with compaction also K3, K4 and K2-preblended on the phase-major chunk;
+    n3d: K5 on the time planes with one t and a t per ray, and premixed;
+    shiny: K5 with RGB colour), each timed, its plain version timed and its
+    bound with the k samples; the bench frame through model.apply on the
+    route's quad route (the flagship with compaction also its two patch
+    routes), the launches, the witnesses, the rgb; the flagship with
+    compaction also fused vs general path under the f32 MLP policy; the
+    frame times in turns with the full-S quad route. `base` = (cfg,
+    dataset_info, params) of the family. Returns (the kernels' JSON
+    records, {route: ms/frame})."""
+    from hyperreel_tpu_torch.configs.presets import with_compact_samples
+    from hyperreel_tpu_torch.models.ctx import StepCtx
+    from hyperreel_tpu_torch.models.intersect import FAR_SENTINEL
+    from hyperreel_tpu_torch.models.model import build_model
+    from hyperreel_tpu_torch.ops.kernels.pack_build import (
+        pack_build, pack_build_plain, pack_error)
+    from hyperreel_tpu_torch.ops.kernels.patch_blend import (
+        patch_blend, patch_blend_plain)
+    from hyperreel_tpu_torch.ops.kernels.shade import (
+        ShadeSpec, premix_time, shade, shade_plain, shade_preblended,
+        shade_preblended_plain)
+    from hyperreel_tpu_torch.ops.kernels.shade_multi import (
+        MultiSpec, shade_multi, shade_multi_plain)
+    from hyperreel_tpu_torch.ops.kernels.shade_patch import (
+        shade_patch, shade_patch_plain)
+
+    cfg, info, params0 = base
+    tag = f"{family}_{stage}{k}"
+    ctx = StepCtx(it=IT)
+    model, params = sample_count_model(cfg, info, stage, k, params0)
+    prep = model.prepare_eval(params)
+    cf = model._cf_eval
+    S = cf.S
+    static = cf.flow is None
+    frames = frame[..., :6].contiguous() if static else frame
+    print(f"# {tag}: S={S}, k={k}, stride {cf.spec.stride}, far sentinel "
+          f"{cf.spec.far_sentinel}", flush=True)
+
+    # ---- one chunk: K1 against its plain version
+    chunk = frames[0]
+    net_in = cf.pred.net_input(chunk, ctx).float().contiguous()
+    rp = cf.ray_pack(chunk)
+    tabs = prep["mlp"]
+    pack = pack_build(net_in, tabs, rp, cf.spec, IT)
+    pack_p = pack_build_plain(net_in, tabs, rp, cf.spec, IT)
+    torch.cuda.synchronize()
+    k1_err, k1_rel = pack_error(pack, pack_p)
+    del pack_p
+    m32, _ = sample_count_model(cfg, info, stage, k, params0, bf16=False)
+    cf32 = m32._cf_eval
+    tabs32 = cf32.prepare(params)["mlp"]
+    x32, rp32 = net_in[:F32_RAYS].contiguous(), rp[:F32_RAYS].contiguous()
+    k1_err32, k1_rel32 = pack_error(
+        pack_build(x32, tabs32, rp32, cf32.spec, IT),
+        pack_build_plain(x32, tabs32, rp32, cf32.spec, IT))
+    if stage == "compact":
+        # the bench camera sees every z-plane ahead, so its kept samples
+        # carry no sentinel: the f32 check again with the camera at z =
+        # 0.5, among the planes (under the f32 MLP policy both versions do
+        # the same f32 math, so no sample crosses dist = 0 in one only)
+        inner = chunk[:F32_RAYS].clone()
+        inner[:, 2] = 0.5
+        x_in = cf32.pred.net_input(inner, ctx).float().contiguous()
+        rp_in = cf32.ray_pack(inner)
+        pk = pack_build(x_in, tabs32, rp_in, cf32.spec, IT)
+        pk_p = pack_build_plain(x_in, tabs32, rp_in, cf32.spec, IT)
+        e_in, r_in = pack_error(pk, pk_p)
+        share = (pk_p[3] == FAR_SENTINEL).float().mean().item()
+        same = torch.equal(pk[3] == FAR_SENTINEL, pk_p[3] == FAR_SENTINEL)
+        print(f"# {tag} K1 (f32 MLP) with the camera at z = 0.5: max "
+              f"|kernel - plain| {e_in:.3e} (tol {PACK_TOL}), the sentinel "
+              f"samples' points relative {r_in:.2e} (tol 1e-6); "
+              f"{100 * share:.1f} % of the kept samples at the sentinel, "
+              f"the same in both: {same}", flush=True)
+        if not (e_in <= PACK_TOL and r_in <= 1e-6 and same and share > 0):
+            raise AssertionError(f"{tag} K1 at the sentinel disagrees with "
+                                 f"its plain version: {e_in}, {r_in}, "
+                                 f"{share}, {same}")
+        del inner, x_in, rp_in, pk, pk_p
+    del m32, cf32, tabs32
+    N = pack.shape[1]
+    valid = valid_count(pack)
+    sent = (pack[3] == FAR_SENTINEL).sum().item()
+    print(f"# {tag} K1 pack_build: max |kernel - plain| {k1_err:.3e} bf16 "
+          f"MLP (tol {PACK_TOL_BF16}), {k1_err32:.3e} f32 MLP on {F32_RAYS} "
+          f"rays (tol {PACK_TOL}); the sentinel samples' points relative "
+          f"{k1_rel:.2e} / {k1_rel32:.2e} (tol 1e-6); pack {N} = {CHUNK} x "
+          f"{k} samples, {valid} valid ({100 * valid / N:.1f} %), {sent} at "
+          f"the far sentinel", flush=True)
+    if not (k1_err <= PACK_TOL_BF16 and k1_err32 <= PACK_TOL
+            and k1_rel <= 1e-6 and k1_rel32 <= 1e-6):
+        raise AssertionError(f"{tag} K1 disagrees with its plain version: "
+                             f"{k1_err}, {k1_err32}, {k1_rel}, {k1_rel32}")
+    if valid < N // 4:
+        raise AssertionError("under a quarter of the samples are valid")
+    mm, tail = k1_count_ops(params, S, k, cf.P,
+                            cf.spec.contract.name != "identity")
+    bounds = {"K1": bound(
+        nbytes(net_in, rp, pack) + sum(nbytes(l.w, l.b)
+                                       for l in tabs.layers),
+        [(CHUNK * mm, BF16_OPS_PER_S), (CHUNK * tail, F32_OPS_PER_S)])}
+    kernels = {"K1": lambda: pack_build(net_in, tabs, rp, cf.spec, IT)}
+    plains = {"K1": lambda: pack_build_plain(net_in, tabs, rp, cf.spec, IT)}
+    errs = {"K1": k1_err}
+    out_bytes = CHUNK * 5 * 4
+    rgb_colour = cf.net.shading == "rgb"
+
+    def check(name, out, out_p):
+        torch.cuda.synchronize()
+        err = (out[:, :4] - out_p[:, :4]).abs().max().item()
+        derr = (out[:, 4] - out_p[:, 4]).abs().max().item()
+        finite = bool(torch.isfinite(out).all() and
+                      torch.isfinite(out_p).all())
+        print(f"# {tag} {name}: max |kernel - plain| rgb/acc {err:.3e}, "
+              f"depth {derr:.3e} (tol {SHADE_TOL}); acc mean "
+              f"{out[:, 3].mean().item():.4f}; finite {finite}", flush=True)
+        if not (err <= SHADE_TOL and derr <= 10 * SHADE_TOL and finite):
+            raise AssertionError(f"{tag} {name} disagrees with its plain "
+                                 f"version: {err}, {derr}, {finite}")
+        errs[name] = err
+
+    # ---- the shade kernels at S = k on the chunk's pack
+    frame_pm = prep8 = model8 = None
+    if cf.dyn1:
+        H, W, TH, TW, C, nd = prep["dims"]
+        ttab0 = premix_time(prep["ttab"], rp[0, 7])
+        spec = ShadeSpec(S=k, W=W, H=H, TW=TW, TH=0, C=C, nd=nd,
+                         deg=cf.net.sh_deg,
+                         distance_scale=cf.net.distance_scale)
+        args = (pack, rp, ttab0, prep["wb"], spec)
+        check("K2", shade(prep["quad"], *args), shade_plain(prep["quad"],
+                                                            *args))
+        spec_t = dataclasses.replace(spec, TH=TH)
+        check("K2 TH", shade(prep["quad"], pack, rp, prep["ttab"],
+                             prep["wb"], spec_t),
+              shade_plain(prep["quad"], pack, rp, prep["ttab"], prep["wb"],
+                          spec_t))
+        kernels["K2"] = lambda: shade(prep["quad"], *args)
+        plains["K2"] = lambda: shade_plain(prep["quad"], *args)
+        bounds["K2"] = sh_bound(
+            f"{tag} K2", nbytes(pack, rp, ttab0) + out_bytes
+            + rows_bytes(prep["quad"], quad_rows(pack, 0, 1, W, H)),
+            lambda f: [(valid * (shade_ops(C, nd, fold=f) + 8 * C + 10)
+                        + N * COMPOSITE_OPS, F32_OPS_PER_S)], k)
+        if stage == "compact":
+            # the patch routes' kernels on the chunk in bench.py's
+            # phase-major order
+            model8, _ = sample_count_model(cfg, info, stage, k, params0,
+                                           patch=PATCH_R8)
+            prep8 = model8.prepare_eval(params)
+            R8 = PATCH_R8[2]
+            frame_pm = phase_major(frames, R8).contiguous()
+            rp_pm = cf.ray_pack(frame_pm[0])
+            pack_pm = pack_build(cf.pred.net_input(frame_pm[0], ctx).float()
+                                 .contiguous(), tabs, rp_pm, cf.spec, IT)
+            ps8, = model8._cf_eval.patch_specs([(W, H, C, 0, 1)], True)
+            pargs = (pack_pm, rp_pm, ttab0, prep["wb"], spec)
+            out, vk = shade_patch(prep8["patch"], *pargs, ps8)
+            out_p, vp = shade_patch_plain(prep8["patch"], *pargs, ps8)
+            check("K3", out, out_p)
+            feats, fk = patch_blend(prep8["patch"], pack_pm, ps8)
+            feats_p, fp = patch_blend_plain(prep8["patch"], pack_pm, ps8)
+            a, b = feats.float(), feats_p.float()
+            ratio = ((a - b).abs() / (bf16_ulp(torch, torch.maximum(
+                a.abs(), b.abs())) + 1e-6)).max().item()
+            errs["K4"] = (a - b).abs().max().item()
+            print(f"# {tag} K4 patch_blend: max |kernel - plain| "
+                  f"{errs['K4']:.3e}, {ratio:.3f} bf16 ulps at most (tol "
+                  f"1); coverage violations K3 {int(vk)} (plain {int(vp)}), "
+                  f"K4 {int(fk)} (plain {int(fp)}) of {N // R8} slots",
+                  flush=True)
+            if not (ratio <= 1.0 and int(vk) == int(vp) == int(fk)
+                    == int(fp)):
+                raise AssertionError(f"{tag} K3 / K4 disagree with their "
+                                     f"plain versions: {ratio}, {int(vk)}, "
+                                     f"{int(vp)}, {int(fk)}, {int(fp)}")
+            del a, b, feats_p
+            check("K2-pre", shade_preblended(feats, *pargs),
+                  shade_preblended_plain(feats, *pargs))
+            kernels.update({
+                "K3": lambda: shade_patch(prep8["patch"], *pargs, ps8),
+                "K4": lambda: patch_blend(prep8["patch"], pack_pm, ps8),
+                "K2-pre": lambda: shade_preblended(feats, *pargs)})
+            plains.update({
+                "K3": lambda: shade_patch_plain(prep8["patch"], *pargs, ps8),
+                "K4": lambda: patch_blend_plain(prep8["patch"], pack_pm,
+                                                ps8),
+                "K2-pre": lambda: shade_preblended_plain(feats, *pargs)})
+            valid_pm = valid_count(pack_pm)
+            bounds["K3"] = sh_bound(
+                f"{tag} K3", nbytes(pack_pm, rp_pm, ttab0) + out_bytes + 4
+                + rows_bytes(prep8["patch"], patch_rows(pack_pm, ps8,
+                                                        False)),
+                lambda f: [(valid_pm * (shade_ops(C, nd, fold=f) + 8 * C
+                                        + 22) + N * COMPOSITE_OPS,
+                            F32_OPS_PER_S)], k)
+            bounds["K4"] = bound(
+                nbytes(pack_pm[:4], feats) + 4
+                + rows_bytes(prep8["patch"], patch_rows(pack_pm, ps8, True)),
+                [(N * (8 * C + 22), F32_OPS_PER_S)])
+            bounds["K2-pre"] = sh_bound(
+                f"{tag} K2-pre", nbytes(feats, pack_pm, rp_pm, ttab0)
+                + out_bytes,
+                lambda f: [(valid_pm * shade_ops(C, nd, fold=f)
+                            + N * COMPOSITE_OPS, F32_OPS_PER_S)], k)
+    else:
+        axes, lines, wb = prep["axes"], prep["lines"], prep["wb"]
+        spec = MultiSpec(S=k, axes=axes, deg=cf.net.sh_deg,
+                         distance_scale=cf.net.distance_scale,
+                         shading=cf.net.shading)
+        variants = {"K5": (lines, spec, rp)}
+        if not static:
+            # the time planes (TH = 12) with the frame's one t and with a
+            # t per ray spread over every keyframe; premixed for the one t
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            rp_spread = rp.clone()
+            rp_spread[:, 7] = 2.0 * torch.rand(CHUNK, device=dev,
+                                               generator=gen) - 1.0
+            spec0 = dataclasses.replace(spec, axes=tuple(
+                dataclasses.replace(a, TH=0) for a in axes))
+            variants = {
+                "K5 premixed": ([premix_time(t, rp[0, 7]) for t in lines],
+                                spec0, rp),
+                "K5 TH=12": (lines, spec, rp),
+                "K5 TH=12 t spread": (lines, spec, rp_spread)}
+        quad_bytes = sum(rows_bytes(q, quad_rows(pack, a.m0, a.m1, a.W,
+                                                 a.H))
+                         for q, a in zip(prep["quads"], axes))
+        for name, (ls, sp, r) in variants.items():
+            check(name, shade_multi(prep["quads"], ls, pack, r, wb, sp),
+                  shade_multi_plain(prep["quads"], ls, pack, r, wb, sp))
+            kernels[name] = (lambda ls=ls, sp=sp, r=r: shade_multi(
+                prep["quads"], ls, pack, r, wb, sp))
+            plains[name] = (lambda ls=ls, sp=sp, r=r: shade_multi_plain(
+                prep["quads"], ls, pack, r, wb, sp))
+            bounds[name] = sh_bound(
+                f"{tag} {name}", nbytes(pack, *ls) + out_bytes + quad_bytes
+                + ray_bytes(r, rgb_colour, not static),
+                lambda f, sp=sp: [(valid * multi_ops(
+                    sp.axes, lambda C: 8 * C + 10, rgb_colour, fold=f)
+                    + N * COMPOSITE_OPS, F32_OPS_PER_S)], k)
+
+    # the kernels timed in turns, 20 calls each time; each plain version
+    # twice
+    turns = {name: [] for name in kernels}
+    for name in list(kernels) + list(kernels)[::-1]:
+        turns[name].append(cuda_ms(torch, kernels[name], 20))
+    ms = {name: sum(ts) / 2 for name, ts in turns.items()}
+    plain_ms = {name: cuda_ms(torch, fn, 2) for name, fn in plains.items()}
+    print(f"# {tag} chunk ({card}): " + "; ".join(
+        f"{name} {ms[name]:.4f} ms (" + ", ".join(
+            f"{t:.4f}" for t in turns[name]) + f"; plain "
+        f"{plain_ms[name]:.3f}, bound {bounds[name][0]:.4f} "
+        f"{bounds[name][1]}, share {100 * bounds[name][0] / ms[name]:.1f} "
+        "%)" for name in kernels), flush=True)
+    del kernels, plains
+    torch.cuda.empty_cache()
+
+    # ---- the bench frame through model.apply
+    def render(m, fr, rkw):
+        return [m.apply(params, fr[i], ctx, rkw) for i in range(fr.shape[0])]
+
+    n_chunks = frames.shape[0]
+    kern = "shade" if cf.dyn1 else "shade_multi"
+    rk = {"cf_prepared": prep, "uniform_time": True}
+    # name: (env variable and value, model, frames, render_kwargs, launches
+    # per frame, R of the phase-major rays)
+    routes = {f"{tag} quad": (("HYPERREEL_FUSED_PATCH", "1"), model,
+                              frames, rk, {kern: n_chunks}, None)}
+    if family == "n3d":
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        frame_t = frames.clone()
+        frame_t[..., 7] = torch.rand(frames.shape[:2], device=dev,
+                                     generator=gen)
+        routes[f"{tag} quad, t per ray"] = (
+            ("HYPERREEL_FUSED_PATCH", "1"), model, frame_t,
+            {"cf_prepared": prep}, {kern: n_chunks}, None)
+    if model8 is not None:
+        rk8 = {"cf_prepared": prep8, "uniform_time": True,
+               "rays_phase_major": True}
+        routes[f"{tag} fused patch"] = (
+            ("HYPERREEL_FUSED_PATCH", "1"), model8, frame_pm, rk8,
+            {"shade_patch": n_chunks}, PATCH_R8[2])
+        routes[f"{tag} two-kernel patch"] = (
+            ("HYPERREEL_FUSED_PATCH", "0"), model8, frame_pm, rk8,
+            {"patch_blend": n_chunks, "shade_preblended": n_chunks},
+            PATCH_R8[2])
+    counts, rgb_quad = {}, None
+    for name, (env, m, fr, rkw, kn, R) in routes.items():
+        with EnvVar(*env):
+            reset_counts()
+            outs = render(m, fr, rkw)
+            torch.cuda.synchronize()
+            got = read_counts()
+        want = dict.fromkeys(got, 0)
+        want.update(pack_build=n_chunks, **kn)
+        counts[name] = got
+        rgb = torch.cat([scanline(o["rgb"], R) if R else o["rgb"]
+                         for o in outs])
+        if not (torch.isfinite(rgb).all() and rgb.min() >= 0
+                and rgb.max() <= 1 and rgb.shape == (SIDE * SIDE, 3)):
+            raise AssertionError(f"{name}: frame rgb is not finite in [0, 1]")
+        if got != want:
+            raise AssertionError(f"{name}: kernel launches {got}, want {want}")
+        if R is None:
+            if rgb_quad is None:
+                rgb_quad = rgb
+            print(f"# frame {SIDE}x{SIDE} ({name}): rgb min "
+                  f"{rgb.min().item():.4f} max {rgb.max().item():.4f} mean "
+                  f"{rgb.mean().item():.4f}; launches {got}", flush=True)
+            continue
+        pviol = max(float(o["patch_coverage_viol"]) for o in outs)
+        err = (rgb - rgb_quad).abs().max().item()
+        print(f"# frame ({name}, phase-major rays): launches {got}; coverage "
+              f"witness {pviol:.3e} (gate {PVIOL_EXACT}); rgb vs the quad "
+              f"route's frame {err:.3e} (tol {PATH_TOL})", flush=True)
+        if pviol <= PVIOL_EXACT and not err <= PATH_TOL:
+            raise AssertionError(f"{name}: witness {pviol}, rgb error {err}")
+
+    if family == "flagship" and stage == "compact":
+        # fused vs general path under the f32 MLP policy (the general chain
+        # and the general colour net) on the time plane rounded to bf16
+        # (which the general net reads at table precision, the fused route
+        # in f32), on entry()'s rays and on rays with their origins among
+        # the z-planes (half their kept samples at the far sentinel), over
+        # the rays without a sample within FACE_ULPS of an aabb face in K1's
+        # pack
+        import copy
+        cfg_g = copy.deepcopy(cfg)
+        cfg_g["color"]["net"].update(fused_render_cf=False,
+                                     fused_render=False)
+        fused_m, _ = sample_count_model(cfg, info, stage, k, params0,
+                                        bf16=False)
+        general = build_model(with_compact_samples(cfg_g, k),
+                              dataset_info=info)
+        rays = torch.from_numpy(entry_rays(4096)).to(dev)
+        inner = rays.clone()
+        inner[:, 2] = 0.5
+        errs_path = []
+        pb = bf16_second_factors(torch, params)
+        fcf = fused_m._cf_eval
+        ftabs = fcf.prepare(pb)["mlp"]
+        for r in (rays, inner):
+            a = fused_m.apply(pb, r, ctx)["rgb"]
+            b = general.apply(pb, r, ctx)["rgb"]
+            fpack = pack_build(fcf.pred.net_input(r, ctx).float()
+                               .contiguous(), ftabs, fcf.ray_pack(r),
+                               fcf.spec, IT)
+            keep = ~near_face(torch, fpack, k)
+            errs_path.append(((a - b).abs()[keep].max().item(),
+                              int((~keep).sum()),
+                              (fpack[3] == FAR_SENTINEL).float().mean()
+                              .item()))
+        print(f"# {tag} fused vs general, f32 MLP: 4096 entry() rays max "
+              f"|diff| {errs_path[0][0]:.3e}; with the camera at z = 0.5 "
+              f"{errs_path[1][0]:.3e} ({100 * errs_path[1][2]:.1f} % of the "
+              f"kept samples at the sentinel; {errs_path[0][1]} / "
+              f"{errs_path[1][1]} rays near a face left out) (tol "
+              f"{PATH_TOL})", flush=True)
+        if not max(e[0] for e in errs_path) <= PATH_TOL:
+            raise AssertionError(f"{tag} fused and general paths disagree: "
+                                 f"{errs_path}")
+        del fused_m, general, pb
+
+    # ---- frame times in turns, with the family's full-S quad route
+    full = build_model(cfg, dataset_info=info,
+                       compute_dtype=torch.bfloat16)
+    full_prep = full.prepare_eval(params0)
+    timed = dict(routes)
+    timed[f"{family} quad, S={S}, beside {tag}"] = (
+        ("HYPERREEL_FUSED_PATCH", "1"), full, frames,
+        {"cf_prepared": full_prep, "uniform_time": True}, None, None)
+    names = list(timed)
+    times = {name: [] for name in names}
+    for name in names + names[::-1]:
+        env, m, fr, rkw = timed[name][:4]
+        p = params0 if m is full else params
+        with EnvVar(*env):
+            times[name].append(cuda_ms(torch, lambda: [
+                m.apply(p, fr[i], ctx, rkw) for i in range(fr.shape[0])],
+                COUNT_TIMED_FRAMES))
+    frame_ms = {}
+    for name, ts in times.items():
+        frame_ms[name] = sum(ts) / len(ts)
+        print(f"# {card}: {name} route {frame_ms[name]:.3f} ms/frame, "
+              f"{SIDE * SIDE / frame_ms[name] / 1e3:.3f} Mrays/s "
+              f"({COUNT_TIMED_FRAMES} frames after a warm-up frame, twice: "
+              + ", ".join(f"{t:.3f}" for t in ts) + ")", flush=True)
+    del full, full_prep, pack, model, prep, model8, prep8
+    torch.cuda.empty_cache()
+
+    src = "hyperreel_tpu/ops/pallas/"
+    quad = f"{tag} quad"
+    rec = [("pack_build", "pack_build.cuh", "pack_build.py:137", quad,
+            "pack_build", "K1")]
+    if cf.dyn1:
+        rec.append(("shade", "shade.cu", "shade.py:238", quad, "shade",
+                    "K2"))
+        if stage == "compact":
+            rec += [("shade_patch", "shade_patch.cu", "shade.py:282",
+                     f"{tag} fused patch", "shade_patch", "K3"),
+                    ("patch_blend", "patch_blend.cu", "patch_blend.py:51",
+                     f"{tag} two-kernel patch", "patch_blend", "K4"),
+                    ("shade_preblended", "shade.cu", "shade.py:259",
+                     f"{tag} two-kernel patch", "shade_preblended",
+                     "K2-pre")]
+    elif static:
+        rec.append(("shade_multi_rgb", "shade_multi.cu", "shade.py:742",
+                    quad, "shade_multi", "K5"))
+    else:
+        rec += [("shade_multi_premixed", "shade_multi.cu", "shade.py:742",
+                 quad, "shade_multi", "K5 premixed"),
+                ("shade_multi_time_planes", "shade_multi.cu",
+                 "shade.py:742", f"{tag} quad, t per ray", "shade_multi",
+                 "K5 TH=12")]
+    return [entry(f"{name}_{tag}", source, src + line, counts[route][fn],
+                  errs[key], ms[key], plain_ms[key], bounds[key])
+            for name, source, line, route, fn, key in rec], frame_ms
+
+
 def patch_model(cfg, info, params, shape):
     """The flagship with the coherent patch-gather route (px, py, R) on the
     same weights: (model, prepared tables)."""
@@ -2482,6 +2984,29 @@ def main():
     own_entries, own_frame_ms = flagship_own_phase(
         torch, dev, gpu, cfg, info, params, frame, reset_counts, read_counts)
     frame_ms.update(own_frame_ms)
+    torch.cuda.empty_cache()
+
+    # ---- 44-53. the render-time sample counts (compaction, the stride)
+    count_entries, base = [], None
+    for family, stage, k in SAMPLE_COUNTS:
+        if base is None or base[0] != family:
+            base = None
+            torch.cuda.empty_cache()
+            if family == "flagship":
+                base = (family, (cfg, info, params))
+            elif family == "n3d":
+                c, _, p, _ = n3d(dev)
+                base = (family, (c, N3D_INFO, p))
+            else:
+                c, _, p, _ = static_model(dev, family)
+                base = (family, (c, None, p))
+        recs, fms = sample_count_phases(
+            torch, dev, gpu, frame, reset_counts, read_counts, family, stage,
+            k, base[1])
+        count_entries += recs
+        frame_ms.update(fms)
+    del base
+    torch.cuda.empty_cache()
     print("# SH bounds, ms with the basis folded per ray (the least work, "
           "the kernels' line) / by the unfolded count: " + "; ".join(
               f"{name} {new:.4f} / {old:.4f}"
@@ -2512,7 +3037,7 @@ def main():
               "hyperreel_tpu/ops/pallas/composite.py:26", k7_launches,
               k7_err, k7_ms, k7_plain_ms, k7_bound)] + llff_entries
         + n3d_entries + shiny_entries + stanford_entries
-        + primitive_entries + own_entries,
+        + primitive_entries + own_entries + count_entries,
         "frame_ms": frame_ms}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -6,11 +6,11 @@ module paths (`hyperreel_tpu_torch/models/fused_eval.py` <->
 and nothing of `hyperreel_tpu`: the model configs it renders are its own
 copy (`configs/presets.py`).
 
-Covered so far: the flagship (`technicolor_z_plane`) eval render, through
-the plain-torch stage chain (general path) and through the fused path on
-hand-written CUDA kernels: the quad route (`ops/kernels/pack_build.py`,
-`ops/kernels/shade.py`) and the coherent patch-gather route
-(`ops/kernels/shade_patch.py`, or `ops/kernels/patch_blend.py` then the
-pre-blended shade); and the standalone composite
-(`ops/kernels/composite.py`).
+It covers the eval render (training is not ported): every model of
+README.md's port section (the z-plane families on the fused path, the
+non-planar primitive presets through the general chain and their colour
+nets' own fused routes), with the render-time sample counts, on
+hand-written CUDA kernels for each of the JAX package's seven Pallas
+kernels (`ops/kernels/`, sources in `csrc/`) beside their plain PyTorch
+versions. README.md and ROADMAP.md say what is ported and what is not.
 """

@@ -768,6 +768,57 @@ def with_coherent_gather(cfg, px=4, py=3, block=4):
     return cfg
 
 
+def with_compact_samples(cfg, n, always=False):
+    """Render-time sample compaction: the intersect sorts invalid samples
+    to the far end (`invalid_sort_far`: a far sentinel distance), and a
+    select_points stage right after it keeps the first n sorted samples,
+    the n nearest valid ones, so that every per-sample cost after it
+    scales with n instead of z_channels. `always=True` also slices in
+    training. Returns a new config."""
+    cfg = copy.deepcopy(cfg)
+    emb = cfg["embedding"]["embeddings"]
+    out = {}
+    for name in emb:
+        out[name] = emb[name]
+        if emb[name].get("type") == "ray_intersect":
+            emb[name]["intersect"]["invalid_sort_far"] = True
+            out["select_points_compact"] = {
+                "type": "select_points",
+                "mode": "first",
+                "inference_samples": int(n),
+                "always_slice": bool(always),
+            }
+    cfg["embedding"]["embeddings"] = out
+    return cfg
+
+
+def with_inference_samples(cfg, n):
+    """Insert a select_points stage (the reference's inference-time sample
+    count, nlf/embedding/point.py:402-480) right before the chain's
+    add_point_outputs / extract_fields stage: at eval every per-sample
+    field keeps every (z_channels // n)-th sample; training is unchanged.
+    Returns a new config."""
+    cfg = copy.deepcopy(cfg)
+    emb = cfg["embedding"]["embeddings"]
+    out = {}
+    inserted = False
+    names = list(emb.keys())
+    for i, name in enumerate(names):
+        out[name] = emb[name]
+        nxt = names[i + 1] if i + 1 < len(names) else None
+        if not inserted and (
+                nxt is None
+                or emb.get(nxt, {}).get("type") in (
+                    "add_point_outputs", "extract_fields")):
+            out["select_points_inference"] = {
+                "type": "select_points",
+                "inference_samples": int(n),
+            }
+            inserted = True
+    cfg["embedding"]["embeddings"] = out
+    return cfg
+
+
 def tiny_static(z_channels=8, grid=32):
     """Miniature static config for tests/smoke training (no reference
     analog; shapes chosen for fast CPU jit). bf16 gather tables are off so

@@ -10,6 +10,14 @@ bool sample_count_ok(int S) {
   return S == 8 || S == 16 || S == 32 || S == 64;
 }
 
+// k of the S samples: the first k (stride 1), or every stride-th with k *
+// stride = S, the stride a power of two
+bool samples_kept_ok(const PackParams& p) {
+  return p.k >= 1 && p.k <= p.S && p.stride >= 1 &&
+         (p.stride & (p.stride - 1)) == 0 &&
+         (p.stride == 1 || p.k * p.stride == p.S);
+}
+
 bool fields_ok(const PackParams& p) {
   const int need[] = {F_Z, F_SIGMA, F_PSIG, F_POFF, F_CS, F_CSH};
   for (int f : need) {
@@ -94,7 +102,9 @@ K1Plan plan_wgmma(const PackParams& p) {
 // The launch plan for p's widths; R = 0 where p is not a layout the
 // kernels take or nothing fits
 K1Plan plan(const PackParams& p) {
-  if (!sample_count_ok(p.S) || !fields_ok(p)) return K1Plan{};
+  if (!sample_count_ok(p.S) || !samples_kept_ok(p) || !fields_ok(p)) {
+    return K1Plan{};
+  }
   return p.bf16 ? plan_wgmma(p) : plan_f32(p);
 }
 

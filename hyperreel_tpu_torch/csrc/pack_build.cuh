@@ -70,6 +70,18 @@
 //   width is a compile-time accumulator size, so dropping them would need
 //   a second instantiation of the kernel per sample count, and the build
 //   time with it.
+// - The render-time sample counts (first-k compaction with the far
+//   sentinel, the positional stride; PackParams k, stride, far) are run-time
+//   parameters of the tail, not template instances: the MLP still computes
+//   all S x P columns and the sort runs over all S distances (the far
+//   sentinel sorts an invalid sample last); the point and colour strips
+//   skip the samples the pack does not keep (kept_sample): sample s = j *
+//   stride goes to column j. The sort carries no payload, so the kept
+//   sorted position s pairs with prediction row s, as in the JAX kernel.
+//   Those strips are compiled twice, for all S kept (the full routes'
+//   code: one 8-byte store per two samples) and for k < S, and a uniform
+//   branch on k picks one per strip. The second copy costs the full
+//   routes' K1 1.4-2.2 %; one copy for both cost them 5-8 % (PERF.md).
 // The f32-policy kernel (pack_build_f32, the 1e-5 check against the plain
 // version) runs its layers as plain f32 FMAs over operand buffers in shared
 // memory, 64 rays per block, and its last layer through the same strip
@@ -143,6 +155,13 @@ struct PackParams {
   int n_strips;
   int strip_fc[kMaxStrips][kStripChannels];
   int strip_s[kMaxStrips][2];
+  // the samples the pack keeps (hyperreel_tpu/ops/pallas/pack_build.py
+  // :161-175, :198-207): k of the S, sorted position and prediction row
+  // s = j * stride for j < k (stride 1: first-k compaction, or all S when
+  // k = S); `far` is the distance of an invalid sample before the sort (0,
+  // or the far sentinel 1e9 of invalid_sort_far chains)
+  int k, stride;
+  float far;
 };
 
 
@@ -328,7 +347,7 @@ __device__ __forceinline__ void contract_rows(float* v, const PackParams& p) {
 
 struct Tail {
   const float* rays;   // [B, 8]
-  float* pack;         // [10, B * S]
+  float* pack;         // [10, B * k]
   float* D;            // [64, S + 8]: the distances, then sorted
   float* PF;           // [64, S + 8]: the offsets' factor 1 - point sigma
   int64_t ray0;        // the warpgroup's first ray
@@ -371,6 +390,10 @@ __device__ __forceinline__ const float* ray_row(const PackParams& p,
   return rays + (ray < p.B ? ray : (int64_t)p.B - 1) * 8;
 }
 
+__device__ __forceinline__ void store2(float* q, float a, float b) {
+  *reinterpret_cast<float2*>(q) = make_float2(a, b);
+}
+
 // z processing (intersect.py z_plane): act(z) * (1 - sigma), the anchors,
 // the contraction's inverse, and the distance along the ray
 __device__ __forceinline__ float sample_dist(const PackParams& p, float zf,
@@ -385,15 +408,38 @@ __device__ __forceinline__ float sample_dist(const PackParams& p, float zf,
   return dist <= 0.0f ? 0.0f : dist;
 }
 
+// The pack column of sample s (its sorted position and prediction row)
+// within its ray's k, or -1 where the pack does not keep it; the stride is
+// a power of two (pack_build.cu samples_kept_ok). kAll: the pack keeps all
+// S samples, column s.
+template <bool kAll>
+__device__ __forceinline__ int kept_sample(const PackParams& p, int s) {
+  if constexpr (kAll) return s;
+  const int j = s >> (__ffs(p.stride) - 1);
+  return (s & (p.stride - 1)) == 0 && j < p.k ? j : -1;
+}
+
+// pack row `row` of samples s0 and s0 + 1 of `ray` (columns j[0], j[1]; -1
+// where not kept): one 8-byte store where the pack keeps every sample
+template <int S, bool kAll>
+__device__ __forceinline__ void store_kept(const PackParams& p, float* pack,
+                                           int row, int64_t ray, int s0,
+                                           const int (&j)[2], float a,
+                                           float b) {
+  if constexpr (kAll) {
+    store2(pack + row * ((int64_t)p.B * S) + ray * S + s0, a, b);
+  } else {
+    float* q = pack + row * ((int64_t)p.B * p.k) + ray * p.k;
+    if (j[0] >= 0) q[j[0]] = a;
+    if (j[1] >= 0) q[j[1]] = b;
+  }
+}
+
 // A compiler barrier between the iterations of an unrolled loop over a
 // strip's accumulators: without it the compiler hoists every iteration's
 // loads ahead, and with a layer's accumulators live that spills
 __device__ __forceinline__ void bound_live() {
   asm volatile("" ::: "memory");
-}
-
-__device__ __forceinline__ void store2(float* q, float a, float b) {
-  *reinterpret_cast<float2*>(q) = make_float2(a, b);
 }
 
 // strip 0 (z, sigma) -> the unsorted distances in D
@@ -503,9 +549,13 @@ __device__ __forceinline__ void ray_od(const PackParams& p, const float* ray,
 }
 
 // D -> the sort over each ray's samples, the sorted distances back into D.
-// A warp segment per ray; rows past B sort the last ray's distances.
+// A warp segment per ray; rows past B sort the last ray's distances. With
+// the far sentinel (p.far > 0) an invalid sample's distance, 0 in D (a
+// valid one is > 0), becomes p.far before the sort, which then puts it
+// last.
 template <int S>
-__device__ __forceinline__ void sort_rays(const Tail& T) {
+__device__ __forceinline__ void sort_rays(const PackParams& p,
+                                          const Tail& T) {
   constexpr int RF = kRowF<S>;
   constexpr int SPL = S > 32 ? 2 : 1;
   constexpr int LANES = S / SPL;
@@ -517,6 +567,10 @@ __device__ __forceinline__ void sort_rays(const Tail& T) {
     float dist[SPL];
 #pragma unroll
     for (int j = 0; j < SPL; ++j) dist[j] = row[j];
+    if (p.far > 0.0f) {
+#pragma unroll
+      for (int j = 0; j < SPL; ++j) dist[j] = dist[j] == 0.0f ? p.far : dist[j];
+    }
     bitonic<S>(dist, l);
 #pragma unroll
     for (int j = 0; j < SPL; ++j) row[j] = dist[j];
@@ -551,15 +605,17 @@ __device__ __forceinline__ void strip_psig(const PackParams& p,
 // of all S < 16) -> pack rows 0-3: per sample the base point and distance
 // from the sorted distance (contracted where the chain contracts), then
 // per coordinate + flow * dt (chains with a flow stage), + offset * (1 -
-// point sigma), the aabb normalisation; the fields in prediction order
-template <int S, int W>
+// point sigma), the aabb normalisation; the fields in prediction order.
+// Only the samples the pack keeps (kept_sample): sample s pairs sorted
+// position s with prediction row s, as the JAX kernel's first-k and
+// positional stride selections do
+template <int S, int W, bool kAll>
 __device__ __forceinline__ void strip_point(const PackParams& p,
                                             const float (&acc)[W / 2], int g,
                                             const Tail& T) {
   constexpr int RF = kRowF<S>;
   constexpr int G = point_group(S);
   constexpr int GB = G / 8;   // a channel's 8-column blocks
-  const int64_t N = (int64_t)p.B * S;
   const bool flow = p.foff[F_FLOW] >= 0;
   const int lane = T.wtid % 32, t = lane % 4;
   const int r0 = 16 * (T.wtid / 32) + lane / 4;
@@ -574,9 +630,12 @@ __device__ __forceinline__ void strip_point(const PackParams& p,
 #pragma unroll
     for (int i = 0; i < GB; ++i) {
       const int s0 = g * G + 8 * i + 2 * t;
-      float v[4][2];   // pack rows 0-3 of samples s0, s0 + 1
+      const int j[2] = {kept_sample<kAll>(p, s0),
+                        kept_sample<kAll>(p, s0 + 1)};
+      float v[4][2] = {};   // pack rows 0-3 of samples s0, s0 + 1
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
+        if (!kAll && j[e] < 0) continue;
         float base[3], dist = T.D[r * RF + s0 + e];
         base_point(p, o, d, oc, dist, base);
         const float pf = T.PF[r * RF + s0 + e];
@@ -601,7 +660,7 @@ __device__ __forceinline__ void strip_point(const PackParams& p,
       if (ray < p.B) {
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          store2(T.pack + c * N + ray * S + s0, v[c][0], v[c][1]);
+          store_kept<S, kAll>(p, T.pack, c, ray, s0, j, v[c][0], v[c][1]);
         }
       }
       bound_live();
@@ -610,12 +669,11 @@ __device__ __forceinline__ void strip_point(const PackParams& p,
 }
 
 // the colour strips (colour scale, colour shift; a component each) -> pack
-// row `row`
-template <int S, int W>
+// row `row`, the kept samples' prediction rows
+template <int S, int W, bool kAll>
 __device__ __forceinline__ void strip_colour(const PackParams& p,
                                              const float (&acc)[W / 2], int a,
                                              int row, const Tail& T) {
-  const int64_t N = (int64_t)p.B * S;
   const int lane = T.wtid % 32, t = lane % 4;
   const int r0 = 16 * (T.wtid / 32) + lane / 4;
 #pragma unroll
@@ -624,12 +682,15 @@ __device__ __forceinline__ void strip_colour(const PackParams& p,
     if (ray >= p.B) continue;
 #pragma unroll
     for (int i = 0; i < S / 8; ++i) {
+      const int s0 = 8 * i + 2 * t;
+      const int j[2] = {kept_sample<kAll>(p, s0),
+                        kept_sample<kAll>(p, s0 + 1)};
       float v[2];
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         v[e] = apply_act(p.act[a], last_value(p, acc[4 * i + 2 * h + e]));
       }
-      store2(T.pack + row * N + ray * S + 8 * i + 2 * t, v[0], v[1]);
+      store_kept<S, kAll>(p, T.pack, row, ray, s0, j, v[0], v[1]);
       bound_live();
     }
   }
@@ -652,26 +713,38 @@ __device__ __forceinline__ void drain_last_layer(const PackParams& p,
     strip_z<S, WZ>(p, acc, T);
   }
   named_bar(T.bar);
-  sort_rays<S>(T);
+  sort_rays<S>(p, T);
   {
     float acc[WS / 2];
     mma(acc, 1);
     strip_psig<S, WS>(p, acc, T);
   }
   named_bar(T.bar);
+  // the pack keeps all S samples (the code the full routes run), or k of
+  // them; a point strip past the first k under compaction keeps none
+  const bool all = p.k == S;
 #pragma unroll 1
   for (int g = 0; g < NP; ++g) {
     float acc[WP / 2];
     mma(acc, 2 + g);
-    strip_point<S, WP>(p, acc, g, T);
+    if (all) {
+      strip_point<S, WP, true>(p, acc, g, T);
+    } else if (p.stride > 1 || g * point_group(S) < p.k) {
+      strip_point<S, WP, false>(p, acc, g, T);
+    }
   }
 #pragma unroll 1
-  for (int k = 0; k < 6; ++k) {
+  for (int c = 0; c < 6; ++c) {
     // colour scale components 0-2 (pack rows 4-6), then colour shift
     // (rows 7-9), a strip each: the smallest accumulators of the layer
     float acc[WC / 2];
-    mma(acc, 2 + NP + k);
-    strip_colour<S, WC>(p, acc, k < 3 ? A_CS : A_CSH, 4 + k, T);
+    mma(acc, 2 + NP + c);
+    const int a = c < 3 ? A_CS : A_CSH;
+    if (all) {
+      strip_colour<S, WC, true>(p, acc, a, 4 + c, T);
+    } else {
+      strip_colour<S, WC, false>(p, acc, a, 4 + c, T);
+    }
   }
 }
 

@@ -4,8 +4,9 @@ hyperreel_tpu/models/embeddings.py; reference nlf/embedding/).
 Each stage has `.init(gen, device) -> params` and
 `.apply(params, x, ctx, render_kwargs) -> x` over a dict of tensors. The
 ported stages are ray_prediction, ray_intersect, advect_points,
-point_offset, add_point_outputs and extract_fields; any other stage type,
-and per-stage wait/stop gating, raise NotImplementedError.
+point_offset, add_point_outputs, extract_fields and select_points
+(models/embeddings_extra.py, at eval); any other stage type, and
+per-stage wait/stop gating, raise NotImplementedError.
 """
 
 from typing import List
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from hyperreel_tpu_torch.models.activations import get_activation
+from hyperreel_tpu_torch.models.embeddings_extra import SelectPointsEmbedding
 from hyperreel_tpu_torch.models.intersect import build_intersect
 from hyperreel_tpu_torch.models.mlp import build_net
 from hyperreel_tpu_torch.models.pe import get_pe
@@ -290,6 +292,8 @@ def build_embedding_chain(cfg, dataset_info=None, compute_dtype=None):
             stage = AddPointOutputsEmbedding(dict(scfg))
         elif t == "extract_fields":
             stage = ExtractFieldsEmbedding(dict(scfg))
+        elif t == "select_points":
+            stage = SelectPointsEmbedding(dict(scfg))
         else:
             raise NotImplementedError(
                 f"embedding stage {t!r} is not ported "

@@ -46,7 +46,19 @@ premixes the keyframe rows of each time plane for that t on the device
 (a line, so K5/K6 run with TH = 0; otherwise they mix the two keyframe
 rows around each ray's own t), and the call returns the witness
 outputs["uniform_time_viol"] = max |tn - tn[0]|; static nets have no time
-and ignore it. The kernels take S a power of two up to 64 (K2/K3 up to
+and ignore it.
+
+The render-time sample counts (configs/presets.py with_compact_samples,
+with_inference_samples) ride K1: a select_points stage of mode "first"
+right after the intersect (with invalid_sort_far: invalid samples sort
+last behind the far sentinel) keeps the first k sorted samples, one of
+mode "stride" after the point offset every (S/k)-th, and the shade stage
+(premix, patch tiling, witness) then runs at S = k (hyperreel_tpu
+fused_eval.py S_shade, :597). The JAX package sends stride 2 (k = S/2)
+to its XLA tail for the TPU's speed; the port has no such tail and runs
+K1's stride branch at every stride >= 2.
+
+The kernels take S a power of two up to 64 (K2/K3 up to
 32) and the [8, 4, 4] multi-axis layout; on a CUDA tensor anything else
 raises NotImplementedError at the launch, never falling back to the
 plain versions or the general path. Chains that are not the two fused
@@ -62,6 +74,7 @@ import torch
 
 from hyperreel_tpu_torch.models.activations import Activation
 from hyperreel_tpu_torch.models.embeddings import get_base_time
+from hyperreel_tpu_torch.models.intersect import FAR_SENTINEL
 from hyperreel_tpu_torch.models.tensorf import (
     TensorVMKeyframeTime, TensorVMNoSample)
 from hyperreel_tpu_torch.ops.kernels.pack_build import (
@@ -83,24 +96,68 @@ DYN_CHAIN = ["ray_prediction_0", "ray_intersect_0", "flow_0",
 STATIC_CHAIN = [n for n in DYN_CHAIN if n != "flow_0"]
 
 
+def _chains():
+    """Each chain with no sample-count stage, with the compaction stage
+    right after the intersect, or with the stride stage right after the
+    point offset (the positional stride commutes past the elementwise
+    per-sample stages to just after the sort); never both."""
+    out = []
+    for want in (DYN_CHAIN, STATIC_CHAIN):
+        i_po = want.index("point_offset_0") + 1
+        out += [want, want[:2] + ["select_points_compact"] + want[2:],
+                want[:i_po] + ["select_points_inference"] + want[i_po:]]
+    return out
+
+
 def _stages(model):
     return dict(model.embedding.stages)
+
+
+def _is_pow2(k):
+    return bool(k) and k & (k - 1) == 0
+
+
+def _samples_ok(st, S):
+    """The sample-count stages as the fused path takes them (hyperreel_tpu
+    fused_eval.py:83-95, :120-133): compaction of mode "first", k a power
+    of two, after an intersect with invalid_sort_far; a stride of mode
+    "stride", k a power of two dividing S, k < S; and no far sentinel
+    under a scene contraction, which would pull the sentinel's point onto
+    the contraction's radius-2 sphere, inside the aabb. Compaction to k >
+    S keeps every sample and takes the general path here (the JAX fused
+    path would build a pack of k > S samples)."""
+    isect = st["ray_intersect_0"].intersect
+    sel = st.get("select_points_compact")
+    if sel is not None and not (
+            sel.mode == "first" and _is_pow2(sel.inference_samples)
+            and isect.invalid_sort_far
+            and sel.inference_samples <= S):
+        return False
+    sel = st.get("select_points_inference")
+    if sel is not None and not (
+            sel.mode == "stride" and _is_pow2(sel.inference_samples)
+            and sel.inference_samples < S and S % sel.inference_samples == 0):
+        return False
+    return not (isect.invalid_sort_far and isect.contract.name != "identity")
 
 
 def cf_eligible(model):
     """Structural eligibility: the dynamic chain (the technicolor_z_plane
     and neural_3d_z_plane families) or the static chain (the llff_z_plane
     and shiny_z_plane families; not stanford_llff_z_plane, whose intersect
-    masks near/far) (hyperreel_tpu/models/fused_eval.py cf_eligible:45-159,
-    without the compaction and stride stages the port does not have)."""
+    masks near/far), each with or without one sample-count stage
+    (hyperreel_tpu/models/fused_eval.py cf_eligible:45-159)."""
     names = [n for n, _ in model.embedding.stages]
-    if names not in (DYN_CHAIN, STATIC_CHAIN):
+    if names not in _chains():
         return False
     st = _stages(model)
     pred, isect = st["ray_prediction_0"], st["ray_intersect_0"].intersect
     po = st["point_offset_0"]
     net = model.color_net
-    if names == DYN_CHAIN:
+    if not _samples_ok(st, pred.z_channels):
+        return False
+    dynamic = "flow_0" in names
+    if dynamic:
         flow = st["flow_0"]
         chain_ok = (isinstance(net, TensorVMKeyframeTime)
                     and flow.use_spatial_flow
@@ -136,6 +193,13 @@ class FusedCFEval:
         self.net = model.color_net
         self.S = self.pred.z_channels
         self.P = self.pred.preds_per_z
+        # the samples K1 keeps and the shade stage runs at: the first k
+        # (compaction) or every (S/k)-th (stride), else all S
+        sel = st.get("select_points_compact")
+        compact_k = sel.inference_samples if sel is not None else None
+        sel = st.get("select_points_inference")
+        stride_k = sel.inference_samples if sel is not None else None
+        self.k = stride_k or compact_k or self.S
         # one space plane x one time plane (the flagship's K2/K3 routes);
         # otherwise the multi-axis routes (K5/K6), with time planes when
         # the chain is dynamic (hyperreel_tpu _plan_meta `dyn1`)
@@ -183,7 +247,10 @@ class FusedCFEval:
                 np.asarray(self.isect.z_scale, np.float32).reshape(-1),
                 (self.S,)).copy(),
             aabb=np.asarray(self.net.aabb, np.float32),
-            contract=self.isect.contract)
+            contract=self.isect.contract, k=self.k,
+            stride=self.S // stride_k if stride_k else None,
+            far_sentinel=FAR_SENTINEL if self.isect.invalid_sort_far
+            else None)
 
     def ok(self, ctx, render_kwargs):
         """Per-call gate (hyperreel_tpu FusedCFEval.ok)."""
@@ -257,7 +324,7 @@ class FusedCFEval:
     def patch_specs(self, axes, phase_major):
         """One PatchSpec per plane: (W, H, C, coordinate rows m0, m1)."""
         return [PatchSpec(R=self.patch_block, px=self.patch_cfg[0],
-                          py=self.patch_cfg[1], W=W, H=H, C=C, S=self.S,
+                          py=self.patch_cfg[1], W=W, H=H, C=C, S=self.k,
                           phase_major=phase_major, m0=m0, m1=m1)
                 for W, H, C, m0, m1 in axes]
 
@@ -276,7 +343,7 @@ class FusedCFEval:
                              pm)
         if patch:
             outputs["patch_coverage_viol"] = viol.float() / (
-                B // self.patch_block * self.S)
+                B // self.patch_block * self.k)
         rgb = out[:, :3]
         if not self.net.black_bg and self.net.white_bg:
             rgb = rgb + (1.0 - out[:, 3:4])
@@ -302,7 +369,7 @@ class FusedCFEval:
         tn0 = self._uniform_tn(rp, render_kwargs, outputs)
         if tn0 is not None:
             ttab, TH = premix_time(ttab, tn0), 0
-        spec = ShadeSpec(S=self.S, W=W, H=H, TW=TW, TH=TH, C=C, nd=nd,
+        spec = ShadeSpec(S=self.k, W=W, H=H, TW=TW, TH=TH, C=C, nd=nd,
                          deg=self.net.sh_deg,
                          distance_scale=self.net.distance_scale,
                          shading=self.net.shading)
@@ -328,7 +395,7 @@ class FusedCFEval:
         if tn0 is not None:
             lines = [premix_time(t, tn0) for t in lines]
             axes = tuple(dataclasses.replace(a, TH=0) for a in axes)
-        spec = MultiSpec(S=self.S, axes=axes, deg=self.net.sh_deg,
+        spec = MultiSpec(S=self.k, axes=axes, deg=self.net.sh_deg,
                          distance_scale=self.net.distance_scale,
                          shading=self.net.shading)
         if not patch:

@@ -8,8 +8,12 @@ nlf/intersect/primitive.py).
 z values against the anchors (undoing a sample-space contraction), the
 primitive's distances, the near/far mask, the sort, the points and their
 contraction. A primitive supplies its anchors' range and `intersect`.
-Invalid samples keep distance 0 and are masked by the colour net; the
-sort is values-only (the predicted fields stay in prediction order).
+Invalid samples keep distance 0 and are masked by the colour net, or,
+under `invalid_sort_far` (the render-time compaction of
+configs/presets.py with_compact_samples), take the far sentinel
+FAR_SENTINEL, so that the sort puts them last and the valid samples form
+a nearest-first prefix. The sort is values-only (the predicted fields
+stay in prediction order).
 Under `use_dataset_bounds` the anchors and the near default come from the
 dataset's near/far (`_dataset_bounds`, which the embedding chain injects
 from its dataset_info, models/embeddings.py).
@@ -28,9 +32,13 @@ from hyperreel_tpu_torch.ops.intersect_math import (
     intersect_axis_plane, intersect_cylinder, intersect_sphere,
     min_sphere_radius, pluecker_closest_point, safe_norm)
 
-_NOT_PORTED = ("weight_fn", "sort_outputs", "invalid_sort_far", "normalize",
-               "residual_z", "residual_distance", "use_disparity",
-               "use_local_prediction")
+_NOT_PORTED = ("weight_fn", "sort_outputs", "normalize", "residual_z",
+               "residual_distance", "use_disparity", "use_local_prediction")
+
+# the distance of an invalid sample under invalid_sort_far: beyond any
+# scene distance, small enough that f32 math on it stays finite
+# (hyperreel_tpu/models/intersect.py _FAR_SENTINEL)
+FAR_SENTINEL = 1e9
 
 
 def make_anchor_schedule(z_channels, cfg, contract, near=None, far=None):
@@ -104,6 +112,7 @@ class IntersectStage:
                 "a scheduled contraction is not ported (ROADMAP.md: long "
                 "tail)")
         self.activation = get_activation(cfg.get("activation", "identity"))
+        self.invalid_sort_far = bool(cfg.get("invalid_sort_far", False))
         near, far = self.anchor_range() \
             if cfg.get("use_dataset_bounds", False) else (None, None)
         self.samples, self.z_scale, self.initial, self.end = \
@@ -146,7 +155,13 @@ class IntersectStage:
         mask = (dists <= self.near) | (dists >= self.far)
         if ctx.it > self.mask_stop_iters:
             mask = torch.zeros_like(mask)
-        dists = torch.where(mask, torch.zeros_like(dists), dists)
+        # the sentinel stays after the sort: its point lands far outside
+        # the aabb, so the colour net drops it, and the last valid
+        # sample's delta (sentinel - d) saturates its alpha as the
+        # reference's 1e10 last delta does (hyperreel_tpu/models/
+        # intersect.py:228-235)
+        far = FAR_SENTINEL if self.invalid_sort_far and self.sort else 0.0
+        dists = torch.where(mask, torch.full_like(dists, far), dists)
         if self.sort:
             dists = torch.sort(dists, dim=-1).values      # values only
         dists = dists[..., None]

@@ -64,7 +64,9 @@ class PackParams(ctypes.Structure):
         ("slab_rows", ctypes.c_int * PACK_MAX_SLABS),
         ("n_strips", ctypes.c_int),
         ("strip_fc", (ctypes.c_int * PACK_STRIP_CHANNELS) * PACK_MAX_STRIPS),
-        ("strip_s", (ctypes.c_int * 2) * PACK_MAX_STRIPS)]
+        ("strip_s", (ctypes.c_int * 2) * PACK_MAX_STRIPS),
+        ("k", ctypes.c_int), ("stride", ctypes.c_int),
+        ("far", ctypes.c_float)]
 
 
 # csrc/shade_core.cuh kMaxWb: the SH basis over K5's [8, 8, 8] appearance

@@ -25,9 +25,13 @@ the TPU against the 2e-4 gate). Under the f32 policy nothing is rounded.
 The tail, per sample, in order: the field activations; z = act(z)*(1 -
 sigma)*z_scale + anchor, then z = inverse_contract_distance(z) when the
 contraction places the anchors in contracted space; dist = (z - o_z)/d_z
-(d_z guarded at 1e-5, dist <= 0 -> 0); the values-only ascending sort of
-the S distances (the flow, offset and colour fields stay in prediction
-order); p = o + d*dist; under the mipnerf contraction p = contract_rows(p)
+(d_z guarded at 1e-5, dist <= 0 -> 0, or -> the far sentinel 1e9 for a
+chain with invalid_sort_far); the values-only ascending sort of the S
+distances (the flow, offset and colour fields stay in prediction order);
+the k samples the pack keeps (PackSpec.k, .stride: the first k sorted
+distances, or every stride-th, k * stride = S; each with the fields of
+the prediction row at its sorted position: no field is sorted);
+p = o + d*dist; under the mipnerf contraction p = contract_rows(p)
 and dist = |p - contract_rows(o)| (0 where the sorted dist was 0); p +=
 flow*dt (chains with a flow stage); p += offset*(1 - point_sigma); aabb
 normalisation; the pack.
@@ -36,7 +40,8 @@ normalisation; the pack.
   x0       f32 [B, cin], the MLP's encoded input;
   mlp      the MlpTables of `mlp_tables` (built once per checkpoint);
   ray_pack f32 [B, 8]: o xyz, d xyz, dt = t - base_t, tn;
-and returns the pack f32 [PACK_ROWS, B*S]. A CPU tensor goes to
+and returns the pack f32 [PACK_ROWS, B*k] (k = S unless the chain keeps
+fewer). A CPU tensor goes to
 `pack_build_plain`; a CUDA tensor launches the kernel or raises.
 """
 
@@ -48,6 +53,7 @@ import torch
 import torch.nn.functional as F
 
 from hyperreel_tpu_torch.models.activations import LeakyRelu
+from hyperreel_tpu_torch.models.intersect import FAR_SENTINEL
 from hyperreel_tpu_torch.models.mlp import round_to
 from hyperreel_tpu_torch.ops.contract import IdentityContract
 from hyperreel_tpu_torch.ops.kernels import build
@@ -219,6 +225,15 @@ class PackSpec:
           are identity).
     contract: the intersect's ops.contract contraction (identity or
           mipnerf).
+    k, stride: the samples the pack keeps (hyperreel_tpu/ops/pallas/
+          pack_build.py:161-175, :198-207): the first k sorted positions
+          (stride None; k = S, the default, keeps all), or with a stride
+          >= 2, k * stride = S, the positions 0, stride, 2 stride, ...
+          (the reference's inference_samples); each with the fields of
+          the prediction row at that position.
+    far_sentinel: the distance of an invalid sample before the sort (the
+          intersect's invalid_sort_far, models/intersect.py FAR_SENTINEL),
+          None for 0.
     """
     S: int
     P: int
@@ -228,6 +243,9 @@ class PackSpec:
     z_scale: np.ndarray      # [S]
     aabb: np.ndarray         # [2, 3]
     contract: object = IdentityContract()
+    k: Optional[int] = None
+    stride: Optional[int] = None
+    far_sentinel: Optional[float] = None
 
     def __post_init__(self):
         missing = [k for k in FIELDS if k not in self.foff and k != "flow"]
@@ -235,6 +253,17 @@ class PackSpec:
             raise NotImplementedError(
                 f"chain without {missing}: K1 takes the flagship's fields "
                 "(ROADMAP.md: long tail)")
+        if self.k is None:
+            self.k = self.S
+        if not 1 <= self.k <= self.S or (self.stride is not None and (
+                self.stride < 2 or self.k * self.stride != self.S)):
+            raise ValueError(f"keeping k={self.k} of S={self.S} samples "
+                             f"at stride {self.stride}")
+
+    def kept(self):
+        """The kept sorted positions (and prediction rows) of a ray."""
+        return slice(None, None, self.stride) if self.stride \
+            else slice(None, self.k)
 
     def descriptors(self, it):
         return {k: (self.acts[k].descriptor(it) if k in self.acts
@@ -244,6 +273,8 @@ class PackSpec:
         """The kernel's PackParams for B rays at iteration `it`."""
         p = build.PackParams()
         p.B, p.S, p.P = B, self.S, self.P
+        p.k, p.stride = self.k, self.stride or 1
+        p.far = float(self.far_sentinel or 0.0)
         p.cin, p.xcol, p.n_layers = mlp.cin, mlp.xcol, len(mlp.layers)
         p.bf16, p.leaky = int(mlp.compute_dtype is not None), mlp.leaky
         for i, l in enumerate(mlp.layers):
@@ -318,13 +349,15 @@ def tail_plain(mlp_out, ray_pack, spec, it):
     B, S = ray_pack.shape[0], spec.S
     dsc = spec.descriptors(it)
     rows3 = mlp_out[:, :spec.P * S].reshape(B, spec.P, S)
+    keep = spec.kept()
 
-    def field(slot, act, c=0):
-        return _apply_desc(rows3[:, spec.foff[slot] + c], dsc[act])
+    def field(slot, act, c=0, rows=keep):
+        return _apply_desc(rows3[:, spec.foff[slot] + c, rows], dsc[act])
 
     o, d, dt = ray_pack[:, 0:3], ray_pack[:, 3:6], ray_pack[:, 6:7]
-    z = _apply_desc(field("z", "z"), dsc["isect"])
-    z = z * (1.0 - field("sigma", "sigma"))
+    every = slice(None)
+    z = _apply_desc(field("z", "z", rows=every), dsc["isect"])
+    z = z * (1.0 - field("sigma", "sigma", rows=every))
     dev = mlp_out.device
     z = z * torch.as_tensor(spec.z_scale, dtype=torch.float32, device=dev) \
         + torch.as_tensor(spec.samples, dtype=torch.float32, device=dev)
@@ -334,8 +367,9 @@ def tail_plain(mlp_out, ray_pack, spec, it):
     dz = torch.where(d[:, 2:3].abs() < 1e-5,
                      torch.full_like(d[:, 2:3], 1e12), d[:, 2:3])
     dist = (z - o[:, 2:3]) / dz
-    dist = torch.where(dist <= 0.0, torch.zeros_like(dist), dist)
-    dist = torch.sort(dist, dim=-1).values
+    dist = torch.where(dist <= 0.0, torch.full_like(
+        dist, spec.far_sentinel or 0.0), dist)
+    dist = torch.sort(dist, dim=-1).values[:, keep]
 
     base = [o[:, c:c + 1] + d[:, c:c + 1] * dist for c in range(3)]
     if contract.name != "identity":
@@ -360,12 +394,27 @@ def tail_plain(mlp_out, ray_pack, spec, it):
         pts.append((p - float(aabb[0][c])) * float(inv[c]) - 1.0)
     rows = pts + [dist] + [field(slot, slot, c) for slot in ("cs", "csh")
                            for c in range(3)]
-    return torch.stack(rows, 0).reshape(PACK_ROWS, B * S)
+    return torch.stack(rows, 0).reshape(PACK_ROWS, B * spec.k)
 
 
 def pack_build_plain(x0, mlp, ray_pack, spec, it):
     """Plain PyTorch version of the kernel (same inputs and output)."""
     return tail_plain(mlp_plain(x0, mlp), ray_pack, spec, it)
+
+
+def pack_error(pack, ref, far_sentinel=FAR_SENTINEL):
+    """(max |pack - ref| over every element but the points of the samples
+    at the far sentinel, max |pack - ref| / |ref| over those points), for
+    holding K1 against its plain version: a sentinel sample's point lies
+    ~1e8 outside the aabb, where one f32 rounding more or less (a
+    multiply-add that the compiler fuses, the plain version rounding
+    twice) moves it by 8-16, so only its relative error means anything."""
+    far = ref[3] == far_sentinel
+    d = (pack - ref).abs()
+    err = torch.cat([d[:, ~far].flatten(), d[3:, far].flatten()]).max()
+    rel = (d[:3, far] / ref[:3, far].abs()).max().item() if far.any() \
+        else 0.0
+    return err.item(), rel
 
 
 def _check(x0, mlp, ray_pack, spec):
@@ -411,7 +460,7 @@ def pack_build(x0, mlp, ray_pack, spec, it):
             "pack_build kernel: the MLP's widths do not slab (hidden width "
             f"a multiple of {SLAB_K}, at most {SLAB_K} encoded columns)")
     lib = build.load_library().lib
-    pack = torch.empty((PACK_ROWS, B * spec.S), dtype=torch.float32,
+    pack = torch.empty((PACK_ROWS, B * spec.k), dtype=torch.float32,
                        device=x0.device)
     params = spec.params(B, mlp, it)
     with torch.cuda.device(x0.device):

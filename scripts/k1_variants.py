@@ -5,16 +5,25 @@ frame for the flagship and neural_3d_z_plane, the variants in turns
 (CUDA events over 10 launches, twice), with the error against the plain
 version (meaningless for `notail`, whose pack is not computed).
 
-    python3 scripts/k1_variants.py [base] [notail] [nobound_tail] [nobound_all]
+    python3 scripts/k1_variants.py [base] [notail] [nobound_tail] \
+        [nobound_all] [one_tail] [store_only] [colour_once]
 
 Variants: `base` the source as it is; `notail` the last layer's strips
 consumed by a sink instead of the tail (the MLP's time alone);
 `nobound_tail` / `nobound_all` without the compiler barriers (bound_live)
-in the tail's loops / also in the hidden epilogue. Each variant builds
-into build/variants/<name>/ (git-ignored); ctypes keeps the libraries'
-symbols apart.
+in the tail's loops / also in the hidden epilogue; `one_tail` the point
+and colour strips compiled once, for k kept samples (their skip of the
+samples the pack does not keep), where `base` compiles them also for all
+S kept; `store_only` that one copy without the skip: every sample
+computed, only the stores predicated; `colour_once` the colour strips
+compiled once (the skip, and an 8-byte store where all S are kept). Each variant builds into
+build/variants/<name>/ (git-ignored); ctypes keeps the libraries'
+symbols apart. The models timed: the flagship and neural_3d_z_plane, and
+with `--counts` also their render-time sample counts (the flagship with
+with_compact_samples(16), n3d with with_inference_samples(16)).
 """
 
+import re
 import shutil
 import subprocess
 import sys
@@ -43,20 +52,43 @@ __device__ __forceinline__ void sink(const float (&acc)[W / 2], const Tail& T) {
 }
 
 // The last layer, strip by strip"""
-COLOUR = "strip_colour<S, WC>(p, acc, k < 3 ? A_CS : A_CSH, 4 + k, T);"
+POINT = r"strip_point<S, WP, (true|false)>\(p, acc, g, T\);"
+COLOUR = r"strip_colour<S, WC, (true|false)>\(p, acc, a, 4 \+ c, T\);"
 
 
 def notail(t):
     t = t.replace("// The last layer, strip by strip", SINK, 1)
     for a, w in (("strip_z<S, WZ>(p, acc, T);", "WZ"),
-                 ("strip_psig<S, WS>(p, acc, T);", "WS"),
-                 ("strip_point<S, WP>(p, acc, g, T);", "WP"),
-                 (COLOUR, "WC")):
+                 ("strip_psig<S, WS>(p, acc, T);", "WS")):
         assert a in t, a
         t = t.replace(a, f"sink<{w}>(acc, T);")
-    assert "  sort_rays<S>(T);\n" in t
-    t = t.replace("  sort_rays<S>(T);\n", "")
+    for a, w in ((POINT, "WP"), (COLOUR, "WC")):
+        t, n = re.subn(a, f"sink<{w}>(acc, T);", t)
+        assert n == 2, a
+    assert "  sort_rays<S>(p, T);\n" in t
+    t = t.replace("  sort_rays<S>(p, T);\n", "")
     return t
+def one_tail(t):
+    for a in ("strip_point<S, WP, true>", "strip_colour<S, WC, true>"):
+        assert a in t, a
+        t = t.replace(a, a.replace("true", "false"))
+    return t
+def colour_once(t):
+    a = """    if (all) {
+      strip_colour<S, WC, true>(p, acc, a, 4 + c, T);
+    } else {
+      strip_colour<S, WC, false>(p, acc, a, 4 + c, T);
+    }"""
+    assert a in t
+    t = t.replace(a, "    strip_colour<S, WC, false>(p, acc, a, 4 + c, T);")
+    b = "    float* q = pack + row * ((int64_t)p.B * p.k) + ray * p.k;\n"
+    assert b in t
+    return t.replace(b, b + "    if (p.k == S) {\n      store2(q + s0, a, b);\n"
+                     "      return;\n    }\n")
+def store_only(t):
+    a = "        if (!kAll && j[e] < 0) continue;\n"
+    assert a in t
+    return one_tail(t.replace(a, ""))
 def nobound_tail(t):
     i = t.index("// strip 0 (z, sigma)")
     j = t.index("// The last layer, strip by strip")
@@ -68,10 +100,12 @@ def nobound_all(t):
 
 
 VARIANTS = {"base": [], "notail": [notail], "nobound_tail": [nobound_tail],
-            "nobound_all": [nobound_all]}
+            "nobound_all": [nobound_all], "one_tail": [one_tail],
+            "store_only": [store_only], "colour_once": [colour_once]}
 
 def main():
-    names = sys.argv[1:] or list(VARIANTS)
+    counts = "--counts" in sys.argv
+    names = [a for a in sys.argv[1:] if a != "--counts"] or list(VARIANTS)
     if not torch.cuda.is_available():
         raise RuntimeError("k1_variants needs a CUDA card")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -112,9 +146,19 @@ def main():
     build.CSRC, build.BUILD_DIR = csrc0, bdir0
     ctx = StepCtx(it=cs.IT)
     chunk = torch.from_numpy(cs.bench_frame()).to(dev)[0]
-    for mname in ("flagship", "n3d"):
-        made = cs.flagship(dev) if mname == "flagship" else cs.n3d(dev)
+    cases = [("flagship", None), ("n3d", None)]
+    if counts:
+        cases += [("flagship", ("compact", 16)), ("n3d", ("stride", 16))]
+    for base, count in cases:
+        made = cs.flagship(dev) if base == "flagship" else cs.n3d(dev)
         model, params, prep = made[-3:]
+        mname = base
+        if count:
+            info = made[1] if base == "flagship" else cs.N3D_INFO
+            model, params = cs.sample_count_model(made[0], info, *count,
+                                                  params)
+            prep = model.prepare_eval(params)
+            mname = f"{base} {count[0]} {count[1]}"
         cf = model._cf_eval
         x0 = cf.pred.net_input(chunk, ctx).float().contiguous()
         rp = cf.ray_pack(chunk)

@@ -30,7 +30,7 @@ from hyperreel_tpu_torch.ops.kernels import build
 from hyperreel_tpu_torch.ops.kernels.composite import (
     composite, composite_plain)
 from hyperreel_tpu_torch.ops.kernels.pack_build import (
-    mlp_tables, pack_build, pack_build_plain)
+    mlp_tables, pack_build, pack_build_plain, pack_error)
 from hyperreel_tpu_torch.ops.kernels.patch_blend import (
     PatchSpec, patch_blend, patch_blend_plain)
 from hyperreel_tpu_torch.ops.kernels.shade import (
@@ -43,6 +43,9 @@ from hyperreel_tpu_torch.ops.kernels.shade_multi_patch import (
     shade_multi_patch, shade_multi_patch_plain)
 from hyperreel_tpu_torch.ops.kernels.shade_patch import (
     shade_patch, shade_patch_plain)
+from hyperreel_tpu_torch.configs.presets import (
+    with_compact_samples, with_inference_samples)
+from hyperreel_tpu_torch.models.intersect import FAR_SENTINEL
 
 pytestmark = pytest.mark.cuda
 
@@ -1159,3 +1162,202 @@ def test_immersive_own_route_k5_at_s32_on_card(dev):
     assert shade_multi.launches == n + 1
     assert (a - b).abs().max() <= 2e-4
 
+
+
+# ---- the render-time sample counts: K1's compaction (first k, the far
+# sentinel) and positional stride branches, the shade kernels at S = k on
+# packs that carry sentinel distances
+
+
+def _count_model(dev, family, S, stage, k, bf16=False, full=False,
+                 patch=None):
+    """`family` ("flagship": tiny_dynamic, with `full` technicolor_z_plane;
+    "n3d": tiny_neural_3d at the [8, 4, 4] layout, with `full` its 6x256
+    MLP; "shiny": tiny_shiny at [8, 4, 4]) at S samples, with
+    with_compact_samples(k) ("compact") or with_inference_samples(k)
+    ("stride"); density grids redrawn uniform in [0, 2.4 / k)."""
+    if family == "flagship":
+        cfg = technicolor_z_plane(S) if full else tiny_dynamic(S)
+    elif family == "n3d":
+        cfg = tiny_neural_3d(z_channels=S)
+        if full:
+            cfg["embedding"]["embeddings"]["ray_prediction_0"]["net"] = \
+                neural_3d_z_plane()["embedding"]["embeddings"][
+                    "ray_prediction_0"]["net"]
+    else:
+        cfg = tiny_shiny(z_channels=S)
+    cfg = convert_epochs_to_iters(cfg, 4000)
+    cfg["color"]["net"].update(fused_render=True, bf16_tables=True)
+    if family != "flagship":
+        cfg["color"]["net"].update(n_lamb_sigma=[8, 4, 4],
+                                   n_lamb_sh=[8, 4, 4])
+    cfg = (with_compact_samples if stage == "compact"
+           else with_inference_samples)(cfg, k)
+    if patch:
+        cfg = with_coherent_gather(cfg, *patch)
+    model = build_model(cfg, dataset_info={**INFO, **N3D_INFO},
+                        compute_dtype=torch.bfloat16 if bf16 else None)
+    assert model._cf_eval is not None and model._cf_eval.k == k
+    gen = torch.Generator().manual_seed(0)
+    params = model.init(gen, dev)
+    for key, v in params["color"]["density"].items():
+        params["color"]["density"][key] = 2.4 / k * torch.rand(
+            v.shape, generator=gen).to(dev)
+    return model, params
+
+
+def _sentinel_rays(n, dev, seed=0, static=False):
+    """_rays with half the origins among the z-planes (z in [-0.9, 0.9])
+    and one ray in sixteen pointing backwards: samples behind the origin,
+    invalid, take the far sentinel under compaction."""
+    rays = _rays(n, dev, seed)
+    rng = np.random.default_rng(seed + 100)
+    rays[::2, 2] = torch.from_numpy(rng.uniform(
+        -0.9, 0.9, (n + 1) // 2).astype(np.float32)).to(dev)
+    rays[::16, 5] = -1.0
+    return rays[:, :6].contiguous() if static else rays
+
+
+# K1's two branches against pack_build_plain element by element, at the
+# tolerances above (the sentinel samples' points relatively, 1e-6, a few
+# f32 ulps, `pack_error`; their distance equal): compaction at S = 32 (k =
+# 16) and S = 64 (k = 16, the flagship's chain at 64 samples: compaction
+# needs the identity contraction), the stride at S = 32 (stride 4 and 2)
+# and on n3d's chain at S = 64 (flow and the contraction; stride 4, k =
+# 16, where each lane of the sort holds two samples, and stride 2).
+K1_COUNTS = [("flagship", 32, "compact", 16), ("flagship", 64, "compact", 16),
+             ("flagship", 32, "stride", 8), ("flagship", 32, "stride", 16),
+             ("n3d", 64, "stride", 16), ("n3d", 64, "stride", 32)]
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16_full"])
+@pytest.mark.parametrize("family,S,stage,k", K1_COUNTS, ids=[
+    f"{f}_S{S}_{st}{k}" for f, S, st, k in K1_COUNTS])
+@pytest.mark.parametrize("n", [1000, RAGGED_PERSISTENT])
+def test_sample_count_pack_build_matches_plain(dev, family, S, stage, k,
+                                               bf16, n):
+    model, params = _count_model(dev, family, S, stage, k, bf16, full=bf16)
+    cf = model._cf_eval
+    spec = cf.spec
+    assert spec.k == k and (spec.stride == S // k) == (stage == "stride")
+    prep = cf.prepare(params)
+    rays = _sentinel_rays(n, dev, seed=S + k)
+    x0 = cf.pred.net_input(rays, StepCtx(it=20000)).float().contiguous()
+    rp = cf.ray_pack(rays)
+    before = pack_build.launches
+    pack = pack_build(x0, prep["mlp"], rp, spec, 20000)
+    assert pack_build.launches == before + 1
+    pack_p = pack_build_plain(x0, prep["mlp"], rp, spec, 20000)
+    torch.cuda.synchronize()
+    assert pack.shape == pack_p.shape == (10, n * k)
+    assert torch.isfinite(pack).all()
+    # under the bf16 policy a rounding flip that moves a sample across its
+    # ray's origin (dist = 0) makes it valid in one pack and a sentinel in
+    # the other, on at most a few rays in a thousand; the f32 policy runs
+    # the same f32 math, and no sample crosses
+    far = pack[3].reshape(n, k) == FAR_SENTINEL
+    crossed = (far != (pack_p[3].reshape(n, k) == FAR_SENTINEL)).any(1)
+    assert crossed.float().mean() <= (1e-3 if bf16 else 0.0)
+    cols = (~crossed)[:, None].expand(n, k).reshape(-1)
+    err, rel = pack_error(pack[:, cols], pack_p[:, cols])
+    assert err <= (2e-3 if bf16 else 1e-5) and rel <= 1e-6, (err, rel)
+    dist = pack[3].reshape(n, k)
+    assert (dist.diff(dim=1) >= 0).all()
+    if stage == "compact":
+        assert far.any() and (~far).any()
+
+
+# K2, K3, K4 + K2-preblended (the flagship's chain) and K5 (shiny's RGB
+# lines with compaction; n3d's time planes with the stride) at S = k = 8
+# and 16 on the K1 packs of sentinel-bearing rays, phase-major blocks of
+# R = 8: the tolerances above, and no inf or NaN where a sentinel's delta
+# (1e9 - d) saturates its predecessor's alpha.
+SHADE_COUNTS = [("flagship", 16, "compact", 8), ("flagship", 32, "compact", 16),
+                ("flagship", 32, "stride", 8), ("flagship", 32, "stride", 16),
+                ("shiny", 16, "compact", 8), ("shiny", 32, "compact", 16),
+                ("n3d", 64, "stride", 16), ("n3d", 32, "stride", 8)]
+
+
+@pytest.mark.parametrize("family,S,stage,k", SHADE_COUNTS, ids=[
+    f"{f}_S{S}_{st}{k}" for f, S, st, k in SHADE_COUNTS])
+def test_sample_count_shade_kernels_match_plain(dev, family, S, stage, k):
+    model, params = _count_model(dev, family, S, stage, k,
+                                 patch=(5, 2, 8) if family != "n3d"
+                                 else (5, 3, 8))
+    cf = model._cf_eval
+    prep = cf.prepare(params)
+    rays = _frame_rays(40, dev, 8)                  # 1600 rays
+    rays[::3, 2] = 0.5                              # among the z-planes
+    rays = rays[:, :6].contiguous() if family == "shiny" else rays
+    rp = cf.ray_pack(rays)
+    pack = pack_build(cf.pred.net_input(rays, StepCtx(it=20000)).float()
+                      .contiguous(), prep["mlp"], rp, cf.spec, 20000)
+    if stage == "compact":
+        assert (pack[3] == FAR_SENTINEL).any()
+
+    def check(out, ref):
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all() and torch.isfinite(ref).all()
+        assert (out[:, :4] - ref[:, :4]).abs().max() <= 1e-4
+        assert (out[:, 4] - ref[:, 4]).abs().max() <= 1e-3
+
+    if family == "flagship":
+        H, W, TH, TW, C, nd = prep["dims"]
+        spec = ShadeSpec(S=k, W=W, H=H, TW=TW, TH=TH, C=C, nd=nd,
+                         deg=cf.net.sh_deg,
+                         distance_scale=cf.net.distance_scale)
+        args = (pack, rp, prep["ttab"], prep["wb"], spec)
+        check(shade(prep["quad"], *args), shade_plain(prep["quad"], *args))
+        ps, = cf.patch_specs([(W, H, C, 0, 1)], True)
+        assert ps.S == k
+        out, v = shade_patch(prep["patch"], *args, ps)
+        ref, vr = shade_patch_plain(prep["patch"], *args, ps)
+        check(out, ref)
+        assert int(v) == int(vr)
+        feats, v = patch_blend(prep["patch"], pack, ps)
+        feats_p, vr = patch_blend_plain(prep["patch"], pack, ps)
+        assert int(v) == int(vr) and _ulps(feats, feats_p) <= 1.0
+        check(shade_preblended(feats, *args),
+              shade_preblended_plain(feats, *args))
+        return
+    spec = MultiSpec(S=k, axes=prep["axes"], deg=cf.net.sh_deg,
+                     distance_scale=cf.net.distance_scale,
+                     shading=cf.net.shading)
+    args = (prep["lines"], pack, rp, prep["wb"], spec)
+    check(shade_multi(prep["quads"], *args),
+          shade_multi_plain(prep["quads"], *args))
+
+
+# The sample-count routes through model.apply on the card: K1 and the
+# shade kernel once per call, nothing else, and the rgb of the same route
+# on the CPU (the plain versions) at the fused-path gate, over the rays
+# without a sample within FACE_ULPS of an aabb face in either pack.
+@pytest.mark.parametrize("family,S,stage,k,kernel", [
+    ("flagship", 32, "compact", 16, "shade"),
+    ("flagship", 32, "stride", 8, "shade"),
+    ("shiny", 32, "compact", 16, "shade_multi"),
+    ("n3d", 64, "stride", 16, "shade_multi")])
+def test_sample_count_routes_launch_on_card(dev, family, S, stage, k,
+                                            kernel):
+    model, params = _count_model(dev, family, S, stage, k)
+    fns = (pack_build, shade, shade_multi, shade_patch, patch_blend,
+           shade_preblended, shade_multi_preblended, shade_multi_patch)
+    before = {f.__name__: f.launches for f in fns}
+    rays = _sentinel_rays(4096, dev, seed=5, static=family == "shiny")
+    out = model.apply(params, rays, StepCtx(it=20000))
+    got = {f.__name__: f.launches - before[f.__name__] for f in fns}
+    want = dict.fromkeys(got, 0)
+    want.update({"pack_build": 1, kernel: 1})
+    assert got == want
+    plain = model.apply(_to(params, "cpu"), rays.cpu(), StepCtx(it=20000))
+    assert torch.isfinite(out["rgb"]).all()
+    cf = model._cf_eval
+    prep = cf.prepare(params)
+    x0 = cf.pred.net_input(rays, StepCtx(it=20000)).float().contiguous()
+    rp = cf.ray_pack(rays)
+    far = _near_face(pack_build(x0, prep["mlp"], rp, cf.spec, 20000), k) \
+        | _near_face(pack_build_plain(x0, prep["mlp"], rp, cf.spec, 20000),
+                     k)
+    assert far.float().mean() <= 0.01
+    keep = ~far.cpu()
+    assert (out["rgb"].cpu()[keep] - plain["rgb"][keep]).abs().max() <= 2e-4

@@ -41,10 +41,13 @@ def _inputs(S, P, seed):
     return mlp, np.concatenate([o, d, dt, tn], 1)
 
 
-def _jax_pack(jm, mlp, rays, it, mlp_spec=None):
+def _jax_pack(jm, mlp, rays, it, mlp_spec=None, k=None, stride=None,
+              far_sentinel=None):
     """The JAX kernel on the same inputs, as models/fused_eval.py calls
     it on the quad route: `mlp` is the field-major MLP output [B, P*S]
-    (mlp_spec None), or None with the in-kernel MLP's `mlp_spec`."""
+    (mlp_spec None), or None with the in-kernel MLP's `mlp_spec`; k of
+    the S samples kept (the first k, or every stride-th), invalid
+    distances set to far_sentinel (None: 0)."""
     cf = jm._cf_eval
     pred, isect = cf.pred, cf.isect
     S = cf.S
@@ -52,16 +55,17 @@ def _jax_pack(jm, mlp, rays, it, mlp_spec=None):
             for n in cf.field_offsets}
     pack, _ = jax_pack_build(
         None if mlp is None else jnp.asarray(mlp.T), jnp.asarray(rays.T),
-        it, S=S, k=S, tile=128,
+        it, S=S, k=k or S, tile=128,
         samples=np.broadcast_to(np.asarray(isect.samples).reshape(-1), (S,)),
         z_scale=np.broadcast_to(np.asarray(isect.z_scale).reshape(-1), (S,)),
         field_offsets=cf.field_offsets, field_acts=acts,
         isect_act=isect.activation,
         flow_act=cf.flow.spatial_flow_activation, po_act=cf.po.activation,
         has_sigma=True, has_flow=True, po_use_sigma=True,
-        po_sigma_field=cf.po.in_density_field, far_sentinel=None,
+        po_sigma_field=cf.po.in_density_field, far_sentinel=far_sentinel,
         aabb=np.asarray(cf.net.aabb, np.float32),
-        axis_specs=[(1, 1, 0, 1)], emit_idx=False, mlp=mlp_spec)
+        axis_specs=[(1, 1, 0, 1)], emit_idx=False, mlp=mlp_spec,
+        stride=stride)
     return np.array(pack)
 
 

@@ -112,6 +112,23 @@ def test_port_imports_no_jax():
      if P is TP else _bf16_tables(P.tiny_catacaustics_distance())),
     ("tiny_immersive_sphere", lambda P: P.tiny_immersive_sphere() if P is TP
      else _bf16_tables(P.tiny_immersive_sphere())),
+    # the render-time sample-count stages
+    ("flagship_compact16", lambda P: P.with_compact_samples(
+        P.technicolor_z_plane(), 16)),
+    ("flagship_compact_always", lambda P: P.with_compact_samples(
+        P.tiny_dynamic(), 4, always=True)),
+    ("flagship_stride8", lambda P: P.with_inference_samples(
+        P.technicolor_z_plane(), 8)),
+    ("n3d_stride16", lambda P: P.with_inference_samples(
+        P.neural_3d_z_plane(), 16)),
+    ("n3d_compact16", lambda P: P.with_compact_samples(
+        P.neural_3d_z_plane(), 16)),
+    ("shiny_compact16", lambda P: P.with_compact_samples(
+        P.shiny_z_plane(), 16)),
+    ("shiny_stride8", lambda P: P.with_inference_samples(
+        P.shiny_z_plane(), 8)),
+    ("llff_compact_patch", lambda P: P.with_coherent_gather(
+        P.with_compact_samples(P.llff_z_plane(), 16), 5, 2, 8)),
 ])
 def test_presets_equal_the_jax_packages(name, make):
     assert make(TP) == make(JP)
