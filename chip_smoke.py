@@ -152,11 +152,17 @@ no result line):
      kernels at S = k against theirs (K2 at S = 8 and 16; with compaction
      K3, K4 and K2-preblended at R=8 (5, 2) on the phase-major chunk; n3d's
      K5 on the time planes with one t and a t per ray and premixed;
-     shiny's K5 with RGB colour), each timed in turns, with its plain
-     version's time and its bound counting the k samples; the bench frame
-     through model.apply on the quad route (the flagship with compaction
-     also its two patch routes, with their coverage witness; n3d also with
-     a t per ray): finite, in [0, 1], the launches per chunk; the flagship
+     shiny's K5 with RGB colour; for n3d at R=8 (5, 3) and shiny at R=4
+     (4, 3) the multi-axis patch routes' kernels: K4 in one launch over the
+     three planes, K5-preblended on its features and K6, with their
+     witness counts equal), each timed in turns, with its plain version's
+     time and its bound counting the k samples; the bench frame through
+     model.apply on the quad route (the flagship with compaction also its
+     two patch routes; n3d and shiny also their two-kernel and fused patch
+     routes, n3d's two-kernel route also on the time planes without the
+     premix; each patch route's coverage witness <= 1e-4 and its rgb
+     within 2e-4 of the quad route's; n3d's quad route also with a random
+     t per ray): finite, in [0, 1], the launches per chunk; the flagship
      with compaction fused vs general path under the f32 MLP policy (<=
      2e-4); the routes' frame times in turns with the family's full-S quad
      route.
@@ -656,27 +662,8 @@ def static_phases(torch, dev, card, frame, reset_counts, read_counts,
     cf8 = model8._cf_eval
     pspecs = cf8.patch_specs([(a.W, a.H, a.C, a.m0, a.m1) for a in axes],
                              True)
-    flags = torch.zeros(N // R8, dtype=torch.uint8, device=dev)
-    flags_p = flags.clone()
-    feats, k4_ratio, k4_err = [], 0.0, 0.0
-    for ptab, ps in zip(prep8["ptabs"], pspecs):
-        f, vk = patch_blend(ptab, pack_pm, ps, flags)
-        fp, vp = patch_blend_plain(ptab, pack_pm, ps, flags_p)
-        fk, fpl = f.float(), fp.float()
-        ratio = ((fk - fpl).abs() / (bf16_ulp(torch, torch.maximum(
-            fk.abs(), fpl.abs())) + 1e-6)).max().item()
-        print(f"# K4 patch_blend plane ({ps.m0}, {ps.m1}) C={ps.C}: max "
-              f"|kernel - plain| {(fk - fpl).abs().max().item():.3e}, "
-              f"{ratio:.3f} bf16 ulps at most (tol 1); violations {int(vk)} "
-              f"(plain {int(vp)})", flush=True)
-        if not (ratio <= 1.0 and int(vk) == int(vp)):
-            raise AssertionError(f"K4 on plane ({ps.m0}, {ps.m1}) disagrees "
-                                 f"with its plain version: {ratio}")
-        k4_ratio = max(k4_ratio, ratio)
-        k4_err = max(k4_err, (fk - fpl).abs().max().item())
-        feats.append(f)
-        del fp, fk, fpl
-    viol_k4, viol_p = int(flags.sum()), int(flags_p.sum())
+    feats, viol_k4, k4_err = k4_check(torch, family, prep8["ptabs"], pack_pm,
+                                      pspecs)
     pre = shade_multi_preblended(feats, lines, pack_pm, rp_pm, wb, spec)
     pre_p = shade_multi_preblended_plain(feats, lines, pack_pm, rp_pm, wb,
                                          spec)
@@ -692,19 +679,19 @@ def static_phases(torch, dev, card, frame, reset_counts, read_counts,
     print(f"# K5-preblended: max |kernel - plain| {pre_err:.3e} (tol "
           f"{SHADE_TOL}); K6 shade_multi_patch R=8 (5,2): rgb/acc "
           f"{k6_err:.3e}, depth {k6_derr:.3e} (tol {SHADE_TOL}); coverage "
-          f"violations K6 {int(vk)}, plain {int(vp)}, K4 flags {viol_k4} "
-          f"(plain {viol_p}) of {N // R8} slots; K6 vs K5 "
+          f"violations K6 {int(vk)}, plain {int(vp)}, K4 {viol_k4} of "
+          f"{N // R8} slots; K6 vs K5 "
           f"{(fused[:, :4] - quad_pm[:, :4]).abs().max().item():.3e}, "
           f"K4 + K5-pre vs K5 "
           f"{(pre[:, :4] - quad_pm[:, :4]).abs().max().item():.3e}",
           flush=True)
     if not (pre_err <= SHADE_TOL and k6_err <= SHADE_TOL
             and k6_derr <= 10 * SHADE_TOL
-            and int(vk) == int(vp) == viol_k4 == viol_p):
+            and int(vk) == int(vp) == viol_k4):
         raise AssertionError(f"K5-preblended / K6 disagree with their plain "
                              f"versions: {pre_err}, {k6_err}, {k6_derr}, "
-                             f"{int(vk)}, {int(vp)}, {viol_k4}, {viol_p}")
-    del pre_p, fused_p, flags_p
+                             f"{int(vk)}, {int(vp)}, {viol_k4}")
+    del pre_p, fused_p
 
     # the chunk's kernels, timed in turns (K5, K5 scanline, K6, K4 x3,
     # K5-pre, and back), 20 calls each time; then each plain version once
@@ -713,9 +700,7 @@ def static_phases(torch, dev, card, frame, reset_counts, read_counts,
     # gives it (its warps take neighbouring rays). The same rays: the
     # bounds below count the same samples and rows for both orders.
     def blend3():
-        fl = torch.zeros(N // R8, dtype=torch.uint8, device=dev)
-        return [patch_blend(t, pack_pm, ps, fl) for t, ps in
-                zip(prep8["ptabs"], pspecs)]
+        return patch_blend(prep8["ptabs"], pack_pm, pspecs)
 
     kernels = {
         "K5": lambda: shade_multi(prep["quads"], lines, pack_pm, rp_pm, wb,
@@ -768,9 +753,8 @@ def static_phases(torch, dev, card, frame, reset_counts, read_counts,
         prep["quads"], lines, pack_pm, rp_pm, wb, spec), 2)
     k6_plain_ms = cuda_ms(torch, lambda: shade_multi_patch_plain(
         prep8["ptabs"], lines, pack_pm, rp_pm, wb, spec, pspecs), 2)
-    k4_plain_ms = cuda_ms(torch, lambda: [
-        patch_blend_plain(t, pack_pm, ps) for t, ps in
-        zip(prep8["ptabs"], pspecs)], 2)
+    k4_plain_ms = cuda_ms(torch, lambda: patch_blend_plain(
+        prep8["ptabs"], pack_pm, pspecs), 2)
     pre_plain_ms = cuda_ms(torch, lambda: shade_multi_preblended_plain(
         feats, lines, pack_pm, rp_pm, wb, spec), 2)
 
@@ -808,7 +792,7 @@ def static_phases(torch, dev, card, frame, reset_counts, read_counts,
                                          rgb_colour, fold=f)
                     + N * COMPOSITE_OPS, F32_OPS_PER_S)], cf.S)
     k4_bound = bound(
-        nbytes(pack_pm[:4], *feats) + ptab_bytes[1] + 3 * 4,
+        nbytes(pack_pm[:4], *feats) + ptab_bytes[1] + 4,
         [(N * sum(8 * a.C + 22 for a in axes), F32_OPS_PER_S)])
     k1_plan(torch, family, cf, tabs, mlp_ops, k1_ms)
     print(f"# {family} chunk ({card}): K1 {k1_ms:.3f} ms (plain "
@@ -849,13 +833,13 @@ def static_phases(torch, dev, card, frame, reset_counts, read_counts,
         f"{family} fused patch": ("1", model8, frame_pm, rk8,
                              {"shade_multi_patch": n_chunks}, R8),
         f"{family} two-kernel patch": ("0", model8, frame_pm, rk8,
-                                  {"patch_blend": 3 * n_chunks,
+                                  {"patch_blend": n_chunks,
                                    "shade_multi_preblended": n_chunks}, R8),
         f"{family} fused patch R=4 (4,3)": (
             "1", model4, frame_pm4, rk4, {"shade_multi_patch": n_chunks}, R4),
         f"{family} two-kernel patch R=4 (4,3)": (
             "0", model4, frame_pm4, rk4,
-            {"patch_blend": 3 * n_chunks,
+            {"patch_blend": n_chunks,
              "shade_multi_preblended": n_chunks}, R4)}
     counts, rgb_quad = {}, None
     for name, (env, m, frames, rkw, kern, R) in routes.items():
@@ -1139,7 +1123,7 @@ PRIMITIVES = {
     "donerf": ("donerf_sphere",
                {"near": 0.5, "far": 6.0, "depth_range": (0.5, 6.0)}, 0.2,
                0.0)}
-PRIMITIVE_TIMED_FRAMES = 3
+PRIMITIVE_TIMED_FRAMES = 1
 
 
 def bf16_second_factors(torch, params):
@@ -1685,27 +1669,8 @@ def n3d_phases(torch, dev, card, frame, reset_counts, read_counts):
                          .contiguous(), tabs, rp_pm, cf.spec, IT)
     pspecs = model8._cf_eval.patch_specs(
         [(a.W, a.H, a.C, a.m0, a.m1) for a in axes], True)
-    flags = torch.zeros(N // R8, dtype=torch.uint8, device=dev)
-    flags_p = flags.clone()
-    feats, k4_err = [], 0.0
-    for ptab, ps in zip(prep8["ptabs"], pspecs):
-        f, vk = patch_blend(ptab, pack_pm, ps, flags)
-        fp, vp = patch_blend_plain(ptab, pack_pm, ps, flags_p)
-        fk, fpl = f.float(), fp.float()
-        ratio = ((fk - fpl).abs() / (bf16_ulp(torch, torch.maximum(
-            fk.abs(), fpl.abs())) + 1e-6)).max().item()
-        print(f"# n3d K4 patch_blend plane ({ps.m0}, {ps.m1}) C={ps.C}: max "
-              f"|kernel - plain| {(fk - fpl).abs().max().item():.3e}, "
-              f"{ratio:.3f} bf16 ulps at most (tol 1); violations {int(vk)} "
-              f"(plain {int(vp)})", flush=True)
-        if not (ratio <= 1.0 and int(vk) == int(vp)):
-            raise AssertionError(f"n3d K4 on plane ({ps.m0}, {ps.m1}) "
-                                 f"disagrees with its plain version: {ratio}")
-        k4_err = max(k4_err, (fk - fpl).abs().max().item())
-        feats.append(f)
-        del fp, fk, fpl
-    viol_k4, viol_p = int(flags.sum()), int(flags_p.sum())
-    del flags_p
+    feats, viol_k4, k4_err = k4_check(torch, "n3d", prep8["ptabs"], pack_pm,
+                                      pspecs)
     pre = shade_multi_preblended(feats, lines, pack_pm, rp_pm, wb, spec)
     pre_p = shade_multi_preblended_plain(feats, lines, pack_pm, rp_pm, wb,
                                          spec)
@@ -1741,21 +1706,19 @@ def n3d_phases(torch, dev, card, frame, reset_counts, read_counts):
         k6[name] = (err, int(vk))
         del fused, fused_p, quad
     print(f"# n3d K5-preblended TH=12: max |kernel - plain| {pre_err:.3e} "
-          f"(tol {SHADE_TOL}); K4 flags {viol_k4} (plain {viol_p}), K6 R=8 "
+          f"(tol {SHADE_TOL}); violations K4 {viol_k4}, K6 R=8 "
           f"{k6['R=8 (5,3)'][1]}", flush=True)
-    if not (pre_err <= SHADE_TOL and viol_k4 == viol_p
-            == k6["R=8 (5,3)"][1]):
+    if not (pre_err <= SHADE_TOL and viol_k4 == k6["R=8 (5,3)"][1]):
         raise AssertionError(f"n3d K5-preblended / the witness counts "
-                             f"disagree: {pre_err}, {viol_k4}, {viol_p}")
+                             f"disagree: {pre_err}, {viol_k4}, "
+                             f"{k6['R=8 (5,3)'][1]}")
     torch.cuda.empty_cache()
 
     # the chunk's kernels timed in turns (K1, K5 TH=12, K5 premixed, K4
     # x3, K5-pre, K6 R=8, K6 R=4, and back), 20 calls each time; then
     # each plain version twice
     def blend3():
-        fl = torch.zeros(N // R8, dtype=torch.uint8, device=dev)
-        return [patch_blend(t, pack_pm, ps, fl) for t, ps in
-                zip(prep8["ptabs"], pspecs)]
+        return patch_blend(prep8["ptabs"], pack_pm, pspecs)
 
     kernels = {
         "K1": lambda: pack_build(net_in, tabs, rp, cf.spec, IT),
@@ -1787,8 +1750,7 @@ def n3d_phases(torch, dev, card, frame, reset_counts, read_counts):
                                                  rp, wb, spec0),
         "K5 TH=12 t spread": lambda: shade_multi_plain(
             prep["quads"], lines, pack, rp_spread, wb, spec),
-        "K4x3": lambda: [patch_blend_plain(t, pack_pm, ps) for t, ps in
-                         zip(prep8["ptabs"], pspecs)],
+        "K4x3": lambda: patch_blend_plain(prep8["ptabs"], pack_pm, pspecs),
         "K5-pre": lambda: shade_multi_preblended_plain(
             feats, lines, pack_pm, rp_pm, wb, spec),
         "K6 R=8": lambda: shade_multi_patch_plain(
@@ -1827,7 +1789,7 @@ def n3d_phases(torch, dev, card, frame, reset_counts, read_counts):
         lambda f: [(valid_pm * multi_ops(axes, lambda C: C, fold=f)
                     + N * COMPOSITE_OPS, F32_OPS_PER_S)], cf.S)
     bounds["K4x3"] = bound(
-        nbytes(pack_pm[:4], *feats) + 3 * 4 + sum(
+        nbytes(pack_pm[:4], *feats) + 4 + sum(
             rows_bytes(t, patch_rows(pack_pm, ps, True))
             for t, ps in zip(prep8["ptabs"], pspecs)),
         [(N * sum(hat_ops(a.C) for a in axes), F32_OPS_PER_S)])
@@ -1849,7 +1811,7 @@ def n3d_phases(torch, dev, card, frame, reset_counts, read_counts):
         f"rows the chunk reads {quad_bytes / 1e6:.1f} of "
         f"{nbytes(*prep['quads']) / 1e6:.1f} MB", flush=True)
     k1_plan(torch, "n3d", cf, tabs, mlp_ops, ms["K1"])
-    del feats, pre, pack_pm, pack, flags, lines0, rp_spread
+    del feats, pre, pack_pm, pack, lines0, rp_spread
     torch.cuda.empty_cache()
 
     # ---- 16. the bench frame through model.apply on each route, with one
@@ -1862,7 +1824,7 @@ def n3d_phases(torch, dev, card, frame, reset_counts, read_counts):
     n_chunks = frame.shape[0]
     R4 = N3D_PATCH_R4[2]
     frame_pm4 = phase_major(frame, R4).contiguous()
-    two = {"patch_blend": 3 * n_chunks, "shade_multi_preblended": n_chunks}
+    two = {"patch_blend": n_chunks, "shade_multi_preblended": n_chunks}
     fused_k = {"shade_multi_patch": n_chunks}
     # name: (HYPERREEL_FUSED_PATCH_MULTI, model, frame, render_kwargs,
     # launches per frame, R of the phase-major rays)
@@ -2071,7 +2033,10 @@ def sample_count_phases(torch, dev, card, frame, reset_counts, read_counts,
         ShadeSpec, premix_time, shade, shade_plain, shade_preblended,
         shade_preblended_plain)
     from hyperreel_tpu_torch.ops.kernels.shade_multi import (
-        MultiSpec, shade_multi, shade_multi_plain)
+        MultiSpec, shade_multi, shade_multi_plain, shade_multi_preblended,
+        shade_multi_preblended_plain)
+    from hyperreel_tpu_torch.ops.kernels.shade_multi_patch import (
+        shade_multi_patch, shade_multi_patch_plain)
     from hyperreel_tpu_torch.ops.kernels.shade_patch import (
         shade_patch, shade_patch_plain)
 
@@ -2209,33 +2174,23 @@ def sample_count_phases(torch, dev, card, frame, reset_counts, read_counts,
             out, vk = shade_patch(prep8["patch"], *pargs, ps8)
             out_p, vp = shade_patch_plain(prep8["patch"], *pargs, ps8)
             check("K3", out, out_p)
-            feats, fk = patch_blend(prep8["patch"], pack_pm, ps8)
-            feats_p, fp = patch_blend_plain(prep8["patch"], pack_pm, ps8)
-            a, b = feats.float(), feats_p.float()
-            ratio = ((a - b).abs() / (bf16_ulp(torch, torch.maximum(
-                a.abs(), b.abs())) + 1e-6)).max().item()
-            errs["K4"] = (a - b).abs().max().item()
-            print(f"# {tag} K4 patch_blend: max |kernel - plain| "
-                  f"{errs['K4']:.3e}, {ratio:.3f} bf16 ulps at most (tol "
-                  f"1); coverage violations K3 {int(vk)} (plain {int(vp)}), "
-                  f"K4 {int(fk)} (plain {int(fp)}) of {N // R8} slots",
-                  flush=True)
-            if not (ratio <= 1.0 and int(vk) == int(vp) == int(fk)
-                    == int(fp)):
-                raise AssertionError(f"{tag} K3 / K4 disagree with their "
-                                     f"plain versions: {ratio}, {int(vk)}, "
-                                     f"{int(vp)}, {int(fk)}, {int(fp)}")
-            del a, b, feats_p
+            (feats,), fk, errs["K4"] = k4_check(torch, tag, [prep8["patch"]],
+                                                pack_pm, [ps8])
+            print(f"# {tag} coverage violations K3 {int(vk)} (plain "
+                  f"{int(vp)}), K4 {fk} of {N // R8} slots", flush=True)
+            if not int(vk) == int(vp) == fk:
+                raise AssertionError(f"{tag} K3 / K4 witness counts "
+                                     f"disagree: {int(vk)}, {int(vp)}, {fk}")
             check("K2-pre", shade_preblended(feats, *pargs),
                   shade_preblended_plain(feats, *pargs))
             kernels.update({
                 "K3": lambda: shade_patch(prep8["patch"], *pargs, ps8),
-                "K4": lambda: patch_blend(prep8["patch"], pack_pm, ps8),
+                "K4": lambda: patch_blend([prep8["patch"]], pack_pm, [ps8]),
                 "K2-pre": lambda: shade_preblended(feats, *pargs)})
             plains.update({
                 "K3": lambda: shade_patch_plain(prep8["patch"], *pargs, ps8),
-                "K4": lambda: patch_blend_plain(prep8["patch"], pack_pm,
-                                                ps8),
+                "K4": lambda: patch_blend_plain([prep8["patch"]], pack_pm,
+                                                [ps8]),
                 "K2-pre": lambda: shade_preblended_plain(feats, *pargs)})
             valid_pm = valid_count(pack_pm)
             bounds["K3"] = sh_bound(
@@ -2290,6 +2245,65 @@ def sample_count_phases(torch, dev, card, frame, reset_counts, read_counts,
                 lambda f, sp=sp: [(valid * multi_ops(
                     sp.axes, lambda C: 8 * C + 10, rgb_colour, fold=f)
                     + N * COMPOSITE_OPS, F32_OPS_PER_S)], k)
+        # the multi-axis patch routes' kernels at S = k on the chunk in
+        # phase-major order, at the patch that covers the bench frame on
+        # the checkpoint grid (n3d: (5, 3) R=8; shiny: (4, 3) R=4): K4 in
+        # one launch over the three planes, K5-preblended on its features
+        # and K6
+        pshape = N3D_PATCH_R8 if family == "n3d" else PATCH_R4
+        model8, _ = sample_count_model(cfg, info, stage, k, params0,
+                                       patch=pshape)
+        prep8 = model8.prepare_eval(params)
+        frame_pm = phase_major(frames, pshape[2]).contiguous()
+        rp_pm = cf.ray_pack(frame_pm[0])
+        pack_pm = pack_build(cf.pred.net_input(frame_pm[0], ctx).float()
+                             .contiguous(), tabs, rp_pm, cf.spec, IT)
+        pspecs = model8._cf_eval.patch_specs(
+            [(a.W, a.H, a.C, a.m0, a.m1) for a in axes], True)
+        feats, fk, errs["K4x3"] = k4_check(torch, tag, prep8["ptabs"],
+                                           pack_pm, pspecs)
+        pargs = (lines, pack_pm, rp_pm, wb, spec)
+        check("K5-pre", shade_multi_preblended(feats, *pargs),
+              shade_multi_preblended_plain(feats, *pargs))
+        fused, vk = shade_multi_patch(prep8["ptabs"], *pargs, pspecs)
+        fused_p, vp = shade_multi_patch_plain(prep8["ptabs"], *pargs, pspecs)
+        check("K6", fused, fused_p)
+        print(f"# {tag} coverage violations at {pshape}: K4 {fk}, K6 "
+              f"{int(vk)} (plain {int(vp)}) of {N // pshape[2]} slots",
+              flush=True)
+        if not int(vk) == int(vp) == fk:
+            raise AssertionError(f"{tag} K4 / K6 witness counts disagree: "
+                                 f"{fk}, {int(vk)}, {int(vp)}")
+        del fused, fused_p
+        kernels.update({
+            "K4x3": lambda: patch_blend(prep8["ptabs"], pack_pm, pspecs),
+            "K5-pre": lambda: shade_multi_preblended(feats, *pargs),
+            "K6": lambda: shade_multi_patch(prep8["ptabs"], *pargs, pspecs)})
+        plains.update({
+            "K4x3": lambda: patch_blend_plain(prep8["ptabs"], pack_pm,
+                                              pspecs),
+            "K5-pre": lambda: shade_multi_preblended_plain(feats, *pargs),
+            "K6": lambda: shade_multi_patch_plain(prep8["ptabs"], *pargs,
+                                                  pspecs)})
+        valid_pm = valid_count(pack_pm)
+        shared = (nbytes(pack_pm, *lines) + out_bytes
+                  + ray_bytes(rp_pm, rgb_colour, not static))
+        ptab_bytes = [sum(rows_bytes(t, patch_rows(pack_pm, ps, every))
+                          for t, ps in zip(prep8["ptabs"], pspecs))
+                      for every in (False, True)]
+        bounds["K4x3"] = bound(
+            nbytes(pack_pm[:4], *feats) + ptab_bytes[1] + 4,
+            [(N * sum(8 * a.C + 22 for a in axes), F32_OPS_PER_S)])
+        bounds["K5-pre"] = sh_bound(
+            f"{tag} K5-pre", shared + nbytes(*feats),
+            lambda f: [(valid_pm * multi_ops(axes, lambda C: C, rgb_colour,
+                                             fold=f)
+                        + N * COMPOSITE_OPS, F32_OPS_PER_S)], k)
+        bounds["K6"] = sh_bound(
+            f"{tag} K6", shared + ptab_bytes[0] + 4,
+            lambda f: [(valid_pm * multi_ops(axes, lambda C: 8 * C + 22,
+                                             rgb_colour, fold=f)
+                        + N * COMPOSITE_OPS, F32_OPS_PER_S)], k)
 
     # the kernels timed in turns, 20 calls each time; each plain version
     # twice
@@ -2336,7 +2350,26 @@ def sample_count_phases(torch, dev, card, frame, reset_counts, read_counts,
             ("HYPERREEL_FUSED_PATCH", "0"), model8, frame_pm, rk8,
             {"patch_blend": n_chunks, "shade_preblended": n_chunks},
             PATCH_R8[2])
-    counts, rgb_quad = {}, None
+    if model8 is not None and not cf.dyn1:
+        rk8 = {"cf_prepared": prep8, "uniform_time": True,
+               "rays_phase_major": True}
+        two = {"patch_blend": n_chunks, "shade_multi_preblended": n_chunks}
+        R = pshape[2]
+        routes[f"{tag} two-kernel patch"] = (
+            ("HYPERREEL_FUSED_PATCH_MULTI", "0"), model8, frame_pm, rk8, two,
+            R)
+        routes[f"{tag} fused patch"] = (
+            ("HYPERREEL_FUSED_PATCH_MULTI", "1"), model8, frame_pm, rk8,
+            {"shade_multi_patch": n_chunks}, R)
+        if family == "n3d":
+            # K5-preblended on the time planes, mixed per sample at each
+            # ray's t (the frame's, as phase 16 takes it: rays of random
+            # times advect apart and leave their patches), against the
+            # quad route with the planes premixed for that t
+            routes[f"{tag} two-kernel patch, time planes"] = (
+                ("HYPERREEL_FUSED_PATCH_MULTI", "0"), model8, frame_pm,
+                {"cf_prepared": prep8, "rays_phase_major": True}, two, R)
+    counts, rgb_quad = {}, {}
     for name, (env, m, fr, rkw, kn, R) in routes.items():
         with EnvVar(*env):
             reset_counts()
@@ -2353,19 +2386,20 @@ def sample_count_phases(torch, dev, card, frame, reset_counts, read_counts,
             raise AssertionError(f"{name}: frame rgb is not finite in [0, 1]")
         if got != want:
             raise AssertionError(f"{name}: kernel launches {got}, want {want}")
+        # the quad frame with the same times
+        per_ray = name.endswith("t per ray")
         if R is None:
-            if rgb_quad is None:
-                rgb_quad = rgb
+            rgb_quad.setdefault(per_ray, rgb)
             print(f"# frame {SIDE}x{SIDE} ({name}): rgb min "
                   f"{rgb.min().item():.4f} max {rgb.max().item():.4f} mean "
                   f"{rgb.mean().item():.4f}; launches {got}", flush=True)
             continue
         pviol = max(float(o["patch_coverage_viol"]) for o in outs)
-        err = (rgb - rgb_quad).abs().max().item()
+        err = (rgb - rgb_quad[per_ray]).abs().max().item()
         print(f"# frame ({name}, phase-major rays): launches {got}; coverage "
               f"witness {pviol:.3e} (gate {PVIOL_EXACT}); rgb vs the quad "
               f"route's frame {err:.3e} (tol {PATH_TOL})", flush=True)
-        if pviol <= PVIOL_EXACT and not err <= PATH_TOL:
+        if not (pviol <= PVIOL_EXACT and err <= PATH_TOL):
             raise AssertionError(f"{name}: witness {pviol}, rgb error {err}")
 
     if family == "flagship" and stage == "compact":
@@ -2437,7 +2471,7 @@ def sample_count_phases(torch, dev, card, frame, reset_counts, read_counts,
               f"{SIDE * SIDE / frame_ms[name] / 1e3:.3f} Mrays/s "
               f"({COUNT_TIMED_FRAMES} frames after a warm-up frame, twice: "
               + ", ".join(f"{t:.3f}" for t in ts) + ")", flush=True)
-    del full, full_prep, pack, model, prep, model8, prep8
+    del full, full_prep, pack, model, prep, model8, prep8, frame_pm
     torch.cuda.empty_cache()
 
     src = "hyperreel_tpu/ops/pallas/"
@@ -2448,7 +2482,7 @@ def sample_count_phases(torch, dev, card, frame, reset_counts, read_counts,
         rec.append(("shade", "shade.cu", "shade.py:238", quad, "shade",
                     "K2"))
         if stage == "compact":
-            rec += [("shade_patch", "shade_patch.cu", "shade.py:282",
+            rec += [("shade_patch", "shade_patch.cuh", "shade.py:282",
                      f"{tag} fused patch", "shade_patch", "K3"),
                     ("patch_blend", "patch_blend.cu", "patch_blend.py:51",
                      f"{tag} two-kernel patch", "patch_blend", "K4"),
@@ -2464,6 +2498,16 @@ def sample_count_phases(torch, dev, card, frame, reset_counts, read_counts,
                 ("shade_multi_time_planes", "shade_multi.cu",
                  "shade.py:742", f"{tag} quad, t per ray", "shade_multi",
                  "K5 TH=12")]
+    if not cf.dyn1:
+        rec += [("patch_blend_3_planes", "patch_blend.cu",
+                 "patch_blend.py:51", f"{tag} two-kernel patch",
+                 "patch_blend", "K4x3"),
+                ("shade_multi_preblended", "shade_multi.cu", "shade.py:761",
+                 f"{tag} two-kernel patch", "shade_multi_preblended",
+                 "K5-pre"),
+                ("shade_multi_patch", "shade_multi_patch.cu",
+                 "shade.py:786", f"{tag} fused patch", "shade_multi_patch",
+                 "K6")]
     return [entry(f"{name}_{tag}", source, src + line, counts[route][fn],
                   errs[key], ms[key], plain_ms[key], bounds[key])
             for name, source, line, route, fn, key in rec], frame_ms
@@ -2503,6 +2547,35 @@ def bf16_ulp(torch, x):
     """One bf16 ulp of each value (2^(exponent - 7))."""
     return torch.exp2(torch.floor(torch.log2(
         x.abs().clamp_min(2.0 ** -126))) - 7)
+
+
+def k4_check(torch, tag, ptabs, pack, specs):
+    """K4's one launch over the planes of `specs` against its plain
+    version: each plane's features within one bf16 ulp of their value
+    (the same f32 sum in another order, then rounded; 1e-6 where it
+    cancels), the counts of violating slots equal. Returns (the features,
+    the count, the largest |difference|)."""
+    from hyperreel_tpu_torch.ops.kernels.patch_blend import (
+        patch_blend, patch_blend_plain)
+    feats, vk = patch_blend(ptabs, pack, specs)
+    feats_p, vp = patch_blend_plain(ptabs, pack, specs)
+    errs, ratios = [], []
+    for f, fp in zip(feats, feats_p):
+        fk, fpl = f.float(), fp.float()
+        errs.append((fk - fpl).abs().max().item())
+        ratios.append(((fk - fpl).abs() / (bf16_ulp(torch, torch.maximum(
+            fk.abs(), fpl.abs())) + 1e-6)).max().item())
+        del fk, fpl
+    print(f"# {tag} K4 patch_blend, {len(specs)} plane(s) in one launch: "
+          "max |kernel - plain| " + ", ".join(
+              f"({s.m0}, {s.m1}) C={s.C} {e:.3e} ({r:.3f} bf16 ulps)"
+              for s, e, r in zip(specs, errs, ratios))
+          + f" (tol 1 ulp); violations {int(vk)} (plain {int(vp)}) of "
+          f"{pack.shape[1] // specs[0].R} slots", flush=True)
+    if not (max(ratios) <= 1.0 and int(vk) == int(vp)):
+        raise AssertionError(f"{tag} K4 disagrees with its plain version: "
+                             f"{ratios}, {int(vk)} vs {int(vp)}")
+    return feats, int(vk), max(errs)
 
 
 def main():
@@ -2752,14 +2825,9 @@ def main():
                                  f"{int(vp)}")
         k3_err = max(k3_err, err)
 
-    feats, vk = patch_blend(prep8["patch"], pack_pm, ps8)
-    feats_p, vp = patch_blend_plain(prep8["patch"], pack_pm, ps8)
-    fk, fp = feats.float(), feats_p.float()
-    # one bf16 ulp of the value (the same f32 sum in another order, then
-    # rounded), and 1e-6 where the sum cancels to almost nothing
-    f_ratio = ((fk - fp).abs() / (bf16_ulp(torch, torch.maximum(
-        fk.abs(), fp.abs())) + 1e-6)).max().item()
-    k4_err = (fk - fp).abs().max().item()
+    (feats,), _, k4_err = k4_check(torch, "flagship R=8 (5,2)",
+                                   [prep8["patch"]], pack_pm, [ps8])
+    (feats_p,), _ = patch_blend_plain([prep8["patch"]], pack_pm, [ps8])
     pre = shade_preblended(feats, pack_pm, rp_pm, ttab, prep["wb"], spec)
     pre_p = shade_preblended_plain(feats, pack_pm, rp_pm, ttab, prep["wb"],
                                    spec)
@@ -2768,17 +2836,13 @@ def main():
     torch.cuda.synchronize()
     pre_err = (pre[:, :4] - pre_p[:, :4]).abs().max().item()
     chain_err = (pre[:, :4] - chain_p[:, :4]).abs().max().item()
-    print(f"# K4 patch_blend R=8 (5,2): max |kernel - plain| {k4_err:.3e}, "
-          f"{f_ratio:.3f} bf16 ulps at most (tol 1); violations "
-          f"{int(vk)} (plain {int(vp)}); K2-preblended on the same "
-          f"features {pre_err:.3e} (tol {SHADE_TOL}); the chunk through "
-          f"K4 + K2-preblended vs both plain versions {chain_err:.3e} "
-          f"(tol {PATH_TOL})", flush=True)
-    if not (f_ratio <= 1.0 and int(vk) == int(vp) and pre_err <= SHADE_TOL
-            and chain_err <= PATH_TOL):
-        raise AssertionError(f"K4 / K2-preblended disagree with their "
-                             f"plain versions: {f_ratio}, {pre_err}, "
-                             f"{chain_err}")
+    print(f"# K2-preblended on K4's features: max |kernel - plain| "
+          f"{pre_err:.3e} (tol {SHADE_TOL}); the chunk through K4 + "
+          f"K2-preblended vs both plain versions {chain_err:.3e} (tol "
+          f"{PATH_TOL})", flush=True)
+    if not (pre_err <= SHADE_TOL and chain_err <= PATH_TOL):
+        raise AssertionError(f"K2-preblended disagrees with its plain "
+                             f"version: {pre_err}, {chain_err}")
 
     # the RGB colour of K2, K2-preblended and K3 on the same inputs (no
     # ported preset runs them: the dynamic single-axis net is SH), with a
@@ -2819,7 +2883,7 @@ def main():
                             spec),
         "K3": lambda: shade_patch(prep8["patch"], pack_pm, rp_pm, ttab,
                                   prep["wb"], spec, ps8),
-        "K4": lambda: patch_blend(prep8["patch"], pack_pm, ps8),
+        "K4": lambda: patch_blend([prep8["patch"]], pack_pm, [ps8]),
         "K2-pre": lambda: shade_preblended(feats, pack_pm, rp_pm, ttab,
                                            prep["wb"], spec)}
     turns = {name: [] for name in kernels}
@@ -2833,7 +2897,7 @@ def main():
     k3_plain_ms = cuda_ms(torch, lambda: shade_patch_plain(
         prep8["patch"], pack_pm, rp_pm, ttab, prep["wb"], spec, ps8), 2)
     k4_plain_ms = cuda_ms(torch, lambda: patch_blend_plain(
-        prep8["patch"], pack_pm, ps8), 2)
+        [prep8["patch"]], pack_pm, [ps8]), 2)
     pre_plain_ms = cuda_ms(torch, lambda: shade_preblended_plain(
         feats, pack_pm, rp_pm, ttab, prep["wb"], spec), 2)
     valid_pm = valid_count(pack_pm)
@@ -2856,7 +2920,7 @@ def main():
           f"{k4_plain_ms:.3f}, bound {k4_bound[0]:.4f} {k4_bound[1]}), "
           f"K2-preblended {pre_ms:.3f} ms (plain {pre_plain_ms:.3f}, bound "
           f"{pre_bound[0]:.4f} {pre_bound[1]})", flush=True)
-    del feats_p, fk, fp, pre_p, chain_p, out_p, prep4
+    del feats_p, pre_p, chain_p, out_p, prep4
     torch.cuda.empty_cache()
 
     # K7 through its entry point, inputs from a seeded generator
@@ -3025,7 +3089,7 @@ def main():
               "hyperreel_tpu/ops/pallas/shade.py:259",
               route_counts["two-kernel patch"]["shade_preblended"], pre_err,
               pre_ms, pre_plain_ms, pre_bound),
-        entry("shade_patch", "shade_patch.cu",
+        entry("shade_patch", "shade_patch.cuh",
               "hyperreel_tpu/ops/pallas/shade.py:282",
               route_counts["fused patch"]["shade_patch"], k3_err, k3_ms,
               k3_plain_ms, k3_bound),

@@ -1,6 +1,6 @@
 // Device code shared by the kernels of the coherent patch-gather routes:
-// K3 (shade_patch.cu, the blend inside the flagship's shade kernel), K4
-// (patch_blend.cu, the blend alone, on any plane axis) and K6
+// K3 (shade_patch.cuh, the blend inside the flagship's shade kernel), K4
+// (patch_blend.cu, the blend alone, over every plane of a chunk) and K6
 // (shade_multi_patch.cu, the blend of the three plane axes inside the
 // multi-axis shade kernel). Port of hyperreel_tpu/ops/patch_gather.py and
 // the blend of ops/pallas/patch_blend.py:_patch_blend_kernel with
@@ -27,7 +27,17 @@
 // floor(max) - floor(min) > p - 2 (hyperreel_tpu/models/fused_eval.py
 // patch_coverage_viol, the OR over every plane's two coordinates).
 //
-// Thread layout of a CUDA block of kPatchThreads threads, with SPL = 1
+// Two prologues compute the anchors and the witness:
+// - K3 and K4 hold the R rays of a coherent block in R neighbouring lanes
+//   of a warp at each sample slot, so a slot's min, its coverage test and
+//   its OR are __shfl_xor_sync butterflies over those lanes (slot_anchor),
+//   with no barrier; the taps are read from the patch table through L1
+//   (patch_taps).
+// - K6 keeps the block-wide prologue (stage_patches): thread layout below,
+//   anchors through shared memory and each slot's patch rows staged there
+//   behind three barriers.
+//
+// K6's thread layout: a CUDA block of kPatchThreads threads, with SPL = 1
 // sample per lane for S <= 32 and 2 for S = 64 (lanes = S / SPL per ray):
 // G = kPatchThreads / (R*lanes) coherent blocks; thread (jb*R + p)*lanes + l
 // holds samples SPL*l + i (i < SPL) of ray p of coherent block jb, so a ray
@@ -38,9 +48,9 @@
 
 #include "shade_core.cuh"
 
-// global scope: see the note on PackParams in pack_build.cu. K3 and K4 read
-// every field; K6 reads B, S, R, px, py and phase_major (its planes' shapes
-// are in its MultiParams).
+// global scope: see the note on PackParams in pack_build.cu. K3 reads every
+// field; K6 reads B, S, R, px, py and phase_major (its planes' shapes are in
+// its MultiParams). K4 takes its own (patch_blend.cu BlendParams).
 struct PatchParams {
   int B, S, W, H, C, R, px, py, phase_major, m0, m1;
 };
@@ -242,7 +252,8 @@ __device__ __forceinline__ void stage_patches(
   }
 }
 
-// The hat blend of one sample from its slot's patch row (see the top).
+// The hat blend of one sample from its slot's patch row (see the top),
+// staged in shared memory (K6).
 template <int C>
 __device__ __forceinline__ void patch_features(const uint4* row, float u,
                                                float v, int px, int py,
@@ -269,17 +280,104 @@ __device__ __forceinline__ void patch_features(const uint4* row, float u,
   }
 }
 
-// The one plane axis of a K3/K4 launch, from its PatchParams
-__device__ __forceinline__ PatchAxis single_axis(const void* ptab,
-                                                 const PatchParams& q) {
-  return PatchAxis{static_cast<const uint4*>(ptab), q.W, q.H, q.m0, q.m1,
-                   q.px * q.py * q.C / 8};
+// The warp prologue of K3 and K4. At one sample slot the R rays of a
+// coherent block sit in R neighbouring lanes of a warp (lane bits below R;
+// every lane of the warp takes part, the lanes of a dead coherent block
+// too). One coordinate's span over them: the min over every sample (the
+// anchor counts every sample, as the JAX anchors do) and the min and max
+// over the valid samples (the coverage test counts those); `all_valid`
+// (warp-uniform) says that every live lane's sample is valid, so that the
+// min over the valid samples is the min over all.
+struct Span {
+  float mn, lo, hi;
+};
+
+template <int R>
+__device__ __forceinline__ Span span(float x, bool valid, bool all_valid) {
+  const int kLanes = R;
+  const unsigned full = 0xffffffffu;
+  const float inf = __int_as_float(0x7f800000);
+  Span s{x, valid ? x : inf, valid ? x : -inf};
+#pragma unroll
+  for (int o = 1; o < kLanes; o <<= 1) {
+    s.mn = fminf(s.mn, __shfl_xor_sync(full, s.mn, o));
+    s.hi = fmaxf(s.hi, __shfl_xor_sync(full, s.hi, o));
+    if (!all_valid) s.lo = fminf(s.lo, __shfl_xor_sync(full, s.lo, o));
+  }
+  if (all_valid) s.lo = s.mn;
+  return s;
 }
 
-// K3/K4's shared memory (one axis)
-inline size_t single_smem_bytes(const PatchParams& q) {
-  const int vecs = q.px * q.py * q.C / 8;
-  return smem_bytes(&vecs, 1, q.R, samples_per_lane(q.S));
+// The anchor (x0, y0), the patch-table row and the witness of one plane
+// at one slot from its two coordinates' spans. floor(texel(.)) is
+// monotone, so the floors' min and max are the floors of the coordinates'
+// min and max; with no valid sample hi = -inf < lo and nothing violates.
+struct SlotAnchor {
+  float x0, y0;
+  int idx;
+  bool viol;
+};
+
+__device__ __forceinline__ SlotAnchor anchor_of(const Span& x, const Span& y,
+                                                int W, int H, int px,
+                                                int py) {
+  SlotAnchor a;
+  a.viol = x.hi >= x.lo &&
+           (floorf(texel(x.hi, W)) - floorf(texel(x.lo, W)) >
+                (float)(px - 2) ||
+            floorf(texel(y.hi, H)) - floorf(texel(y.lo, H)) >
+                (float)(py - 2));
+  a.x0 = fminf(fmaxf(floorf(texel(x.mn, W)), -1.0f), (float)(W - 1));
+  a.y0 = fminf(fmaxf(floorf(texel(y.mn, H)), -1.0f), (float)(H - 1));
+  a.idx = ((int)a.y0 + 1) * (W + 1) + ((int)a.x0 + 1);
+  return a;
+}
+
+// The hat blend of one sample from its slot's row in the patch table, read
+// through L1 (K3, K4): the terms of patch_features in the same order, with
+// the taps' indices clamped into the row and the weight of a tap outside
+// the patch 0 (an added 0 changes no sum). Skipping those taps by branches,
+// as patch_features does, measured slower in both kernels
+// (scripts/patch_variants.py `skip_taps`: K3 0.437 against 0.416 ms, K4
+// over n3d's three planes 1.24 against 0.82).
+template <int C>
+__device__ __forceinline__ void patch_taps(const uint4* __restrict__ row,
+                                           float u, float v, int px, int py,
+                                           float* feat) {
+  const float fx0 = floorf(u), fy0 = floorf(v);
+  float wx[2], wy[2];
+  int ix[2], iy[2];
+#pragma unroll
+  for (int d = 0; d < 2; ++d) {
+    const float tx = fx0 + (float)d, ty = fy0 + (float)d;
+    const bool inx = tx >= 0.0f && tx <= (float)(px - 1);
+    const bool iny = ty >= 0.0f && ty <= (float)(py - 1);
+    wx[d] = inx ? fmaxf(0.0f, 1.0f - fabsf(u - tx)) : 0.0f;
+    wy[d] = iny ? fmaxf(0.0f, 1.0f - fabsf(v - ty)) : 0.0f;
+    ix[d] = inx ? (int)tx : 0;
+    iy[d] = iny ? (int)ty : 0;
+  }
+#pragma unroll
+  for (int c = 0; c < C; ++c) feat[c] = 0.0f;
+#pragma unroll
+  for (int dy = 0; dy < 2; ++dy) {
+#pragma unroll
+    for (int dx = 0; dx < 2; ++dx) {
+      const float w = wx[dx] * wy[dy];
+      const uint4* tex = row + (iy[dy] * px + ix[dx]) * (C / 8);
+#pragma unroll
+      for (int k = 0; k < C / 8; ++k) {
+        shade_core::axpy_bf16x8(feat + 8 * k, w, __ldg(tex + k));
+      }
+    }
+  }
+}
+
+// A sample's offsets inside its slot's patch, in the JAX kernels' op order:
+// ((x + 1) * 0.5) * (W - 1) - x0, with no fused multiply-add.
+__device__ __forceinline__ float patch_offset(float coord, int size,
+                                              float anchor) {
+  return __fmul_rn((coord + 1.0f) * 0.5f, (float)(size - 1)) - anchor;
 }
 
 }  // namespace patch_core

@@ -1,11 +1,12 @@
-// Device code shared by the shade kernels (K2 shade.cu, K3 shade_patch.cu,
+// Device code shared by the shade kernels (K2 shade.cu, K3 shade_patch.cuh,
 // K5 shade_multi.cu, K6 shade_multi_patch.cu) and the standalone composite
 // (K7 composite.cu): the per-sample shading that follows the space
 // features (time-plane taps and density for K2/K3; for all four the
 // colour, SH of degree 2 or RGB (a template argument, kRgb), with its
-// colour scale/shift) and the per-ray log-space composite over an S-lane
-// segment of a warp (S <= 32), or over a whole warp with two samples per
-// lane (S = 64, K5 and K6).
+// colour scale/shift, or the SH basis folded once per ray for K3 and K5)
+// and the per-ray log-space composite: over an S-lane segment of a warp
+// (S <= 32), over a whole warp with two samples per lane (S = 64, K5-pre
+// and K6), or a running sum per thread over its ray's samples (K3, K5).
 
 #pragma once
 
@@ -181,11 +182,14 @@ __device__ __forceinline__ void rgb_colour(const float* feat, const float* wb,
 }
 
 // The SH-2 basis weights folded with one ray's view direction (x, y, z):
-// M[ch * A + a] = sum_k Y_k wb[(ch * kBasis + k) * A + a], 27 x A FMAs
+// M[ch * A + a] = sum_k Y_k wb[(ch * kBasis + k) * kRow + a], 27 x A FMAs
 // once per ray, so that each sample's colour takes the [3, A] product
 // M @ feat (sh_folded_colour) instead of sh_colour's [3 * kBasis, A] one.
-// The same function as sh_colour up to the order of the sums.
-template <int A>
+// The same function as sh_colour up to the order of the sums. wb's rows
+// hold kRow channels, of which the fold takes the first A (K3 passes wb
+// from its first appearance channel: the density channels' columns are
+// zero).
+template <int A, int kRow = A>
 __device__ __forceinline__ void sh_fold(const float* wb, float x, float y,
                                         float z, float* M) {
   float Y[kBasis];
@@ -197,7 +201,7 @@ __device__ __forceinline__ void sh_fold(const float* wb, float x, float y,
       float m = 0.0f;
 #pragma unroll
       for (int k = 0; k < kBasis; ++k) {
-        m += wb[(ch * kBasis + k) * A + a] * Y[k];
+        m += wb[(ch * kBasis + k) * kRow + a] * Y[k];
       }
       M[ch * A + a] = m;
     }
@@ -256,19 +260,19 @@ __device__ __forceinline__ void colour(const float* feat, const float* wb,
   }
 }
 
-// Everything after the space features of one valid sample: the time
-// features (z taps, then t taps, or z taps on a table premixed for one t,
-// or on a static net's z line, when p.TH == 0), density = relu of the
-// summed density channels (times the sample's weight `wt` with kWeights),
-// and the colour of the products.
+// The time features and density of one valid sample: the z taps, then the
+// t taps, or the z taps on a table premixed for one t, or on a static net's
+// z line, when p.TH == 0; feat <- the space features times the time
+// features; returns density = relu of the summed density channels (times
+// the sample's weight `wt` with kWeights).
 // `feat` holds the C space features and is overwritten; `pk` the sample's
 // 10 pack rows, `ray` its ray pack row (o xyz, d xyz, dt, tn).
-template <int C, bool kRgb, bool kWeights>
-__device__ __forceinline__ void shade_sample(float* feat, const float* pk,
-                                             const float* ray,
-                                             const float* ttab,
-                                             const ShadeParams& p, float wt,
-                                             float& sigma, float* rgb) {
+template <int C, bool kWeights>
+__device__ __forceinline__ float sample_density(float* feat, const float* pk,
+                                                const float* ray,
+                                                const float* ttab,
+                                                const ShadeParams& p,
+                                                float wt) {
   const Taps tz = taps(pk[2], p.TW);
   float ft[C];
   if (p.TH == 0) {
@@ -296,7 +300,18 @@ __device__ __forceinline__ void shade_sample(float* feat, const float* pk,
     feat[c] *= ft[c];
     if (c < p.nd) dsum += feat[c];
   }
-  sigma = fmaxf(kWeights ? dsum * wt : dsum, 0.0f);
+  return fmaxf(kWeights ? dsum * wt : dsum, 0.0f);
+}
+
+// Everything after the space features of one valid sample: its time
+// features and density (sample_density) and the colour of the products.
+template <int C, bool kRgb, bool kWeights>
+__device__ __forceinline__ void shade_sample(float* feat, const float* pk,
+                                             const float* ray,
+                                             const float* ttab,
+                                             const ShadeParams& p, float wt,
+                                             float& sigma, float* rgb) {
+  sigma = sample_density<C, kWeights>(feat, pk, ray, ttab, p, wt);
   colour<C, kRgb>(feat, p.wb, pk, ray, rgb);
 }
 

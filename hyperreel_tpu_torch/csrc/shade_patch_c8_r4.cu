@@ -1,0 +1,6 @@
+// K3 (csrc/shade_patch.cuh) at C = 8, R = 4, compiled apart from the
+// other instantiations so that they build in parallel.
+
+#include "shade_patch.cuh"
+
+K3_DEFINE(8, 4)

@@ -19,9 +19,10 @@ The multi-axis VM nets (three axes: a plane times a line for the static
 net, the llff_z_plane and shiny_z_plane families, a space plane times a
 keyframe time plane for the dynamic one):
   quad   K5 shade_multi reads each sample's three quad-table rows;
-  patch  K4 patch_blend once per plane (bf16 features) then K5
-         shade_multi_preblended (the JAX package's default multi-axis
-         patch route); with HYPERREEL_FUSED_PATCH_MULTI=1, K6
+  patch  K4 patch_blend, one launch for the three planes (bf16
+         features and the witness), then K5 shade_multi_preblended (the
+         JAX package's default multi-axis patch route, one blend per
+         plane there); with HYPERREEL_FUSED_PATCH_MULTI=1, K6
          shade_multi_patch blends the three planes inside the shade
          kernel.
 
@@ -58,9 +59,9 @@ fused_eval.py S_shade, :597). The JAX package sends stride 2 (k = S/2)
 to its XLA tail for the TPU's speed; the port has no such tail and runs
 K1's stride branch at every stride >= 2.
 
-The kernels take S a power of two up to 64 (K2/K3 up to
-32) and the [8, 4, 4] multi-axis layout; on a CUDA tensor anything else
-raises NotImplementedError at the launch, never falling back to the
+The kernels take S a power of two up to 64 (K2/K3 up to 32; K3 and K4
+from 4) and the [8, 4, 4] multi-axis layout; on a CUDA tensor anything
+else raises NotImplementedError at the launch, never falling back to the
 plain versions or the general path. Chains that are not the two fused
 patterns have no fused path and take the general stage chain, as in the
 JAX package.
@@ -382,7 +383,7 @@ class FusedCFEval:
             out, viol = shade_patch(prep["patch"], pack, rp, ttab,
                                     prep["wb"], spec, pspec)
         else:
-            feats, viol = patch_blend(prep["patch"], pack, pspec)
+            (feats,), viol = patch_blend([prep["patch"]], pack, [pspec])
             out = shade_preblended(feats, pack, rp, ttab, prep["wb"], spec)
         return out, viol[0]
 
@@ -407,11 +408,6 @@ class FusedCFEval:
             out, viol = shade_multi_patch(prep["ptabs"], lines, pack, rp,
                                           wb, spec, pspecs)
             return out, viol[0]
-        # one count of the slots that violate on any plane, after the
-        # per-plane blends mark them
-        flags = torch.zeros(pack.shape[1] // self.patch_block,
-                            dtype=torch.uint8, device=pack.device)
-        feats = [patch_blend(t, pack, ps, flags)[0]
-                 for t, ps in zip(prep["ptabs"], pspecs)]
+        feats, viol = patch_blend(prep["ptabs"], pack, pspecs)
         out = shade_multi_preblended(feats, lines, pack, rp, wb, spec)
-        return out, flags.sum()
+        return out, viol[0]

@@ -90,6 +90,22 @@ class PatchParams(ctypes.Structure):
                  "m0", "m1")]
 
 
+PATCH_MAX_AXES = 3
+
+
+class BlendPlane(ctypes.Structure):
+    """Mirror of csrc/patch_blend.cu BlendPlane."""
+    _fields_ = [("ptab", ctypes.c_void_p), ("feats", ctypes.c_void_p)] + [
+        (n, ctypes.c_int) for n in ("W", "H", "C", "m0", "m1")]
+
+
+class BlendParams(ctypes.Structure):
+    """Mirror of csrc/patch_blend.cu BlendParams."""
+    _fields_ = [(n, ctypes.c_int) for n in
+                ("B", "S", "R", "px", "py", "phase_major", "na")] + [
+        ("plane", BlendPlane * PATCH_MAX_AXES)]
+
+
 class MultiAxis(ctypes.Structure):
     """Mirror of csrc/multi_core.cuh MultiAxis."""
     _fields_ = [("table", ctypes.c_void_p), ("line", ctypes.c_void_p)] + [
@@ -189,7 +205,8 @@ def load_library():
             (lib.shade_preblended_launch, [vp, vp, vp, vp, vp, shade_p, vp]),
             (lib.shade_patch_launch,
              [vp, vp, vp, vp, vp, vp, shade_p, patch_p, vp]),
-            (lib.patch_blend_launch, [vp, vp, vp, vp, vp, patch_p, vp]),
+            (lib.patch_blend_launch,
+             [vp, vp, ctypes.POINTER(BlendParams), vp]),
             (lib.shade_multi_launch,
              [vp, vp, vp, multi_p, ctypes.POINTER(ctypes.c_int), vp]),
             (lib.shade_multi_preblended_launch, [vp, vp, vp, multi_p, vp]),
@@ -204,6 +221,7 @@ def load_library():
     for fn, struct in ((lib.pack_params_size, PackParams),
                        (lib.shade_params_size, ShadeParams),
                        (lib.patch_params_size, PatchParams),
+                       (lib.blend_params_size, BlendParams),
                        (lib.multi_params_size, MultiParams)):
         fn.argtypes = []
         fn.restype = ctypes.c_int

@@ -1,18 +1,20 @@
-"""Patch blend (K4): the features of one plane of the coherent patch-gather
-route (ops/patch_gather.py), one bf16 row of C channels per sample, for the
-pre-blended shade kernels (ops/kernels/shade.py `shade_preblended`, the
-flagship's space plane; ops/kernels/shade_multi.py
-`shade_multi_preblended`, each of the multi-axis nets' three planes). The
-plane's coordinates are pack rows (m0, m1) of its PatchSpec: (0, 1) for
-the flagship's space plane, MAT_MODE of the multi-axis net's axis
-otherwise.
+"""Patch blend (K4): the features of every plane of the coherent
+patch-gather route (ops/patch_gather.py) in one launch per chunk, one bf16
+row of C channels per sample and plane, for the pre-blended shade kernels
+(ops/kernels/shade.py `shade_preblended`, the flagship's space plane;
+ops/kernels/shade_multi.py `shade_multi_preblended`, the multi-axis nets'
+three planes). Each plane's coordinates are pack rows (m0, m1) of its
+PatchSpec: (0, 1) for the flagship's space plane, MAT_MODE of the
+multi-axis net's axis otherwise.
 
-Replaces hyperreel_tpu/ops/pallas/patch_blend.py:_patch_blend_kernel with
-patch_anchor_idx and the XLA patch-row gather before it. CUDA source:
-csrc/patch_blend.cu (the anchors, the shared-memory patch rows and the
-blend in csrc/patch_core.cuh). Bound on the H100 by device-memory bytes:
-per sample four pack rows read, px*py*C*2 / R bytes of patch row, and a
-2*C-byte feature row written. See the sources for the design.
+Replaces hyperreel_tpu/ops/pallas/patch_blend.py:_patch_blend_kernel (one
+call per plane on the JAX route) with patch_anchor_idx, the XLA patch-row
+gathers before it and the OR of the planes' coverage flags. CUDA source:
+csrc/patch_blend.cu (the warp prologue and the blend in
+csrc/patch_core.cuh). Bound on the H100 by device-memory bytes: per
+sample four pack rows read once for every plane, each plane's 2*C-byte
+feature row written, and each slot's patch rows. See the sources for the
+design.
 
 The grouping is the JAX package's: coherent block j is the caller's rays
 R*j .. R*j + R-1; ray p of block j sits at position R*j + p of the chunk,
@@ -24,11 +26,12 @@ sample u = (x+1)*0.5*(W-1) - x0 (v likewise), and the feature is
 sum over ty < py, tx < px of max(0,1-|u-tx|)*max(0,1-|v-ty|)*patch[t].
 The features are rounded to bf16 where the JAX route rounds them
 (models/fused_eval.py `out_dtype=jnp.bfloat16`), and stored ray-major in
-the pack's order ([B*S, C]) rather than the TPU's phase-major tiles.
+the pack's order ([B*S, C] per plane) rather than the TPU's phase-major
+tiles.
 
 Both kernels of the route also count the coverage violations: the slots
-whose valid samples' bilinear footprint exits the patch on some axis,
-floor(max) - floor(min) > p - 2 (models/fused_eval.py
+whose valid samples' bilinear footprint exits the patch on some axis of
+some plane, floor(max) - floor(min) > p - 2 (models/fused_eval.py
 `patch_coverage_viol` is that count over the J*S slots).
 """
 
@@ -41,8 +44,11 @@ from hyperreel_tpu_torch.ops.kernels.layout import check_pack
 from hyperreel_tpu_torch.ops.patch_gather import hat_weights, unnormalize
 
 KERNEL_BLOCKS = (4, 8)          # R, as the JAX package takes it
-KERNEL_CHANNELS = (8, 16)
-MAX_S = 64                      # a warp lane per sample, two at S = 64
+# one plane of 8 or 16 channels, or the multi-axis nets' three
+# (csrc/multi_core.cuh PatchLayout) on pack rows (0, 1), (0, 2), (1, 2)
+KERNEL_PLANES = ((8,), (16,), (16, 8, 8))
+PLANE_ROWS = ((0, 1), (0, 2), (1, 2))
+MIN_S, MAX_S = 4, 64            # a lane reads 4 samples of each pack row
 
 
 @dataclass(frozen=True)
@@ -107,14 +113,18 @@ def coverage_flags(pack, spec):
     return viol
 
 
-def coverage_count(pack, spec):
-    """int32 [1]: the number of `coverage_flags`."""
-    return coverage_flags(pack, spec).sum().reshape(1).to(torch.int32)
+def coverage_count(pack, specs):
+    """int32 [1]: the slots that violate on any of the planes of `specs`
+    (their `coverage_flags` ORed)."""
+    flags = coverage_flags(pack, specs[0])
+    for ps in specs[1:]:
+        flags = flags | coverage_flags(pack, ps)
+    return flags.sum().reshape(1).to(torch.int32)
 
 
 def patch_features_plain(ptab, pack, spec):
-    """The f32 [B*S, C] features of every sample: the full px*py hat sum,
-    in the JAX kernels' order."""
+    """The f32 [B*S, C] features of every sample on one plane: the full
+    px*py hat sum, in the JAX kernels' order."""
     C = spec.C
     x0, y0, idx = patch_anchors(pack, spec)
     u = unnormalize(pack[spec.m0], spec.W) - _per_sample(x0, spec)
@@ -130,13 +140,11 @@ def patch_features_plain(ptab, pack, spec):
     return feat
 
 
-def patch_blend_plain(ptab, pack, spec, flags=None):
+def patch_blend_plain(ptabs, pack, specs):
     """Plain PyTorch version of the kernel (same inputs and outputs)."""
-    viol = coverage_flags(pack, spec)
-    if flags is not None:
-        flags |= viol.reshape(-1).to(flags.dtype)
-    return (patch_features_plain(ptab, pack, spec).to(torch.bfloat16),
-            viol.sum().reshape(1).to(torch.int32))
+    return ([patch_features_plain(t, pack, s).to(torch.bfloat16)
+             for t, s in zip(ptabs, specs)],
+            coverage_count(pack, specs))
 
 
 def check_patch(ptab, pack, spec):
@@ -157,30 +165,38 @@ def check_patch(ptab, pack, spec):
     return B
 
 
-def check_flags(flags, B, spec, device):
-    """Raise unless `flags` is a contiguous uint8 [J*S] buffer on
-    `device`."""
-    n = B // spec.R * spec.S
-    if flags.dtype != torch.uint8 or tuple(flags.shape) != (n,) \
-            or not flags.is_contiguous() or flags.device != device:
-        raise ValueError(f"flags must be a contiguous uint8 ({n},) buffer "
-                         f"on {device}, got {flags.dtype} "
-                         f"{tuple(flags.shape)} on {flags.device}")
+def check_planes(ptabs, pack, specs):
+    """Raise unless each plane's table fits its spec and the specs share
+    one sample count, block shape and ray order; returns B."""
+    if len(ptabs) != len(specs) or not specs:
+        raise ValueError(f"{len(ptabs)} patch tables for {len(specs)} "
+                         "PatchSpecs")
+    if len({(s.S, s.R, s.px, s.py, s.phase_major) for s in specs}) != 1:
+        raise ValueError("the planes' PatchSpecs differ in S, R, px, py or "
+                         "the ray order")
+    B = check_pack(pack, specs[0].S)
+    for t, s in zip(ptabs, specs):
+        check_patch(t, pack, s)
+    return B
 
 
-def check_patch_kernel(ptab, spec, name):
-    """Raise unless the patch kernels are built for `spec` (K3's shade
-    check also holds it to S <= 32; the launchers refuse patch rows too
-    wide for shared memory)."""
-    S = spec.S
-    if spec.R not in KERNEL_BLOCKS or spec.C not in KERNEL_CHANNELS \
-            or S > MAX_S or S & (S - 1):
+def check_patch_kernel(ptabs, specs, name):
+    """Raise unless the patch kernels are built for `specs` (one plane for
+    K3, whose shade check also holds it to S <= 32; one or the three
+    planes of KERNEL_PLANES for K4)."""
+    s = specs[0]
+    chans = tuple(p.C for p in specs)
+    rows = tuple((p.m0, p.m1) for p in specs)
+    if s.R not in KERNEL_BLOCKS or chans not in KERNEL_PLANES \
+            or (len(specs) == 3 and rows != PLANE_ROWS) \
+            or not MIN_S <= s.S <= MAX_S or s.S & (s.S - 1):
         raise NotImplementedError(
-            f"{name} kernel: R={spec.R}, C={spec.C}, S={S} not built (R in "
-            f"{KERNEL_BLOCKS}, C in {KERNEL_CHANNELS}, S a power of two "
-            f"<= {MAX_S})")
-    if ptab.data_ptr() % 16:
-        raise ValueError(f"{name}: ptab must be 16-byte aligned")
+            f"{name} kernel: R={s.R}, planes of C={chans} on pack rows "
+            f"{rows}, S={s.S} not built (R in {KERNEL_BLOCKS}, planes "
+            f"{KERNEL_PLANES}, three on {PLANE_ROWS}, S a power of two in "
+            f"{MIN_S} .. {MAX_S})")
+    if any(t.data_ptr() % 16 for t in ptabs):
+        raise ValueError(f"{name}: the patch tables must be 16-byte aligned")
 
 
 def patch_params(B, spec):
@@ -191,30 +207,41 @@ def patch_params(B, spec):
     return q
 
 
-def patch_blend(ptab, pack, spec, flags=None):
-    """Run K4: returns (features bf16 [B*S, C] in the pack's order,
-    coverage violations int32 [1]); with `flags` (uint8 [J*S]) also sets
-    the flag of each violating slot. A CPU pack goes to
-    `patch_blend_plain`; a CUDA pack launches the kernel or raises. Counts
-    launches in `patch_blend.launches`."""
-    B = check_patch(ptab, pack, spec)
-    if flags is not None:
-        check_flags(flags, B, spec, pack.device)
+def blend_params(B, ptabs, feats, specs):
+    s = specs[0]
+    q = build.BlendParams()
+    q.B, q.S, q.R, q.px, q.py = B, s.S, s.R, s.px, s.py
+    q.phase_major, q.na = int(s.phase_major), len(specs)
+    for pl, t, f, ps in zip(q.plane, ptabs, feats, specs):
+        pl.ptab, pl.feats = t.data_ptr(), f.data_ptr()
+        pl.W, pl.H, pl.C, pl.m0, pl.m1 = ps.W, ps.H, ps.C, ps.m0, ps.m1
+    return q
+
+
+def patch_blend(ptabs, pack, specs):
+    """Run K4 over the planes of `specs` (one PatchSpec per patch table in
+    `ptabs`): returns (one bf16 [B*S, C] feature tensor per plane in the
+    pack's order, the slots that violate on any plane, int32 [1]). A CPU
+    pack goes to `patch_blend_plain`; a CUDA pack launches the kernel
+    once, or raises. Counts launches in `patch_blend.launches`."""
+    B = check_planes(ptabs, pack, specs)
     if pack.device.type == "cpu":
-        return patch_blend_plain(ptab, pack, spec, flags)
+        return patch_blend_plain(ptabs, pack, specs)
     if pack.device.type != "cuda":
         raise ValueError(f"patch_blend has no kernel for {pack.device}")
-    check_patch_kernel(ptab, spec, "patch_blend")
-    feats = torch.empty((pack.shape[1], spec.C), dtype=torch.bfloat16,
-                        device=pack.device)
+    check_patch_kernel(ptabs, specs, "patch_blend")
+    if pack.shape[1] >= 2 ** 31:
+        raise NotImplementedError("patch_blend kernel: the chunk's samples "
+                                  "are indexed in 32 bits")
+    feats = [torch.empty((pack.shape[1], s.C), dtype=torch.bfloat16,
+                         device=pack.device) for s in specs]
     viol = torch.zeros(1, dtype=torch.int32, device=pack.device)
     lib = build.load_library().lib
     with torch.cuda.device(pack.device):
         stream = torch.cuda.current_stream().cuda_stream
         build.check_launch(lib.patch_blend_launch(
-            ptab.data_ptr(), pack.data_ptr(), feats.data_ptr(),
-            viol.data_ptr(), None if flags is None else flags.data_ptr(),
-            patch_params(B, spec), stream), "patch_blend")
+            pack.data_ptr(), viol.data_ptr(),
+            blend_params(B, ptabs, feats, specs), stream), "patch_blend")
     patch_blend.launches += 1
     return feats, viol
 

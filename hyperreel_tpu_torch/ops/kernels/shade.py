@@ -211,11 +211,9 @@ def composite_plain(sigma, rgb, dist, B, spec):
                       (w * d).sum(-1, keepdim=True)], -1)
 
 
-def shade_features_plain(feat, pack, ray_pack, ttab, wb, spec):
-    """Everything after the space features f32 [B*S, C]: the time
-    features, their product with the space features, and
-    `shade_tail_plain` -> f32 [B, 5] (csrc/shade_core.cuh
-    shade_sample)."""
+def space_time_product(feat, pack, ray_pack, ttab, spec):
+    """The space features f32 [B*S, C] times each sample's time features
+    (csrc/shade_core.cuh sample_density)."""
     S, C = spec.S, spec.C
     check_pack(pack, S, spec.weights)
     zi, wz0, wz1 = taps(pack[2], spec.TW)
@@ -232,7 +230,15 @@ def shade_features_plain(feat, pack, ray_pack, ttab, wb, spec):
                   + flat[k, torch.clamp(zi + 1, 0, spec.TW - 1)]
                   * wz1[:, None])
             ft = ft + zf * wt[:, None]
-    prod = feat * ft
+    return feat * ft
+
+
+def shade_features_plain(feat, pack, ray_pack, ttab, wb, spec):
+    """Everything after the space features f32 [B*S, C]: the time
+    features, their product with the space features, and
+    `shade_tail_plain` -> f32 [B, 5] (csrc/shade_core.cuh
+    shade_sample)."""
+    prod = space_time_product(feat, pack, ray_pack, ttab, spec)
     return shade_tail_plain(prod[:, :spec.nd].sum(-1), prod, wb, pack,
                             ray_pack, spec)
 

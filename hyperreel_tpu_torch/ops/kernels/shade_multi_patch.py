@@ -26,17 +26,9 @@ import torch
 from hyperreel_tpu_torch.ops.kernels import build
 from hyperreel_tpu_torch.ops.kernels.layout import check_ray_pack
 from hyperreel_tpu_torch.ops.kernels.patch_blend import (
-    check_patch, coverage_flags, patch_features_plain, patch_params)
+    check_patch, coverage_count, patch_features_plain, patch_params)
 from hyperreel_tpu_torch.ops.kernels.shade_multi import (
     check_kernel, check_lines, multi_params, shade_multi_features_plain)
-
-
-def multi_coverage_count(pack, pspecs):
-    """int32 [1]: the slots that violate on any plane."""
-    flags = coverage_flags(pack, pspecs[0])
-    for ps in pspecs[1:]:
-        flags = flags | coverage_flags(pack, ps)
-    return flags.sum().reshape(1).to(torch.int32)
 
 
 def shade_multi_patch_plain(ptabs, lines, pack, ray_pack, wb, spec, pspecs):
@@ -45,7 +37,7 @@ def shade_multi_patch_plain(ptabs, lines, pack, ray_pack, wb, spec, pspecs):
              for t, ps in zip(ptabs, pspecs)]
     return (shade_multi_features_plain(feats, lines, pack, ray_pack, wb,
                                        spec),
-            multi_coverage_count(pack, pspecs))
+            coverage_count(pack, pspecs))
 
 
 def check_specs(spec, pspecs):

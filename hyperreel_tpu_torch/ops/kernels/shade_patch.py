@@ -6,16 +6,17 @@ memory.
 Replaces hyperreel_tpu/ops/pallas/shade.py:_shade_kernel_fused_patch
 (the bench's default route, R = 8 with a (5, 2) patch) with the XLA
 patch-row gather and patch_anchor_idx before it. CUDA source:
-csrc/shade_patch.cu (the blend in csrc/patch_core.cuh, K2's shading and
-composite in csrc/shade_core.cuh). Bound on the H100 by its f32
-operations; it reads px*py*C*2 / R bytes of patch row per sample (40 at
-R = 8, (5, 2), C = 16) where K2 reads a 128-byte quad row. See the
-sources for the design.
+csrc/shade_patch.cuh (the warp prologue and the blend in
+csrc/patch_core.cuh, the shading and the running composite in
+csrc/shade_core.cuh). A thread per ray over its samples, the SH basis
+folded with the ray's view direction once per ray; bound on the H100 by
+device-memory bytes with that fold. See the sources for the design.
 
 The features are K4's (ops/kernels/patch_blend.py, same grouping, anchors
 and hat blend) kept in f32; everything after them is K2's math
-(ops/kernels/shade.py `shade_features_plain`). Also returns the coverage
-violation count, as K4 does.
+(ops/kernels/shade.py `shade_features_plain`), up to the order of the
+sums of the folded colour (`shade_patch_folded_plain`). Also returns the
+coverage violation count, as K4 does.
 """
 
 import torch
@@ -26,14 +27,36 @@ from hyperreel_tpu_torch.ops.kernels.patch_blend import (
     check_patch, check_patch_kernel, coverage_count, patch_features_plain,
     patch_params)
 from hyperreel_tpu_torch.ops.kernels.shade import (
-    check_kernel, check_tables, shade_features_plain, shade_params)
+    check_kernel, check_tables, composite_plain, sample_validity,
+    shade_features_plain, shade_params, space_time_product)
+from hyperreel_tpu_torch.ops.kernels.shade_multi import fold_sh_basis
 
 
 def shade_patch_plain(ptab, pack, ray_pack, ttab, wb, spec, pspec):
     """Plain PyTorch version of the kernel (same inputs and outputs)."""
     feat = patch_features_plain(ptab, pack, pspec)
     return (shade_features_plain(feat, pack, ray_pack, ttab, wb, spec),
-            coverage_count(pack, pspec))
+            coverage_count(pack, [pspec]))
+
+
+def shade_patch_folded_plain(ptab, pack, ray_pack, ttab, wb, spec, pspec):
+    """`shade_patch_plain` with the SH colour taken from the basis folded
+    with each ray's view direction (shade_multi.py `fold_sh_basis`), as
+    the kernel takes it: the same function up to the order of the sums.
+    RGB colour has nothing to fold and is `shade_patch_plain`."""
+    if spec.shading == "rgb":
+        return shade_patch_plain(ptab, pack, ray_pack, ttab, wb, spec, pspec)
+    feat = patch_features_plain(ptab, pack, pspec)
+    prod = space_time_product(feat, pack, ray_pack, ttab, spec)
+    valid = sample_validity(pack)
+    sigma = torch.clamp_min(prod[:, :spec.nd].sum(-1), 0.0) * valid.float()
+    M = fold_sh_basis(wb, ray_pack[:, 3:6], spec.deg)      # [B, 3, C]
+    e = (M.repeat_interleave(spec.S, 0) @ prod[..., None])[..., 0]
+    rgb = torch.clamp_min(e + 0.5, 0.0) * (pack[4:7].t() + 1.0) \
+        + pack[7:10].t()
+    rgb = torch.where(valid[:, None], rgb, 0.0)
+    return (composite_plain(sigma, rgb, pack[3], ray_pack.shape[0], spec),
+            coverage_count(pack, [pspec]))
 
 
 def shade_patch(ptab, pack, ray_pack, ttab, wb, spec, pspec):
@@ -55,7 +78,11 @@ def shade_patch(ptab, pack, ray_pack, ttab, wb, spec, pspec):
     if pack.device.type != "cuda":
         raise ValueError(f"shade_patch has no kernel for {pack.device}")
     check_kernel(spec, "shade_patch", weights=False)
-    check_patch_kernel(ptab, pspec, "shade_patch")
+    check_patch_kernel([ptab], [pspec], "shade_patch")
+    if spec.shading != "rgb" and 2 * spec.nd != spec.C:
+        raise NotImplementedError(
+            f"shade_patch kernel: SH colour with {spec.nd} of {spec.C} "
+            "channels for density not built (C / 2, every preset's)")
     if ttab.data_ptr() % 16:
         raise ValueError("shade_patch: ttab must be 16-byte aligned")
     out = torch.empty((B, 5), dtype=torch.float32, device=pack.device)

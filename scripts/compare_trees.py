@@ -12,14 +12,19 @@ pack of the bench frame's first chunk for each model, the bench frame's
 rgb on every route (flagship quad, fused and two-kernel patch at R=8 (5,
 2); llff quad, fused and two-kernel patch at R=8 (5, 2) and R=4 (4, 3);
 n3d quad with one t and with a t per ray (K5 on the time planes); shiny
-quad), K5's and K5-preblended's output on the first chunk of llff, shiny
-and n3d (K5 on the chunk in scanline and in phase-major order, on n3d's
-time planes also with a t per ray spread over the keyframes and on the
-planes premixed; K5-preblended reading K4's features of the phase-major
-chunk), and K7's output on seeded inputs, and
+quad), the patch kernels' output on the flagship's first chunk in
+phase-major order (K3, K4 and K2-preblended at R=8 (5, 2)), K5's,
+K5-preblended's, K4's (three planes) and K6's on the first chunk of llff,
+shiny and n3d (K5 on the chunk in scanline and in phase-major order, on
+n3d's time planes also with a t per ray spread over the keyframes and on
+the planes premixed; K4, K5-preblended reading its features and K6 on the
+phase-major chunk at R=8), the patch routes of n3d at R=8 (5, 3) and
+shiny's two-kernel route at R=8 (5, 2), the patch routes at S = k (the
+flagship with compaction 16, n3d with the stride to 16, shiny with
+compaction 16 at R=4 (4, 3)), and K7's output on seeded inputs, and
 saves them with each route's frame time and the kernels' times per chunk
-(CUDA events, after a warm-up frame or launch; K1, K5 and K5-preblended
-over 20 launches). Then
+(CUDA events, after a warm-up frame or launch; the kernels over 20
+launches). Then
 
     python3 scripts/compare_trees.py --compare A.pt B.pt [C.pt ...]
 
@@ -31,9 +36,27 @@ one call so that the times share a card.
 
 import argparse
 import dataclasses
+import inspect
 import os
 import subprocess
 import sys
+
+
+def blend_planes(ptabs, pack, specs, plain=False):
+    """K4 over the planes of `specs` (or its plain version): (features,
+    violation count), in the API of the checkout that is imported: one
+    call over every plane, or (before that kernel) one call per plane with
+    a flags buffer whose sum is the count."""
+    import torch
+
+    from hyperreel_tpu_torch.ops.kernels import patch_blend as K4
+    fn = K4.patch_blend_plain if plain else K4.patch_blend
+    if "ptabs" in inspect.signature(K4.patch_blend).parameters:
+        return fn(ptabs, pack, specs)
+    flags = torch.zeros(pack.shape[1] // specs[0].R, dtype=torch.uint8,
+                        device=pack.device)
+    feats = [fn(t, pack, s, flags)[0] for t, s in zip(ptabs, specs)]
+    return feats, flags.sum().reshape(1)
 
 
 def save(path, frames):
@@ -44,10 +67,13 @@ def save(path, frames):
     from hyperreel_tpu_torch.models.ctx import StepCtx
     from hyperreel_tpu_torch.ops.kernels.composite import composite
     from hyperreel_tpu_torch.ops.kernels.pack_build import pack_build
-    from hyperreel_tpu_torch.ops.kernels.patch_blend import patch_blend
-    from hyperreel_tpu_torch.ops.kernels.shade import premix_time
+    from hyperreel_tpu_torch.ops.kernels.shade import (
+        ShadeSpec, premix_time, shade_preblended)
     from hyperreel_tpu_torch.ops.kernels.shade_multi import (
         MultiSpec, shade_multi, shade_multi_preblended)
+    from hyperreel_tpu_torch.ops.kernels.shade_multi_patch import (
+        shade_multi_patch)
+    from hyperreel_tpu_torch.ops.kernels.shade_patch import shade_patch
 
     if not torch.cuda.is_available():
         raise RuntimeError("compare_trees needs a CUDA card")
@@ -118,17 +144,22 @@ def save(path, frames):
                                    sp)
             out[key] = fn().cpu()
             times[f"{key} chunk"] = cs.cuda_ms(torch, fn, 20)
-        flags = torch.zeros(pack_pm.shape[1] // R, dtype=torch.uint8,
-                            device=dev)
-        feats = [patch_blend(t, pack_pm, ps, flags)[0] for t, ps in zip(
-            prep["ptabs"], model._cf_eval.patch_specs(
-                [(a.W, a.H, a.C, a.m0, a.m1) for a in spec.axes], True))]
-
-        def pre():
-            return shade_multi_preblended(feats, prep["lines"], pack_pm,
-                                          rp_pm, prep["wb"], spec)
-        out[f"{name} K5-pre"] = pre().cpu()
-        times[f"{name} K5-pre chunk"] = cs.cuda_ms(torch, pre, 20)
+        pspecs = model._cf_eval.patch_specs(
+            [(a.W, a.H, a.C, a.m0, a.m1) for a in spec.axes], True)
+        feats, _ = blend_planes(prep["ptabs"], pack_pm, pspecs)
+        patch = {
+            "K4x3": lambda: blend_planes(prep["ptabs"], pack_pm, pspecs),
+            "K5-pre": lambda: shade_multi_preblended(
+                feats, prep["lines"], pack_pm, rp_pm, prep["wb"], spec),
+            "K6": lambda: shade_multi_patch(
+                prep["ptabs"], prep["lines"], pack_pm, rp_pm, prep["wb"],
+                spec, pspecs)}
+        for key, fn in patch.items():
+            got = fn()
+            out[f"{name} {key}"] = (torch.cat([f.float() for f in got[0]], 1)
+                                    if key == "K4x3" else got if key ==
+                                    "K5-pre" else got[0]).cpu()
+            times[f"{name} {key} chunk"] = cs.cuda_ms(torch, fn, 20)
 
     cfg, info, model, params, prep = cs.flagship(dev)
     k1("flagship", model, prep, frame[0])
@@ -137,6 +168,26 @@ def save(path, frames):
         ("HYPERREEL_FUSED_PATCH", "1"))
     model8, prep8 = cs.patch_model(cfg, info, params, cs.PATCH_R8)
     frame_pm = cs.phase_major(frame, cs.PATCH_R8[2]).contiguous()
+    # K3, K4 and K2-preblended on the first phase-major chunk
+    cf = model8._cf_eval
+    rp_pm = cf.ray_pack(frame_pm[0])
+    pack_pm = pack_build(cf.pred.net_input(frame_pm[0], ctx).float()
+                         .contiguous(), prep8["mlp"], rp_pm, cf.spec, cs.IT)
+    H, W, _, TW, C, nd = prep8["dims"]
+    sspec = ShadeSpec(S=cf.S, W=W, H=H, TW=TW, TH=0, C=C, nd=nd,
+                      deg=cf.net.sh_deg, distance_scale=cf.net.distance_scale)
+    ps, = cf.patch_specs([(W, H, C, 0, 1)], True)
+    targs = (premix_time(prep8["ttab"], rp_pm[0, 7]), prep8["wb"], sspec)
+    (feats,), _ = blend_planes([prep8["patch"]], pack_pm, [ps])
+    single = {
+        "K3": lambda: shade_patch(prep8["patch"], pack_pm, rp_pm, *targs,
+                                  ps)[0],
+        "K4": lambda: blend_planes([prep8["patch"]], pack_pm, [ps])[0][0],
+        "K2-pre": lambda: shade_preblended(feats, pack_pm, rp_pm, *targs)}
+    for key, fn in single.items():
+        out[f"flagship {key}"] = fn().float().cpu()
+        times[f"flagship {key} chunk"] = cs.cuda_ms(torch, fn, 20)
+    del pack_pm, feats
     rk8 = {"cf_prepared": prep8, "uniform_time": True,
            "rays_phase_major": True}
     for env, name in (("1", "fused"), ("0", "two-kernel")):
@@ -173,6 +224,13 @@ def save(path, frames):
             ("HYPERREEL_FUSED_PATCH_MULTI", "0"))
     _, m8, _, pr8 = cs.n3d(dev, patch=cs.N3D_PATCH_R8, params=params)
     k5("n3d", m8, pr8, frame[0], cs.N3D_PATCH_R8[2])
+    R = cs.N3D_PATCH_R8[2]
+    fr = cs.phase_major(frame, R).contiguous()
+    for env, name in (("1", "fused"), ("0", "two-kernel")):
+        run(f"n3d {name} patch R={R}", m8, params, fr,
+            {"cf_prepared": pr8, "uniform_time": True,
+             "rays_phase_major": True},
+            ("HYPERREEL_FUSED_PATCH_MULTI", env), R)
     del model, params, prep, m8, pr8
     torch.cuda.empty_cache()
 
@@ -182,8 +240,41 @@ def save(path, frames):
     _, m8, _, pr8 = cs.static_model(dev, "shiny", patch=cs.PATCH_R8,
                                     params=params)
     k5("shiny", m8, pr8, frame6[0], cs.PATCH_R8[2])
+    fr = cs.phase_major(frame6, cs.PATCH_R8[2]).contiguous()
+    run(f"shiny two-kernel patch R={cs.PATCH_R8[2]}", m8, params, fr,
+        {"cf_prepared": pr8, "rays_phase_major": True},
+        ("HYPERREEL_FUSED_PATCH_MULTI", "0"), cs.PATCH_R8[2])
     del model, params, prep, m8, pr8
     torch.cuda.empty_cache()
+
+    # the patch routes at S = k (chip_smoke.py's sample-count models): the
+    # flagship with compaction 16 at R=8 (5, 2), n3d with the stride to 16
+    # at R=8 (5, 3), shiny with compaction 16 at R=4 (4, 3)
+    for family, stage, k, shape, env in (
+            ("flagship", "compact", 16, cs.PATCH_R8, "HYPERREEL_FUSED_PATCH"),
+            ("n3d", "stride", 16, cs.N3D_PATCH_R8,
+             "HYPERREEL_FUSED_PATCH_MULTI"),
+            ("shiny", "compact", 16, cs.PATCH_R4,
+             "HYPERREEL_FUSED_PATCH_MULTI")):
+        if family == "flagship":
+            base_cfg, info, _, p0, _ = cs.flagship(dev)
+            fr = frame
+        elif family == "n3d":
+            base_cfg, _, p0, _ = cs.n3d(dev)
+            info, fr = cs.N3D_INFO, frame
+        else:
+            base_cfg, _, p0, _ = cs.static_model(dev, family)
+            info, fr = None, frame6
+        m, p = cs.sample_count_model(base_cfg, info, stage, k, p0,
+                                     patch=shape)
+        fr = cs.phase_major(fr, shape[2]).contiguous()
+        rk = {"cf_prepared": m.prepare_eval(p), "uniform_time": True,
+              "rays_phase_major": True}
+        for val, name in (("1", "fused"), ("0", "two-kernel")):
+            run(f"{family} {stage} {k} {name} patch R={shape[2]}", m, p, fr,
+                rk, (env, val), shape[2])
+        del m, p, p0, rk
+        torch.cuda.empty_cache()
 
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
     sig = 0.05 * torch.rand(cs.CHUNK, 32, device=dev, generator=gen)

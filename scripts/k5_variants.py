@@ -49,10 +49,10 @@ sys.path.insert(0, str(ROOT))
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
+from compare_trees import blend_planes  # noqa: E402
 from hyperreel_tpu_torch.models.ctx import StepCtx  # noqa: E402
 from hyperreel_tpu_torch.ops.kernels import build  # noqa: E402
 from hyperreel_tpu_torch.ops.kernels.pack_build import pack_build  # noqa: E402
-from hyperreel_tpu_torch.ops.kernels.patch_blend import patch_blend  # noqa: E402
 from hyperreel_tpu_torch.ops.kernels.shade import premix_time  # noqa: E402
 from hyperreel_tpu_torch.ops.kernels.shade_multi import (  # noqa: E402
     MultiSpec, shade_multi, shade_multi_plain, shade_multi_preblended,
@@ -279,11 +279,8 @@ def chunks(dev):
                         functools.partial(shade_multi_plain, *args)))
         pack_pm, rp_pm = packed(cs.phase_major(chunk[None], R)[0]
                                 .contiguous())
-        flags = torch.zeros(pack_pm.shape[1] // R, dtype=torch.uint8,
-                            device=dev)
-        feats = [patch_blend(t, pack_pm, ps, flags)[0] for t, ps in zip(
-            prep["ptabs"], cf.patch_specs(
-                [(a.W, a.H, a.C, a.m0, a.m1) for a in spec.axes], True))]
+        feats, _ = blend_planes(prep["ptabs"], pack_pm, cf.patch_specs(
+            [(a.W, a.H, a.C, a.m0, a.m1) for a in spec.axes], True))
         args = (feats, prep["lines"], pack_pm, rp_pm, wb, spec)
         out.append((f"K5-pre {runs[0][0]}",
                     functools.partial(shade_multi_preblended, *args),

@@ -19,7 +19,7 @@ route (--route: quad, K1 then K2 (flagship) or K5 (llff,
 shiny, n3d), or stanford's own route;
 fused, the coherent patch-gather route with bench.py's phase-major rays
 at R=8 (5, 2) (n3d: (5, 3)), K1 then K3 or K6; two, the same route on K1,
-K4 and K2-preblended, or K1, K4 on each of the three planes and
+K4 and K2-preblended, or K1, K4 (one launch over the three planes) and
 K5-preblended) and prints:
   * the card's name and power limit (nvidia-smi);
   * frame time from CUDA events over back-to-back frames, and the host's
@@ -104,10 +104,10 @@ def main():
     shape = cs.PATCH_R8
     if args.model == "flagship":
         cfg, info, model, params, prep = cs.flagship(dev)
-        rk = {"cf_prepared": prep, "uniform_time": True}
         os.environ["HYPERREEL_FUSED_PATCH"] = fused
         if patch:
             model, prep = cs.patch_model(cfg, info, params, cs.PATCH_R8)
+        rk = {"cf_prepared": prep, "uniform_time": True}
     elif args.model in ("llff", "shiny", "stanford"):
         if patch and args.model == "stanford":
             raise ValueError("stanford_llff_z_plane has one route (quad)")

@@ -42,7 +42,7 @@ from hyperreel_tpu_torch.ops.kernels.shade_multi import (
 from hyperreel_tpu_torch.ops.kernels.shade_multi_patch import (
     shade_multi_patch, shade_multi_patch_plain)
 from hyperreel_tpu_torch.ops.kernels.shade_patch import (
-    shade_patch, shade_patch_plain)
+    shade_patch, shade_patch_folded_plain, shade_patch_plain)
 from hyperreel_tpu_torch.configs.presets import (
     with_compact_samples, with_inference_samples)
 from hyperreel_tpu_torch.models.intersect import FAR_SENTINEL
@@ -204,8 +204,8 @@ def test_patch_kernels_match_plain(dev, tiny, patch, pm):
     assert int(v) == int(vr)
     assert (out[:, :4] - ref[:, :4]).abs().max() <= 1e-4
     assert (out[:, 4] - ref[:, 4]).abs().max() <= 1e-3
-    feats, v = patch_blend(prep["patch"], pack, ps)
-    feats_p, vr = patch_blend_plain(prep["patch"], pack, ps)
+    (feats,), v = patch_blend([prep["patch"]], pack, [ps])
+    (feats_p,), vr = patch_blend_plain([prep["patch"]], pack, [ps])
     assert int(v) == int(vr) and _ulps(feats, feats_p) <= 1.0
     pre = shade_preblended(feats, pack, rp, ttab, prep["wb"], spec)
     ref = shade_preblended_plain(feats, pack, rp, ttab, prep["wb"], spec)
@@ -214,6 +214,110 @@ def test_patch_kernels_match_plain(dev, tiny, patch, pm):
     quad = shade(prep["quad"], pack, rp, ttab, prep["wb"], spec)
     assert (pre[:, :4] - out[:, :4]).abs().max() <= 2e-4
     assert (quad[:, :4] - out[:, :4]).abs().max() <= 2e-4
+
+
+# K4 and K3 on synthetic inputs over every (C, R, S) they are built for:
+# random bf16 patch tables, J = 41 coherent blocks (a multiple of no
+# warp's 32 / R blocks, so the last warp holds dead blocks), the R rays of
+# a slot within 0.4 texel of each other but one block in four spread over
+# 3 texels (violating slots), points partly outside the aabb and some
+# invalid samples, in phase-major and scanline order.
+PATCH_SHAPES = {4: (4, 3), 8: (5, 2)}
+PLANE_AXES = ((0, 1), (0, 2), (1, 2))
+GRID = (37, 23, 29)               # the grid size along x, y, z
+
+
+def _synthetic_patch(dev, S, R, chans, pm, seed):
+    """(patch tables, pack [10, B*S], ray pack [B, 8], PatchSpecs) for one
+    plane per entry of `chans` (its coordinates PLANE_AXES[a])."""
+    rng = np.random.default_rng(seed)
+    J = 41
+    B = R * J
+    wide = rng.uniform(0, 1, (1, J, 1)) < 0.25
+    xyz = np.stack([rng.uniform(-1.05, 1.05, (1, J, S))
+                    + rng.uniform(0, 1, (R, J, S))
+                    * np.where(wide, 3.0, 0.4) * 2.0 / (size - 1)
+                    for size in GRID])                       # [3, R, J, S]
+    dist = np.sort(rng.uniform(0.0, 3.0, (R, J, S)), -1)
+    dist[..., :2] *= rng.uniform(0, 1, (R, J, 1)) < 0.7
+    pack = np.concatenate([xyz, dist[None],
+                           rng.normal(0, 0.1, (6, R, J, S))])
+    if not pm:                      # ray R*j + p at position R*j + p
+        pack = pack.transpose(0, 2, 1, 3)
+    vd = rng.normal(0, 1, (B, 3))
+    vd /= np.linalg.norm(vd, axis=1, keepdims=True)
+    rays = np.concatenate([rng.normal(0, 1, (B, 3)), vd,
+                           np.zeros((B, 2))], 1)
+    px, py = PATCH_SHAPES[R]
+    specs, ptabs = [], []
+    for C, (m0, m1) in zip(chans, PLANE_AXES):
+        W, H = GRID[m0], GRID[m1]
+        specs.append(PatchSpec(R=R, px=px, py=py, W=W, H=H, C=C, S=S,
+                               phase_major=pm, m0=m0, m1=m1))
+        ptabs.append(torch.from_numpy(rng.normal(
+            0, 1, ((H + 1) * (W + 1), px * py * C)).astype(np.float32)).to(
+                torch.bfloat16).to(dev))
+    return (ptabs, torch.from_numpy(np.ascontiguousarray(
+        pack.reshape(10, B * S)).astype(np.float32)).to(dev),
+            torch.from_numpy(rays.astype(np.float32)).to(dev), specs)
+
+
+@pytest.mark.parametrize("pm", [True, False], ids=["phase_major", "scanline"])
+@pytest.mark.parametrize("S", [4, 8, 16, 32, 64])
+@pytest.mark.parametrize("R", [4, 8])
+@pytest.mark.parametrize("chans", [(8,), (16,), (16, 8, 8)],
+                         ids=["C8", "C16", "planes_16_8_8"])
+def test_patch_blend_grid_matches_plain(dev, chans, R, S, pm):
+    """K4 in one launch over one plane or three: each plane's features
+    within one bf16 ulp, the count of slots that violate on any plane
+    exact and not 0."""
+    ptabs, pack, _, specs = _synthetic_patch(dev, S, R, chans, pm, S + R)
+    before = patch_blend.launches
+    feats, v = patch_blend(ptabs, pack, specs)
+    assert patch_blend.launches == before + 1
+    feats_p, vp = patch_blend_plain(ptabs, pack, specs)
+    torch.cuda.synchronize()
+    assert int(v) == int(vp) > 0
+    for f, fp, s in zip(feats, feats_p, specs):
+        assert f.shape == fp.shape == (pack.shape[1], s.C)
+        assert _ulps(f, fp) <= 1.0
+
+
+@pytest.mark.parametrize("nd", ["half", "quarter"])
+@pytest.mark.parametrize("shading", ["sh", "rgb"])
+@pytest.mark.parametrize("pm", [True, False], ids=["phase_major", "scanline"])
+@pytest.mark.parametrize("S", [4, 8, 16, 32])
+@pytest.mark.parametrize("R", [4, 8])
+@pytest.mark.parametrize("C", [8, 16])
+def test_shade_patch_grid_matches_plain(dev, C, R, S, pm, shading, nd):
+    """K3 against its plain version and its folded plain version, at K2's
+    tolerances (1e-4 on rgb/acc, 1e-3 on depth); the witness exact. SH
+    colour is built for C / 2 density channels (every preset's): C / 4 is
+    refused before a launch."""
+    ptabs, pack, rp, (ps,) = _synthetic_patch(dev, S, R, (C,), pm,
+                                              10 + S + R)
+    gen = torch.Generator().manual_seed(C + R)
+    nd, TW = C // 2 if nd == "half" else C // 4, 19
+    K = 1 if shading == "rgb" else 9
+    wb = torch.cat([torch.zeros(3 * K, nd),
+                    0.3 * torch.randn(3 * K, C - nd, generator=gen)], 1)
+    ttab = torch.rand(TW, C, generator=gen).to(dev)
+    spec = ShadeSpec(S=S, W=ps.W, H=ps.H, TW=TW, TH=0, C=C, nd=nd, deg=2,
+                     distance_scale=4.0, shading=shading)
+    if shading == "sh" and 2 * nd != C:
+        before = shade_patch.launches
+        with pytest.raises(NotImplementedError):
+            shade_patch(ptabs[0], pack, rp, ttab, wb, spec, ps)
+        assert shade_patch.launches == before
+        return
+    out, v = shade_patch(ptabs[0], pack, rp, ttab, wb, spec, ps)
+    for plain in (shade_patch_plain, shade_patch_folded_plain):
+        ref, vr = plain(ptabs[0], pack, rp, ttab, wb, spec, ps)
+        torch.cuda.synchronize()
+        assert int(v) == int(vr) > 0
+        assert ref[:, 3].max() > 0.5
+        assert (out[:, :4] - ref[:, :4]).abs().max() <= 1e-4
+        assert (out[:, 4] - ref[:, 4]).abs().max() <= 1e-3
 
 
 def _to(tree, dev):
@@ -320,22 +424,17 @@ def test_multi_kernels_match_plain(dev, S, bf16, pm):
     assert (out[:, 4] - ref[:, 4]).abs().max() <= 1e-3
     pspecs = cf.patch_specs([(a.W, a.H, a.C, a.m0, a.m1)
                              for a in prep["axes"]], pm)
-    flags = torch.zeros(pack.shape[1] // 8, dtype=torch.uint8, device=dev)
-    flags_p = flags.clone()
-    feats = []
-    for t, ps in zip(prep["ptabs"], pspecs):
-        f, v = patch_blend(t, pack, ps, flags)
-        fp, vp = patch_blend_plain(t, pack, ps, flags_p)
-        assert int(v) == int(vp) and _ulps(f, fp) <= 1.0
-        feats.append(f)
-    assert torch.equal(flags, flags_p)
+    feats, v4 = patch_blend(prep["ptabs"], pack, pspecs)
+    feats_p, vp4 = patch_blend_plain(prep["ptabs"], pack, pspecs)
+    assert int(v4) == int(vp4)
+    assert max(_ulps(f, fp) for f, fp in zip(feats, feats_p)) <= 1.0
     pre = shade_multi_preblended(feats, *args)
     ref = shade_multi_preblended_plain(feats, *args)
     assert (pre[:, :4] - ref[:, :4]).abs().max() <= 1e-4
     fused, v = shade_multi_patch(prep["ptabs"], *args, pspecs)
     ref, vp = shade_multi_patch_plain(prep["ptabs"], *args, pspecs)
     torch.cuda.synchronize()
-    assert int(v) == int(vp) == int(flags.sum())
+    assert int(v) == int(vp) == int(v4)
     assert (fused[:, :4] - ref[:, :4]).abs().max() <= 1e-4
     assert (fused[:, 4] - ref[:, 4]).abs().max() <= 1e-3
     # the routes agree with each other at the bench's pixel density
@@ -404,7 +503,7 @@ def test_k5_pre_and_k6_refuse_the_888_layout(dev):
 
 @pytest.mark.parametrize("route,kernels", [
     ("quad", {"shade_multi": 1}),
-    ("two", {"patch_blend": 3, "shade_multi_preblended": 1}),
+    ("two", {"patch_blend": 1, "shade_multi_preblended": 1}),
     ("fused", {"shade_multi_patch": 1})])
 def test_multi_routes_launch_on_card(dev, route, kernels, monkeypatch):
     monkeypatch.setenv("HYPERREEL_FUSED_PATCH_MULTI",
@@ -596,22 +695,17 @@ def test_n3d_shade_kernels_match_plain(dev, S, R):
     quad = shade_multi(prep["quads"], *args)
     pspecs = cf.patch_specs([(a.W, a.H, a.C, a.m0, a.m1) for a in axes],
                             True)
-    flags = torch.zeros(pack.shape[1] // R, dtype=torch.uint8, device=dev)
-    flags_p = flags.clone()
-    feats = []
-    for t, ps in zip(prep["ptabs"], pspecs):
-        f, v = patch_blend(t, pack, ps, flags)
-        fp, vp = patch_blend_plain(t, pack, ps, flags_p)
-        assert int(v) == int(vp) and _ulps(f, fp) <= 1.0
-        feats.append(f)
-    assert torch.equal(flags, flags_p)
+    feats, v4 = patch_blend(prep["ptabs"], pack, pspecs)
+    feats_p, vp4 = patch_blend_plain(prep["ptabs"], pack, pspecs)
+    assert int(v4) == int(vp4)
+    assert max(_ulps(f, fp) for f, fp in zip(feats, feats_p)) <= 1.0
     pre = shade_multi_preblended(feats, *args)
     ref = shade_multi_preblended_plain(feats, *args)
     assert (pre[:, :4] - ref[:, :4]).abs().max() <= 1e-4
     fused, v = shade_multi_patch(prep["ptabs"], *args, pspecs)
     ref, vp = shade_multi_patch_plain(prep["ptabs"], *args, pspecs)
     torch.cuda.synchronize()
-    assert int(v) == int(vp) == int(flags.sum())
+    assert int(v) == int(vp) == int(v4)
     assert (fused[:, :4] - ref[:, :4]).abs().max() <= 1e-4
     assert (fused[:, 4] - ref[:, 4]).abs().max() <= 1e-3
     if int(v) == 0:
@@ -623,7 +717,7 @@ def test_n3d_shade_kernels_match_plain(dev, S, R):
 @pytest.mark.parametrize("ut", [True, False], ids=["one_t", "t_per_ray"])
 @pytest.mark.parametrize("route,kernels", [
     ("quad", {"shade_multi": 1}),
-    ("two", {"patch_blend": 3, "shade_multi_preblended": 1}),
+    ("two", {"patch_blend": 1, "shade_multi_preblended": 1}),
     ("fused", {"shade_multi_patch": 1})])
 def test_n3d_routes_launch_on_card(dev, route, kernels, ut, monkeypatch):
     """Each route at S = 64 launches its kernels once per call, never the
@@ -815,22 +909,17 @@ def test_shiny_kernels_match_plain_at_full_width(dev, pm):
     del pack_w, out_w, ref_w
     pspecs = cf.patch_specs([(a.W, a.H, a.C, a.m0, a.m1)
                              for a in prep["axes"]], pm)
-    flags = torch.zeros(pack.shape[1] // 8, dtype=torch.uint8, device=dev)
-    flags_p = flags.clone()
-    feats = []
-    for t, ps in zip(prep["ptabs"], pspecs):
-        f, v = patch_blend(t, pack, ps, flags)
-        fp, vp = patch_blend_plain(t, pack, ps, flags_p)
-        assert int(v) == int(vp) and _ulps(f, fp) <= 1.0
-        feats.append(f)
-    assert torch.equal(flags, flags_p)
+    feats, v4 = patch_blend(prep["ptabs"], pack, pspecs)
+    feats_p, vp4 = patch_blend_plain(prep["ptabs"], pack, pspecs)
+    assert int(v4) == int(vp4)
+    assert max(_ulps(f, fp) for f, fp in zip(feats, feats_p)) <= 1.0
     pre = shade_multi_preblended(feats, *args)
     ref = shade_multi_preblended_plain(feats, *args)
     assert (pre[:, :4] - ref[:, :4]).abs().max() <= 1e-4
     fused, v = shade_multi_patch(prep["ptabs"], *args, pspecs)
     ref, vp = shade_multi_patch_plain(prep["ptabs"], *args, pspecs)
     torch.cuda.synchronize()
-    assert int(v) == int(vp) == int(flags.sum())
+    assert int(v) == int(vp) == int(v4)
     assert (fused[:, :4] - ref[:, :4]).abs().max() <= 1e-4
     assert (fused[:, 4] - ref[:, 4]).abs().max() <= 1e-3
 
@@ -900,7 +989,7 @@ def test_rgb_single_axis_kernels_match_plain(dev):
     ref_w = shade_plain(prep["quad"], pack_w, rp, prep["ttab"], wb, wspec)
     assert (out_w[:, :4] - ref_w[:, :4]).abs().max() <= 1e-4
     ps = PatchSpec(R=8, px=5, py=2, W=W, H=H, C=C, S=cf.S, phase_major=True)
-    feats, _ = patch_blend(prep["patch"], pack, ps)
+    (feats,), _ = patch_blend([prep["patch"]], pack, [ps])
     pre = shade_preblended(feats, pack, rp, *targs)
     ref = shade_preblended_plain(feats, pack, rp, *targs)
     assert (pre[:, :4] - ref[:, :4]).abs().max() <= 1e-4
@@ -948,7 +1037,7 @@ def _tiny_rgb_model(dev, family, S=32, patch=None, cf=True):
 # (the plain versions) at the fused-path gate.
 @pytest.mark.parametrize("family,route,kernels", [
     ("shiny", "quad", {"pack_build": 1, "shade_multi": 1}),
-    ("shiny", "two", {"pack_build": 1, "patch_blend": 3,
+    ("shiny", "two", {"pack_build": 1, "patch_blend": 1,
                       "shade_multi_preblended": 1}),
     ("shiny", "fused", {"pack_build": 1, "shade_multi_patch": 1}),
     ("shiny", "own", {"shade_multi": 1}),
@@ -1314,8 +1403,8 @@ def test_sample_count_shade_kernels_match_plain(dev, family, S, stage, k):
         ref, vr = shade_patch_plain(prep["patch"], *args, ps)
         check(out, ref)
         assert int(v) == int(vr)
-        feats, v = patch_blend(prep["patch"], pack, ps)
-        feats_p, vr = patch_blend_plain(prep["patch"], pack, ps)
+        (feats,), v = patch_blend([prep["patch"]], pack, [ps])
+        (feats_p,), vr = patch_blend_plain([prep["patch"]], pack, [ps])
         assert int(v) == int(vr) and _ulps(feats, feats_p) <= 1.0
         check(shade_preblended(feats, *args),
               shade_preblended_plain(feats, *args))

@@ -45,12 +45,12 @@ from hyperreel_tpu_torch.models.ctx import StepCtx
 from hyperreel_tpu_torch.ops.kernels import pack_build as PB
 from hyperreel_tpu_torch.ops.kernels.layout import PACK_ROWS, pack_from_smajor
 from hyperreel_tpu_torch.ops.kernels.patch_blend import (
-    patch_blend, patch_features_plain)
+    coverage_count, patch_blend, patch_features_plain)
 from hyperreel_tpu_torch.ops.kernels.shade import premix_time
 from hyperreel_tpu_torch.ops.kernels.shade_multi import (
     MultiSpec, shade_multi, shade_multi_preblended)
 from hyperreel_tpu_torch.ops.kernels.shade_multi_patch import (
-    multi_coverage_count, shade_multi_patch)
+    shade_multi_patch)
 
 from torch_parity import entry_rays, jax_pack, jax_premix, models, smajor, \
     weights
@@ -352,7 +352,7 @@ def test_plain_patch_kernels_on_time_planes_match_jax(S, R):
         assert np.abs(_phase_major_rows(got.numpy(), S, R) - want).max() \
             <= F32_TOL
     time_hs = [a.TH for a in axes]
-    feats = [patch_blend(p, t, ps)[0] for p, ps in zip(pr["ptabs"], pspecs)]
+    feats = patch_blend(pr["ptabs"], t, pspecs)[0]
     want = _jax_multi(d, pk16, [
         jnp.asarray(_phase_major_rows(f.float().numpy(), S, R)).astype(
             jnp.bfloat16) for f in feats], d["jtimes"], time_hs,
@@ -368,7 +368,7 @@ def test_plain_patch_kernels_on_time_planes_match_jax(S, R):
                       patch_pxy=PATCH[R], patch_block=R)
     got, count = shade_multi_patch(pr["ptabs"], pr["lines"], t, tr, pr["wb"],
                                    d["spec"], pspecs)
-    assert int(count) == int(multi_coverage_count(t, pspecs)) > 0
+    assert int(count) == int(coverage_count(t, pspecs)) > 0
     got = got.numpy()
     assert np.abs(got[:, :4] - want[:, :4]).max() <= F32_TOL
     assert np.abs(got[:, 4] - want[:, 4]).max() <= 5 * F32_TOL

@@ -26,11 +26,11 @@ from hyperreel_tpu_torch.models import fused_eval
 from hyperreel_tpu_torch.models.ctx import StepCtx
 from hyperreel_tpu_torch.ops.kernels.layout import PACK_ROWS
 from hyperreel_tpu_torch.ops.kernels.patch_blend import (
-    patch_blend, patch_features_plain)
+    coverage_count, patch_blend, patch_features_plain)
 from hyperreel_tpu_torch.ops.kernels.shade_multi import (
     MultiSpec, multi_basis_table, shade_multi, shade_multi_preblended)
 from hyperreel_tpu_torch.ops.kernels.shade_multi_patch import (
-    multi_coverage_count, shade_multi_patch)
+    shade_multi_patch)
 
 from torch_parity import (
     flagship_cfg, models, smajor, static_cfg, weights)
@@ -200,7 +200,7 @@ def test_plain_patch_blend_on_every_plane_matches_jax_kernel(R):
 def test_multi_witness_matches_jax(R):
     """The slots that violate on any plane's coordinates (fused_eval.py
     :1096-1120, on the S-major pack) equal the port's count, from the
-    flags that K4 sets over three launches and from K6's count; the
+    count of K4's one call over the three planes and from K6's; the
     caller's ray order changes nothing."""
     S = 8
     d = _tables(S, R)
@@ -226,11 +226,10 @@ def test_multi_witness_matches_jax(R):
         pspecs = d["cf"].patch_specs(
             [(a.W, a.H, a.C, a.m0, a.m1) for a in axes], pm)
         t = torch.from_numpy(pk)
-        flags = torch.zeros(B * S // R, dtype=torch.uint8)
-        for ptab, ps in zip(d["prep"]["ptabs"], pspecs):
-            patch_blend(ptab, t, ps, flags)
-        assert int(flags.sum()) == want
-        assert int(multi_coverage_count(t, pspecs)) == want
+        feats, count = patch_blend(d["prep"]["ptabs"], t, pspecs)
+        assert len(feats) == 3 and count.dtype == torch.int32
+        assert int(count) == want
+        assert int(coverage_count(t, pspecs)) == want
 
 
 @pytest.mark.parametrize("R", [4, 8])
@@ -247,7 +246,7 @@ def test_plain_preblended_and_fused_multi_match_jax_kernels(R):
     pr = d["prep"]
     pspecs = d["cf"].patch_specs([(a.W, a.H, a.C, a.m0, a.m1) for a in axes],
                                  True)
-    feats = [patch_blend(p, t, ps)[0] for p, ps in zip(pr["ptabs"], pspecs)]
+    feats = patch_blend(pr["ptabs"], t, pspecs)[0]
     want = _jax_multi(d, pk16, [
         jnp.asarray(_phase_major_rows(f.float().numpy(), S, R)).astype(
             jnp.bfloat16) for f in feats], jnp.float32,
@@ -264,7 +263,7 @@ def test_plain_preblended_and_fused_multi_match_jax_kernels(R):
                       patch_block=R)
     got, count = shade_multi_patch(pr["ptabs"], pr["lines"], t, tr, pr["wb"],
                                    d["spec"], pspecs)
-    assert int(count) == int(multi_coverage_count(t, pspecs)) > 0
+    assert int(count) == int(coverage_count(t, pspecs)) > 0
     got = got.numpy()
     assert np.abs(got[:, :4] - want[:, :4]).max() <= 1e-5
     assert np.abs(got[:, 4] - want[:, 4]).max() <= 5e-5

@@ -59,11 +59,11 @@ def _coherent_pack(S, R, W, H, seed):
             rays.astype(np.float32))
 
 
-def _setup(tiny, R):
+def _setup(tiny, R, cfg=None):
     """The model's tables in both packages (weights seed 1) and a
-    coherent pack for them."""
+    coherent pack for them: the flagship or tiny_dynamic, or `cfg`."""
     px, py = PATCH[R]
-    cfg = with_coherent_gather(flagship_cfg(tiny=tiny), px, py, R)
+    cfg = with_coherent_gather(cfg or flagship_cfg(tiny=tiny), px, py, R)
     jm, tm = models(cfg, bf16=False)
     jp, tp = weights(jm, seed=1)
     cf = tm._cf_eval
@@ -168,7 +168,7 @@ def test_anchors_and_witness_match_jax(R):
         hi = np.where(ok, f, np.float32(-3e38)).reshape(R, -1).max(0)
         with np.errstate(over="ignore"):      # -3e38 - 3e38 = -inf
             viol |= hi - lo > budget - 2
-    count = int(coverage_count(torch.from_numpy(pack), spec))
+    count = int(coverage_count(torch.from_numpy(pack), [spec]))
     assert count == int(viol.sum()) and 0 < count < viol.size // 2
 
     # the same rays in scanline order give the same anchors and count
@@ -177,7 +177,7 @@ def test_anchors_and_witness_match_jax(R):
         PACK_ROWS, B * S))
     sspec = PatchSpec(**{**spec.__dict__, "phase_major": False})
     assert torch.equal(patch_anchors(scan, sspec)[2], idx)
-    assert int(coverage_count(scan, sspec)) == count
+    assert int(coverage_count(scan, [sspec])) == count
 
 
 @pytest.mark.parametrize("R", [4, 8])
@@ -189,8 +189,8 @@ def test_plain_patch_blend_matches_jax_kernel(R):
     S, C = d["spec"].S, d["spec"].C
     pk16, rows, anchors = _jax_rows(d)
     J = B * S // R
-    got, count = patch_blend(d["prep"]["patch"], torch.from_numpy(d["pack"]),
-                             d["pspec"])
+    (got,), count = patch_blend([d["prep"]["patch"]],
+                                torch.from_numpy(d["pack"]), [d["pspec"]])
     assert got.dtype == torch.bfloat16 and got.shape == (B * S, C)
     f32 = patch_features_plain(d["prep"]["patch"],
                                torch.from_numpy(d["pack"]), d["pspec"])
@@ -220,7 +220,7 @@ def test_plain_preblended_shade_matches_jax_kernel(R):
     d = _setup(True, R)
     S = d["spec"].S
     pack = torch.from_numpy(d["pack"])
-    feats, _ = patch_blend(d["prep"]["patch"], pack, d["pspec"])
+    (feats,), _ = patch_blend([d["prep"]["patch"]], pack, [d["pspec"]])
     fj = _phase_major_rows(feats.float().numpy(), S, R)
     want = np.asarray(fused_shade_composite(
         jnp.asarray(fj).astype(jnp.bfloat16),
@@ -267,12 +267,13 @@ def test_patch_wrappers_check_their_inputs():
     pack = torch.from_numpy(d["pack"])
     ptab = d["prep"]["patch"]
     with pytest.raises(ValueError):            # not whole blocks of R
-        patch_blend(ptab, pack[:, :-d["spec"].S].contiguous(), d["pspec"])
+        patch_blend([ptab], pack[:, :-d["spec"].S].contiguous(),
+                    [d["pspec"]])
     with pytest.raises(ValueError):            # f32 table
-        patch_blend(ptab.float(), pack, d["pspec"])
+        patch_blend([ptab.float()], pack, [d["pspec"]])
     with pytest.raises(ValueError):            # patch shape of another spec
-        patch_blend(ptab, pack, PatchSpec(**{**d["pspec"].__dict__,
-                                             "px": 4}))
+        patch_blend([ptab], pack, [PatchSpec(**{**d["pspec"].__dict__,
+                                               "px": 4})])
     with pytest.raises(ValueError):            # ray pack of another size
         shade_patch(ptab, pack, torch.from_numpy(d["rays"][:-1]).contiguous(),
                     d["ttab"], d["prep"]["wb"], d["spec"], d["pspec"])

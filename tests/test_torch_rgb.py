@@ -137,7 +137,7 @@ def test_plain_rgb_preblended_and_fused_multi_match_jax_kernels(R):
     pr = d["prep"]
     pspecs = d["cf"].patch_specs([(a.W, a.H, a.C, a.m0, a.m1) for a in axes],
                                  True)
-    feats = [patch_blend(p, t, ps)[0] for p, ps in zip(pr["ptabs"], pspecs)]
+    feats = patch_blend(pr["ptabs"], t, pspecs)[0]
     want = _jax_multi_rgb(d, pk16, [
         jnp.asarray(_phase_major_rows(f.float().numpy(), S, R)).astype(
             jnp.bfloat16) for f in feats], jnp.float32,
