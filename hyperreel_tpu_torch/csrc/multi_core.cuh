@@ -16,7 +16,7 @@
 // two keyframe rows of the time plane [TH, L, C] around the ray's time
 // coordinate tn, blended by tn's two taps (the JAX kernel's :711-722 with
 // its TH + 2 ring padding replaced by zero-weight taps, as
-// shade_core.cuh shade_sample does for the flagship; a time plane
+// shade_core.cuh sample_density does for the flagship; a time plane
 // premixed for one t is a line, TH = 0); their product; the first nd
 // channels sum into the density feature (per axis, then across axes, as
 // JAX adds each axis's sum), the rest append to one appearance vector in

@@ -3,10 +3,11 @@
 // (K7 composite.cu): the per-sample shading that follows the space
 // features (time-plane taps and density for K2/K3; for all four the
 // colour, SH of degree 2 or RGB (a template argument, kRgb), with its
-// colour scale/shift, or the SH basis folded once per ray for K3 and K5)
-// and the per-ray log-space composite: over an S-lane segment of a warp
-// (S <= 32), over a whole warp with two samples per lane (S = 64, K5-pre
-// and K6), or a running sum per thread over its ray's samples (K3, K5).
+// colour scale/shift, or the SH basis folded once per ray for K2, K3 and
+// K5) and the per-ray log-space composite: over an S-lane segment of a
+// warp (S <= 32), over a whole warp with two samples per lane (S = 64,
+// K5-pre and K6), or a running sum per thread over its ray's samples (K2,
+// K3, K5).
 
 #pragma once
 
@@ -301,18 +302,6 @@ __device__ __forceinline__ float sample_density(float* feat, const float* pk,
     if (c < p.nd) dsum += feat[c];
   }
   return fmaxf(kWeights ? dsum * wt : dsum, 0.0f);
-}
-
-// Everything after the space features of one valid sample: its time
-// features and density (sample_density) and the colour of the products.
-template <int C, bool kRgb, bool kWeights>
-__device__ __forceinline__ void shade_sample(float* feat, const float* pk,
-                                             const float* ray,
-                                             const float* ttab,
-                                             const ShadeParams& p, float wt,
-                                             float& sigma, float* rgb) {
-  sigma = sample_density<C, kWeights>(feat, pk, ray, ttab, p, wt);
-  colour<C, kRgb>(feat, p.wb, pk, ray, rgb);
 }
 
 // The composite weight of this lane's sample in its ray, over the S-lane

@@ -5,13 +5,16 @@ to the per-ray colour, for the dynamic single-axis net
 Replaces hyperreel_tpu/ops/pallas/shade.py:_shade_kernel on the quad
 route (with _shade_core, _corner_weights, _twohot_matmul, _shade_tail and
 _compact_rows) and the XLA quad-row gather before it. CUDA source:
-csrc/shade.cu (the per-sample shading and the composite in
-csrc/shade_core.cuh). Bound on the H100 by device-memory bytes and load
-latency: per valid sample one 8*C-byte quad row and the 40-byte pack
-column; the lane computes its texel address itself (no gather kernel, no
-index array), samples outside the aabb load nothing, and the per-ray
-composite and sums stay in registers (warp shuffles). See the source for
-the design.
+csrc/shade.cu (the time taps, density, colour and running composite in
+csrc/shade_core.cuh). A thread per ray walks its samples in order, the
+pack staged per warp in shared memory 8 samples at a time, the SH basis
+folded with the ray's view direction once per ray, the composite a
+running sum in registers; bound on the H100 by device-memory bytes with
+that fold: per valid sample one 8*C-byte quad row and the 40-byte pack
+column. The thread computes its texel address itself (no gather kernel,
+no index array) and samples outside the aabb load nothing. See the source
+for the design. `shade_folded_plain` is the plain version with the fold,
+the same function up to the order of the sums.
 
 `shade_preblended` is the same kernel reading the space features that
 the patch-blend kernel (ops/kernels/patch_blend.py) wrote, bf16 [B*S, C]
@@ -63,7 +66,7 @@ from hyperreel_tpu_torch.ops.sh import eval_sh_bases
 # tiny_dynamic C=8; SH of degree 2 or RGB)
 KERNEL_CHANNELS = (8, 16)
 KERNEL_SH_DEG = 2
-KERNEL_MAX_S = 32          # one warp lane per sample (K2, K3)
+KERNEL_MAX_S = 32          # K2, K3
 
 
 def shading_built(spec):
@@ -163,13 +166,28 @@ def quad_features(quad, x, y, W, H, C):
             + q[:, 3] * (wy1 * wx1)[:, None])
 
 
-def shade_tail_plain(dens, feat, wb, pack, ray_pack, spec):
+def fold_sh_basis(wb, dirs, deg=2):
+    """The SH basis [3K, A] (rows ch * K + k) folded with each ray's view
+    direction dirs [B, 3]: f32 [B, 3, A], M[b, ch, a] = sum_k Y_k(dirs[b])
+    wb[ch * K + k, a] (csrc/shade_core.cuh sh_fold). A sample's colour is
+    then M @ app instead of the sum over k of Y_k (wb @ app)_k."""
+    K = (deg + 1) ** 2
+    Y = eval_sh_bases(deg, dirs.float())                   # [B, K]
+    return torch.einsum("bk,cka->bca", Y, wb.to(dirs.device).float()
+                        .reshape(3, K, -1))
+
+
+def shade_tail_plain(dens, feat, wb, pack, ray_pack, spec, fold=False):
     """The density feature [B*S] and the features [B*S, A] of every sample
     -> f32 [B, 5]: validity (|xn|, |yn|, |zn| <= 1 and dist > 0), relu
     density (of the feature times the weights row where spec.weights), the
     SH or RGB colour of wb [3K, A] @ feat with the colour scale and shift,
     and the per-ray composite (csrc/shade_core.cuh colour and
-    composite_store)."""
+    composite_add). With `fold`, the SH colour is taken from the basis
+    folded with each ray's view direction (`fold_sh_basis`), as the
+    thread-per-ray kernels take it (shade_core.cuh sh_fold,
+    sh_folded_colour): the same function up to the order of the sums; RGB
+    colour has nothing to fold."""
     S = spec.S
     B = check_pack(pack, S, spec.weights)
     dist = pack[3]
@@ -177,10 +195,14 @@ def shade_tail_plain(dens, feat, wb, pack, ray_pack, spec):
     if spec.weights:
         dens = dens * pack[WEIGHTS_ROW]
     sigma = torch.clamp_min(dens, 0.0) * valid.float()
-    app = feat @ wb.to(feat.device).t()                   # [N, 3K]
     if spec.shading == "rgb":
-        v = 1.0 / (1.0 + torch.exp(-app))
+        v = 1.0 / (1.0 + torch.exp(-(feat @ wb.to(feat.device).t())))
+    elif fold:
+        M = fold_sh_basis(wb, ray_pack[:, 3:6], spec.deg)  # [B, 3, A]
+        e = (M.repeat_interleave(S, 0) @ feat[..., None])[..., 0]
+        v = torch.clamp_min(e + 0.5, 0.0)
     else:
+        app = feat @ wb.to(feat.device).t()               # [N, 3K]
         K = spec.n_basis
         Y = eval_sh_bases(spec.deg, ray_pack[:, 3:6].repeat_interleave(
             S, 0))                                        # [N, K]
@@ -200,7 +222,8 @@ def sample_validity(pack):
 def composite_plain(sigma, rgb, dist, B, spec):
     """Per-sample density [B*S], colour [B*S, 3] and dist [B*S] -> f32
     [B, 5]: the per-ray log-space composite (last delta 1e10) and the sums
-    r, g, b, acc, depth (csrc/shade_core.cuh composite_store)."""
+    r, g, b, acc, depth (csrc/shade_core.cuh composite_add,
+    composite_store)."""
     S = spec.S
     d = dist.reshape(B, S)
     delta = torch.cat([d[:, 1:] - d[:, :-1],
@@ -233,14 +256,15 @@ def space_time_product(feat, pack, ray_pack, ttab, spec):
     return feat * ft
 
 
-def shade_features_plain(feat, pack, ray_pack, ttab, wb, spec):
+def shade_features_plain(feat, pack, ray_pack, ttab, wb, spec,
+                         fold=False):
     """Everything after the space features f32 [B*S, C]: the time
     features, their product with the space features, and
-    `shade_tail_plain` -> f32 [B, 5] (csrc/shade_core.cuh
-    shade_sample)."""
+    `shade_tail_plain` (with the SH basis folded per ray where `fold`) ->
+    f32 [B, 5] (csrc/shade_core.cuh sample_density, the colour)."""
     prod = space_time_product(feat, pack, ray_pack, ttab, spec)
     return shade_tail_plain(prod[:, :spec.nd].sum(-1), prod, wb, pack,
-                            ray_pack, spec)
+                            ray_pack, spec, fold)
 
 
 def shade_plain(quad, pack, ray_pack, ttab, wb, spec):
@@ -249,10 +273,25 @@ def shade_plain(quad, pack, ray_pack, ttab, wb, spec):
     return shade_features_plain(feat, pack, ray_pack, ttab, wb, spec)
 
 
+def shade_folded_plain(quad, pack, ray_pack, ttab, wb, spec):
+    """`shade_plain` with the SH colour taken from the basis folded with
+    each ray's view direction, as the kernel takes it: the same function
+    up to the order of the sums."""
+    feat = quad_features(quad, pack[0], pack[1], spec.W, spec.H, spec.C)
+    return shade_features_plain(feat, pack, ray_pack, ttab, wb, spec, True)
+
+
 def shade_preblended_plain(feats, pack, ray_pack, ttab, wb, spec):
     """Plain PyTorch version of the pre-blended kernel."""
     return shade_features_plain(feats.float(), pack, ray_pack, ttab, wb,
                                 spec)
+
+
+def shade_preblended_folded_plain(feats, pack, ray_pack, ttab, wb, spec):
+    """`shade_preblended_plain` with the SH basis folded per ray, as the
+    kernel takes it."""
+    return shade_features_plain(feats.float(), pack, ray_pack, ttab, wb,
+                                spec, True)
 
 
 def check_tables(ttab, wb, spec, device):

@@ -42,11 +42,11 @@ version on the CPU and raise on the card.
 
 On the card the quad kernel runs a thread per ray over its samples (S a
 multiple of 4); it folds the SH basis with the ray's view direction once
-per ray (`fold_sh_basis` is the plain form of the fold) and reads the
-lines and time planes through L1. Each launch reports its persistent grid,
-blocks per SM, L1/shared carve-out and shared memory per block in
-`shade_multi.last_launch`. The pre-blended kernel runs a warp segment per
-ray.
+per ray (shade.py `fold_sh_basis` is the plain form of the fold) and
+reads the lines and time planes through L1. Each launch reports its
+persistent grid, blocks per SM, L1/shared carve-out and shared memory per
+block in `shade_multi.last_launch`. The pre-blended kernel runs a warp
+segment per ray.
 """
 
 import ctypes
@@ -58,13 +58,11 @@ import torch
 
 from hyperreel_tpu_torch.models.tensorf import MAT_MODE, VEC_MODE
 from hyperreel_tpu_torch.ops.kernels import build
-from hyperreel_tpu_torch.ops.kernels.layout import (
-    WEIGHTS_ROW, check_pack, check_ray_pack)
+from hyperreel_tpu_torch.ops.kernels.layout import check_pack, check_ray_pack
 from hyperreel_tpu_torch.ops.kernels.shade import (
-    composite_plain, line_lookup, quad_features, quad_table,
-    sample_validity, shade_tail_plain, shading_built, taps)
+    line_lookup, quad_features, quad_table, shade_tail_plain, shading_built,
+    taps)
 from hyperreel_tpu_torch.ops.patch_gather import build_patch_table_2d
-from hyperreel_tpu_torch.ops.sh import eval_sh_bases
 
 MAX_S = 64
 # the quad kernel's pack tiles take 4 samples at a time
@@ -181,10 +179,12 @@ def axis_products(feats, lines, pack, ray_pack, spec):
     return dens, torch.cat(app, -1)
 
 
-def shade_multi_features_plain(feats, lines, pack, ray_pack, wb, spec):
-    """Everything after the plane features -> f32 [B, 5]."""
+def shade_multi_features_plain(feats, lines, pack, ray_pack, wb, spec,
+                               fold=False):
+    """Everything after the plane features -> f32 [B, 5] (with the SH
+    basis folded per ray where `fold`)."""
     dens, app = axis_products(feats, lines, pack, ray_pack, spec)
-    return shade_tail_plain(dens, app, wb, pack, ray_pack, spec)
+    return shade_tail_plain(dens, app, wb, pack, ray_pack, spec, fold)
 
 
 def shade_multi_plain(quads, lines, pack, ray_pack, wb, spec):
@@ -200,38 +200,14 @@ def shade_multi_preblended_plain(feats, lines, pack, ray_pack, wb, spec):
                                       pack, ray_pack, wb, spec)
 
 
-def fold_sh_basis(wb, dirs, deg=2):
-    """The SH basis [3K, A] (rows ch * K + k) folded with each ray's view
-    direction dirs [B, 3]: f32 [B, 3, A], M[b, ch, a] = sum_k Y_k(dirs[b])
-    wb[ch * K + k, a] (csrc/shade_core.cuh sh_fold). A sample's colour is
-    then M @ app instead of the sum over k of Y_k (wb @ app)_k."""
-    K = (deg + 1) ** 2
-    Y = eval_sh_bases(deg, dirs.float())                   # [B, K]
-    return torch.einsum("bk,cka->bca", Y, wb.to(dirs.device).float()
-                        .reshape(3, K, -1))
-
-
 def shade_multi_folded_plain(quads, lines, pack, ray_pack, wb, spec):
     """`shade_multi_plain` with the SH colour taken from the folded basis
-    (`fold_sh_basis`), as the kernels take it: the same function up to the
-    order of the sums. RGB colour has nothing to fold and is
-    `shade_multi_plain`."""
-    if spec.shading == "rgb":
-        return shade_multi_plain(quads, lines, pack, ray_pack, wb, spec)
+    (shade.py `fold_sh_basis`), as the kernels take it: the same function
+    up to the order of the sums. RGB colour has nothing to fold."""
     feats = [quad_features(q, pack[ax.m0], pack[ax.m1], ax.W, ax.H, ax.C)
              for q, ax in zip(quads, spec.axes)]
-    dens, app = axis_products(feats, lines, pack, ray_pack, spec)
-    B = ray_pack.shape[0]
-    valid = sample_validity(pack)
-    if spec.weights:
-        dens = dens * pack[WEIGHTS_ROW]
-    sigma = torch.clamp_min(dens, 0.0) * valid.float()
-    M = fold_sh_basis(wb, ray_pack[:, 3:6], spec.deg)      # [B, 3, A]
-    e = (M.repeat_interleave(spec.S, 0) @ app[..., None])[..., 0]
-    rgb = torch.clamp_min(e + 0.5, 0.0) * (pack[4:7].t() + 1.0) \
-        + pack[7:10].t()
-    rgb = torch.where(valid[:, None], rgb, 0.0)
-    return composite_plain(sigma, rgb, pack[3], B, spec)
+    return shade_multi_features_plain(feats, lines, pack, ray_pack, wb, spec,
+                                      True)
 
 
 def check_lines(lines, wb, spec, device):

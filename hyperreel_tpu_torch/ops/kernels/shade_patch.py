@@ -27,9 +27,7 @@ from hyperreel_tpu_torch.ops.kernels.patch_blend import (
     check_patch, check_patch_kernel, coverage_count, patch_features_plain,
     patch_params)
 from hyperreel_tpu_torch.ops.kernels.shade import (
-    check_kernel, check_tables, composite_plain, sample_validity,
-    shade_features_plain, shade_params, space_time_product)
-from hyperreel_tpu_torch.ops.kernels.shade_multi import fold_sh_basis
+    check_kernel, check_tables, shade_features_plain, shade_params)
 
 
 def shade_patch_plain(ptab, pack, ray_pack, ttab, wb, spec, pspec):
@@ -41,21 +39,11 @@ def shade_patch_plain(ptab, pack, ray_pack, ttab, wb, spec, pspec):
 
 def shade_patch_folded_plain(ptab, pack, ray_pack, ttab, wb, spec, pspec):
     """`shade_patch_plain` with the SH colour taken from the basis folded
-    with each ray's view direction (shade_multi.py `fold_sh_basis`), as
-    the kernel takes it: the same function up to the order of the sums.
-    RGB colour has nothing to fold and is `shade_patch_plain`."""
-    if spec.shading == "rgb":
-        return shade_patch_plain(ptab, pack, ray_pack, ttab, wb, spec, pspec)
+    with each ray's view direction (shade.py `fold_sh_basis`), as the
+    kernel takes it: the same function up to the order of the sums. RGB
+    colour has nothing to fold."""
     feat = patch_features_plain(ptab, pack, pspec)
-    prod = space_time_product(feat, pack, ray_pack, ttab, spec)
-    valid = sample_validity(pack)
-    sigma = torch.clamp_min(prod[:, :spec.nd].sum(-1), 0.0) * valid.float()
-    M = fold_sh_basis(wb, ray_pack[:, 3:6], spec.deg)      # [B, 3, C]
-    e = (M.repeat_interleave(spec.S, 0) @ prod[..., None])[..., 0]
-    rgb = torch.clamp_min(e + 0.5, 0.0) * (pack[4:7].t() + 1.0) \
-        + pack[7:10].t()
-    rgb = torch.where(valid[:, None], rgb, 0.0)
-    return (composite_plain(sigma, rgb, pack[3], ray_pack.shape[0], spec),
+    return (shade_features_plain(feat, pack, ray_pack, ttab, wb, spec, True),
             coverage_count(pack, [pspec]))
 
 

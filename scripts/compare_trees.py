@@ -12,8 +12,11 @@ pack of the bench frame's first chunk for each model, the bench frame's
 rgb on every route (flagship quad, fused and two-kernel patch at R=8 (5,
 2); llff quad, fused and two-kernel patch at R=8 (5, 2) and R=4 (4, 3);
 n3d quad with one t and with a t per ray (K5 on the time planes); shiny
-quad), the patch kernels' output on the flagship's first chunk in
-phase-major order (K3, K4 and K2-preblended at R=8 (5, 2)), K5's,
+quad), K2's on the flagship's first chunk (scanline order: the time
+plane premixed, the time plane itself (TH = 4), and RGB colour with the
+weights row, a seeded [3, C] basis and weights row), the patch kernels'
+output on the flagship's first chunk in phase-major order (K3, K4 and
+K2-preblended at R=8 (5, 2)), K5's,
 K5-preblended's, K4's (three planes) and K6's on the first chunk of llff,
 shiny and n3d (K5 on the chunk in scanline and in phase-major order, on
 n3d's time planes also with a t per ray spread over the keyframes and on
@@ -21,7 +24,9 @@ the planes premixed; K4, K5-preblended reading its features and K6 on the
 phase-major chunk at R=8), the patch routes of n3d at R=8 (5, 3) and
 shiny's two-kernel route at R=8 (5, 2), the patch routes at S = k (the
 flagship with compaction 16, n3d with the stride to 16, shiny with
-compaction 16 at R=4 (4, 3)), and K7's output on seeded inputs, and
+compaction 16 at R=4 (4, 3); with the flagship's compaction also K2 on
+the scanline chunk and K2-preblended on K4's features of the phase-major
+chunk at S = 16), and K7's output on seeded inputs, and
 saves them with each route's frame time and the kernels' times per chunk
 (CUDA events, after a warm-up frame or launch; the kernels over 20
 launches). Then
@@ -29,7 +34,8 @@ launches). Then
     python3 scripts/compare_trees.py --compare A.pt B.pt [C.pt ...]
 
 prints, for every saved output, the largest |difference| of each file
-from the first (0 where the kernels' arithmetic is unchanged), and every
+from the first (0 where the kernels' arithmetic is unchanged; for the
+shade kernels' [B, 5] outputs, of rgb/acc and of depth apart), and every
 file's frame times. Run the checkouts' --save in turns (A, B, B, A) in
 one call so that the times share a card.
 """
@@ -68,7 +74,7 @@ def save(path, frames):
     from hyperreel_tpu_torch.ops.kernels.composite import composite
     from hyperreel_tpu_torch.ops.kernels.pack_build import pack_build
     from hyperreel_tpu_torch.ops.kernels.shade import (
-        ShadeSpec, premix_time, shade_preblended)
+        ShadeSpec, premix_time, shade, shade_preblended)
     from hyperreel_tpu_torch.ops.kernels.shade_multi import (
         MultiSpec, shade_multi, shade_multi_preblended)
     from hyperreel_tpu_torch.ops.kernels.shade_multi_patch import (
@@ -102,6 +108,16 @@ def save(path, frames):
                                             cs.IT).cpu()
         times[f"{name} K1 chunk"] = cs.cuda_ms(torch, lambda: pack_build(
             x0, prep["mlp"], rp, cf.spec, cs.IT), 20)
+
+    def packed(model, prep, chunk):
+        cf = model._cf_eval
+        rp = cf.ray_pack(chunk)
+        return pack_build(cf.pred.net_input(chunk, ctx).float().contiguous(),
+                          prep["mlp"], rp, cf.spec, cs.IT), rp
+
+    def kernel(key, fn):
+        out[key] = fn().float().cpu()
+        times[f"{key} chunk"] = cs.cuda_ms(torch, fn, 20)
 
     def k5(name, model, prep, chunk, R):
         """K5 on the chunk's pack and on the pack of the chunk in
@@ -163,6 +179,28 @@ def save(path, frames):
 
     cfg, info, model, params, prep = cs.flagship(dev)
     k1("flagship", model, prep, frame[0])
+    # K2 on the first chunk: the time plane premixed (the quad route's),
+    # the time plane itself, RGB colour with the weights row
+    cf = model._cf_eval
+    pack0, rp0 = packed(model, prep, frame[0])
+    H, W, TH, TW, C, nd = prep["dims"]
+    sspec = ShadeSpec(S=cf.S, W=W, H=H, TW=TW, TH=0, C=C, nd=nd,
+                      deg=cf.net.sh_deg, distance_scale=cf.net.distance_scale)
+    ttab0 = premix_time(prep["ttab"], rp0[0, 7])
+    gen = torch.Generator().manual_seed(cs.SEED)
+    wb_rgb = torch.cat([torch.zeros(3, nd),
+                        torch.randn(3, C - nd, generator=gen)], 1)
+    pack_w = torch.cat([pack0, 2.0 * torch.rand(
+        1, pack0.shape[1], generator=gen).to(dev)]).contiguous()
+    spec_th = dataclasses.replace(sspec, TH=TH)
+    spec_w = dataclasses.replace(sspec, shading="rgb", weights=True)
+    kernel("flagship K2", lambda: shade(prep["quad"], pack0, rp0, ttab0,
+                                        prep["wb"], sspec))
+    kernel(f"flagship K2 TH={TH}", lambda: shade(
+        prep["quad"], pack0, rp0, prep["ttab"], prep["wb"], spec_th))
+    kernel("flagship K2 RGB+weights", lambda: shade(
+        prep["quad"], pack_w, rp0, ttab0, wb_rgb, spec_w))
+    del pack0, pack_w
     rk = {"cf_prepared": prep, "uniform_time": True}
     run("flagship quad", model, params, frame, rk,
         ("HYPERREEL_FUSED_PATCH", "1"))
@@ -267,8 +305,28 @@ def save(path, frames):
             info, fr = None, frame6
         m, p = cs.sample_count_model(base_cfg, info, stage, k, p0,
                                      patch=shape)
+        prk = m.prepare_eval(p)
+        if family == "flagship":
+            # K2 on the scanline chunk, K2-preblended on K4's features of
+            # the phase-major chunk, both at S = k
+            pk, rpk = packed(m, prk, fr[0])
+            pkm, rpm = packed(m, prk, cs.phase_major(fr[:1], shape[2])[0]
+                              .contiguous())
+            H, W, _, TW, C, nd = prk["dims"]
+            spk = ShadeSpec(S=k, W=W, H=H, TW=TW, TH=0, C=C, nd=nd,
+                            deg=m._cf_eval.net.sh_deg,
+                            distance_scale=m._cf_eval.net.distance_scale)
+            tk = premix_time(prk["ttab"], rpk[0, 7])
+            ps, = m._cf_eval.patch_specs([(W, H, C, 0, 1)], True)
+            (fk,), _ = blend_planes([prk["patch"]], pkm, [ps])
+            tag = f"{family} {stage} {k}"
+            kernel(f"{tag} K2", lambda: shade(prk["quad"], pk, rpk, tk,
+                                              prk["wb"], spk))
+            kernel(f"{tag} K2-pre", lambda: shade_preblended(
+                fk, pkm, rpm, tk, prk["wb"], spk))
+            del pk, pkm, fk
         fr = cs.phase_major(fr, shape[2]).contiguous()
-        rk = {"cf_prepared": m.prepare_eval(p), "uniform_time": True,
+        rk = {"cf_prepared": prk, "uniform_time": True,
               "rays_phase_major": True}
         for val, name in (("1", "fused"), ("0", "two-kernel")):
             run(f"{family} {stage} {k} {name} patch R={shape[2]}", m, p, fr,
@@ -301,10 +359,16 @@ def compare(paths):
     print(f"# {runs[0]['card']}; files: " + ", ".join(
         f"{p} ({r['tree']})" for p, r in zip(paths, runs)))
     for name, ref in first.items():
-        diffs = [(r["out"][name] - ref).abs().max().item()
-                 if name in r["out"] else float("nan") for r in runs[1:]]
-        print(f"{name}: max |diff| from the first file "
-              + ", ".join(f"{d:.3e}" for d in diffs))
+        parts = [(name, lambda x: x)]
+        if ref.dim() == 2 and ref.shape[1] == 5:
+            parts = [(f"{name} rgb/acc", lambda x: x[:, :4]),
+                     (f"{name} depth", lambda x: x[:, 4])]
+        for label, part in parts:
+            diffs = [(part(r["out"][name]) - part(ref)).abs().max().item()
+                     if name in r["out"] else float("nan")
+                     for r in runs[1:]]
+            print(f"{label}: max |diff| from the first file "
+                  + ", ".join(f"{d:.3e}" for d in diffs))
     for name in runs[0]["times"]:
         unit = "ms/chunk" if name.endswith(" chunk") else "ms/frame"
         print(f"{name}: {unit} " + ", ".join(

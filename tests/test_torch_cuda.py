@@ -34,8 +34,9 @@ from hyperreel_tpu_torch.ops.kernels.pack_build import (
 from hyperreel_tpu_torch.ops.kernels.patch_blend import (
     PatchSpec, patch_blend, patch_blend_plain)
 from hyperreel_tpu_torch.ops.kernels.shade import (
-    ShadeSpec, premix_time, quad_table, shade, shade_plain, shade_preblended,
-    shade_preblended_plain)
+    ShadeSpec, premix_time, quad_table, shade, shade_folded_plain,
+    shade_params, shade_plain, shade_preblended,
+    shade_preblended_folded_plain, shade_preblended_plain)
 from hyperreel_tpu_torch.ops.kernels.shade_multi import (
     AxisSpec, MultiSpec, shade_multi, shade_multi_plain,
     shade_multi_preblended, shade_multi_preblended_plain)
@@ -127,7 +128,7 @@ def test_kernels_match_plain(dev, tiny, n, bf16):
         out = shade(prep["quad"], pack, rp, ttab, prep["wb"], spec)
         ref = shade_plain(prep["quad"], pack, rp, ttab, prep["wb"], spec)
         torch.cuda.synchronize()
-        # the per-ray sums run in another order (warp butterfly)
+        # the per-ray sums run in another order (a running sum per ray)
         assert (out[:, :4] - ref[:, :4]).abs().max() <= 1e-4
         assert (out[:, 4] - ref[:, 4]).abs().max() <= 1e-3
         # both kernels against both plain versions: the fused-path gate
@@ -315,6 +316,92 @@ def test_shade_patch_grid_matches_plain(dev, C, R, S, pm, shading, nd):
         ref, vr = plain(ptabs[0], pack, rp, ttab, wb, spec, ps)
         torch.cuda.synchronize()
         assert int(v) == int(vr) > 0
+        assert ref[:, 3].max() > 0.5
+        assert (out[:, :4] - ref[:, :4]).abs().max() <= 1e-4
+        assert (out[:, 4] - ref[:, 4]).abs().max() <= 1e-3
+
+
+def _shade_grid_inputs(dev, C, S, TH, nd, shading, weights, B, pre):
+    """Synthetic inputs of K2 / K2-preblended: a pack [10 or 11, B*S]
+    (points partly outside the aabb, sorted distances with a few invalid
+    0 samples, the weights row in [0, 2)), a ray pack [B, 8] (unit view
+    directions, t in [-1, 1]), a random bf16 quad table of a 33 x 29 plane
+    or bf16 features [B*S, C], a time plane [TH, 19, C] or a premixed
+    table [19, C] in [0, 1), and a basis [3K, C] zero on the nd density
+    columns."""
+    gen = torch.Generator().manual_seed(C * 1000 + S * 10 + TH)
+    W, H, TW = 33, 29, 19
+    xyz = 2.2 * torch.rand(3, B, S, generator=gen) - 1.1
+    dist = torch.sort(3.0 * torch.rand(B, S, generator=gen), 1).values
+    dist[:, :1] *= (torch.rand(B, 1, generator=gen) > 0.3).float()
+    rows = [xyz, dist[None], 0.1 * torch.randn(6, B, S, generator=gen)]
+    if weights:
+        rows.append(2.0 * torch.rand(1, B, S, generator=gen))
+    pack = torch.cat(rows).reshape(-1, B * S)
+    vd = torch.randn(B, 3, generator=gen)
+    vd = vd / vd.norm(dim=1, keepdim=True)
+    rp = torch.cat([torch.randn(B, 3, generator=gen), vd,
+                    0.1 * torch.randn(B, 1, generator=gen),
+                    2.0 * torch.rand(B, 1, generator=gen) - 1.0], 1)
+    if pre:
+        space = torch.rand(B * S, C, generator=gen).to(torch.bfloat16)
+    else:
+        space = torch.rand((H + 1) * (W + 1), 4 * C,
+                           generator=gen).to(torch.bfloat16)
+    ttab = torch.rand(*((TH,) if TH else ()), TW, C, generator=gen)
+    nd = C // 2 if nd == "half" else C // 4
+    K = 1 if shading == "rgb" else 9
+    wb = torch.cat([torch.zeros(3 * K, nd),
+                    0.3 * torch.randn(3 * K, C - nd, generator=gen)], 1)
+    spec = ShadeSpec(S=S, W=W, H=H, TW=TW, TH=TH, C=C, nd=nd, deg=2,
+                     distance_scale=4.0, shading=shading, weights=weights)
+    return (space.to(dev), pack.contiguous().to(dev), rp.to(dev),
+            ttab.contiguous().to(dev), wb, spec)
+
+
+# K2 and K2-preblended on every spec csrc/shade.cu takes: C, every power
+# of two S <= 32 (a stage of 1 or 2 samples is loaded by scalars), the
+# time plane and a premixed table, both density splits (the SH fold over
+# the appearance half where the basis's first C / 2 columns are zero, else
+# over all C), SH and RGB colour, the weights row, a whole number of
+# 128-ray blocks and a ragged one; against both plain versions at 1e-4 on
+# rgb/acc and 1e-3 on depth. K2-preblended with the weights row is refused
+# before a launch, by the wrapper and by the C entry point.
+@pytest.mark.parametrize("pre", [False, True], ids=["quad", "preblended"])
+@pytest.mark.parametrize("B", [4096, 4096 - 37], ids=["B4096", "ragged"])
+@pytest.mark.parametrize("weights", [False, True], ids=["no_w", "weights"])
+@pytest.mark.parametrize("shading", ["sh", "rgb"])
+@pytest.mark.parametrize("nd", ["half", "quarter"])
+@pytest.mark.parametrize("TH", [0, 4])
+@pytest.mark.parametrize("S", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("C", [8, 16])
+def test_shade_grid_matches_plain(dev, C, S, TH, nd, shading, weights, B,
+                                  pre):
+    space, pack, rp, ttab, wb, spec = _shade_grid_inputs(
+        dev, C, S, TH, nd, shading, weights, B, pre)
+    kernel, plains = (shade_preblended, (
+        shade_preblended_plain, shade_preblended_folded_plain)) if pre \
+        else (shade, (shade_plain, shade_folded_plain))
+    if pre and weights:
+        before = shade_preblended.launches
+        with pytest.raises(NotImplementedError):
+            kernel(space, pack, rp, ttab, wb, spec)
+        assert shade_preblended.launches == before
+        out = torch.full((B, 5), float("nan"), device=dev)
+        rc = build.load_library().lib.shade_preblended_launch(
+            space.data_ptr(), pack.data_ptr(), rp.data_ptr(),
+            ttab.data_ptr(), out.data_ptr(), shade_params(B, spec, wb),
+            torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        assert rc == 1                       # cudaErrorInvalidValue
+        assert out.isnan().all()
+        return
+    before = kernel.launches
+    out = kernel(space, pack, rp, ttab, wb, spec)
+    assert kernel.launches == before + 1
+    for plain in plains:
+        ref = plain(space, pack, rp, ttab, wb, spec)
+        torch.cuda.synchronize()
         assert ref[:, 3].max() > 0.5
         assert (out[:, :4] - ref[:, :4]).abs().max() <= 1e-4
         assert (out[:, 4] - ref[:, 4]).abs().max() <= 1e-3

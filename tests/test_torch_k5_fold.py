@@ -17,8 +17,9 @@ import pytest
 import jax.numpy as jnp
 import torch
 
+from hyperreel_tpu_torch.ops.kernels.shade import fold_sh_basis
 from hyperreel_tpu_torch.ops.kernels.shade_multi import (
-    fold_sh_basis, shade_multi_folded_plain, shade_multi_plain)
+    shade_multi_folded_plain, shade_multi_plain)
 from hyperreel_tpu_torch.ops.sh import eval_sh_bases
 
 import test_torch_dynamic_multi as dyn
