@@ -218,6 +218,13 @@ N3D_DENSITY = 0.05
 N3D_PATCH_R8 = (5, 3, 8)
 N3D_PATCH_R4 = (4, 3, 4)
 N3D_TIMED_FRAMES = 5
+# K6's times per chunk before its thread-per-ray redesign (the
+# block-prologue kernel), as this script measured them on an NVIDIA H100
+# 80GB HBM3 at 700 W (PERF.md section 6): the reference each new time is
+# printed against
+BEFORE_MS = {"llff K6": 1.125, "shiny K6": 0.929, "n3d K6 R=8": 3.236,
+             "n3d K6 R=4": 5.037, "n3d_stride16 K6": 0.691,
+             "shiny_compact16 K6": 0.488}
 
 # The card's published peaks (NVIDIA H100 SXM data sheet, 700 W): device
 # memory bytes/s, f32 operations/s outside the tensor cores, dense bf16
@@ -342,6 +349,35 @@ def cuda_ms(torch, fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def build_stats(kernel, args):
+    """'blocks of 128 threads, <r> registers, <s>/<l> bytes of spill
+    stores/loads' of one instantiation of K6 (shade_multi_patch_kernel;
+    args R, kTime, kRgb) or K5-preblended (shade_multi_pre_kernel; args
+    samples per lane, kTime, kRgb) at the [8, 4, 4] layout, from the
+    build's ptxas output."""
+    from hyperreel_tpu_torch.ops.kernels import build
+    want = (16, 8, 8, 4, 8, 4) + tuple(int(a) for a in args)
+    found = False
+    for line in build.load_library().compiler_log.splitlines():
+        m = re.search(r"\d([a-z_]+_kernel)I(\w+?)EEv", line)
+        if "Compiling entry" in line and m:
+            toks = tuple(int(x) for x in re.findall(r"L[ib](\d+)E", m[2]))
+            found = m[1] == kernel and toks == want
+        elif found and "spill stores" in line:
+            spill = re.findall(r"(\d+) bytes", line)[1:3]
+        elif found and "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line)[1]
+            return (f"blocks of 128 threads, {regs} registers, "
+                    f"{spill[0]}/{spill[1]} bytes of spill stores/loads")
+    return "no ptxas record"
+
+
+def folded_errs(out, ref):
+    """max |kernel - folded plain| of rgb/acc and of depth."""
+    return ((out[:, :4] - ref[:, :4]).abs().max().item(),
+            (out[:, 4] - ref[:, 4]).abs().max().item())
 
 
 def k1_plan(torch, name, cf, tabs, mlp_ops, k1_ms):
@@ -549,9 +585,10 @@ def static_phases(torch, dev, card, frame, reset_counts, read_counts,
         patch_blend, patch_blend_plain)
     from hyperreel_tpu_torch.ops.kernels.shade_multi import (
         MultiSpec, shade_multi, shade_multi_plain, shade_multi_preblended,
-        shade_multi_preblended_plain)
+        shade_multi_preblended_folded_plain, shade_multi_preblended_plain)
     from hyperreel_tpu_torch.ops.kernels.shade_multi_patch import (
-        shade_multi_patch, shade_multi_patch_plain)
+        shade_multi_patch, shade_multi_patch_folded_plain,
+        shade_multi_patch_plain)
 
     ctx = StepCtx(it=IT)
     # ---- 9. the model at the checkpoint grid, quad and patch routes
@@ -691,7 +728,27 @@ def static_phases(torch, dev, card, frame, reset_counts, read_counts,
         raise AssertionError(f"K5-preblended / K6 disagree with their plain "
                              f"versions: {pre_err}, {k6_err}, {k6_derr}, "
                              f"{int(vk)}, {int(vp)}, {viol_k4}")
-    del pre_p, fused_p
+    # each also against its folded plain version (the kernels' op order)
+    pre_f = folded_errs(pre, shade_multi_preblended_folded_plain(
+        feats, lines, pack_pm, rp_pm, wb, spec))
+    fused_f, vf = shade_multi_patch_folded_plain(
+        prep8["ptabs"], lines, pack_pm, rp_pm, wb, spec, pspecs)
+    k6_f = folded_errs(fused, fused_f)
+    print(f"# {family} K5-preblended vs its folded plain version: rgb/acc "
+          f"{pre_f[0]:.3e}, depth {pre_f[1]:.3e}; "
+          + build_stats("shade_multi_pre_kernel", (1, timed, rgb_colour))
+          + ". "
+          f"K6 R=8 (5,2) vs its folded plain version: rgb/acc "
+          f"{k6_f[0]:.3e}, depth {k6_f[1]:.3e}, violations {int(vf)}; "
+          + build_stats("shade_multi_patch_kernel", (R8, timed, rgb_colour)),
+          flush=True)
+    if not (max(pre_f[0], k6_f[0]) <= SHADE_TOL
+            and max(pre_f[1], k6_f[1]) <= 10 * SHADE_TOL
+            and int(vf) == int(vk)):
+        raise AssertionError(f"K5-preblended / K6 disagree with their "
+                             f"folded plain versions: {pre_f}, {k6_f}, "
+                             f"{int(vf)}, {int(vk)}")
+    del pre_p, fused_p, fused_f
 
     # the chunk's kernels, timed in turns (K5, K5 scanline, K6, K4 x3,
     # K5-pre, and back), 20 calls each time; then each plain version once
@@ -800,10 +857,13 @@ def static_phases(torch, dev, card, frame, reset_counts, read_counts,
           f"{k5_ms:.3f}, on the scanline chunk {k5_scan_ms:.3f} (plain "
           f"{k5_plain_ms:.3f}, bound {k5_bound[0]:.4f} {k5_bound[1]}); K6 "
           f"{k6_ms:.3f} (plain {k6_plain_ms:.3f}, bound "
-          f"{k6_bound[0]:.4f} {k6_bound[1]}); K4 x3 {k4_ms:.3f} (plain "
+          f"{k6_bound[0]:.4f} {k6_bound[1]}, share "
+          f"{100 * k6_bound[0] / k6_ms:.1f} %, before the redesign "
+          f"{BEFORE_MS[f'{family} K6']:.3f}); K4 x3 {k4_ms:.3f} (plain "
           f"{k4_plain_ms:.3f}, bound {k4_bound[0]:.4f} {k4_bound[1]}); "
           f"K5-preblended {pre_ms:.3f} (plain {pre_plain_ms:.3f}, bound "
-          f"{pre_bound[0]:.4f} {pre_bound[1]}); {valid_pm} of {N} samples "
+          f"{pre_bound[0]:.4f} {pre_bound[1]}, share "
+          f"{100 * pre_bound[0] / pre_ms:.1f} %); {valid_pm} of {N} samples "
           f"valid; MLP {mlp_ops / 1e9:.1f} GFLOP; table rows the chunk "
           f"reads: quad {quad_bytes / 1e6:.1f} of "
           f"{nbytes(*prep['quads']) / 1e6:.1f} MB, patch (K6) "
@@ -1573,9 +1633,10 @@ def n3d_phases(torch, dev, card, frame, reset_counts, read_counts):
     from hyperreel_tpu_torch.ops.kernels.shade import premix_time
     from hyperreel_tpu_torch.ops.kernels.shade_multi import (
         MultiSpec, shade_multi, shade_multi_plain, shade_multi_preblended,
-        shade_multi_preblended_plain)
+        shade_multi_preblended_folded_plain, shade_multi_preblended_plain)
     from hyperreel_tpu_torch.ops.kernels.shade_multi_patch import (
-        shade_multi_patch, shade_multi_patch_plain)
+        shade_multi_patch, shade_multi_patch_folded_plain,
+        shade_multi_patch_plain)
 
     ctx = StepCtx(it=IT)
     # ---- 14. the model at the checkpoint grid, quad and patch routes
@@ -1674,6 +1735,8 @@ def n3d_phases(torch, dev, card, frame, reset_counts, read_counts):
     pre = shade_multi_preblended(feats, lines, pack_pm, rp_pm, wb, spec)
     pre_p = shade_multi_preblended_plain(feats, lines, pack_pm, rp_pm, wb,
                                          spec)
+    pre_f = folded_errs(pre, shade_multi_preblended_folded_plain(
+        feats, lines, pack_pm, rp_pm, wb, spec))
     torch.cuda.synchronize()
     pre_err = (pre[:, :4] - pre_p[:, :4]).abs().max().item()
     del pre_p
@@ -1688,27 +1751,38 @@ def n3d_phases(torch, dev, card, frame, reset_counts, read_counts):
         fused, vk = shade_multi_patch(ptabs, lines, pk, rpk, wb, spec, pss)
         fused_p, vp = shade_multi_patch_plain(ptabs, lines, pk, rpk, wb,
                                               spec, pss)
+        fused_f, vf = shade_multi_patch_folded_plain(ptabs, lines, pk, rpk,
+                                                     wb, spec, pss)
         quad = shade_multi(prep["quads"], lines, pk, rpk, wb, spec)
         torch.cuda.synchronize()
         err = (fused[:, :4] - fused_p[:, :4]).abs().max().item()
         derr = (fused[:, 4] - fused_p[:, 4]).abs().max().item()
+        ferr = folded_errs(fused, fused_f)
         print(f"# n3d K6 shade_multi_patch {name}: max |kernel - plain| "
-              f"rgb/acc {err:.3e}, depth {derr:.3e} (tol {SHADE_TOL}); "
-              f"violations {int(vk)} (plain {int(vp)}) of "
+              f"rgb/acc {err:.3e}, depth {derr:.3e}, - folded plain "
+              f"{ferr[0]:.3e}, {ferr[1]:.3e} (tol {SHADE_TOL}); "
+              f"violations {int(vk)} (plain {int(vp)}, folded {int(vf)}) of "
               f"{N // pss[0].R} slots; vs K5 "
-              f"{(fused[:, :4] - quad[:, :4]).abs().max().item():.3e}",
-              flush=True)
-        if not (err <= SHADE_TOL and derr <= 10 * SHADE_TOL
-                and int(vk) == int(vp)):
+              f"{(fused[:, :4] - quad[:, :4]).abs().max().item():.3e}; "
+              + build_stats("shade_multi_patch_kernel",
+                            (pss[0].R, True, False)), flush=True)
+        if not (max(err, ferr[0]) <= SHADE_TOL
+                and max(derr, ferr[1]) <= 10 * SHADE_TOL
+                and int(vk) == int(vp) == int(vf)):
             raise AssertionError(f"n3d K6 ({name}) disagrees with its plain "
-                                 f"version: {err}, {derr}, {int(vk)}, "
-                                 f"{int(vp)}")
+                                 f"versions: {err}, {derr}, {ferr}, "
+                                 f"{int(vk)}, {int(vp)}, {int(vf)}")
         k6[name] = (err, int(vk))
-        del fused, fused_p, quad
+        del fused, fused_p, fused_f, quad
     print(f"# n3d K5-preblended TH=12: max |kernel - plain| {pre_err:.3e} "
-          f"(tol {SHADE_TOL}); violations K4 {viol_k4}, K6 R=8 "
+          f"(tol {SHADE_TOL}), - folded plain rgb/acc {pre_f[0]:.3e}, depth "
+          f"{pre_f[1]:.3e}; "
+          + build_stats("shade_multi_pre_kernel", (2, True, False))
+          + f"; violations K4 {viol_k4}, K6 R=8 "
           f"{k6['R=8 (5,3)'][1]}", flush=True)
-    if not (pre_err <= SHADE_TOL and viol_k4 == k6["R=8 (5,3)"][1]):
+    if not (max(pre_err, pre_f[0]) <= SHADE_TOL
+            and pre_f[1] <= 10 * SHADE_TOL
+            and viol_k4 == k6["R=8 (5,3)"][1]):
         raise AssertionError(f"n3d K5-preblended / the witness counts "
                              f"disagree: {pre_err}, {viol_k4}, "
                              f"{k6['R=8 (5,3)'][1]}")
@@ -1805,7 +1879,10 @@ def n3d_phases(torch, dev, card, frame, reset_counts, read_counts):
                         + N * COMPOSITE_OPS, F32_OPS_PER_S)], cf.S)
     print(f"# n3d chunk ({card}): " + "; ".join(
         f"{name} {ms[name]:.3f} ms (plain {plain_ms[name]:.3f}, bound "
-        f"{bounds[name][0]:.4f} {bounds[name][1]})" for name in kernels)
+        f"{bounds[name][0]:.4f} {bounds[name][1]}, share "
+        f"{100 * bounds[name][0] / ms[name]:.1f} %"
+        + (f", before the redesign {BEFORE_MS['n3d ' + name]:.3f}"
+           if "n3d " + name in BEFORE_MS else "") + ")" for name in kernels)
         + f"; {valid_pm} of {N} samples valid; MLP {mlp_ops / 1e9:.1f} "
         f"GFLOP ({mlp_ops / ms['K1'] / 1e9:.1f} TFLOP/s at K1's time); quad "
         f"rows the chunk reads {quad_bytes / 1e6:.1f} of "
@@ -2034,9 +2111,10 @@ def sample_count_phases(torch, dev, card, frame, reset_counts, read_counts,
         shade_preblended_plain)
     from hyperreel_tpu_torch.ops.kernels.shade_multi import (
         MultiSpec, shade_multi, shade_multi_plain, shade_multi_preblended,
-        shade_multi_preblended_plain)
+        shade_multi_preblended_folded_plain, shade_multi_preblended_plain)
     from hyperreel_tpu_torch.ops.kernels.shade_multi_patch import (
-        shade_multi_patch, shade_multi_patch_plain)
+        shade_multi_patch, shade_multi_patch_folded_plain,
+        shade_multi_patch_plain)
     from hyperreel_tpu_torch.ops.kernels.shade_patch import (
         shade_patch, shade_patch_plain)
 
@@ -2263,18 +2341,29 @@ def sample_count_phases(torch, dev, card, frame, reset_counts, read_counts,
         feats, fk, errs["K4x3"] = k4_check(torch, tag, prep8["ptabs"],
                                            pack_pm, pspecs)
         pargs = (lines, pack_pm, rp_pm, wb, spec)
-        check("K5-pre", shade_multi_preblended(feats, *pargs),
-              shade_multi_preblended_plain(feats, *pargs))
+        pre = shade_multi_preblended(feats, *pargs)
+        check("K5-pre", pre, shade_multi_preblended_plain(feats, *pargs))
+        check("K5-pre vs folded plain", pre,
+              shade_multi_preblended_folded_plain(feats, *pargs))
         fused, vk = shade_multi_patch(prep8["ptabs"], *pargs, pspecs)
         fused_p, vp = shade_multi_patch_plain(prep8["ptabs"], *pargs, pspecs)
+        fused_f, vf = shade_multi_patch_folded_plain(prep8["ptabs"], *pargs,
+                                                     pspecs)
         check("K6", fused, fused_p)
+        check("K6 vs folded plain", fused, fused_f)
+        timed = any(a.TH for a in axes)
         print(f"# {tag} coverage violations at {pshape}: K4 {fk}, K6 "
-              f"{int(vk)} (plain {int(vp)}) of {N // pshape[2]} slots",
+              f"{int(vk)} (plain {int(vp)}, folded {int(vf)}) of "
+              f"{N // pshape[2]} slots; K5-pre "
+              + build_stats("shade_multi_pre_kernel",
+                            (1 if k <= 32 else 2, timed, rgb_colour))
+              + "; K6 " + build_stats("shade_multi_patch_kernel",
+                                      (pshape[2], timed, rgb_colour)),
               flush=True)
-        if not int(vk) == int(vp) == fk:
+        if not int(vk) == int(vp) == int(vf) == fk:
             raise AssertionError(f"{tag} K4 / K6 witness counts disagree: "
-                                 f"{fk}, {int(vk)}, {int(vp)}")
-        del fused, fused_p
+                                 f"{fk}, {int(vk)}, {int(vp)}, {int(vf)}")
+        del pre, fused, fused_p, fused_f
         kernels.update({
             "K4x3": lambda: patch_blend(prep8["ptabs"], pack_pm, pspecs),
             "K5-pre": lambda: shade_multi_preblended(feats, *pargs),
@@ -2317,7 +2406,9 @@ def sample_count_phases(torch, dev, card, frame, reset_counts, read_counts,
             f"{t:.4f}" for t in turns[name]) + f"; plain "
         f"{plain_ms[name]:.3f}, bound {bounds[name][0]:.4f} "
         f"{bounds[name][1]}, share {100 * bounds[name][0] / ms[name]:.1f} "
-        "%)" for name in kernels), flush=True)
+        "%" + (f", before the redesign {BEFORE_MS[f'{tag} {name}']:.3f}"
+               if f"{tag} {name}" in BEFORE_MS else "") + ")"
+        for name in kernels), flush=True)
     del kernels, plains
     torch.cuda.empty_cache()
 

@@ -20,10 +20,11 @@
 // premixed for one t is a line, TH = 0); their product; the first nd
 // channels sum into the density feature (per axis, then across axes, as
 // JAX adds each axis's sum), the rest append to one appearance vector in
-// axis order; then one colour from it (shade_core.cuh colour: SH of
-// degree 2 with the [3 * kBasis, A] basis, or RGB with a [3, A] one, A the
-// appearance channels) and relu density (of the density sum times the
-// sample's weight where the pack has the weights row).
+// axis order; then one colour from it (shade_core.cuh: SH of degree 2
+// from the [3 * kBasis, A] basis folded once per ray with the ray's view
+// direction, or RGB with a [3, A] basis, A the appearance channels) and
+// relu density (of the density sum times the sample's weight where the
+// pack has the weights row).
 // The channel layout (C and density channels per axis) is a template
 // argument of every kernel here (Layout below). K5's quad kernel is built
 // for [8, 4, 4] (axes 0, 1, 2 with C = 16, 8, 8 of which 8, 4, 4 density
@@ -232,9 +233,10 @@ inline bool has_time(const MultiParams& p) {
   return p.axis[0].TH > 0 || p.axis[1].TH > 0 || p.axis[2].TH > 0;
 }
 
-// ---- K5's per-sample body (shade_multi.cu): the second factors through
-// L1 without branches on their taps, and the colour from the ray's folded
-// basis. line_product and shade_axes above stay K6's.
+// ---- The per-sample body of K5 and K6 (shade_multi.cu,
+// shade_multi_patch.cu): the second factors through L1 without branches on
+// their taps, and the colour from the ray's folded basis. line_product and
+// shade_axes above stay K5-pre's.
 
 // out[c] (+)= w0 * r0[c] + w1 * r1[c] for C contiguous f32 of two 16-byte
 // aligned rows in device memory (kAcc: added to out)
@@ -258,11 +260,12 @@ __device__ __forceinline__ void blend_rows(float* out, const float* r0,
 }
 
 // Axis A's second factor at one sample: the line's two z taps (!kTime),
-// or those taps on the two keyframe rows around the ray's tn (kTime: every
-// axis has a time plane) mixed by tn's taps `tt` (the four rows' weights
-// the products of a z and a t tap). Each index is clamped onto the table
-// (where a tap is clamped its weight is 0), so that a zero-weight tap
-// still reads a valid row and no branch depends on a tap's weight.
+// or those taps on the two keyframe rows around the ray's tn (kTime) mixed
+// by tn's taps `tt` (the four rows' weights the products of a z and a t
+// tap; a line in a kTime launch, TH = 0, has tt = {0, 1, 0}: its row 0
+// with weight 1). Each index is clamped onto the table (where a tap is
+// clamped its weight is 0), so that a zero-weight tap still reads a valid
+// row and no branch depends on a tap's weight.
 template <int A, int C, bool kTime>
 __device__ __forceinline__ void second_factor(const MultiAxis& ax,
                                               const float* pk,
@@ -276,7 +279,8 @@ __device__ __forceinline__ void second_factor(const MultiAxis& ax,
     return;
   }
   const float* k0 = ax.line + (int64_t)max(tt.i0, 0) * ax.L * C;
-  const float* k1 = ax.line + (int64_t)min(tt.i0 + 1, ax.TH - 1) * ax.L * C;
+  const float* k1 =
+      ax.line + (int64_t)max(min(tt.i0 + 1, ax.TH - 1), 0) * ax.L * C;
   blend_rows<C, false>(lf, k0 + z0, k0 + z1, tz.w0 * tt.w0, tz.w1 * tt.w0);
   blend_rows<C, true>(lf, k1 + z0, k1 + z1, tz.w0 * tt.w1, tz.w1 * tt.w1);
 }
@@ -300,7 +304,7 @@ __device__ __forceinline__ void axis_product(const float* feat,
   dsum += ds;
 }
 
-// One valid sample of the quad K5 after its pack rows, at layout L: each
+// One valid sample of K5 or K6 after its pack rows, at layout L: each
 // axis's plane features (`feat(A, f)`, A a std::integral_constant) times
 // its second factor (tt[A] the ray's time taps), relu density of the
 // density sum (times the sample's weight `wt` with kWeights), and the

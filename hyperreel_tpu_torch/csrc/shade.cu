@@ -24,10 +24,10 @@
 // - Each warp stages its 32 rays' 10 pack rows, 8 samples at a time (32
 //   bytes per ray and row, a whole sector), in shared memory with a
 //   stride of 9 floats per ray, which its threads then read without bank
-//   conflicts; a stage shorter than 4 samples (S = 1, 2) is loaded by
-//   scalars. The weights row is not staged: a valid sample's thread loads
-//   its weight (staging it took the tiles past 48 KB per block and ran 31
-//   % slower, PERF.md).
+//   conflicts (shade_core.cuh stage_ray_pack); a stage shorter than 4
+//   samples (S = 1, 2) is loaded by scalars. The weights row is not
+//   staged: a valid sample's thread loads its weight (staging it took the
+//   tiles past 48 KB per block and ran 31 % slower, PERF.md).
 // - The space features: the thread computes its texel's quad row from xn,
 //   yn and loads its 4 corners with 16-byte vector loads (no gather kernel,
 //   no index array in HBM), or loads the sample's pre-blended feature row;
@@ -63,42 +63,6 @@ constexpr int kBlocksPerSm = 4;
 // sector) and floats per ray
 constexpr int kStageS = 8;
 constexpr int kTileStride = kStageS + 1;
-
-// Stage samples [s0, s0 + kStageS) of the 10 pack rows of this thread's
-// ray b (zeros where !live) into its column of the warp's tile
-// [kPackRows][32][kTileStride]: 16-byte loads where the pack is 16-byte
-// aligned and S >= 4 (each ray's samples of a row are then 16-byte
-// aligned), else scalars.
-__device__ __forceinline__ void stage_pack(float* mine, const float* pack,
-                                           int64_t N, int S, int64_t b,
-                                           bool live, int s0, bool vec) {
-  const float* src = pack + b * S + s0;
-  if (vec) {
-#pragma unroll
-    for (int r = 0; r < kPackRows; ++r) {
-#pragma unroll
-      for (int h = 0; h < kStageS; h += 4) {
-        const float4 v =
-            live && s0 + h < S
-                ? __ldg(reinterpret_cast<const float4*>(src + r * N + h))
-                : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        float* t = mine + r * 32 * kTileStride + h;
-        t[0] = v.x;
-        t[1] = v.y;
-        t[2] = v.z;
-        t[3] = v.w;
-      }
-    }
-  } else {
-    const int n = S - s0 < kStageS ? S - s0 : kStageS;
-#pragma unroll
-    for (int r = 0; r < kPackRows; ++r) {
-      for (int h = 0; h < n; ++h) {
-        mine[r * 32 * kTileStride + h] = live ? __ldg(src + r * N + h) : 0.0f;
-      }
-    }
-  }
-}
 
 // The C space features of one valid sample g: kPre, its row of the bf16
 // feature array [B*S, C]; else bilinear from the 4 corners of its
@@ -167,7 +131,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
   float prev_sigma = 0.0f, prev_rgb[3] = {0.0f, 0.0f, 0.0f}, prev_dist = 0.0f;
   for (int s0 = 0; s0 < S; s0 += kStageS) {
     __syncwarp();
-    stage_pack(mine, pack, N, S, b, live, s0, vec);
+    stage_ray_pack<kStageS>(mine, pack, N, S, b, live, s0, vec);
     __syncwarp();
     const int stage = S - s0 < kStageS ? S - s0 : kStageS;
     for (int j = 0; j < stage; ++j) {

@@ -1,13 +1,13 @@
 // Device code shared by the shade kernels (K2 shade.cu, K3 shade_patch.cuh,
-// K5 shade_multi.cu, K6 shade_multi_patch.cu) and the standalone composite
-// (K7 composite.cu): the per-sample shading that follows the space
-// features (time-plane taps and density for K2/K3; for all four the
-// colour, SH of degree 2 or RGB (a template argument, kRgb), with its
-// colour scale/shift, or the SH basis folded once per ray for K2, K3 and
-// K5) and the per-ray log-space composite: over an S-lane segment of a
-// warp (S <= 32), over a whole warp with two samples per lane (S = 64,
-// K5-pre and K6), or a running sum per thread over its ray's samples (K2,
-// K3, K5).
+// K5 shade_multi.cu, K6 shade_multi_patch.cu): the per-sample shading that
+// follows the space features (time-plane taps and density for K2/K3; for
+// all of them the colour, SH of degree 2 or RGB (a template argument,
+// kRgb), with its colour scale/shift, the SH basis folded once per ray
+// for K2, K3, K5 and K6), the staging of a warp's pack tiles for the
+// thread-per-ray kernels K2 and K6, and the per-ray log-space composite:
+// over an S-lane segment of a warp (S <= 32; K7 and K5-pre), over a whole
+// warp with two samples per lane (S = 64, K5-pre), or a running sum per
+// thread over its ray's samples (K2, K3, K5, K6).
 
 #pragma once
 
@@ -135,6 +135,46 @@ __device__ __forceinline__ void z_blend(float* out, const float* line,
 __device__ __forceinline__ bool sample_valid(const float* pk) {
   return fabsf(pk[0]) <= 1.0f && fabsf(pk[1]) <= 1.0f &&
          fabsf(pk[2]) <= 1.0f && pk[3] > 0.0f;
+}
+
+// Stage samples [s0, s0 + kStage) of the 10 pack rows of ray b (zeros
+// where !live) into this thread's column `mine` of its warp's tile
+// [kPackRows][32][kStage + 1] (the thread-per-ray kernels K2 and K6:
+// kStage = 8, 32 bytes of a row per ray, a whole sector; the odd
+// stride lets the warp's threads read their columns without bank
+// conflicts): 16-byte loads where `vec` (the pack 16-byte aligned and S >=
+// 4, so that each ray's samples of a row are), else scalars.
+template <int kStage>
+__device__ __forceinline__ void stage_ray_pack(float* mine, const float* pack,
+                                               int64_t N, int S, int64_t b,
+                                               bool live, int s0, bool vec) {
+  constexpr int kStride = kStage + 1;
+  const float* src = pack + b * S + s0;
+  if (vec) {
+#pragma unroll
+    for (int r = 0; r < kPackRows; ++r) {
+#pragma unroll
+      for (int h = 0; h < kStage; h += 4) {
+        const float4 v =
+            live && s0 + h < S
+                ? __ldg(reinterpret_cast<const float4*>(src + r * N + h))
+                : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        float* t = mine + r * 32 * kStride + h;
+        t[0] = v.x;
+        t[1] = v.y;
+        t[2] = v.z;
+        t[3] = v.w;
+      }
+    }
+  } else {
+    const int n = S - s0 < kStage ? S - s0 : kStage;
+#pragma unroll
+    for (int r = 0; r < kPackRows; ++r) {
+      for (int h = 0; h < n; ++h) {
+        mine[r * 32 * kStride + h] = live ? __ldg(src + r * N + h) : 0.0f;
+      }
+    }
+  }
 }
 
 // The SH-2 colour of one valid sample from its C features:

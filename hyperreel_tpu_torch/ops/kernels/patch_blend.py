@@ -122,14 +122,20 @@ def coverage_count(pack, specs):
     return flags.sum().reshape(1).to(torch.int32)
 
 
+def patch_offsets(pack, spec):
+    """Per sample on one plane: its offsets u, v [B*S] inside its slot's
+    patch and its patch-table row [B*S]."""
+    x0, y0, idx = patch_anchors(pack, spec)
+    u = unnormalize(pack[spec.m0], spec.W) - _per_sample(x0, spec)
+    v = unnormalize(pack[spec.m1], spec.H) - _per_sample(y0, spec)
+    return u, v, _per_sample(idx, spec)
+
+
 def patch_features_plain(ptab, pack, spec):
     """The f32 [B*S, C] features of every sample on one plane: the full
     px*py hat sum, in the JAX kernels' order."""
     C = spec.C
-    x0, y0, idx = patch_anchors(pack, spec)
-    u = unnormalize(pack[spec.m0], spec.W) - _per_sample(x0, spec)
-    v = unnormalize(pack[spec.m1], spec.H) - _per_sample(y0, spec)
-    rows = _per_sample(idx, spec)
+    u, v, rows = patch_offsets(pack, spec)
     wx, wy = hat_weights(u, spec.px), hat_weights(v, spec.py)
     feat = torch.zeros(pack.shape[1], C, device=pack.device)
     for ty in range(spec.py):
@@ -137,6 +143,30 @@ def patch_features_plain(ptab, pack, spec):
             t = ty * spec.px + tx
             tex = ptab[:, t * C:(t + 1) * C][rows].float()
             feat = feat + (wx[tx] * wy[ty])[:, None] * tex
+    return feat
+
+
+def patch_taps_plain(ptab, pack, spec):
+    """The f32 [B*S, C] features of every sample on one plane as K6 takes
+    them (csrc/patch_core.cuh patch_taps): the four taps around (u, v),
+    their indices clamped into the patch and the weight of a tap outside
+    it 0, summed in the order (dy, dx); the same non-zero terms in the same
+    order as `patch_features_plain`'s full sum."""
+    u, v, rows = patch_offsets(pack, spec)
+    texels = ptab.reshape(ptab.shape[0], spec.px * spec.py, spec.C)
+
+    def tap(c, size, d):
+        t = torch.floor(c) + d
+        inside = (t >= 0.0) & (t <= size - 1.0)
+        return (torch.where(inside, torch.clamp_min(1.0 - (c - t).abs(), 0.0),
+                            0.0), torch.where(inside, t, 0.0).long())
+    wx, ix = zip(*(tap(u, spec.px, d) for d in (0, 1)))
+    wy, iy = zip(*(tap(v, spec.py, d) for d in (0, 1)))
+    feat = torch.zeros(pack.shape[1], spec.C, device=pack.device)
+    for dy in (0, 1):
+        for dx in (0, 1):
+            tex = texels[rows, iy[dy] * spec.px + ix[dx]].float()
+            feat = feat + tex * (wx[dx] * wy[dy])[:, None]
     return feat
 
 

@@ -58,7 +58,7 @@ import torch
 from hyperreel_tpu_torch.ops.kernels import build
 from hyperreel_tpu_torch.ops.kernels.layout import (
     WEIGHTS_ROW, check_pack, check_ray_pack)
-from hyperreel_tpu_torch.ops.render_math import raw2alpha
+from hyperreel_tpu_torch.ops.render_math import EXP_CLAMP, LOG_EPS, raw2alpha
 from hyperreel_tpu_torch.ops.sh import eval_sh_bases
 
 # the channel counts and colours csrc/shade.cu is built for: those of the
@@ -177,7 +177,8 @@ def fold_sh_basis(wb, dirs, deg=2):
                         .reshape(3, K, -1))
 
 
-def shade_tail_plain(dens, feat, wb, pack, ray_pack, spec, fold=False):
+def shade_tail_plain(dens, feat, wb, pack, ray_pack, spec, fold=False,
+                     running=False):
     """The density feature [B*S] and the features [B*S, A] of every sample
     -> f32 [B, 5]: validity (|xn|, |yn|, |zn| <= 1 and dist > 0), relu
     density (of the feature times the weights row where spec.weights), the
@@ -187,7 +188,9 @@ def shade_tail_plain(dens, feat, wb, pack, ray_pack, spec, fold=False):
     folded with each ray's view direction (`fold_sh_basis`), as the
     thread-per-ray kernels take it (shade_core.cuh sh_fold,
     sh_folded_colour): the same function up to the order of the sums; RGB
-    colour has nothing to fold."""
+    colour has nothing to fold. With `running`, the composite is taken
+    sample by sample per ray (`composite_running_plain`), in the kernels'
+    order."""
     S = spec.S
     B = check_pack(pack, S, spec.weights)
     dist = pack[3]
@@ -210,7 +213,8 @@ def shade_tail_plain(dens, feat, wb, pack, ray_pack, spec, fold=False):
         v = torch.clamp_min(e + 0.5, 0.0)
     rgb = v * (pack[4:7].t() + 1.0) + pack[7:10].t()
     rgb = torch.where(valid[:, None], rgb, 0.0)
-    return composite_plain(sigma, rgb, dist, B, spec)
+    return (composite_running_plain if running else composite_plain)(
+        sigma, rgb, dist, B, spec)
 
 
 def sample_validity(pack):
@@ -232,6 +236,28 @@ def composite_plain(sigma, rgb, dist, B, spec):
     rgb_map = (w[..., None] * rgb.reshape(B, S, 3)).sum(1)
     return torch.cat([rgb_map, w.sum(-1, keepdim=True),
                       (w * d).sum(-1, keepdim=True)], -1)
+
+
+def composite_running_plain(sigma, rgb, dist, B, spec):
+    """`composite_plain` as the thread-per-ray kernels take it: per ray a
+    running sum over its samples in order (csrc/shade_core.cuh
+    composite_add), the log-transmittance carried from sample to
+    sample."""
+    S = spec.S
+    sg, d = sigma.reshape(B, S), dist.reshape(B, S)
+    c = rgb.reshape(B, S, 3)
+    log_t = torch.zeros(B, device=sigma.device)
+    out = torch.zeros(B, 5, device=sigma.device)
+    for s in range(S):
+        delta = d[:, s + 1] - d[:, s] if s + 1 < S \
+            else torch.full_like(d[:, s], 1e10)
+        x = torch.clamp(sg[:, s] * (delta * spec.distance_scale),
+                        -EXP_CLAMP, EXP_CLAMP)
+        w = (1.0 - torch.exp(-x)) * torch.exp(log_t)
+        log_t = log_t + torch.clamp_min(-x, LOG_EPS)
+        out = out + torch.stack([w * c[:, s, 0], w * c[:, s, 1],
+                                 w * c[:, s, 2], w, w * d[:, s]], -1)
+    return out
 
 
 def space_time_product(feat, pack, ray_pack, ttab, spec):

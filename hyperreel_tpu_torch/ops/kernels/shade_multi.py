@@ -46,7 +46,9 @@ per ray (shade.py `fold_sh_basis` is the plain form of the fold) and
 reads the lines and time planes through L1. Each launch reports its
 persistent grid, blocks per SM, L1/shared carve-out and shared memory per
 block in `shade_multi.last_launch`. The pre-blended kernel runs a warp
-segment per ray.
+segment per ray (a thread per ray measured slower on the two-kernel
+frames: PERF.md); `shade_multi_preblended_folded_plain` is the same
+function in the thread-per-ray order, a second reference for it.
 """
 
 import ctypes
@@ -180,11 +182,13 @@ def axis_products(feats, lines, pack, ray_pack, spec):
 
 
 def shade_multi_features_plain(feats, lines, pack, ray_pack, wb, spec,
-                               fold=False):
+                               fold=False, running=False):
     """Everything after the plane features -> f32 [B, 5] (with the SH
-    basis folded per ray where `fold`)."""
+    basis folded per ray where `fold`, the composite a running sum per ray
+    where `running`)."""
     dens, app = axis_products(feats, lines, pack, ray_pack, spec)
-    return shade_tail_plain(dens, app, wb, pack, ray_pack, spec, fold)
+    return shade_tail_plain(dens, app, wb, pack, ray_pack, spec, fold,
+                            running)
 
 
 def shade_multi_plain(quads, lines, pack, ray_pack, wb, spec):
@@ -198,6 +202,17 @@ def shade_multi_preblended_plain(feats, lines, pack, ray_pack, wb, spec):
     """Plain PyTorch version of the pre-blended kernel."""
     return shade_multi_features_plain([f.float() for f in feats], lines,
                                       pack, ray_pack, wb, spec)
+
+
+def shade_multi_preblended_folded_plain(feats, lines, pack, ray_pack, wb,
+                                        spec):
+    """`shade_multi_preblended_plain` in the order of a thread per ray: the
+    SH colour from the basis folded with each ray's view direction
+    (shade.py `fold_sh_basis`) and the composite a running sum per ray
+    (`composite_running_plain`); the same function up to the order of the
+    sums, held against the kernel as a second reference."""
+    return shade_multi_features_plain([f.float() for f in feats], lines,
+                                      pack, ray_pack, wb, spec, True, True)
 
 
 def shade_multi_folded_plain(quads, lines, pack, ray_pack, wb, spec):

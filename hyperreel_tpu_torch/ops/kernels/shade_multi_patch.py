@@ -7,9 +7,13 @@ colour; the plane features never reach device memory.
 Replaces hyperreel_tpu/ops/pallas/shade.py:_shade_kernel_multi_fused_patch
 (the JAX route with HYPERREEL_FUSED_PATCH_MULTI=1) with the XLA patch-row
 gathers and patch_anchor_idx before it. CUDA source:
-csrc/shade_multi_patch.cu (the blend and anchors in csrc/patch_core.cuh,
-K5's per-axis body in csrc/multi_core.cuh). Bound on the H100 by its f32
-operations. See the sources for the design.
+csrc/shade_multi_patch.cu (the anchors, witness and blend in
+csrc/patch_core.cuh, the ray run and K5's per-sample body in
+csrc/multi_core.cuh). A thread per ray over its samples, each plane's
+anchor and witness by warp shuffles over the R rays of a coherent block,
+the taps read through L1, the SH basis folded once per ray, a running
+composite; bound on the H100 by its f32 operations. See the sources for
+the design.
 
 The plane features are K4's (ops/kernels/patch_blend.py: the same
 grouping, anchors and hat blend, per plane with its PatchSpec) kept in
@@ -17,8 +21,10 @@ f32; everything after them is K5's math, time planes included
 (ops/kernels/shade_multi.py `shade_multi_features_plain`, one basis
 product over the concatenated
 appearance channels where the JAX kernel adds one per axis: the same sum in
-another f32 order). Also returns the coverage violation count: the slots
-whose footprint exits the patch on any plane.
+another f32 order). `shade_multi_patch_folded_plain` is the kernel's op
+order: four clamped taps per plane, the folded basis, a running
+composite. Also returns the coverage violation count: the slots whose
+footprint exits the patch on any plane.
 """
 
 import torch
@@ -26,7 +32,8 @@ import torch
 from hyperreel_tpu_torch.ops.kernels import build
 from hyperreel_tpu_torch.ops.kernels.layout import check_ray_pack
 from hyperreel_tpu_torch.ops.kernels.patch_blend import (
-    check_patch, coverage_count, patch_features_plain, patch_params)
+    check_patch, coverage_count, patch_features_plain, patch_params,
+    patch_taps_plain)
 from hyperreel_tpu_torch.ops.kernels.shade_multi import (
     check_kernel, check_lines, multi_params, shade_multi_features_plain)
 
@@ -37,6 +44,19 @@ def shade_multi_patch_plain(ptabs, lines, pack, ray_pack, wb, spec, pspecs):
              for t, ps in zip(ptabs, pspecs)]
     return (shade_multi_features_plain(feats, lines, pack, ray_pack, wb,
                                        spec),
+            coverage_count(pack, pspecs))
+
+
+def shade_multi_patch_folded_plain(ptabs, lines, pack, ray_pack, wb, spec,
+                                   pspecs):
+    """`shade_multi_patch_plain` as the kernel computes it: each plane's
+    four clamped taps (`patch_taps_plain`), the SH colour from the basis
+    folded with each ray's view direction (shade.py `fold_sh_basis`) and
+    the composite a running sum per ray (`composite_running_plain`); the
+    same function up to the order of the sums."""
+    feats = [patch_taps_plain(t, pack, ps) for t, ps in zip(ptabs, pspecs)]
+    return (shade_multi_features_plain(feats, lines, pack, ray_pack, wb,
+                                       spec, True, True),
             coverage_count(pack, pspecs))
 
 

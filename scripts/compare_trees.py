@@ -21,7 +21,8 @@ K5-preblended's, K4's (three planes) and K6's on the first chunk of llff,
 shiny and n3d (K5 on the chunk in scanline and in phase-major order, on
 n3d's time planes also with a t per ray spread over the keyframes and on
 the planes premixed; K4, K5-preblended reading its features and K6 on the
-phase-major chunk at R=8), the patch routes of n3d at R=8 (5, 3) and
+phase-major chunk at R=8; n3d's K6 also at R=4 (4, 3) on the scanline
+chunk), the patch routes of n3d at R=8 (5, 3) and
 shiny's two-kernel route at R=8 (5, 2), the patch routes at S = k (the
 flagship with compaction 16, n3d with the stride to 16, shiny with
 compaction 16 at R=4 (4, 3); with the flagship's compaction also K2 on
@@ -262,6 +263,18 @@ def save(path, frames):
             ("HYPERREEL_FUSED_PATCH_MULTI", "0"))
     _, m8, _, pr8 = cs.n3d(dev, patch=cs.N3D_PATCH_R8, params=params)
     k5("n3d", m8, pr8, frame[0], cs.N3D_PATCH_R8[2])
+    # K6 at R=4 (4, 3) on the chunk in scanline order (chip_smoke.py's
+    # second n3d K6 case)
+    _, m4, _, pr4 = cs.n3d(dev, patch=cs.N3D_PATCH_R4, params=params)
+    pack4, rp4 = packed(m4, pr4, frame[0])
+    spec4 = MultiSpec(S=m4._cf_eval.S, axes=pr4["axes"],
+                      deg=m4._cf_eval.net.sh_deg,
+                      distance_scale=m4._cf_eval.net.distance_scale)
+    ps4 = m4._cf_eval.patch_specs(
+        [(a.W, a.H, a.C, a.m0, a.m1) for a in spec4.axes], False)
+    kernel("n3d K6 R=4", lambda: shade_multi_patch(
+        pr4["ptabs"], pr4["lines"], pack4, rp4, pr4["wb"], spec4, ps4)[0])
+    del m4, pr4, pack4
     R = cs.N3D_PATCH_R8[2]
     fr = cs.phase_major(frame, R).contiguous()
     for env, name in (("1", "fused"), ("0", "two-kernel")):

@@ -185,8 +185,8 @@ def stage(n, threads=128):
 
 def skip_taps(files):
     """K3, K4: the taps of patch_core.cuh patch_taps that leave the patch
-    skipped by branches (as patch_features does), instead of clamped with
-    a weight of 0."""
+    skipped by branches (as the block-prologue K6's blend did), instead of
+    clamped with a weight of 0."""
     assert redesigned(files), "patch_taps"
     c = files[CORE]
     i = c.index("__device__ __forceinline__ void patch_taps(")

@@ -32,16 +32,18 @@ from hyperreel_tpu_torch.ops.kernels.composite import (
 from hyperreel_tpu_torch.ops.kernels.pack_build import (
     mlp_tables, pack_build, pack_build_plain, pack_error)
 from hyperreel_tpu_torch.ops.kernels.patch_blend import (
-    PatchSpec, patch_blend, patch_blend_plain)
+    PatchSpec, patch_blend, patch_blend_plain, patch_params)
 from hyperreel_tpu_torch.ops.kernels.shade import (
     ShadeSpec, premix_time, quad_table, shade, shade_folded_plain,
     shade_params, shade_plain, shade_preblended,
     shade_preblended_folded_plain, shade_preblended_plain)
 from hyperreel_tpu_torch.ops.kernels.shade_multi import (
-    AxisSpec, MultiSpec, shade_multi, shade_multi_plain,
-    shade_multi_preblended, shade_multi_preblended_plain)
+    AxisSpec, MultiSpec, multi_params, shade_multi, shade_multi_plain,
+    shade_multi_preblended, shade_multi_preblended_folded_plain,
+    shade_multi_preblended_plain)
 from hyperreel_tpu_torch.ops.kernels.shade_multi_patch import (
-    shade_multi_patch, shade_multi_patch_plain)
+    shade_multi_patch, shade_multi_patch_folded_plain,
+    shade_multi_patch_plain)
 from hyperreel_tpu_torch.ops.kernels.shade_patch import (
     shade_patch, shade_patch_folded_plain, shade_patch_plain)
 from hyperreel_tpu_torch.configs.presets import (
@@ -319,6 +321,117 @@ def test_shade_patch_grid_matches_plain(dev, C, R, S, pm, shading, nd):
         assert ref[:, 3].max() > 0.5
         assert (out[:, :4] - ref[:, :4]).abs().max() <= 1e-4
         assert (out[:, 4] - ref[:, 4]).abs().max() <= 1e-3
+
+
+def _k6_inputs(dev, S, R, TH, shading, pm, seed):
+    """Synthetic inputs of K6 and K5-preblended at the [8, 4, 4] layout:
+    _synthetic_patch's three planes (C = 16, 8, 8, half of each density;
+    B = 41 R rays, a multiple of R but not of 128) with, in coherent block
+    3, one slot (sample 0) whose samples are all invalid; each axis's line
+    [L, C] or time plane [12, L, C] in [0, 0.4) (TH "mix": a time plane on
+    axis 0, lines on the others); a t per ray in [-1, 1]; an SH [27, 16]
+    or RGB [3, 16] basis; random bf16 pre-blended features [B*S, C]."""
+    ptabs, pack, rp, pspecs = _synthetic_patch(dev, S, R, (16, 8, 8), pm,
+                                               seed)
+    rng = np.random.default_rng(seed + 1)
+    B, J = pack.shape[1] // S, pack.shape[1] // S // R
+    pos = [p * J + 3 if pm else 3 * R + p for p in range(R)]
+    pack.view(10, B, S)[3, pos, 0] = 0.0
+    rp[:, 7] = torch.from_numpy(rng.uniform(-1, 1, B).astype(
+        np.float32)).to(dev)
+    axes, lines = [], []
+    for a, (ps, (m0, m1)) in enumerate(zip(pspecs, PLANE_AXES)):
+        th = K6_TH if TH == K6_TH or (TH == "mix" and a == 0) else 0
+        L = GRID[3 - m0 - m1]
+        axes.append(AxisSpec(index=a, W=ps.W, H=ps.H, L=L, C=ps.C,
+                             nd=ps.C // 2, TH=th))
+        lines.append(torch.from_numpy(rng.uniform(
+            0, 0.4, (th, L, ps.C) if th else (L, ps.C)).astype(np.float32))
+            .to(dev))
+    K = 1 if shading == "rgb" else 9
+    wb = torch.from_numpy(rng.normal(0, 0.3, (3 * K, 16)).astype(np.float32))
+    spec = MultiSpec(S=S, axes=tuple(axes), deg=2, distance_scale=4.0,
+                     shading=shading)
+    feats = [torch.from_numpy(rng.normal(0, 0.5, (B * S, a.C)).astype(
+        np.float32)).to(torch.bfloat16).to(dev) for a in axes]
+    return ptabs, lines, pack, rp, wb, spec, pspecs, feats
+
+
+K6_TH = 12
+
+
+# K6 and K5-preblended at every spec they take: S = 1-64, R = 4 and 8,
+# lines, time planes (and, for K6, a mix), SH and RGB, both ray orders;
+# against their plain versions and their folded plain versions at the
+# multi-axis tolerances (1e-4 on rgb/acc, 1e-3 on depth), the witness
+# exact. K5-preblended refuses a mix of lines and time planes (as the
+# quad kernel does) before any launch.
+@pytest.mark.parametrize("pm", [True, False], ids=["phase_major", "scanline"])
+@pytest.mark.parametrize("shading", ["sh", "rgb"])
+@pytest.mark.parametrize("TH", [0, K6_TH, "mix"], ids=["lines", "time",
+                                                      "mix"])
+@pytest.mark.parametrize("S", [1, 2, 4, 8, 16, 32, 64])
+@pytest.mark.parametrize("R", [4, 8])
+def test_k6_k5_pre_grid_matches_plain(dev, R, S, TH, shading, pm):
+    ptabs, lines, pack, rp, wb, spec, pspecs, feats = _k6_inputs(
+        dev, S, R, TH, shading, pm, 20 + S + R)
+    before = shade_multi_patch.launches
+    out, v = shade_multi_patch(ptabs, lines, pack, rp, wb, spec, pspecs)
+    assert shade_multi_patch.launches == before + 1
+    for plain in (shade_multi_patch_plain, shade_multi_patch_folded_plain):
+        ref, vr = plain(ptabs, lines, pack, rp, wb, spec, pspecs)
+        torch.cuda.synchronize()
+        assert int(v) == int(vr)
+        assert S < 4 or int(v) > 0
+        assert (out[:, :4] - ref[:, :4]).abs().max() <= 1e-4
+        assert (out[:, 4] - ref[:, 4]).abs().max() <= 1e-3
+    before = shade_multi_preblended.launches
+    if TH == "mix":
+        with pytest.raises(NotImplementedError, match="mix"):
+            shade_multi_preblended(feats, lines, pack, rp, wb, spec)
+        assert shade_multi_preblended.launches == before
+        return
+    pre = shade_multi_preblended(feats, lines, pack, rp, wb, spec)
+    assert shade_multi_preblended.launches == before + 1
+    for plain in (shade_multi_preblended_plain,
+                  shade_multi_preblended_folded_plain):
+        ref = plain(feats, lines, pack, rp, wb, spec)
+        torch.cuda.synchronize()
+        assert (pre[:, :4] - ref[:, :4]).abs().max() <= 1e-4
+        assert (pre[:, 4] - ref[:, 4]).abs().max() <= 1e-3
+
+
+def test_k5_pre_and_k6_refuse_the_weights_row(dev):
+    """K5-preblended and K6 are built without the weights row (ROADMAP.md
+    2a): the wrappers raise before any launch (K6 on its spec: its pack
+    has no weights row), and the C entry points return
+    cudaErrorInvalidValue and write nothing."""
+    ptabs, lines, pack, rp, wb, spec, pspecs, feats = _k6_inputs(
+        dev, 8, 4, 0, "sh", True, 5)
+    pack_w = torch.cat([pack, torch.ones_like(pack[:1])]).contiguous()
+    wspec = dataclasses.replace(spec, weights=True)
+    n6, npre = shade_multi_patch.launches, shade_multi_preblended.launches
+    with pytest.raises(NotImplementedError, match="weights"):
+        shade_multi_patch(ptabs, lines, pack, rp, wb, wspec, pspecs)
+    with pytest.raises(NotImplementedError, match="weights"):
+        shade_multi_preblended(feats, lines, pack_w, rp, wb, wspec)
+    assert shade_multi_patch.launches == n6
+    assert shade_multi_preblended.launches == npre
+    B = rp.shape[0]
+    lib = build.load_library().lib
+    stream = torch.cuda.current_stream().cuda_stream
+    out = torch.full((B, 5), float("nan"), device=dev)
+    viol = torch.zeros(1, dtype=torch.int32, device=dev)
+    rc6 = lib.shade_multi_patch_launch(
+        pack.data_ptr(), rp.data_ptr(), out.data_ptr(), viol.data_ptr(),
+        multi_params(B, wspec, ptabs, lines, wb),
+        patch_params(B, pspecs[0]), stream)
+    rcp = lib.shade_multi_preblended_launch(
+        pack_w.data_ptr(), rp.data_ptr(), out.data_ptr(),
+        multi_params(B, wspec, feats, lines, wb), stream)
+    torch.cuda.synchronize()
+    assert rc6 == rcp == 1                   # cudaErrorInvalidValue
+    assert out.isnan().all() and int(viol) == 0
 
 
 def _shade_grid_inputs(dev, C, S, TH, nd, shading, weights, B, pre):

@@ -48,12 +48,14 @@ from hyperreel_tpu_torch.ops.kernels.patch_blend import (
     coverage_count, patch_blend, patch_features_plain)
 from hyperreel_tpu_torch.ops.kernels.shade import premix_time
 from hyperreel_tpu_torch.ops.kernels.shade_multi import (
-    MultiSpec, shade_multi, shade_multi_preblended)
+    MultiSpec, shade_multi, shade_multi_preblended,
+    shade_multi_preblended_folded_plain, shade_multi_preblended_plain)
 from hyperreel_tpu_torch.ops.kernels.shade_multi_patch import (
-    shade_multi_patch)
+    shade_multi_patch, shade_multi_patch_folded_plain,
+    shade_multi_patch_plain)
 
-from torch_parity import entry_rays, jax_pack, jax_premix, models, smajor, \
-    weights
+from torch_parity import check_folded_patch_plains, entry_rays, jax_pack, \
+    jax_premix, models, scanline_inputs, smajor, weights
 
 B, TILE = 512, 32                 # B/TILE whole blocks of R in {4, 8}
 PATCH = {4: (4, 3), 8: (5, 2)}
@@ -372,6 +374,63 @@ def test_plain_patch_kernels_on_time_planes_match_jax(S, R):
     got = got.numpy()
     assert np.abs(got[:, :4] - want[:, :4]).max() <= F32_TOL
     assert np.abs(got[:, 4] - want[:, 4]).max() <= 5 * F32_TOL
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_patch_outputs(S, R):
+    """The JAX kernels' K5-pre (preblended="phase_major", on the port's K4
+    features) and K6 (preblended="fused_patch") outputs [B, 5] on the time
+    planes, acc_dtype=f32, for _pack(S, R) with the rays phase-major;
+    with the pack, the ray pack and the features."""
+    d = _tables(S, R)
+    axes = d["spec"].axes
+    pack, rays = _pack(S, R, axes, seed=50 + S + R)
+    pk16 = jax_pack(pack, rays, S, TILE)
+    t = torch.from_numpy(pack)
+    pspecs = d["cf"].patch_specs([(a.W, a.H, a.C, a.m0, a.m1) for a in axes],
+                                 True)
+    feats = patch_blend(d["prep"]["ptabs"], t, pspecs)[0]
+    time_hs = [a.TH for a in axes]
+    pre = _jax_multi(d, pk16, [
+        jnp.asarray(_phase_major_rows(f.float().numpy(), S, R)).astype(
+            jnp.bfloat16) for f in feats], d["jtimes"], time_hs,
+        preblended="phase_major", patch_block=R)
+    rows, anchors = [], []
+    for a, jptab in zip(axes, d["jptabs"]):
+        pidx, anc = patch_anchor_idx(jnp.asarray(pk16[a.m0]),
+                                     jnp.asarray(pk16[a.m1]), a.W, a.H, R=R)
+        rows.append(jptab[pidx])
+        anchors.append(anc)
+    fused = _jax_multi(d, pk16, rows, d["jtimes"], time_hs,
+                       preblended="fused_patch", anchors_list=anchors,
+                       patch_pxy=PATCH[R], patch_block=R)
+    return t, torch.from_numpy(rays), feats, pre, fused
+
+
+# The folded plain versions (the new kernels' op order: the SH basis folded
+# per ray, K6's four clamped taps per plane, a running composite per ray)
+# against the JAX kernels (acc_dtype=f32) and the plain versions, the rays
+# phase-major and in scanline order: 1e-4 on rgb/acc, 1e-3 on depth (the
+# card tests' tolerances), the witness counts equal.
+@pytest.mark.parametrize("pm", [True, False], ids=["phase_major", "scanline"])
+@pytest.mark.parametrize("S,R", [(S, R) for S in (8, 16, 64) for R in (4, 8)])
+def test_folded_patch_plains_on_time_planes_match_jax(S, R, pm):
+    d = _tables(S, R)
+    pack, rays, feats, want_pre, want_fused = _jax_patch_outputs(S, R)
+    idx = None
+    if not pm:
+        pack, rays, feats, idx = scanline_inputs(pack, rays, feats, S, R)
+    pr = d["prep"]
+    pspecs = d["cf"].patch_specs(
+        [(a.W, a.H, a.C, a.m0, a.m1) for a in d["spec"].axes], pm)
+    check_folded_patch_plains(
+        shade_multi_preblended_folded_plain, shade_multi_preblended_plain,
+        want_pre, (feats, pr["lines"], pack, rays, pr["wb"], d["spec"]),
+        pm, idx, 1e-4)
+    check_folded_patch_plains(
+        shade_multi_patch_folded_plain, shade_multi_patch_plain, want_fused,
+        (pr["ptabs"], pr["lines"], pack, rays, pr["wb"], d["spec"], pspecs),
+        pm, idx, 1e-4)
 
 
 def test_fused_path_matches_general_path():

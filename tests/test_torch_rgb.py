@@ -24,11 +24,15 @@ from hyperreel_tpu_torch.ops.kernels.layout import PACK_ROWS
 from hyperreel_tpu_torch.ops.kernels.patch_blend import patch_blend
 from hyperreel_tpu_torch.ops.kernels.shade import shade
 from hyperreel_tpu_torch.ops.kernels.shade_multi import (
-    MultiSpec, shade_multi, shade_multi_preblended)
+    MultiSpec, shade_multi, shade_multi_preblended,
+    shade_multi_preblended_folded_plain, shade_multi_preblended_plain)
 from hyperreel_tpu_torch.ops.kernels.shade_multi_patch import (
-    shade_multi_patch)
+    shade_multi_patch, shade_multi_patch_folded_plain,
+    shade_multi_patch_plain)
 
-from torch_parity import models, rgb_cfg, smajor, weights
+from torch_parity import (
+    check_folded_patch_plains, models, rgb_cfg, scanline_inputs, smajor,
+    weights)
 from test_torch_multi import (
     B, PATCH, TILE, _jax_pack16, _jax_rows, _pack, _phase_major_rows)
 
@@ -158,6 +162,47 @@ def test_plain_rgb_preblended_and_fused_multi_match_jax_kernels(R):
     got = got.numpy()
     assert np.abs(got[:, :4] - want[:, :4]).max() <= 1e-5
     assert np.abs(got[:, 4] - want[:, 4]).max() <= 5e-5
+
+
+# The folded plain versions with RGB colour (the new kernels' op order:
+# K6's four clamped taps per plane, a running composite per ray; RGB has
+# no basis to fold) against the JAX kernels (acc_dtype=f32) and the plain
+# versions, the rays
+# phase-major and in scanline order: 1e-4 on rgb/acc, 1e-3 on depth (the
+# card tests' tolerances), the witness counts equal.
+@pytest.mark.parametrize("pm", [True, False], ids=["phase_major", "scanline"])
+@pytest.mark.parametrize("R", [4, 8])
+def test_folded_patch_plains_match_jax_kernels(R, pm):
+    S = 8
+    d = _shiny_tables(S, R)
+    axes = d["spec"].axes
+    pack, rays = _pack(S, R, axes, seed=70 + R)
+    pk16 = _jax_pack16(pack, rays, S)
+    t, tr = torch.from_numpy(pack), torch.from_numpy(rays)
+    pr = d["prep"]
+    feats = patch_blend(pr["ptabs"], t, d["cf"].patch_specs(
+        [(a.W, a.H, a.C, a.m0, a.m1) for a in axes], True))[0]
+    want_pre = _jax_multi_rgb(d, pk16, [
+        jnp.asarray(_phase_major_rows(f.float().numpy(), S, R)).astype(
+            jnp.bfloat16) for f in feats], jnp.float32,
+        preblended="phase_major", patch_block=R)
+    rows, anchors = _jax_rows(d, pk16, R)
+    want_fused = _jax_multi_rgb(d, pk16, rows, jnp.float32,
+                          preblended="fused_patch", anchors_list=anchors,
+                          patch_pxy=PATCH[R], patch_block=R)
+    idx = None
+    if not pm:
+        t, tr, feats, idx = scanline_inputs(t, tr, feats, S, R)
+    pspecs = d["cf"].patch_specs(
+        [(a.W, a.H, a.C, a.m0, a.m1) for a in axes], pm)
+    check_folded_patch_plains(
+        shade_multi_preblended_folded_plain, shade_multi_preblended_plain,
+        want_pre, (feats, pr["lines"], t, tr, pr["wb"], d["spec"]), pm, idx,
+        1e-4)
+    check_folded_patch_plains(
+        shade_multi_patch_folded_plain, shade_multi_patch_plain, want_fused,
+        (pr["ptabs"], pr["lines"], t, tr, pr["wb"], d["spec"], pspecs), pm,
+        idx, 1e-4)
 
 
 def _jax_single_axis_tables(jp, nd):

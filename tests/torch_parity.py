@@ -139,6 +139,45 @@ def smajor(cols, S, tile):
         0, 1, 3, 2).reshape(rows, N)
 
 
+def scanline_inputs(pack, rays, feats, S, R):
+    """A phase-major pack [rows, B*S], ray pack [B, 8] and per-sample rows
+    [B*S, C] (ray R*j + p of coherent block j at position p*(B/R) + j),
+    torch -> the same rays in scanline order (ray R*j + p at position
+    R*j + p) and, per position of that order, the ray's phase-major
+    position."""
+    B = rays.shape[0]
+    q = torch.arange(B)
+    idx = (q % R) * (B // R) + q // R
+    rows = (idx[:, None] * S + torch.arange(S)).reshape(-1)
+    return pack[:, rows].contiguous(), rays[idx], [f[rows] for f in feats], \
+        idx
+
+
+def check_folded_patch_plains(folded, plain, want, args, order, idx, tol):
+    """Hold a folded plain version (K6's or K5-pre's) against the JAX
+    kernel's phase-major output `want` [B, 5] (rgb/acc within tol, depth
+    within 10 tol) and against the plain version on the same inputs
+    (`args`, in the delivered order whose rays sit at the phase-major
+    positions idx, or None), with equal witness counts where they return
+    one."""
+    got, ref = folded(*args), plain(*args)
+    if isinstance(got, tuple):
+        assert int(got[1]) == int(ref[1]) > 0
+        got, ref = got[0], ref[0]
+    got, ref = got.numpy(), ref.numpy()
+    if idx is not None:
+        got_pm = np.empty_like(got)
+        got_pm[idx.numpy()] = got
+        got = got_pm
+        ref_pm = np.empty_like(ref)
+        ref_pm[idx.numpy()] = ref
+        ref = ref_pm
+    assert want[:, 3].max() > 0.5, order     # the scene is not transparent
+    for other in (want, ref):
+        assert np.abs(got[:, :4] - other[:, :4]).max() <= tol
+        assert np.abs(got[:, 4] - other[:, 4]).max() <= 10 * tol
+
+
 def jax_pack(pack, rays, S, tile):
     """Port pack [10, B*S] and ray pack [B, 8] -> the JAX kernels' 16-row
     pack in S-major tile order (tn in row 3, the view direction in rows
