@@ -9,8 +9,9 @@ and the flagship's single-axis own route, and the render-time sample
 counts (compaction and the stride) of the flagship, neural_3d_z_plane and
 shiny_z_plane, at full width through the hand-written kernels, checked
 against their plain PyTorch versions and against the port's general path,
-on the quad route and on the coherent patch-gather routes; and the
-standalone composite entry point.
+on the quad route and on the coherent patch-gather routes; the standalone
+composite entry point; and the flagship's training step across its grid
+events, with the trained model rendered through K1 and K2.
 
     python3 chip_smoke.py
 
@@ -165,7 +166,30 @@ no result line):
      t per ray): finite, in [0, 1], the launches per chunk; the flagship
      with compaction fused vs general path under the f32 MLP policy (<=
      2e-4); the routes' frame times in turns with the family's full-S quad
-     route.
+     route;
+ 54. training (hyperreel_tpu_torch/train/): the flagship at full width
+     (bf16 MLP policy, the preset's 161x161 space plane and 4x80 time
+     plane, bf16 tables) with its alpha-mask event moved to iteration 20
+     and its first upsample to 30 (the preset's schedule: ~6.3 M
+     voxels), DEFAULT_TRAINING (16,384 rays, four optimizer groups) and
+     tv_4000, on the blob scene (16 views x 128^2 x 8 frames, marched on
+     the card): 60 steps of Trainer.fit; every loss and param finite, the
+     mean image loss of the last 5 steps below the first 5's, grid_size
+     after the upsample as n_to_reso gives it, the optimizer's counters
+     restarted at each event; whether the shrink moved the aabb (if not,
+     net.shrink to a tighter box, so that phase 56 renders on another
+     aabb either way); each event's wall time;
+ 55. the step's time on the initial and on the upsampled grid: ms per
+     step over 20 steps after a warm-up (CUDA events), its split into
+     forward, backward and optimizer (CUDA events between them), the
+     lookups' backward's share of the device time (torch.profiler), every
+     gradient finite, the peak of allocated memory;
+ 56. the trained model's bench frame through model.apply on the quad
+     route: K1 and K2 once per chunk, finite, in [0, 1]; on one chunk K1
+     and K2 against their plain versions; fused vs general path under
+     the f32 MLP policy on 4096 rays (<= 2e-4);
+ 57. save a checkpoint, restore it into a fresh model and trainer, take
+     one step on both: the same loss, the params within two f32 ulps.
 The line before the last is the kernels' JSON record (launches on their
 main path, error against the plain version, ms and the plain version's
 ms, and the least time the card could take, counting of each table only
@@ -2669,6 +2693,442 @@ def k4_check(torch, tag, ptabs, pack, specs):
     return feats, int(vk), max(errs)
 
 
+# ---- 54-57: the flagship's training step (hyperreel_tpu_torch/train/)
+# the blob scene the trainer fits: 16 views of 128^2 rays at 8 frames
+# (2,097,152 rays, 128 batches of DEFAULT_TRAINING's 16,384), marched on
+# the card
+TRAIN_SCENE = {"n_views": 16, "wh": (128, 128), "dynamic": True,
+               "num_frames": 8, "num_keyframes": 4}
+TRAIN_STEPS = 60
+TRAIN_ALPHA_IT = 20             # the alpha-mask event (the preset: 4000)
+TRAIN_UPSAMPLE_IT = 30          # the first upsample (the preset: 4000)
+TRAIN_TIMED = 20                # steps timed per grid, after one warm-up
+TRAIN_SPLIT = 10                # steps timed piece by piece
+TRAIN_PROFILED = 3              # steps under torch.profiler
+# the box the net shrinks to if the alpha event left the aabb where it was
+# (its z faces on no z-plane anchor of the 32)
+TRAIN_SHRUNK = [[-1.8, -1.8, -0.9], [1.8, 1.8, 0.9]]
+def training_setup(torch, dev):
+    """The flagship at full width (bf16 MLP policy) with its grid events
+    moved early, DEFAULT_TRAINING and tv_4000_defaults, on the blob scene
+    marched on the card: (cfg, scene, trainer)."""
+    import copy
+
+    from hyperreel_tpu_torch.config import DEFAULT_TRAINING
+    from hyperreel_tpu_torch.configs.presets import (
+        convert_epochs_to_iters, technicolor_z_plane)
+    from hyperreel_tpu_torch.data.synthetic import gaussian_blob_scene
+    from hyperreel_tpu_torch.models.model import build_model
+    from hyperreel_tpu_torch.train.regularizers import tv_4000_defaults
+    from hyperreel_tpu_torch.train.trainer import Trainer
+
+    cfg = convert_epochs_to_iters(technicolor_z_plane(), iters_per_epoch=4000)
+    net = cfg["color"]["net"]
+    # the events early; the upsample keeps the preset's schedule of five,
+    # so that it goes to the schedule's first voxel count
+    net["update_AlphaMask_list"] = [TRAIN_ALPHA_IT]
+    net["upsamp_list"] = [TRAIN_UPSAMPLE_IT] + net["upsamp_list"][1:]
+    t0 = time.perf_counter()
+    ds = gaussian_blob_scene(**TRAIN_SCENE, device=dev)
+    print(f"# blob scene: {ds.num_rays} rays ({ds.num_images} images of "
+          f"{TRAIN_SCENE['wh']}) marched in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    model = build_model(copy.deepcopy(cfg), dataset_info=ds.info(),
+                        compute_dtype=torch.bfloat16)
+    trainer = Trainer(model, copy.deepcopy(DEFAULT_TRAINING),
+                      regularizer_cfgs=tv_4000_defaults(),
+                      iters_per_epoch=4000, device=dev)
+    return cfg, ds, trainer
+
+
+def grads_finite(torch, grads):
+    return bool(torch.stack([torch.isfinite(g).all()
+                             for g in grads.values()]).all())
+
+
+def params_finite(torch, params):
+    from hyperreel_tpu_torch.train.optim import tree_leaves
+    return bool(torch.stack([torch.isfinite(v).all()
+                             for _, v in tree_leaves(params)]).all())
+
+
+def time_steps(torch, trainer, state, ds, tag):
+    """ms per step over TRAIN_TIMED steps (CUDA events, the batch's copy
+    to the card included) after one warm-up step; the forward, backward
+    and optimizer split over TRAIN_SPLIT more (CUDA events between the
+    trainer's own calls that make up its step: Trainer.forward,
+    Trainer.backward, the optimizer's step); the device time of the lookups' backward and of the whole
+    step from torch.profiler over TRAIN_PROFILED more; the peak of
+    allocated memory. On a copy of `state`."""
+    import copy
+
+    state = copy.deepcopy(state)
+    opt = trainer.make_optimizer(state.params)
+    batches = ds.batch_iterator(trainer.training_cfg["batch_size"],
+                                seed=SEED + 7)
+    gen = torch.Generator(device=trainer.device).manual_seed(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, _ = trainer.step(state, trainer.to_device(next(batches)), opt,
+                            gen)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(TRAIN_TIMED):
+        state, m = trainer.step(state, trainer.to_device(next(batches)),
+                                opt, gen)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / TRAIN_TIMED
+    host_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_TIMED
+    peak = torch.cuda.max_memory_allocated()
+    if not (params_finite(torch, state.params)
+            and all(torch.isfinite(v).item() for v in m.values())):
+        raise AssertionError(f"{tag}: a timed step is not finite")
+
+    split = {"forward": 0.0, "backward": 0.0, "optimizer": 0.0}
+    for _ in range(TRAIN_SPLIT):
+        batch = trainer.to_device(next(batches))
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        total, _, leaves = trainer.forward(
+            state.params, batch, trainer.step_ctx(state.it, gen))
+        ev[1].record()
+        grads = trainer.backward(total, leaves)
+        ev[2].record()
+        opt.step(state.params, grads, state.opt_state)
+        ev[3].record()
+        torch.cuda.synchronize()
+        if not grads_finite(torch, grads):
+            raise AssertionError(f"{tag}: a gradient is not finite")
+        for k, a, b in zip(split, ev, ev[1:]):
+            split[k] += a.elapsed_time(b) / TRAIN_SPLIT
+        state = type(state)(state.params, state.opt_state, state.it + 1)
+        del total, leaves, grads
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(TRAIN_PROFILED):
+            state, _ = trainer.step(
+                state, trainer.to_device(next(batches)), opt, gen)
+        torch.cuda.synchronize()
+
+    def dev_us(e, self_only):
+        names = ("self_device_time_total", "self_cuda_time_total") \
+            if self_only else ("device_time_total", "cuda_time_total")
+        for n in names:
+            if hasattr(e, n):
+                return getattr(e, n)
+        return 0.0
+
+    ka = prof.key_averages()
+    busy = sum(dev_us(e, True) for e in ka) / 1e3 / TRAIN_PROFILED
+    lookup_bwd = sum(dev_us(e, False) for e in ka
+                     if "_Quad2dBackward" in e.key) / 1e3 / TRAIN_PROFILED
+    top = sorted(ka, key=lambda e: -dev_us(e, True))[:8]
+    print(f"# {tag}: step {step_ms:.3f} ms (CUDA events over {TRAIN_TIMED} "
+          f"steps; host {host_ms:.3f} ms); forward {split['forward']:.3f}, "
+          f"backward {split['backward']:.3f}, optimizer "
+          f"{split['optimizer']:.3f} ms; peak allocated {peak / 2**30:.3f} "
+          f"GiB", flush=True)
+    if busy > 0:
+        print(f"# {tag} profile: device busy {busy:.3f} ms per step, the "
+              f"lookups' backward (_Quad2dBackward) {lookup_bwd:.3f} ms "
+              f"({100 * lookup_bwd / busy:.1f} %); top kernels by device "
+              "time per step: " + "; ".join(
+                  f"{e.key[:60]} {dev_us(e, True) / 1e3 / TRAIN_PROFILED:.3f}"
+                  for e in top), flush=True)
+    else:
+        print(f"# {tag} profile: no device time in the trace (not measured)",
+              flush=True)
+        busy = lookup_bwd = None
+    return {"step_ms": step_ms, "host_ms": host_ms, "split_ms": split,
+            "busy_ms": busy, "lookup_backward_ms": lookup_bwd,
+            "peak_bytes": peak}
+
+
+def training_phases(torch, dev, card, frame, reset_counts, read_counts):
+    """Phases 54-57: train the flagship at full width across an alpha-mask
+    event and an upsample, time its step, render the trained model through
+    K1 and K2, and resume it from a checkpoint. Returns (the two kernels'
+    JSON records, the training record)."""
+    import copy
+
+    from hyperreel_tpu_torch.models.ctx import StepCtx
+    from hyperreel_tpu_torch.models.model import build_model
+    from hyperreel_tpu_torch.models.tensorf import n_to_reso
+    from hyperreel_tpu_torch.ops.kernels.pack_build import (
+        pack_build, pack_build_plain)
+    from hyperreel_tpu_torch.ops.kernels.shade import (
+        ShadeSpec, premix_time, shade, shade_plain)
+    from hyperreel_tpu_torch.train.checkpoint import (
+        restore_checkpoint, save_checkpoint)
+    from hyperreel_tpu_torch.train.metrics import psnr
+    from hyperreel_tpu_torch.train.optim import tree_leaves
+    from hyperreel_tpu_torch.train.regularizers import tv_4000_defaults
+    from hyperreel_tpu_torch.train.trainer import Trainer
+
+    # ---- 54. train 60 steps across the alpha-mask event and the upsample
+    cfg, ds, trainer = training_setup(torch, dev)
+    model, net = trainer.model, trainer.model.color_net
+    state = trainer.init_state(torch.Generator().manual_seed(SEED))
+    state0 = copy.deepcopy(state)
+    grid0, aabb0 = list(net.grid_size), net.aabb.copy()
+    event_s = {}
+    apply_event = trainer.apply_event
+
+    def timed_event(st, it):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = apply_event(st, it)
+        torch.cuda.synchronize()
+        event_s[it] = time.perf_counter() - t0
+        return out
+
+    trainer.apply_event = timed_event
+    batches = ds.batch_iterator(trainer.training_cfg["batch_size"],
+                                seed=SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    half = (TRAIN_ALPHA_IT + TRAIN_UPSAMPLE_IT) // 2
+    state, hist = trainer.fit(state, batches, half, gen=gen, log_every=1)
+    counts_alpha = dict(state.opt_state["count"])
+    aabb1 = net.aabb.copy()
+    state, hist2 = trainer.fit(state, batches, TRAIN_STEPS - half, gen=gen,
+                               log_every=1)
+    hist += hist2
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    trainer.apply_event = apply_event
+    losses = [h["image_loss"] for h in hist]
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    want_grid = n_to_reso(net.n_voxel_list[0], net.aabb)
+    moved = not np.array_equal(aabb1, aabb0)
+    print(f"# 54. {TRAIN_STEPS} steps in {fit_s:.2f} s: image loss first 5 "
+          f"{first:.5f}, last 5 {last:.5f}; psnr {hist[0]['psnr']:.2f} -> "
+          f"{hist[-1]['psnr']:.2f}; grid {grid0} -> {net.grid_size} (want "
+          f"{want_grid}); the alpha event at {TRAIN_ALPHA_IT} "
+          f"{'moved' if moved else 'left'} the aabb {aabb0.tolist()} -> "
+          f"{aabb1.tolist()}; optimizer counters {counts_alpha} after it, "
+          f"{state.opt_state['count']} at the end; events (wall s) "
+          f"{ {k: round(v, 3) for k, v in event_s.items()} }", flush=True)
+    groups = set(state.opt_state["count"])
+    if not (all(np.isfinite(h[k]) for h in hist for k in h)
+            and params_finite(torch, state.params)):
+        raise AssertionError("training: a loss or a param is not finite")
+    if not last < first:
+        raise AssertionError(f"training: the image loss did not fall "
+                             f"({first} -> {last})")
+    if net.grid_size != want_grid or state.it != TRAIN_STEPS:
+        raise AssertionError(f"training: grid {net.grid_size}, want "
+                             f"{want_grid}; it {state.it}")
+    if counts_alpha != dict.fromkeys(groups, half - TRAIN_ALPHA_IT) or \
+            state.opt_state["count"] != dict.fromkeys(
+                groups, TRAIN_STEPS - TRAIN_UPSAMPLE_IT):
+        raise AssertionError("training: the optimizer's counters did not "
+                             "restart at the events")
+    if sorted(event_s) != [TRAIN_ALPHA_IT, TRAIN_UPSAMPLE_IT]:
+        raise AssertionError(f"training: events at {sorted(event_s)}")
+    if not moved:
+        net.shrink(state.params["color"], np.asarray(TRAIN_SHRUNK))
+        print(f"# the net shrunk to {TRAIN_SHRUNK} by hand", flush=True)
+
+    # ---- 55. the step's time on the initial and the upsampled grid
+    aabb_now, net.aabb = net.aabb, aabb0     # the initial state's box
+    timing = {"initial": time_steps(torch, trainer, state0, ds,
+                                    f"55. step on the initial grid {grid0}")}
+    net.aabb = aabb_now
+    upsampled = list(net.grid_size)
+    timing["upsampled"] = time_steps(
+        torch, trainer, state, ds, f"55. step on the upsampled grid "
+        f"{upsampled}")
+    del state0
+    torch.cuda.empty_cache()
+
+    # ---- 56. the trained model through K1 and K2
+    ctx = StepCtx(it=state.it)
+    cf = model._cf_eval
+    with torch.no_grad():
+        prep = model.prepare_eval(state.params)
+        rk = {"cf_prepared": prep, "uniform_time": True}
+        reset_counts()
+        outs = [model.apply(state.params, frame[i], ctx, rk)
+                for i in range(frame.shape[0])]
+        torch.cuda.synchronize()
+        counts = read_counts()
+        rgb = torch.cat([o["rgb"] for o in outs])
+        want = dict.fromkeys(counts, 0)
+        want.update(pack_build=frame.shape[0], shade=frame.shape[0])
+        print(f"# 56. the trained model's bench frame (quad route): rgb "
+              f"min {rgb.min().item():.4f} max {rgb.max().item():.4f} mean "
+              f"{rgb.mean().item():.4f}; launches {counts}", flush=True)
+        if counts != want:
+            raise AssertionError(f"trained frame: launches {counts}, want "
+                                 f"{want}")
+        if not (torch.isfinite(rgb).all() and rgb.min() >= 0
+                and rgb.max() <= 1):
+            raise AssertionError("trained frame: rgb not finite in [0, 1]")
+        view = ds.image(3)
+        vr = model.apply(state.params, torch.from_numpy(view["rays"]).to(dev),
+                         ctx, {"cf_prepared": prep})["rgb"]
+        print(f"# the trained model on training view 3 (quad route): psnr "
+              f"{psnr(vr, torch.from_numpy(view['rgb']).to(dev)).item():.3f}"
+              " dB", flush=True)
+
+        chunk = frame[0]
+        net_in = cf.pred.net_input(chunk, ctx).float().contiguous()
+        rp = cf.ray_pack(chunk)
+        tabs = prep["mlp"]
+        pack = pack_build(net_in, tabs, rp, cf.spec, ctx.it)
+        pack_p = pack_build_plain(net_in, tabs, rp, cf.spec, ctx.it)
+        torch.cuda.synchronize()
+        k1_err = (pack - pack_p).abs().max().item()
+        H, W, TH, TW, C, nd = prep["dims"]
+        k2_err, spec0 = 0.0, None
+        for th in (TH, 0):
+            ttab = prep["ttab"] if th else premix_time(prep["ttab"],
+                                                       rp[0, 7])
+            spec = ShadeSpec(S=cf.S, W=W, H=H, TW=TW, TH=th, C=C, nd=nd,
+                             deg=net.sh_deg,
+                             distance_scale=net.distance_scale)
+            out = shade(prep["quad"], pack, rp, ttab, prep["wb"], spec)
+            out_p = shade_plain(prep["quad"], pack, rp, ttab, prep["wb"],
+                                spec)
+            torch.cuda.synchronize()
+            err = (out[:, :4] - out_p[:, :4]).abs().max().item()
+            derr = (out[:, 4] - out_p[:, 4]).abs().max().item()
+            if not (err <= SHADE_TOL and derr <= 10 * SHADE_TOL):
+                raise AssertionError(f"trained K2 disagrees with its plain "
+                                     f"version (TH={th}): {err}, {derr}")
+            k2_err = max(k2_err, err)
+            spec0 = (ttab, spec)
+        print(f"# the trained model's chunk: K1 max |kernel - plain| "
+              f"{k1_err:.3e} (tol {PACK_TOL_BF16}), K2 {k2_err:.3e} (tol "
+              f"{SHADE_TOL}); grid {H}x{W}, time plane {TH}x{TW}, aabb "
+              f"{np.asarray(net.aabb).tolist()}; acc mean "
+              f"{out[:, 3].mean().item():.4f}", flush=True)
+        if not k1_err <= PACK_TOL_BF16:
+            raise AssertionError(f"trained K1 disagrees with its plain "
+                                 f"version: {k1_err}")
+        ttab, spec = spec0
+        k1_ms = cuda_ms(torch, lambda: pack_build(net_in, tabs, rp, cf.spec,
+                                                  ctx.it), 20)
+        k1_plain_ms = cuda_ms(torch, lambda: pack_build_plain(
+            net_in, tabs, rp, cf.spec, ctx.it), 3)
+        k2_ms = cuda_ms(torch, lambda: shade(prep["quad"], pack, rp, ttab,
+                                             prep["wb"], spec), 20)
+        k2_plain_ms = cuda_ms(torch, lambda: shade_plain(
+            prep["quad"], pack, rp, ttab, prep["wb"], spec), 3)
+        N = pack.shape[1]
+        valid = valid_count(pack)
+        mlp_ops = 2 * CHUNK * sum(
+            p["weight"].numel() for p in
+            state.params["embedding"]["ray_prediction_0"]["net"].values())
+        k1_bound = bound(
+            nbytes(net_in, rp, pack)
+            + sum(nbytes(l.w, l.b) for l in tabs.layers),
+            [(mlp_ops, BF16_OPS_PER_S), (N * K1_TAIL_OPS, F32_OPS_PER_S)])
+        k2_bound = sh_bound(
+            "trained K2", nbytes(pack, rp, ttab) + CHUNK * 5 * 4
+            + rows_bytes(prep["quad"], quad_rows(pack, 0, 1, W, H)),
+            lambda f: [(valid * (shade_ops(C, nd, fold=f) + 8 * C + 10)
+                        + N * COMPOSITE_OPS, F32_OPS_PER_S)], cf.S)
+        print(f"# the trained model's chunk: {valid} of {N} samples valid; "
+              f"K1 {k1_ms:.3f} ms (plain {k1_plain_ms:.3f}, bound "
+              f"{k1_bound[0]:.4f}), K2 TH=0 {k2_ms:.3f} ms (plain "
+              f"{k2_plain_ms:.3f}, bound {k2_bound[0]:.4f})", flush=True)
+        del pack, pack_p, out, out_p, outs, prep
+        torch.cuda.empty_cache()
+
+        # fused against the general path, f32 MLP policy
+        cfg_g = copy.deepcopy(cfg)
+        cfg_g["color"]["net"].update(fused_render_cf=False,
+                                     fused_render=False)
+        fused = build_model(copy.deepcopy(cfg), dataset_info=ds.info())
+        general = build_model(cfg_g, dataset_info=ds.info())
+        for m in (fused, general):
+            m.color_net.grid_size = list(net.grid_size)
+            m.color_net.aabb = np.array(net.aabb)
+        # the time planes rounded to bf16: the general net reads them at
+        # table precision, K2 in f32 (as in phases 41-43)
+        p16 = bf16_second_factors(torch, state.params)
+        rays = torch.from_numpy(entry_rays(4096)).to(dev)
+        a = fused.apply(p16, rays, ctx)["rgb"]
+        b = general.apply(p16, rays, ctx)["rgb"]
+        fcf = fused._cf_eval
+        fpack = pack_build(fcf.pred.net_input(rays, ctx).float().contiguous(),
+                           fcf.prepare(p16)["mlp"],
+                           fcf.ray_pack(rays), fcf.spec, ctx.it)
+        near = near_face(torch, fpack, fcf.S)
+        path_err = (a - b).abs()[~near].max().item()
+        print(f"# the trained model, fused vs general (f32 MLP), 4096 "
+              f"entry() rays: max |diff| {path_err:.3e} (tol {PATH_TOL}) "
+              f"over the rays without a sample within {FACE_ULPS} ulps of "
+              f"an aabb face ({int(near.sum())} left out); with them "
+              f"{(a - b).abs().max().item():.3e}", flush=True)
+        if not path_err <= PATH_TOL:
+            raise AssertionError(f"trained model: fused and general paths "
+                                 f"disagree: {path_err}")
+        del fused, general, fpack, p16
+
+    # ---- 57. save, restore into a fresh trainer, one step each
+    ckpt = os.path.join("build", "chip_smoke_ckpt")
+    save_checkpoint(ckpt, state, model)
+    fresh = build_model(copy.deepcopy(cfg), dataset_info=ds.info(),
+                        compute_dtype=torch.bfloat16)
+    trainer2 = Trainer(fresh, trainer.training_cfg,
+                       regularizer_cfgs=tv_4000_defaults(),
+                       iters_per_epoch=4000, device=dev)
+    state2 = restore_checkpoint(ckpt, trainer2)
+    if fresh.color_net.grid_size != net.grid_size or not np.array_equal(
+            fresh.color_net.aabb, net.aabb) or state2.it != state.it:
+        raise AssertionError("restore: grid, aabb or iteration differ")
+    batch = next(batches)
+    draws = {"background": 0.25}
+    # torch's deterministic index_add_ (and gather and index backward) for
+    # these two steps: its atomics would sum the grid gradients in any
+    # order; an op without a deterministic form raises
+    torch.use_deterministic_algorithms(True)
+    try:
+        state, m1 = trainer.step(state, trainer.to_device(batch),
+                                 trainer.make_optimizer(state.params),
+                                 draws=draws)
+        state2, m2 = trainer2.step(state2, trainer2.to_device(batch),
+                                   trainer2.make_optimizer(state2.params),
+                                   draws=draws)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    p2 = dict(tree_leaves(state2.params))
+    resume_err = max((p2[p] - v).abs().max().item()
+                     for p, v in tree_leaves(state.params))
+    resume_ok = all(torch.equal(p2[p], v)
+                    for p, v in tree_leaves(state.params))
+    print(f"# 57. resumed step: loss {m2['loss'].item():.9g} vs "
+          f"{m1['loss'].item():.9g}; params max |diff| {resume_err:.3e} "
+          f"(equal to the bit: {resume_ok}); counters "
+          f"{state2.opt_state['count']}", flush=True)
+    if not (m1["loss"].item() == m2["loss"].item() and resume_ok
+            and state2.opt_state["count"] == state.opt_state["count"]):
+        raise AssertionError("the resumed step differs from the "
+                             "uninterrupted one")
+    record = {"grid": [grid0, list(net.grid_size)],
+              "aabb": [aabb0.tolist(), np.asarray(net.aabb).tolist()],
+              "shrink_by_event": moved, "event_s": event_s,
+              "image_loss_first5_last5": [first, last],
+              "step": timing, "fit_s": fit_s}
+    return [entry("pack_build_trained", "pack_build.cuh",
+                  "hyperreel_tpu/ops/pallas/pack_build.py:137",
+                  counts["pack_build"], k1_err, k1_ms, k1_plain_ms,
+                  k1_bound),
+            entry("shade_trained", "shade.cu",
+                  "hyperreel_tpu/ops/pallas/shade.py:238", counts["shade"],
+                  k2_err, k2_ms, k2_plain_ms, k2_bound)], record
+
+
 def main():
     import torch
 
@@ -3162,6 +3622,12 @@ def main():
         frame_ms.update(fms)
     del base
     torch.cuda.empty_cache()
+
+    # ---- 54-57. the flagship's training step, its grid events, the
+    # trained model through K1 and K2, and a resumed checkpoint
+    train_entries, train_record = training_phases(
+        torch, dev, gpu, frame, reset_counts, read_counts)
+    torch.cuda.empty_cache()
     print("# SH bounds, ms with the basis folded per ray (the least work, "
           "the kernels' line) / by the unfolded count: " + "; ".join(
               f"{name} {new:.4f} / {old:.4f}"
@@ -3192,8 +3658,8 @@ def main():
               "hyperreel_tpu/ops/pallas/composite.py:26", k7_launches,
               k7_err, k7_ms, k7_plain_ms, k7_bound)] + llff_entries
         + n3d_entries + shiny_entries + stanford_entries
-        + primitive_entries + own_entries + count_entries,
-        "frame_ms": frame_ms}
+        + primitive_entries + own_entries + count_entries + train_entries,
+        "frame_ms": frame_ms, "train": train_record}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -46,3 +46,39 @@ def params_to_jax(params):
     if isinstance(params, dict):
         return {k: params_to_jax(v) for k, v in params.items()}
     return params.detach().cpu().numpy()
+
+
+def _jax_leaf(tree, path):
+    """The JAX tree's leaf at the port's path (a dense layer's "weight"
+    is the transposed "w", its "bias" the "b")."""
+    for k in path:
+        if k == "weight":
+            return np.asarray(tree["w"], np.float32).T
+        tree = tree["b" if k == "bias" else k]
+    return np.asarray(tree, np.float32)
+
+
+def opt_state_from_jax(state, labels, device="cuda"):
+    """The JAX trainer's optax state (hyperreel_tpu/train/optim.py
+    build_optimizer: a multi_transform, each group's chain of optax
+    states, numpy leaves) -> the port's GroupedOptimizer state for params
+    labelled `labels` (model.param_groups): each group's counter and
+    each leaf's moments (adam "mu"/"nu", sgd "trace", rmsprop "nu"), on
+    `device`, the card unless the caller names another."""
+    from hyperreel_tpu_torch.train.optim import path_key, tree_leaves
+
+    count, moments = {}, {}
+    for label, masked in state.inner_states.items():
+        for sub in masked.inner_state:
+            fields = getattr(sub, "_fields", ())
+            if "count" in fields:
+                count[label] = int(sub.count)
+            for name in ("mu", "nu", "trace"):
+                if name in fields:
+                    moments.setdefault(label, {})[name] = getattr(sub, name)
+    slots = {}
+    for path, label in tree_leaves(labels):
+        slots[path_key(path)] = {
+            name: torch.tensor(_jax_leaf(tree, path), device=device)
+            for name, tree in moments.get(label, {}).items()}
+    return {"count": count, "slots": slots}

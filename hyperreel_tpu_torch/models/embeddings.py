@@ -4,9 +4,11 @@ hyperreel_tpu/models/embeddings.py; reference nlf/embedding/).
 Each stage has `.init(gen, device) -> params` and
 `.apply(params, x, ctx, render_kwargs) -> x` over a dict of tensors. The
 ported stages are ray_prediction, ray_intersect, advect_points,
-point_offset, add_point_outputs, extract_fields and select_points
-(models/embeddings_extra.py, at eval); any other stage type, and
-per-stage wait/stop gating, raise NotImplementedError.
+point_offset, add_point_outputs, extract_fields (at eval and in training)
+and select_points (models/embeddings_extra.py, at eval); any other stage
+type, and per-stage wait/stop gating, raise NotImplementedError. Each
+stage's `group` names the optimizer group of its params (the prediction
+net's config may name one: the flagship's "embedding_impl").
 """
 
 from typing import List
@@ -29,6 +31,8 @@ class RayPredictionEmbedding:
 
     def __init__(self, cfg, compute_dtype=None):
         self.cfg = cfg
+        self.group = cfg.get("net", {}).get("group",
+                                            cfg.get("group", "embedding"))
         self.rays_name = cfg.get("rays_name", "rays")
         self.param_ranges, self.params_fns, self.pes = [], [], []
         in_channels = 0
@@ -127,19 +131,26 @@ class RayIntersectEmbedding:
         return self.intersect.apply(x[self.rays_name], x, ctx)
 
 
-def get_base_time(t, flow_keyframes, total_frames):
-    """Snap times to keyframe times, eval form (reference
-    utils/flow_utils.py:10-35)."""
+def get_base_time(t, flow_keyframes, total_frames, jitter=None,
+                  flow_scale=0.0):
+    """Snap times to keyframe times (reference utils/flow_utils.py:10-35);
+    in training with flow_scale > 0, jittered first by (jitter - 0.5) *
+    flow_scale keyframes, `jitter` a U[0, 1) draw of t's shape."""
     if flow_keyframes <= 0:
         return torch.zeros_like(t)
     fac = flow_keyframes * (total_frames - 1) / total_frames
-    base = torch.clamp(t * fac, 0.0, flow_keyframes - 1.0) - 1e-5
+    base = t * fac
+    if jitter is not None and flow_scale > 0.0:
+        base = base + (jitter * flow_scale - flow_scale / 2.0)
+    base = torch.clamp(base, 0.0, flow_keyframes - 1.0) - 1e-5
     return torch.round(base) * (1.0 / fac)
 
 
 class AdvectPointsEmbedding:
     """Keyframe flow advection (reference nlf/embedding/point.py:741-834),
-    spatial flow only."""
+    spatial flow only; in training the keyframe jitter of flow_scale
+    (the draw "flow_jitter"; render_kwargs "no_flow_jitter" turns it
+    off)."""
 
     def __init__(self, cfg, num_keyframes=1, num_frames=1):
         self.cfg = cfg
@@ -152,6 +163,11 @@ class AdvectPointsEmbedding:
         self.use_spatial_flow = bool(cfg.get("use_spatial_flow", False))
         self.spatial_flow_activation = get_activation(
             cfg.get("spatial_flow_activation", "identity"))
+        if cfg.get("save_points_field"):
+            raise NotImplementedError(
+                "advect_points save_points_field is not ported (ROADMAP.md: "
+                "training beyond the flagship)")
+        self.flow_scale = float(cfg.get("flow_scale", 0.0))
         self.num_keyframes = num_keyframes
         self.num_frames = num_frames
 
@@ -162,7 +178,12 @@ class AdvectPointsEmbedding:
         rays = x[self.rays_name]
         points = x[self.in_points_field]
         t = rays[..., -1:]
-        base_t = get_base_time(t, self.num_keyframes, self.num_frames)
+        jitter = None
+        if ctx.training and self.flow_scale > 0.0 \
+                and "no_flow_jitter" not in (render_kwargs or {}):
+            jitter = ctx.uniform("flow_jitter", t.shape, t.device)
+        base_t = get_base_time(t, self.num_keyframes, self.num_frames,
+                               jitter, self.flow_scale)
         time_offset = (t - base_t)[..., None, :]
         if self.use_spatial_flow:
             flow = self.spatial_flow_activation(x["spatial_flow"], ctx)
@@ -177,14 +198,15 @@ class AdvectPointsEmbedding:
 
 class PointOffsetEmbedding:
     """points += act(point_offset) * (1 - sigma) (reference
-    nlf/embedding/point.py:338-399; train-time dropout not ported)."""
+    nlf/embedding/point.py:338-399; train-time dropout and
+    save_points_field not ported)."""
 
     def __init__(self, cfg):
         self.cfg = cfg
         if cfg.get("dropout") or cfg.get("save_points_field"):
             raise NotImplementedError(
                 "point_offset dropout / save_points_field are not ported "
-                "(ROADMAP.md: flagship training step)")
+                "(ROADMAP.md: training beyond the flagship)")
         self.in_density_field = cfg.get("in_density_field", "sigma")
         self.in_offset_field = cfg.get("in_offset_field", "point_offset")
         self.out_offset_field = cfg.get("out_offset_field", "offset")
@@ -276,7 +298,7 @@ def build_embedding_chain(cfg, dataset_info=None, compute_dtype=None):
         if scfg.get("wait_iters") or scfg.get("stop_iters"):
             raise NotImplementedError(
                 "per-stage wait/stop gating is not ported "
-                "(ROADMAP.md: flagship training step)")
+                "(ROADMAP.md: training beyond the flagship)")
         if t == "ray_prediction":
             stage = RayPredictionEmbedding(dict(scfg), compute_dtype)
         elif t == "ray_intersect":

@@ -37,8 +37,8 @@ class SelectPointsEmbedding:
         if ctx.training:
             raise NotImplementedError(
                 "select_points in training (the drawn sample count, "
-                "always_slice) is not ported (ROADMAP.md: flagship training "
-                "step)")
+                "always_slice) is not ported (ROADMAP.md: training beyond "
+                "the flagship)")
         S = x["points"].shape[1]
         n = self.inference_samples
         if not n or n >= S:

@@ -239,7 +239,10 @@ class FusedCFEval:
                 raise NotImplementedError(
                     f"activation {a!r} ({k}) has no pack-build kernel form "
                     "(ROADMAP.md: long tail)")
-        self.spec = PackSpec(
+        # the aabb is read from the net at each call (`spec`): the
+        # alpha-mask event's shrink replaces it (hyperreel_tpu
+        # fused_eval.py reads net.aabb per call)
+        self._spec = PackSpec(
             S=self.S, P=self.P, foff=foff, acts=fa,
             samples=np.broadcast_to(
                 np.asarray(self.isect.samples, np.float32).reshape(-1),
@@ -252,6 +255,12 @@ class FusedCFEval:
             stride=self.S // stride_k if stride_k else None,
             far_sentinel=FAR_SENTINEL if self.isect.invalid_sort_far
             else None)
+
+    @property
+    def spec(self):
+        """K1's PackSpec with the net's aabb of now."""
+        return dataclasses.replace(
+            self._spec, aabb=np.asarray(self.net.aabb, np.float32))
 
     def ok(self, ctx, render_kwargs):
         """Per-call gate (hyperreel_tpu FusedCFEval.ok)."""

@@ -3,8 +3,9 @@ nlf/models/models.py): rgb = color_net(embedding_chain(param(rays))).
 
 Functional, like the JAX package: `init(gen, device) -> params`,
 `apply(params, rays, ctx, render_kwargs) -> {"rgb": [B, 3], ...}`.
-Eval calls take the fused path (models/fused_eval.py, the CUDA kernels)
-when the chain is one of its patterns and `fused_render_cf` is on;
+Training calls (ctx.training) take the general stage chain, as in the JAX
+package. Eval calls take the fused path (models/fused_eval.py, the CUDA
+kernels) when the chain is one of its patterns and `fused_render_cf` is on;
 otherwise the general stage chain runs, and a colour net with
 `fused_render` on then takes its own fused route after it
 (models/tensorf.py FactoredNet.apply_fused: K2 for one axis, K5 for
@@ -45,6 +46,21 @@ class LightfieldModel:
         x = self.embedding.apply(params["embedding"], rays, ctx,
                                  render_kwargs)
         return self.color_net.apply(params["color"], x, ctx, render_kwargs)
+
+    def param_groups(self, params):
+        """The optimizer-group label of every leaf of `params` (hyperreel_tpu
+        LightfieldModel.param_groups): an embedding stage's its `group`
+        ("embedding" by default), the colour net's its own."""
+
+        def label(tree, group):
+            return {k: label(v, group) for k, v in tree.items()} \
+                if isinstance(tree, dict) else group
+
+        return {"embedding": {
+            name: label(params["embedding"][name],
+                        getattr(stage, "group", "embedding"))
+            for name, stage in self.embedding.stages},
+            "color": self.color_net.param_groups(params["color"])}
 
     def prepare_eval(self, params):
         """Per-checkpoint tables of the model's fused route: the

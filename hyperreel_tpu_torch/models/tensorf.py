@@ -1,6 +1,7 @@
 """Factored feature-grid colour nets (port of hyperreel_tpu/models/tensorf.py
 TensorVMKeyframeTime and TensorVMNoSample: init and the general eval
-apply, SH or RGB shading, and each net's own fused route; reference
+apply, SH or RGB shading, and each net's own fused route; the dynamic
+net's training apply, its regularizer terms and its grid events; reference
 nlf/nets/tensorf_dynamic.py, nlf/nets/tensorf_no_sample.py).
 
 Grids are channels-last, as in the JAX package. The dynamic net holds per
@@ -19,7 +20,8 @@ import numpy as np
 import torch
 
 from hyperreel_tpu_torch.models.mlp import linear_init
-from hyperreel_tpu_torch.ops.grid_sample import grid_sample_1d, grid_sample_2d
+from hyperreel_tpu_torch.ops.grid_sample import (
+    grid_sample_1d, grid_sample_2d, linspace, resize_bilinear_2d)
 from hyperreel_tpu_torch.ops.render_math import (
     raw2alpha, scale_shift_color_all)
 from hyperreel_tpu_torch.ops.sh import sh_render
@@ -38,6 +40,21 @@ def n_to_reso(n_voxels, aabb):
     voxel_size = np.power(ext.prod() / np.float32(n_voxels),
                           np.float32(1.0 / 3.0), dtype=np.float32)
     return [int(x) for x in (ext / voxel_size)]
+
+
+def upsample_schedule(n_init, n_final, n_steps):
+    """Log-spaced voxel-count schedule (reference
+    nlf/nets/tensorf_base.py:171-198)."""
+    return [int(round(float(x))) for x in np.exp(np.linspace(
+        np.log(n_init), np.log(n_final), n_steps + 1))][1:]
+
+
+def _tv2d(plane_hwc):
+    """Mean squared difference TV of a plane [H, W, C], twice (reference
+    utils/tensorf_utils.py:150-166: TVLoss with weight 1, h/w counts)."""
+    h_tv = ((plane_hwc[1:] - plane_hwc[:-1]) ** 2).mean()
+    w_tv = ((plane_hwc[:, 1:] - plane_hwc[:, :-1]) ** 2).mean()
+    return 2.0 * (h_tv + w_tv)
 
 
 class FactoredNet:
@@ -75,6 +92,16 @@ class FactoredNet:
         self.app_dim = int(cfg.get("data_dim_color", 27))
         self.sh_deg = int(round(math.sqrt(self.app_dim / 3))) - 1
         self.grid_size = n_to_reso(int(cfg["N_voxel_init"]), self.aabb)
+        # the grid events (reference TensorBase.set_iter): the alpha-mask
+        # iterations, the upsample iterations and their voxel counts
+        self.upsamp_list = list(cfg.get("upsamp_list", []))
+        self.update_alphamask_list = list(
+            cfg.get("update_AlphaMask_list", []))
+        self.n_voxel_list = upsample_schedule(
+            int(cfg.get("N_voxel_init", 2097152)),
+            int(cfg.get("N_voxel_final", 2097152)),
+            len(self.upsamp_list)) if self.upsamp_list else []
+        self.alpha_mask_thres = float(cfg.get("alpha_mask_thre", 1e-3))
         self.active_density = [i for i in range(3)
                                if self.density_n_comp[i] > 0]
         self.active_app = [i for i in range(3) if self.app_n_comp[i] > 0]
@@ -105,6 +132,33 @@ class FactoredNet:
                                      self.app_dim, device, bias=False),
         }
 
+    def param_groups(self, params):
+        """Optimizer-group labels of the params (reference
+        tensorf_base.py:869-893): the grids and the basis are "color"."""
+        return {fam: {k: "color" for k in params[fam]}
+                for fam in ("density", "app")} | {
+            "basis_mat": {k: "color" for k in params["basis_mat"]}}
+
+    def density_l1(self, params):
+        """Mean |.| of every density grid, summed (reference
+        tensorf_base.py:1024-1057)."""
+        first, second = self.GRIDS
+        total = 0.0
+        for i in self.active_density:
+            for g in (first, second):
+                v = params["density"][f"{g}_{i}"]
+                # |v| with jnp.abs's gradient 1 at v = 0 (torch's is 0)
+                total = total + torch.where(v >= 0, v, -v).mean()
+        return total
+
+    def tv_loss_density(self, params):
+        return sum(_tv2d(params["density"][f"{self.GRIDS[0]}_{i}"]) * 1e-2
+                   for i in self.active_density)
+
+    def tv_loss_app(self, params):
+        return sum(_tv2d(params["app"][f"{self.GRIDS[0]}_{i}"]) * 1e-2
+                   for i in self.active_app)
+
     def axis_grids(self, params):
         """Per active axis (i, its plane [H, W, C], its second factor: the
         line [L, C] or the time plane [TH, TW, C]), the density and
@@ -125,10 +179,10 @@ class FactoredNet:
         return ~((pts < aabb[0]) | (pts > aabb[1])).any(-1)
 
     def check_eval(self, ctx, render_kwargs):
-        if ctx.training:
+        if ctx.training and not self.TRAINS:
             raise NotImplementedError(
-                "training is not ported (ROADMAP.md: flagship training "
-                "step)")
+                f"{type(self).__name__} training is not ported (ROADMAP.md: "
+                "training beyond the flagship)")
         fields = list(render_kwargs.get("fields", []))
         if any(f != "distances" for f in fields):
             raise NotImplementedError(
@@ -136,13 +190,19 @@ class FactoredNet:
                 "(ROADMAP.md: render CLI and viewer)")
         return fields
 
-    def shade(self, x, feat, app, ray_valid, dists, fields):
+    # whether the net's training apply is ported
+    TRAINS = False
+
+    def shade(self, x, feat, app, ray_valid, dists, fields, ctx):
         """density feature [B, S] and appearance [B*S, app_dim] -> the
         composited outputs."""
         B, S = dists.shape
         deltas = torch.cat([dists[:, 1:] - dists[:, :-1],
                             torch.full_like(dists[:, :1], 1e10)], -1)
-        sigma = torch.where(ray_valid, torch.clamp_min(feat, 0.0), 0.0)
+        # relu as 0.5 (x + |x|): the same values, and at x = 0 the gradient
+        # 0.5 of jnp.maximum(x, 0) (the JAX net's feature2density), where
+        # torch's relu passes 1 (a density grid trained to exactly 0)
+        sigma = torch.where(ray_valid, 0.5 * (feat + feat.abs()), 0.0)
         alpha, weight, _ = raw2alpha(sigma, deltas * self.distance_scale)
         if self.shading == "rgb":
             rgb = torch.sigmoid(app).reshape(B, S, 3)
@@ -160,27 +220,35 @@ class FactoredNet:
                                         x["color_shift"].reshape(B, S, 3))
         acc_map = weight.sum(-1)
         rgb_map = (weight[..., None] * rgb).sum(-2)
-        outputs = {"rgb": self.finish(rgb_map, acc_map, x, B, S)}
+        outputs = {"rgb": self.finish(rgb_map, acc_map, x, B, S, ctx)}
         if fields:
             outputs["distances"] = (weight * dists).sum(-1, keepdim=True)
         return outputs
 
-    def finish(self, rgb_map, acc_map, x, B, S):
-        """The composited colour [B, 3] and opacity [B] -> the eval rgb:
-        the white background where the net has one, the per-ray (global)
-        colour scale and shift of sample 0 where the chain predicts them
-        (reference utils/tensorf_utils.py:275-281), clamped to [0, 1]."""
+    def finish(self, rgb_map, acc_map, x, B, S, ctx=None):
+        """The composited colour [B, 3] and opacity [B] -> the rgb: the
+        white background where the net has one (in training, without
+        white_bg or black_bg, on the background coin: a draw < 0.5, JAX
+        tensorf.py:1540-1546), the per-ray (global) colour scale and shift
+        of sample 0 where the chain predicts them (reference
+        utils/tensorf_utils.py:275-281), clamped to [0, 1] at eval."""
         if "color_transform_global" in x:
             raise NotImplementedError(
                 "a predicted global colour transform is not ported "
                 "(ROADMAP.md: long tail)")
-        if not self.black_bg and self.white_bg:
-            rgb_map = rgb_map + (1.0 - acc_map[:, None])
+        training = ctx is not None and ctx.training
+        if not self.black_bg:
+            if self.white_bg:
+                rgb_map = rgb_map + (1.0 - acc_map[:, None])
+            elif training:
+                coin = ctx.uniform("background", (), rgb_map.device) < 0.5
+                rgb_map = torch.where(coin, rgb_map + (1.0 - acc_map[:, None]),
+                                      rgb_map)
         if "color_scale_global" in x:
             rgb_map = rgb_map * (
                 x["color_scale_global"].reshape(B, S, 3)[:, 0] + 1.0) \
                 + x["color_shift_global"].reshape(B, S, 3)[:, 0]
-        return torch.clamp(rgb_map, 0.0, 1.0)
+        return rgb_map if training else torch.clamp(rgb_map, 0.0, 1.0)
 
     # -- the net's own fused route (hyperreel_tpu TensorVMNoSample and
     # TensorVMKeyframeTime _fused_ok, apply_fused, _apply_fused_multi,
@@ -363,10 +431,15 @@ class TensorVMKeyframeTime(FactoredNet):
         return self.normalize_time_coord(
             x["base_times"].reshape(B, -1)[:, 0])
 
+    TRAINS = True
+
     def apply(self, params, x, ctx, render_kwargs=None):
+        """The general apply (eval and training; in training no clamp and
+        the background coin, `finish`), or at eval the net's own fused
+        route."""
         render_kwargs = render_kwargs or {}
         fields = self.check_eval(ctx, render_kwargs)
-        if self.fused_ok(x, render_kwargs):
+        if not ctx.training and self.fused_ok(x, render_kwargs):
             return self.apply_fused(params, x, render_kwargs)
         B = x["viewdirs"].shape[0]
         pts = x["points"].reshape(B, -1, 3)
@@ -378,7 +451,97 @@ class TensorVMKeyframeTime(FactoredNet):
                           self.normalize_time_coord(base_times)], -1)
         dens, app = self.sample(params, xyzt.reshape(-1, 4))
         return self.shade(x, dens.reshape(B, S), app, ray_valid, dists,
-                          fields)
+                          fields, ctx)
+
+    # -- grid events (hyperreel_tpu TensorVMKeyframeTime upsample, shrink,
+    # compute_alpha_grid; reference tensorf_dynamic.py:395-520) -----------
+
+    def upsample(self, params, new_grid_size):
+        """Every space plane resized bilinearly to the new grid, every time
+        plane along its space axis (its keyframe rows kept); sets
+        `grid_size`. Returns new params (fresh leaves)."""
+        new = {k: dict(v) for k, v in params.items()}
+        with torch.no_grad():
+            for fam, comps in (("density", self.density_n_comp),
+                               ("app", self.app_n_comp)):
+                for i in range(3):
+                    if comps[i] == 0:
+                        continue
+                    ms0, ms1 = MAT_MODE_SPACE[i]
+                    mt0, _ = MAT_MODE_TIME[i]
+                    new[fam][f"space_{i}"] = resize_bilinear_2d(
+                        params[fam][f"space_{i}"], new_grid_size[ms1],
+                        new_grid_size[ms0])
+                    new[fam][f"time_{i}"] = resize_bilinear_2d(
+                        params[fam][f"time_{i}"], self.num_keyframes,
+                        new_grid_size[mt0])
+        self.grid_size = list(new_grid_size)
+        return new
+
+    def shrink(self, params, new_aabb):
+        """The dynamic net keeps its grids and only tightens the aabb (as
+        the JAX package's; the reference's shipped configs never shrink
+        it)."""
+        self.aabb = np.asarray(new_aabb, np.float32)
+        return params
+
+    def sample_density(self, params, xyzt):
+        """The density feature [N] at normalized xyzt [N, 4] from the f32
+        grids (hyperreel_tpu _sample_density_t, Density mode)."""
+        total = 0.0
+        for i in self.active_density:
+            ms0, ms1 = MAT_MODE_SPACE[i]
+            mt0, mt1 = MAT_MODE_TIME[i]
+            prod = grid_sample_2d(params["density"][f"space_{i}"],
+                                  xyzt[:, [ms0, ms1]]) \
+                * grid_sample_2d(params["density"][f"time_{i}"],
+                                 xyzt[:, [mt0, mt1]])
+            total = total + prod.sum(-1)
+        return total
+
+    # lattice points per block of x rows in compute_alpha_grid
+    ALPHA_BLOCK = 1 << 22
+
+    def compute_alpha_grid(self, params, grid_size=(200, 200, 200)):
+        """The occupancy of a dense lattice over the aabb: per point the max
+        over the keyframes of 1 - exp(-0.01 relu(density)), max-pooled
+        3^3 ("SAME", padded with -inf), thresholded at alpha_mask_thre ->
+        (binary [gz, gy, gx] f32, the occupied points' box [2, 3], inf where
+        none is occupied); x rows in blocks of at most ALPHA_BLOCK lattice
+        points."""
+        gx, gy, gz = grid_size
+        dev = params["density"][f"space_{self.active_density[0]}"].device
+        aabb = torch.as_tensor(self.aabb, device=dev)
+        xs, ys, zs = (linspace(0.0, 1.0, n, dev) for n in grid_size)
+        t_norm = self.normalize_time_coord(
+            linspace(0.0, 1.0, self.num_keyframes, dev))
+        rows = max(1, self.ALPHA_BLOCK // (gy * gz))
+        alpha, pts_all = [], []
+        with torch.no_grad():
+            for r0 in range(0, gx, rows):
+                grid = torch.stack(torch.meshgrid(
+                    xs[r0:r0 + rows], ys, zs, indexing="ij"), -1)
+                pts = aabb[0] * (1 - grid) + aabb[1] * grid
+                xyz = self.normalize_coord(pts.reshape(-1, 3))
+                a = None
+                for t in t_norm:
+                    xyzt = torch.cat([xyz, t.expand(xyz.shape[0], 1)], -1)
+                    sigma = torch.clamp_min(
+                        self.sample_density(params, xyzt), 0.0)
+                    at = 1.0 - torch.exp(-sigma * 0.01)
+                    a = at if a is None else torch.maximum(a, at)
+                alpha.append(a.reshape(-1, gy, gz))
+                pts_all.append(pts)
+            alpha = torch.clamp(torch.cat(alpha), 0.0, 1.0)
+            alpha_t = alpha.permute(2, 1, 0)[None, None]
+            pooled = torch.nn.functional.max_pool3d(alpha_t, 3, 1, 1)[0, 0]
+            binary = (pooled >= self.alpha_mask_thres).float()
+            occupied = (binary > 0.5)[..., None]
+            pts_t = torch.cat(pts_all).permute(2, 1, 0, 3)
+            inf = torch.full((3,), float("inf"), device=dev)
+            mins = torch.where(occupied, pts_t, inf).amin((0, 1, 2))
+            maxs = torch.where(occupied, pts_t, -inf).amax((0, 1, 2))
+        return binary, torch.stack([mins, maxs])
 
 
 class TensorVMNoSample(FactoredNet):
@@ -437,7 +600,7 @@ class TensorVMNoSample(FactoredNet):
         feat = dens.reshape(B, S)
         if "weights" in x:
             feat = feat * x["weights"].reshape(B, S)
-        return self.shade(x, feat, app, ray_valid, dists, fields)
+        return self.shade(x, feat, app, ray_valid, dists, fields, ctx)
 
 
 def build_color_net(cfg, dataset_info=None):
