@@ -10,8 +10,11 @@ counts (compaction and the stride) of the flagship, neural_3d_z_plane and
 shiny_z_plane, at full width through the hand-written kernels, checked
 against their plain PyTorch versions and against the port's general path,
 on the quad route and on the coherent patch-gather routes; the standalone
-composite entry point; and the flagship's training step across its grid
-events, with the trained model rendered through K1 and K2.
+composite entry point; the flagship's training step across its grid
+events, with the trained model rendered through K1 and K2; and the
+training of llff_z_plane and shiny_z_plane across their grid events and
+of neural_3d_z_plane, with the trained models rendered through K1, K5, K6
+and K4 + K5-preblended.
 
     python3 chip_smoke.py
 
@@ -189,7 +192,38 @@ no result line):
      and K2 against their plain versions; fused vs general path under
      the f32 MLP policy on 4096 rays (<= 2e-4);
  57. save a checkpoint, restore it into a fresh model and trainer, take
-     one step on both: the same loss, the params within two f32 ulps.
+     one step on both: the same loss, the params within two f32 ulps;
+ 58. training the static net: llff_z_plane at full width (the preset's
+     grid, 2,097,152 voxels over its aabb, [8, 4, 4] components; the bf16
+     MLP policy and tables; the mipnerf contraction with the static blob
+     scene's depth range) with its first two upsamples moved from 4,000
+     and 6,000 to 20 and 30, DEFAULT_TRAINING and tv_4000, on the static
+     blob scene (16 views x 128^2, marched on the card): 60 steps of
+     Trainer.fit; every loss and param finite, the last 5 image losses'
+     mean below the first 5's, grid_size as n_to_reso gives it, each
+     optimizer counter restarted at each event;
+ 59. its step on the initial and the upsampled grid, as phase 55 (the
+     lines' backward, _Quad1dBackward, beside the planes');
+ 60. the trained llff model's bench frame through model.apply on the quad
+     route (K1 + K5), the fused patch route (K6) and the two-kernel route
+     (K4 + K5-preblended) at R=4 (4, 3): finite, in [0, 1], the launches
+     per chunk, each patch route's witness <= 1e-4 and its rgb within
+     2e-4 of the quad route's; on one chunk K1, K5, K4, K5-preblended and
+     K6 against their plain versions, timed; fused vs general under the
+     f32 MLP policy on 4096 rays (<= 2e-4);
+ 61. shiny_z_plane (RGB) as 58-60 with its alpha event moved to 20 and its
+     first upsample to 30: the shrink moves the aabb and crops the planes
+     and lines (if the event leaves the box, net.shrink to a tighter one),
+     the step's time, the trained model's frame on the quad route (K1 + K5
+     with RGB colour) with K1 and K5 against their plain versions;
+ 62. neural_3d_z_plane at full width (64 samples, [8, 4, 4] time planes of
+     N3D_INFO's 12 keyframes, the dynamic blob scene) with no events: 20
+     steps of Trainer.fit, the step's time, the trained model's frame
+     through K1 + K5 on the time planes, each against its plain version on
+     one chunk;
+ 63. the trained llff model checkpointed, restored into a fresh model and
+     trainer, one step on both under torch's deterministic algorithms: the
+     same loss, the params equal to the bit.
 The line before the last is the kernels' JSON record (launches on their
 main path, error against the plain version, ms and the plain version's
 ms, and the least time the card could take, counting of each table only
@@ -2824,11 +2858,17 @@ def time_steps(torch, trainer, state, ds, tag):
                 return getattr(e, n)
         return 0.0
 
+    from torch.autograd import DeviceType
     ka = prof.key_averages()
-    busy = sum(dev_us(e, True) for e in ka) / 1e3 / TRAIN_PROFILED
-    lookup_bwd = sum(dev_us(e, False) for e in ka
-                     if "_Quad2dBackward" in e.key) / 1e3 / TRAIN_PROFILED
-    top = sorted(ka, key=lambda e: -dev_us(e, True))[:8]
+    # the busy time sums the kernels' own rows: an operator's row carries
+    # the device time of the kernels it launched too, so summing every row
+    # counts each kernel twice
+    kernels = [e for e in ka if e.device_type == DeviceType.CUDA]
+    busy = sum(dev_us(e, True) for e in kernels) / 1e3 / TRAIN_PROFILED
+    lookup_bwd, line_bwd = (
+        sum(dev_us(e, False) for e in ka if name in e.key) / 1e3
+        / TRAIN_PROFILED for name in ("_Quad2dBackward", "_Quad1dBackward"))
+    top = sorted(kernels, key=lambda e: -dev_us(e, True))[:8]
     print(f"# {tag}: step {step_ms:.3f} ms (CUDA events over {TRAIN_TIMED} "
           f"steps; host {host_ms:.3f} ms); forward {split['forward']:.3f}, "
           f"backward {split['backward']:.3f}, optimizer "
@@ -2836,18 +2876,20 @@ def time_steps(torch, trainer, state, ds, tag):
           f"GiB", flush=True)
     if busy > 0:
         print(f"# {tag} profile: device busy {busy:.3f} ms per step, the "
-              f"lookups' backward (_Quad2dBackward) {lookup_bwd:.3f} ms "
-              f"({100 * lookup_bwd / busy:.1f} %); top kernels by device "
+              f"lookups' backward: planes (_Quad2dBackward) "
+              f"{lookup_bwd:.3f} ms ({100 * lookup_bwd / busy:.1f} %), "
+              f"lines (_Quad1dBackward) {line_bwd:.3f} ms "
+              f"({100 * line_bwd / busy:.1f} %); top kernels by device "
               "time per step: " + "; ".join(
                   f"{e.key[:60]} {dev_us(e, True) / 1e3 / TRAIN_PROFILED:.3f}"
                   for e in top), flush=True)
     else:
         print(f"# {tag} profile: no device time in the trace (not measured)",
               flush=True)
-        busy = lookup_bwd = None
+        busy = lookup_bwd = line_bwd = None
     return {"step_ms": step_ms, "host_ms": host_ms, "split_ms": split,
             "busy_ms": busy, "lookup_backward_ms": lookup_bwd,
-            "peak_bytes": peak}
+            "line_backward_ms": line_bwd, "peak_bytes": peak}
 
 
 def training_phases(torch, dev, card, frame, reset_counts, read_counts):
@@ -3127,6 +3169,582 @@ def training_phases(torch, dev, card, frame, reset_counts, read_counts):
             entry("shade_trained", "shade.cu",
                   "hyperreel_tpu/ops/pallas/shade.py:238", counts["shade"],
                   k2_err, k2_ms, k2_plain_ms, k2_bound)], record
+
+
+# ---- 58-63: the multi-axis nets' training (the static net: llff_z_plane,
+# shiny_z_plane; the dynamic multi-axis net: neural_3d_z_plane)
+# the static blob scene: 16 views of 128^2 rays (262,144 rays, 16 batches
+# of DEFAULT_TRAINING's 16,384), marched on the card
+STATIC_TRAIN_SCENE = {"n_views": 16, "wh": (128, 128), "dynamic": False}
+STATIC_EVENTS = (20, 30)        # llff's first two upsamples; shiny's alpha
+                                # event and first upsample (the presets:
+                                # 4,000 and 6,000; 4,000 and 4,000)
+N3D_TRAIN_STEPS = 20            # n3d's steps before its frame, no events
+# the box shiny's net shrinks to if its alpha event left the aabb where it
+# was (its z faces on no z-plane anchor of the 32)
+SHINY_SHRUNK = [[-1.6, -1.7, -0.9], [1.7, 1.6, 0.9]]
+MULTI_PRESETS = {"llff": "llff_z_plane", "shiny": "shiny_z_plane",
+                 "n3d": "neural_3d_z_plane"}
+
+
+def multi_training_setup(torch, dev, family, ds):
+    """llff_z_plane, shiny_z_plane or neural_3d_z_plane at full width (the
+    preset's grid: 2,097,152 voxels over its aabb, [8, 4, 4] components;
+    the bf16 MLP policy and tables) with its grid events moved early
+    (STATIC_EVENTS; n3d none), DEFAULT_TRAINING and tv_4000_defaults, the
+    blob scene's bounds and depth range as its dataset_info (n3d with
+    N3D_INFO's keyframes): (cfg, dataset_info, trainer)."""
+    import copy
+
+    from hyperreel_tpu_torch.config import DEFAULT_TRAINING
+    from hyperreel_tpu_torch.configs import presets
+    from hyperreel_tpu_torch.models.model import build_model
+    from hyperreel_tpu_torch.train.regularizers import tv_4000_defaults
+    from hyperreel_tpu_torch.train.trainer import Trainer
+
+    cfg = presets.convert_epochs_to_iters(
+        getattr(presets, MULTI_PRESETS[family])(), iters_per_epoch=4000)
+    net = cfg["color"]["net"]
+    first, second = STATIC_EVENTS
+    if family == "llff":
+        net["upsamp_list"] = [first, second] + net["upsamp_list"][2:]
+    elif family == "shiny":
+        net["update_AlphaMask_list"] = [first] \
+            + net["update_AlphaMask_list"][1:]
+        net["upsamp_list"] = [second] + net["upsamp_list"][1:]
+    else:
+        net["upsamp_list"], net["update_AlphaMask_list"] = [], []
+    info = dict(ds.info(), **(N3D_INFO if family == "n3d" else {}))
+    model = build_model(copy.deepcopy(cfg), dataset_info=info,
+                        compute_dtype=torch.bfloat16)
+    trainer = Trainer(model, copy.deepcopy(DEFAULT_TRAINING),
+                      regularizer_cfgs=tv_4000_defaults(),
+                      iters_per_epoch=4000, device=dev)
+    return cfg, info, trainer
+
+
+def multi_fit(torch, dev, family, trainer, ds, steps, tag):
+    """`steps` of Trainer.fit from the init of torch.Generator seed SEED,
+    in two calls split between the two events: every loss and param
+    finite, the mean image loss of the last 5 steps below the first 5's,
+    grid_size as n_to_reso gives it after the upsamples, each optimizer
+    counter restarted at each event. Returns (the initial state, the
+    trained state, a record)."""
+    import copy
+
+    from hyperreel_tpu_torch.models.tensorf import n_to_reso
+
+    net = trainer.model.color_net
+    state = trainer.init_state(torch.Generator().manual_seed(SEED))
+    state0 = copy.deepcopy(state)
+    grid0, aabb0 = list(net.grid_size), net.aabb.copy()
+    batches = ds.batch_iterator(trainer.training_cfg["batch_size"],
+                                seed=SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    events = sorted(set(trainer.alpha_list + trainer.upsamp_list)
+                    & set(range(1, steps + 1)))
+    split = (events[0] + events[1]) // 2 if len(events) > 1 else steps // 2
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, hist = trainer.fit(state, batches, split, gen=gen, log_every=1)
+    counts_mid = dict(state.opt_state["count"])
+    aabb_mid = net.aabb.copy()
+    state, hist2 = trainer.fit(state, batches, steps - split, gen=gen,
+                               log_every=1)
+    hist += hist2
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    losses = [h["image_loss"] for h in hist]
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    ups = [i for i in trainer.upsamp_list if i <= steps]
+    want_grid = n_to_reso(net.n_voxel_list[len(ups) - 1], net.aabb) \
+        if ups else grid0
+    print(f"# {tag}: {steps} steps in {fit_s:.2f} s: image loss first 5 "
+          f"{first:.5f}, last 5 {last:.5f}; psnr {hist[0]['psnr']:.2f} -> "
+          f"{hist[-1]['psnr']:.2f}; grid {grid0} -> {net.grid_size} (want "
+          f"{want_grid}); aabb {aabb0.tolist()} -> {aabb_mid.tolist()} at "
+          f"{split}; events {events}; optimizer counters {counts_mid} at "
+          f"{split}, {state.opt_state['count']} at the end", flush=True)
+    if not (all(np.isfinite(h[k]) for h in hist for k in h)
+            and params_finite(torch, state.params)):
+        raise AssertionError(f"{tag}: a loss or a param is not finite")
+    if not last < first:
+        raise AssertionError(f"{tag}: the image loss did not fall ({first} "
+                             f"-> {last})")
+    if net.grid_size != want_grid or state.it != steps:
+        raise AssertionError(f"{tag}: grid {net.grid_size}, want "
+                             f"{want_grid}; it {state.it}")
+    groups = set(state.opt_state["count"])
+    after = [split - e for e in events if e <= split]
+    if events and (counts_mid != dict.fromkeys(
+            groups, min(after) if after else split)
+            or state.opt_state["count"] != dict.fromkeys(
+                groups, steps - events[-1])):
+        raise AssertionError(f"{tag}: the optimizer's counters did not "
+                             "restart at the events")
+    record = {"grid": [grid0, list(net.grid_size)],
+              "aabb": [aabb0.tolist(), np.asarray(net.aabb).tolist()],
+              "image_loss_first5_last5": [first, last], "fit_s": fit_s}
+    return state0, state, record
+
+
+def multi_step_times(torch, trainer, state0, state, aabb0, ds, tag):
+    """The step's time (time_steps) on the initial grid (its aabb put back
+    for the run) and, where the events changed it, on the trained grid."""
+    net = trainer.model.color_net
+    aabb_now, net.aabb = net.aabb, aabb0
+    timing = {"initial": time_steps(torch, trainer, state0, ds,
+                                    f"{tag} on the initial grid")}
+    net.aabb = aabb_now
+    if any(a.shape != b.shape for a, b in zip(
+            state0.params["color"]["density"].values(),
+            state.params["color"]["density"].values())):
+        timing["trained"] = time_steps(
+            torch, trainer, state, ds, f"{tag} on the trained grid "
+            f"{list(net.grid_size)}")
+    torch.cuda.empty_cache()
+    return timing
+
+
+def trained_multi_frame(torch, dev, family, cfg, info, model, state, frame,
+                        reset_counts, read_counts, full=False):
+    """A trained multi-axis model (its state at its last iteration): its
+    bench frame through model.apply on the quad route (K1, K5; n3d's on
+    its time planes) and, with `full`, the fused (K6) and two-kernel (K4
+    + K5-preblended) patch routes at R=4 (4, 3): finite, in [0, 1], the
+    launches per chunk, each patch route's witness <= PVIOL_EXACT; the
+    fused route's rgb within PATH_TOL of the quad route's. The two-kernel
+    route blends into bf16 features (K4, as the JAX package's), which on
+    a trained model moves its rgb by ~1e-3 from the quad route's in both
+    packages (PERF.md 6): its difference is printed, and on one
+    chunk K4 + K5-preblended is held against K4's and K5-preblended's
+    plain versions chained (PATH_TOL). On one chunk each kernel against
+    its plain version (K1 PACK_TOL_BF16, the shade kernels SHADE_TOL on
+    rgb/acc, K4 one bf16 ulp, the witness counts equal), timed, with its
+    plain version's time and its bound; with `full`, fused against
+    general under the f32 MLP policy on 4096 rays (PATH_TOL). Returns the
+    kernels' JSON records."""
+    import copy
+
+    from hyperreel_tpu_torch.configs.presets import with_coherent_gather
+    from hyperreel_tpu_torch.models.ctx import StepCtx
+    from hyperreel_tpu_torch.models.model import build_model
+    from hyperreel_tpu_torch.ops.kernels.pack_build import (
+        pack_build, pack_build_plain)
+    from hyperreel_tpu_torch.ops.kernels.patch_blend import (
+        patch_blend, patch_blend_plain)
+    from hyperreel_tpu_torch.ops.kernels.shade_multi import (
+        MultiSpec, shade_multi, shade_multi_plain, shade_multi_preblended,
+        shade_multi_preblended_plain)
+    from hyperreel_tpu_torch.ops.kernels.shade_multi_patch import (
+        shade_multi_patch, shade_multi_patch_plain)
+
+    net = model.color_net
+
+    def like(c, bf16=True):
+        """A model of config `c` on the trained net's grid and aabb."""
+        m = build_model(copy.deepcopy(c), dataset_info=info,
+                        compute_dtype=torch.bfloat16 if bf16 else None)
+        m.color_net.grid_size = list(net.grid_size)
+        m.color_net.aabb = np.array(net.aabb)
+        return m
+
+    params = state.params
+    ctx = StepCtx(it=state.it)
+    tag = f"trained {family}"
+    frames = frame if family == "n3d" else frame[..., :6].contiguous()
+    n_chunks = frames.shape[0]
+    cf = model._cf_eval
+    rgb_colour = net.shading == "rgb"
+    with torch.no_grad():
+        prep = model.prepare_eval(params)
+        axes = prep["axes"]
+        timed = any(a.TH for a in axes)
+        routes = {"quad": ("0", model, frames, {"cf_prepared": prep},
+                           {"shade_multi": n_chunks}, None)}
+        R4 = PATCH_R4[2]
+        if full:
+            model4 = like(with_coherent_gather(cfg, *PATCH_R4))
+            prep4 = model4.prepare_eval(params)
+            frames4 = phase_major(frames, R4).contiguous()
+            rk4 = {"cf_prepared": prep4, "rays_phase_major": True}
+            routes["fused patch R=4 (4,3)"] = (
+                "1", model4, frames4, rk4, {"shade_multi_patch": n_chunks},
+                R4)
+            routes["two-kernel patch R=4 (4,3)"] = (
+                "0", model4, frames4, rk4,
+                {"patch_blend": n_chunks,
+                 "shade_multi_preblended": n_chunks}, R4)
+        counts, rgb_quad = {}, None
+        for name, (env, m, frs, rkw, kern, R) in routes.items():
+            with EnvVar("HYPERREEL_FUSED_PATCH_MULTI", env):
+                reset_counts()
+                outs = [m.apply(params, frs[i], ctx, rkw)
+                        for i in range(n_chunks)]
+                torch.cuda.synchronize()
+                got = read_counts()
+            want = dict.fromkeys(got, 0)
+            want.update(pack_build=n_chunks, **kern)
+            counts[name] = got
+            rgb = torch.cat([scanline(o["rgb"], R) if R else o["rgb"]
+                             for o in outs])
+            if not (torch.isfinite(rgb).all() and rgb.min() >= 0
+                    and rgb.max() <= 1 and rgb.shape == (SIDE * SIDE, 3)):
+                raise AssertionError(f"{tag} {name}: frame rgb is not finite "
+                                     "in [0, 1]")
+            if got != want:
+                raise AssertionError(f"{tag} {name}: kernel launches {got}, "
+                                     f"want {want}")
+            if R is None:
+                rgb_quad = rgb
+                print(f"# {tag} frame ({name}): rgb min "
+                      f"{rgb.min().item():.4f} max {rgb.max().item():.4f} "
+                      f"mean {rgb.mean().item():.4f}; launches {got}",
+                      flush=True)
+                continue
+            pviol = max(float(o["patch_coverage_viol"]) for o in outs)
+            err = (rgb - rgb_quad).abs().max().item()
+            fused = env == "1"
+            print(f"# {tag} frame ({name}, phase-major rays): launches "
+                  f"{got}; coverage witness {pviol:.3e} (gate "
+                  f"{PVIOL_EXACT}); rgb vs the quad route's frame {err:.3e} "
+                  + (f"(tol {PATH_TOL})" if fused else
+                     "(bf16 features; the chunk's chain is held below)"),
+                  flush=True)
+            if not (pviol <= PVIOL_EXACT and (err <= PATH_TOL or not fused)):
+                raise AssertionError(f"{tag} {name}: witness {pviol}, rgb "
+                                     f"error {err}")
+        del outs, rgb, rgb_quad
+
+        # one chunk: K1 and K5 (and K4, K5-pre, K6 on the R=4 phase-major
+        # chunk) against their plain versions
+        chunk = frames[0]
+        net_in = cf.pred.net_input(chunk, ctx).float().contiguous()
+        rp = cf.ray_pack(chunk)
+        tabs = prep["mlp"]
+        pack = pack_build(net_in, tabs, rp, cf.spec, ctx.it)
+        pack_p = pack_build_plain(net_in, tabs, rp, cf.spec, ctx.it)
+        torch.cuda.synchronize()
+        errs = {"K1": (pack - pack_p).abs().max().item()}
+        del pack_p
+        spec = MultiSpec(S=cf.S, axes=axes, deg=net.sh_deg,
+                         distance_scale=net.distance_scale,
+                         shading=net.shading)
+        lines, wb = prep["lines"], prep["wb"]
+        out = shade_multi(prep["quads"], lines, pack, rp, wb, spec)
+        out_p = shade_multi_plain(prep["quads"], lines, pack, rp, wb, spec)
+        torch.cuda.synchronize()
+        errs["K5"] = (out[:, :4] - out_p[:, :4]).abs().max().item()
+        derrs = {"K5": (out[:, 4] - out_p[:, 4]).abs().max().item()}
+        kernels = {
+            "K1": (lambda: pack_build(net_in, tabs, rp, cf.spec, ctx.it),
+                   lambda: pack_build_plain(net_in, tabs, rp, cf.spec,
+                                            ctx.it)),
+            "K5": (lambda: shade_multi(prep["quads"], lines, pack, rp, wb,
+                                       spec),
+                   lambda: shade_multi_plain(prep["quads"], lines, pack, rp,
+                                             wb, spec))}
+        if full:
+            chunk4 = frames4[0]
+            rp4 = cf.ray_pack(chunk4)
+            pack4 = pack_build(cf.pred.net_input(chunk4, ctx).float()
+                               .contiguous(), tabs, rp4, cf.spec, ctx.it)
+            pspecs = model4._cf_eval.patch_specs(
+                [(a.W, a.H, a.C, a.m0, a.m1) for a in axes], True)
+            feats, viol_k4, errs["K4"] = k4_check(
+                torch, tag, prep4["ptabs"], pack4, pspecs)
+            pre = shade_multi_preblended(feats, lines, pack4, rp4, wb, spec)
+            pre_p = shade_multi_preblended_plain(feats, lines, pack4, rp4,
+                                                 wb, spec)
+            k6, vk = shade_multi_patch(prep4["ptabs"], lines, pack4, rp4, wb,
+                                       spec, pspecs)
+            k6_p, vp = shade_multi_patch_plain(prep4["ptabs"], lines, pack4,
+                                               rp4, wb, spec, pspecs)
+            torch.cuda.synchronize()
+            errs["K5-pre"] = (pre[:, :4] - pre_p[:, :4]).abs().max().item()
+            derrs["K5-pre"] = (pre[:, 4] - pre_p[:, 4]).abs().max().item()
+            errs["K6"] = (k6[:, :4] - k6_p[:, :4]).abs().max().item()
+            derrs["K6"] = (k6[:, 4] - k6_p[:, 4]).abs().max().item()
+            # the two-kernel chain against both plain versions chained
+            chain_p = shade_multi_preblended_plain(
+                patch_blend_plain(prep4["ptabs"], pack4, pspecs)[0], lines,
+                pack4, rp4, wb, spec)
+            chain_err = (pre[:, :4] - chain_p[:, :4]).abs().max().item()
+            print(f"# {tag} chunk through K4 + K5-preblended vs both plain "
+                  f"versions chained: {chain_err:.3e} (tol {PATH_TOL})",
+                  flush=True)
+            if not int(vk) == int(vp) == viol_k4 \
+                    or not chain_err <= PATH_TOL:
+                raise AssertionError(f"{tag}: witness counts K6 {int(vk)}, "
+                                     f"plain {int(vp)}, K4 {viol_k4}; the "
+                                     f"two-kernel chain {chain_err}")
+            del chain_p
+            kernels.update({
+                "K4": (lambda: patch_blend(prep4["ptabs"], pack4, pspecs),
+                       lambda: patch_blend_plain(prep4["ptabs"], pack4,
+                                                 pspecs)),
+                "K5-pre": (lambda: shade_multi_preblended(
+                    feats, lines, pack4, rp4, wb, spec),
+                    lambda: shade_multi_preblended_plain(
+                        feats, lines, pack4, rp4, wb, spec)),
+                "K6": (lambda: shade_multi_patch(prep4["ptabs"], lines,
+                                                 pack4, rp4, wb, spec,
+                                                 pspecs),
+                       lambda: shade_multi_patch_plain(
+                           prep4["ptabs"], lines, pack4, rp4, wb, spec,
+                           pspecs))})
+            del pre_p, k6_p
+        del out_p
+        print(f"# {tag} chunk: max |kernel - plain| " + ", ".join(
+            f"{k} {e:.3e}" + (f" (depth {derrs[k]:.3e})" if k in derrs
+                              else "") for k, e in errs.items())
+            + f" (tol K1 {PACK_TOL_BF16}, shade {SHADE_TOL}, depth "
+            f"{10 * SHADE_TOL}, K4 one bf16 ulp); acc mean "
+            f"{out[:, 3].mean().item():.4f}; grid {list(net.grid_size)}, "
+            f"aabb {np.asarray(net.aabb).tolist()}", flush=True)
+        if not (errs["K1"] <= PACK_TOL_BF16
+                and all(errs[k] <= SHADE_TOL and derrs[k] <= 10 * SHADE_TOL
+                        for k in derrs)):
+            raise AssertionError(f"{tag}: a kernel disagrees with its plain "
+                                 f"version: {errs}, {derrs}")
+        ms = {k: cuda_ms(torch, fn, 20) for k, (fn, _) in kernels.items()}
+        plain_ms = {k: cuda_ms(torch, fn, 2) for k, (_, fn) in kernels.items()}
+
+        # the bounds, as phases 10 and 15 count them
+        N = pack.shape[1]
+        valid = valid_count(pack)
+        out_bytes = CHUNK * 5 * 4
+        mlp_ops = 2 * CHUNK * sum(
+            p["weight"].numel() for p in
+            params["embedding"]["ray_prediction_0"]["net"].values())
+        contract = K1_CONTRACT_OPS if cf.spec.contract.name != "identity" \
+            else 0
+        bounds = {
+            "K1": bound(nbytes(net_in, rp, pack)
+                        + sum(nbytes(l.w, l.b) for l in tabs.layers),
+                        [(mlp_ops, BF16_OPS_PER_S),
+                         (N * (k1_tail_ops(cf.S) + contract),
+                          F32_OPS_PER_S)]),
+            "K5": sh_bound(
+                f"{tag} K5", nbytes(pack, *lines) + out_bytes
+                + ray_bytes(rp, rgb_colour, timed) + sum(
+                    rows_bytes(q, quad_rows(pack, a.m0, a.m1, a.W, a.H))
+                    for q, a in zip(prep["quads"], axes)),
+                lambda f: [(valid * multi_ops(axes, lambda C: 8 * C + 10,
+                                              rgb_colour, fold=f)
+                            + N * COMPOSITE_OPS, F32_OPS_PER_S)], cf.S)}
+        if full:
+            valid4 = valid_count(pack4)
+            shared = (nbytes(pack4, *lines) + out_bytes
+                      + ray_bytes(rp4, rgb_colour, timed))
+            bounds["K4"] = bound(
+                nbytes(pack4[:4], *feats) + 4 + sum(
+                    rows_bytes(t, patch_rows(pack4, ps, True))
+                    for t, ps in zip(prep4["ptabs"], pspecs)),
+                [(N * sum(8 * a.C + 22 for a in axes), F32_OPS_PER_S)])
+            bounds["K5-pre"] = sh_bound(
+                f"{tag} K5-pre", shared + nbytes(*feats),
+                lambda f: [(valid4 * multi_ops(axes, lambda C: C, rgb_colour,
+                                               fold=f)
+                            + N * COMPOSITE_OPS, F32_OPS_PER_S)], cf.S)
+            bounds["K6"] = sh_bound(
+                f"{tag} K6", shared + 4 + sum(
+                    rows_bytes(t, patch_rows(pack4, ps, False))
+                    for t, ps in zip(prep4["ptabs"], pspecs)),
+                lambda f: [(valid4 * multi_ops(axes, lambda C: 8 * C + 22,
+                                               rgb_colour, fold=f)
+                            + N * COMPOSITE_OPS, F32_OPS_PER_S)], cf.S)
+        print(f"# {tag} chunk: {valid} of {N} samples valid; " + "; ".join(
+            f"{k} {ms[k]:.3f} ms (plain {plain_ms[k]:.3f}, bound "
+            f"{bounds[k][0]:.4f} {bounds[k][1]})" for k in kernels),
+            flush=True)
+        del pack, out
+        if full:
+            del pack4, feats, pre, k6, prep4, model4
+        torch.cuda.empty_cache()
+
+        if full:
+            # fused against the general path, f32 MLP policy, on the
+            # params with the lines rounded to bf16 (the general net reads
+            # them at table precision, K5 in f32), over the rays without a
+            # sample within FACE_ULPS of an aabb face (as phase 56)
+            cfg_g = copy.deepcopy(cfg)
+            cfg_g["color"]["net"].update(fused_render_cf=False,
+                                         fused_render=False)
+            rays = torch.from_numpy(entry_rays(4096)[:, :6].copy()).to(dev)
+            p16 = bf16_second_factors(torch, params)
+            fused_m = like(cfg, bf16=False)
+            a = fused_m.apply(p16, rays, ctx)["rgb"]
+            b = like(cfg_g, bf16=False).apply(p16, rays, ctx)["rgb"]
+            fcf = fused_m._cf_eval
+            near = near_face(torch, pack_build(
+                fcf.pred.net_input(rays, ctx).float().contiguous(),
+                fcf.prepare(p16)["mlp"], fcf.ray_pack(rays), fcf.spec,
+                ctx.it), fcf.S)
+            path_err = (a - b).abs()[~near].max().item()
+            print(f"# {tag}, fused vs general (f32 MLP), 4096 entry() rays: "
+                  f"max |diff| {path_err:.3e} (tol {PATH_TOL}) over the rays "
+                  f"without a sample within {FACE_ULPS} ulps of an aabb face "
+                  f"({int(near.sum())} left out); with them "
+                  f"{(a - b).abs().max().item():.3e}", flush=True)
+            if not path_err <= PATH_TOL:
+                raise AssertionError(f"{tag}: fused and general paths "
+                                     f"disagree: {path_err}")
+
+    src = "hyperreel_tpu/ops/pallas/"
+    quad, two, fused = ("quad", "two-kernel patch R=4 (4,3)",
+                        "fused patch R=4 (4,3)")
+    rows = [("K1", f"pack_build_{family}_trained", "pack_build.cuh",
+             "pack_build.py:137", quad, "pack_build"),
+            ("K5", f"shade_multi_{family}_trained", "shade_multi.cu",
+             "shade.py:742", quad, "shade_multi")]
+    if full:
+        rows += [("K4", f"patch_blend_{family}_trained", "patch_blend.cu",
+                  "patch_blend.py:51", two, "patch_blend"),
+                 ("K5-pre", f"shade_multi_preblended_{family}_trained",
+                  "shade_multi.cu", "shade.py:761", two,
+                  "shade_multi_preblended"),
+                 ("K6", f"shade_multi_patch_{family}_trained",
+                  "shade_multi_patch.cu", "shade.py:786", fused,
+                  "shade_multi_patch")]
+    return [entry(name, source, src + repl, counts[route][fn], errs[k],
+                  ms[k], plain_ms[k], bounds[k])
+            for k, name, source, repl, route, fn in rows]
+
+
+def multi_training_phases(torch, dev, card, frame, reset_counts,
+                          read_counts):
+    """Phases 58-63: train llff_z_plane across two upsamples, time its
+    step, render the trained model through K1 + K5, K6 and K4 + K5-pre;
+    train shiny_z_plane across an alpha event with its shrink and an
+    upsample, time its step, render it through K1 + K5 (RGB); time
+    neural_3d_z_plane's step and render it through K1 + K5 on its time
+    planes; resume llff from a checkpoint. Returns (the kernels' JSON
+    records, the training record)."""
+    import copy
+
+    from hyperreel_tpu_torch.data.synthetic import gaussian_blob_scene
+    from hyperreel_tpu_torch.models.model import build_model
+    from hyperreel_tpu_torch.train.checkpoint import (
+        restore_checkpoint, save_checkpoint)
+    from hyperreel_tpu_torch.train.optim import tree_leaves
+    from hyperreel_tpu_torch.train.regularizers import tv_4000_defaults
+    from hyperreel_tpu_torch.train.trainer import Trainer, TrainState
+
+    t0 = time.perf_counter()
+    ds = gaussian_blob_scene(**STATIC_TRAIN_SCENE, device=dev)
+    print(f"# static blob scene: {ds.num_rays} rays ({ds.num_images} images "
+          f"of {STATIC_TRAIN_SCENE['wh']}) marched in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    records, record = [], {}
+
+    # ---- 58. llff_z_plane: 60 steps across two upsamples
+    cfg, info, trainer = multi_training_setup(torch, dev, "llff", ds)
+    state0, state, record["llff"] = multi_fit(
+        torch, dev, "llff", trainer, ds, TRAIN_STEPS, "58. llff training")
+    net = trainer.model.color_net
+    # ---- 59. its step on the initial and the upsampled grid
+    record["llff"]["step"] = multi_step_times(
+        torch, trainer, state0, state, net.aabb.copy(), ds, "59. llff step")
+    del state0
+    # ---- 60. the trained model's bench frame on its three routes
+    records += trained_multi_frame(torch, dev, "llff", cfg, info,
+                                   trainer.model, state, frame,
+                                   reset_counts, read_counts, full=True)
+    llff = (cfg, info, trainer, state)
+
+    # ---- 61. shiny_z_plane (RGB): 60 steps across the alpha event (its
+    # shrink) and an upsample; its step; its bench frame on the quad route
+    cfg, info, trainer = multi_training_setup(torch, dev, "shiny", ds)
+    net = trainer.model.color_net
+    aabb0 = net.aabb.copy()
+    state0, state, record["shiny"] = multi_fit(
+        torch, dev, "shiny", trainer, ds, TRAIN_STEPS, "61. shiny training")
+    moved = not np.array_equal(net.aabb, aabb0)
+    shapes = {k: tuple(v.shape) for k, v in
+              state.params["color"]["density"].items()}
+    if not moved:
+        # the shrink by hand (the net crops its planes and lines), so that
+        # the frame renders on another aabb and cropped grids either way
+        params = dict(state.params, color=net.shrink(
+            state.params["color"], np.asarray(SHINY_SHRUNK)))
+        state = TrainState(params, trainer.make_optimizer(params).init(
+            params), state.it)
+        print(f"# shiny: the alpha event left the aabb; the net shrunk to "
+              f"{SHINY_SHRUNK} by hand: grid {net.grid_size}", flush=True)
+    cropped = {k: tuple(v.shape) for k, v in
+               state.params["color"]["density"].items()}
+    if np.array_equal(net.aabb, aabb0) or (not moved and cropped == shapes):
+        raise AssertionError("shiny: the shrink moved no face of the aabb "
+                             "or cropped no grid")
+    record["shiny"]["shrink_by_event"] = moved
+    record["shiny"]["step"] = multi_step_times(
+        torch, trainer, state0, state, aabb0, ds, "61. shiny step")
+    del state0
+    records += trained_multi_frame(torch, dev, "shiny", cfg, info,
+                                   trainer.model, state, frame,
+                                   reset_counts, read_counts)
+    del trainer, state
+    torch.cuda.empty_cache()
+
+    # ---- 62. neural_3d_z_plane: N3D_TRAIN_STEPS steps (no events), its
+    # step, its bench frame through K1 + K5 on the time planes
+    t0 = time.perf_counter()
+    dds = gaussian_blob_scene(**TRAIN_SCENE, device=dev)
+    print(f"# dynamic blob scene marched in {time.perf_counter() - t0:.2f} "
+          "s", flush=True)
+    cfg, info, trainer = multi_training_setup(torch, dev, "n3d", dds)
+    _, state, record["n3d"] = multi_fit(
+        torch, dev, "n3d", trainer, dds, N3D_TRAIN_STEPS, "62. n3d training")
+    record["n3d"]["step"] = {"trained": time_steps(
+        torch, trainer, state, dds, "62. n3d step (64 samples, time planes "
+        "of 12 keyframes)")}
+    records += trained_multi_frame(torch, dev, "n3d", cfg, info,
+                                   trainer.model, state, frame,
+                                   reset_counts, read_counts)
+    del trainer, state, dds
+    torch.cuda.empty_cache()
+
+    # ---- 63. llff: save, restore into a fresh model and trainer, one step
+    # on both under torch's deterministic algorithms: equal to the bit
+    cfg, info, trainer, state = llff
+    ckpt = os.path.join("build", "chip_smoke_ckpt_llff")
+    save_checkpoint(ckpt, state, trainer.model)
+    fresh = build_model(copy.deepcopy(cfg), dataset_info=info,
+                        compute_dtype=torch.bfloat16)
+    trainer2 = Trainer(fresh, trainer.training_cfg,
+                       regularizer_cfgs=tv_4000_defaults(),
+                       iters_per_epoch=4000, device=dev)
+    state2 = restore_checkpoint(ckpt, trainer2)
+    net, net2 = trainer.model.color_net, fresh.color_net
+    if net2.grid_size != net.grid_size or not np.array_equal(
+            net2.aabb, net.aabb) or state2.it != state.it:
+        raise AssertionError("llff restore: grid, aabb or iteration differ")
+    batch = next(ds.batch_iterator(trainer.training_cfg["batch_size"],
+                                   seed=SEED + 11))
+    draws = {"background": 0.25}
+    torch.use_deterministic_algorithms(True)
+    try:
+        state, m1 = trainer.step(state, trainer.to_device(batch),
+                                 trainer.make_optimizer(state.params),
+                                 draws=draws)
+        state2, m2 = trainer2.step(state2, trainer2.to_device(batch),
+                                   trainer2.make_optimizer(state2.params),
+                                   draws=draws)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    p2 = dict(tree_leaves(state2.params))
+    resume_ok = all(torch.equal(p2[p], v)
+                    for p, v in tree_leaves(state.params))
+    print(f"# 63. llff resumed step: loss {m2['loss'].item():.9g} vs "
+          f"{m1['loss'].item():.9g}; params equal to the bit: {resume_ok}; "
+          f"counters {state2.opt_state['count']}", flush=True)
+    if not (m1["loss"].item() == m2["loss"].item() and resume_ok
+            and state2.opt_state["count"] == state.opt_state["count"]):
+        raise AssertionError("the resumed llff step differs from the "
+                             "uninterrupted one")
+    return records, record
 
 
 def main():
@@ -3628,6 +4246,13 @@ def main():
     train_entries, train_record = training_phases(
         torch, dev, gpu, frame, reset_counts, read_counts)
     torch.cuda.empty_cache()
+
+    # ---- 58-63. the multi-axis nets' training (llff_z_plane,
+    # shiny_z_plane, neural_3d_z_plane), their trained models through K1,
+    # K5, K6 and K4 + K5-pre, and a resumed llff checkpoint
+    multi_train_entries, multi_train_record = multi_training_phases(
+        torch, dev, gpu, frame, reset_counts, read_counts)
+    torch.cuda.empty_cache()
     print("# SH bounds, ms with the basis folded per ray (the least work, "
           "the kernels' line) / by the unfolded count: " + "; ".join(
               f"{name} {new:.4f} / {old:.4f}"
@@ -3658,8 +4283,10 @@ def main():
               "hyperreel_tpu/ops/pallas/composite.py:26", k7_launches,
               k7_err, k7_ms, k7_plain_ms, k7_bound)] + llff_entries
         + n3d_entries + shiny_entries + stanford_entries
-        + primitive_entries + own_entries + count_entries + train_entries,
-        "frame_ms": frame_ms, "train": train_record}
+        + primitive_entries + own_entries + count_entries + train_entries
+        + multi_train_entries,
+        "frame_ms": frame_ms, "train": train_record,
+        "train_multi": multi_train_record}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

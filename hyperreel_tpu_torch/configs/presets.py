@@ -423,12 +423,16 @@ def stanford_llff_z_plane(z_channels=32):
     }
 
 
-def shiny_z_plane(z_channels=32):
+def shiny_z_plane(z_channels=32, sample_stages=False):
     """Shiny dense scenes, two-plane rays + z-planes (reference
-    conf/experiment/model/shiny_z_plane.yaml, whose sample stages are
-    commented out upstream): stanford_llff_z_plane's chain with ease
-    windows on the sigmas, no near/far mask, num_samples_for_scale 32, and
-    [8, 4, 4] components (the llff layout) with RGB colour."""
+    conf/experiment/model/shiny_z_plane.yaml): stanford_llff_z_plane's
+    chain with ease windows on the sigmas, no near/far mask,
+    num_samples_for_scale 32, and [8, 4, 4] components (the llff layout)
+    with RGB colour. The reference's generate_samples / select_points
+    stages are commented out upstream (shiny_z_plane.yaml:150-159);
+    `sample_stages=True` puts them after the intersect (a count drawn in
+    [z_channels // 2, z_channels] per training step, all z_channels at
+    eval), as the JAX package's shiny_z_plane does."""
     cfg = stanford_llff_z_plane(z_channels=z_channels)
     emb = cfg["embedding"]["embeddings"]
     pred = emb["ray_prediction_0"]
@@ -440,6 +444,24 @@ def shiny_z_plane(z_channels=32):
     isect["num_samples_for_scale"] = 32
     cfg["color"]["net"].update(N_voxel_init=2097152, N_voxel_final=262144000,
                                n_lamb_sigma=[8, 4, 4], n_lamb_sh=[8, 4, 4])
+    if sample_stages:
+        out = {}
+        for name in emb:
+            out[name] = emb[name]
+            if name == "ray_intersect_0":
+                out["generate_samples_0"] = {
+                    "type": "generate_samples",
+                    "sample_range": [z_channels // 2, z_channels],
+                    "inference_samples": z_channels,
+                    "total_samples": z_channels,
+                }
+                out["select_points_0"] = {
+                    "type": "select_points",
+                    "fields": ["points", "distances", "sigma", "point_sigma",
+                               "point_offset", "weights", "color_scale",
+                               "color_shift"],
+                }
+        cfg["embedding"]["embeddings"] = out
     return cfg
 
 
@@ -888,12 +910,15 @@ def tiny_stanford_llff(z_channels=8, grid=32):
         stanford_llff_z_plane(z_channels=z_channels), grid))
 
 
-def tiny_shiny(z_channels=8, grid=32):
-    """Miniature shiny_z_plane for tests, without the sample stages (not
-    ported) and with bf16 tables, which the channels-first route
-    (cf_eligible) and the net's own fused route need."""
+def tiny_shiny(z_channels=8, grid=32, sample_stages=True):
+    """Miniature shiny_z_plane for tests, with the sample stages as the
+    JAX package's tiny_shiny (the model then takes the general chain and
+    the net's own fused route; `sample_stages=False` gives the
+    channels-first route), and with bf16 tables, which the fused routes
+    need."""
     return _bf16_tables(_shrink_for_tests(
-        shiny_z_plane(z_channels=z_channels), grid))
+        shiny_z_plane(z_channels=z_channels, sample_stages=sample_stages),
+        grid))
 
 
 def tiny_donerf_sphere(z_channels=8, grid=32):

@@ -5,10 +5,19 @@ hyperreel_tpu/models/ctx.py).
 encodings evaluate their weights on the host. A training step's random
 draws come from `gen`, a torch.Generator that the trainer sets once per
 step (the JAX package's per-step PRNG key); `draws` names draws that are
-given instead (a test injects the JAX package's this way). The stages name
-their draws: "background" (the colour net's background coin, a 0-d
-uniform) and "flow_jitter" (AdvectPointsEmbedding's keyframe jitter,
-uniform of the times' shape).
+given instead (a test injects the JAX package's this way). A draw taken
+from `gen` is kept in `draws`, so that a name gives one value per step, as
+the JAX package's fold_in(rng, constant) does where a regularizer applies
+the model a second time. The named draws:
+  "background"     the colour net's background coin, a 0-d uniform (JAX
+                   fold_in(rng, 202));
+  "flow_jitter"    AdvectPointsEmbedding's keyframe jitter, uniform of the
+                   times' shape (fold_in(rng, 101));
+  "num_samples"    GenerateNumSamplesEmbedding's sample count, a 0-d
+                   uniform (fold_in(rng, 404));
+  "voxel_sparsity" VoxelSparsityRegularizer's points, uniform [n, 3] in
+                   the unit cube, scaled to the aabb (the step's rng
+                   itself).
 """
 
 from dataclasses import dataclass, field
@@ -26,12 +35,12 @@ class StepCtx:
 
     def uniform(self, name, shape, device):
         """The draw `name`: U[0, 1) f32 of `shape` on `device`, taken from
-        `draws` when it holds one, else from `gen`."""
-        if name in self.draws:
-            return torch.as_tensor(self.draws[name], dtype=torch.float32,
-                                   device=device).reshape(shape)
-        if self.gen is None:
-            raise ValueError(f"the draw {name!r} needs a generator or an "
-                             "injected value")
-        return torch.rand(shape, generator=self.gen,
-                          device=self.gen.device).to(device)
+        `draws` when it holds one, else from `gen` and kept in `draws`."""
+        if name not in self.draws:
+            if self.gen is None:
+                raise ValueError(f"the draw {name!r} needs a generator or "
+                                 "an injected value")
+            self.draws[name] = torch.rand(shape, generator=self.gen,
+                                          device=self.gen.device)
+        return torch.as_tensor(self.draws[name], dtype=torch.float32,
+                               device=device).reshape(shape)

@@ -4,11 +4,12 @@ hyperreel_tpu/models/embeddings.py; reference nlf/embedding/).
 Each stage has `.init(gen, device) -> params` and
 `.apply(params, x, ctx, render_kwargs) -> x` over a dict of tensors. The
 ported stages are ray_prediction, ray_intersect, advect_points,
-point_offset, add_point_outputs, extract_fields (at eval and in training)
-and select_points (models/embeddings_extra.py, at eval); any other stage
-type, and per-stage wait/stop gating, raise NotImplementedError. Each
-stage's `group` names the optimizer group of its params (the prediction
-net's config may name one: the flagship's "embedding_impl").
+point_offset, add_point_outputs, extract_fields, and generate_samples and
+select_points (models/embeddings_extra.py), at eval and in training, with
+the per-stage wait/stop gating of the chain; any other stage type raises
+NotImplementedError (ROADMAP.md: long tail). Each stage's `group` names
+the optimizer group of its params (the prediction net's config may name
+one: the flagship's "embedding_impl").
 """
 
 from typing import List
@@ -17,7 +18,8 @@ import numpy as np
 import torch
 
 from hyperreel_tpu_torch.models.activations import get_activation
-from hyperreel_tpu_torch.models.embeddings_extra import SelectPointsEmbedding
+from hyperreel_tpu_torch.models.embeddings_extra import (
+    GenerateNumSamplesEmbedding, SelectPointsEmbedding)
 from hyperreel_tpu_torch.models.intersect import build_intersect
 from hyperreel_tpu_torch.models.mlp import build_net
 from hyperreel_tpu_torch.models.pe import get_pe
@@ -150,7 +152,7 @@ class AdvectPointsEmbedding:
     """Keyframe flow advection (reference nlf/embedding/point.py:741-834),
     spatial flow only; in training the keyframe jitter of flow_scale
     (the draw "flow_jitter"; render_kwargs "no_flow_jitter" turns it
-    off)."""
+    off); `save_points_field` keeps the points before the advection."""
 
     def __init__(self, cfg, num_keyframes=1, num_frames=1):
         self.cfg = cfg
@@ -163,10 +165,7 @@ class AdvectPointsEmbedding:
         self.use_spatial_flow = bool(cfg.get("use_spatial_flow", False))
         self.spatial_flow_activation = get_activation(
             cfg.get("spatial_flow_activation", "identity"))
-        if cfg.get("save_points_field"):
-            raise NotImplementedError(
-                "advect_points save_points_field is not ported (ROADMAP.md: "
-                "training beyond the flagship)")
+        self.save_points_field = cfg.get("save_points_field")
         self.flow_scale = float(cfg.get("flow_scale", 0.0))
         self.num_keyframes = num_keyframes
         self.num_frames = num_frames
@@ -178,6 +177,8 @@ class AdvectPointsEmbedding:
         rays = x[self.rays_name]
         points = x[self.in_points_field]
         t = rays[..., -1:]
+        if self.save_points_field is not None:
+            x[self.save_points_field] = points
         jitter = None
         if ctx.training and self.flow_scale > 0.0 \
                 and "no_flow_jitter" not in (render_kwargs or {}):
@@ -198,15 +199,19 @@ class AdvectPointsEmbedding:
 
 class PointOffsetEmbedding:
     """points += act(point_offset) * (1 - sigma) (reference
-    nlf/embedding/point.py:338-399; train-time dropout and
-    save_points_field not ported)."""
+    nlf/embedding/point.py:338-399): `save_points_field` keeps the points
+    before the offset; with `dropout` the offset is zero in the training
+    steps at `it` % frequency == 0 below stop_iter (decided on the host:
+    `it` is a host int)."""
 
     def __init__(self, cfg):
         self.cfg = cfg
-        if cfg.get("dropout") or cfg.get("save_points_field"):
-            raise NotImplementedError(
-                "point_offset dropout / save_points_field are not ported "
-                "(ROADMAP.md: training beyond the flagship)")
+        self.save_points_field = cfg.get("save_points_field")
+        self.use_dropout = cfg.get("dropout") is not None
+        dropout = cfg.get("dropout") or {}
+        self.dropout_frequency = int(dropout.get("frequency", 2))
+        self.dropout_stop_iter = float(dropout.get("stop_iter",
+                                                   float("inf")))
         self.in_density_field = cfg.get("in_density_field", "sigma")
         self.in_offset_field = cfg.get("in_offset_field", "point_offset")
         self.out_offset_field = cfg.get("out_offset_field", "offset")
@@ -220,11 +225,17 @@ class PointOffsetEmbedding:
 
     def apply(self, params, x, ctx, render_kwargs=None):
         in_points = x[self.in_points_field]
+        if self.save_points_field is not None:
+            x[self.save_points_field] = in_points
         if self.use_sigma and self.in_density_field in x:
             sigma = x[self.in_density_field]
         else:
             sigma = in_points.new_zeros(in_points.shape[:2] + (1,))
         offset = self.activation(x[self.in_offset_field], ctx) * (1.0 - sigma)
+        if self.use_dropout and ctx.training \
+                and ctx.it % self.dropout_frequency == 0 \
+                and ctx.it < self.dropout_stop_iter:
+            offset = torch.zeros_like(offset)
         x[self.in_offset_field] = offset
         x[self.out_points_field] = in_points + offset
         if self.out_offset_field is not None:
@@ -271,12 +282,38 @@ class ExtractFieldsEmbedding:
         return {k: x[k] for k in fields if k in x}
 
 
+def _stage_window(stage):
+    """A stage's (wait_iters, stop_iters) gate, or None where it has
+    none."""
+    wait = float(stage.cfg.get("wait_iters", 0))
+    stop = float(stage.cfg.get("stop_iters", float("inf")))
+    return (wait, stop) if wait > 0 or stop != float("inf") else None
+
+
+def _held(new, old):
+    """A field of an inactive gated stage: its value before the stage
+    where the stage changed it in place (same shape), zeros of its shape
+    where the stage added it, the stage's where the shape changed."""
+    if old is None:
+        return torch.zeros_like(new) if torch.is_tensor(new) else 0 * new
+    if torch.is_tensor(new) and torch.is_tensor(old) \
+            and old.shape == new.shape:
+        return old
+    return new
+
+
 class EmbeddingChain:
     """Ordered chain over the sample-state dict (reference
-    nlf/embedding/embedding.py:59-126)."""
+    nlf/embedding/embedding.py:59-126), with per-stage wait_iters /
+    stop_iters gating (embedding.py:106-110) as the JAX package realizes
+    it (hyperreel_tpu EmbeddingChain.apply): a gated stage always runs, on
+    a copy of the state; where `it` is outside [wait, stop) each field of
+    its output is `_held`. `it` is a host int, so the gate is decided on
+    the host."""
 
     def __init__(self, stages: List):
         self.stages = stages          # (name, stage) pairs
+        self.windows = {name: _stage_window(stage) for name, stage in stages}
 
     def init(self, gen, device):
         return {name: stage.init(gen, device) for name, stage in self.stages}
@@ -284,7 +321,15 @@ class EmbeddingChain:
     def apply(self, params, rays, ctx, render_kwargs=None):
         x = {"rays": rays}
         for name, stage in self.stages:
-            x = stage.apply(params[name], x, ctx, render_kwargs)
+            window = self.windows[name]
+            if window is None:
+                x = stage.apply(params[name], x, ctx, render_kwargs)
+                continue
+            out = stage.apply(params[name], dict(x), ctx, render_kwargs)
+            if window[0] <= ctx.it < window[1]:
+                x = out
+            else:
+                x = {k: _held(v, x.get(k)) for k, v in out.items()}
         return x
 
 
@@ -295,10 +340,6 @@ def build_embedding_chain(cfg, dataset_info=None, compute_dtype=None):
     stages = []
     for name, scfg in cfg["embeddings"].items():
         t = scfg["type"]
-        if scfg.get("wait_iters") or scfg.get("stop_iters"):
-            raise NotImplementedError(
-                "per-stage wait/stop gating is not ported "
-                "(ROADMAP.md: training beyond the flagship)")
         if t == "ray_prediction":
             stage = RayPredictionEmbedding(dict(scfg), compute_dtype)
         elif t == "ray_intersect":
@@ -316,6 +357,8 @@ def build_embedding_chain(cfg, dataset_info=None, compute_dtype=None):
             stage = ExtractFieldsEmbedding(dict(scfg))
         elif t == "select_points":
             stage = SelectPointsEmbedding(dict(scfg))
+        elif t == "generate_samples":
+            stage = GenerateNumSamplesEmbedding(dict(scfg))
         else:
             raise NotImplementedError(
                 f"embedding stage {t!r} is not ported "

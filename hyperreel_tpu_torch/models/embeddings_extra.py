@@ -1,15 +1,66 @@
 """Embedding stages beyond the z-plane chains' own (port of
-hyperreel_tpu/models/embeddings_extra.py): the render-time sample-count
-stage `select_points` (reference nlf/embedding/point.py:402-480).
+hyperreel_tpu/models/embeddings_extra.py): the sample-count stages
+`generate_samples` and `select_points` (reference
+nlf/embedding/point.py:402-480). The module's other stages are not ported
+(ROADMAP.md: long tail).
 """
+
+import torch
+
+
+class GenerateNumSamplesEmbedding:
+    """The sample count n of a step (hyperreel_tpu
+    GenerateNumSamplesEmbedding; reference nlf/embedding/point.py:402-449):
+    in training round(u * (hi - lo) + lo) for the draw "num_samples" (a
+    0-d U[0, 1); the JAX package's fold_in(rng, 404)) and sample_range
+    (lo, hi), at eval `inference_samples`. n rides along as a ray column
+    (appended after the prediction and the intersect, which read the
+    columns before it) and as the state's "num_samples" (a 0-d f32 tensor),
+    with "total_samples" and, at eval, "inference_samples_static" (host
+    ints), which select_points reads."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.sample_range = tuple(cfg["sample_range"])
+        self.inference_samples = int(cfg["inference_samples"])
+        self.total_samples = int(cfg["total_samples"])
+        self.rays_name = cfg.get("rays_name", "rays")
+
+    def init(self, gen, device):
+        return {}
+
+    def apply(self, params, x, ctx, render_kwargs=None):
+        rays = x[self.rays_name]
+        if ctx.training:
+            lo, hi = self.sample_range
+            u = ctx.uniform("num_samples", (), rays.device)
+            n = torch.round(u * (hi - lo) + lo)
+        else:
+            n = torch.tensor(float(self.inference_samples),
+                             device=rays.device)
+            x["inference_samples_static"] = self.inference_samples
+        x["num_samples"] = n
+        x["total_samples"] = self.total_samples
+        x[self.rays_name] = torch.cat([rays, torch.ones_like(rays[..., :1])
+                                       * n], -1)
+        return x
+
+
+def _per_sample(x, S):
+    """The keys of the state's per-sample fields: each tensor whose axis 1
+    has the S samples and that has a channel axis."""
+    return [k for k, v in x.items()
+            if torch.is_tensor(v) and v.dim() >= 3 and v.shape[1] == S]
 
 
 class SelectPointsEmbedding:
-    """Keep a subset of the samples in every per-sample field (each tensor
-    of the state whose axis 1 has the S samples and that has a channel
-    axis), at eval (hyperreel_tpu SelectPointsEmbedding, its inference
-    regime):
+    """Keep a subset of the samples in every per-sample field (hyperreel_tpu
+    SelectPointsEmbedding; reference nlf/embedding/point.py:452-480).
 
+    At eval, and in training with `always_slice` and `inference_samples`:
+    n = `inference_samples`, else a generate_samples stage's
+    "inference_samples_static"; without one, or with n >= S, the state
+    passes unchanged;
       mode="stride" (the reference's arrangement; any mode but "first")
         keeps every (S // n)-th sample, v[:, ::S // n];
       mode="first" keeps the first n, v[:, :n]: after an intersect with
@@ -18,9 +69,12 @@ class SelectPointsEmbedding:
         other than the distances stay in prediction order, so sorted
         position j pairs with prediction row j, as in the JAX package.
 
-    n = `inference_samples`; without it, or with n >= S, the state passes
-    unchanged. The training regime (samples past a drawn count masked
-    invalid; `always_slice`) is not ported.
+    In training otherwise, where a generate_samples stage drew n: every
+    round(total / n)-th sample is kept at the state's S samples, each
+    sample replaced by the next kept one (clamped to the last kept one), a
+    gather: the duplicates share their distances, so their deltas are 0
+    and the composite is the one over the kept samples, the reference's
+    slice. Without a drawn n the state passes unchanged.
     """
 
     def __init__(self, cfg):
@@ -34,18 +88,28 @@ class SelectPointsEmbedding:
         return {}
 
     def apply(self, params, x, ctx, render_kwargs=None):
-        if ctx.training:
-            raise NotImplementedError(
-                "select_points in training (the drawn sample count, "
-                "always_slice) is not ported (ROADMAP.md: training beyond "
-                "the flagship)")
         S = x["points"].shape[1]
-        n = self.inference_samples
-        if not n or n >= S:
+        if not ctx.training or (self.always_slice and self.inference_samples):
+            n = self.inference_samples or x.get("inference_samples_static")
+            if not n or n >= S:
+                return x
+            sel = slice(None, n) if self.mode == "first" \
+                else slice(None, None, max(S // n, 1))
+            for k in _per_sample(x, S):
+                x[k] = x[k][:, sel]
             return x
-        sel = slice(None, n) if self.mode == "first" \
-            else slice(None, None, max(S // n, 1))
-        for k, v in list(x.items()):
-            if v.dim() >= 3 and v.shape[1] == S:
-                x[k] = v[:, sel]
+        if "num_samples" not in x:
+            return x
+        n = x["num_samples"]
+        total = x.get("total_samples", S)
+        # the index of each sample's replacement, in f32 as the JAX
+        # package computes it
+        stride = torch.clamp_min(torch.round(total / torch.clamp_min(n, 1.0)),
+                                 1.0)
+        j = torch.arange(S, dtype=torch.float32, device=n.device)
+        last_kept = torch.floor((S - 1) / stride) * stride
+        idx = torch.minimum(torch.ceil(j / stride) * stride,
+                            last_kept).long()
+        for k in _per_sample(x, S):
+            x[k] = x[k].index_select(1, idx.to(x[k].device))
         return x

@@ -146,10 +146,11 @@ def cf_eligible(model):
     """Structural eligibility: the dynamic chain (the technicolor_z_plane
     and neural_3d_z_plane families) or the static chain (the llff_z_plane
     and shiny_z_plane families; not stanford_llff_z_plane, whose intersect
-    masks near/far), each with or without one sample-count stage
-    (hyperreel_tpu/models/fused_eval.py cf_eligible:45-159)."""
+    masks near/far), each with or without one sample-count stage, and no
+    stage gated by wait/stop iterations (hyperreel_tpu/models/
+    fused_eval.py cf_eligible:45-159)."""
     names = [n for n, _ in model.embedding.stages]
-    if names not in _chains():
+    if names not in _chains() or any(model.embedding.windows.values()):
         return False
     st = _stages(model)
     pred, isect = st["ray_prediction_0"], st["ray_intersect_0"].intersect

@@ -1,7 +1,7 @@
 """Factored feature-grid colour nets (port of hyperreel_tpu/models/tensorf.py
-TensorVMKeyframeTime and TensorVMNoSample: init and the general eval
-apply, SH or RGB shading, and each net's own fused route; the dynamic
-net's training apply, its regularizer terms and its grid events; reference
+TensorVMKeyframeTime and TensorVMNoSample: init, the general apply in eval
+and in training with its render fields, SH or RGB shading, each net's own
+fused route, the regularizer terms and the grid events; reference
 nlf/nets/tensorf_dynamic.py, nlf/nets/tensorf_no_sample.py).
 
 Grids are channels-last, as in the JAX package. The dynamic net holds per
@@ -21,9 +21,10 @@ import torch
 
 from hyperreel_tpu_torch.models.mlp import linear_init
 from hyperreel_tpu_torch.ops.grid_sample import (
-    grid_sample_1d, grid_sample_2d, linspace, resize_bilinear_2d)
+    grid_sample_1d, grid_sample_2d, linspace, resize_bilinear_2d,
+    resize_linear_1d)
 from hyperreel_tpu_torch.ops.render_math import (
-    raw2alpha, scale_shift_color_all)
+    alpha2weights, raw2alpha, scale_shift_color_all)
 from hyperreel_tpu_torch.ops.sh import sh_render
 
 MAT_MODE_SPACE = ((0, 1), (0, 2), (1, 2))
@@ -178,31 +179,22 @@ class FactoredNet:
         aabb = torch.as_tensor(self.aabb, device=pts.device)
         return ~((pts < aabb[0]) | (pts > aabb[1])).any(-1)
 
-    def check_eval(self, ctx, render_kwargs):
-        if ctx.training and not self.TRAINS:
-            raise NotImplementedError(
-                f"{type(self).__name__} training is not ported (ROADMAP.md: "
-                "training beyond the flagship)")
-        fields = list(render_kwargs.get("fields", []))
-        if any(f != "distances" for f in fields):
-            raise NotImplementedError(
-                f"render fields {fields} are not ported "
-                "(ROADMAP.md: render CLI and viewer)")
-        return fields
+    @staticmethod
+    def feature2density(feat):
+        """relu as 0.5 (x + |x|): the same values, and at x = 0 the gradient
+        0.5 of jnp.maximum(x, 0) (the JAX net's feature2density), where
+        torch's relu passes 1 (a density grid trained to exactly 0)."""
+        return 0.5 * (feat + feat.abs())
 
-    # whether the net's training apply is ported
-    TRAINS = False
-
-    def shade(self, x, feat, app, ray_valid, dists, fields, ctx):
+    def shade(self, x, feat, app, ray_valid, dists, ctx, render_kwargs,
+              pred_weights):
         """density feature [B, S] and appearance [B*S, app_dim] -> the
-        composited outputs."""
+        composited outputs with the render fields (`render_fields`; the
+        predicted weights [B, S], or None, for pred_weights_fields)."""
         B, S = dists.shape
         deltas = torch.cat([dists[:, 1:] - dists[:, :-1],
                             torch.full_like(dists[:, :1], 1e10)], -1)
-        # relu as 0.5 (x + |x|): the same values, and at x = 0 the gradient
-        # 0.5 of jnp.maximum(x, 0) (the JAX net's feature2density), where
-        # torch's relu passes 1 (a density grid trained to exactly 0)
-        sigma = torch.where(ray_valid, 0.5 * (feat + feat.abs()), 0.0)
+        sigma = torch.where(ray_valid, self.feature2density(feat), 0.0)
         alpha, weight, _ = raw2alpha(sigma, deltas * self.distance_scale)
         if self.shading == "rgb":
             rgb = torch.sigmoid(app).reshape(B, S, 3)
@@ -221,8 +213,29 @@ class FactoredNet:
         acc_map = weight.sum(-1)
         rgb_map = (weight[..., None] * rgb).sum(-2)
         outputs = {"rgb": self.finish(rgb_map, acc_map, x, B, S, ctx)}
-        if fields:
-            outputs["distances"] = (weight * dists).sum(-1, keepdim=True)
+        return self.render_fields(outputs, x, weight, pred_weights,
+                                  render_kwargs)
+
+    @staticmethod
+    def render_fields(outputs, x, weight, pred_weights, render_kwargs):
+        """render_kwargs["fields"] into `outputs` (hyperreel_tpu tensorf.py
+        :818-834): "render_weights" the weights [B, S]; a field of
+        no_over_fields the state's [B, -1]; one of pred_weights_fields
+        composited under alpha2weights of the predicted weights; any other
+        composited under the render weights [B, channels]."""
+        B, S = weight.shape
+        no_over = render_kwargs.get("no_over_fields", [])
+        pred_w = render_kwargs.get("pred_weights_fields", [])
+        pw = alpha2weights(pred_weights) if pred_w else None
+        for key in render_kwargs.get("fields", []):
+            if key == "render_weights":
+                outputs[key] = weight
+            elif key in no_over:
+                outputs[key] = x[key].reshape(B, -1)
+            else:
+                w = pw if key in pred_w else weight
+                outputs[key] = (w[..., None]
+                                * x[key].reshape(B, S, -1)).sum(-2)
         return outputs
 
     def finish(self, rgb_map, acc_map, x, B, S, ctx=None):
@@ -250,6 +263,52 @@ class FactoredNet:
                 + x["color_shift_global"].reshape(B, S, 3)[:, 0]
         return rgb_map if training else torch.clamp(rgb_map, 0.0, 1.0)
 
+    # -- the alpha grid of the grid events (hyperreel_tpu
+    # compute_alpha_grid of both nets; reference tensorf_base.py:384-429,
+    # tensorf_dynamic.py:442-520) ------------------------------------------
+
+    # lattice points per block of x rows in compute_alpha_grid
+    ALPHA_BLOCK = 1 << 22
+
+    def compute_alpha_grid(self, params, grid_size=(200, 200, 200)):
+        """The occupancy of a dense lattice over the aabb: per point the
+        net's `lattice_alpha` (1 - exp(-0.01 relu(density)), the dynamic
+        net's max over its keyframes), max-pooled 3^3 ("SAME", padded with
+        -inf), thresholded at alpha_mask_thre -> (binary [gz, gy, gx] f32,
+        the occupied points' box [2, 3], inf where none is occupied); x
+        rows in blocks of at most ALPHA_BLOCK lattice points."""
+        gx, gy, gz = grid_size
+        dev = params["density"][
+            f"{self.GRIDS[0]}_{self.active_density[0]}"].device
+        aabb = torch.as_tensor(self.aabb, device=dev)
+        xs, ys, zs = (linspace(0.0, 1.0, n, dev) for n in grid_size)
+        rows = max(1, self.ALPHA_BLOCK // (gy * gz))
+        alpha, pts_all = [], []
+        with torch.no_grad():
+            for r0 in range(0, gx, rows):
+                grid = torch.stack(torch.meshgrid(
+                    xs[r0:r0 + rows], ys, zs, indexing="ij"), -1)
+                pts = aabb[0] * (1 - grid) + aabb[1] * grid
+                a = self.lattice_alpha(
+                    params, self.normalize_coord(pts.reshape(-1, 3)))
+                alpha.append(a.reshape(-1, gy, gz))
+                pts_all.append(pts)
+            alpha = torch.clamp(torch.cat(alpha), 0.0, 1.0)
+            alpha_t = alpha.permute(2, 1, 0)[None, None]
+            pooled = torch.nn.functional.max_pool3d(alpha_t, 3, 1, 1)[0, 0]
+            binary = (pooled >= self.alpha_mask_thres).float()
+            occupied = (binary > 0.5)[..., None]
+            pts_t = torch.cat(pts_all).permute(2, 1, 0, 3)
+            inf = torch.full((3,), float("inf"), device=dev)
+            mins = torch.where(occupied, pts_t, inf).amin((0, 1, 2))
+            maxs = torch.where(occupied, pts_t, -inf).amax((0, 1, 2))
+        return binary, torch.stack([mins, maxs])
+
+    @staticmethod
+    def density_alpha(feat):
+        """1 - exp(-0.01 relu(feat)): a lattice point's alpha."""
+        return 1.0 - torch.exp(-torch.clamp_min(feat, 0.0) * 0.01)
+
     # -- the net's own fused route (hyperreel_tpu TensorVMNoSample and
     # TensorVMKeyframeTime _fused_ok, apply_fused, _apply_fused_multi,
     # _apply_fused_multi_time, _fused_out) --------------------------------
@@ -261,11 +320,13 @@ class FactoredNet:
     FUSED_WEIGHTS = True
 
     def fused_ok(self, x, render_kwargs):
-        """Whether an eval call (check_eval has passed) takes the fused
-        route: the config asks for it, the net is eligible, and neither x
-        nor render_kwargs asks for what the kernels do not compute."""
+        """Whether an eval call takes the fused route: the config asks for
+        it, the net is eligible, and neither x nor render_kwargs asks for
+        what the kernels do not compute (a field but the distances)."""
         return (self.fused_render and self.fused_eligible
                 and "color_transform" not in x
+                and all(f == "distances"
+                        for f in render_kwargs.get("fields", []))
                 and not render_kwargs.get("pred_weights_fields")
                 and not render_kwargs.get("no_over_fields"))
 
@@ -431,14 +492,12 @@ class TensorVMKeyframeTime(FactoredNet):
         return self.normalize_time_coord(
             x["base_times"].reshape(B, -1)[:, 0])
 
-    TRAINS = True
-
     def apply(self, params, x, ctx, render_kwargs=None):
         """The general apply (eval and training; in training no clamp and
         the background coin, `finish`), or at eval the net's own fused
-        route."""
+        route. The predicted weights are not applied (the net sets them to
+        ones, JAX tensorf.py:1484-1486); pred_weights_fields read them."""
         render_kwargs = render_kwargs or {}
-        fields = self.check_eval(ctx, render_kwargs)
         if not ctx.training and self.fused_ok(x, render_kwargs):
             return self.apply_fused(params, x, render_kwargs)
         B = x["viewdirs"].shape[0]
@@ -450,8 +509,9 @@ class TensorVMKeyframeTime(FactoredNet):
         xyzt = torch.cat([self.normalize_coord(pts),
                           self.normalize_time_coord(base_times)], -1)
         dens, app = self.sample(params, xyzt.reshape(-1, 4))
-        return self.shade(x, dens.reshape(B, S), app, ray_valid, dists,
-                          fields, ctx)
+        pred = x["weights"].reshape(B, S) if "weights" in x else None
+        return self.shade(x, dens.reshape(B, S), app, ray_valid, dists, ctx,
+                          render_kwargs, pred)
 
     # -- grid events (hyperreel_tpu TensorVMKeyframeTime upsample, shrink,
     # compute_alpha_grid; reference tensorf_dynamic.py:395-520) -----------
@@ -499,49 +559,17 @@ class TensorVMKeyframeTime(FactoredNet):
             total = total + prod.sum(-1)
         return total
 
-    # lattice points per block of x rows in compute_alpha_grid
-    ALPHA_BLOCK = 1 << 22
-
-    def compute_alpha_grid(self, params, grid_size=(200, 200, 200)):
-        """The occupancy of a dense lattice over the aabb: per point the max
-        over the keyframes of 1 - exp(-0.01 relu(density)), max-pooled
-        3^3 ("SAME", padded with -inf), thresholded at alpha_mask_thre ->
-        (binary [gz, gy, gx] f32, the occupied points' box [2, 3], inf where
-        none is occupied); x rows in blocks of at most ALPHA_BLOCK lattice
-        points."""
-        gx, gy, gz = grid_size
-        dev = params["density"][f"space_{self.active_density[0]}"].device
-        aabb = torch.as_tensor(self.aabb, device=dev)
-        xs, ys, zs = (linspace(0.0, 1.0, n, dev) for n in grid_size)
+    def lattice_alpha(self, params, xyz):
+        """The alpha of normalized lattice points xyz [N, 3]: the max over
+        the keyframes (JAX compute_alpha_grid's one_t over t_norm)."""
         t_norm = self.normalize_time_coord(
-            linspace(0.0, 1.0, self.num_keyframes, dev))
-        rows = max(1, self.ALPHA_BLOCK // (gy * gz))
-        alpha, pts_all = [], []
-        with torch.no_grad():
-            for r0 in range(0, gx, rows):
-                grid = torch.stack(torch.meshgrid(
-                    xs[r0:r0 + rows], ys, zs, indexing="ij"), -1)
-                pts = aabb[0] * (1 - grid) + aabb[1] * grid
-                xyz = self.normalize_coord(pts.reshape(-1, 3))
-                a = None
-                for t in t_norm:
-                    xyzt = torch.cat([xyz, t.expand(xyz.shape[0], 1)], -1)
-                    sigma = torch.clamp_min(
-                        self.sample_density(params, xyzt), 0.0)
-                    at = 1.0 - torch.exp(-sigma * 0.01)
-                    a = at if a is None else torch.maximum(a, at)
-                alpha.append(a.reshape(-1, gy, gz))
-                pts_all.append(pts)
-            alpha = torch.clamp(torch.cat(alpha), 0.0, 1.0)
-            alpha_t = alpha.permute(2, 1, 0)[None, None]
-            pooled = torch.nn.functional.max_pool3d(alpha_t, 3, 1, 1)[0, 0]
-            binary = (pooled >= self.alpha_mask_thres).float()
-            occupied = (binary > 0.5)[..., None]
-            pts_t = torch.cat(pts_all).permute(2, 1, 0, 3)
-            inf = torch.full((3,), float("inf"), device=dev)
-            mins = torch.where(occupied, pts_t, inf).amin((0, 1, 2))
-            maxs = torch.where(occupied, pts_t, -inf).amax((0, 1, 2))
-        return binary, torch.stack([mins, maxs])
+            linspace(0.0, 1.0, self.num_keyframes, xyz.device))
+        a = None
+        for t in t_norm:
+            xyzt = torch.cat([xyz, t.expand(xyz.shape[0], 1)], -1)
+            at = self.density_alpha(self.sample_density(params, xyzt))
+            a = at if a is None else torch.maximum(a, at)
+        return a
 
 
 class TensorVMNoSample(FactoredNet):
@@ -584,9 +612,13 @@ class TensorVMNoSample(FactoredNet):
         return super().fused_ok(x, render_kwargs) and "weights_shift" not in x
 
     def apply(self, params, x, ctx, render_kwargs=None):
+        """The general apply (eval and training), or at eval the net's own
+        fused route. The predicted sample weights (ones where the chain
+        gives none) scale the density feature before the activation, and
+        a predicted weights_shift is added to it (reference
+        tensorf_no_sample.py:184-192)."""
         render_kwargs = render_kwargs or {}
-        fields = self.check_eval(ctx, render_kwargs)
-        if self.fused_ok(x, render_kwargs):
+        if not ctx.training and self.fused_ok(x, render_kwargs):
             return self.apply_fused(params, x, render_kwargs)
         B = x["viewdirs"].shape[0]
         pts = x["points"].reshape(B, -1, 3)
@@ -595,12 +627,86 @@ class TensorVMNoSample(FactoredNet):
         ray_valid = self.valid_mask(pts) & (dists > 0)
         dens, app = self.sample(params,
                                 self.normalize_coord(pts).reshape(-1, 3))
-        # the predicted sample weights scale the density feature before
-        # the activation (reference tensorf_no_sample.py:184-192)
-        feat = dens.reshape(B, S)
-        if "weights" in x:
-            feat = feat * x["weights"].reshape(B, S)
-        return self.shade(x, feat, app, ray_valid, dists, fields, ctx)
+        weights = x["weights"].reshape(B, S) if "weights" in x \
+            else torch.ones_like(dists)
+        feat = dens.reshape(B, S) * weights
+        if "weights_shift" in x:
+            feat = feat + x["weights_shift"].reshape(B, S)
+        return self.shade(x, feat, app, ray_valid, dists, ctx, render_kwargs,
+                          weights)
+
+    # -- grid events (hyperreel_tpu TensorVMNoSample upsample, shrink,
+    # compute_alpha_grid; reference tensorf_base.py:384-429, 1151-1232) ----
+
+    def sample_density(self, params, xyz):
+        """The density feature [N] at normalized xyz [N, 3] from the f32
+        grids (hyperreel_tpu TensorVMNoSample._sample_density)."""
+        total = 0.0
+        for i in self.active_density:
+            m0, m1 = MAT_MODE[i]
+            prod = grid_sample_2d(params["density"][f"plane_{i}"],
+                                  xyz[:, [m0, m1]]) \
+                * grid_sample_1d(params["density"][f"line_{i}"],
+                                 xyz[:, VEC_MODE[i]])
+            total = total + prod.sum(-1)
+        return total
+
+    def lattice_alpha(self, params, xyz):
+        """The alpha of normalized lattice points xyz [N, 3]."""
+        return self.density_alpha(self.sample_density(params, xyz))
+
+    def upsample(self, params, new_grid_size):
+        """Every plane resized bilinearly and every line linearly to the
+        new grid; sets `grid_size`. Returns new params (fresh leaves)."""
+        new = {k: dict(v) for k, v in params.items()}
+        with torch.no_grad():
+            for fam, comps in (("density", self.density_n_comp),
+                               ("app", self.app_n_comp)):
+                for i in range(3):
+                    if comps[i] == 0:
+                        continue
+                    m0, m1 = MAT_MODE[i]
+                    new[fam][f"plane_{i}"] = resize_bilinear_2d(
+                        params[fam][f"plane_{i}"], new_grid_size[m1],
+                        new_grid_size[m0])
+                    new[fam][f"line_{i}"] = resize_linear_1d(
+                        params[fam][f"line_{i}"], new_grid_size[VEC_MODE[i]])
+        self.grid_size = list(new_grid_size)
+        return new
+
+    def shrink(self, params, new_aabb):
+        """Crop every plane and line to the texels of the box new_aabb
+        [2, 3] (the corners rounded to the nearest texel, in float64 as the
+        JAX package computes them), set the aabb to the cropped texels' box
+        and `grid_size` to their counts. Returns new params (fresh
+        leaves)."""
+        aabb = np.asarray(self.aabb, np.float64)
+        gs = np.asarray(self.grid_size)
+        units = (aabb[1] - aabb[0]) / (gs - 1)
+        new_aabb = np.asarray(new_aabb)
+        t_l = np.round(np.round((new_aabb[0] - aabb[0]) / units)).astype(int)
+        b_r = np.round((new_aabb[1] - aabb[0]) / units).astype(int) + 1
+        b_r = np.minimum(b_r, gs)
+        t_l = np.maximum(t_l, 0)
+        new = {k: dict(v) for k, v in params.items()}
+        for fam, comps in (("density", self.density_n_comp),
+                           ("app", self.app_n_comp)):
+            for i in range(3):
+                if comps[i] == 0:
+                    continue
+                m0, m1 = MAT_MODE[i]
+                v = VEC_MODE[i]
+                new[fam][f"plane_{i}"] = params[fam][f"plane_{i}"][
+                    t_l[m1]:b_r[m1], t_l[m0]:b_r[m0]].clone()
+                new[fam][f"line_{i}"] = params[fam][f"line_{i}"][
+                    t_l[v]:b_r[v]].clone()
+        t_l_r = t_l / (gs - 1)
+        b_r_r = (b_r - 1) / (gs - 1)
+        self.aabb = np.stack([(1 - t_l_r) * aabb[0] + t_l_r * aabb[1],
+                              (1 - b_r_r) * aabb[0] + b_r_r * aabb[1]]
+                             ).astype(np.float32)
+        self.grid_size = [int(n) for n in (b_r - t_l)]
+        return new
 
 
 def build_color_net(cfg, dataset_info=None):

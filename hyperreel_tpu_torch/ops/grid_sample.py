@@ -1,8 +1,9 @@
 """Bilinear plane and linear line lookups with `F.grid_sample` semantics
 (align_corners=True, zero padding) on channels-last grids (port of
 hyperreel_tpu/ops/grid_sample.py grid_sample_2d and the 1-D lookup, which
-the colour nets' general paths use, and of the custom VJP of its quad
-lookups, `_quad2d_bwd` / `_quad1d_bwd`).
+the colour nets' general paths use, of the custom VJP of its quad
+lookups, `_quad2d_bwd` / `_quad1d_bwd`, and of the grid events' resizes,
+`resize_bilinear_2d` / `resize_linear_1d`).
 
 Texels are read at the table's dtype (bf16 tables round the stored values,
 as the JAX quad gathers do) and interpolated in f32.
@@ -198,3 +199,17 @@ def resize_bilinear_2d(grid_hwc, new_h, new_w):
     coords = torch.stack([gx, gy], -1).reshape(-1, 2)
     return grid_sample_2d(grid_hwc, coords).reshape(new_h, new_w, -1).to(
         grid_hwc.dtype)
+
+
+def resize_linear_1d(line_lc, new_l):
+    """Linear resize of a line [L, C] with align_corners=True (hyperreel_tpu
+    resize_linear_1d: the lookup at new_l points of [-1, 1]; a line of one
+    texel maps every target to it)."""
+    L = line_lc.shape[0]
+    dev = line_lc.device
+    if L == 1:
+        zs = torch.full((new_l,), -1.0, device=dev)
+    else:
+        zs = linspace(-1.0, 1.0, new_l, dev) if new_l > 1 \
+            else torch.zeros(1, device=dev)
+    return grid_sample_1d(line_lc, zs).to(line_lc.dtype)

@@ -2,14 +2,16 @@
 nlf/regularizers/).
 
 Each regularizer exposes `loss(model, params, batch, ctx, system) ->
-0-d tensor`. The TensoRF L1 + TV regularizer (`tensorf`, the shipped
-`tv_4000` config) is the one the shipped training scripts run and the one
-ported; the others raise NotImplementedError.
+0-d tensor`: the TensoRF L1 + TV regularizer (`tensorf`, the shipped
+`tv_4000` config, the one the shipped training scripts run),
+`render_weight`, `geometry` and `voxel_sparsity`. The JAX package's
+regularizers_extra.py is not ported (ROADMAP.md: long tail).
 """
 
 import math
 
 import numpy as np
+import torch
 
 
 def schedule_weight(cfg, it):
@@ -74,9 +76,80 @@ class TensorfRegularizer:
         return total
 
 
-# the JAX package's other regularizers (render_weight, geometry,
-# voxel_sparsity and regularizers_extra.py's) are not ported
-regularizer_dict = {"tensorf": TensorfRegularizer}
+class RenderWeightRegularizer:
+    """The render weights pulled toward the predicted weights: the
+    scheduled weight times the mean squared difference, from a second
+    apply of the model with the fields "render_weights" and "weights" (the
+    latter not composited) (reference nlf/regularizers/geometry.py:266+;
+    hyperreel_tpu RenderWeightRegularizer)."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+
+    def loss(self, model, params, batch, ctx, system=None):
+        out = model.apply(params, batch["rays"], ctx,
+                          {"fields": ["render_weights", "weights"],
+                           "no_over_fields": ["weights"]})
+        rw = out["render_weights"]
+        pw = out["weights"].reshape(rw.shape)
+        return schedule_weight(self.cfg, ctx.it) * ((rw - pw) ** 2).mean()
+
+
+class GeometryRegularizer:
+    """Depth supervision (reference nlf/regularizers/geometry.py:48-85;
+    hyperreel_tpu GeometryRegularizer): the squared distance of the
+    render-weight composited sample points to the batch's ground-truth
+    "points", over the rays with a depth > 0, times the scheduled weight;
+    0 for a batch without "depth"."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+
+    def loss(self, model, params, batch, ctx, system=None):
+        rays = batch["rays"]
+        if "depth" not in batch:
+            return rays.new_zeros(())
+        out = model.apply(params, rays, ctx, {"fields": ["points"]})
+        pts = out["points"].reshape(rays.shape[0], 3)
+        valid = (batch["depth"] > 0).to(pts.dtype)
+        err = ((pts - batch["points"]) ** 2).sum(-1, keepdim=True)
+        return schedule_weight(self.cfg, ctx.it) * (valid * err).sum() \
+            / torch.clamp_min(valid.sum(), 1.0)
+
+
+class VoxelSparsityRegularizer:
+    """Sparsity of the densities at `num_points` points drawn uniformly in
+    the aabb (the draw "voxel_sparsity"): the scheduled weight times the
+    mean of 1 - exp(-0.01 relu(density)), the static net's density feature
+    or the dynamic net's at the normalized time 0 (reference
+    nlf/regularizers/voxel_sparsity.py:24-40; hyperreel_tpu
+    VoxelSparsityRegularizer)."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.num_points = int(cfg.get("num_points", 4096))
+
+    def loss(self, model, params, batch, ctx, system=None):
+        net = model.color_net
+        cp = params["color"]
+        dev = cp["basis_mat"]["weight"].device
+        aabb = torch.as_tensor(net.aabb, device=dev)
+        pts = ctx.uniform("voxel_sparsity", (self.num_points, 3), dev) \
+            * (aabb[1] - aabb[0]) + aabb[0]
+        xyz = net.normalize_coord(pts)
+        if net.TIME_PLANES:
+            xyz = torch.cat([xyz, torch.zeros_like(xyz[:, :1])], -1)
+        sigma = net.feature2density(net.sample_density(cp, xyz))
+        return schedule_weight(self.cfg, ctx.it) \
+            * (1.0 - torch.exp(-sigma * 0.01)).mean()
+
+
+regularizer_dict = {
+    "tensorf": TensorfRegularizer,
+    "render_weight": RenderWeightRegularizer,
+    "geometry": GeometryRegularizer,
+    "voxel_sparsity": VoxelSparsityRegularizer,
+}
 
 
 def build_regularizers(cfgs):
@@ -85,8 +158,7 @@ def build_regularizers(cfgs):
         t = cfg.get("type", name)
         if t not in regularizer_dict:
             raise NotImplementedError(
-                f"regularizer {t!r} is not ported (ROADMAP.md: training "
-                "beyond the flagship)")
+                f"regularizer {t!r} is not ported (ROADMAP.md: long tail)")
         regs.append((name, regularizer_dict[t](dict(cfg))))
     return regs
 

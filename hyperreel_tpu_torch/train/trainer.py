@@ -137,8 +137,9 @@ class Trainer:
 
     @staticmethod
     def step_ctx(it, gen=None, draws=None):
-        """The StepCtx of the training step at `it`."""
-        return StepCtx(it=it, training=True, gen=gen, draws=draws or {})
+        """The StepCtx of the training step at `it` (on a copy of `draws`,
+        which the step's own draws join)."""
+        return StepCtx(it=it, training=True, gen=gen, draws=dict(draws or {}))
 
     def step(self, state, batch, optimizer, gen=None, draws=None):
         """One optimizer step at state.it on a device batch -> (the new

@@ -1209,11 +1209,13 @@ def test_rgb_single_axis_kernels_match_plain(dev):
 
 
 def _tiny_rgb_model(dev, family, S=32, patch=None, cf=True):
-    """tiny_shiny with the [8, 4, 4] layout the multi-axis kernels are
-    built for, or tiny_stanford_llff ([4, 0, 0]: C = 8, a K2 layout), bf16
-    tables, density planes and lines redrawn uniform in [0, 0.4)."""
-    make = {"shiny": tiny_shiny, "stanford": tiny_stanford_llff}
-    cfg = convert_epochs_to_iters(make[family](z_channels=S), 4000)
+    """tiny_shiny (without its sample stages, which keep a model off the
+    channels-first route) with the [8, 4, 4] layout the multi-axis kernels
+    are built for, or tiny_stanford_llff ([4, 0, 0]: C = 8, a K2 layout),
+    bf16 tables, density planes and lines redrawn uniform in [0, 0.4)."""
+    cfg = tiny_shiny(z_channels=S, sample_stages=False) if family == "shiny" \
+        else tiny_stanford_llff(z_channels=S)
+    cfg = convert_epochs_to_iters(cfg, 4000)
     if family == "shiny":
         cfg["color"]["net"].update(n_lamb_sigma=[8, 4, 4],
                                    n_lamb_sh=[8, 4, 4])
@@ -1474,7 +1476,7 @@ def _count_model(dev, family, S, stage, k, bf16=False, full=False,
                 neural_3d_z_plane()["embedding"]["embeddings"][
                     "ray_prediction_0"]["net"]
     else:
-        cfg = tiny_shiny(z_channels=S)
+        cfg = tiny_shiny(z_channels=S, sample_stages=False)
     cfg = convert_epochs_to_iters(cfg, 4000)
     cfg["color"]["net"].update(fused_render=True, bf16_tables=True)
     if family != "flagship":

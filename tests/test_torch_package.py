@@ -89,10 +89,13 @@ def test_port_imports_no_jax():
     ("stanford_epochs_to_iters", lambda P: P.convert_epochs_to_iters(
         P.stanford_llff_z_plane(), 4000)),
     # the port's tiny RGB presets keep bf16 tables (the fused routes need
-    # them) and have no sample stages (not ported), where the JAX
-    # package's turn the tables off and tiny_shiny adds the stages
+    # them), where the JAX package's turn the tables off
     ("tiny_shiny", lambda P: P.tiny_shiny() if P is TP else _bf16_tables(
-        P.tiny_shiny(sample_stages=False))),
+        P.tiny_shiny())),
+    ("tiny_shiny_no_stages", lambda P: P.tiny_shiny(sample_stages=False)
+     if P is TP else _bf16_tables(P.tiny_shiny(sample_stages=False))),
+    ("shiny_z_plane_stages", lambda P: P.shiny_z_plane(16,
+                                                       sample_stages=True)),
     ("tiny_stanford_llff", lambda P: P.tiny_stanford_llff() if P is TP
      else _bf16_tables(P.tiny_stanford_llff())),
     ("donerf_sphere", lambda P: P.donerf_sphere()),

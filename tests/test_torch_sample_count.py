@@ -135,13 +135,22 @@ def test_select_points_matches_jax(mode, n):
 
 
 def test_select_points_training_is_not_ported():
-    for cfg in ({"inference_samples": 4},
-                {"inference_samples": 4, "mode": "first",
-                 "always_slice": True}):
-        stage = SelectPointsEmbedding(cfg)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            stage.apply({}, {"points": torch.zeros(2, 8, 3)},
-                        StepCtx(it=0, training=True))
+    """The training regime (ported since; the drawn count's gather:
+    tests/test_torch_train_stages.py): without a drawn count the state
+    passes unchanged; always_slice slices as at eval; both as the JAX
+    package's."""
+    x = np.random.default_rng(1).normal(size=(2, 8, 3)).astype(np.float32)
+    for cfg, S in (({"inference_samples": 4}, 8),
+                   ({"inference_samples": 4, "mode": "first",
+                     "always_slice": True}, 4)):
+        ja = JaxSelectPoints(dict(cfg)).apply(
+            {}, {"points": jnp.asarray(x)}, make_ctx(it=0, training=True))
+        ta = SelectPointsEmbedding(cfg).apply(
+            {}, {"points": torch.from_numpy(x)},
+            StepCtx(it=0, training=True))
+        assert ta["points"].shape[1] == S
+        np.testing.assert_array_equal(ta["points"].numpy(),
+                                      _np(ja["points"]))
 
 
 def _intersect_state(jm, tm, jp, tp, rays):

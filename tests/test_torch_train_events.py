@@ -100,14 +100,23 @@ def test_alpha_grid_shrink_and_upsample_match_jax(reso):
 
 
 def test_static_net_training_is_refused():
-    """TensorVMNoSample training (its grid-cropping shrink) is the next
-    slice: the port refuses it, naming the ROADMAP item."""
+    """TensorVMNoSample's training apply (no longer refused; held against
+    the JAX package in tests/test_torch_train_static.py): in training the
+    general path runs, records the grids' gradients through the plane and
+    line lookups, keeps the background coin and does not clamp."""
     from hyperreel_tpu_torch.configs.presets import (
         convert_epochs_to_iters, tiny_static)
+    from hyperreel_tpu_torch.train.trainer import _requiring_grad
     model = build_torch(convert_epochs_to_iters(tiny_static(), 4000))
-    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    params = _requiring_grad(model.init(torch.Generator().manual_seed(0),
+                                        "cpu"))
     rays = torch.from_numpy(entry_rays(8)[:, :6].copy())
-    with pytest.raises(NotImplementedError, match="training beyond the "
-                       "flagship"):
-        model.apply(params, rays, StepCtx(it=0, training=True,
-                                          draws={"background": 0.3}))
+    ctx = StepCtx(it=0, training=True, draws={"background": 0.3})
+    rgb = model.apply(params, rays, ctx)["rgb"]
+    assert rgb.requires_grad and torch.isfinite(rgb).all()
+    line, = torch.autograd.grad(rgb.sum(), params["color"]["density"][
+        "line_1"])
+    assert line.abs().max() > 0
+    # the coin < 0.5 adds the white background, unclamped
+    ctx1 = StepCtx(it=0, training=True, draws={"background": 0.7})
+    assert (rgb - model.apply(params, rays, ctx1)["rgb"]).abs().max() > 0

@@ -55,23 +55,10 @@ from hyperreel_tpu_torch.train.regularizers import tv_4000_defaults
 from hyperreel_tpu_torch.train.trainer import Trainer, TrainState
 
 from torch_parity import f32_acc
+from torch_train_parity import (
+    BATCH, IPE, jax_batches, max_param_err, training_cfg)
 
 assert f32_acc      # the fixture, imported for the tests' use
-
-IPE = 50            # iterations per epoch, as tests/test_training.py
-BATCH = 256
-
-
-def training_cfg(spc=1):
-    group = {"optimizer": "adam", "lr": 0.02, "lr_scheduler": "exp",
-             "decay_epoch": 100, "decay_gamma": 0.125, "warmup_epochs": 0}
-    return {"loss": {"type": "mse"}, "batch_size": BATCH,
-            "steps_per_call": spc,
-            "optimizers": {"color": dict(group),
-                           "color_impl": dict(group, lr=0.001),
-                           "embedding": dict(group, lr=0.01),
-                           "embedding_impl": dict(group, lr=0.00075)}}
-
 
 def model_cfg(events=False, bf16_tables=False):
     cfg = convert_epochs_to_iters(tiny_dynamic(), iters_per_epoch=IPE)
@@ -121,24 +108,8 @@ def start(cfg, ds, spc=1, seed=0):
     return jt, js, tt, ts
 
 
-def jax_batches(ds, seed=0):
-    for b in ds.batch_iterator(BATCH, seed=seed):
-        yield {k: jnp.asarray(v) for k, v in b.items()}
-
-
 def coin(key):
     return float(jax.random.uniform(jax.random.fold_in(key, 202), ()))
-
-
-def max_param_err(jax_params, port_params):
-    want = params_from_jax(jax.tree.map(np.asarray, jax_params),
-                           device="cpu")
-    got = dict(tree_leaves(port_params))
-    errs = {}
-    for path, w in tree_leaves(want):
-        assert tuple(got[path].shape) == tuple(w.shape), path
-        errs["/".join(path)] = (got[path].detach() - w).abs().max().item()
-    return errs
 
 
 # One step under the f32 policy (f32 MLP, f32 tables): the same f32 ops,
