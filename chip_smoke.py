@@ -14,7 +14,10 @@ composite entry point; the flagship's training step across its grid
 events, with the trained model rendered through K1 and K2; and the
 training of llff_z_plane and shiny_z_plane across their grid events and
 of neural_3d_z_plane, with the trained models rendered through K1, K5, K6
-and K4 + K5-preblended.
+and K4 + K5-preblended; and training from scenes on disk, through the
+port's loaders and ray store: the flagship from a Technicolor scene at the
+published rig and resolution, llff_z_plane from an LLFF scene at its
+published setting, their held-out views through K1 + K2 and K1 + K5.
 
     python3 chip_smoke.py
 
@@ -217,13 +220,41 @@ no result line):
      the step's time, the trained model's frame on the quad route (K1 + K5
      with RGB colour) with K1 and K5 against their plain versions;
  62. neural_3d_z_plane at full width (64 samples, [8, 4, 4] time planes of
-     N3D_INFO's 12 keyframes, the dynamic blob scene) with no events: 20
+     n3d_info()'s 12 keyframes, the dynamic blob scene) with no events: 20
      steps of Trainer.fit, the step's time, the trained model's frame
      through K1 + K5 on the time planes, each against its plain version on
      one chunk;
  63. the trained llff model checkpointed, restored into a fresh model and
      trainer, one step on both under torch's deterministic algorithms: the
-     same loss, the params equal to the bit.
+     same loss, the params equal to the bit;
+ 64. a Technicolor scene ("painter") written into a temporary directory
+     from SEED (PNG by a stdlib writer, smooth fields that differ per
+     camera and frame): the 4 x 4 rig at 2048 x 1088, 9 frames of the
+     published 50-frame window (5 where the host lacks the RAM or disk,
+     printed; the cut takes the time planes from 12 keyframes to 2),
+     keyframe_step 4, load_full_step 8, camera (2, 2) held out; both
+     splits through the port's loader (s per image, peak RSS), the train
+     rays counted exactly (100,270,080: 15 cameras x 2,228,224 x (2 + 1/4
+     + 6/8)) and written as the port's MmapRayStore; technicolor_z_plane
+     (bf16) built with the loader's dataset_info and trained 60 steps of
+     16,384 rays from the store's C++ sampler (the image loss falls as in
+     54); the sampler's ms per batch of 16,384 and 262,144 rays against
+     the in-memory batch_iterator and the step; the held-out camera's
+     frame 4 (2,228,224 rays in 9 chunks) through model.apply on the quad
+     route: K1 and K2 launched once per chunk, finite, in [0, 1], its ms
+     and PSNR against the image; on its first chunk K1 and K2 against
+     their plain versions (the gates of phases 3 and 56);
+ 65. an LLFF scene of 20 views (poses_bounds.npy of a 4032 x 3024 capture,
+     the images at 1008 x 756, the rays of the published downsample=4)
+     through the port's loader: val_skip 8 holds out views 0, 8 and 16,
+     12,954,816 train rays; llff_z_plane (bf16) with the loader's
+     dataset_info trained 60 steps from the in-memory batch_iterator (the
+     loss falls); view 8 through model.apply on the quad route (K1, K5
+     once per chunk), its ms and PSNR; on one chunk K1 and K5 against their
+     plain versions (the gates of phase 60);
+ 66. the ray store alone on 64's rays: gather of 4,096 seeded indices
+     equal to the in-memory rows to the bit; one seed and thread count
+     give one batch twice, another seed another.
 The line before the last is the kernels' JSON record (launches on their
 main path, error against the plain version, ms and the plain version's
 ms, and the least time the card could take, counting of each table only
@@ -267,11 +298,9 @@ LLFF_DENSITY = 0.05
 # frame ~0.92 and ~0.93, measured on the CPU at a small grid)
 SHINY_DENSITY = 0.2
 STANFORD_DENSITY = 0.3
-# neural_3d_z_plane: the 50-frame window of data/neural_3d.py with
-# keyframe_step 4 (:34, :137); its density grids redrawn uniform in [0,
-# this); the JAX test's patch candidate (tests/test_fused_cf.py:1100-1107)
-# and the shape that keeps llff_z_plane's frame inside its patches
-N3D_INFO = {"num_keyframes": 12, "num_frames": 50}
+# neural_3d_z_plane: its density grids redrawn uniform in [0, this); the
+# JAX test's patch candidate (tests/test_fused_cf.py:1100-1107) and the
+# shape that keeps llff_z_plane's frame inside its patches
 N3D_DENSITY = 0.05
 N3D_PATCH_R8 = (5, 3, 8)
 N3D_PATCH_R4 = (4, 3, 4)
@@ -303,6 +332,13 @@ K1_TAIL_OPS = 100
 # contract_rows of the point and of the origin (2 x 20), the distance (9)
 K1_CONTRACT_OPS = 57
 COMPOSITE_OPS, COMPOSITE4_OPS = 46, 40
+
+
+def n3d_info():
+    """neural_3d_z_plane's dataset_info: the port's Neural 3D loader's
+    published window (50 frames, a keyframe every 4: 12 keyframes)."""
+    from hyperreel_tpu_torch.data.neural_3d import window_info
+    return window_info()
 
 
 def shade_ops(C, nd, rgb=False, weights=False, fold=None):
@@ -1220,27 +1256,32 @@ def stanford_phases(torch, dev, card, frame, reset_counts, read_counts):
 # stage chain and its colour net's own fused route (K5: catacaustics at
 # the [8, 8, 8] layout with SH and the weights row, S = 64; immersive on
 # time planes, S = 32; donerf with RGB and the weights row, S = 32), with
-# the dataset_info the JAX loaders give (catacaustics:
-# hyperreel_tpu/data/catacaustics.py:76-78; immersive 02_Flames, a
-# 50-frame window with keyframe_step 4: data/immersive.py:21-24, 56-57,
-# 164-169; DONeRF reads its depth range from the scene's dataset_info.json,
-# data/donerf.py:41, here the repo's fixture's, tests/test_datasets.py:174),
-# the density grids redrawn uniform in [0, density), and the camera at
+# the dataset_info the port's loaders give (primitive_info), the density
+# grids redrawn uniform in [0, density), and the camera at
 # (0, 0, oz) where most samples are valid: catacaustics' distances are
 # anchored on [-far, far] about each ray's closest point to the origin, so
 # a camera 8 away puts nearly all of them in front of it; the spheres of
 # immersive (outward facing) and donerf are about the origin, and a camera
 # inside them hits every one.
-PRIMITIVES = {
-    "catacaustics": ("catacaustics_distance",
-                     {"near": 0.1, "far": 10.0, "depth_range": (0.1, 10.0)},
-                     0.1, -8.0),
-    "immersive": ("immersive_sphere_new",
-                  {"near": 1.0, "far": 10.0, "depth_range": (2.0, 10.0),
-                   "num_keyframes": 12, "num_frames": 50}, 0.05, -0.5),
-    "donerf": ("donerf_sphere",
-               {"near": 0.5, "far": 6.0, "depth_range": (0.5, 6.0)}, 0.2,
-               0.0)}
+PRIMITIVES = {"catacaustics": ("catacaustics_distance", 0.1, -8.0),
+              "immersive": ("immersive_sphere_new", 0.05, -0.5),
+              "donerf": ("donerf_sphere", 0.2, 0.0)}
+
+
+def primitive_info(family):
+    """The family's dataset_info from the port's loader, where the loader
+    fixes it without a scene: catacaustics' bounds, and immersive's for
+    02_Flames over the published 50-frame window with a keyframe every 4.
+    DONeRF reads its depth range from the scene's dataset_info.json
+    (data/donerf.py): here the repo's fixture's, tests/test_datasets.py."""
+    from hyperreel_tpu_torch.data import catacaustics, immersive
+    if family == "catacaustics":
+        return catacaustics.scene_info()
+    if family == "immersive":
+        return immersive.scene_info("02_Flames")
+    return {"near": 0.5, "far": 6.0, "depth_range": (0.5, 6.0)}
+
+
 PRIMITIVE_TIMED_FRAMES = 1
 
 
@@ -1270,7 +1311,8 @@ def primitive_model(dev, family, fused=True, params=None):
     from hyperreel_tpu_torch.configs import presets
     from hyperreel_tpu_torch.models.model import build_model
 
-    preset, info, density, _ = PRIMITIVES[family]
+    preset, density, _ = PRIMITIVES[family]
+    info = primitive_info(family)
     cfg = presets.convert_epochs_to_iters(getattr(presets, preset)(),
                                           iters_per_epoch=4000)
     net = cfg["color"]["net"]
@@ -1300,7 +1342,8 @@ def primitive_phases(torch, dev, card, reset_counts, read_counts, family):
         shade_multi, shade_multi_plain)
 
     ctx = StepCtx(it=IT)
-    preset, info, _, oz = PRIMITIVES[family]
+    preset, _, oz = PRIMITIVES[family]
+    info = primitive_info(family)
     cfg, model, params = primitive_model(dev, family)
     net = model.color_net
     if model._cf_eval is not None:
@@ -1641,7 +1684,7 @@ def n3d(dev, bf16=True, patch=None, params=None):
     mipnerf contraction, spatial flow, [8, 4, 4] components on three
     space-plane x time-plane axes, SH degree 2) on a trained checkpoint's
     grid: N_voxel_init set to N_voxel_final (262,144,000 voxels: space
-    planes 617x823, 514x823, 514x617; time planes of N3D_INFO's 12
+    planes 617x823, 514x823, 514x617; time planes of n3d_info()'s 12
     keyframes along z, y and x), whose bf16 quad tables exceed the 50 MB
     L2. The bf16 (or f32) MLP policy; with `patch` the coherent
     patch-gather route (px, py, R). Weights from torch.Generator seed SEED
@@ -1658,7 +1701,7 @@ def n3d(dev, bf16=True, patch=None, params=None):
     net["N_voxel_init"] = net["N_voxel_final"]
     if patch:
         cfg = with_coherent_gather(cfg, *patch)
-    model = build_model(cfg, dataset_info=N3D_INFO,
+    model = build_model(cfg, dataset_info=n3d_info(),
                         compute_dtype=torch.bfloat16 if bf16 else None)
     if params is None:
         gen = torch.Generator().manual_seed(SEED)
@@ -2028,8 +2071,8 @@ def n3d_phases(torch, dev, card, frame, reset_counts, read_counts):
     from hyperreel_tpu_torch.models.model import build_model
     cfg_g = copy.deepcopy(cfg)
     cfg_g["color"]["net"].update(fused_render_cf=False, fused_render=False)
-    fused_m = build_model(cfg, dataset_info=N3D_INFO)
-    general = build_model(cfg_g, dataset_info=N3D_INFO)
+    fused_m = build_model(cfg, dataset_info=n3d_info())
+    general = build_model(cfg_g, dataset_info=n3d_info())
     rays = torch.from_numpy(entry_rays(4096)).to(dev)
     a = fused_m.apply(params, rays, ctx)["rgb"]
     b = general.apply(params, rays, ctx)["rgb"]
@@ -2892,6 +2935,93 @@ def time_steps(torch, trainer, state, ds, tag):
             "line_backward_ms": line_bwd, "peak_bytes": peak}
 
 
+def trained_flagship_chunk(torch, model, params, chunk, ctx, prep, label):
+    """One chunk of a trained flagship (`prep`: its prepared tables): K1
+    against its plain version (PACK_TOL_BF16), K2 on the time planes and
+    premixed (TH=0) against its plain version (SHADE_TOL on rgb/acc, ten
+    times that on depth), both timed with their plain versions (K2 at
+    TH=0), and their bounds. Returns ((K1 error, ms, plain ms, bound),
+    the same of K2)."""
+    from hyperreel_tpu_torch.ops.kernels.pack_build import (
+        pack_build, pack_build_plain)
+    from hyperreel_tpu_torch.ops.kernels.shade import (
+        ShadeSpec, premix_time, shade, shade_plain)
+
+    cf, net = model._cf_eval, model.color_net
+    B = chunk.shape[0]
+    net_in = cf.pred.net_input(chunk, ctx).float().contiguous()
+    rp = cf.ray_pack(chunk)
+    tabs = prep["mlp"]
+    pack = pack_build(net_in, tabs, rp, cf.spec, ctx.it)
+    pack_p = pack_build_plain(net_in, tabs, rp, cf.spec, ctx.it)
+    torch.cuda.synchronize()
+    k1_err = (pack - pack_p).abs().max().item()
+    del pack_p
+    H, W, TH, TW, C, nd = prep["dims"]
+    k2_err, spec0 = 0.0, None
+    for th in (TH, 0):
+        ttab = prep["ttab"] if th else premix_time(prep["ttab"], rp[0, 7])
+        spec = ShadeSpec(S=cf.S, W=W, H=H, TW=TW, TH=th, C=C, nd=nd,
+                         deg=net.sh_deg, distance_scale=net.distance_scale)
+        out = shade(prep["quad"], pack, rp, ttab, prep["wb"], spec)
+        out_p = shade_plain(prep["quad"], pack, rp, ttab, prep["wb"], spec)
+        torch.cuda.synchronize()
+        err = (out[:, :4] - out_p[:, :4]).abs().max().item()
+        derr = (out[:, 4] - out_p[:, 4]).abs().max().item()
+        if not (err <= SHADE_TOL and derr <= 10 * SHADE_TOL):
+            raise AssertionError(f"{label} K2 disagrees with its plain "
+                                 f"version (TH={th}): {err}, {derr}")
+        k2_err = max(k2_err, err)
+        spec0 = (ttab, spec)
+    print(f"# the {label} model's chunk: K1 max |kernel - plain| "
+          f"{k1_err:.3e} (tol {PACK_TOL_BF16}), K2 {k2_err:.3e} (tol "
+          f"{SHADE_TOL}); grid {H}x{W}, time plane {TH}x{TW}, aabb "
+          f"{np.asarray(net.aabb).tolist()}; acc mean "
+          f"{out[:, 3].mean().item():.4f}", flush=True)
+    if not k1_err <= PACK_TOL_BF16:
+        raise AssertionError(f"{label} K1 disagrees with its plain version: "
+                             f"{k1_err}")
+    ttab, spec = spec0
+    k1_ms = cuda_ms(torch, lambda: pack_build(net_in, tabs, rp, cf.spec,
+                                              ctx.it), 20)
+    k1_plain_ms = cuda_ms(torch, lambda: pack_build_plain(
+        net_in, tabs, rp, cf.spec, ctx.it), 3)
+    k2_ms = cuda_ms(torch, lambda: shade(prep["quad"], pack, rp, ttab,
+                                         prep["wb"], spec), 20)
+    k2_plain_ms = cuda_ms(torch, lambda: shade_plain(
+        prep["quad"], pack, rp, ttab, prep["wb"], spec), 3)
+    N = pack.shape[1]
+    valid = valid_count(pack)
+    mlp_ops = 2 * B * sum(
+        p["weight"].numel() for p in
+        params["embedding"]["ray_prediction_0"]["net"].values())
+    k1_bound = bound(
+        nbytes(net_in, rp, pack) + sum(nbytes(l.w, l.b) for l in tabs.layers),
+        [(mlp_ops, BF16_OPS_PER_S), (N * K1_TAIL_OPS, F32_OPS_PER_S)])
+    k2_bound = sh_bound(
+        f"{label} K2", nbytes(pack, rp, ttab) + B * 5 * 4
+        + rows_bytes(prep["quad"], quad_rows(pack, 0, 1, W, H)),
+        lambda f: [(valid * (shade_ops(C, nd, fold=f) + 8 * C + 10)
+                    + N * COMPOSITE_OPS, F32_OPS_PER_S)], cf.S)
+    print(f"# the {label} model's chunk: {valid} of {N} samples valid; "
+          f"K1 {k1_ms:.3f} ms (plain {k1_plain_ms:.3f}, bound "
+          f"{k1_bound[0]:.4f}), K2 TH=0 {k2_ms:.3f} ms (plain "
+          f"{k2_plain_ms:.3f}, bound {k2_bound[0]:.4f})", flush=True)
+    return ((k1_err, k1_ms, k1_plain_ms, k1_bound),
+            (k2_err, k2_ms, k2_plain_ms, k2_bound))
+
+
+def flagship_entries(label, counts, k1, k2):
+    """The JSON records of a trained flagship's K1 and K2 (`counts`: the
+    launches of its frame; k1, k2: trained_flagship_chunk's)."""
+    return [entry(f"pack_build_{label}", "pack_build.cuh",
+                  "hyperreel_tpu/ops/pallas/pack_build.py:137",
+                  counts["pack_build"], *k1),
+            entry(f"shade_{label}", "shade.cu",
+                  "hyperreel_tpu/ops/pallas/shade.py:238", counts["shade"],
+                  *k2)]
+
+
 def training_phases(torch, dev, card, frame, reset_counts, read_counts):
     """Phases 54-57: train the flagship at full width across an alpha-mask
     event and an upsample, time its step, render the trained model through
@@ -2902,10 +3032,7 @@ def training_phases(torch, dev, card, frame, reset_counts, read_counts):
     from hyperreel_tpu_torch.models.ctx import StepCtx
     from hyperreel_tpu_torch.models.model import build_model
     from hyperreel_tpu_torch.models.tensorf import n_to_reso
-    from hyperreel_tpu_torch.ops.kernels.pack_build import (
-        pack_build, pack_build_plain)
-    from hyperreel_tpu_torch.ops.kernels.shade import (
-        ShadeSpec, premix_time, shade, shade_plain)
+    from hyperreel_tpu_torch.ops.kernels.pack_build import pack_build
     from hyperreel_tpu_torch.train.checkpoint import (
         restore_checkpoint, save_checkpoint)
     from hyperreel_tpu_torch.train.metrics import psnr
@@ -2992,7 +3119,6 @@ def training_phases(torch, dev, card, frame, reset_counts, read_counts):
 
     # ---- 56. the trained model through K1 and K2
     ctx = StepCtx(it=state.it)
-    cf = model._cf_eval
     with torch.no_grad():
         prep = model.prepare_eval(state.params)
         rk = {"cf_prepared": prep, "uniform_time": True}
@@ -3020,69 +3146,9 @@ def training_phases(torch, dev, card, frame, reset_counts, read_counts):
               f"{psnr(vr, torch.from_numpy(view['rgb']).to(dev)).item():.3f}"
               " dB", flush=True)
 
-        chunk = frame[0]
-        net_in = cf.pred.net_input(chunk, ctx).float().contiguous()
-        rp = cf.ray_pack(chunk)
-        tabs = prep["mlp"]
-        pack = pack_build(net_in, tabs, rp, cf.spec, ctx.it)
-        pack_p = pack_build_plain(net_in, tabs, rp, cf.spec, ctx.it)
-        torch.cuda.synchronize()
-        k1_err = (pack - pack_p).abs().max().item()
-        H, W, TH, TW, C, nd = prep["dims"]
-        k2_err, spec0 = 0.0, None
-        for th in (TH, 0):
-            ttab = prep["ttab"] if th else premix_time(prep["ttab"],
-                                                       rp[0, 7])
-            spec = ShadeSpec(S=cf.S, W=W, H=H, TW=TW, TH=th, C=C, nd=nd,
-                             deg=net.sh_deg,
-                             distance_scale=net.distance_scale)
-            out = shade(prep["quad"], pack, rp, ttab, prep["wb"], spec)
-            out_p = shade_plain(prep["quad"], pack, rp, ttab, prep["wb"],
-                                spec)
-            torch.cuda.synchronize()
-            err = (out[:, :4] - out_p[:, :4]).abs().max().item()
-            derr = (out[:, 4] - out_p[:, 4]).abs().max().item()
-            if not (err <= SHADE_TOL and derr <= 10 * SHADE_TOL):
-                raise AssertionError(f"trained K2 disagrees with its plain "
-                                     f"version (TH={th}): {err}, {derr}")
-            k2_err = max(k2_err, err)
-            spec0 = (ttab, spec)
-        print(f"# the trained model's chunk: K1 max |kernel - plain| "
-              f"{k1_err:.3e} (tol {PACK_TOL_BF16}), K2 {k2_err:.3e} (tol "
-              f"{SHADE_TOL}); grid {H}x{W}, time plane {TH}x{TW}, aabb "
-              f"{np.asarray(net.aabb).tolist()}; acc mean "
-              f"{out[:, 3].mean().item():.4f}", flush=True)
-        if not k1_err <= PACK_TOL_BF16:
-            raise AssertionError(f"trained K1 disagrees with its plain "
-                                 f"version: {k1_err}")
-        ttab, spec = spec0
-        k1_ms = cuda_ms(torch, lambda: pack_build(net_in, tabs, rp, cf.spec,
-                                                  ctx.it), 20)
-        k1_plain_ms = cuda_ms(torch, lambda: pack_build_plain(
-            net_in, tabs, rp, cf.spec, ctx.it), 3)
-        k2_ms = cuda_ms(torch, lambda: shade(prep["quad"], pack, rp, ttab,
-                                             prep["wb"], spec), 20)
-        k2_plain_ms = cuda_ms(torch, lambda: shade_plain(
-            prep["quad"], pack, rp, ttab, prep["wb"], spec), 3)
-        N = pack.shape[1]
-        valid = valid_count(pack)
-        mlp_ops = 2 * CHUNK * sum(
-            p["weight"].numel() for p in
-            state.params["embedding"]["ray_prediction_0"]["net"].values())
-        k1_bound = bound(
-            nbytes(net_in, rp, pack)
-            + sum(nbytes(l.w, l.b) for l in tabs.layers),
-            [(mlp_ops, BF16_OPS_PER_S), (N * K1_TAIL_OPS, F32_OPS_PER_S)])
-        k2_bound = sh_bound(
-            "trained K2", nbytes(pack, rp, ttab) + CHUNK * 5 * 4
-            + rows_bytes(prep["quad"], quad_rows(pack, 0, 1, W, H)),
-            lambda f: [(valid * (shade_ops(C, nd, fold=f) + 8 * C + 10)
-                        + N * COMPOSITE_OPS, F32_OPS_PER_S)], cf.S)
-        print(f"# the trained model's chunk: {valid} of {N} samples valid; "
-              f"K1 {k1_ms:.3f} ms (plain {k1_plain_ms:.3f}, bound "
-              f"{k1_bound[0]:.4f}), K2 TH=0 {k2_ms:.3f} ms (plain "
-              f"{k2_plain_ms:.3f}, bound {k2_bound[0]:.4f})", flush=True)
-        del pack, pack_p, out, out_p, outs, prep
+        k1, k2 = trained_flagship_chunk(torch, model, state.params, frame[0],
+                                        ctx, prep, "trained")
+        del outs, prep
         torch.cuda.empty_cache()
 
         # fused against the general path, f32 MLP policy
@@ -3162,13 +3228,7 @@ def training_phases(torch, dev, card, frame, reset_counts, read_counts):
               "shrink_by_event": moved, "event_s": event_s,
               "image_loss_first5_last5": [first, last],
               "step": timing, "fit_s": fit_s}
-    return [entry("pack_build_trained", "pack_build.cuh",
-                  "hyperreel_tpu/ops/pallas/pack_build.py:137",
-                  counts["pack_build"], k1_err, k1_ms, k1_plain_ms,
-                  k1_bound),
-            entry("shade_trained", "shade.cu",
-                  "hyperreel_tpu/ops/pallas/shade.py:238", counts["shade"],
-                  k2_err, k2_ms, k2_plain_ms, k2_bound)], record
+    return flagship_entries("trained", counts, k1, k2), record
 
 
 # ---- 58-63: the multi-axis nets' training (the static net: llff_z_plane,
@@ -3193,7 +3253,7 @@ def multi_training_setup(torch, dev, family, ds):
     the bf16 MLP policy and tables) with its grid events moved early
     (STATIC_EVENTS; n3d none), DEFAULT_TRAINING and tv_4000_defaults, the
     blob scene's bounds and depth range as its dataset_info (n3d with
-    N3D_INFO's keyframes): (cfg, dataset_info, trainer)."""
+    n3d_info()'s keyframes): (cfg, dataset_info, trainer)."""
     import copy
 
     from hyperreel_tpu_torch.config import DEFAULT_TRAINING
@@ -3214,7 +3274,7 @@ def multi_training_setup(torch, dev, family, ds):
         net["upsamp_list"] = [second] + net["upsamp_list"][1:]
     else:
         net["upsamp_list"], net["update_AlphaMask_list"] = [], []
-    info = dict(ds.info(), **(N3D_INFO if family == "n3d" else {}))
+    info = dict(ds.info(), **(n3d_info() if family == "n3d" else {}))
     model = build_model(copy.deepcopy(cfg), dataset_info=info,
                         compute_dtype=torch.bfloat16)
     trainer = Trainer(model, copy.deepcopy(DEFAULT_TRAINING),
@@ -3307,9 +3367,13 @@ def multi_step_times(torch, trainer, state0, state, aabb0, ds, tag):
 
 
 def trained_multi_frame(torch, dev, family, cfg, info, model, state, frame,
-                        reset_counts, read_counts, full=False):
-    """A trained multi-axis model (its state at its last iteration): its
-    bench frame through model.apply on the quad route (K1, K5; n3d's on
+                        reset_counts, read_counts, full=False, label=None,
+                        gt=None):
+    """A trained multi-axis model (its state at its last iteration): a
+    frame (the bench frame's chunks, or a view's: `frame` is a tensor
+    [chunks, rays, D] or a list of [rays, D]; the records are named by
+    `label`, the family by default) through model.apply on the quad
+    route (K1, K5; n3d's on
     its time planes) and, with `full`, the fused (K6) and two-kernel (K4
     + K5-preblended) patch routes at R=4 (4, 3): finite, in [0, 1], the
     launches per chunk, each patch route's witness <= PVIOL_EXACT; the
@@ -3322,8 +3386,10 @@ def trained_multi_frame(torch, dev, family, cfg, info, model, state, frame,
     its plain version (K1 PACK_TOL_BF16, the shade kernels SHADE_TOL on
     rgb/acc, K4 one bf16 ulp, the witness counts equal), timed, with its
     plain version's time and its bound; with `full`, fused against
-    general under the f32 MLP policy on 4096 rays (PATH_TOL). Returns the
-    kernels' JSON records."""
+    general under the f32 MLP policy on 4096 rays (PATH_TOL). With `gt`
+    (the view's rgb), the quad route's frame is also timed and scored.
+    Returns the kernels' JSON records and, with `gt`, {"view_ms",
+    "view_psnr"} ({} without)."""
     import copy
 
     from hyperreel_tpu_torch.configs.presets import with_coherent_gather
@@ -3338,6 +3404,7 @@ def trained_multi_frame(torch, dev, family, cfg, info, model, state, frame,
         shade_multi_preblended_plain)
     from hyperreel_tpu_torch.ops.kernels.shade_multi_patch import (
         shade_multi_patch, shade_multi_patch_plain)
+    from hyperreel_tpu_torch.train.metrics import psnr
 
     net = model.color_net
 
@@ -3351,9 +3418,12 @@ def trained_multi_frame(torch, dev, family, cfg, info, model, state, frame,
 
     params = state.params
     ctx = StepCtx(it=state.it)
-    tag = f"trained {family}"
-    frames = frame if family == "n3d" else frame[..., :6].contiguous()
-    n_chunks = frames.shape[0]
+    label = label or family
+    tag = f"trained {label}"
+    frames = frame if family == "n3d" else [f[..., :6].contiguous()
+                                            for f in frame]
+    n_chunks = len(frames)
+    n_rays = sum(f.shape[0] for f in frames)
     cf = model._cf_eval
     rgb_colour = net.shading == "rgb"
     with torch.no_grad():
@@ -3366,7 +3436,8 @@ def trained_multi_frame(torch, dev, family, cfg, info, model, state, frame,
         if full:
             model4 = like(with_coherent_gather(cfg, *PATCH_R4))
             prep4 = model4.prepare_eval(params)
-            frames4 = phase_major(frames, R4).contiguous()
+            frames4 = phase_major(torch.stack(list(frames)),
+                                  R4).contiguous()
             rk4 = {"cf_prepared": prep4, "rays_phase_major": True}
             routes["fused patch R=4 (4,3)"] = (
                 "1", model4, frames4, rk4, {"shade_multi_patch": n_chunks},
@@ -3375,21 +3446,27 @@ def trained_multi_frame(torch, dev, family, cfg, info, model, state, frame,
                 "0", model4, frames4, rk4,
                 {"patch_blend": n_chunks,
                  "shade_multi_preblended": n_chunks}, R4)
-        counts, rgb_quad = {}, None
+        counts, rgb_quad, view = {}, None, {}
         for name, (env, m, frs, rkw, kern, R) in routes.items():
             with EnvVar("HYPERREEL_FUSED_PATCH_MULTI", env):
+
+                def render():
+                    return [m.apply(params, frs[i], ctx, rkw)
+                            for i in range(n_chunks)]
+
                 reset_counts()
-                outs = [m.apply(params, frs[i], ctx, rkw)
-                        for i in range(n_chunks)]
+                outs = render()
                 torch.cuda.synchronize()
                 got = read_counts()
+                if R is None and gt is not None:
+                    view["view_ms"] = cuda_ms(torch, render, 3)
             want = dict.fromkeys(got, 0)
             want.update(pack_build=n_chunks, **kern)
             counts[name] = got
             rgb = torch.cat([scanline(o["rgb"], R) if R else o["rgb"]
                              for o in outs])
             if not (torch.isfinite(rgb).all() and rgb.min() >= 0
-                    and rgb.max() <= 1 and rgb.shape == (SIDE * SIDE, 3)):
+                    and rgb.max() <= 1 and rgb.shape == (n_rays, 3)):
                 raise AssertionError(f"{tag} {name}: frame rgb is not finite "
                                      "in [0, 1]")
             if got != want:
@@ -3397,9 +3474,13 @@ def trained_multi_frame(torch, dev, family, cfg, info, model, state, frame,
                                      f"want {want}")
             if R is None:
                 rgb_quad = rgb
+                if gt is not None:
+                    view["view_psnr"] = psnr(rgb, gt).item()
                 print(f"# {tag} frame ({name}): rgb min "
                       f"{rgb.min().item():.4f} max {rgb.max().item():.4f} "
-                      f"mean {rgb.mean().item():.4f}; launches {got}",
+                      f"mean {rgb.mean().item():.4f}; launches {got}"
+                      + (f"; {view['view_ms']:.3f} ms per frame, psnr "
+                         f"{view['view_psnr']:.3f} dB" if view else ""),
                       flush=True)
                 continue
             pviol = max(float(o["patch_coverage_viol"]) for o in outs)
@@ -3594,22 +3675,22 @@ def trained_multi_frame(torch, dev, family, cfg, info, model, state, frame,
     src = "hyperreel_tpu/ops/pallas/"
     quad, two, fused = ("quad", "two-kernel patch R=4 (4,3)",
                         "fused patch R=4 (4,3)")
-    rows = [("K1", f"pack_build_{family}_trained", "pack_build.cuh",
+    rows = [("K1", f"pack_build_{label}_trained", "pack_build.cuh",
              "pack_build.py:137", quad, "pack_build"),
-            ("K5", f"shade_multi_{family}_trained", "shade_multi.cu",
+            ("K5", f"shade_multi_{label}_trained", "shade_multi.cu",
              "shade.py:742", quad, "shade_multi")]
     if full:
-        rows += [("K4", f"patch_blend_{family}_trained", "patch_blend.cu",
+        rows += [("K4", f"patch_blend_{label}_trained", "patch_blend.cu",
                   "patch_blend.py:51", two, "patch_blend"),
-                 ("K5-pre", f"shade_multi_preblended_{family}_trained",
+                 ("K5-pre", f"shade_multi_preblended_{label}_trained",
                   "shade_multi.cu", "shade.py:761", two,
                   "shade_multi_preblended"),
-                 ("K6", f"shade_multi_patch_{family}_trained",
+                 ("K6", f"shade_multi_patch_{label}_trained",
                   "shade_multi_patch.cu", "shade.py:786", fused,
                   "shade_multi_patch")]
     return [entry(name, source, src + repl, counts[route][fn], errs[k],
                   ms[k], plain_ms[k], bounds[k])
-            for k, name, source, repl, route, fn in rows]
+            for k, name, source, repl, route, fn in rows], view
 
 
 def multi_training_phases(torch, dev, card, frame, reset_counts,
@@ -3650,7 +3731,7 @@ def multi_training_phases(torch, dev, card, frame, reset_counts,
     # ---- 60. the trained model's bench frame on its three routes
     records += trained_multi_frame(torch, dev, "llff", cfg, info,
                                    trainer.model, state, frame,
-                                   reset_counts, read_counts, full=True)
+                                   reset_counts, read_counts, full=True)[0]
     llff = (cfg, info, trainer, state)
 
     # ---- 61. shiny_z_plane (RGB): 60 steps across the alpha event (its
@@ -3683,7 +3764,7 @@ def multi_training_phases(torch, dev, card, frame, reset_counts,
     del state0
     records += trained_multi_frame(torch, dev, "shiny", cfg, info,
                                    trainer.model, state, frame,
-                                   reset_counts, read_counts)
+                                   reset_counts, read_counts)[0]
     del trainer, state
     torch.cuda.empty_cache()
 
@@ -3701,7 +3782,7 @@ def multi_training_phases(torch, dev, card, frame, reset_counts,
         "of 12 keyframes)")}
     records += trained_multi_frame(torch, dev, "n3d", cfg, info,
                                    trainer.model, state, frame,
-                                   reset_counts, read_counts)
+                                   reset_counts, read_counts)[0]
     del trainer, state, dds
     torch.cuda.empty_cache()
 
@@ -3747,6 +3828,490 @@ def multi_training_phases(torch, dev, card, frame, reset_counts,
     return records, record
 
 
+# ---- 64-66: training from scenes on disk (the port's loaders and ray
+# store). The scenes are written by this script, from SEED, into a
+# temporary directory: PNG by a stdlib writer, smooth fields that differ
+# per camera and frame.
+TECH_WH = (2048, 1088)          # the published rig's resolution
+TECH_RIG = 4                    # the published 4 x 4 rig
+TECH_FRAMES = 9                 # of the published 50-frame window
+# the train rays: 15 cameras x 2,228,224 pixels x (2 whole frames + 1 at
+# 1/4 + 6 at 1/8)
+TECH_TRAIN_RAYS = 100_270_080
+TECH_VAL_FRAME = 4
+# what 9 frames need: the rays in memory while the store is written
+# (~10 GB with the loader's copies) and the store on disk (48 bytes a ray)
+TECH_RAM_BYTES = 16 << 30
+TECH_DISK_BYTES = 7 << 30
+LLFF_CAPTURE = (4032, 3024)     # the capture's size in poses_bounds.npy
+LLFF_WH = (1008, 756)           # its published downsample=4 rays
+LLFF_VIEWS = 20
+LLFF_TRAIN_RAYS = 12_954_816    # 17 views (val_skip 8 holds out 0, 8, 16)
+LLFF_VAL_VIEW = 8
+DATA_STEPS = 60
+STORE_GATHER = 4096
+
+
+def write_png(path, img):
+    """uint8 [H, W, 3] as an 8-bit RGB PNG: zlib, filter 0 on every row."""
+    import struct
+    import zlib
+
+    H, W, _ = img.shape
+    raw = np.zeros((H, 1 + 3 * W), np.uint8)
+    raw[:, 1:] = img.reshape(H, 3 * W)
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw.tobytes(), 1))
+                + chunk(b"IEND", b""))
+
+
+def smooth_image(wh, freqs, shift):
+    """A smooth uint8 [H, W, 3] field: per channel a sinusoid across x plus
+    one across y, `freqs` [3, 2] cycles per image, moved by `shift` (x, y)
+    of a cycle (a camera's parallax, a frame's motion)."""
+    W, H = wh
+    x = np.arange(W, dtype=np.float32) / W
+    y = np.arange(H, dtype=np.float32) / H
+    out = np.empty((H, W, 3), np.uint8)
+    for c, (fx, fy) in enumerate(freqs):
+        v = (0.5 + 0.22 * np.sin(2 * np.pi * (fx * x + shift[0]))[None]
+             + 0.22 * np.cos(2 * np.pi * (fy * y + shift[1]))[:, None])
+        out[..., c] = np.clip(v * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    return out
+
+
+def write_images(jobs):
+    """Write (path, wh, freqs, shift) images, eight threads at a time
+    (zlib releases the interpreter's lock); every future is read."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(job):
+        path, wh, freqs, shift = job
+        write_png(path, smooth_image(wh, freqs, shift))
+
+    with ThreadPoolExecutor(8) as ex:
+        for fut in [ex.submit(one, j) for j in jobs]:
+            fut.result()
+
+
+def write_technicolor_scene(root, frames):
+    """A Technicolor scene ("painter") at the published rig and
+    resolution: a 4 x 4 rig of cameras 0.1 apart facing -z (unit
+    quaternions within ~0.6 degrees of the identity, focal ~1,800 px at
+    2048 x 1088), `frames` frames of smooth images."""
+    rng = np.random.default_rng(SEED)
+    d = os.path.join(root, "painter")
+    os.makedirs(os.path.join(d, "images"))
+    lines = ["focal cx cy aspect skew qw qx qy qz d1 d2 tx ty tz\n"]
+    n = TECH_RIG * TECH_RIG
+    for c in range(n):
+        q = np.array([1.0, *rng.normal(0, 0.005, 3)])
+        q /= np.linalg.norm(q)
+        t = [0.1 * (c % TECH_RIG - 1.5), 0.1 * (c // TECH_RIG - 1.5),
+             rng.normal(0, 0.005)]
+        lines.append(" ".join(repr(float(v)) for v in [
+            1800.0 + rng.normal(0, 5), 1024.0, 544.0, 1.0, 0.0, *q,
+            0.0, 0.0, *t]) + "\n")
+    with open(os.path.join(d, "cameras_parameters.txt"), "w") as f:
+        f.writelines(lines)
+    freqs = rng.uniform(0.5, 3.0, (3, 2))
+    write_images([
+        (os.path.join(d, "images", f"frame_{fi:04d}_cam_{c:02d}.png"),
+         TECH_WH, freqs, (0.3 * (c % TECH_RIG) + 0.05 * fi,
+                          0.3 * (c // TECH_RIG)))
+        for fi in range(frames) for c in range(n)])
+    return d
+
+
+def write_llff_scene(root):
+    """An LLFF scene of LLFF_VIEWS forward-facing views: poses_bounds.npy
+    in LLFF's layout (rotation columns down, right, back; H, W and focal of
+    a 4032 x 3024 capture; near ~1.2, far ~20), the images at 1008 x 756,
+    the size of the published downsample=4 rays."""
+    rng = np.random.default_rng(SEED + 1)
+    d = os.path.join(root, "fern")
+    os.makedirs(os.path.join(d, "images"))
+    W0, H0 = LLFF_CAPTURE
+    rows = np.zeros((LLFF_VIEWS, 17))
+    for i in range(LLFF_VIEWS):
+        R = np.array([[0.0, 1.0, 0.0], [-1.0, 0.0, 0.0], [0.0, 0.0, 1.0]])
+        R = R + rng.normal(0, 0.01, (3, 3))
+        t = [0.05 * (i % 5 - 2), 0.05 * (i // 5 - 1.5), rng.normal(0, 0.01)]
+        pose = np.concatenate([R, np.array(t)[:, None],
+                               np.array([H0, W0, 3260.0])[:, None]], 1)
+        rows[i, :15] = pose.reshape(-1)
+        rows[i, 15:] = [1.2 + rng.uniform(0, 0.2), 20.0 + rng.uniform(0, 2)]
+    np.save(os.path.join(d, "poses_bounds.npy"), rows)
+    freqs = rng.uniform(0.5, 3.0, (3, 2))
+    write_images([(os.path.join(d, "images", f"view_{i:03d}.png"), LLFF_WH,
+                   freqs, (0.3 * (i % 5), 0.3 * (i // 5)))
+                  for i in range(LLFF_VIEWS)])
+    return d
+
+
+class RssPeak:
+    """The peak resident set of this process while the block runs, from
+    /proc/self/status sampled every 20 ms by a thread (bytes)."""
+
+    def __enter__(self):
+        import threading
+
+        self.peak, self._stop = self.now(), threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    @staticmethod
+    def now():
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024
+        raise RuntimeError("no VmRSS in /proc/self/status")
+
+    def _run(self):
+        while not self._stop.wait(0.02):
+            self.peak = max(self.peak, self.now())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=5)
+        self.peak = max(self.peak, self.now())
+
+
+def host_meminfo():
+    """{field: bytes} of /proc/meminfo (MemTotal, MemAvailable, ...)."""
+    out = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            k, v = line.split(":")
+            out[k] = int(v.split()[0]) * 1024
+    return out
+
+
+def host_report():
+    """The early line: Pillow and cv2 (importable or not), the host's RAM,
+    the free disk under the temporary directory."""
+    import importlib.util
+    import shutil
+    import tempfile
+
+    mem = host_meminfo()
+    tmp = tempfile.gettempdir()
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ("PIL", "cv2")}
+    return (f"# host: PIL {have['PIL']}, cv2 {have['cv2']}; RAM "
+            f"{mem['MemTotal'] / 2**30:.1f} GiB, available "
+            f"{mem['MemAvailable'] / 2**30:.1f} GiB; free disk under {tmp} "
+            f"{shutil.disk_usage(tmp).free / 2**30:.1f} GiB; "
+            f"{os.cpu_count()} CPUs")
+
+
+def host_ms(fn, reps):
+    """Mean host milliseconds per call of fn over `reps` calls after one
+    warm-up call (the sampler runs on the host)."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def scene_trainer(torch, dev, preset, info):
+    """The preset at full width (bf16 MLP policy and tables) with the
+    loader's dataset_info, DEFAULT_TRAINING and tv_4000_defaults, its own
+    events (none within DATA_STEPS): (cfg, trainer)."""
+    import copy
+
+    from hyperreel_tpu_torch.config import DEFAULT_TRAINING
+    from hyperreel_tpu_torch.configs import presets
+    from hyperreel_tpu_torch.models.model import build_model
+    from hyperreel_tpu_torch.train.regularizers import tv_4000_defaults
+    from hyperreel_tpu_torch.train.trainer import Trainer
+
+    cfg = presets.convert_epochs_to_iters(getattr(presets, preset)(),
+                                          iters_per_epoch=4000)
+    model = build_model(copy.deepcopy(cfg), dataset_info=info,
+                        compute_dtype=torch.bfloat16)
+    trainer = Trainer(model, copy.deepcopy(DEFAULT_TRAINING),
+                      regularizer_cfgs=tv_4000_defaults(),
+                      iters_per_epoch=4000, device=dev)
+    return cfg, trainer
+
+
+def scene_fit(torch, dev, trainer, batches, tag):
+    """DATA_STEPS of Trainer.fit from the init of torch.Generator seed
+    SEED: every loss and param finite, the mean image loss of the last 5
+    steps below the first 5's. Returns (state, record)."""
+    state = trainer.init_state(torch.Generator().manual_seed(SEED))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, hist = trainer.fit(state, batches, DATA_STEPS, gen=gen,
+                              log_every=1)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    losses = [h["image_loss"] for h in hist]
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    print(f"# {tag}: {DATA_STEPS} steps in {fit_s:.2f} s "
+          f"({fit_s * 1e3 / DATA_STEPS:.2f} ms a step, the sampler "
+          f"included): image loss first 5 {first:.5f}, last 5 {last:.5f}; "
+          f"psnr {hist[0]['psnr']:.2f} -> {hist[-1]['psnr']:.2f}",
+          flush=True)
+    if not (all(np.isfinite(h[k]) for h in hist for k in h)
+            and params_finite(torch, state.params)):
+        raise AssertionError(f"{tag}: a loss or a param is not finite")
+    if not last < first:
+        raise AssertionError(f"{tag}: the image loss did not fall ({first} "
+                             f"-> {last})")
+    return state, {"image_loss_first5_last5": [first, last], "fit_s": fit_s}
+
+
+def step_ms(torch, trainer, state, batches, reps=20):
+    """ms per training step (CUDA events over `reps` steps after one
+    warm-up) on batches already on the card, on a copy of `state`."""
+    import copy
+
+    state = copy.deepcopy(state)
+    opt = trainer.make_optimizer(state.params)
+    gen = torch.Generator(device=trainer.device).manual_seed(SEED)
+    state, _ = trainer.step(state, batches[0], opt, gen)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for b in batches[1:reps + 1]:
+        state, _ = trainer.step(state, b, opt, gen)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def view_chunks(torch, dev, view):
+    """A whole view's rays as chunks of at most CHUNK on the card, and its
+    image [N, 3]."""
+    rays = torch.from_numpy(view["rays"]).to(dev)
+    return (list(torch.split(rays, CHUNK)),
+            torch.from_numpy(view["rgb"]).to(dev))
+
+
+def data_phases(torch, dev, card, reset_counts, read_counts):
+    """Phases 64-66: the flagship trained from a Technicolor scene at the
+    published rig and resolution through the port's loader and ray store,
+    its held-out view rendered through K1 + K2; llff_z_plane trained from
+    an LLFF scene at its published setting, its held-out view rendered
+    through K1 + K5; the ray store alone. Returns (the kernels' JSON
+    records, the data record)."""
+    import shutil
+    import tempfile
+
+    from hyperreel_tpu_torch.config import DEFAULT_TRAINING
+    from hyperreel_tpu_torch.data import get_dataset
+    from hyperreel_tpu_torch.data.raystore import MmapRayStore
+    from hyperreel_tpu_torch.models.ctx import StepCtx
+    from hyperreel_tpu_torch.train.metrics import psnr
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_scenes_")
+    try:
+        records, record = [], {}
+        B = DEFAULT_TRAINING["batch_size"]
+
+        # ---- 64. technicolor at the published rig and resolution
+        mem, free = host_meminfo()["MemAvailable"], shutil.disk_usage(
+            tmp).free
+        frames = TECH_FRAMES
+        if mem < TECH_RAM_BYTES or free < TECH_DISK_BYTES:
+            raise RuntimeError(f"64. the host has {mem / 2**30:.1f} GiB "
+                               f"available (needs "
+                               f"{TECH_RAM_BYTES / 2**30:.0f}) and "
+                               f"{free / 2**30:.1f} GiB of disk (needs "
+                               f"{TECH_DISK_BYTES / 2**30:.0f}) for the "
+                               f"{frames}-frame scene")
+        print(f"# 64. the cut: {frames} frames of the published 50-frame "
+              f"window (keyframe_step 4: "
+              f"{frames // 4} keyframes, not 12); every width as published "
+              f"(a {TECH_RIG} x {TECH_RIG} rig at {TECH_WH[0]} x "
+              f"{TECH_WH[1]})", flush=True)
+        t0 = time.perf_counter()
+        root = write_technicolor_scene(tmp, frames)
+        write_s = time.perf_counter() - t0
+        kw = dict(img_wh=TECH_WH, num_frames=frames, keyframe_step=4,
+                  load_full_step=8)
+        with RssPeak() as rss:
+            base_rss = rss.peak
+            t0 = time.perf_counter()
+            ds = get_dataset("technicolor", root, split="train", **kw)
+            train_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            val = get_dataset("technicolor", root, split="val", **kw)
+            val_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            store = MmapRayStore.create(os.path.join(tmp, "train.npy"), ds)
+            store_s = time.perf_counter() - t0
+        n_img = ds.num_images + val.num_images
+        pixels = TECH_WH[0] * TECH_WH[1]
+        print(f"# 64. scene of {frames * TECH_RIG ** 2} images written in "
+              f"{write_s:.1f} s; loaded {ds.num_images} train images in "
+              f"{train_s:.1f} s and {val.num_images} val in {val_s:.1f} s: "
+              f"{(train_s + val_s) / n_img:.3f} s per {TECH_WH[0]} x "
+              f"{TECH_WH[1]} image; {ds.num_rays} train rays, "
+              f"{val.num_rays} val; dataset_info {ds.info()}; the ray "
+              f"store {store.data.nbytes / 1e9:.2f} GB written in "
+              f"{store_s:.1f} s ({store.n_threads} sampler threads); peak "
+              f"RSS {rss.peak / 2**30:.2f} GiB (from {base_rss / 2**30:.2f} "
+              f"before the load)", flush=True)
+        if ds.num_rays != TECH_TRAIN_RAYS or \
+                val.num_rays != frames * pixels:
+            raise AssertionError(f"technicolor: {ds.num_rays} train rays, "
+                                 f"want {TECH_TRAIN_RAYS}; "
+                                 f"{val.num_rays} val, want "
+                                 f"{frames * pixels}")
+        record["technicolor"] = {
+            "frames": frames, "train_rays": ds.num_rays,
+            "s_per_image": (train_s + val_s) / n_img, "write_s": write_s,
+            "store_s": store_s, "peak_rss_bytes": rss.peak,
+            "rss_before_bytes": base_rss}
+
+        cfg, trainer = scene_trainer(torch, dev, "technicolor_z_plane",
+                                     ds.info())
+        state, record["technicolor"]["fit"] = scene_fit(
+            torch, dev, trainer, store.batch_iterator(B, seed=SEED),
+            "64. technicolor_z_plane from the ray store")
+
+        # the sampler against the in-memory sampler and the step
+        seeds = iter(range(10 ** 6, 2 * 10 ** 6))
+        mem16 = ds.batch_iterator(B, seed=SEED + 1)
+        mem262 = ds.batch_iterator(CHUNK, seed=SEED + 2)
+        sampler = {
+            "store_16384_ms": host_ms(lambda: store.sample(B, next(seeds)),
+                                      20),
+            "store_262144_ms": host_ms(
+                lambda: store.sample(CHUNK, next(seeds)), 5),
+            "memory_16384_ms": host_ms(lambda: next(mem16), 20),
+            "memory_262144_ms": host_ms(lambda: next(mem262), 5)}
+        sampler["step_ms"] = step_ms(torch, trainer, state, [
+            trainer.to_device(store.sample(B, 2 * 10 ** 6 + i))
+            for i in range(21)])
+        print(f"# 64. {card}: the ray store's sampler "
+              f"{sampler['store_16384_ms']:.3f} ms per batch of {B} rays, "
+              f"{sampler['store_262144_ms']:.3f} ms per {CHUNK}; the "
+              f"in-memory batch_iterator {sampler['memory_16384_ms']:.3f} "
+              f"and {sampler['memory_262144_ms']:.3f} ms; the step "
+              f"{sampler['step_ms']:.3f} ms (CUDA events, batches on the "
+              "card)", flush=True)
+        record["technicolor"]["sampler"] = sampler
+
+        # the held-out camera's frame through K1 + K2
+        model = trainer.model
+        ctx = StepCtx(it=state.it)
+        chunks, gt = view_chunks(torch, dev, val.image(TECH_VAL_FRAME))
+        with torch.no_grad():
+            prep = model.prepare_eval(state.params)
+            rk = {"cf_prepared": prep, "uniform_time": True}
+
+            def render():
+                return [model.apply(state.params, c, ctx, rk)["rgb"]
+                        for c in chunks]
+
+            reset_counts()
+            rgb = torch.cat(render())
+            torch.cuda.synchronize()
+            counts = read_counts()
+            want = dict.fromkeys(counts, 0)
+            want.update(pack_build=len(chunks), shade=len(chunks))
+            frame_ms = cuda_ms(torch, render, 3)
+            p = psnr(rgb, gt).item()
+            print(f"# 64. {card}: the held-out camera (2, 2), frame "
+                  f"{TECH_VAL_FRAME} ({rgb.shape[0]} rays, {len(chunks)} "
+                  f"chunks, quad route): {frame_ms:.3f} ms per frame, psnr "
+                  f"{p:.3f} dB; rgb min {rgb.min().item():.4f} max "
+                  f"{rgb.max().item():.4f}; launches {counts}", flush=True)
+            if counts != want:
+                raise AssertionError(f"technicolor view: launches {counts}, "
+                                     f"want {want}")
+            if not (torch.isfinite(rgb).all() and rgb.min() >= 0
+                    and rgb.max() <= 1 and rgb.shape == gt.shape):
+                raise AssertionError("technicolor view: rgb not finite in "
+                                     "[0, 1]")
+            record["technicolor"].update(view_ms=frame_ms, view_psnr=p)
+            k1, k2 = trained_flagship_chunk(torch, model, state.params,
+                                            chunks[0], ctx, prep,
+                                            "technicolor scene")
+        records += flagship_entries("technicolor_scene_trained", counts, k1,
+                                    k2)
+        tech = ds
+        del trainer, model, state, prep, chunks, gt, rgb, val, ds
+        torch.cuda.empty_cache()
+
+        # ---- 65. llff at its published setting
+        t0 = time.perf_counter()
+        root = write_llff_scene(tmp)
+        write_s = time.perf_counter() - t0
+        kw = dict(downsample=1, use_ndc=True, val_skip=8)
+        t0 = time.perf_counter()
+        ds = get_dataset("llff", root, split="train", **kw)
+        val = get_dataset("llff", root, split="val", **kw)
+        load_s = time.perf_counter() - t0
+        print(f"# 65. llff: {LLFF_VIEWS} views written in {write_s:.1f} s, "
+              f"loaded in {load_s:.1f} s ({load_s / LLFF_VIEWS:.3f} s per "
+              f"{LLFF_WH[0]} x {LLFF_WH[1]} image); {ds.num_rays} train "
+              f"rays of {ds.num_images} views; dataset_info {ds.info()}",
+              flush=True)
+        if ds.num_rays != LLFF_TRAIN_RAYS or tuple(ds.img_wh) != LLFF_WH:
+            raise AssertionError(f"llff: {ds.num_rays} train rays at "
+                                 f"{ds.img_wh}, want {LLFF_TRAIN_RAYS} at "
+                                 f"{LLFF_WH}")
+        cfg, trainer = scene_trainer(torch, dev, "llff_z_plane", ds.info())
+        state, record["llff"] = scene_fit(
+            torch, dev, trainer, ds.batch_iterator(B, seed=SEED),
+            "65. llff_z_plane from the in-memory rays")
+        record["llff"].update(s_per_image=load_s / LLFF_VIEWS,
+                              train_rays=ds.num_rays)
+        # view 8 is the second of the val split (0, 8, 16)
+        chunks, gt = view_chunks(torch, dev, val.image(1))
+        recs, view = trained_multi_frame(
+            torch, dev, "llff", cfg, ds.info(), trainer.model, state, chunks,
+            reset_counts, read_counts, label="llff_scene", gt=gt)
+        records += recs
+        print(f"# 65. {card}: the held-out view {LLFF_VAL_VIEW} "
+              f"({gt.shape[0]} rays, {len(chunks)} chunks, quad route): "
+              f"{view['view_ms']:.3f} ms per frame, psnr "
+              f"{view['view_psnr']:.3f} dB", flush=True)
+        record["llff"].update(view)
+        del trainer, state, chunks, gt, ds, val
+        torch.cuda.empty_cache()
+
+        # ---- 66. the ray store alone, on 64's rays: gather against the
+        # in-memory rows; a seed's batch twice, another seed's
+        idx = np.random.default_rng(SEED).integers(0, store.num_rays,
+                                                   STORE_GATHER)
+        got = store.gather(idx)
+        gather_ok = all(np.array_equal(got[k], v[idx]) for k, v in (
+            ("rays", tech.all_coords), ("rgb", tech.all_rgb),
+            ("weights", tech.all_weights)))
+        a, b, c = (store.sample(B, s)["rays"] for s in (SEED, SEED,
+                                                         SEED + 1))
+        print(f"# 66. the ray store ({store.num_rays} rows, "
+              f"{store.n_threads} threads): gather of {STORE_GATHER} seeded "
+              f"indices equal to the in-memory rows: {gather_ok}; one seed "
+              f"twice equal: {np.array_equal(a, b)}; another seed differs: "
+              f"{not np.array_equal(a, c)}", flush=True)
+        if not (gather_ok and np.array_equal(a, b)
+                and not np.array_equal(a, c)):
+            raise AssertionError("the ray store's gather or sampler "
+                                 "disagrees")
+        return records, record
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     import torch
 
@@ -3760,6 +4325,7 @@ def main():
     print(card.splitlines()[0], flush=True)
     print(f"# torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
+    print(host_report(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -4229,7 +4795,7 @@ def main():
                 base = (family, (cfg, info, params))
             elif family == "n3d":
                 c, _, p, _ = n3d(dev)
-                base = (family, (c, N3D_INFO, p))
+                base = (family, (c, n3d_info(), p))
             else:
                 c, _, p, _ = static_model(dev, family)
                 base = (family, (c, None, p))
@@ -4252,6 +4818,14 @@ def main():
     # K5, K6 and K4 + K5-pre, and a resumed llff checkpoint
     multi_train_entries, multi_train_record = multi_training_phases(
         torch, dev, gpu, frame, reset_counts, read_counts)
+    torch.cuda.empty_cache()
+
+    # ---- 64-66. training from scenes on disk: the flagship from a
+    # Technicolor scene through the ray store, llff_z_plane from an LLFF
+    # scene, their held-out views through K1 + K2 and K1 + K5; the ray
+    # store alone
+    data_entries, data_record = data_phases(torch, dev, gpu, reset_counts,
+                                            read_counts)
     torch.cuda.empty_cache()
     print("# SH bounds, ms with the basis folded per ray (the least work, "
           "the kernels' line) / by the unfolded count: " + "; ".join(
@@ -4284,9 +4858,9 @@ def main():
               k7_err, k7_ms, k7_plain_ms, k7_bound)] + llff_entries
         + n3d_entries + shiny_entries + stanford_entries
         + primitive_entries + own_entries + count_entries + train_entries
-        + multi_train_entries,
+        + multi_train_entries + data_entries,
         "frame_ms": frame_ms, "train": train_record,
-        "train_multi": multi_train_record}
+        "train_multi": multi_train_record, "data": data_record}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

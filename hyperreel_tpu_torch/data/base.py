@@ -4,7 +4,10 @@ datasets/base.py).
 The rays are flat numpy arrays `all_coords` [N, 6/7/8] and `all_rgb` [N,
 3]; the train split samples rows with replacement from a numpy generator
 (`default_rng(seed)`, so a seed gives the JAX package's batches), val and
-test take whole images. The trainer moves each batch to the device.
+test take whole images. The trainer moves each batch to the
+device. A loader also records its cameras (poses, intrinsics), the NDC
+projection its rays went through and, for a camera grid, its rows and
+columns: the render paths and the viewer make new rays from them.
 """
 
 from dataclasses import dataclass, field
@@ -28,6 +31,19 @@ class RayDataset:
     far: float = 1.0
     depth_range: tuple = (0.0, 1.0)
     extras: Dict[str, np.ndarray] = field(default_factory=dict)
+    # camera-to-world poses [V, 3, 4] and intrinsics [3, 3], where the
+    # loader has cameras (the spiral and other render paths start there)
+    poses: Optional[np.ndarray] = None
+    intrinsics: Optional[np.ndarray] = None
+    # (fx, fy, near) where the rays are in NDC space: rays made for a
+    # render path go through the same projection (reference
+    # datasets/base.py get_coords_from_camera)
+    ndc_params: Optional[tuple] = None
+    # the camera grid (rows x cols) of a light-field loader (stanford):
+    # the EPI visualizer reads its ground-truth EPIs from it (reference
+    # nlf/visualizers/epipolar.py:93-101)
+    num_rows: Optional[int] = None
+    num_cols: Optional[int] = None
 
     def __post_init__(self):
         if self.all_weights is None:

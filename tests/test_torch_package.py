@@ -1,8 +1,9 @@
-"""Packaging of the PyTorch port: it imports no JAX, no Triton and
-nothing of the JAX package (its presets are its own copy, held equal to
-the JAX package's here), and chip_smoke.py refuses to run (non-zero exit,
-no result line) without a CUDA card or without the repository beside
-it."""
+"""Packaging of the PyTorch port: it imports no JAX, no Triton, nothing
+of the JAX package (its presets are its own copy, held equal to the JAX
+package's here) and, until a loader reads a file, neither Pillow nor cv2;
+its ray store's sampler is built from its own source; and chip_smoke.py
+refuses to run (non-zero exit, no result line) without a CUDA card or
+without the repository beside it."""
 
 import os
 import shutil
@@ -43,15 +44,29 @@ def test_port_imports_no_jax():
         "sys.path.insert(0, 'scripts')\n"
         "import profile_torch_frame\n"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'triton',\n"
-        "       'hyperreel_tpu') or m.startswith(('jax.', 'jaxlib.',\n"
-        "       'triton.', 'hyperreel_tpu.'))]\n"
+        "       'hyperreel_tpu', 'PIL', 'cv2') or m.startswith(('jax.',\n"
+        "       'jaxlib.', 'triton.', 'hyperreel_tpu.', 'PIL.', 'cv2.'))]\n"
         "assert not bad, bad\n"
         "assert len(mods) > 25, mods\n"
         "assert {'hyperreel_tpu_torch.ops.kernels.shade_multi',\n"
         "        'hyperreel_tpu_torch.ops.kernels.shade_multi_patch',\n"
-        "        'hyperreel_tpu_torch.ops.contract'} <= set(mods), mods\n"
+        "        'hyperreel_tpu_torch.ops.contract',\n"
+        "        'hyperreel_tpu_torch.data.technicolor',\n"
+        "        'hyperreel_tpu_torch.data.raystore'} <= set(mods), mods\n"
         "print('clean')\n", cwd=ROOT)
     assert res.returncode == 0 and "clean" in res.stdout, res.stderr
+
+
+def test_ray_store_builds_from_the_ports_source(tmp_path):
+    """The port's sampler is compiled from hyperreel_tpu_torch/csrc/
+    raystore.cpp into the given build directory, not from native/."""
+    from hyperreel_tpu_torch.data import raystore
+
+    assert raystore.SOURCE == ROOT / "hyperreel_tpu_torch" / "csrc" / \
+        "raystore.cpp"
+    assert raystore.BUILD_DIR == ROOT / "build" / "hyperreel_tpu_torch"
+    raystore.load_library(tmp_path)
+    assert (tmp_path / raystore.LIB_NAME).exists()
 
 
 @pytest.mark.parametrize("name,make", [
