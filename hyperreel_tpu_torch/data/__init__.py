@@ -1,15 +1,23 @@
 """The dataset registry (port of hyperreel_tpu/data/__init__.py; reference
 datasets/__init__.py dataset_dict). Each loader's module is imported when
-the loader is called, and reads its files with Pillow or cv2 there."""
+the loader is called, and reads its files with Pillow or cv2 there. A
+`device` given to a loader reaches it where its signature takes one (the
+synthetic scenes march their rays on it); the loaders that only read files
+compute on the host and are not passed it."""
 
 import importlib
+import inspect
 
 
 def _lazy(name):
-    def loader(*args, **kwargs):
+    def loader(*args, device=None, **kwargs):
         mod, fn = name.rsplit(".", 1)
-        return getattr(importlib.import_module(
-            "hyperreel_tpu_torch.data." + mod), fn)(*args, **kwargs)
+        load = getattr(importlib.import_module(
+            "hyperreel_tpu_torch.data." + mod), fn)
+        if device is not None and \
+                "device" in inspect.signature(load).parameters:
+            kwargs["device"] = device
+        return load(*args, **kwargs)
 
     return loader
 

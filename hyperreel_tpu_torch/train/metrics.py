@@ -47,3 +47,13 @@ def ssim(img, gt, data_range=1.0):
     num = (2 * mu_xy + C1) * (2 * sigma_xy + C2)
     den = (mu_x2 + mu_y2 + C1) * (sigma_x2 + sigma_y2 + C2)
     return (num / den).mean()
+
+
+def get_mean_outputs(outputs_list):
+    """Aggregate a list of per-image metric dicts into means
+    (reference metrics.py:60-93)."""
+    if not outputs_list:
+        return {}
+    keys = outputs_list[0].keys()
+    return {k: float(np.mean([float(o[k]) for o in outputs_list]))
+            for k in keys}

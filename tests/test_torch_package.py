@@ -29,8 +29,9 @@ def _run(code_or_script, cwd, script=False):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, chip_smoke.py's imports (and its model
-    build, which reads the presets) and the profile script's."""
+    """Every module of the port (the CLI, System, viewer, chunked renderer,
+    export and visualizers among them), chip_smoke.py's imports (and its
+    model build, which reads the presets) and the profile script's."""
     res = _run(
         "import importlib, pkgutil, sys\n"
         "import hyperreel_tpu_torch\n"
@@ -52,7 +53,15 @@ def test_port_imports_no_jax():
         "        'hyperreel_tpu_torch.ops.kernels.shade_multi_patch',\n"
         "        'hyperreel_tpu_torch.ops.contract',\n"
         "        'hyperreel_tpu_torch.data.technicolor',\n"
-        "        'hyperreel_tpu_torch.data.raystore'} <= set(mods), mods\n"
+        "        'hyperreel_tpu_torch.data.raystore',\n"
+        "        'hyperreel_tpu_torch.main', 'hyperreel_tpu_torch.system',\n"
+        "        'hyperreel_tpu_torch.viewer', 'hyperreel_tpu_torch.config',\n"
+        "        'hyperreel_tpu_torch.configs.reference_yaml',\n"
+        "        'hyperreel_tpu_torch.ops.marching_cubes',\n"
+        "        'hyperreel_tpu_torch.train.render',\n"
+        "        'hyperreel_tpu_torch.train.export',\n"
+        "        'hyperreel_tpu_torch.train.lpips',\n"
+        "        'hyperreel_tpu_torch.train.visualizers'} <= set(mods), mods\n"
         "print('clean')\n", cwd=ROOT)
     assert res.returncode == 0 and "clean" in res.stdout, res.stderr
 

@@ -17,7 +17,7 @@ from hyperreel_tpu.configs.presets import (
     tiny_shiny, tiny_stanford_llff, tiny_static)
 from hyperreel_tpu.models.model import build_model as build_jax
 from hyperreel_tpu.ops.pallas import shade as jax_shade
-from hyperreel_tpu_torch.convert import params_from_jax
+from hyperreel_tpu_torch.convert import params_from_jax, params_to_jax
 from hyperreel_tpu_torch.models.model import build_model as build_torch
 from hyperreel_tpu_torch.ops.kernels.layout import JAX_PACK_ROWS, PACK_ROWS
 
@@ -103,6 +103,19 @@ def weights(jax_model, seed=0, density=1.0):
     scene that would leave the compositing untested). Returns (jax params,
     port params)."""
     pn = jax.tree.map(np.asarray, jax_model.init(jax.random.PRNGKey(seed)))
+    rng = np.random.default_rng(seed + 1)
+    for k, v in pn["color"]["density"].items():
+        pn["color"]["density"][k] = rng.uniform(0, density, v.shape).astype(
+            np.float32)
+    return jax.tree.map(jnp.asarray, pn), params_from_jax(pn, device="cpu")
+
+
+def port_weights(port_model, seed=0, density=1.0):
+    """`weights` from the port's init (a seeded torch.Generator; the JAX
+    package's init takes seconds on the CPU): (jax params, port
+    params)."""
+    pn = params_to_jax(port_model.init(torch.Generator().manual_seed(seed),
+                                       "cpu"))
     rng = np.random.default_rng(seed + 1)
     for k, v in pn["color"]["density"].items():
         pn["color"]["density"][k] = rng.uniform(0, density, v.shape).astype(
