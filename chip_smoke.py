@@ -22,7 +22,12 @@ the user's entry points: the flagship trained, evaluated, rendered along
 a spiral and exported as a mesh through the CLI
 (`hyperreel_tpu_torch.main`), the viewer's resolution ladder and its HTTP
 server on the trained flagship, and llff_z_plane trained and evaluated
-through the CLI with its visualizers.
+through the CLI with its visualizers; data-parallel training (one rank
+over NCCL through System.fit, two ranks over gloo against one process);
+and the last model families: technicolor_cascaded trained through the CLI
+and evaluated through K2, blender_voxel trained and rendered at 192
+samples through the general chain, refnerf_sphere_reflect,
+refnerf_sphere and shiny_z_deformable trained and rendered through K5.
 
     python3 chip_smoke.py
 
@@ -291,7 +296,45 @@ no result line):
      epipolar and focus visualizers in the config, then --eval-only on its
      checkpoint: the launches K1 and K5 only, the visualizers' images
      written; on the first held-out view K1 and K5 against their plain
-     versions.
+     versions;
+ 74. data parallelism (hyperreel_tpu_torch/parallel/mesh.py): this
+     process joins a process group of one rank over NCCL and the flagship
+     (bf16) trains DP_STEPS steps through System.fit with
+     training.data_parallel=true on the blob scene (ShardedTrainer, the
+     all-reduce included), validated and checkpointed; the sharded step's
+     ms (CUDA events);
+ 75. two ranks over NCCL on the one card (`chip_smoke.py --nccl-probe`
+     subprocesses): NCCL refuses them (printed, with its message);
+ 76. two ranks over gloo on cuda:0 (`chip_smoke.py --dp-worker`
+     subprocesses; gloo's all-reduce and broadcast on tensors on the card
+     probed): DP_STEPS steps of the flagship (f32 MLP and tables, the
+     flow jitter on: a per-ray draw) on 16,384-ray global batches from
+     one set of weights, against one process on the same batches and
+     draws: the first step's averaged gradients per leaf (DP_GRAD_TOL),
+     the params after the steps (DP_PARAM_TOL of the distance they moved,
+     L2; a run without rank 1's rows must be 10x further off), both
+     ranks equal to the bit; ms/step of each rank and of one process;
+ 77-79. technicolor_cascaded (bf16) trained through the CLI on CASC_FRAMES
+     frames of 64's scene, CASC_EPOCHS epochs of CASC_ITERS steps with
+     its alpha event and first upsample moved into the run: the loss
+     falls, the validations launch K2 only (9 per image), the step's ms,
+     the peak of allocated memory, the held-out views' PSNR; a held-out
+     view through the Renderer (its ms, PSNR, 9 K2 launches); on its
+     first chunk K2 (the time plane, the predicted colour scale and
+     shift) against its plain version and the own route against the
+     general colour net, K2's time and bound;
+ 80-81. blender_voxel (bf16, 192 samples, softplus, white background) on
+     a Blender-layout scene written at the published 800 x 800
+     (BLENDER_TRAIN train and BLENDER_VAL val views): BLENDER_STEPS steps
+     across its alpha event moved to BLENDER_ALPHA_IT, the step's ms and
+     peak memory; a held-out view through the Renderer at BLENDER_CHUNK
+     rays a chunk (the general chain: no kernel), its ms, PSNR, peak
+     memory and the device's idle share over one chunk;
+ 82. refnerf_sphere_reflect and refnerf_sphere on the Blender scene, and
+ 83. shiny_z_deformable on 65's LLFF scene: FAMILY_STEPS steps, then a
+     held-out view through the general chain and K5 (RGB, the weights
+     row; once per chunk, nothing else), its first chunk's K5 against its
+     plain version and the own route against the general colour net.
 The line before the last is the kernels' JSON record (launches on their
 main path, error against the plain version, ms and the plain version's
 ms, and the least time the card could take, counting of each table only
@@ -3958,7 +4001,7 @@ STORE_GATHER = 4096
 # the CLI runs (phases 67-73): epochs of CLI_ITERS steps, the flagship's
 # alpha event and first upsample (the preset: 4000) moved into the run
 CLI_ITERS = 200
-CLI_EPOCHS = 3
+CLI_EPOCHS = 2
 CLI_ALPHA_IT = 100
 CLI_UPSAMPLE_IT = 250
 CLI_LLFF_ITERS = 100
@@ -4860,6 +4903,802 @@ def cli_phases(torch, dev, card, reset_counts, read_counts, tmp, tech_root,
     torch.cuda.empty_cache()
     return records, record
 
+DP_STEPS = 20
+DP_TIMED = 10                   # steps timed per run, after the rest
+DP_FLOW_SCALE = 1.0             # the keyframe jitter on: a per-ray draw
+# the averaged gradients of the first step against the one-process
+# step's: each leaf within 1e-4 of its largest entry (f32 sums over 8,192
+# and 16,384 rays in another order, the lookups' backward by atomics); a
+# summed gradient is off by the whole leaf
+DP_GRAD_TOL = 1e-4
+# the params after DP_STEPS Adam steps: their distance to the one-process
+# run's (L2 over every leaf) within 1e-2 of the distance that run moved
+# them; the run that drops rank 1's rows must be 10x further off. (The
+# largest single difference says little: Adam's first steps move a
+# parameter whose gradient is a sum that cancels to ~0 by +-lr whatever
+# its rounding, measured 3.7e-2 after 20 steps under the deterministic
+# algorithms too.)
+DP_PARAM_TOL = 1e-2
+DP_WORKER_S = 600
+
+
+def dp_trainer(torch, dev, cfg, info):
+    """A model of `cfg` under the f32 MLP policy (DP's equality is held
+    without bf16's rounding), DEFAULT_TRAINING, tv_4000: (model,
+    trainer)."""
+    import copy
+
+    from hyperreel_tpu_torch.config import DEFAULT_TRAINING
+    from hyperreel_tpu_torch.models.model import build_model
+    from hyperreel_tpu_torch.train.regularizers import tv_4000_defaults
+    from hyperreel_tpu_torch.train.trainer import Trainer
+
+    model = build_model(copy.deepcopy(cfg), dataset_info=info)
+    return model, Trainer(model, copy.deepcopy(DEFAULT_TRAINING),
+                          regularizer_cfgs=tv_4000_defaults(),
+                          iters_per_epoch=4000, device=dev)
+
+
+def dp_steps(torch, dev, step, state, batches, optimizer):
+    """DP_STEPS steps of `step` from the generator of seed SEED ->
+    (state, ms per step over the last DP_TIMED, CUDA events)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for i, b in enumerate(batches):
+        if i == len(batches) - DP_TIMED:
+            torch.cuda.synchronize()
+            start.record()
+        state, _ = step(state, b, optimizer, gen, None)
+    end.record()
+    torch.cuda.synchronize()
+    return state, start.elapsed_time(end) / DP_TIMED
+
+
+def dp_worker(setup, out, rank, world, port):
+    """One rank of phase 76 (`chip_smoke.py --dp-worker SETUP OUT RANK
+    WORLD PORT`): gloo on cuda:0; a probe of gloo's all-reduce and
+    broadcast on tensors on the card; the first step's averaged gradients
+    and DP_STEPS ShardedTrainer steps from SETUP's weights and global
+    batches; OUT_<RANK>.pt gets the gradients, the params (on the host)
+    and the ms per step."""
+    import torch
+    import torch.distributed as dist
+
+    from hyperreel_tpu_torch.parallel.mesh import (
+        ShardedTrainer, initialize_multihost)
+    from hyperreel_tpu_torch.train.trainer import TrainState
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize_multihost(dev, backend="gloo",
+                         init_method=f"tcp://localhost:{port}",
+                         world_size=world, rank=rank)
+    probe = torch.full((4,), float(rank + 1), device=dev)
+    dist.all_reduce(probe)
+    ones = torch.full((2,), float(rank), device=dev)
+    dist.broadcast(ones, 1)
+    s = torch.load(setup, weights_only=False)
+    model, trainer = dp_trainer(torch, dev, s["cfg"], s["info"])
+    params = tree_to(s["params"], dev)
+    state = TrainState(params, trainer.make_optimizer(params).init(params),
+                       0)
+    sharded = ShardedTrainer(trainer)
+    state = sharded.place_state(state)
+    _, grads0 = sharded.grads(state.params, s["batches"][0], 0,
+                              torch.Generator(device=dev).manual_seed(SEED))
+    state, ms = dp_steps(torch, dev, sharded.step, state, s["batches"],
+                         trainer.make_optimizer(state.params))
+    torch.save({"grads0": {k: v.cpu() for k, v in grads0.items()},
+                "params": tree_to(state.params, "cpu"),
+                "ms": ms, "probe": probe.tolist(), "bcast": ones.tolist()},
+               f"{out}_{rank}.pt")
+    dist.destroy_process_group()
+
+
+def nccl_probe(rank, world, port):
+    """`chip_smoke.py --nccl-probe RANK WORLD PORT`: NCCL with every rank
+    on cuda:0; one all-reduce."""
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+    x = torch.ones(4, device=dev)
+    dist.all_reduce(x)
+    torch.cuda.synchronize()
+    print(f"rank {rank}: all-reduce gave {x.tolist()}", flush=True)
+    dist.destroy_process_group()
+
+
+def tree_to(tree, dev):
+    """The nested dict of tensors `tree` with every tensor on `dev`."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(args, world, timeout):
+    """Run `chip_smoke.py ARGS RANK WORLD PORT` for each rank at once ->
+    [(exit code, output)]; a rank still running at `timeout` is killed
+    (exit code None)."""
+    import sys
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), *args, str(r),
+         str(world), str(port)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    out = []
+    for p in procs:
+        try:
+            log = p.communicate(timeout=timeout)[0]
+            out.append((p.returncode, log))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out.append((None, p.communicate()[0]))
+    return out
+
+
+def dp_phases(torch, dev, card, tmp):
+    """Phases 74-76: data parallelism. The flagship through System.fit
+    with training.data_parallel=true in a process group of one rank over
+    NCCL (the path a multi-card user runs, all-reduce included); NCCL's
+    answer to two ranks on the one card; two ranks over gloo on the card,
+    DP_STEPS steps on 16,384-ray global batches, held against one process
+    on the same batches and draws. Returns the record."""
+    import copy
+    import itertools
+
+    import torch.distributed as dist
+
+    from hyperreel_tpu_torch.config import DEFAULT_TRAINING
+    from hyperreel_tpu_torch.configs.presets import (
+        convert_epochs_to_iters, technicolor_z_plane)
+    from hyperreel_tpu_torch.data.synthetic import gaussian_blob_scene
+    from hyperreel_tpu_torch.parallel.mesh import initialize_multihost
+    from hyperreel_tpu_torch.system import System
+    from hyperreel_tpu_torch.train.optim import tree_leaves
+    from hyperreel_tpu_torch.train.regularizers import tv_4000_defaults
+
+    record = {}
+    B = DEFAULT_TRAINING["batch_size"]
+    # ---- 74. System.fit, one rank over NCCL
+    initialize_multihost(dev, init_method=f"tcp://localhost:{free_port()}",
+                         world_size=1, rank=0)
+    scene = {k: list(v) if isinstance(v, tuple) else v
+             for k, v in TRAIN_SCENE.items()}
+    cfg = {"params": {"seed": SEED, "save_dir": os.path.join(tmp, "runs"),
+                      "name": "dp1", "compute_dtype": "bfloat16"},
+           "dataset": {"name": "synthetic_blobs", **scene},
+           "model": "technicolor_z_plane",
+           "training": {**copy.deepcopy(DEFAULT_TRAINING),
+                        "num_iters": DP_STEPS, "num_epochs": 1,
+                        "val_every": 1, "log_every": 5,
+                        "data_parallel": True},
+           "regularizers": tv_4000_defaults()}
+    t0 = time.perf_counter()
+    system = System(cfg, device=dev)
+    state, hist = system.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    sharded = system.sharded
+    batches = [system.trainer.to_device(b) for b in itertools.islice(
+        system.train_dataset.batch_iterator(B, seed=SEED + 5),
+        DP_TIMED + 1)]
+    _, ms1 = dp_steps(torch, dev, sharded.step, copy.deepcopy(state),
+                      batches, system.trainer.make_optimizer(state.params))
+    print(f"# 74. {card}: System.fit with training.data_parallel=true, one "
+          f"rank over {dist.get_backend()} (ShardedTrainer, world "
+          f"{dist.get_world_size()}): {state.it} steps of the flagship "
+          f"(bf16) in {fit_s:.1f} s with the scene, a validation and the "
+          f"checkpoint; loss " + ", ".join(
+              f"it {m['it']} {m['loss']:.5f}" for m in hist)
+          + f"; the data-parallel step {ms1:.3f} ms (CUDA events, "
+          f"{DP_TIMED} steps, the all-reduce included)", flush=True)
+    if not (sharded is not None and sharded.world == 1 and state.it ==
+            DP_STEPS and hist and all(np.isfinite(m["loss"]) for m in hist)
+            and params_finite(torch, state.params)
+            and os.path.isdir(os.path.join(system.save_dir, "last"))):
+        raise AssertionError("74. the data-parallel System.fit is not as "
+                             "expected")
+    record["nccl_world1"] = {"fit_s": fit_s, "step_ms": ms1,
+                             "losses": [m["loss"] for m in hist]}
+    dist.destroy_process_group()
+    del system, state, batches
+    torch.cuda.empty_cache()
+
+    # ---- 75. NCCL with two ranks on the one card
+    t0 = time.perf_counter()
+    res = spawn_ranks(["--nccl-probe"], 2, 60)
+    refused = any(rc != 0 for rc, _ in res)
+    why = [line for _, log in res for line in log.splitlines()
+           if "uplicate" in line or "Error" in line][:2]
+    print(f"# 75. NCCL, two ranks on cuda:0: exit codes "
+          f"{[rc for rc, _ in res]} in {time.perf_counter() - t0:.1f} s; "
+          f"{'refused' if refused else 'not refused'}: "
+          + (" | ".join(w.strip()[:200] for w in why) or res[0][1][-300:]),
+          flush=True)
+    record["nccl_two_ranks_one_card"] = {
+        "refused": refused, "exit_codes": [rc for rc, _ in res],
+        "message": why}
+
+    # ---- 76. two ranks over gloo on the card against one process
+    base = convert_epochs_to_iters(technicolor_z_plane(), 4000)
+    base["embedding"]["embeddings"]["flow_0"]["flow_scale"] = DP_FLOW_SCALE
+    # f32 tables: the lookups' backward sums into the table's dtype, and
+    # bf16 sums of two shards round 2-3e-3 (relative) away from one sum
+    # of both (a CPU run of the flagship's grids)
+    base["color"]["net"]["bf16_tables"] = False
+    ds = gaussian_blob_scene(**TRAIN_SCENE, device=dev)
+    model, trainer = dp_trainer(torch, dev, base, ds.info())
+    state0 = trainer.init_state(torch.Generator().manual_seed(SEED))
+    it = ds.batch_iterator(B, seed=SEED + 6)
+    glob = [next(it) for _ in range(DP_STEPS)]
+    setup = os.path.join(tmp, "dp_setup.pt")
+    torch.save({"cfg": base, "info": ds.info(),
+                "params": tree_to(state0.params, "cpu"),
+                "batches": glob}, setup)
+    t0 = time.perf_counter()
+    res = spawn_ranks(["--dp-worker", setup,
+                       os.path.join(tmp, "dp_rank")], 2, DP_WORKER_S)
+    spawn_s = time.perf_counter() - t0
+    for r, (rc, log) in enumerate(res):
+        if rc != 0:
+            raise AssertionError(f"76. gloo rank {r} exited {rc}:\n"
+                                 f"{log[-3000:]}")
+    outs = [torch.load(os.path.join(tmp, f"dp_rank_{r}.pt"),
+                       weights_only=False) for r in range(2)]
+    # one process on the same global batches and draws
+    st = copy.deepcopy(state0)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    _, _, grads1 = trainer.grads(st.params, trainer.to_device(glob[0]),
+                                 trainer.step_ctx(0, gen))
+
+    def one(state, batch, opt, g, d):
+        return trainer.step(state, trainer.to_device(batch), opt, g, d)
+
+    st, ms_one = dp_steps(torch, dev, one, st, glob,
+                          trainer.make_optimizer(st.params))
+    # the run that drops rank 1's rows (a shard lost)
+    half = [{k: v[:B // 2] for k, v in b.items()} for b in glob]
+    dropped, _ = dp_steps(torch, dev, one, copy.deepcopy(state0), half,
+                          trainer.make_optimizer(state0.params))
+    g_err = max((outs[0]["grads0"][p] - g.cpu()).abs().max().item()
+                / max(g.abs().max().item(), 1e-30)
+                for p, g in grads1.items())
+    g_sum = max((2 * outs[0]["grads0"][p] - g.cpu()).abs().max().item()
+                / max(g.abs().max().item(), 1e-30)
+                for p, g in grads1.items() if g.abs().max().item() > 0)
+
+    def flat(tree):
+        return torch.cat([v.detach().float().cpu().reshape(-1)
+                          for _, v in sorted(tree_leaves(tree),
+                                             key=lambda pv: pv[0])])
+
+    one_p, p0 = flat(st.params), flat(state0.params)
+    moved = (one_p - p0).norm().item()
+
+    def p_err(tree):
+        d = flat(tree) - one_p
+        return d.norm().item() / moved, d.abs().max().item()
+
+    same = (flat(outs[0]["params"]) - flat(outs[1]["params"])).abs().max(
+        ).item()
+    err, err_max = p_err(outs[0]["params"])
+    err_drop, drop_max = p_err(dropped.params)
+    print(f"# 76. {card}: two ranks over gloo on cuda:0 ({spawn_s:.1f} s "
+          f"with the processes' start): gloo took tensors on the card "
+          f"(all-reduce {outs[0]['probe']}, broadcast "
+          f"{outs[0]['bcast']}); {DP_STEPS} steps of the flagship (f32 "
+          f"MLP and tables, flow jitter {DP_FLOW_SCALE}) on {B}-ray "
+          f"global batches: the first step's averaged gradients vs one "
+          f"process {g_err:.3e} of each leaf's largest (tol {DP_GRAD_TOL}; "
+          f"summed, they would be {g_sum:.3e} off); the params after "
+          f"{DP_STEPS} steps (moved {moved:.3f} in L2 by the one-process "
+          f"run): rank 0 vs rank 1 {same:.3e}; vs one process {err:.3e} of "
+          f"that (tol {DP_PARAM_TOL}; largest element {err_max:.3e}), one "
+          f"process without rank 1's rows {err_drop:.3e} (largest "
+          f"{drop_max:.3e}); ms/step: two ranks "
+          + ", ".join(f"{o['ms']:.3f}" for o in outs)
+          + f", one process {ms_one:.3f} (CUDA events, {DP_TIMED} steps)",
+          flush=True)
+    if not (outs[0]["probe"] == [3.0] * 4 and outs[0]["bcast"] == [1.0] * 2
+            and g_err <= DP_GRAD_TOL and same == 0.0
+            and err <= DP_PARAM_TOL and err_drop >= 10 * DP_PARAM_TOL):
+        raise AssertionError("76. two ranks over gloo disagree with one "
+                             "process")
+    record["gloo_world2"] = {
+        "grad_err": g_err, "param_rel_l2": err, "param_max_abs": err_max,
+        "dropped_shard_rel_l2": err_drop,
+        "rank_ms": [o["ms"] for o in outs], "one_process_ms": ms_one}
+    del model, trainer, st, dropped, ds, glob
+    torch.cuda.empty_cache()
+    return record
+
+
+CASC_ITERS = 100                # steps an epoch of the cascaded CLI run
+CASC_EPOCHS = 3
+CASC_ALPHA_IT = 100
+CASC_UPSAMPLE_IT = 200
+CASC_FRAMES = 5                 # of the 9 frames that phase 64 writes
+CASC_LOG_EVERY = 50
+BLENDER_WH = (800, 800)         # the published renders' size
+BLENDER_TRAIN = 20              # of the published 100 train views
+BLENDER_VAL = 2                 # of the published 100 val views
+BLENDER_ANGLE_X = 0.6911112070083618    # lego's camera_angle_x
+BLENDER_RADIUS = 4.031128874            # the cameras' distance
+BLENDER_STEPS = 40
+BLENDER_ALPHA_IT = 20
+# the voxel net's general chain holds ~40 floats a sample at once: 65,536
+# rays x 192 samples (12.6 M samples) a chunk, not the default 262,144
+BLENDER_CHUNK = 1 << 16
+FAMILY_STEPS = 20               # deformable and refnerf: a few steps
+
+
+def write_blender_scene(root):
+    """A Blender-layout scene ("lego"): transforms_{train,val}.json with
+    lego's camera_angle_x and cameras on the upper hemisphere at the
+    published distance looking at the origin (OpenGL axes, z up), the
+    renders smooth RGB fields at 800 x 800."""
+    import json as _json
+
+    rng = np.random.default_rng(SEED + 2)
+    d = os.path.join(root, "lego")
+    freqs = rng.uniform(0.5, 3.0, (3, 2))
+    jobs = []
+    for split, n in (("train", BLENDER_TRAIN), ("val", BLENDER_VAL)):
+        os.makedirs(os.path.join(d, split))
+        frames = []
+        for i in range(n):
+            az = rng.uniform(0, 2 * np.pi)
+            el = rng.uniform(0.2, 1.2)
+            p = BLENDER_RADIUS * np.array([np.cos(el) * np.cos(az),
+                                           np.cos(el) * np.sin(az),
+                                           np.sin(el)])
+            z = p / np.linalg.norm(p)
+            x = np.cross([0.0, 0.0, 1.0], z)
+            x /= np.linalg.norm(x)
+            y = np.cross(z, x)
+            c2w = np.eye(4)
+            c2w[:3, :4] = np.stack([x, y, z, p], 1)
+            frames.append({"file_path": f"./{split}/r_{i}",
+                           "transform_matrix": c2w.tolist()})
+            jobs.append((os.path.join(d, split, f"r_{i}.png"), BLENDER_WH,
+                         freqs, (az / (2 * np.pi), el)))
+        with open(os.path.join(d, f"transforms_{split}.json"), "w") as f:
+            _json.dump({"camera_angle_x": BLENDER_ANGLE_X,
+                        "frames": frames}, f)
+    write_images(jobs)
+    return d
+
+
+def family_model(torch, preset, info, **net):
+    """A preset at full width, bf16 MLP policy and tables, with `net`
+    updated in its colour net's config: (cfg, model)."""
+    import copy
+
+    from hyperreel_tpu_torch.configs import presets
+    from hyperreel_tpu_torch.models.model import build_model
+
+    cfg = presets.convert_epochs_to_iters(getattr(presets, preset)(), 4000)
+    cfg["color"]["net"].update(net)
+    return cfg, build_model(copy.deepcopy(cfg), dataset_info=info,
+                            compute_dtype=torch.bfloat16)
+
+
+def family_fit(torch, dev, model, ds, steps, tag):
+    """`steps` of Trainer.fit (DEFAULT_TRAINING, tv_4000) from the init of
+    seed SEED, the model's own events: every loss and param finite.
+    Returns (trainer, state, the record: fit seconds, the step's ms
+    (CUDA events, 10 steps), the peak of allocated memory, the first and
+    last image loss)."""
+    import copy
+    import itertools
+
+    from hyperreel_tpu_torch.config import DEFAULT_TRAINING
+    from hyperreel_tpu_torch.train.regularizers import tv_4000_defaults
+    from hyperreel_tpu_torch.train.trainer import Trainer
+
+    B = DEFAULT_TRAINING["batch_size"]
+    trainer = Trainer(model, copy.deepcopy(DEFAULT_TRAINING),
+                      regularizer_cfgs=tv_4000_defaults(),
+                      iters_per_epoch=4000, device=dev)
+    state = trainer.init_state(torch.Generator().manual_seed(SEED))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, hist = trainer.fit(
+        state, ds.batch_iterator(B, seed=SEED), steps,
+        gen=torch.Generator(device=dev).manual_seed(SEED), log_every=1)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    ms = step_ms(torch, trainer, state, [
+        trainer.to_device(b) for b in itertools.islice(
+            ds.batch_iterator(B, seed=SEED + 1), 11)], reps=10)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["image_loss"] for h in hist]
+    print(f"# {tag}: {steps} steps in {fit_s:.2f} s; image loss "
+          f"{losses[0]:.5f} -> {losses[-1]:.5f} (first 5 "
+          f"{np.mean(losses[:5]):.5f}, last 5 {np.mean(losses[-5:]):.5f}); "
+          f"the step {ms:.3f} ms (CUDA events, 10 steps); peak allocated "
+          f"{peak / 2**30:.3f} GiB", flush=True)
+    if not (all(np.isfinite(h[k]) for h in hist for k in h)
+            and params_finite(torch, state.params)):
+        raise AssertionError(f"{tag}: a loss or a param is not finite")
+    return trainer, state, {"fit_s": fit_s, "step_ms": ms,
+                            "peak_bytes": peak, "image_loss_first_last":
+                            [losses[0], losses[-1]]}
+
+
+def general_clone(torch, cfg, info, model):
+    """`model` with its colour net's own route off (the general colour
+    net), on the trained net's aabb and grid."""
+    import copy
+
+    from hyperreel_tpu_torch.models.model import build_model
+
+    cfg = copy.deepcopy(cfg)
+    cfg["color"]["net"]["fused_render"] = False
+    g = build_model(cfg, dataset_info=info, compute_dtype=torch.bfloat16)
+    g.color_net.aabb = model.color_net.aabb
+    g.color_net.grid_size = list(model.color_net.grid_size)
+    return g
+
+
+def own_route_view(torch, dev, card, reset_counts, read_counts, tag, cfg,
+                   info, model, params, it, view):
+    """A held-out view through model.apply (the general chain, then the
+    colour net's own route: K2 for one axis, K5 for three), the launches
+    once per chunk and nothing else; on its first chunk the kernel against
+    its plain version (<= SHADE_TOL) and the own route against the general
+    colour net (<= PATH_TOL), the second factors rounded to bf16 for both
+    (bf16_second_factors), the latter over the rays with no sample on an
+    aabb face (near_face; under 1 % of the chunk's rays may have one);
+    its time and bound. Returns (the kernel's JSON record, the view
+    record)."""
+    from hyperreel_tpu_torch.models.ctx import StepCtx
+    from hyperreel_tpu_torch.ops.kernels.shade import shade, shade_plain
+    from hyperreel_tpu_torch.ops.kernels.shade_multi import (
+        shade_multi, shade_multi_plain)
+    from hyperreel_tpu_torch.train.metrics import psnr
+
+    ctx = StepCtx(it=it)
+    net = model.color_net
+    p16 = bf16_second_factors(torch, params)
+    chunks, gt = view_chunks(torch, dev, view)
+    with torch.no_grad():
+        prep = model.prepare_eval(p16)
+        rk = {"cf_prepared": prep}
+        one = len(prep["axes"]) == 1
+        kernel = "shade" if one else "shade_multi"
+
+        def render():
+            return [model.apply(p16, c, ctx, rk)["rgb"] for c in chunks]
+
+        reset_counts()
+        rgb = torch.cat(render())
+        torch.cuda.synchronize()
+        counts = read_counts()
+        view_ms = cuda_ms(torch, render, 2)
+        p = psnr(rgb, gt).item()
+        if not only(counts, **{kernel: len(chunks)}):
+            raise AssertionError(f"{tag}: a view's launches {counts}")
+        if not (torch.isfinite(rgb).all() and rgb.min() >= 0
+                and rgb.max() <= 1):
+            raise AssertionError(f"{tag}: a view's rgb is not finite in "
+                                 "[0, 1]")
+        x = model.embedding.apply(p16["embedding"],
+                                  model.ray_param.apply(chunks[0]), ctx, {})
+        pack, rp = net.fused_pack(x)
+        R = chunks[0].shape[0]
+        spec = net.fused_spec(prep, pack.shape[1] // R)
+        if one:
+            args = (prep["quads"][0], pack, rp, prep["lines"][0],
+                    prep["wb"], spec)
+            fn, fn_p = shade, shade_plain
+        else:
+            args = (prep["quads"], prep["lines"], pack, rp, prep["wb"],
+                    spec)
+            fn, fn_p = shade_multi, shade_multi_plain
+        out, out_p = fn(*args), fn_p(*args)
+        torch.cuda.synchronize()
+        err = (out[:, :4] - out_p[:, :4]).abs().max().item()
+        derr = (out[:, 4] - out_p[:, 4]).abs().max().item()
+        general = general_clone(torch, cfg, info, model)
+        # over the rays with no sample within FACE_ULPS of an aabb face,
+        # which the kernel's and torch's validity tests may keep or drop
+        # by their last ulp (ROADMAP.md 3; shiny's z-planes anchor on the
+        # faces)
+        g_diff = (model.apply(p16, chunks[0], ctx, rk)["rgb"]
+                  - general.apply(p16, chunks[0], ctx, {})["rgb"]
+                  ).abs().amax(1)
+        near = near_face(torch, pack, pack.shape[1] // R)
+        g_err = g_diff[~near].max().item()
+        g_all = g_diff.max().item()
+        k_ms = cuda_ms(torch, lambda: fn(*args), 20)
+        k_plain_ms = cuda_ms(torch, lambda: fn_p(*args), 2)
+        N, valid = pack.shape[1], valid_count(pack)
+        axes = prep["axes"]
+        if one:
+            ax = axes[0]
+            bnd = sh_bound(
+                f"{tag} K2", nbytes(pack, rp, prep["lines"][0]) + R * 5 * 4
+                + rows_bytes(prep["quads"][0],
+                             quad_rows(pack, 0, 1, ax.W, ax.H)),
+                lambda f: [(valid * (shade_ops(ax.C, ax.nd, fold=f)
+                                     + 8 * ax.C + 10)
+                            + N * COMPOSITE_OPS, F32_OPS_PER_S)], spec.S)
+        else:
+            rgb_colour = net.shading == "rgb"
+            bnd = sh_bound(
+                f"{tag} K5", pack_bytes(pack, valid)
+                + ray_bytes(rp, rgb_colour, False)
+                + nbytes(*prep["lines"]) + R * 5 * 4
+                + sum(rows_bytes(q, quad_rows(pack, a.m0, a.m1, a.W, a.H))
+                      for q, a in zip(prep["quads"], axes)),
+                lambda f: [(valid * multi_ops(axes, lambda C: 8 * C + 10,
+                                              rgb_colour, spec.weights,
+                                              fold=f)
+                            + N * COMPOSITE_OPS, F32_OPS_PER_S)], spec.S)
+    name = "K2" if one else "K5"
+    print(f"# {tag} ({card}): a held-out view ({gt.shape[0]} rays, "
+          f"{len(chunks)} chunks of at most {CHUNK}) through the general "
+          f"chain and the own route: {view_ms:.3f} ms (CUDA events), psnr "
+          f"{p:.3f} dB; launches {counts}; on its first chunk ({valid} of "
+          f"{N} samples valid, S={spec.S}, {net.shading}"
+          f"{', weights row' if spec.weights else ''}) {name} vs its plain "
+          f"version rgb/acc {err:.3e}, depth {derr:.3e} (tol {SHADE_TOL}); "
+          f"the own route vs the general colour net {g_err:.3e} (tol "
+          f"{PATH_TOL}) over the {int((~near).sum())} rays with no sample "
+          f"on an aabb face, {g_all:.3e} over all {R}; {name} {k_ms:.3f} "
+          f"ms (plain {k_plain_ms:.3f}, "
+          f"bound {bnd[0]:.4f} {bnd[1]}, {100 * bnd[0] / k_ms:.1f} % of "
+          f"it)", flush=True)
+    if not (err <= SHADE_TOL and derr <= 10 * SHADE_TOL
+            and g_err <= PATH_TOL and near.float().mean().item() < 0.01):
+        raise AssertionError(f"{tag}: {name} or the own route disagrees: "
+                             f"{err}, {derr}, {g_err}")
+    rec = entry(f"{kernel}_{tag}", "shade.cu" if one else "shade_multi.cu",
+                "hyperreel_tpu/ops/pallas/shade.py:238" if one
+                else "hyperreel_tpu/ops/pallas/shade.py:742",
+                counts[kernel], err, k_ms, k_plain_ms, bnd)
+    del pack, rp, out, out_p, x, general
+    torch.cuda.empty_cache()
+    return rec, {"view_ms": view_ms, "view_psnr": p, "launches": counts,
+                 "kernel_err": err, "own_vs_general": g_err,
+                 "own_vs_general_all_rays": g_all,
+                 "rays_on_a_face": int(near.sum())}
+
+
+def family_phases(torch, dev, card, reset_counts, read_counts, tmp,
+                  tech_root, llff_root):
+    """Phases 77-83: the last model families at full width.
+    technicolor_cascaded trained through the CLI on phase 64's scene, its
+    held-out views through the Renderer and K2; blender_voxel trained
+    across its alpha event on a Blender-layout scene at 800 x 800, a view
+    at S = 192 through the general chain; shiny_z_deformable on phase 65's
+    LLFF scene, refnerf_sphere_reflect and refnerf_sphere on the Blender
+    scene, each a few steps and a view through K5 with the weights row.
+    Returns (the kernels' JSON records, the record)."""
+    import itertools
+
+    import yaml
+
+    from hyperreel_tpu_torch import main as cli
+    from hyperreel_tpu_torch.config import DEFAULT_TRAINING, resolve_model_cfg
+    from hyperreel_tpu_torch.configs import presets
+    from hyperreel_tpu_torch.data import get_dataset
+    from hyperreel_tpu_torch.train.metrics import psnr
+    from hyperreel_tpu_torch.train.regularizers import tv_4000_defaults
+    from hyperreel_tpu_torch.train.render import Renderer
+
+    records, record = [], {}
+    B = DEFAULT_TRAINING["batch_size"]
+    runs = os.path.join(tmp, "runs")
+
+    # ---- 77-79. technicolor_cascaded through the CLI
+    cfg_path = os.path.join(tmp, "cascaded.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump({
+            "params": {"seed": SEED, "save_dir": runs, "name": "cascaded",
+                       "compute_dtype": "bfloat16"},
+            "dataset": {"name": "technicolor", "root_dir": tech_root,
+                        "img_wh": list(TECH_WH), "num_frames": CASC_FRAMES,
+                        "keyframe_step": 4, "load_full_step": 8},
+            "model": "technicolor_cascaded",
+            "training": {"num_iters": CASC_ITERS, "num_epochs": CASC_EPOCHS,
+                         "val_every": CASC_EPOCHS,
+                         "log_every": CASC_LOG_EVERY},
+            "regularizers": tv_4000_defaults()}, f)
+    later = presets.technicolor_cascaded()["color"]["net"]["upsamp_list"][1:]
+    argv = ["--config", cfg_path, "--device", str(dev),
+            f"model.color.net.update_AlphaMask_list=[{CASC_ALPHA_IT}]",
+            "model.color.net.upsamp_list="
+            + json.dumps([CASC_UPSAMPLE_IT] + later)]
+    print(f"# 77. the cut: technicolor_cascaded on {CASC_FRAMES} of phase "
+          f"64's {TECH_FRAMES} frames (the rig and resolution as "
+          f"published), {CASC_EPOCHS} epochs of {CASC_ITERS} steps, not "
+          "4,000", flush=True)
+    fresh_host("77")
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    system, state, done = cli.main(argv)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    run = os.path.join(runs, "cascaded")
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    ds, val = system.train_dataset, system.val_dataset
+    W, H = val.img_wh
+    per_image = -(-W * H // system.renderer.ray_chunk)
+    n_img = 2 + val.num_images
+    model = system.model
+    net = model.color_net
+    step = step_ms(torch, system.trainer, state, [
+        system.trainer.to_device(b) for b in itertools.islice(
+            ds.batch_iterator(B, seed=SEED + 3), 21)])
+    print(f"# 77. {card}: the CLI trained technicolor_cascaded "
+          f"{state.it} steps (alpha event {CASC_ALPHA_IT}, upsample "
+          f"{CASC_UPSAMPLE_IT}) in {done['fit']:.1f} s of fit "
+          f"({call_s:.1f} s with the load and the validations); loss "
+          + ", ".join(f"it {m['it']} {m['loss']:.5f}" for m in logged)
+          + f"; grid {net.grid_size}; the step {step:.3f} ms (CUDA "
+          f"events, 20 steps); peak allocated {peak / 2**30:.3f} GiB; "
+          f"held-out {val.num_images} views: {done['final']}; the "
+          f"validations' launches {counts}", flush=True)
+    if not (state.it == CASC_ITERS * CASC_EPOCHS
+            and logged[-1]["loss"] < logged[0]["loss"]
+            and params_finite(torch, state.params)
+            and only(counts, shade=per_image * n_img)):
+        raise AssertionError("77. the cascaded CLI run is not as expected")
+    # ---- 78. a held-out view through the Renderer
+    view = val.image(0)
+    reset_counts()
+    rgb = system.renderer.render_image(state.params, view["rays"],
+                                       val.img_wh, it=state.it)["rgb"]
+    view_counts = read_counts()
+    view_ms = cuda_ms(torch, lambda: system.renderer.render_rays(
+        state.params, view["rays"], it=state.it), 2)
+    p = psnr(torch.from_numpy(np.clip(rgb, 0, 1)),
+             torch.from_numpy(view["rgb"].reshape(H, W, 3))).item()
+    print(f"# 78. {card}: a held-out view through the Renderer "
+          f"{view_ms:.3f} ms (CUDA events, the copies included), psnr "
+          f"{p:.3f} dB; launches {view_counts}", flush=True)
+    if not only(view_counts, shade=per_image):
+        raise AssertionError(f"78. a view's launches {view_counts}")
+    # ---- 79. K2 of the trained model's chunk, the own route vs the
+    # general chain
+    mcfg = resolve_model_cfg(system.cfg, system.iters_per_epoch)
+    rec, rview = own_route_view(
+        torch, dev, card, reset_counts, read_counts, "cascaded", mcfg,
+        ds.info(), model, state.params, state.it, view)
+    records.append(rec)
+    record["cascaded"] = {
+        "steps": state.it, "fit_s": done["fit"], "call_s": call_s,
+        "step_ms": step, "peak_bytes": peak, "final": done["final"],
+        "renderer_view_ms": view_ms, "renderer_view_psnr": p,
+        "val_launches": counts, **rview}
+    del system, state, model, net, ds, val, view, rgb
+    torch.cuda.empty_cache()
+
+    # ---- 80-81. blender_voxel on a Blender scene at 800 x 800
+    t0 = time.perf_counter()
+    broot = write_blender_scene(tmp)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bds = get_dataset("blender", broot, split="train", img_wh=BLENDER_WH)
+    bval = get_dataset("blender", broot, split="val", img_wh=BLENDER_WH)
+    load_s = time.perf_counter() - t0
+    print(f"# 80. the cut: {BLENDER_TRAIN} train and {BLENDER_VAL} val "
+          f"views of the published 100 and 100, at the published "
+          f"{BLENDER_WH[0]} x {BLENDER_WH[1]}; written in {write_s:.1f} s, "
+          f"loaded in {load_s:.1f} s; {bds.num_rays} train rays; "
+          f"dataset_info {bds.info()}", flush=True)
+    cfg, model = family_model(torch, "blender_voxel", bds.info(),
+                              update_AlphaMask_list=[BLENDER_ALPHA_IT])
+    aabb0 = np.array(model.color_net.aabb)
+    trainer, state, rec = family_fit(torch, dev, model, bds, BLENDER_STEPS,
+                                     "80. blender_voxel")
+    net = model.color_net
+    print(f"# 80. the alpha event at {BLENDER_ALPHA_IT}: aabb "
+          f"{aabb0.tolist()} -> {np.asarray(net.aabb).tolist()}, grid "
+          f"{net.grid_size}", flush=True)
+    # ---- 81. a held-out view at S = 192 through the general chain
+    renderer = Renderer(model, ray_chunk=BLENDER_CHUNK, device=dev)
+    view = bval.image(0)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    rgb = renderer.render_image(state.params, view["rays"], bds.img_wh,
+                                it=state.it)["rgb"]
+    render_peak = torch.cuda.max_memory_allocated()
+    v_counts = read_counts()
+    v_ms = cuda_ms(torch, lambda: renderer.render_rays(
+        state.params, view["rays"], it=state.it), 1)
+    # the device's busy time over one chunk under torch.profiler, against
+    # the chunk's time without it (CUDA events): the profiler's own host
+    # work would stretch a span read under it
+    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+    one = view["rays"][:BLENDER_CHUNK]
+    span = cuda_ms(torch, lambda: renderer.render_rays(
+        state.params, one, it=state.it), 1)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        renderer.render_rays(state.params, one, it=state.it)
+        torch.cuda.synchronize()
+    busy = sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    W, H = bval.img_wh
+    p = psnr(torch.from_numpy(np.clip(rgb, 0, 1)),
+             torch.from_numpy(view["rgb"].reshape(H, W, 3))).item()
+    S = [s for n, s in model.embedding.stages
+         if n == "ray_intersect_0"][0].z_channels
+    idle = None if busy <= 0 else max(0.0, 1.0 - busy / span)
+    print(f"# 81. {card}: a held-out view ({W} x {H}, S = {S}, chunks of "
+          f"{BLENDER_CHUNK} rays) through the general chain and the "
+          f"softplus net: {v_ms:.3f} ms (CUDA events), psnr {p:.3f} dB, "
+          f"peak allocated {render_peak / 2**30:.3f} GiB; launches "
+          f"{v_counts} (no kernel: the net is not fused-eligible); one "
+          f"chunk {span:.3f} ms (CUDA events), of which the device is busy "
+          f"{busy:.3f} ms (torch.profiler), idle share "
+          + ("not measured" if idle is None else f"{100 * idle:.1f} %"),
+          flush=True)
+    if not (S == 192 and only(v_counts) and np.isfinite(rgb).all()
+            and net.fea2dense == "softplus"):
+        raise AssertionError("81. the voxel view is not as expected")
+    record["blender_voxel"] = {**rec, "view_ms": v_ms, "view_psnr": p,
+                               "render_peak_bytes": render_peak,
+                               "busy_ms": busy, "span_ms": span,
+                               "idle_share": idle,
+                               "aabb": np.asarray(net.aabb).tolist()}
+    del trainer, state, model, renderer, rgb
+    torch.cuda.empty_cache()
+
+    # ---- 82. refnerf_sphere_reflect and refnerf_sphere on the Blender
+    # scene
+    for preset in ("refnerf_sphere_reflect", "refnerf_sphere"):
+        cfg, model = family_model(torch, preset, bds.info())
+        trainer, state, rec = family_fit(torch, dev, model, bds,
+                                         FAMILY_STEPS, f"82. {preset}")
+        krec, rview = own_route_view(
+            torch, dev, card, reset_counts, read_counts, preset, cfg,
+            bds.info(), model, state.params, state.it, bval.image(0))
+        records.append(krec)
+        record[preset] = {**rec, **rview}
+        del trainer, state, model
+        torch.cuda.empty_cache()
+    del bds, bval
+
+    # ---- 83. shiny_z_deformable on phase 65's LLFF scene
+    kw = dict(downsample=1, use_ndc=True, val_skip=8)
+    lds = get_dataset("llff", llff_root, split="train", **kw)
+    lval = get_dataset("llff", llff_root, split="val", **kw)
+    cfg, model = family_model(torch, "shiny_z_deformable", lds.info())
+    trainer, state, rec = family_fit(torch, dev, model, lds, FAMILY_STEPS,
+                                     "83. shiny_z_deformable")
+    krec, rview = own_route_view(
+        torch, dev, card, reset_counts, read_counts, "shiny_z_deformable",
+        cfg, lds.info(), model, state.params, state.it, lval.image(1))
+    records.append(krec)
+    record["shiny_z_deformable"] = {**rec, **rview}
+    del trainer, state, model, lds, lval
+    torch.cuda.empty_cache()
+    return records, record
+
+
 def main():
     import torch
 
@@ -5386,6 +6225,23 @@ def main():
             torch, dev, gpu, reset_counts, read_counts, tmp, tech_root,
             llff_root)
         torch.cuda.empty_cache()
+        print(f"# phases 1-73 took {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+
+        # ---- 74-76. data parallelism: System.fit over one NCCL rank, two
+        # ranks over gloo against one process
+        t_dp = time.perf_counter()
+        dp_record = dp_phases(torch, dev, gpu, tmp)
+        print(f"# phases 74-76 took {time.perf_counter() - t_dp:.1f} s",
+              flush=True)
+
+        # ---- 77-83. the cascaded, voxel, reflect and deformable presets
+        t_fam = time.perf_counter()
+        family_entries, family_record = family_phases(
+            torch, dev, gpu, reset_counts, read_counts, tmp, tech_root,
+            llff_root)
+        print(f"# phases 77-83 took {time.perf_counter() - t_fam:.1f} s",
+              flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print("# SH bounds, ms with the basis folded per ray (the least work, "
@@ -5419,10 +6275,12 @@ def main():
               k7_err, k7_ms, k7_plain_ms, k7_bound)] + llff_entries
         + n3d_entries + shiny_entries + stanford_entries
         + primitive_entries + own_entries + count_entries + train_entries
-        + multi_train_entries + data_entries + cli_entries,
+        + multi_train_entries + data_entries + cli_entries
+        + family_entries,
         "frame_ms": frame_ms, "train": train_record,
         "train_multi": multi_train_record, "data": data_record,
-        "cli": cli_record}
+        "cli": cli_record, "data_parallel": dp_record,
+        "families": family_record}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5430,4 +6288,10 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    import sys
+    if sys.argv[1:2] == ["--dp-worker"]:
+        dp_worker(sys.argv[2], sys.argv[3], *map(int, sys.argv[4:7]))
+    elif sys.argv[1:2] == ["--nccl-probe"]:
+        nccl_probe(*map(int, sys.argv[2:5]))
+    else:
+        main()

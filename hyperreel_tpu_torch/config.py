@@ -5,8 +5,8 @@ Hydra is not a dependency; this keeps the same surface with PyYAML:
 config groups (params / dataset / model / training / regularizers /
 visualizers), `a.b.c=value` overrides, plain YAML files. A model entry
 names one of the port's presets (configs/presets.py) or a reference yaml
-(configs/reference_yaml.py), or is spelled out inline. A preset of the
-JAX package that the port does not have yet raises NotImplementedError.
+(configs/reference_yaml.py), or is spelled out inline. The port has
+every preset of the JAX package.
 """
 
 import copy
@@ -59,28 +59,31 @@ MODEL_PRESETS = {
     "technicolor_z_plane": presets.technicolor_z_plane,
     "llff_z_plane": presets.llff_z_plane,
     "donerf_cylinder": presets.donerf_cylinder,
+    "blender_voxel": presets.blender_voxel,
     "catacaustics_distance": presets.catacaustics_distance,
+    "shiny_z_deformable": presets.shiny_z_deformable,
     "donerf_sphere": presets.donerf_sphere,
     "immersive_sphere_new": presets.immersive_sphere_new,
     "neural_3d_z_plane": presets.neural_3d_z_plane,
+    "technicolor_cascaded": presets.technicolor_cascaded,
     "stanford_llff_z_plane": presets.stanford_llff_z_plane,
     "shiny_z_plane": presets.shiny_z_plane,
+    "refnerf_sphere": presets.refnerf_sphere,
+    "refnerf_sphere_reflect": presets.refnerf_sphere_reflect,
+    "tiny_refnerf_reflect": presets.tiny_refnerf_reflect,
     "tiny_static": presets.tiny_static,
     "tiny_dynamic": presets.tiny_dynamic,
     "tiny_donerf_sphere": presets.tiny_donerf_sphere,
     "tiny_immersive_sphere": presets.tiny_immersive_sphere,
     "tiny_neural_3d": presets.tiny_neural_3d,
+    "tiny_cascaded": presets.tiny_cascaded,
     "tiny_stanford_llff": presets.tiny_stanford_llff,
     "tiny_shiny": presets.tiny_shiny,
     "tiny_donerf_cylinder": presets.tiny_donerf_cylinder,
+    "tiny_blender_voxel": presets.tiny_blender_voxel,
     "tiny_catacaustics_distance": presets.tiny_catacaustics_distance,
+    "tiny_shiny_deformable": presets.tiny_shiny_deformable,
 }
-
-# the JAX package's presets whose models the port does not have yet
-UNPORTED_PRESETS = (
-    "technicolor_cascaded", "blender_voxel", "shiny_z_deformable",
-    "refnerf_sphere", "refnerf_sphere_reflect", "tiny_cascaded",
-    "tiny_blender_voxel", "tiny_shiny_deformable", "tiny_refnerf_reflect")
 
 
 def deep_update(base, override):
@@ -177,9 +180,6 @@ def _named_model_cfg(name):
         return reference_yaml.reference_model_cfg(name[4:])
     if name in MODEL_PRESETS:
         return MODEL_PRESETS[name]()
-    if name in UNPORTED_PRESETS:
-        raise NotImplementedError(
-            f"the preset {name!r} is not ported yet (ROADMAP.md: long tail)")
     if reference_yaml.reference_conf_available():
         return reference_yaml.reference_model_cfg(name)
     raise KeyError(

@@ -774,6 +774,329 @@ def immersive_sphere_new(z_channels=32):
         },
     }
 
+def blender_voxel(z_channels=192):
+    """Static HyperReel with axis-aligned voxel-grid primitives on
+    synthetic Blender scenes (reference
+    conf/experiment/model/blender_voxel.yaml): pluecker rays with a
+    windowed 2-freq PE, 192 z-channels over 3 axes, pre-intersect ray
+    density (sigmoid, shift 2), voxel_grid intersection over [-2, 2]^3
+    with [2, 6] clipping, post-intersect point density + offsets, and a
+    [8, 8, 8] softplus TensorVM color net on a white background."""
+    density = {"type": "point_density", "shift": 2.0,
+               "activation": {"type": "sigmoid", "fac": 1.0}}
+    return {
+        "type": "lightfield",
+        "param": {"n_dims": 6, "fn": "identity"},
+        "embedding": {
+            "type": "ray_point",
+            "embeddings": {
+                "ray_prediction_0": {
+                    "type": "ray_prediction",
+                    "params": {
+                        "ray": {
+                            "start": 0, "end": 6,
+                            "param": {"n_dims": 6, "fn": "pluecker",
+                                      "direction_multiplier": 1.0,
+                                      "moment_multiplier": 1.0},
+                            "pe": {"type": "windowed", "n_freqs": 2,
+                                   "wait_iters": 0, "max_freq_epoch": 0},
+                        },
+                    },
+                    "net": {"type": "base", "group": "embedding_impl",
+                            "depth": 6, "hidden_channels": 256,
+                            "skips": [3]},
+                    "z_channels": z_channels,
+                    "outputs": {
+                        "z_vals": {"channels": 1},
+                        "sigma": {"channels": 1},
+                        "point_offset": {"channels": 3},
+                    },
+                },
+                "point_density_0": dict(density),
+                "ray_intersect_0": {
+                    "type": "ray_intersect",
+                    "z_channels": z_channels,
+                    "intersect": {
+                        "type": "voxel_grid",
+                        "sort": True,
+                        "outward_facing": False,
+                        "use_disparity": False,
+                        "use_sigma": True,
+                        "origin": [0.0, 0.0, 0.0],
+                        "initial": [-2.0, -2.0, -2.0],
+                        "end": [2.0, 2.0, 2.0],
+                        "near": 2.0,
+                        "far": 6.0,
+                        "activation": {"type": "identity", "fac": 0.5},
+                    },
+                },
+                "add_point_outputs_0": {
+                    "type": "add_point_outputs",
+                    "extra_outputs": ["viewdirs"],
+                },
+                "point_density_1": dict(density),
+                "point_offset_0": {
+                    "type": "point_offset",
+                    "use_sigma": True,
+                    "activation": {"type": "identity", "fac": 0.25},
+                },
+                "extract_fields": {
+                    "type": "extract_fields",
+                    "fields": ["points", "distances", "viewdirs"],
+                },
+            },
+        },
+        "color": {
+            "type": "base",
+            "net": {
+                "type": "tensor_vm_split_no_sample",
+                # fused Pallas eval when eligible (single- or multi-axis static kernel)
+                "fused_render": True,
+                "white_bg": 1,
+                "ndc_ray": 0,
+                "fea2denseAct": "softplus",
+                "distance_scale": 25.0,
+                "density_shift": -10.0,
+                "aabb": [[-2.0, -2.0, -2.0], [2.0, 2.0, 2.0]],
+                "N_voxel_init": 1000000,
+                "N_voxel_final": 27000000,
+                "upsamp_list": [4000, 6000, 8000, 10000, 12000],
+                "lr_upsample_reset": True,
+                "update_AlphaMask_list": [4000, 8000],
+                "rm_weight_mask_thre": 1e-4,
+                "alpha_mask_thre": 1e-4,
+                "n_lamb_sigma": [8, 8, 8],
+                "n_lamb_sh": [8, 8, 8],
+                "shadingMode": "SH",
+                "data_dim_color": 27,
+            },
+        },
+    }
+
+
+
+def technicolor_cascaded(coarse_z=8, z_channels=32):
+    """Two-stage cascaded sample prediction (reference
+    conf/experiment/model/technicolor_cascaded.yaml): a coarse
+    ray-prediction MLP places 8 z-planes, their intersection points feed a
+    per-point refinement MLP (point_prediction) that emits the full
+    32-sample set plus flow/offset/calibration fields, followed by a
+    second z-plane intersect."""
+    return {
+        "type": "lightfield",
+        "param": {"n_dims": 6, "fn": "identity"},
+        "embedding": {
+            "type": "ray_point",
+            "embeddings": {
+                "ray_prediction_0": {
+                    "type": "ray_prediction",
+                    "params": {
+                        "ray": {
+                            "start": 0, "end": 6,
+                            "param": {"n_dims": 4, "fn": "two_plane"},
+                            "pe": {"type": "windowed", "n_freqs": 0,
+                                   "wait_iters": 0, "max_freq_epoch": 0},
+                        },
+                        "time": {
+                            "start": 7, "end": 8,
+                            "param": {"n_dims": 1, "fn": "identity"},
+                            "pe": {"type": "windowed", "n_freqs": 2,
+                                   "wait_iters": 0, "max_freq_epoch": 0},
+                        },
+                    },
+                    "net": {"type": "base", "group": "embedding_impl",
+                            "depth": 6, "hidden_channels": 256, "skips": [3]},
+                    "z_channels": coarse_z,
+                    "outputs": {"z_vals": {"channels": 1}},
+                },
+                "ray_intersect_0": {
+                    "type": "ray_intersect",
+                    "z_channels": coarse_z,
+                    "intersect": {
+                        "type": "z_plane",
+                        "sort": True,
+                        "use_disparity": False,
+                        "use_sigma": True,
+                        "out_points": "raw_points",
+                        "out_distance": "raw_distance",
+                        "initial": -1.0,
+                        "end": 1.0,
+                        "activation": {"type": "identity", "fac": 0.5},
+                    },
+                },
+                "point_prediction_0": {
+                    "type": "point_prediction",
+                    "in_z_channels": coarse_z,
+                    "inputs": {"points": 3, "viewdirs": 3, "times": 1},
+                    # ranges index the CONCATENATED inputs above;
+                    # `time: 3:4` therefore reads viewdirs.x — the
+                    # shipped technicolor_cascaded.yaml's exact ranges
+                    # (reference point.py:120-127 quirk, kept faithfully)
+                    "params": {
+                        "ray": {
+                            "start": 0, "end": 3,
+                            "param": {"n_dims": 3, "fn": "identity"},
+                            "pe": {"type": "basic", "n_freqs": 2},
+                        },
+                        "time": {
+                            "start": 3, "end": 4,
+                            "param": {"n_dims": 1, "fn": "identity"},
+                            "pe": {"type": "basic", "n_freqs": 4},
+                        },
+                    },
+                    "net": {"type": "base", "group": "embedding_impl",
+                            "depth": 6, "hidden_channels": 256, "skips": [3]},
+                    "out_z_channels": z_channels,
+                    "outputs": {
+                        "z_vals": {"channels": 1},
+                        "spatial_flow": {"channels": 3},
+                        "sigma": {"channels": 1,
+                                  "activation": _ease_sigmoid(3, 0)},
+                        "point_sigma": {"channels": 1,
+                                        "activation": _ease_sigmoid(3, 1)},
+                        "point_offset": {
+                            "channels": 3,
+                            "activation": {"type": "tanh",
+                                           "outer_fac": 0.125},
+                        },
+                        "color_scale": {"channels": 3,
+                                        "activation": _ease_zero()},
+                        "color_shift": {"channels": 3,
+                                        "activation": _ease_zero()},
+                    },
+                },
+                "ray_intersect_1": {
+                    "type": "ray_intersect",
+                    "z_channels": z_channels,
+                    "intersect": {
+                        "type": "z_plane",
+                        "sort": True,
+                        "use_disparity": False,
+                        "use_sigma": True,
+                        "initial": -1.0,
+                        "end": 1.0,
+                        "activation": {"type": "identity", "fac": 0.5},
+                    },
+                },
+                "flow_0": {
+                    "type": "advect_points",
+                    "use_spatial_flow": True,
+                    "use_angular_flow": False,
+                    "out_flow_field": "raw_flow",
+                    "flow_scale": 0.0,
+                    "spatial_flow_activation": {"type": "identity",
+                                                "fac": 0.25},
+                },
+                "point_offset_1": {
+                    "type": "point_offset",
+                    "in_density_field": "point_sigma",
+                    "use_sigma": True,
+                },
+                "add_point_outputs_0": {
+                    "type": "add_point_outputs",
+                    "extra_outputs": ["viewdirs", "times"],
+                },
+                "extract_fields": {
+                    "type": "extract_fields",
+                    "fields": ["points", "distances", "base_times",
+                               "time_offset", "times", "viewdirs", "weights",
+                               "color_transform_global", "color_scale_global",
+                               "color_shift_global", "color_transform",
+                               "color_scale", "color_shift"],
+                },
+            },
+        },
+        "color": technicolor_z_plane()["color"],
+    }
+
+
+
+def shiny_z_deformable(z_channels=64):
+    """Shiny with DEFORMABLE plane primitives: each sample predicts a
+    plane-normal perturbation + offset (4 z channels/sample) intersected
+    as learned-normal planes from start_normal [0, 0, 1]
+    (reference conf/experiment/model/shiny_z_deformable.yaml)."""
+    cfg = shiny_z_plane(z_channels=z_channels)
+    emb = cfg["embedding"]["embeddings"]
+    pred = emb["ray_prediction_0"]
+    pred["params"]["ray"]["pe"] = {"type": "basic", "n_freqs": 2}
+    pred["outputs"] = {
+        "z_vals": {"channels": 4},
+        "sigma": {"channels": 1,
+                  "activation": {"type": "sigmoid", "fac": 1.0,
+                                 "shift": 4.0}},
+        "point_offset": {"channels": 3,
+                         "activation": {"type": "tanh", "fac": 0.25}},
+    }
+    emb["ray_intersect_0"]["intersect"] = {
+        "type": "deformable_voxel_grid",
+        "sort": True,
+        "outward_facing": False,
+        "use_disparity": False,
+        "use_sigma": False,
+        "max_axis": False,
+        "out_points": "raw_points",
+        "out_distance": "raw_distance",
+        "start_normal": [[0.0, 0.0, 1.0]],
+        "normal_scale_factor": 1.0,
+        "initial": [-1.0],
+        "end": [1.0],
+        "activation": {"type": "identity", "fac": 0.5},
+    }
+    emb["point_offset_0"] = {"type": "point_offset", "use_sigma": True}
+    emb["extract_fields"]["fields"] = ["points", "distances", "viewdirs",
+                                       "weights"]
+    return cfg
+
+
+def refnerf_sphere(z_channels=64, reflect=False):
+    """RefNeRF-style sphere model (reference
+    conf/experiment/model/refnerf_sphere.yaml). The shipped yaml has its
+    reflect_0 stage commented out; `reflect=True` enables the full
+    RefNeRF composition the yaml sketches (normal / ref_distance /
+    ref_viewdirs_offset MLP outputs + the reflect embedding reflecting
+    viewdirs, reference nlf/embedding/point.py:673-738)."""
+    cfg = donerf_sphere(z_channels=z_channels)
+    emb = cfg["embedding"]["embeddings"]
+    pred = emb["ray_prediction_0"]
+    pred["params"]["ray"]["pe"]["n_freqs"] = 1
+    pred["outputs"]["point_offset"]["activation"]["outer_fac"] = 0.125
+    isect = emb["ray_intersect_0"]["intersect"]
+    isect["initial"] = -2.0
+    isect["end"] = 2.0
+    isect["resize_scale_factor"] = 0.0
+    isect.pop("contract", None)
+    net = cfg["color"]["net"]
+    net["white_bg"] = 1
+    net["distance_scale"] = 8.0
+    net["aabb"] = [[-2.0, -2.0, -2.0], [2.0, 2.0, 2.0]]
+    net["update_AlphaMask_list"] = []
+    if reflect:
+        pred["outputs"]["normal"] = {
+            "channels": 3, "activation": {"type": "identity"}}
+        pred["outputs"]["ref_distance"] = {
+            "channels": 1, "activation": {"type": "identity"}}
+        # the yaml's commented reflect_0 block: reflect about the
+        # direction-initialized normal and override viewdirs
+        new_emb = {}
+        for key, val in emb.items():
+            new_emb[key] = val
+            if key == "ray_intersect_0":
+                new_emb["reflect_0"] = {
+                    "type": "reflect",
+                    "direction_init": True,
+                    "out_points_field": "points_temp",
+                    "out_direction_field": "viewdirs",
+                }
+        cfg["embedding"]["embeddings"] = new_emb
+    return cfg
+
+
+def refnerf_sphere_reflect(z_channels=64):
+    return refnerf_sphere(z_channels=z_channels, reflect=True)
+
+
+
 def with_coherent_gather(cfg, px=4, py=3, block=4):
     """Enable the coherent patch-gather render path (one (px x py)-texel
     row per `block`-consecutive-ray block and sample slot —
@@ -958,3 +1281,38 @@ def small_grid_catacaustics(z_channels=64, grid=32):
     cfg["embedding"]["embeddings"]["ray_prediction_0"]["net"].update(
         {"depth": 4, "hidden_channels": 64, "skips": [2]})
     return cfg
+
+
+def tiny_cascaded(grid=32):
+    """Miniature technicolor_cascaded for tests."""
+    cfg = technicolor_cascaded(coarse_z=4, z_channels=8)
+    net = cfg["color"]["net"]
+    net["bf16_tables"] = False
+    net["N_voxel_init"] = grid ** 3
+    net["N_voxel_final"] = grid ** 3
+    net["upsamp_list"] = []
+    net["update_AlphaMask_list"] = []
+    for key in ("ray_prediction_0", "point_prediction_0"):
+        cfg["embedding"]["embeddings"][key]["net"].update(
+            {"depth": 4, "hidden_channels": 64, "skips": [2]})
+    return cfg
+
+
+def tiny_blender_voxel(z_channels=12, grid=32):
+    """Miniature blender_voxel for tests (z divisible by 3: the voxel
+    grid splits channels across the 3 axes)."""
+    return _shrink_for_tests(blender_voxel(z_channels=z_channels), grid)
+
+
+def tiny_shiny_deformable(z_channels=8, grid=32):
+    """Miniature shiny_z_deformable for tests, with bf16 tables (the net's
+    own fused route needs them)."""
+    return _bf16_tables(_shrink_for_tests(
+        shiny_z_deformable(z_channels=z_channels), grid))
+
+
+def tiny_refnerf_reflect(z_channels=8, grid=32):
+    """Miniature reflect-enabled refnerf_sphere for tests, with bf16
+    tables."""
+    return _bf16_tables(_shrink_for_tests(
+        refnerf_sphere(z_channels=z_channels, reflect=True), grid))

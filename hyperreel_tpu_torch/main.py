@@ -8,7 +8,12 @@
 Overrides use the reference's Hydra-style dotted syntax
 (`training.num_epochs=2 dataset.name=llff dataset.root_dir=/data/fern`).
 Everything runs on `--device`, the card by default; `--device cpu` runs on
-the CPU.
+the CPU. Data-parallel training over the cards of one host: torchrun
+with one process per card (its nproc_per_node), each on cuda:LOCAL_RANK,
+only rank 0 writing and validating:
+
+    torchrun ... -m hyperreel_tpu_torch.main training.data_parallel=true \
+        [key=value ...]
 """
 
 import argparse
@@ -198,6 +203,8 @@ def main(argv=None):
     t0 = time.perf_counter()
     state, _ = system.fit(resume_from=args.resume)
     fit_s = time.perf_counter() - t0
+    if system.rank != 0:
+        return system, state, {"fit": fit_s}
     metrics = system.validate(state)
     print("final:", metrics)
     return system, state, {"fit": fit_s, "final": metrics}
@@ -205,3 +212,5 @@ def main(argv=None):
 
 if __name__ == "__main__":
     main()
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()

@@ -3,9 +3,10 @@ hyperreel_tpu/models/embeddings.py; reference nlf/embedding/).
 
 Each stage has `.init(gen, device) -> params` and
 `.apply(params, x, ctx, render_kwargs) -> x` over a dict of tensors. The
-ported stages are ray_prediction, ray_intersect, advect_points,
-point_offset, add_point_outputs, extract_fields, and generate_samples and
-select_points (models/embeddings_extra.py), at eval and in training, with
+ported stages are ray_prediction, ray_intersect, point_prediction,
+point_density, advect_points, point_offset, add_point_outputs,
+extract_fields, and generate_samples, select_points and reflect
+(models/embeddings_extra.py), at eval and in training, with
 the per-stage wait/stop gating of the chain; any other stage type raises
 NotImplementedError (ROADMAP.md: long tail). Each stage's `group` names
 the optimizer group of its params (the prediction net's config may name
@@ -19,7 +20,7 @@ import torch
 
 from hyperreel_tpu_torch.models.activations import get_activation
 from hyperreel_tpu_torch.models.embeddings_extra import (
-    GenerateNumSamplesEmbedding, SelectPointsEmbedding)
+    GenerateNumSamplesEmbedding, ReflectEmbedding, SelectPointsEmbedding)
 from hyperreel_tpu_torch.models.intersect import build_intersect
 from hyperreel_tpu_torch.models.mlp import build_net
 from hyperreel_tpu_torch.models.pe import get_pe
@@ -91,6 +92,123 @@ class RayPredictionEmbedding:
                                     self.activations):
             x[name] = act(point_out[..., off:off + width], ctx)
             off += width
+        return x
+
+
+class PointPredictionEmbedding:
+    """The per-sample MLP of the cascaded chains (hyperreel_tpu
+    PointPredictionEmbedding; reference nlf/embedding/point.py:39-218).
+    The named per-sample inputs (`inputs`: viewdirs, origins and times
+    from the rays, anything else from the state, cut to its width) are
+    concatenated in declaration order and the `params` ranges index that
+    concatenation, so the cascaded presets' `time: 3:4` reads viewdirs.x,
+    as the reference does. Each of the in_z_channels input samples emits
+    out_z_channels / in_z_channels output samples (`expand_factor`); an
+    output marked `residual` adds to the state's field of that name. The
+    net has depth - 2 layers and no linear_last, as the ray prediction's;
+    its params are in the "embedding" group (the JAX stage reads no
+    group from the config)."""
+
+    group = "embedding"
+
+    def __init__(self, cfg, compute_dtype=None):
+        self.cfg = cfg
+        self.rays_name = cfg.get("rays_name", "rays")
+        self.inputs = dict(cfg.get("inputs", {"points": 3}))
+        self.in_fields = []
+        in_channels = 0
+        for pcfg in cfg["params"].values():
+            start, end = int(pcfg["start"]), int(pcfg["end"])
+            param_cfg = dict(pcfg.get("param", {"fn": "identity"}))
+            param_cfg.setdefault("in_channels", end - start)
+            rp = get_ray_param(param_cfg)
+            pe = get_pe(rp.out_channels, pcfg.get("pe", None))
+            self.in_fields.append((start, end, rp, pe))
+            in_channels += pe.out_channels
+        self.in_channels = in_channels
+        outputs = cfg["outputs"]
+        self.output_names = list(outputs.keys())
+        self.output_shapes = [int(outputs[k]["channels"])
+                              for k in self.output_names]
+        self.residual = {k: bool(outputs[k].get("residual", False))
+                         for k in self.output_names}
+        self.activations = [get_activation(outputs[k].get("activation",
+                                                          "identity"))
+                            for k in self.output_names]
+        self.out_channels = sum(self.output_shapes)
+        in_z = int(cfg.get("in_z_channels", 0))
+        out_z = int(cfg.get("out_z_channels", 0))
+        self.expand_factor = max(out_z // in_z, 1) if in_z and out_z else 1
+        net_cfg = dict(cfg["net"])
+        if "depth" in net_cfg:
+            net_cfg["depth"] = int(net_cfg["depth"]) - 2
+            net_cfg["linear_last"] = False
+        self.net = build_net(self.in_channels,
+                             self.out_channels * self.expand_factor,
+                             net_cfg, compute_dtype=compute_dtype)
+
+    def init(self, gen, device):
+        return {"net": self.net.init(gen, device)}
+
+    def _field(self, x, name, width, B, S):
+        rays = x[self.rays_name]
+        if name == "viewdirs":
+            return rays[:, None, 3:6].expand(B, S, 3)
+        if name == "origins":
+            return rays[:, None, 0:3].expand(B, S, 3)
+        if name in ("times", "base_times"):
+            return rays[:, None, -1:].expand(B, S, 1)
+        return x[name][..., :width]
+
+    def apply(self, params, x, ctx, render_kwargs=None):
+        B, S = x["points"].shape[:2]
+        inputs = torch.cat([self._field(x, name, width, B, S)
+                            for name, width in self.inputs.items()], -1)
+        net_in = torch.cat([
+            pe.apply(rp.apply(inputs[..., start:end].reshape(B * S, -1)),
+                     ctx)
+            for start, end, rp, pe in self.in_fields], -1)
+        out = self.net.apply(params["net"], net_in, ctx).reshape(
+            B, S * self.expand_factor, -1)
+        off = 0
+        for name, width, act in zip(self.output_names, self.output_shapes,
+                                    self.activations):
+            val = act(out[..., off:off + width], ctx)
+            x[name] = x[name] + val if self.residual[name] and name in x \
+                else val
+            off += width
+        return x
+
+
+class PointDensityEmbedding:
+    """sigma from the last channel of `in_field`, act(v + shift), faded in
+    over a linear window (hyperreel_tpu PointDensityEmbedding; reference
+    nlf/embedding/point.py:282-335): w = clip((it - window_start) /
+    window_iters, 0, 1), or 0 before window_start and 1 from it when
+    window_iters is 0; out = sigma w + (1 - w). `it` is a host int, so w
+    is a host float."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.in_field = cfg.get("in_field", "sigma")
+        self.out_field = cfg.get("out_field", "sigma")
+        self.activation = get_activation(cfg.get("activation", "sigmoid"))
+        self.shift = float(cfg.get("shift", 0.0))
+        self.window_start = float(cfg.get("window_start_iters", 0))
+        self.window_iters = float(cfg.get("window_iters", 0))
+
+    def init(self, gen, device):
+        return {}
+
+    def apply(self, params, x, ctx, render_kwargs=None):
+        cur = float(np.float32(ctx.it) - np.float32(self.window_start))
+        if self.window_iters <= 0:
+            w = 0.0 if cur < 0 else 1.0
+        else:
+            w = float(np.clip(np.float32(cur) / np.float32(self.window_iters),
+                              0.0, 1.0))
+        sigma = self.activation(x[self.in_field][..., -1:] + self.shift, ctx)
+        x[self.out_field] = sigma * w + (1.0 - w)
         return x
 
 
@@ -182,7 +300,8 @@ class AdvectPointsEmbedding:
         jitter = None
         if ctx.training and self.flow_scale > 0.0 \
                 and "no_flow_jitter" not in (render_kwargs or {}):
-            jitter = ctx.uniform("flow_jitter", t.shape, t.device)
+            jitter = ctx.uniform("flow_jitter", t.shape, t.device,
+                                 per_ray=True)
         base_t = get_base_time(t, self.num_keyframes, self.num_frames,
                                jitter, self.flow_scale)
         time_offset = (t - base_t)[..., None, :]
@@ -344,6 +463,12 @@ def build_embedding_chain(cfg, dataset_info=None, compute_dtype=None):
             stage = RayPredictionEmbedding(dict(scfg), compute_dtype)
         elif t == "ray_intersect":
             stage = RayIntersectEmbedding(scfg, dataset_info)
+        elif t == "point_prediction":
+            stage = PointPredictionEmbedding(dict(scfg), compute_dtype)
+        elif t == "point_density":
+            stage = PointDensityEmbedding(dict(scfg))
+        elif t == "reflect":
+            stage = ReflectEmbedding(dict(scfg))
         elif t == "advect_points":
             stage = AdvectPointsEmbedding(
                 dict(scfg),

@@ -1,11 +1,13 @@
 """Embedding stages beyond the z-plane chains' own (port of
 hyperreel_tpu/models/embeddings_extra.py): the sample-count stages
 `generate_samples` and `select_points` (reference
-nlf/embedding/point.py:402-480). The module's other stages are not ported
-(ROADMAP.md: long tail).
+nlf/embedding/point.py:402-480) and `reflect` (point.py:673-738). The
+module's other stages are not ported (ROADMAP.md: long tail).
 """
 
 import torch
+
+from hyperreel_tpu_torch.ops.intersect_math import safe_norm
 
 
 class GenerateNumSamplesEmbedding:
@@ -112,4 +114,58 @@ class SelectPointsEmbedding:
                             last_kept).long()
         for k in _per_sample(x, S):
             x[k] = x[k].index_select(1, idx.to(x[k].device))
+        return x
+
+
+class ReflectEmbedding:
+    """Reflected view directions for RefNeRF-style shading (hyperreel_tpu
+    ReflectEmbedding; reference nlf/embedding/point.py:673-738): the
+    predicted normal (minus the view direction under `direction_init`, its
+    z minus 1 under `forward_facing`) normalised; the view direction
+    reflected about it; the points marched |ref_distance| along the
+    reflection where the state has one; the reflection plus a predicted
+    offset, normalised, where the state has one. The view direction is the
+    state's `in_direction_field`, else each ray's direction."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.in_points_field = cfg.get("in_points_field", "points")
+        self.in_direction_field = cfg.get("in_direction_field", "viewdirs")
+        self.in_normal_field = cfg.get("in_normal_field", "normal")
+        self.in_distance_field = cfg.get("in_distance_field",
+                                         "ref_distance")
+        self.direction_offset_field = cfg.get("direction_offset_field",
+                                              "ref_viewdirs_offset")
+        self.out_points_field = cfg.get("out_points_field", "ref_points")
+        self.out_direction_field = cfg.get("out_direction_field",
+                                           "ref_viewdirs")
+        self.out_normal_field = cfg.get("out_normal_field", "normal")
+        self.forward_facing = bool(cfg.get("forward_facing", False))
+        self.direction_init = bool(cfg.get("direction_init", False))
+
+    def init(self, gen, device):
+        return {}
+
+    def apply(self, params, x, ctx, render_kwargs=None):
+        rays = x["rays"]
+        points = x[self.in_points_field]
+        B, S = points.shape[:2]
+        dirs = x[self.in_direction_field] if self.in_direction_field in x \
+            else rays[:, None, 3:6].expand(B, S, 3)
+        normal = x[self.in_normal_field]
+        if self.forward_facing:
+            normal = torch.cat([normal[..., :2], normal[..., 2:] - 1.0], -1)
+        elif self.direction_init:
+            normal = normal - dirs
+        normal = normal / safe_norm(normal)
+        x[self.out_normal_field] = normal
+        refl = dirs - 2.0 * (dirs * normal).sum(-1, keepdim=True) * normal
+        if self.in_distance_field in x:
+            points = points + x[self.in_distance_field].reshape(
+                B, S, 1).abs() * refl
+        if self.direction_offset_field in x:
+            refl = refl + x[self.direction_offset_field].reshape(B, S, 3)
+            refl = refl / safe_norm(refl)
+        x[self.out_points_field] = points
+        x[self.out_direction_field] = refl
         return x

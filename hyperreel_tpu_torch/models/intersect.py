@@ -1,7 +1,8 @@
 """Ray-primitive intersect stages (port of hyperreel_tpu/models/intersect.py
-IntersectStage, _make_anchor_schedule and the z-plane, sphere,
-sphere_new, cylinder and euclidean_distance_unified primitives; reference
-nlf/intersect/base.py:142-259, nlf/intersect/z.py,
+IntersectStage, _make_anchor_schedule and the z-plane, voxel_grid,
+deformable_voxel_grid, sphere, sphere_new, cylinder and
+euclidean_distance_unified primitives; reference
+nlf/intersect/base.py:142-259, nlf/intersect/z.py, nlf/intersect/voxel.py,
 nlf/intersect/primitive.py).
 
 `IntersectStage` is the stage every primitive shares: the predicted
@@ -18,9 +19,12 @@ Under `use_dataset_bounds` the anchors and the near default come from the
 dataset's near/far (`_dataset_bounds`, which the embedding chain injects
 from its dataset_info, models/embeddings.py).
 
-Only the one-channel-per-sample z layout is ported: the sphere, cylinder
-and sphere_new stages' blocked layouts (4 or 8 channels per sample:
-origin, resize, raw offset, radius; the JAX stages' `_blocked`) raise.
+The voxel grid takes three z values per sample (one plane per axis, the
+three distances sorted with the rest), the deformable grid four (a normal
+offset and the plane's distance). Of the radius primitives only the
+one-channel-per-sample layout is ported: the sphere, cylinder and
+sphere_new stages' blocked layouts (4 or 8 channels per sample: origin,
+resize, raw offset, radius; the JAX stages' `_blocked`) raise.
 """
 
 import numpy as np
@@ -29,8 +33,9 @@ import torch
 from hyperreel_tpu_torch.models.activations import get_activation
 from hyperreel_tpu_torch.ops.contract import get_contract
 from hyperreel_tpu_torch.ops.intersect_math import (
-    intersect_axis_plane, intersect_cylinder, intersect_sphere,
-    min_sphere_radius, pluecker_closest_point, safe_norm)
+    intersect_axis_plane, intersect_cylinder, intersect_plane,
+    intersect_sphere, intersect_voxel_grid, min_sphere_radius,
+    pluecker_closest_point, safe_norm)
 
 _NOT_PORTED = ("weight_fn", "sort_outputs", "normalize", "residual_z",
                "residual_distance", "use_disparity", "use_local_prediction")
@@ -113,10 +118,16 @@ class IntersectStage:
                 "tail)")
         self.activation = get_activation(cfg.get("activation", "identity"))
         self.invalid_sort_far = bool(cfg.get("invalid_sort_far", False))
+        self.samples, self.z_scale, self.initial, self.end = self.anchors()
+
+    def anchors(self):
+        """(samples, z_scale, initial, end): the linspace schedule over
+        cfg's initial/end, or over `anchor_range` under
+        use_dataset_bounds."""
         near, far = self.anchor_range() \
-            if cfg.get("use_dataset_bounds", False) else (None, None)
-        self.samples, self.z_scale, self.initial, self.end = \
-            make_anchor_schedule(z_channels, cfg, self.contract, near, far)
+            if self.cfg.get("use_dataset_bounds", False) else (None, None)
+        return make_anchor_schedule(self.z_channels, self.cfg, self.contract,
+                                    near, far)
 
     def anchor_range(self):
         """(near, far) of the anchors under use_dataset_bounds; None
@@ -296,16 +307,123 @@ class IntersectEuclideanUnified(IntersectStage):
         return z_vals + off[:, None]
 
 
+class IntersectVoxelGrid(IntersectStage):
+    """Axis-aligned planes in all three dims, z_channels / 3 per axis
+    (reference nlf/intersect/voxel.py:19-112): per axis a z/3-point
+    linspace of anchors from cfg's initial/end (3-vectors; under
+    use_dataset_bounds they default to the dataset's bbox, `_dataset_bbox`,
+    times `fac`), each axis its own z_scale; `outward_facing` flips each
+    axis's value by the sign of the direction, `max_axis` keeps only the
+    dominant direction axis's planes."""
+
+    def __init__(self, z_channels, cfg):
+        if z_channels % 3:
+            raise ValueError(f"voxel_grid: {z_channels} z channels, not a "
+                             "multiple of 3")
+        self.outward_facing = bool(cfg.get("outward_facing", False))
+        self.max_axis = bool(cfg.get("max_axis", False))
+        super().__init__(z_channels, cfg)
+
+    def anchors(self):
+        cfg, n = self.cfg, self.z_channels // 3
+        if cfg.get("use_dataset_bounds", False) and "_dataset_bbox" in cfg:
+            fac = float(cfg.get("fac", 1.0))
+            d_initial, d_end = (np.asarray(b, np.float32) * fac
+                                for b in cfg["_dataset_bbox"])
+        else:
+            d_initial, d_end = [0.0] * 3, [1.0] * 3
+        initial, end = (np.broadcast_to(np.asarray(
+            cfg.get(key, d), np.float32).reshape(-1), (3,)).copy()
+            for key, d in (("initial", d_initial), ("end", d_end)))
+        if self.contract.contract_samples:
+            initial, end = (self.contract.contract_distance(
+                torch.from_numpy(v)).numpy() for v in (initial, end))
+        samples = np.stack([np.linspace(initial[d], end[d], n)
+                            for d in range(3)], -1).astype(np.float32)
+        if "z_scale" in cfg:
+            z_scale = np.asarray(cfg["z_scale"], np.float32)
+        elif n > 1:
+            z_scale = np.abs(samples[1] - samples[0])
+        else:
+            z_scale = np.ones(3, np.float32)
+        z_scale = np.where(z_scale == 0.0, 1.0, z_scale).astype(np.float32)
+        return samples, z_scale, initial, end
+
+    def intersect(self, rays, z_vals):
+        B = z_vals.shape[0]
+        vals = z_vals.reshape(B, -1, 3)
+        if self.outward_facing:
+            vals = vals * torch.sign(rays[..., 3:6])[:, None, :]
+        dists = intersect_voxel_grid(rays[:, None, :], rays.new_zeros(3),
+                                     vals)
+        if self.max_axis:
+            d = rays[..., 3:6].abs()
+            keep = d >= d.amax(-1, keepdim=True) - 1e-8
+            dists = torch.where(keep[:, None, :].expand_as(vals).reshape(
+                B, -1), dists, 0.0)
+        return dists
+
+
+class IntersectDeformableVoxelGrid(IntersectStage):
+    """Planes of learned normals (reference nlf/intersect/voxel.py:115-215):
+    four z values per sample, a normal offset (3) and the plane's distance
+    (1); the anchors apply to the distance (z_channels / num_axes per
+    axis of start_normal), the normal is start_normal + normal_scale_factor
+    * offset, normalised."""
+
+    def __init__(self, z_channels, cfg):
+        self.start_normal = np.asarray(
+            cfg.get("start_normal", [[1.0, 0, 0], [0, 1.0, 0], [0, 0, 1.0]]),
+            np.float32)
+        self.num_axes = len(self.start_normal)
+        self.normal_scale_factor = float(cfg.get("normal_scale_factor", 0.1))
+        super().__init__(z_channels, cfg)
+
+    def anchors(self):
+        cfg, n_ax = self.cfg, self.num_axes
+        zc = self.z_channels // n_ax
+        initial = np.asarray(cfg.get("initial", [0.0] * n_ax))
+        end = np.asarray(cfg.get("end", [1.0] * n_ax))
+        samples = np.stack([np.linspace(initial[d], end[d], zc)
+                            for d in range(n_ax)], -1).reshape(
+                                -1, 1).astype(np.float32)
+        if "z_scale" in cfg:
+            z_scale = np.asarray(cfg["z_scale"], np.float32)
+        elif zc > 1:
+            z_scale = np.abs(samples[1] - samples[0])
+        else:
+            z_scale = np.ones((n_ax,), np.float32)
+        z_scale = np.where(z_scale == 0.0, 1.0, z_scale)
+        return samples, np.asarray(z_scale, np.float32).reshape(-1, 1), \
+            initial, end
+
+    def process_z_vals(self, z_vals):
+        B = z_vals.shape[0]
+        z4 = z_vals.reshape(B, -1, 4)
+        d = super().process_z_vals(z4[..., -1])
+        return torch.cat([z4[..., :3], d[..., None]], -1).reshape(B, -1)
+
+    def intersect(self, rays, z_vals):
+        B = z_vals.shape[0]
+        z4 = z_vals.reshape(B, -1, 4)
+        offset = z4[..., :3].reshape(B, -1, self.num_axes, 3)
+        normal = (offset * self.normal_scale_factor
+                  + rays.new_tensor(self.start_normal)).reshape(B, -1, 3)
+        normal = normal / safe_norm(normal)
+        return intersect_plane(rays[:, None, :], normal, z4[..., -1])
+
+
 INTERSECTS = {"z_plane": IntersectZPlane, "sphere": IntersectSphere,
               "sphere_new": IntersectSphereNew,
               "cylinder": IntersectCylinder,
-              "euclidean_distance_unified": IntersectEuclideanUnified}
+              "euclidean_distance_unified": IntersectEuclideanUnified,
+              "voxel_grid": IntersectVoxelGrid,
+              "deformable_voxel_grid": IntersectDeformableVoxelGrid}
 
 
 def build_intersect(z_channels, cfg):
     kind = cfg.get("type")
     if kind not in INTERSECTS:
         raise NotImplementedError(
-            f"intersect {kind!r} is not ported (ROADMAP.md: the deformable "
-            "and voxel primitives, long tail)")
+            f"intersect {kind!r} is not ported (ROADMAP.md: long tail)")
     return INTERSECTS[kind](z_channels, cfg)

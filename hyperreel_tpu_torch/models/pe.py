@@ -1,9 +1,10 @@
-"""Positional encodings (port of the windowed PE of
-hyperreel_tpu/models/pe.py; reference nlf/pe.py:130-224).
+"""Positional encodings (port of the windowed and basic PEs of
+hyperreel_tpu/models/pe.py; reference nlf/pe.py:40-70, 130-224).
 
 The frequency windows depend only on `ctx.it`, so the host evaluates
 them as Python floats. The explicit-window, identity-window, ceil,
-exclude-identity and base-multiplier variants raise NotImplementedError.
+exclude-identity and base-multiplier variants raise NotImplementedError,
+as does every other PE type.
 """
 
 import math
@@ -69,10 +70,32 @@ class WindowedPE:
         return torch.cat(out, -1)
 
 
+class BasicPE:
+    """[x, sin(f_j x_c) over every channel c and frequency j, then the
+    cosines in the same order] with f = fm ** linspace(1, n, n): sin of
+    all frequencies, then cos of all (hyperreel_tpu basic_pe)."""
+
+    def __init__(self, in_channels, cfg):
+        self.in_channels = in_channels
+        n = int(cfg.get("n_freqs", 0))
+        fm = float(cfg.get("freq_multiplier", 2.0))
+        self.freq_bands = (fm ** np.linspace(1.0, n, n)).astype(np.float32)
+        self.out_channels = in_channels * (2 * n + 1)
+
+    def apply(self, x, ctx=None):
+        if not len(self.freq_bands):
+            return x
+        arg = (x.new_tensor(self.freq_bands) * x[..., None]).reshape(
+            x.shape[:-1] + (-1,))
+        return torch.cat([x, torch.sin(arg), torch.cos(arg)], -1)
+
+
 def get_pe(in_channels, cfg):
     if cfg is None or cfg.get("type") == "identity":
         return IdentityPE(in_channels)
     if cfg["type"] == "windowed":
         return WindowedPE(in_channels, cfg)
+    if cfg["type"] == "basic":
+        return BasicPE(in_channels, cfg)
     raise NotImplementedError(
         f"PE {cfg['type']!r} is not ported (ROADMAP.md: long tail)")

@@ -71,12 +71,14 @@ class FactoredNet:
         self.density_mode = cfg.get("densityMode", "Density")
         self.shading_mode = cfg.get("shadingMode", "SH")
         self.fea2dense = cfg.get("fea2denseAct", "softplus")
+        self.density_shift = float(cfg.get("density_shift", -10.0))
         if self.density_mode != "Density" \
                 or self.shading_mode not in ("SH", "RGB") \
-                or self.fea2dense != "relu" or cfg.get("filter"):
+                or self.fea2dense not in ("relu", "softplus") \
+                or cfg.get("filter"):
             raise NotImplementedError(
-                "only the Density/relu colour nets with SH or RGB shading "
-                "are ported (ROADMAP.md: long tail)")
+                "only the Density colour nets with relu or softplus density "
+                "and SH or RGB shading are ported (ROADMAP.md: long tail)")
         # the kernels' shading flag: SH of degree sh_deg, or RGB =
         # sigmoid of the basis product (JAX tensorf.py _shading_rgb)
         self.shading = self.shading_mode.lower()
@@ -111,7 +113,8 @@ class FactoredNet:
             len(self.active_density) >= 1
             and self.active_density == self.active_app
             and self.table_dtype == torch.bfloat16
-            and self.ray_march_weight_thres == 0.0)
+            and self.ray_march_weight_thres == 0.0
+            and self.fea2dense == "relu")
 
     def grid_value(self, gen, device, shape, scale, uniform):
         """scale * U[0, 1) clipped to [1e-2, 1e8] (the relu density init),
@@ -123,10 +126,12 @@ class FactoredNet:
 
     def init(self, gen, device):
         """Reference init scales (tensorf_base.py:895-991); relu density
-        grids start uniform and clipped at 1e-2."""
+        grids start uniform and clipped at 1e-2, softplus ones 0.1 N(0,
+        1)."""
+        relu = self.fea2dense == "relu"
         return {
             "density": self.init_family(gen, device, self.density_n_comp,
-                                        1e-2, True),
+                                        1e-2 if relu else 0.1, relu),
             "app": self.init_family(gen, device, self.app_n_comp, 0.1,
                                     False),
             "basis_mat": linear_init(gen, sum(self.app_n_comp),
@@ -179,11 +184,15 @@ class FactoredNet:
         aabb = torch.as_tensor(self.aabb, device=pts.device)
         return ~((pts < aabb[0]) | (pts > aabb[1])).any(-1)
 
-    @staticmethod
-    def feature2density(feat):
-        """relu as 0.5 (x + |x|): the same values, and at x = 0 the gradient
-        0.5 of jnp.maximum(x, 0) (the JAX net's feature2density), where
-        torch's relu passes 1 (a density grid trained to exactly 0)."""
+    def feature2density(self, feat):
+        """softplus(feat + density_shift), as log(exp(.) + 1) (the JAX
+        net's jnp.logaddexp(., 0)); relu as 0.5 (x + |x|): the same values,
+        and at x = 0 the gradient 0.5 of jnp.maximum(x, 0) (the JAX net's
+        feature2density), where torch's relu passes 1 (a density grid
+        trained to exactly 0)."""
+        if self.fea2dense == "softplus":
+            return torch.logaddexp(feat + self.density_shift,
+                                   torch.zeros_like(feat))
         return 0.5 * (feat + feat.abs())
 
     def shade(self, x, feat, app, ray_valid, dists, ctx, render_kwargs,
@@ -272,11 +281,12 @@ class FactoredNet:
 
     def compute_alpha_grid(self, params, grid_size=(200, 200, 200)):
         """The occupancy of a dense lattice over the aabb: per point the
-        net's `lattice_alpha` (1 - exp(-0.01 relu(density)), the dynamic
-        net's max over its keyframes), max-pooled 3^3 ("SAME", padded with
-        -inf), thresholded at alpha_mask_thre -> (binary [gz, gy, gx] f32,
-        the occupied points' box [2, 3], inf where none is occupied); x
-        rows in blocks of at most ALPHA_BLOCK lattice points."""
+        net's `lattice_alpha` (1 - exp(-0.01 feature2density(density)),
+        the dynamic net's max over its keyframes), max-pooled 3^3 ("SAME",
+        padded with -inf), thresholded at alpha_mask_thre -> (binary [gz,
+        gy, gx] f32, the occupied points' box [2, 3], inf where none is
+        occupied); x rows in blocks of at most ALPHA_BLOCK lattice
+        points."""
         gx, gy, gz = grid_size
         dev = params["density"][
             f"{self.GRIDS[0]}_{self.active_density[0]}"].device
@@ -304,10 +314,10 @@ class FactoredNet:
             maxs = torch.where(occupied, pts_t, -inf).amax((0, 1, 2))
         return binary, torch.stack([mins, maxs])
 
-    @staticmethod
-    def density_alpha(feat):
-        """1 - exp(-0.01 relu(feat)): a lattice point's alpha."""
-        return 1.0 - torch.exp(-torch.clamp_min(feat, 0.0) * 0.01)
+    def density_alpha(self, feat):
+        """1 - exp(-0.01 feature2density(feat)): a lattice point's
+        alpha."""
+        return 1.0 - torch.exp(-self.feature2density(feat) * 0.01)
 
     # -- the net's own fused route (hyperreel_tpu TensorVMNoSample and
     # TensorVMKeyframeTime _fused_ok, apply_fused, _apply_fused_multi,

@@ -43,9 +43,16 @@ def _corners_2d(coords, H, W):
                        (y0 + 1.0, x0, wy1 * (1.0 - wx1)),
                        (y0 + 1.0, x0 + 1.0, wy1 * wx1)):
         ok = ((xc >= 0) & (xc <= W - 1) & (yc >= 0) & (yc <= H - 1)).float()
-        corners.append((torch.clamp(yc, 0, H - 1).long() * W
-                        + torch.clamp(xc, 0, W - 1).long(), wc * ok, ok))
+        corners.append((_index(yc, H) * W + _index(xc, W), wc * ok, ok))
     return corners, wx1, wy1
+
+
+def _index(c, size):
+    """A corner's texel index, clamped into [0, size - 1]; a NaN
+    coordinate reads texel 0 (its weight is NaN, so the lookup gives NaN,
+    as the JAX package's clamped gather does) where a NaN index would
+    read out of bounds."""
+    return torch.clamp(torch.nan_to_num(c), 0, size - 1).long()
 
 
 def _corners_1d(coords, L):
@@ -57,7 +64,7 @@ def _corners_1d(coords, L):
     corners = []
     for zc, wc in ((z0, 1.0 - wz1), (z0 + 1.0, wz1)):
         ok = ((zc >= 0) & (zc <= L - 1)).float()
-        corners.append((torch.clamp(zc, 0, L - 1).long(), wc * ok, ok))
+        corners.append((_index(zc, L), wc * ok, ok))
     return corners, wz1
 
 

@@ -1,5 +1,6 @@
-"""Ray-primitive intersection math (port of the z-plane, sphere, cylinder
-and Pluecker parts of hyperreel_tpu/ops/intersect_math.py; reference
+"""Ray-primitive intersection math (port of the z-plane, voxel-grid,
+general-plane, sphere, cylinder and Pluecker parts of
+hyperreel_tpu/ops/intersect_math.py; reference
 utils/intersect_utils.py, nlf/param.py:297-307). Rays are [..., 6+]:
 origin 0:3, direction 3:6. Distances are returned raw (they may be
 negative or zero); the intersect stages mask and sort them."""
@@ -30,6 +31,26 @@ def intersect_axis_plane(rays, val, dim):
     """t such that o[dim] + t * d[dim] == val; `val` broadcasts against
     rays[..., 0]."""
     return (val - rays[..., dim]) / safe_dirs(rays[..., 3:6])[..., dim]
+
+
+def intersect_voxel_grid(rays, origin, val):
+    """Axis-aligned planes in all three dims at offsets `val` [B, S, 3]
+    (reference utils/intersect_utils.py:152-179); rays [B, 1, 6] ->
+    distances [B, S * 3], the three axes of a sample adjacent."""
+    t = (val - (rays[..., :3] - origin)) / safe_dirs(rays[..., 3:6])
+    return t.reshape(t.shape[0], -1)
+
+
+def intersect_plane(rays, normal, distance):
+    """Planes n . x = distance (reference utils/intersect_utils.py:
+    210-236): rays [B, S, 6] (or broadcastable), normal [B, S, 3],
+    distance [B, S] -> [B, S]; a direction within 1e-5 of the plane takes
+    n . d = 1e12."""
+    o_n = dot(rays[..., :3], normal)
+    d_n = dot(rays[..., 3:6], normal)
+    d_n = torch.where(d_n.abs() < EPS_DIR, torch.full_like(d_n, BIG), d_n)
+    t = (distance - o_n) / d_n
+    return t.reshape(t.shape[0], -1)
 
 
 def _quadratic_intersect(o2, d2, od, radius):

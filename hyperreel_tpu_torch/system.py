@@ -4,9 +4,16 @@ INRDataModule and main.py run()).
 
 Everything runs on the System's device, the card unless the caller names
 the CPU; a card that is asked for and not there is an error, not a
-fallback. Usage:
+fallback. With `training.data_parallel=true` in a process group (torchrun
+starts one process per card, each on cuda:LOCAL_RANK; a caller may join
+one first, parallel/mesh.py initialize_multihost) `fit` takes
+data-parallel steps (ShardedTrainer) and only rank 0 writes logs,
+validation images and checkpoints; in a single process nothing changes.
+Usage:
     python -m hyperreel_tpu_torch.main dataset.name=synthetic_blobs \
         model=tiny_static training.num_epochs=2
+    torchrun --nproc_per_node 2 -m hyperreel_tpu_torch.main \
+        training.data_parallel=true ...
 """
 
 import json
@@ -76,8 +83,9 @@ def _to_u8(img):
 
 class System:
     def __init__(self, cfg, device="cuda"):
+        from hyperreel_tpu_torch.parallel import mesh
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = mesh.rank_device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA card is visible: run with --device "
                                "cpu for the CPU")
@@ -99,15 +107,17 @@ class System:
             self.iters_per_epoch = int(np.ceil(
                 self.train_dataset.num_rays / tcfg["batch_size"]))
 
-        # data-parallel training (training.data_parallel=true) over more
-        # than one card is not ported; over one it changes nothing, as the
-        # JAX System over one device
-        n_cards = torch.cuda.device_count() if self.device.type == "cuda" \
-            else 1
-        if tcfg.get("data_parallel", False) and n_cards > 1:
-            raise NotImplementedError(
-                f"training.data_parallel over {n_cards} cards is not ported "
-                "(ROADMAP.md item 4: data parallelism)")
+        # data-parallel training (training.data_parallel=true) in a
+        # process group, as the JAX System over more than one device
+        # (hyperreel_tpu/system.py:82-90); a single process trains alone
+        data_parallel = tcfg.get("data_parallel", False) and (
+            torch.distributed.is_initialized()
+            or int(os.environ.get("WORLD_SIZE", "1")) > 1)
+        self.rank = 0
+        if data_parallel:
+            self.rank, world = mesh.initialize_multihost(self.device)
+            print(f"data-parallel: rank {self.rank} of {world} on "
+                  f"{self.device}")
 
         model_cfg = resolve_model_cfg(cfg, self.iters_per_epoch)
         dtype_name = cfg["params"].get("compute_dtype", None)
@@ -120,6 +130,8 @@ class System:
             self.model, tcfg, regularizer_cfgs=cfg.get("regularizers"),
             iters_per_epoch=self.iters_per_epoch, device=self.device)
         self.trainer.system = self  # pose-aware regularizers
+        self.sharded = mesh.ShardedTrainer(self.trainer) if data_parallel \
+            else None
         self.renderer = Renderer(self.model,
                                  ray_chunk=int(tcfg.get("ray_chunk", 65536)),
                                  device=self.device)
@@ -190,13 +202,22 @@ class System:
         host_regs = [r for _, r in self.trainer.regularizers
                      if hasattr(r, "host_batch")]
 
+        writer = self.rank == 0
+
         def batches():
             if self._use_raystore:
                 # the rays spilled to a file and sampled by the native
-                # sampler (data/raystore.py; large dynamic scenes)
+                # sampler (data/raystore.py; large dynamic scenes); rank 0
+                # writes the file, the other ranks open it
                 from hyperreel_tpu_torch.data.raystore import MmapRayStore
                 path = os.path.join(self.save_dir, "raystore.npy")
-                store = MmapRayStore.create(path, self.train_dataset)
+                if writer:
+                    store = MmapRayStore.create(path, self.train_dataset)
+                if self.sharded is not None:
+                    torch.distributed.barrier()
+                if not writer:
+                    store = MmapRayStore(
+                        path, self.train_dataset.all_coords.shape[-1])
                 it = store.batch_iterator(batch_size, seed=seed)
             else:
                 it = self.train_dataset.batch_iterator(batch_size, seed=seed)
@@ -207,6 +228,10 @@ class System:
 
         batch_iter = batches()
         gen = torch.Generator(device=self.device).manual_seed(_STEP_SEED)
+        fitter = self.trainer
+        if self.sharded is not None:
+            state = self.sharded.place_state(state)
+            fitter = self.sharded
         metrics_log = []
         t_start = time.time()
 
@@ -214,13 +239,15 @@ class System:
             if self.update_data(state.it // self.iters_per_epoch):
                 batch_iter = batches()
             chunk = min(val_every, total_iters - state.it)
-            state, history = self.trainer.fit(
+            state, history = fitter.fit(
                 state, batch_iter, num_iters=chunk, gen=gen,
                 log_every=log_every,
-                callback=lambda m: print(
+                callback=lambda m: writer and print(
                     f"it {m['it']}: loss {m['loss']:.5f} "
                     f"psnr {m['psnr']:.2f}"))
             metrics_log += history
+            if not writer:
+                continue
             # one JSON object per logged step (the reference's
             # TensorBoard scalars, main.py:94)
             with open(os.path.join(self.save_dir, "metrics.jsonl"),
@@ -235,9 +262,10 @@ class System:
                 save_checkpoint(
                     os.path.join(self.save_dir, "last"), state, self.model)
 
-        save_checkpoint(os.path.join(self.save_dir, "last"), state,
-                        self.model)
-        print(f"training done in {time.time() - t_start:.1f}s")
+        if writer:
+            save_checkpoint(os.path.join(self.save_dir, "last"), state,
+                            self.model)
+            print(f"training done in {time.time() - t_start:.1f}s")
         return state, metrics_log
 
     # -- evaluation (reference nlf/__init__.py:895-1028) ---------------------

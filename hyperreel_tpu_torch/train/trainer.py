@@ -193,15 +193,21 @@ class Trainer:
     # -- the segment loop ----------------------------------------------------
 
     def fit(self, state, batch_iter, num_iters, gen=None, log_every=0,
-            callback=None, draws=None):
+            callback=None, draws=None, step=None):
         """Run `num_iters` steps from state.it across the grid events.
         `batch_iter` yields batches (dicts of numpy arrays or tensors);
         `gen` is the steps' torch.Generator (seed 0 on the trainer's device
         if None); `draws(it)`, where given, the injected draws of the step
-        at `it`. Returns (state, history: one dict of floats with "it" at
-        every multiple of log_every)."""
+        at `it`; `step(state, batch, optimizer, gen, draws)` takes each
+        step from the iterator's batch (by default `self.step` on it
+        copied to the device; parallel/mesh.py ShardedTrainer.step).
+        Returns (state, history: one dict of floats with "it" at every
+        multiple of log_every)."""
         if gen is None:
             gen = torch.Generator(device=self.device).manual_seed(0)
+        if step is None:
+            def step(st, batch, opt, g, d):
+                return self.step(st, self.to_device(batch), opt, g, d)
         end_it = state.it + num_iters
         history = []
         while state.it < end_it:
@@ -209,9 +215,8 @@ class Trainer:
             seg_end = events[0] if events else end_it
             optimizer = self.make_optimizer(state.params)
             while state.it < seg_end:
-                batch = self.to_device(next(batch_iter))
-                state, metrics = self.step(
-                    state, batch, optimizer, gen,
+                state, metrics = step(
+                    state, next(batch_iter), optimizer, gen,
                     draws(state.it) if draws else None)
                 if log_every and state.it % log_every == 0:
                     m = {k: float(v) for k, v in metrics.items()}

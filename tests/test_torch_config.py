@@ -3,7 +3,7 @@ configs/reference_yaml.py) against the JAX package's: load_config +
 apply_overrides + resolve_model_cfg give equal dicts for every ported
 preset and its tiny version, with and without dotted overrides, and for a
 reference yaml tree that the test writes (through `experiment/model=` and
-`ref:`); the presets the port lacks raise NotImplementedError."""
+`ref:`); the port has every preset of the JAX package."""
 
 import os
 
@@ -21,13 +21,17 @@ PORTED = ["technicolor_z_plane", "llff_z_plane", "donerf_cylinder",
           "tiny_static", "tiny_dynamic", "tiny_donerf_sphere",
           "tiny_immersive_sphere", "tiny_neural_3d", "tiny_stanford_llff",
           "tiny_shiny", "tiny_donerf_cylinder",
-          "tiny_catacaustics_distance"]
+          "tiny_catacaustics_distance", "technicolor_cascaded",
+          "blender_voxel", "shiny_z_deformable", "refnerf_sphere",
+          "refnerf_sphere_reflect", "tiny_cascaded", "tiny_blender_voxel",
+          "tiny_shiny_deformable", "tiny_refnerf_reflect"]
 # the port's tiny RGB and primitive presets keep bf16 tables (its fused
 # routes need them; tests/test_torch_package.py), where the JAX package's
 # turn them off
 BF16_TINY = ("tiny_stanford_llff", "tiny_shiny", "tiny_donerf_sphere",
              "tiny_donerf_cylinder", "tiny_catacaustics_distance",
-             "tiny_immersive_sphere")
+             "tiny_immersive_sphere", "tiny_shiny_deformable",
+             "tiny_refnerf_reflect")
 OVERRIDES = ["training.batch_size=8192", "training.num_iters=200",
              "dataset.name=llff", "dataset.root_dir=/data/fern",
              "dataset.use_raystore=true",
@@ -126,17 +130,9 @@ def test_reference_yaml_tree_as_in_jax(tmp_path, monkeypatch):
             mod.reference_model_cfg("missing")
 
 
-@pytest.mark.parametrize("name", TC.UNPORTED_PRESETS)
-def test_unported_presets_raise(name):
-    assert name in JC.MODEL_PRESETS
-    cfg = TC.load_config(overrides=[f"model={name}"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md: long tail"):
-        TC.resolve_model_cfg(cfg, 4000)
-
-
 def test_every_jax_preset_is_ported_or_named():
     assert set(TC.MODEL_PRESETS) == set(PORTED)
-    assert set(JC.MODEL_PRESETS) == set(PORTED) | set(TC.UNPORTED_PRESETS)
+    assert set(JC.MODEL_PRESETS) == set(PORTED)
     cfg = TC.load_config(overrides=["model=no_such_model"])
     with pytest.raises(KeyError):
         TC.resolve_model_cfg(cfg, 4000)

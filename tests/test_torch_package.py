@@ -156,6 +156,20 @@ def test_ray_store_builds_from_the_ports_source(tmp_path):
         P.shiny_z_plane(), 8)),
     ("llff_compact_patch", lambda P: P.with_coherent_gather(
         P.with_compact_samples(P.llff_z_plane(), 16), 5, 2, 8)),
+    # the cascaded, voxel, deformable and reflect families
+    ("technicolor_cascaded", lambda P: P.technicolor_cascaded()),
+    ("cascaded_epochs_to_iters", lambda P: P.convert_epochs_to_iters(
+        P.technicolor_cascaded(), 4000)),
+    ("tiny_cascaded", lambda P: P.tiny_cascaded()),
+    ("blender_voxel", lambda P: P.blender_voxel()),
+    ("tiny_blender_voxel", lambda P: P.tiny_blender_voxel()),
+    ("shiny_z_deformable", lambda P: P.shiny_z_deformable()),
+    ("tiny_shiny_deformable", lambda P: P.tiny_shiny_deformable()
+     if P is TP else _bf16_tables(P.tiny_shiny_deformable())),
+    ("refnerf_sphere", lambda P: P.refnerf_sphere()),
+    ("refnerf_sphere_reflect", lambda P: P.refnerf_sphere_reflect()),
+    ("tiny_refnerf_reflect", lambda P: P.tiny_refnerf_reflect() if P is TP
+     else _bf16_tables(P.tiny_refnerf_reflect())),
 ])
 def test_presets_equal_the_jax_packages(name, make):
     assert make(TP) == make(JP)

@@ -175,7 +175,7 @@ def test_blocked_primitive_layouts_raise():
     with pytest.raises(NotImplementedError):
         tst.apply(torch.from_numpy(_rays(4, 0)), x, StepCtx(it=IT))
     with pytest.raises(NotImplementedError):
-        build_intersect(8, {"type": "voxel_grid"})
+        build_intersect(8, {"type": "cylinder_new"})
 
 
 @pytest.mark.parametrize("per_ray_t", [False, True])

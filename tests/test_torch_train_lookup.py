@@ -150,3 +150,31 @@ def test_eval_lookup_equals_the_function(dtype, dim):
     assert recorded.grad_fn is not None
     assert torch.equal(plain, recorded.detach())
     assert torch.equal(plain_ng, plain)
+
+
+@pytest.mark.parametrize("dim", [2, 1])
+def test_nan_coordinate_gives_nan_as_jax(dim):
+    """A NaN coordinate (a diverged model's sample) gives that sample NaN
+    features in both packages, the others unchanged: the JAX quad gather
+    clamps its index; the port's reads texel 0 under a NaN weight, where
+    a NaN index would read out of bounds (a device-side assert on the
+    card, an IndexError here)."""
+    rng = np.random.default_rng(5)
+    sizes = (12, 9) if dim == 2 else (11,)
+    table = rng.normal(size=sizes[::-1] + (8,)).astype(np.float32)
+    coords = rng.uniform(-1, 1, (6, dim)).astype(np.float32)
+    coords[2, 0] = np.nan
+    if dim == 2:
+        want = np.asarray(grid_sample_2d_cf_quad(jnp.asarray(table),
+                                                 jnp.asarray(coords)))
+        got = grid_sample_2d(torch.from_numpy(table),
+                             torch.from_numpy(coords)).numpy()
+    else:
+        want = np.asarray(grid_sample_1d_cf_quad(
+            jnp.asarray(table), jnp.asarray(coords[:, 0])))
+        got = grid_sample_1d(torch.from_numpy(table),
+                             torch.from_numpy(coords[:, 0])).numpy()
+    want = want.transpose(1, 0, 2).reshape(-1, 8)
+    assert np.isnan(got[2]).all() and np.isnan(want[2]).all()
+    keep = np.arange(6) != 2
+    np.testing.assert_allclose(got[keep], want[keep], rtol=0, atol=1e-6)
