@@ -3,8 +3,9 @@
 The trees have the same nesting (`model.init`'s layout). Dense layers
 differ: JAX stores {"w": [in, out], "b": [out]}, the port the nn.Linear
 layout {"weight": [out, in], "bias": [out]}. Grids stay channels-last in
-both. Leaves on the JAX side are numpy arrays (np.asarray of the jax
-arrays); nothing here imports jax.
+both. A list of leaves on the JAX side (TensorCP's lines) is a dict keyed
+"0", "1", ... in the port. Leaves on the JAX side are numpy arrays
+(np.asarray of the jax arrays); nothing here imports jax.
 """
 
 import numpy as np
@@ -33,7 +34,14 @@ def params_from_jax(tree, device="cuda"):
         return out
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return {str(i): params_from_jax(v, device) for i, v in enumerate(tree)}
     return torch.tensor(np.asarray(tree, np.float32), device=device)
+
+
+def _is_port_list(node):
+    return isinstance(node, dict) and len(node) > 0 \
+        and list(node) == [str(i) for i in range(len(node))]
 
 
 def params_to_jax(params):
@@ -43,6 +51,8 @@ def params_to_jax(params):
         if "bias" in params:
             out["b"] = params["bias"].detach().cpu().numpy()
         return out
+    if _is_port_list(params):
+        return [params_to_jax(params[str(i)]) for i in range(len(params))]
     if isinstance(params, dict):
         return {k: params_to_jax(v) for k, v in params.items()}
     return params.detach().cpu().numpy()
@@ -54,7 +64,8 @@ def _jax_leaf(tree, path):
     for k in path:
         if k == "weight":
             return np.asarray(tree["w"], np.float32).T
-        tree = tree["b" if k == "bias" else k]
+        tree = tree[int(k)] if isinstance(tree, (list, tuple)) \
+            else tree["b" if k == "bias" else k]
     return np.asarray(tree, np.float32)
 
 

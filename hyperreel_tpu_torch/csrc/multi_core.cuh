@@ -20,8 +20,8 @@
 // premixed for one t is a line, TH = 0); their product; the first nd
 // channels sum into the density feature (per axis, then across axes, as
 // JAX adds each axis's sum), the rest append to one appearance vector in
-// axis order; then one colour from it (shade_core.cuh: SH of degree 2
-// from the [3 * kBasis, A] basis folded once per ray with the ray's view
+// axis order; then one colour from it (shade_core.cuh: SH of degree 0-4
+// from the [3 * nb, A] basis folded once per ray with the ray's view
 // direction, or RGB with a [3, A] basis, A the appearance channels) and
 // relu density (of the density sum times the sample's weight where the
 // pack has the weights row).
@@ -64,10 +64,11 @@ struct MultiParams {
   // the layout: C and density channels of axes 0, 1, 2 (0 for an axis
   // that is absent); a launcher runs only a layout it is built for
   int ch[3], nd[3];
-  float wb[kMaxWb];  // SH: [3 * kBasis, A], rows ch * kBasis + k; RGB [3, A]
+  float wb[kMaxWb];  // SH: [3 * nb, A], rows ch * nb + k; RGB [3, A]
   // the host's choice of instantiation: 1 = RGB colour (kRgb); 1 = the
   // pack has the weights row (kWeights, the quad kernel only)
   int rgb, weights;
+  int nb;            // the SH basis count (deg + 1)^2 (1 for RGB)
 };
 
 namespace multi_core {
@@ -197,7 +198,8 @@ __device__ __forceinline__ void line_product(const MultiAxis& ax,
 // per-axis products, relu density of their sum (times the sample's weight
 // `wt` with kWeights), the colour) at layout L: `feat(A, f)` writes axis
 // A's C_A plane features to f (A a std::integral_constant).
-template <class L, bool kTime, bool kRgb, bool kWeights, typename Feat>
+template <class L, bool kTime, bool kRgb, bool kWeights, bool kAnyDeg,
+          typename Feat>
 __device__ __forceinline__ void shade_axes(const MultiParams& p,
                                            const float* pk, const float* ray,
                                            Feat feat, float wt, float& sigma,
@@ -225,7 +227,7 @@ __device__ __forceinline__ void shade_axes(const MultiParams& p,
         app + L::kCh0 - L::kNd0 + L::kCh1 - L::kNd1);
   }
   sigma = fmaxf(kWeights ? dsum * wt : dsum, 0.0f);
-  shade_core::colour<L::kApp, kRgb>(app, p.wb, pk, ray, rgb);
+  shade_core::colour<L::kApp, kRgb, kAnyDeg>(app, p.wb, p.nb, pk, ray, rgb);
 }
 
 // Does any axis of p have a time plane (TH > 0)?

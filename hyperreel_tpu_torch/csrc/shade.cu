@@ -34,15 +34,17 @@
 //   samples outside the aabb load nothing. Then the time taps and the
 //   density of shade_core.cuh sample_density.
 // - The SH basis is folded with the ray's view direction once per ray
-//   (shade_core.cuh sh_fold: 27 x A FMAs over the A channels whose basis
+//   (shade_core.cuh sh_fold: 3 nb x A FMAs, nb = (deg + 1)^2, over the A
+//   channels whose basis
 //   columns can be non-zero: the C / 2 appearance channels of every
 //   preset, else all C), so that a sample's colour is a [3, A] product
 //   (sh_folded_colour); RGB colour has nothing to fold.
 // - The composite is a running sum per thread (composite_add), the last
 //   delta 1e10: no shuffles, no scan.
 // - Blocks of 4 warps, registers capped for 4 blocks per SM.
-// Built for C in {8, 16}, S a power of two up to 32, SH of degree 2 or RGB
-// colour (a template argument), those of the ported configurations; the
+// Built for C in {8, 16}, S a power of two up to 32, SH of degree 0-4 (the
+// basis count a run-time value, shade_core.cuh) or RGB colour (a template
+// argument), those of the ported configurations; the
 // quad kernel with the weights row (kWeights) scales the density feature
 // by the sample's predicted weight before the relu, as the static net's
 // own fused route asks (shade.py:223-224; there the z line of
@@ -102,7 +104,7 @@ __device__ __forceinline__ void space_features(const uint4* __restrict__ space,
 // instead of the quad table [(H+1)*(W+1), 4C]; kRgb: RGB colour, else SH
 // folded over the basis columns [F, C) (the columns before F are zero);
 // kWeights: the pack has the weights row
-template <int C, bool kPre, bool kRgb, bool kWeights, int F>
+template <int C, bool kPre, bool kRgb, bool kWeights, int F, bool kAnyDeg>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     shade_kernel(const uint4* __restrict__ space,
                  const float* __restrict__ pack,
@@ -124,8 +126,8 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
   // the ray's folded basis [3, A]
   float M[kRgb ? 1 : 3 * A];
   if constexpr (!kRgb) {
-    sh_fold<A, C>(p.wb + F, __ldg(ray + 3), __ldg(ray + 4), __ldg(ray + 5),
-                  M);
+    sh_fold<A, C, kAnyDeg>(p.wb + F, p.nb, __ldg(ray + 3), __ldg(ray + 4),
+                           __ldg(ray + 5), M);
   }
   RayComposite acc;
   float prev_sigma = 0.0f, prev_rgb[3] = {0.0f, 0.0f, 0.0f}, prev_dist = 0.0f;
@@ -177,15 +179,22 @@ template <int C, bool kPre, bool kRgb, bool kWeights, int F>
 int run(unsigned blocks, const uint4* sp, const float* pack,
         const float* rays, const float* ttab, float* out,
         const ShadeParams* p, cudaStream_t st) {
-  shade_kernel<C, kPre, kRgb, kWeights, F><<<blocks, kThreads, 0, st>>>(
-      sp, pack, rays, ttab, out, *p);
+  if (any_degree(p->rgb, p->nb)) {
+    if constexpr (!kRgb) {
+      shade_kernel<C, kPre, kRgb, kWeights, F, true>
+          <<<blocks, kThreads, 0, st>>>(sp, pack, rays, ttab, out, *p);
+    }
+  } else {
+    shade_kernel<C, kPre, kRgb, kWeights, F, false>
+        <<<blocks, kThreads, 0, st>>>(sp, pack, rays, ttab, out, *p);
+  }
   return (int)cudaGetLastError();
 }
 
-// Whether the SH basis columns [0, F) of p's [3 * kBasis, C] wb are all
-// zero (the density channels'), so that the fold may start at F.
+// Whether the SH basis columns [0, F) of p's [3 * nb, C] wb are all zero
+// (the density channels'), so that the fold may start at F.
 bool zero_columns(const ShadeParams* p, int C, int F) {
-  for (int r = 0; r < 3 * kBasis; ++r) {
+  for (int r = 0; r < 3 * p->nb; ++r) {
     for (int c = 0; c < F; ++c) {
       if (p->wb[r * C + c] != 0.0f) return false;
     }
@@ -224,7 +233,8 @@ int launch(const void* space, const float* pack, const float* rays,
            const float* ttab, float* out, const ShadeParams* p,
            void* stream) {
   const int S = p->S;
-  if (S < 1 || S > 32 || (S & (S - 1)) || (kPre && p->weights)) {
+  if (S < 1 || S > 32 || (S & (S - 1)) || (kPre && p->weights) ||
+      !basis_built(p->rgb, p->nb)) {
     return (int)cudaErrorInvalidValue;
   }
   if (p->B == 0) return 0;

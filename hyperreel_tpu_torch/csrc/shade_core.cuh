@@ -1,35 +1,55 @@
 // Device code shared by the shade kernels (K2 shade.cu, K3 shade_patch.cuh,
 // K5 shade_multi.cu, K6 shade_multi_patch.cu): the per-sample shading that
 // follows the space features (time-plane taps and density for K2/K3; for
-// all of them the colour, SH of degree 2 or RGB (a template argument,
+// all of them the colour, SH of degree 0-4 or RGB (a template argument,
 // kRgb), with its colour scale/shift, the SH basis folded once per ray
 // for K2, K3, K5 and K6), the staging of a warp's pack tiles for the
 // thread-per-ray kernels K2 and K6, and the per-ray log-space composite:
 // over an S-lane segment of a warp (S <= 32; K7 and K5-pre), over a whole
 // warp with two samples per lane (S = 64, K5-pre), or a running sum per
 // thread over its ray's samples (K2, K3, K5, K6).
+//
+// The SH degree: every SH kernel is built twice, for degree 2 (the
+// presets') with its body alone, the code it ran before, and for any
+// other degree (a template flag, kAnyDeg, the launchers' choice from
+// ShadeParams::nb / MultiParams::nb, the basis count (deg + 1)^2), which
+// switches once on nb to a body for that count, unrolled, but the fold of
+// degree 3-4 rolled over the bases (sh_fold_rolled). The fold runs once
+// per ray and gives the same [3, A] matrix at every degree, so a sample's
+// colour does not depend on it. One kernel with the switch ran degree 2
+// up to 20 % slower (K5; K5-pre 15 %) with the same registers, and up to
+// 47 % with the degree-3-4 bodies rolled (PERF.md), so degree 2 keeps its
+// own instantiation; a template axis per degree would build each SH
+// kernel five times. (K5-pre's per-sample colour rolled over the bases
+// reads its weights at run-time offsets and ran 4-25x slower than
+// unrolled.)
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-constexpr int kBasis = 9;                    // SH degree 2
-// the largest basis of a kernel's parameters: [3 * kBasis, 24] floats, the
-// SH basis over the 24 appearance channels of K5's [8, 8, 8] layout (K2's
-// [3 * kBasis, C] takes C <= 16); 2592 bytes, well inside the 4 KB of a
-// kernel's parameters
-constexpr int kMaxWb = 3 * kBasis * 24;
+constexpr int kMaxBasis = 25;                // SH degree 4
+// the largest basis of a kernel's parameters: [3 * kMaxBasis, 24] floats,
+// the SH basis of degree 4 over the 24 appearance channels of K5's [8, 8,
+// 8] layout (K2's [3 * nb, C] takes C <= 16); 7,200 bytes, past the 4 KB
+// that kernel parameters held before CUDA 12.1, inside the 32,764 bytes
+// that it allows on sm_70 and later (the structs below are the kernels'
+// __grid_constant__ parameters)
+constexpr int kMaxWb = 3 * kMaxBasis * 24;
 
 // global scope: see the note on PackParams in pack_build.cu
 struct ShadeParams {
   int B, S, W, H, TW, TH, C, nd;
   float distance_scale;
-  // SH: [3 * kBasis, C], rows ch * kBasis + k (colour ch); RGB: [3, C]
+  // SH: [3 * nb, C], rows ch * nb + k (colour ch); RGB: [3, C]
   float wb[kMaxWb];
   // the host's choice of instantiation: 1 = RGB colour (kRgb); 1 = the
   // pack has the weights row (kWeights, quad kernels only)
   int rgb, weights;
+  // the SH basis count (deg + 1)^2 in 1, 4, 9, 16, 25 (1 for RGB); last,
+  // so that the fields before it sit where degree 2's kernels read them
+  int nb;
 };
 
 namespace shade_core {
@@ -50,20 +70,64 @@ constexpr float kC22 = 0.31539156525252005f;
 constexpr float kC23 = -1.0925484305920792f;
 constexpr float kC24 = 0.5462742152960396f;
 
-// the 9 real SH bases of degree <= 2 (the flagship's and tiny_dynamic's)
-__device__ __forceinline__ void sh_basis2(float x, float y, float z,
-                                          float* Y) {
-  const float xx = x * x, yy = y * y, zz = z * z;
-  const float xy = x * y, yz = y * z, xz = x * z;
-  Y[0] = kC0;
-  Y[1] = -kC1 * y;
-  Y[2] = kC1 * z;
-  Y[3] = -kC1 * x;
-  Y[4] = kC20 * xy;
-  Y[5] = kC21 * yz;
-  Y[6] = kC22 * (2.0f * zz - xx - yy);
-  Y[7] = kC23 * xz;
-  Y[8] = kC24 * (xx - yy);
+// Whether a kernel takes this colour: RGB, or SH with nb (deg + 1)^2
+// basis rows per colour channel, degree 0-4.
+inline bool basis_built(int rgb, int nb) {
+  return rgb || nb == 1 || nb == 4 || nb == 9 || nb == 16 || nb == 25;
+}
+
+// Whether an SH launch takes the instantiation for any degree (kAnyDeg):
+// every degree but 2.
+inline bool any_degree(int rgb, int nb) { return !rgb && nb != 9; }
+
+// The first NB real SH bases (NB = (deg + 1)^2, degree 0-4) of the view
+// direction (x, y, z), in the order and with the constants of the JAX
+// kernel's _sh_basis_rows (hyperreel_tpu/ops/pallas/shade.py:67-101) and
+// ops/sh.py eval_sh_bases.
+template <int NB>
+__device__ __forceinline__ void sh_basis(float x, float y, float z,
+                                         float* Y) {
+  if constexpr (NB <= 4) {
+    Y[0] = kC0;
+    if constexpr (NB > 1) {
+      Y[1] = -kC1 * y;
+      Y[2] = kC1 * z;
+      Y[3] = -kC1 * x;
+    }
+  } else {
+    const float xx = x * x, yy = y * y, zz = z * z;
+    const float xy = x * y, yz = y * z, xz = x * z;
+    Y[0] = kC0;
+    Y[1] = -kC1 * y;
+    Y[2] = kC1 * z;
+    Y[3] = -kC1 * x;
+    Y[4] = kC20 * xy;
+    Y[5] = kC21 * yz;
+    Y[6] = kC22 * (2.0f * zz - xx - yy);
+    Y[7] = kC23 * xz;
+    Y[8] = kC24 * (xx - yy);
+    if constexpr (NB > 9) {
+      Y[9] = -0.5900435899266435f * y * (3.0f * xx - yy);
+      Y[10] = 2.890611442640554f * xy * z;
+      Y[11] = -0.4570457994644658f * y * (4.0f * zz - xx - yy);
+      Y[12] = 0.3731763325901154f * z * (2.0f * zz - 3.0f * xx - 3.0f * yy);
+      Y[13] = -0.4570457994644658f * x * (4.0f * zz - xx - yy);
+      Y[14] = 1.445305721320277f * z * (xx - yy);
+      Y[15] = -0.5900435899266435f * x * (xx - 3.0f * yy);
+    }
+    if constexpr (NB > 16) {
+      Y[16] = 2.5033429417967046f * xy * (xx - yy);
+      Y[17] = -1.7701307697799304f * yz * (3.0f * xx - yy);
+      Y[18] = 0.9461746957575601f * xy * (7.0f * zz - 1.0f);
+      Y[19] = -0.6690465435572892f * yz * (7.0f * zz - 3.0f);
+      Y[20] = 0.10578554691520431f * (zz * (35.0f * zz - 30.0f) + 3.0f);
+      Y[21] = -0.6690465435572892f * xz * (7.0f * zz - 3.0f);
+      Y[22] = 0.47308734787878004f * (xx - yy) * (7.0f * zz - 1.0f);
+      Y[23] = -1.7701307697799304f * xz * (xx - 3.0f * yy);
+      Y[24] = 0.6258357354491761f *
+              (xx * (xx - 3.0f * yy) - yy * (3.0f * xx - yy));
+    }
+  }
 }
 
 // Linear-interpolation taps along one grid axis (align_corners=True, zero
@@ -177,19 +241,18 @@ __device__ __forceinline__ void stage_ray_pack(float* mine, const float* pack,
   }
 }
 
-// The SH-2 colour of one valid sample from its C features:
+// The SH colour of one valid sample from its C features:
 // rgb = max(sum_k (wb @ feat)_k Y_k + 0.5, 0) * (scale + 1) + shift, with
-// wb [3 * kBasis, C] (rows ch * kBasis + k, colour channel ch; zero on the
-// density channels where feat holds them), Y the bases of the ray's view
-// direction (ray pack row o xyz, d xyz, dt, tn) and the scale and shift
-// in pack rows 4..9.
-template <int C>
-__device__ __forceinline__ void sh_colour(const float* feat, const float* wb,
-                                          const float* pk, const float* ray,
-                                          float* rgb) {
-  constexpr int K = kBasis;
+// wb [3 * nb, C] (rows ch * nb + k, colour channel ch; zero on the
+// density channels where feat holds them), Y the nb bases of the ray's
+// view direction (ray pack row o xyz, d xyz, dt, tn) and the scale and
+// shift in pack rows 4..9.
+template <int C, int K>
+__device__ __forceinline__ void sh_colour_nb(const float* feat,
+                                             const float* wb, const float* pk,
+                                             const float* ray, float* rgb) {
   float Y[K];
-  sh_basis2(__ldg(ray + 3), __ldg(ray + 4), __ldg(ray + 5), Y);
+  sh_basis<K>(__ldg(ray + 3), __ldg(ray + 4), __ldg(ray + 5), Y);
 #pragma unroll
   for (int ch = 0; ch < 3; ++ch) {
     float e = 0.0f;
@@ -201,6 +264,25 @@ __device__ __forceinline__ void sh_colour(const float* feat, const float* wb,
       e += app * Y[k];
     }
     rgb[ch] = fmaxf(e + 0.5f, 0.0f) * (pk[4 + ch] + 1.0f) + pk[7 + ch];
+  }
+}
+
+// The SH colour with nb bases: degree 2 alone, or (kAnyDeg) the body for
+// the run-time basis count nb (1, 4, 16 or 25; the launchers refuse any
+// other)
+template <int C, bool kAnyDeg>
+__device__ __forceinline__ void sh_colour(const float* feat, const float* wb,
+                                          int nb, const float* pk,
+                                          const float* ray, float* rgb) {
+  if constexpr (!kAnyDeg) {
+    sh_colour_nb<C, 9>(feat, wb, pk, ray, rgb);
+  } else {
+    switch (nb) {
+      case 1: sh_colour_nb<C, 1>(feat, wb, pk, ray, rgb); break;
+      case 4: sh_colour_nb<C, 4>(feat, wb, pk, ray, rgb); break;
+      case 16: sh_colour_nb<C, 16>(feat, wb, pk, ray, rgb); break;
+      default: sh_colour_nb<C, 25>(feat, wb, pk, ray, rgb); break;
+    }
   }
 }
 
@@ -222,34 +304,77 @@ __device__ __forceinline__ void rgb_colour(const float* feat, const float* wb,
   }
 }
 
-// The SH-2 basis weights folded with one ray's view direction (x, y, z):
-// M[ch * A + a] = sum_k Y_k wb[(ch * kBasis + k) * kRow + a], 27 x A FMAs
+// The SH basis weights folded with one ray's view direction (x, y, z):
+// M[ch * A + a] = sum_k Y_k wb[(ch * nb + k) * kRow + a], 3 nb x A FMAs
 // once per ray, so that each sample's colour takes the [3, A] product
-// M @ feat (sh_folded_colour) instead of sh_colour's [3 * kBasis, A] one.
+// M @ feat (sh_folded_colour) instead of sh_colour's [3 * nb, A] one.
 // The same function as sh_colour up to the order of the sums. wb's rows
 // hold kRow channels, of which the fold takes the first A (K3 passes wb
 // from its first appearance channel: the density channels' columns are
 // zero).
-template <int A, int kRow = A>
-__device__ __forceinline__ void sh_fold(const float* wb, float x, float y,
-                                        float z, float* M) {
-  float Y[kBasis];
-  sh_basis2(x, y, z, Y);
+template <int A, int kRow, int K>
+__device__ __forceinline__ void sh_fold_nb(const float* wb, float x, float y,
+                                           float z, float* M) {
+  float Y[K];
+  sh_basis<K>(x, y, z, Y);
 #pragma unroll
   for (int ch = 0; ch < 3; ++ch) {
 #pragma unroll
     for (int a = 0; a < A; ++a) {
       float m = 0.0f;
 #pragma unroll
-      for (int k = 0; k < kBasis; ++k) {
-        m += wb[(ch * kBasis + k) * kRow + a] * Y[k];
+      for (int k = 0; k < K; ++k) {
+        m += wb[(ch * K + k) * kRow + a] * Y[k];
       }
       M[ch * A + a] = m;
     }
   }
 }
 
-// The SH-2 colour of one valid sample from its A features and its ray's
+// sh_fold_nb for degree 3 or 4 (K = 16, 25) with the loop over the bases
+// rolled: the bases in a local array, each taken once into the 3A
+// accumulators of M, so that this body holds M and one basis in
+// registers (unrolled, all 25 bases and M: K5 at degree 4 ran 0.87 ms a
+// chunk, rolled 0.61, PERF.md); the sum over k runs in the same order.
+template <int A, int kRow, int K>
+__device__ __forceinline__ void sh_fold_rolled(const float* wb, float x,
+                                               float y, float z, float* M) {
+  float Y[K];
+  sh_basis<K>(x, y, z, Y);
+#pragma unroll
+  for (int i = 0; i < 3 * A; ++i) M[i] = 0.0f;
+#pragma unroll 1
+  for (int k = 0; k < K; ++k) {
+    const float yk = Y[k];
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+#pragma unroll
+      for (int a = 0; a < A; ++a) {
+        M[ch * A + a] += wb[(ch * K + k) * kRow + a] * yk;
+      }
+    }
+  }
+}
+
+// The fold with nb bases: degree 2 alone, or (kAnyDeg) the body for the
+// run-time basis count nb (1, 4, 16 or 25; the launchers refuse any
+// other), one uniform branch per ray
+template <int A, int kRow, bool kAnyDeg>
+__device__ __forceinline__ void sh_fold(const float* wb, int nb, float x,
+                                        float y, float z, float* M) {
+  if constexpr (!kAnyDeg) {
+    sh_fold_nb<A, kRow, 9>(wb, x, y, z, M);
+  } else {
+    switch (nb) {
+      case 1: sh_fold_nb<A, kRow, 1>(wb, x, y, z, M); break;
+      case 4: sh_fold_nb<A, kRow, 4>(wb, x, y, z, M); break;
+      case 16: sh_fold_rolled<A, kRow, 16>(wb, x, y, z, M); break;
+      default: sh_fold_rolled<A, kRow, 25>(wb, x, y, z, M); break;
+    }
+  }
+}
+
+// The SH colour of one valid sample from its A features and its ray's
 // folded basis M [3, A] (sh_fold): rgb = max(M @ feat + 0.5, 0) * (scale +
 // 1) + shift, the scale and shift in pack rows 4..9.
 template <int A>
@@ -289,15 +414,16 @@ __device__ __forceinline__ void composite_add(RayComposite& c, float sigma,
   c.v[4] += w * dist;
 }
 
-// The colour of one valid sample: RGB (kRgb) or SH of degree 2.
-template <int C, bool kRgb>
+// The colour of one valid sample: RGB (kRgb) or SH with nb bases (degree
+// 2 unless kAnyDeg).
+template <int C, bool kRgb, bool kAnyDeg>
 __device__ __forceinline__ void colour(const float* feat, const float* wb,
-                                       const float* pk, const float* ray,
-                                       float* rgb) {
+                                       int nb, const float* pk,
+                                       const float* ray, float* rgb) {
   if constexpr (kRgb) {
     rgb_colour<C>(feat, wb, pk, rgb);
   } else {
-    sh_colour<C>(feat, wb, pk, ray, rgb);
+    sh_colour<C, kAnyDeg>(feat, wb, nb, pk, ray, rgb);
   }
 }
 

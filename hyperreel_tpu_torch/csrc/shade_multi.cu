@@ -34,8 +34,9 @@
 //   memory with a stride of 5 floats per ray, which its threads then read
 //   without bank conflicts (S >= 4).
 // - The SH basis is folded with the ray's view direction once per ray
-//   (shade_core.cuh sh_fold): 432 FMAs per ray, then a [3, 16] product per
-//   sample instead of [27, 16]; the fold stays in the thread's registers.
+//   (shade_core.cuh sh_fold): 3 nb x 16 FMAs per ray (432 at degree 2,
+//   1,200 at degree 4), then a [3, 16] product per sample instead of
+//   [3 nb, 16]; the fold stays in the thread's registers.
 //   N = 3 is too thin for mma.
 // - The second factors are read through L1 with branch-free taps (both
 //   rows of a tap pair always read, indices clamped, weight 0 off the
@@ -59,7 +60,7 @@
 // Layout888: [8, 4, 4] or [8, 8, 8]; at [8, 8, 8] the folded basis is 72
 // floats, the appearance vector 24), kTime (every axis a time plane, else
 // every axis a line: a mix is not built), kRgb (RGB colour, else SH of
-// degree 2),
+// degree 0-4, the basis count p.nb a run-time value),
 // kWeights (the pack has the weights row: the static net's own fused
 // route, shade.py:728-729, scales the density sum by the sample's
 // predicted weight before the relu).
@@ -133,7 +134,7 @@ __device__ __forceinline__ void stage_pack(float* tile, const float* pack,
 // A thread per ray: each warp takes 32 neighbouring rays of the block's
 // run [lo, hi) at a time and walks their samples in order. Block b of the
 // grid G takes rays [b B / G, (b+1) B / G). L: the channel layout.
-template <class L, bool kTime, bool kRgb, bool kWeights>
+template <class L, bool kTime, bool kRgb, bool kWeights, bool kAnyDeg>
 __global__ void __launch_bounds__(kThreads, 1)
     shade_multi_kernel(const float* __restrict__ pack,
                        const float* __restrict__ rays,
@@ -162,8 +163,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     // the ray's folded basis [3, A]
     float M[kRgb ? 1 : 3 * L::kApp];
     if constexpr (!kRgb) {
-      sh_fold<L::kApp>(p.wb, __ldg(ray + 3), __ldg(ray + 4), __ldg(ray + 5),
-                       M);
+      sh_fold<L::kApp, L::kApp, kAnyDeg>(p.wb, p.nb, __ldg(ray + 3),
+                                         __ldg(ray + 4), __ldg(ray + 5), M);
     }
     RayComposite acc;
     float prev_sigma = 0.0f, prev_rgb[3] = {0.0f, 0.0f, 0.0f},
@@ -215,7 +216,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 // Each axis's `table` is its pre-blended bf16 features [B*S, C]. SPL
 // samples per lane: lane l of ray r's segment of S / SPL lanes holds
 // samples SPL*l + j. L: the channel layout.
-template <class L, int SPL, bool kTime, bool kRgb>
+template <class L, int SPL, bool kTime, bool kRgb, bool kAnyDeg>
 __global__ void __launch_bounds__(kPreThreads)
     shade_multi_pre_kernel(const float* __restrict__ pack,
                            const float* __restrict__ rays,
@@ -246,8 +247,8 @@ __global__ void __launch_bounds__(kPreThreads)
         constexpr int a = decltype(A)::value;
         row_features<L::template ch<a>()>(p.axis[a], g, f);
       };
-      shade_axes<L, kTime, kRgb, false>(p, pk, ray, feat, 1.0f, sigma[j],
-                                        rgb[j]);
+      shade_axes<L, kTime, kRgb, false, kAnyDeg>(p, pk, ray, feat, 1.0f,
+                                                 sigma[j], rgb[j]);
     }
   }
   float* o = out + (live ? ray_i : 0) * 5;
@@ -273,12 +274,12 @@ struct LaunchConfig {
 // launch there: as many blocks per SM as the occupancy API allows with all
 // of shared memory, then the least carve-out that holds them (the rest
 // stays L1 for the quad rows).
-template <class L, bool kTime, bool kRgb, bool kWeights>
+template <class L, bool kTime, bool kRgb, bool kWeights, bool kAnyDeg>
 cudaError_t launch_config(LaunchConfig* c) {
   static LaunchConfig kept[kMaxDevices];
   static bool ready[kMaxDevices];
   static std::mutex mu;
-  auto kern = shade_multi_kernel<L, kTime, kRgb, kWeights>;
+  auto kern = shade_multi_kernel<L, kTime, kRgb, kWeights, kAnyDeg>;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -317,11 +318,11 @@ cudaError_t launch_config(LaunchConfig* c) {
 
 // The quad kernel on persistent blocks; chosen[4] gets the grid, blocks per
 // SM, carve-out and shared memory per block.
-template <class L, bool kTime, bool kRgb, bool kWeights>
-int run(const float* pack, const float* rays, float* out,
-        const MultiParams* p, int* chosen, cudaStream_t st) {
+template <class L, bool kTime, bool kRgb, bool kWeights, bool kAnyDeg>
+int run_deg(const float* pack, const float* rays, float* out,
+            const MultiParams* p, int* chosen, cudaStream_t st) {
   LaunchConfig c;
-  const cudaError_t e = launch_config<L, kTime, kRgb, kWeights>(&c);
+  const cudaError_t e = launch_config<L, kTime, kRgb, kWeights, kAnyDeg>(&c);
   if (e != cudaSuccess) return (int)e;
   const int64_t want = ((int64_t)p->B + kThreads - 1) / kThreads;
   const int64_t most = (int64_t)c.blocks_per_sm * c.sms;
@@ -330,9 +331,24 @@ int run(const float* pack, const float* rays, float* out,
   chosen[1] = c.blocks_per_sm;
   chosen[2] = c.carveout;
   chosen[3] = c.smem_bytes;
-  shade_multi_kernel<L, kTime, kRgb, kWeights>
+  shade_multi_kernel<L, kTime, kRgb, kWeights, kAnyDeg>
       <<<(unsigned)grid, kThreads, c.smem_bytes, st>>>(pack, rays, out, *p);
   return (int)cudaGetLastError();
+}
+
+// run_deg for p's SH degree: the degree-2 instantiation or the any-degree
+// one
+template <class L, bool kTime, bool kRgb, bool kWeights>
+int run(const float* pack, const float* rays, float* out,
+        const MultiParams* p, int* chosen, cudaStream_t st) {
+  if constexpr (!kRgb) {
+    if (any_degree(p->rgb, p->nb)) {
+      return run_deg<L, kTime, kRgb, kWeights, true>(pack, rays, out, p,
+                                                     chosen, st);
+    }
+  }
+  return run_deg<L, kTime, kRgb, kWeights, false>(pack, rays, out, p, chosen,
+                                                  st);
 }
 
 // the instantiation for p's layout (Layout844 or Layout888), time planes,
@@ -370,10 +386,13 @@ template <class L, int SPL, bool kTime>
 int run_pre(unsigned blocks, const float* pack, const float* rays,
             float* out, const MultiParams* p, cudaStream_t st) {
   if (p->rgb) {
-    shade_multi_pre_kernel<L, SPL, kTime, true>
+    shade_multi_pre_kernel<L, SPL, kTime, true, false>
+        <<<blocks, kPreThreads, 0, st>>>(pack, rays, out, *p);
+  } else if (any_degree(p->rgb, p->nb)) {
+    shade_multi_pre_kernel<L, SPL, kTime, false, true>
         <<<blocks, kPreThreads, 0, st>>>(pack, rays, out, *p);
   } else {
-    shade_multi_pre_kernel<L, SPL, kTime, false>
+    shade_multi_pre_kernel<L, SPL, kTime, false, false>
         <<<blocks, kPreThreads, 0, st>>>(pack, rays, out, *p);
   }
   return (int)cudaGetLastError();
@@ -383,7 +402,9 @@ int run_pre(unsigned blocks, const float* pack, const float* rays,
 // every axis a time plane.
 bool built(const MultiParams* p) {
   const int S = p->S;
-  if (S < 1 || S > 64 || (S & (S - 1))) return false;
+  if (S < 1 || S > 64 || (S & (S - 1)) || !basis_built(p->rgb, p->nb)) {
+    return false;
+  }
   for (int a = 0; a < 3; ++a) {
     if (p->axis[a].TH < 0 || (p->axis[a].TH > 0) != has_time(*p)) {
       return false;

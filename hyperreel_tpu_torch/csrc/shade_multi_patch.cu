@@ -39,7 +39,7 @@
 // - Blocks of 4 warps, registers capped for 4 blocks per SM.
 // Built for multi_core.cuh PatchLayout ([8, 4, 4]; the layout a template
 // argument), R in {4, 8}, S a power of two <= 64, lines, time planes or a
-// mix, and SH of degree 2 or RGB colour (a template argument). A pack with
+// mix, and SH of degree 0-4 (p.nb) or RGB colour (a template argument). A pack with
 // the weights row is refused (not built: ROADMAP.md 2a).
 
 #include "multi_core.cuh"
@@ -74,7 +74,7 @@ __device__ __forceinline__ SlotAnchor plane_anchor(const MultiAxis& ax,
                    px, py);
 }
 
-template <class L, int R, bool kTime, bool kRgb>
+template <class L, int R, bool kTime, bool kRgb, bool kAnyDeg>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     shade_multi_patch_kernel(const float* __restrict__ pack,
                              const float* __restrict__ rays,
@@ -108,7 +108,8 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
   // the ray's folded basis [3, A]
   float M[kRgb ? 1 : 3 * L::kApp];
   if constexpr (!kRgb) {
-    sh_fold<L::kApp>(p.wb, __ldg(ray + 3), __ldg(ray + 4), __ldg(ray + 5), M);
+    sh_fold<L::kApp, L::kApp, kAnyDeg>(p.wb, p.nb, __ldg(ray + 3),
+                                       __ldg(ray + 4), __ldg(ray + 5), M);
   }
   RayComposite acc;
   float prev_sigma = 0.0f, prev_rgb[3] = {0.0f, 0.0f, 0.0f}, prev_dist = 0.0f;
@@ -174,8 +175,15 @@ cudaError_t launch(const float* pack, const float* rays, float* out,
                    int* viol, const MultiParams& p, const PatchParams& q,
                    cudaStream_t st) {
   const unsigned blocks = (unsigned)((q.B + kThreads - 1) / kThreads);
-  shade_multi_patch_kernel<L, R, kTime, kRgb>
-      <<<blocks, kThreads, 0, st>>>(pack, rays, out, viol, p, q);
+  if (any_degree(p.rgb, p.nb)) {
+    if constexpr (!kRgb) {
+      shade_multi_patch_kernel<L, R, kTime, kRgb, true>
+          <<<blocks, kThreads, 0, st>>>(pack, rays, out, viol, p, q);
+    }
+  } else {
+    shade_multi_patch_kernel<L, R, kTime, kRgb, false>
+        <<<blocks, kThreads, 0, st>>>(pack, rays, out, viol, p, q);
+  }
   return cudaGetLastError();
 }
 
@@ -202,6 +210,7 @@ extern "C" int shade_multi_patch_launch(const float* pack, const float* rays,
   const int S = q->S;
   if (S < 1 || S > 64 || (S & (S - 1)) || p->S != S || p->B != q->B ||
       p->weights || (q->R != 4 && q->R != 8) || q->B % q->R ||
+      !basis_built(p->rgb, p->nb) ||
       !PatchLayout::of(*p)) {
     return (int)cudaErrorInvalidValue;
   }

@@ -12,6 +12,7 @@ extern "C" int shade_patch_launch(const void* ptab, const float* pack,
   const int S = q->S;
   if (S < 4 || S > 32 || (S & (S - 1)) || p->S != S || p->B != q->B ||
       p->C != q->C || p->weights || (!p->rgb && 2 * p->nd != p->C) ||
+      !basis_built(p->rgb, p->nb) ||
       (q->R != 4 && q->R != 8) ||
       q->B % q->R || q->m0 < 0 || q->m0 > 2 || q->m1 < 0 || q->m1 > 2) {
     return (int)cudaErrorInvalidValue;

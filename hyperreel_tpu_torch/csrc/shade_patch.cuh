@@ -27,13 +27,13 @@
 //   stride of 9 floats per ray, which its threads then read without bank
 //   conflicts.
 // - The SH basis is folded with the ray's view direction once per ray
-//   (shade_core.cuh sh_fold: 27 x C / 2 FMAs over the C / 2 appearance
+//   (shade_core.cuh sh_fold: 3 nb x C / 2 FMAs over the C / 2 appearance
 //   channels), so that a sample's colour is a [3, C / 2] product
 //   (sh_folded_colour); RGB colour has nothing to fold.
 // - The composite is a running sum per thread (composite_add).
 // - Blocks of 4 warps, registers capped for 4 blocks per SM.
 // Built for C in {8, 16}, R in {4, 8}, S a power of two in 4 .. 32 and SH
-// of degree 2 with C / 2 density channels (every preset's) or RGB colour
+// of degree 0-4 with C / 2 density channels (every preset's) or RGB colour
 // (a template argument); a pack with the weights row is refused (not
 // built: ROADMAP.md 2a).
 //
@@ -75,7 +75,7 @@ __device__ __forceinline__ void patch_colour(const float* feat,
   }
 }
 
-template <int C, int R, bool kRgb>
+template <int C, int R, bool kRgb, bool kAnyDeg>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     shade_patch_kernel(const uint4* __restrict__ ptab,
                        const float* __restrict__ pack,
@@ -103,8 +103,8 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
   // the ray's folded basis [3, C / 2]
   float M[kRgb ? 1 : 3 * C / 2];
   if constexpr (!kRgb) {
-    sh_fold<C / 2, C>(p.wb + C / 2, __ldg(ray + 3), __ldg(ray + 4),
-                      __ldg(ray + 5), M);
+    sh_fold<C / 2, C, kAnyDeg>(p.wb + C / 2, p.nb, __ldg(ray + 3),
+                               __ldg(ray + 4), __ldg(ray + 5), M);
   }
   RayComposite acc;
   float prev_sigma = 0.0f, prev_rgb[3] = {0.0f, 0.0f, 0.0f}, prev_dist = 0.0f;
@@ -178,10 +178,13 @@ cudaError_t launch(const uint4* ptab, const float* pack, const float* rays,
                    cudaStream_t st) {
   const unsigned blocks = (unsigned)((q.B + kThreads - 1) / kThreads);
   if (p.rgb) {
-    shade_patch_kernel<C, R, true><<<blocks, kThreads, 0, st>>>(
+    shade_patch_kernel<C, R, true, false><<<blocks, kThreads, 0, st>>>(
+        ptab, pack, rays, ttab, out, viol, p, q);
+  } else if (any_degree(p.rgb, p.nb)) {
+    shade_patch_kernel<C, R, false, true><<<blocks, kThreads, 0, st>>>(
         ptab, pack, rays, ttab, out, viol, p, q);
   } else {
-    shade_patch_kernel<C, R, false><<<blocks, kThreads, 0, st>>>(
+    shade_patch_kernel<C, R, false, false><<<blocks, kThreads, 0, st>>>(
         ptab, pack, rays, ttab, out, viol, p, q);
   }
   return cudaGetLastError();

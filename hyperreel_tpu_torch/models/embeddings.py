@@ -5,7 +5,8 @@ Each stage has `.init(gen, device) -> params` and
 `.apply(params, x, ctx, render_kwargs) -> x` over a dict of tensors. The
 ported stages are ray_prediction, ray_intersect, point_prediction,
 point_density, advect_points, point_offset, add_point_outputs,
-extract_fields, and generate_samples, select_points and reflect
+extract_fields, color_transform, and generate_samples, select_points and
+reflect
 (models/embeddings_extra.py), at eval and in training, with
 the per-stage wait/stop gating of the chain; any other stage type raises
 NotImplementedError (ROADMAP.md: long tail). Each stage's `group` names
@@ -401,6 +402,51 @@ class ExtractFieldsEmbedding:
         return {k: x[k] for k in fields if k in x}
 
 
+class ColorTransformEmbedding:
+    """A learned per-camera residual 3x3 colour transform and shift
+    (hyperreel_tpu ColorTransformEmbedding; reference
+    nlf/embedding/point.py:558-602): each ray's camera index (the ray's
+    second-to-last channel, rounded) picks its camera's transform [9] and
+    shift [3], under their activations, broadcast to every sample as
+    color_transform_global [B, S, 9] and color_shift_global [B, S, 3],
+    which the colour net applies to the composited colour
+    (FactoredNet.finish). An index outside [0, num_views) reads the
+    nearest camera's and passes it no gradient, as the JAX package's
+    gather (clamped) and its transpose (out-of-range updates dropped) do.
+    Its params are in the "color" group."""
+
+    def __init__(self, cfg, num_views=1):
+        self.cfg = cfg
+        self.num_views = int(num_views)
+        self.group = "color"
+        self.rays_name = cfg.get("rays_name", "rays")
+        self.transform_activation = get_activation(
+            cfg.get("transform_activation", "identity"))
+        self.shift_activation = get_activation(
+            cfg.get("shift_activation", "identity"))
+
+    def init(self, gen, device):
+        return {"transform": torch.zeros(self.num_views, 9, device=device),
+                "shift": torch.zeros(self.num_views, 3, device=device)}
+
+    def apply(self, params, x, ctx, render_kwargs=None):
+        rays = x[self.rays_name]
+        idx = torch.round(rays[..., -2]).long()
+        cam = torch.clamp(idx, 0, self.num_views - 1)
+        inside = (cam == idx)[:, None]
+
+        def pick(v):
+            v = v[cam]
+            return torch.where(inside, v, v.detach())
+
+        transform = pick(self.transform_activation(params["transform"], ctx))
+        shift = pick(self.shift_activation(params["shift"], ctx))
+        B, S = rays.shape[0], x["points"].shape[1]
+        x["color_transform_global"] = transform[:, None, :].expand(B, S, 9)
+        x["color_shift_global"] = shift[:, None, :].expand(B, S, 3)
+        return x
+
+
 def _stage_window(stage):
     """A stage's (wait_iters, stop_iters) gate, or None where it has
     none."""
@@ -480,6 +526,9 @@ def build_embedding_chain(cfg, dataset_info=None, compute_dtype=None):
             stage = AddPointOutputsEmbedding(dict(scfg))
         elif t == "extract_fields":
             stage = ExtractFieldsEmbedding(dict(scfg))
+        elif t == "color_transform":
+            stage = ColorTransformEmbedding(
+                dict(scfg), int(dataset_info.get("num_views", 1)))
         elif t == "select_points":
             stage = SelectPointsEmbedding(dict(scfg))
         elif t == "generate_samples":

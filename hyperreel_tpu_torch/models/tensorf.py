@@ -1,8 +1,13 @@
 """Factored feature-grid colour nets (port of hyperreel_tpu/models/tensorf.py
 TensorVMKeyframeTime and TensorVMNoSample: init, the general apply in eval
-and in training with its render fields, SH or RGB shading, each net's own
-fused route, the regularizer terms and the grid events; reference
-nlf/nets/tensorf_dynamic.py, nlf/nets/tensorf_no_sample.py).
+and in training with its render fields, the shading heads (SH of degree
+0-4, RGB, RGBIdentity, the MLP_Fea render net; the dynamic net's RGBtLinear
+and RGBtFourier) and density heads (the dynamic net's DensityLinear and
+DensityFourier), the top-k weight filter, the per-sample and per-ray colour
+transforms, each net's own fused route, the regularizer terms and the grid
+events; reference nlf/nets/tensorf_dynamic.py,
+nlf/nets/tensorf_no_sample.py). The other colour nets are in
+models/tensorf_extra.py.
 
 Grids are channels-last, as in the JAX package. The dynamic net holds per
 active axis i a space plane [H, W, C] and a time plane [num_keyframes, TW,
@@ -10,8 +15,11 @@ C] for each of the density and appearance families ("space_i",
 "time_i"); the static net a plane [H, W, C] and a line [L, C] ("plane_i",
 "line_i"), axis i's plane spanning the points' components MAT_MODE[i] and
 its line component VEC_MODE[i]. `basis_mat` is {"weight": [app_dim,
-sum(app comps)]} (nn.Linear layout): app_dim 27 for SH of degree 2, 3 for
-RGB.
+sum(app comps)]} (nn.Linear layout): app_dim 3 (deg + 1)^2 for SH of degree
+deg (27 for degree 2), 3 for RGB; the dynamic net's time heads force it
+(RGBtLinear 6, RGBtFourier 3 (2 frames_per_keyframe + 1)), as the JAX net
+does. MLP_Fea adds "render" {"l0", "l1", "l2"} (nn.Linear layout), a
+non-plain density head "basis_mat_density".
 """
 
 import math
@@ -24,7 +32,8 @@ from hyperreel_tpu_torch.ops.grid_sample import (
     grid_sample_1d, grid_sample_2d, linspace, resize_bilinear_2d,
     resize_linear_1d)
 from hyperreel_tpu_torch.ops.render_math import (
-    alpha2weights, raw2alpha, scale_shift_color_all)
+    alpha2weights, raw2alpha, scale_shift_color_all, scale_shift_color_one,
+    transform_color_all, transform_color_one)
 from hyperreel_tpu_torch.ops.sh import sh_render
 
 MAT_MODE_SPACE = ((0, 1), (0, 2), (1, 2))
@@ -58,6 +67,78 @@ def _tv2d(plane_hwc):
     return 2.0 * (h_tv + w_tv)
 
 
+# -- shading and density heads (hyperreel_tpu tensorf.py:83-198; reference
+# utils/tensorf_utils.py:334-456, nlf/nets/tensorf_base.py:38-135) ---------
+
+def time_fourier_basis(kw):
+    """[..., 2 fpk + 1]: the time t, then cos and sin of each of the
+    frames_per_keyframe frequencies at the ray's offset from its keyframe
+    (JAX _time_fourier_basis)."""
+    fpk, K, F = kw["frames_per_keyframe"], kw["num_keyframes"], \
+        kw["total_num_frames"]
+    time_offset = kw["time_offset"][..., :1] * (K * (F - 1) / F)
+    t = kw["times"][..., :1]
+    freqs = torch.arange(fpk, dtype=torch.float32, device=t.device)
+    ang = time_offset * freqs * 2.0 * np.pi
+    return torch.cat([t, torch.cos(ang), torch.sin(ang)], -1)
+
+
+def linear_time_basis(kw):
+    """[..., 2]: 1 and the time t (the linear heads)."""
+    t = kw["times"][..., :1]
+    return torch.cat([torch.ones_like(t), t], -1)
+
+
+def time_colour(features, basis):
+    """max(sum_j coeffs[c, j] basis_j + 0.5, 0) per colour channel c, the
+    coefficients features [..., 3 * J] channel-major (RGBtLinear,
+    RGBtFourier)."""
+    coeffs = features.reshape(features.shape[:-1] + (3, basis.shape[-1]))
+    return torch.clamp_min((basis[..., None, :] * coeffs).sum(-1) + 0.5, 0.0)
+
+
+def time_density(features, basis):
+    """sum_j features_j basis_j (DensityLinear, DensityFourier)."""
+    return (basis * features).sum(-1)
+
+
+def positional_encoding(x, n):
+    """sin of every frequency 2^0 .. 2^(n-1) of every channel, then their
+    cos (JAX _positional_encoding)."""
+    freqs = 2.0 ** torch.arange(n, dtype=torch.float32, device=x.device)
+    ang = (x[..., None] * freqs).reshape(x.shape[:-1] + (-1,))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1)
+
+
+def mlp_fea_init(gen, device, app_dim, viewpe, feape, hidden):
+    """The MLP_Fea render net's layers (JAX _mlp_render_init: the last
+    layer's bias zero)."""
+    in_c = 2 * viewpe * 3 + 2 * feape * app_dim + 3 + app_dim
+    l2 = linear_init(gen, hidden, 3, device)
+    l2["bias"] = torch.zeros_like(l2["bias"])
+    return {"l0": linear_init(gen, in_c, hidden, device),
+            "l1": linear_init(gen, hidden, hidden, device), "l2": l2}
+
+
+def mlp_fea(params, viewdirs, features, viewpe, feape):
+    """MLPRender_Fea (reference nlf/nets/tensorf_base.py:38-69): sigmoid of
+    a two-hidden-layer relu MLP of [features, viewdirs, PE(features),
+    PE(viewdirs)]."""
+    parts = [features, viewdirs]
+    if feape > 0:
+        parts.append(positional_encoding(features, feape))
+    if viewpe > 0:
+        parts.append(positional_encoding(viewdirs, viewpe))
+    h = torch.cat(parts, -1)
+    for name in ("l0", "l1"):
+        h = torch.relu(h @ params[name]["weight"].t() + params[name]["bias"])
+    return torch.sigmoid(h @ params["l2"]["weight"].t() + params["l2"]["bias"])
+
+
+SHADING_MODES = ("SH", "RGB", "RGBIdentity", "MLP_Fea")
+TIME_SHADING_MODES = ("RGBtLinear", "RGBtFourier")
+
+
 class FactoredNet:
     """What the two nets share: the config, validity, normalisation, the
     parameter init of one family, and the shading and composite after
@@ -68,19 +149,29 @@ class FactoredNet:
 
     def __init__(self, cfg):
         self.cfg = dict(cfg)
-        self.density_mode = cfg.get("densityMode", "Density")
         self.shading_mode = cfg.get("shadingMode", "SH")
         self.fea2dense = cfg.get("fea2denseAct", "softplus")
         self.density_shift = float(cfg.get("density_shift", -10.0))
-        if self.density_mode != "Density" \
-                or self.shading_mode not in ("SH", "RGB") \
-                or self.fea2dense not in ("relu", "softplus") \
-                or cfg.get("filter"):
+        if self.shading_mode not in SHADING_MODES + self.TIME_HEADS:
+            raise ValueError(f"unsupported shadingMode {self.shading_mode}")
+        if self.fea2dense not in ("relu", "softplus"):
             raise NotImplementedError(
-                "only the Density colour nets with relu or softplus density "
-                "and SH or RGB shading are ported (ROADMAP.md: long tail)")
+                f"density activation {self.fea2dense!r} is not ported "
+                "(ROADMAP.md: long tail)")
+        # the render net of MLP_Fea (JAX _shading_mlp_fea)
+        self.view_pe = int(cfg.get("view_pe", 6))
+        self.fea_pe = int(cfg.get("fea_pe", 6))
+        self.feature_c = int(cfg.get("featureC", 128))
+        # the top-k weight filter (JAX tensorf.py:250-254)
+        fcfg = cfg.get("filter")
+        self.apply_filter_weights = fcfg is not None
+        fcfg = fcfg or {}
+        self.filter_weight_thresh = float(fcfg.get("weight_thresh", 1e-3))
+        self.filter_max_samples = int(fcfg.get("max_samples", 32))
+        self.filter_wait_iters = float(fcfg.get("wait_iters", 12000))
         # the kernels' shading flag: SH of degree sh_deg, or RGB =
-        # sigmoid of the basis product (JAX tensorf.py _shading_rgb)
+        # sigmoid of the basis product (JAX tensorf.py _shading_rgb); the
+        # other heads take the general chain
         self.shading = self.shading_mode.lower()
         self.table_dtype = torch.bfloat16 if cfg.get("bf16_tables", True) \
             else torch.float32
@@ -110,7 +201,9 @@ class FactoredNet:
         self.active_app = [i for i in range(3) if self.app_n_comp[i] > 0]
         self.fused_render = bool(cfg.get("fused_render", False))
         self.fused_eligible = (
-            len(self.active_density) >= 1
+            self.shading_mode in ("SH", "RGB")
+            and not self.apply_filter_weights
+            and len(self.active_density) >= 1
             and self.active_density == self.active_app
             and self.table_dtype == torch.bfloat16
             and self.ray_march_weight_thres == 0.0
@@ -124,12 +217,15 @@ class FactoredNet:
                                1e-2, 1e8).to(device)
         return (scale * torch.randn(shape, generator=gen)).to(device)
 
+    # the time heads this net takes (the dynamic net's)
+    TIME_HEADS = ()
+
     def init(self, gen, device):
         """Reference init scales (tensorf_base.py:895-991); relu density
         grids start uniform and clipped at 1e-2, softplus ones 0.1 N(0,
-        1)."""
+        1); the MLP_Fea render net where the net shades with it."""
         relu = self.fea2dense == "relu"
-        return {
+        params = {
             "density": self.init_family(gen, device, self.density_n_comp,
                                         1e-2 if relu else 0.1, relu),
             "app": self.init_family(gen, device, self.app_n_comp, 0.1,
@@ -137,13 +233,31 @@ class FactoredNet:
             "basis_mat": linear_init(gen, sum(self.app_n_comp),
                                      self.app_dim, device, bias=False),
         }
+        return self.init_heads(gen, device, params)
+
+    def init_heads(self, gen, device, params):
+        """params with the render net of MLP_Fea added."""
+        if self.shading_mode == "MLP_Fea":
+            params["render"] = mlp_fea_init(gen, device, self.app_dim,
+                                            self.view_pe, self.fea_pe,
+                                            self.feature_c)
+        return params
 
     def param_groups(self, params):
         """Optimizer-group labels of the params (reference
-        tensorf_base.py:869-893): the grids and the basis are "color"."""
-        return {fam: {k: "color" for k in params[fam]}
-                for fam in ("density", "app")} | {
-            "basis_mat": {k: "color" for k in params["basis_mat"]}}
+        tensorf_base.py:869-893): the grids are "color", the bases
+        "color_impl" under an MLP head, else "color", the render net
+        "color_impl"."""
+        impl = "color_impl" if "MLP" in self.shading_mode else "color"
+        groups = {fam: {k: "color" for k in params[fam]}
+                  for fam in ("density", "app")}
+        for key in ("basis_mat", "basis_mat_density"):
+            if key in params:
+                groups[key] = {k: impl for k in params[key]}
+        if "render" in params:
+            groups["render"] = {layer: {k: "color_impl" for k in p}
+                                for layer, p in params["render"].items()}
+        return groups
 
     def density_l1(self, params):
         """Mean |.| of every density grid, summed (reference
@@ -195,30 +309,56 @@ class FactoredNet:
                                    torch.zeros_like(feat))
         return 0.5 * (feat + feat.abs())
 
-    def shade(self, x, feat, app, ray_valid, dists, ctx, render_kwargs,
-              pred_weights):
+    def filter_valid(self, ray_valid, w_pred, ctx):
+        """The top-k weight filter (reference tensorf_no_sample.py:
+        159-167): from wait_iters on, keep a sample only where its
+        predicted weight is at least the ray's k-th largest (less 1e-8:
+        ties at the k-th all stay) and above weight_thresh."""
+        if not self.apply_filter_weights or ctx.it < self.filter_wait_iters:
+            return ray_valid
+        kth = torch.topk(w_pred, self.filter_max_samples, -1).values[..., -1:]
+        return ray_valid & (w_pred >= kth - 1e-8) \
+            & (w_pred > self.filter_weight_thresh)
+
+    def colour(self, params, x, app, B, S, kw):
+        """The shading head: appearance [B*S, app_dim] -> rgb [B, S, 3]."""
+        mode = self.shading_mode
+        if mode == "SH":
+            viewdirs = x["viewdirs"].reshape(B * S, 3)
+            return sh_render(viewdirs, app, deg=self.sh_deg).reshape(B, S, 3)
+        app = app.reshape(B, S, -1)
+        if mode == "RGB":
+            return torch.sigmoid(app)
+        if mode == "RGBIdentity":
+            return (app + 0.5).abs()
+        if mode == "MLP_Fea":
+            return mlp_fea(params["render"], x["viewdirs"].reshape(B, S, 3),
+                           app, self.view_pe, self.fea_pe)
+        if mode == "RGBtLinear":
+            return time_colour(app, linear_time_basis(kw))
+        return time_colour(app, time_fourier_basis(kw))
+
+    def shade(self, params, x, feat, app, ray_valid, dists, ctx,
+              render_kwargs, pred_weights, kw=None):
         """density feature [B, S] and appearance [B*S, app_dim] -> the
         composited outputs with the render fields (`render_fields`; the
-        predicted weights [B, S], or None, for pred_weights_fields)."""
+        predicted weights [B, S], or None, for pred_weights_fields; kw
+        what the time heads read)."""
         B, S = dists.shape
         deltas = torch.cat([dists[:, 1:] - dists[:, :-1],
                             torch.full_like(dists[:, :1], 1e10)], -1)
         sigma = torch.where(ray_valid, self.feature2density(feat), 0.0)
         alpha, weight, _ = raw2alpha(sigma, deltas * self.distance_scale)
-        if self.shading == "rgb":
-            rgb = torch.sigmoid(app).reshape(B, S, 3)
-        else:
-            viewdirs = x["viewdirs"].reshape(B * S, 3)
-            rgb = sh_render(viewdirs, app, deg=self.sh_deg).reshape(B, S, 3)
+        rgb = self.colour(params, x, app, B, S, kw)
         rgb = torch.where((weight > self.ray_march_weight_thres)[..., None],
                           rgb, 0.0)
-        if "color_transform" in x:
-            raise NotImplementedError(
-                "a predicted colour transform is not ported (ROADMAP.md: "
-                "long tail)")
         if "color_scale" in x:
             rgb = scale_shift_color_all(rgb, x["color_scale"].reshape(B, S, 3),
                                         x["color_shift"].reshape(B, S, 3))
+        elif "color_transform" in x:
+            rgb = transform_color_all(
+                rgb, x["color_transform"].reshape(B, S, 3, 3),
+                x["color_shift"].reshape(B, S, 3))
         acc_map = weight.sum(-1)
         rgb_map = (weight[..., None] * rgb).sum(-2)
         outputs = {"rgb": self.finish(rgb_map, acc_map, x, B, S, ctx)}
@@ -253,11 +393,9 @@ class FactoredNet:
         white_bg or black_bg, on the background coin: a draw < 0.5, JAX
         tensorf.py:1540-1546), the per-ray (global) colour scale and shift
         of sample 0 where the chain predicts them (reference
-        utils/tensorf_utils.py:275-281), clamped to [0, 1] at eval."""
-        if "color_transform_global" in x:
-            raise NotImplementedError(
-                "a predicted global colour transform is not ported "
-                "(ROADMAP.md: long tail)")
+        utils/tensorf_utils.py:275-281), or else its global 3x3 transform
+        and shift (a color_transform stage; utils/tensorf_utils.py:
+        308-331), clamped to [0, 1] at eval."""
         training = ctx is not None and ctx.training
         if not self.black_bg:
             if self.white_bg:
@@ -267,9 +405,13 @@ class FactoredNet:
                 rgb_map = torch.where(coin, rgb_map + (1.0 - acc_map[:, None]),
                                       rgb_map)
         if "color_scale_global" in x:
-            rgb_map = rgb_map * (
-                x["color_scale_global"].reshape(B, S, 3)[:, 0] + 1.0) \
-                + x["color_shift_global"].reshape(B, S, 3)[:, 0]
+            rgb_map = scale_shift_color_one(
+                rgb_map, x["color_scale_global"].reshape(B, S, 3)[:, 0],
+                x["color_shift_global"].reshape(B, S, 3)[:, 0])
+        elif "color_transform_global" in x:
+            rgb_map = transform_color_one(
+                rgb_map, x["color_transform_global"].reshape(B, S, 3, 3)[:, 0],
+                x["color_shift_global"].reshape(B, S, 3)[:, 0])
         return rgb_map if training else torch.clamp(rgb_map, 0.0, 1.0)
 
     # -- the alpha grid of the grid events (hyperreel_tpu
@@ -288,8 +430,7 @@ class FactoredNet:
         occupied); x rows in blocks of at most ALPHA_BLOCK lattice
         points."""
         gx, gy, gz = grid_size
-        dev = params["density"][
-            f"{self.GRIDS[0]}_{self.active_density[0]}"].device
+        dev = params["basis_mat"]["weight"].device
         aabb = torch.as_tensor(self.aabb, device=dev)
         xs, ys, zs = (linspace(0.0, 1.0, n, dev) for n in grid_size)
         rows = max(1, self.ALPHA_BLOCK // (gy * gz))
@@ -445,13 +586,65 @@ class TensorVMKeyframeTime(FactoredNet):
     plane (reference nlf/nets/tensorf_dynamic.py)."""
 
     GRIDS = ("space", "time")
+    TIME_HEADS = TIME_SHADING_MODES
+    DENSITY_MODES = ("Density", "DensityLinear", "DensityFourier")
 
     def __init__(self, cfg, num_keyframes=1, total_num_frames=1):
-        super().__init__(cfg)
+        cfg = dict(cfg)
         self.num_keyframes = num_keyframes
         self.total_num_frames = total_num_frames
+        self.frames_per_keyframe = int(cfg.get(
+            "frames_per_keyframe",
+            max(total_num_frames // max(num_keyframes, 1), 1)))
+        self.density_mode = cfg.get("densityMode", "Density")
+        if self.density_mode not in self.DENSITY_MODES:
+            raise ValueError(self.density_mode)
+        # the density head's channels (JAX tensorf.py:978-987)
+        self.data_dim_density = {
+            "Density": 1, "DensityLinear": 2,
+            "DensityFourier": self.frames_per_keyframe * 2 + 1}[
+                self.density_mode]
+        # the time heads fix the colour net's output (JAX :989-992)
+        shading = cfg.get("shadingMode", "SH")
+        if shading == "RGBtLinear":
+            cfg["data_dim_color"] = 2 * 3
+        elif shading == "RGBtFourier":
+            cfg["data_dim_color"] = (self.frames_per_keyframe * 2 + 1) * 3
+        super().__init__(cfg)
+        self.fused_eligible = self.fused_eligible \
+            and self.density_mode == "Density"
         self.time_scale_factor = (total_num_frames - 1) / total_num_frames
         self.time_pixel_offset = 0.5 / num_keyframes
+
+    def init(self, gen, device):
+        """FactoredNet.init, and the density head's basis where the head
+        is not plain density."""
+        params = super().init(gen, device)
+        if self.density_mode != "Density":
+            params["basis_mat_density"] = linear_init(
+                gen, sum(self.density_n_comp), self.data_dim_density, device,
+                bias=False)
+        return params
+
+    def time_kw(self, times, time_offset):
+        """What the time heads read (the JAX apply's kw) at the samples'
+        times and offsets from their keyframes."""
+        return {"frames_per_keyframe": self.frames_per_keyframe,
+                "num_keyframes": self.num_keyframes,
+                "total_num_frames": self.total_num_frames,
+                "times": times, "time_offset": time_offset}
+
+    def decode_density(self, params, dens, kw):
+        """The density features [N, sum of density channels] -> the density
+        feature [N]: their sum (Density), or the density basis's output
+        [N, data_dim_density] dotted with the time basis (DensityLinear,
+        DensityFourier; JAX _density_linear, _density_fourier)."""
+        if self.density_mode == "Density":
+            return dens.sum(-1)
+        out = dens @ params["basis_mat_density"]["weight"].t()
+        basis = linear_time_basis(kw) if self.density_mode == "DensityLinear" \
+            else time_fourier_basis(kw)
+        return time_density(out, basis.reshape(out.shape[0], -1))
 
     def init_family(self, gen, device, n_comp, scale, uniform):
         params = {}
@@ -473,9 +666,10 @@ class TensorVMKeyframeTime(FactoredNet):
         return (t * self.time_scale_factor + self.time_pixel_offset) \
             * 2.0 - 1.0
 
-    def sample(self, params, xyzt):
+    def sample(self, params, xyzt, kw=None):
         """xyzt [N, 4] normalized -> (density feature [N], app [N, app_dim])
-        from the products of space and time lookups at table precision."""
+        from the products of space and time lookups at table precision,
+        the density decoded by the density head (kw the time heads')."""
         dens, app = [], []
         for i, space, timep in self.axis_grids(params):
             ms0, ms1 = MAT_MODE_SPACE[i]
@@ -488,7 +682,7 @@ class TensorVMKeyframeTime(FactoredNet):
             dens.append(prod[:, :nd])
             app.append(prod[:, nd:])
         feat = torch.cat(app, -1)
-        return torch.cat(dens, -1).sum(-1), \
+        return self.decode_density(params, torch.cat(dens, -1), kw), \
             feat @ params["basis_mat"]["weight"].t()
 
     # the fused route's second factors are the time planes; the pack has no
@@ -516,12 +710,18 @@ class TensorVMKeyframeTime(FactoredNet):
         base_times = x["base_times"].reshape(B, S, 1)
         dists = x["distances"].reshape(B, S)
         ray_valid = self.valid_mask(pts) & (dists > 0)
+        pred = x["weights"].reshape(B, S) if "weights" in x else None
+        if self.apply_filter_weights:
+            ray_valid = self.filter_valid(ray_valid, pred, ctx)
         xyzt = torch.cat([self.normalize_coord(pts),
                           self.normalize_time_coord(base_times)], -1)
-        dens, app = self.sample(params, xyzt.reshape(-1, 4))
-        pred = x["weights"].reshape(B, S) if "weights" in x else None
-        return self.shade(x, dens.reshape(B, S), app, ray_valid, dists, ctx,
-                          render_kwargs, pred)
+        kw = self.time_kw(x["times"].reshape(B, S, 1),
+                          x["time_offset"].reshape(B, S, 1)) \
+            if self.density_mode != "Density" \
+            or self.shading_mode in TIME_SHADING_MODES else None
+        dens, app = self.sample(params, xyzt.reshape(-1, 4), kw)
+        return self.shade(params, x, dens.reshape(B, S), app, ray_valid,
+                          dists, ctx, render_kwargs, pred, kw)
 
     # -- grid events (hyperreel_tpu TensorVMKeyframeTime upsample, shrink,
     # compute_alpha_grid; reference tensorf_dynamic.py:395-520) -----------
@@ -557,17 +757,19 @@ class TensorVMKeyframeTime(FactoredNet):
 
     def sample_density(self, params, xyzt):
         """The density feature [N] at normalized xyzt [N, 4] from the f32
-        grids (hyperreel_tpu _sample_density_t, Density mode)."""
-        total = 0.0
+        grids (hyperreel_tpu _sample_density_t), decoded by the density
+        head at time 0 and offset 0 (its compute_alpha_grid)."""
+        dens = []
         for i in self.active_density:
             ms0, ms1 = MAT_MODE_SPACE[i]
             mt0, mt1 = MAT_MODE_TIME[i]
-            prod = grid_sample_2d(params["density"][f"space_{i}"],
-                                  xyzt[:, [ms0, ms1]]) \
-                * grid_sample_2d(params["density"][f"time_{i}"],
-                                 xyzt[:, [mt0, mt1]])
-            total = total + prod.sum(-1)
-        return total
+            dens.append(grid_sample_2d(params["density"][f"space_{i}"],
+                                       xyzt[:, [ms0, ms1]])
+                        * grid_sample_2d(params["density"][f"time_{i}"],
+                                         xyzt[:, [mt0, mt1]]))
+        zeros = xyzt.new_zeros(xyzt.shape[0], 1)
+        return self.decode_density(params, torch.cat(dens, -1),
+                                   self.time_kw(zeros, zeros))
 
     def lattice_alpha(self, params, xyz):
         """The alpha of normalized lattice points xyz [N, 3]: the max over
@@ -634,16 +836,17 @@ class TensorVMNoSample(FactoredNet):
         pts = x["points"].reshape(B, -1, 3)
         S = pts.shape[1]
         dists = x["distances"].reshape(B, S)
-        ray_valid = self.valid_mask(pts) & (dists > 0)
-        dens, app = self.sample(params,
-                                self.normalize_coord(pts).reshape(-1, 3))
         weights = x["weights"].reshape(B, S) if "weights" in x \
             else torch.ones_like(dists)
+        ray_valid = self.filter_valid(
+            self.valid_mask(pts) & (dists > 0), weights, ctx)
+        dens, app = self.sample(params,
+                                self.normalize_coord(pts).reshape(-1, 3))
         feat = dens.reshape(B, S) * weights
         if "weights_shift" in x:
             feat = feat + x["weights_shift"].reshape(B, S)
-        return self.shade(x, feat, app, ray_valid, dists, ctx, render_kwargs,
-                          weights)
+        return self.shade(params, x, feat, app, ray_valid, dists, ctx,
+                          render_kwargs, weights)
 
     # -- grid events (hyperreel_tpu TensorVMNoSample upsample, shrink,
     # compute_alpha_grid; reference tensorf_base.py:384-429, 1151-1232) ----
@@ -727,5 +930,26 @@ def build_color_net(cfg, dataset_info=None):
             total_num_frames=int(dataset_info.get("num_frames", 1)))
     if cfg["type"] == "tensor_vm_split_no_sample":
         return TensorVMNoSample(cfg)
+    # imported here: tensorf_extra imports this module
+    from hyperreel_tpu_torch.models import tensorf_extra
+    extra = {"tensor_vm": tensorf_extra.TensorVMJoint,
+             "tensor_cp": tensorf_extra.TensorCP,
+             "tensor_vm_split": tensorf_extra.TensorVMStandalone}
+    if cfg["type"] in extra:
+        return extra[cfg["type"]](cfg)
+    if cfg["type"] == "multiple":
+        # the cascade of colour nets (JAX tensorf.py:1696-1706)
+        nets = cfg["nets"]
+        return tensorf_extra.MultipleNet(
+            [build_color_net(nc, dataset_info) for nc in nets],
+            [float(nc.get("wait_iters", 0)) for nc in nets],
+            [float(nc.get("stop_iters", float("inf"))) for nc in nets],
+            [float(nc.get("scale", 1.0)) for nc in nets])
+    if cfg["type"] == "tensor_vm_split_reflect":
+        raise NotImplementedError(
+            "colour net 'tensor_vm_split_reflect' is not ported: its normal "
+            "is the gradient of density with respect to position, and "
+            "training it needs a double backward through the grid lookups "
+            "(ROADMAP.md: long tail)")
     raise NotImplementedError(
         f"colour net {cfg['type']!r} is not ported (ROADMAP.md: long tail)")

@@ -69,9 +69,9 @@ class PackParams(ctypes.Structure):
         ("far", ctypes.c_float)]
 
 
-# csrc/shade_core.cuh kMaxWb: the SH basis over K5's [8, 8, 8] appearance
-# channels, [27, 24]
-SHADE_MAX_WB = 648
+# csrc/shade_core.cuh kMaxWb: the SH basis of degree 4 over K5's [8, 8, 8]
+# appearance channels, [75, 24]
+SHADE_MAX_WB = 1800
 
 
 class ShadeParams(ctypes.Structure):
@@ -80,7 +80,8 @@ class ShadeParams(ctypes.Structure):
                 ("B", "S", "W", "H", "TW", "TH", "C", "nd")] + [
         ("distance_scale", ctypes.c_float),
         ("wb", ctypes.c_float * SHADE_MAX_WB),
-        ("rgb", ctypes.c_int), ("weights", ctypes.c_int)]
+        ("rgb", ctypes.c_int), ("weights", ctypes.c_int),
+        ("nb", ctypes.c_int)]
 
 
 class PatchParams(ctypes.Structure):
@@ -118,7 +119,8 @@ class MultiParams(ctypes.Structure):
         ("distance_scale", ctypes.c_float), ("axis", MultiAxis * 3),
         ("ch", ctypes.c_int * 3), ("nd", ctypes.c_int * 3),
         ("wb", ctypes.c_float * SHADE_MAX_WB),
-        ("rgb", ctypes.c_int), ("weights", ctypes.c_int)]
+        ("rgb", ctypes.c_int), ("weights", ctypes.c_int),
+        ("nb", ctypes.c_int)]
 
 
 @dataclass

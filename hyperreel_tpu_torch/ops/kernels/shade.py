@@ -43,8 +43,8 @@ Tables (built once per checkpoint by `quad_table`, `time_table`,
   ttab  f32 [TH, TW, C] (the time plane as is), or [TW, C] premixed when
         the caller passes TH = 0;
   wb    f32 [3*K, C] on the host (it rides in the kernel's parameters):
-        basis rows c*K + k, zero on the nd density columns (K = 9 for SH
-        of degree 2, 1 for RGB).
+        basis rows c*K + k, zero on the nd density columns (K = (deg +
+        1)^2 for SH of degree 0-4, 1 for RGB).
 
 The static net's own fused route (models/tensorf.py TensorVMNoSample
 apply_fused) runs K2 with RGB shading, the weights row, and its z line as
@@ -63,17 +63,21 @@ from hyperreel_tpu_torch.ops.sh import eval_sh_bases
 
 # the channel counts and colours csrc/shade.cu is built for: those of the
 # ported configurations (technicolor_z_plane and stanford_llff_z_plane C=16,
-# tiny_dynamic C=8; SH of degree 2 or RGB)
+# tiny_dynamic C=8; SH of degree 0-4, as data_dim_color 3, 12, 27, 48, 75
+# gives it, or RGB)
 KERNEL_CHANNELS = (8, 16)
-KERNEL_SH_DEG = 2
+KERNEL_SH_DEGS = (0, 1, 2, 3, 4)
 KERNEL_MAX_S = 32          # K2, K3
 
 
 def shading_built(spec):
-    """Whether the shade kernels are built for spec's colour: SH of
-    degree KERNEL_SH_DEG (9 basis rows per channel) or RGB (1)."""
-    return (spec.shading, spec.n_basis) in (
-        ("sh", (KERNEL_SH_DEG + 1) ** 2), ("rgb", 1))
+    """Whether the shade kernels are built for spec's colour: SH of a
+    degree in KERNEL_SH_DEGS ((deg + 1)^2 basis rows per channel, the
+    count a run-time value of the kernels, csrc/shade_core.cuh) or RGB
+    (1)."""
+    if spec.shading == "rgb":
+        return True
+    return spec.shading == "sh" and spec.deg in KERNEL_SH_DEGS
 
 
 @dataclass(frozen=True)
@@ -344,7 +348,7 @@ def check_kernel(spec, name, weights=True):
         raise NotImplementedError(
             f"{name} kernel: C={spec.C}, {spec.shading} with "
             f"{spec.n_basis} basis rows, S={spec.S} not built (C in "
-            f"{KERNEL_CHANNELS}, SH of degree {KERNEL_SH_DEG} or RGB, S a "
+            f"{KERNEL_CHANNELS}, SH of degree {KERNEL_SH_DEGS} or RGB, S a "
             f"power of two <= {KERNEL_MAX_S}; ROADMAP.md: long tail)")
     if spec.weights and not weights:
         raise NotImplementedError(
@@ -357,7 +361,7 @@ def shade_params(B, spec, wb):
     p = build.ShadeParams()
     p.B, p.S, p.W, p.H, p.TW, p.TH = B, spec.S, spec.W, spec.H, spec.TW, \
         spec.TH
-    p.C, p.nd = spec.C, spec.nd
+    p.C, p.nd, p.nb = spec.C, spec.nd, spec.n_basis
     p.rgb, p.weights = int(spec.shading == "rgb"), int(spec.weights)
     p.distance_scale = float(spec.distance_scale)
     vals = wb.reshape(-1).tolist()

@@ -282,7 +282,7 @@ def check_kernel(spec, name, weights=True, min_s=1):
         raise NotImplementedError(
             f"{name} kernel: layout {layout}, {spec.shading} with "
             f"{spec.n_basis} basis rows, S={spec.S} not built (layouts "
-            f"{built}, SH of degree 2 or RGB, S a power of two in "
+            f"{built}, SH of degree 0-4 or RGB, S a power of two in "
             f"[{min_s}, {MAX_S}]; ROADMAP.md 2a b: the other axis layouts)")
     if spec.weights and not weights:
         raise NotImplementedError(
@@ -293,7 +293,7 @@ def check_kernel(spec, name, weights=True, min_s=1):
 def multi_params(B, spec, tables, lines, wb):
     """The kernels' MultiParams for B rays (the basis rides in them)."""
     p = build.MultiParams()
-    p.B, p.S = B, spec.S
+    p.B, p.S, p.nb = B, spec.S, spec.n_basis
     p.rgb, p.weights = int(spec.shading == "rgb"), int(spec.weights)
     p.distance_scale = float(spec.distance_scale)
     for i, (ax, t, line) in enumerate(zip(spec.axes, tables, lines)):

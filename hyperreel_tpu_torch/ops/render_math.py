@@ -34,3 +34,24 @@ def alpha2weights(alpha):
 def scale_shift_color_all(rgb, color_scale, color_shift):
     """Per-sample affine colour calibration: rgb * (scale + 1) + shift."""
     return rgb * (color_scale + 1.0) + color_shift
+
+
+def scale_shift_color_one(rgb_map, color_scale_global, color_shift_global):
+    """Per-ray (global) affine calibration of the composited colour [B, 3]
+    (reference utils/tensorf_utils.py:275-281)."""
+    return rgb_map * (color_scale_global + 1.0) + color_shift_global
+
+
+def transform_color_all(rgb, color_transform, color_shift):
+    """Per-sample residual 3x3 colour transform (reference
+    utils/tensorf_utils.py:283-306): rgb [B, S, 3], color_transform [B, S,
+    3, 3], color_shift [B, S, 3] -> rgb_c + rgb . M[c, :] + shift_c."""
+    mixed = torch.einsum("...i,...ci->...c", rgb, color_transform)
+    return rgb + mixed + color_shift
+
+
+def transform_color_one(rgb_map, color_transform_global, color_shift_global):
+    """Per-ray residual 3x3 transform of the composited colour (reference
+    utils/tensorf_utils.py:308-331): transform [B, 3, 3], shift [B, 3]."""
+    mixed = torch.einsum("bi,bci->bc", rgb_map, color_transform_global)
+    return rgb_map + mixed + color_shift_global

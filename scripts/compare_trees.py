@@ -312,7 +312,7 @@ def save(path, frames):
             fr = frame
         elif family == "n3d":
             base_cfg, _, p0, _ = cs.n3d(dev)
-            info, fr = cs.N3D_INFO, frame
+            info, fr = cs.n3d_info(), frame
         else:
             base_cfg, _, p0, _ = cs.static_model(dev, family)
             info, fr = None, frame6

@@ -154,7 +154,7 @@ def main():
         model, params, prep = made[-3:]
         mname = base
         if count:
-            info = made[1] if base == "flagship" else cs.N3D_INFO
+            info = made[1] if base == "flagship" else cs.n3d_info()
             model, params = cs.sample_count_model(made[0], info, *count,
                                                   params)
             prep = model.prepare_eval(params)

@@ -132,9 +132,10 @@ def nofold(files):
     assert redesigned(files), "the thread-per-ray kernel"
     k = files[KERNEL]
     k = sub(k, "sh_folded_colour<A>(feat + F, M, pk, rgb);",
-            "sh_colour<C>(feat, p.wb, pk, ray, rgb);")
-    k = sub(k, "    sh_fold<A, C>(p.wb + F, __ldg(ray + 3), __ldg(ray + 4), "
-            "__ldg(ray + 5),\n                  M);\n", "")
+            "sh_colour<C, kAnyDeg>(feat, p.wb, p.nb, pk, ray, rgb);")
+    k = sub(k, "    sh_fold<A, C, kAnyDeg>(p.wb + F, p.nb, __ldg(ray + 3), "
+            "__ldg(ray + 4),\n                           __ldg(ray + 5), M);"
+            "\n", "")
     files[KERNEL] = k
 
 

@@ -145,9 +145,10 @@ def nofold(files):
     assert redesigned(files), "the ray-run K3"
     k = files[FUSED]
     k = sub(k, "patch_colour<C, kRgb>(feat, M, p.wb, pk, rgb);",
-            "colour<C, kRgb>(feat, p.wb, pk, ray, rgb);")
-    k = sub(k, "sh_fold<C / 2, C>(p.wb + C / 2, __ldg(ray + 3), __ldg(ray + 4),\n"
-            "                      __ldg(ray + 5), M);", "")
+            "colour<C, kRgb, kAnyDeg>(feat, p.wb, p.nb, pk, ray, rgb);")
+    k = sub(k, "sh_fold<C / 2, C, kAnyDeg>(p.wb + C / 2, p.nb, "
+            "__ldg(ray + 3),\n                               __ldg(ray + 4), "
+            "__ldg(ray + 5), M);", "")
     files[FUSED] = k
 
 

@@ -323,14 +323,15 @@ def test_shade_patch_grid_matches_plain(dev, C, R, S, pm, shading, nd):
         assert (out[:, 4] - ref[:, 4]).abs().max() <= 1e-3
 
 
-def _k6_inputs(dev, S, R, TH, shading, pm, seed):
+def _k6_inputs(dev, S, R, TH, shading, pm, seed, deg=2):
     """Synthetic inputs of K6 and K5-preblended at the [8, 4, 4] layout:
     _synthetic_patch's three planes (C = 16, 8, 8, half of each density;
     B = 41 R rays, a multiple of R but not of 128) with, in coherent block
     3, one slot (sample 0) whose samples are all invalid; each axis's line
     [L, C] or time plane [12, L, C] in [0, 0.4) (TH "mix": a time plane on
     axis 0, lines on the others); a t per ray in [-1, 1]; an SH [27, 16]
-    or RGB [3, 16] basis; random bf16 pre-blended features [B*S, C]."""
+    or RGB [3, 16] basis (SH of degree `deg`: [3 (deg + 1)^2, 16]);
+    random bf16 pre-blended features [B*S, C]."""
     ptabs, pack, rp, pspecs = _synthetic_patch(dev, S, R, (16, 8, 8), pm,
                                                seed)
     rng = np.random.default_rng(seed + 1)
@@ -348,9 +349,9 @@ def _k6_inputs(dev, S, R, TH, shading, pm, seed):
         lines.append(torch.from_numpy(rng.uniform(
             0, 0.4, (th, L, ps.C) if th else (L, ps.C)).astype(np.float32))
             .to(dev))
-    K = 1 if shading == "rgb" else 9
+    K = 1 if shading == "rgb" else (deg + 1) ** 2
     wb = torch.from_numpy(rng.normal(0, 0.3, (3 * K, 16)).astype(np.float32))
-    spec = MultiSpec(S=S, axes=tuple(axes), deg=2, distance_scale=4.0,
+    spec = MultiSpec(S=S, axes=tuple(axes), deg=deg, distance_scale=4.0,
                      shading=shading)
     feats = [torch.from_numpy(rng.normal(0, 0.5, (B * S, a.C)).astype(
         np.float32)).to(torch.bfloat16).to(dev) for a in axes]
@@ -434,14 +435,14 @@ def test_k5_pre_and_k6_refuse_the_weights_row(dev):
     assert out.isnan().all() and int(viol) == 0
 
 
-def _shade_grid_inputs(dev, C, S, TH, nd, shading, weights, B, pre):
+def _shade_grid_inputs(dev, C, S, TH, nd, shading, weights, B, pre, deg=2):
     """Synthetic inputs of K2 / K2-preblended: a pack [10 or 11, B*S]
     (points partly outside the aabb, sorted distances with a few invalid
     0 samples, the weights row in [0, 2)), a ray pack [B, 8] (unit view
     directions, t in [-1, 1]), a random bf16 quad table of a 33 x 29 plane
     or bf16 features [B*S, C], a time plane [TH, 19, C] or a premixed
     table [19, C] in [0, 1), and a basis [3K, C] zero on the nd density
-    columns."""
+    columns (K = (deg + 1)^2 for SH of degree `deg`, 1 for RGB)."""
     gen = torch.Generator().manual_seed(C * 1000 + S * 10 + TH)
     W, H, TW = 33, 29, 19
     xyz = 2.2 * torch.rand(3, B, S, generator=gen) - 1.1
@@ -463,10 +464,10 @@ def _shade_grid_inputs(dev, C, S, TH, nd, shading, weights, B, pre):
                            generator=gen).to(torch.bfloat16)
     ttab = torch.rand(*((TH,) if TH else ()), TW, C, generator=gen)
     nd = C // 2 if nd == "half" else C // 4
-    K = 1 if shading == "rgb" else 9
+    K = 1 if shading == "rgb" else (deg + 1) ** 2
     wb = torch.cat([torch.zeros(3 * K, nd),
                     0.3 * torch.randn(3 * K, C - nd, generator=gen)], 1)
-    spec = ShadeSpec(S=S, W=W, H=H, TW=TW, TH=TH, C=C, nd=nd, deg=2,
+    spec = ShadeSpec(S=S, W=W, H=H, TW=TW, TH=TH, C=C, nd=nd, deg=deg,
                      distance_scale=4.0, shading=shading, weights=weights)
     return (space.to(dev), pack.contiguous().to(dev), rp.to(dev),
             ttab.contiguous().to(dev), wb, spec)
@@ -518,6 +519,99 @@ def test_shade_grid_matches_plain(dev, C, S, TH, nd, shading, weights, B,
         assert ref[:, 3].max() > 0.5
         assert (out[:, :4] - ref[:, :4]).abs().max() <= 1e-4
         assert (out[:, 4] - ref[:, 4]).abs().max() <= 1e-3
+
+
+SH_DEGREES = (0, 1, 3, 4)     # degree 2: the grids above
+
+
+# The six shade kernels at SH degrees 0, 1, 3 and 4 (the basis count a
+# run-time value of the kernels): K2 (time plane and premixed, the weights
+# row, both density splits), K2-preblended, K3, K5 (lines and time
+# planes), K5-preblended and K6, against their plain versions and their
+# folded plain versions at the tolerances above; the C entry points refuse
+# a basis count that is no degree's (5) and write nothing.
+@pytest.mark.parametrize("deg", SH_DEGREES)
+def test_sh_degrees_match_plain(dev, deg):
+    for C, S, TH, nd, weights in ((16, 32, 4, "half", False),
+                                  (8, 8, 0, "quarter", True),
+                                  (16, 16, 0, "half", False)):
+        for pre in (False, True) if not weights else (False,):
+            space, pack, rp, ttab, wb, spec = _shade_grid_inputs(
+                dev, C, S, TH, nd, "sh", weights, 4096 - 37, pre, deg)
+            kernel, plains = (shade_preblended, (
+                shade_preblended_plain, shade_preblended_folded_plain)) \
+                if pre else (shade, (shade_plain, shade_folded_plain))
+            out = kernel(space, pack, rp, ttab, wb, spec)
+            for plain in plains:
+                ref = plain(space, pack, rp, ttab, wb, spec)
+                torch.cuda.synchronize()
+                assert ref[:, 3].max() > 0.5
+                assert (out[:, :4] - ref[:, :4]).abs().max() <= 1e-4
+                assert (out[:, 4] - ref[:, 4]).abs().max() <= 1e-3
+    for C, R, S in ((16, 8, 32), (8, 4, 8)):
+        ptabs, pack, rp, (ps,) = _synthetic_patch(dev, S, R, (C,), True,
+                                                  10 + S + R + deg)
+        gen = torch.Generator().manual_seed(C + R + deg)
+        K, TW = (deg + 1) ** 2, 19
+        wb = torch.cat([torch.zeros(3 * K, C // 2),
+                        0.3 * torch.randn(3 * K, C // 2, generator=gen)], 1)
+        ttab = torch.rand(TW, C, generator=gen).to(dev)
+        spec = ShadeSpec(S=S, W=ps.W, H=ps.H, TW=TW, TH=0, C=C, nd=C // 2,
+                         deg=deg, distance_scale=4.0)
+        out, v = shade_patch(ptabs[0], pack, rp, ttab, wb, spec, ps)
+        for plain in (shade_patch_plain, shade_patch_folded_plain):
+            ref, vr = plain(ptabs[0], pack, rp, ttab, wb, spec, ps)
+            torch.cuda.synchronize()
+            assert int(v) == int(vr) > 0
+            assert (out[:, :4] - ref[:, :4]).abs().max() <= 1e-4
+            assert (out[:, 4] - ref[:, 4]).abs().max() <= 1e-3
+    for TH, S, R in ((0, 32, 8), (K6_TH, 64, 4)):
+        ptabs, lines, pack, rp, wb, spec, pspecs, feats = _k6_inputs(
+            dev, S, R, TH, "sh", True, 30 + S + deg, deg)
+        out, v = shade_multi_patch(ptabs, lines, pack, rp, wb, spec, pspecs)
+        for plain in (shade_multi_patch_plain,
+                      shade_multi_patch_folded_plain):
+            ref, vr = plain(ptabs, lines, pack, rp, wb, spec, pspecs)
+            torch.cuda.synchronize()
+            assert int(v) == int(vr)
+            assert (out[:, :4] - ref[:, :4]).abs().max() <= 1e-4
+            assert (out[:, 4] - ref[:, 4]).abs().max() <= 1e-3
+        pre = shade_multi_preblended(feats, lines, pack, rp, wb, spec)
+        for plain in (shade_multi_preblended_plain,
+                      shade_multi_preblended_folded_plain):
+            ref = plain(feats, lines, pack, rp, wb, spec)
+            torch.cuda.synchronize()
+            assert (pre[:, :4] - ref[:, :4]).abs().max() <= 1e-4
+            assert (pre[:, 4] - ref[:, 4]).abs().max() <= 1e-3
+        # K5's quad kernel on random quad tables of the same planes
+        gen = torch.Generator().manual_seed(S + deg)
+        quads = [torch.rand((a.H + 1) * (a.W + 1), 4 * a.C, generator=gen)
+                 .to(torch.bfloat16).to(dev) for a in spec.axes]
+        out = shade_multi(quads, lines, pack, rp, wb, spec)
+        ref = shade_multi_plain(quads, lines, pack, rp, wb, spec)
+        torch.cuda.synchronize()
+        assert ref[:, 3].max() > 0.5
+        assert (out[:, :4] - ref[:, :4]).abs().max() <= 1e-4
+        assert (out[:, 4] - ref[:, 4]).abs().max() <= 1e-3
+    # a basis count that is no degree's: every launcher refuses it
+    space, pack, rp, ttab, wb, spec = _shade_grid_inputs(
+        dev, 16, 8, 0, "half", "sh", False, 256, False, deg)
+    sp = shade_params(256, spec, wb)
+    sp.nb = 5
+    lib = build.load_library().lib
+    stream = torch.cuda.current_stream().cuda_stream
+    out = torch.full((256, 5), float("nan"), device=dev)
+    assert lib.shade_launch(space.data_ptr(), pack.data_ptr(), rp.data_ptr(),
+                            ttab.data_ptr(), out.data_ptr(), sp,
+                            stream) == 1
+    ptabs, lines, pack, rp, wb, spec, pspecs, feats = _k6_inputs(
+        dev, 8, 4, 0, "sh", True, 5, deg)
+    mp = multi_params(rp.shape[0], spec, feats, lines, wb)
+    mp.nb = 5
+    assert lib.shade_multi_preblended_launch(
+        pack.data_ptr(), rp.data_ptr(), out.data_ptr(), mp, stream) == 1
+    torch.cuda.synchronize()
+    assert out.isnan().all()
 
 
 def _to(tree, dev):

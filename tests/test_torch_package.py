@@ -30,8 +30,9 @@ def _run(code_or_script, cwd, script=False):
 
 def test_port_imports_no_jax():
     """Every module of the port (the CLI, System, viewer, chunked renderer,
-    export and visualizers among them), chip_smoke.py's imports (and its
-    model build, which reads the presets) and the profile script's."""
+    export, visualizers and the other colour nets among them),
+    chip_smoke.py's imports (and its model build, which reads the presets)
+    and the profile script's."""
     res = _run(
         "import importlib, pkgutil, sys\n"
         "import hyperreel_tpu_torch\n"
@@ -61,7 +62,10 @@ def test_port_imports_no_jax():
         "        'hyperreel_tpu_torch.train.render',\n"
         "        'hyperreel_tpu_torch.train.export',\n"
         "        'hyperreel_tpu_torch.train.lpips',\n"
-        "        'hyperreel_tpu_torch.train.visualizers'} <= set(mods), mods\n"
+        "        'hyperreel_tpu_torch.train.visualizers',\n"
+        "        'hyperreel_tpu_torch.models.tensorf_extra',\n"
+        "        'hyperreel_tpu_torch.models.embeddings',\n"
+        "        'hyperreel_tpu_torch.ops.render_math'} <= set(mods), mods\n"
         "print('clean')\n", cwd=ROOT)
     assert res.returncode == 0 and "clean" in res.stdout, res.stderr
 

@@ -164,19 +164,38 @@ def test_global_colour_scale_and_shift_reach_the_rgb():
 
 @pytest.mark.parametrize("key", ["color_transform", "color_transform_global"])
 @pytest.mark.parametrize("fused", [False, True])
-def test_colour_transform_is_refused(key, fused):
-    """A predicted colour transform (per sample or global) is not ported:
-    both the general colour net and the own route raise on it rather than
-    drop it."""
+def test_colour_transform_is_refused(key, fused, monkeypatch):
+    """A predicted colour transform: the own fused route refuses a
+    per-sample one (the net takes the general colour net: no kernel
+    launch) and applies a global one after its kernel; either way the rgb
+    is the general colour net's with the transform, which differs from
+    the rgb without it. (The transform is applied only where the chain
+    predicts no colour scale, as in the JAX package: the test drops
+    catacaustics' predicted scale and shift.)"""
     _, tm, _, tp = _models("catacaustics_distance", True, False)
     ctx = StepCtx(it=IT)
     x = tm.embedding.apply(tp["embedding"], torch.from_numpy(_rays()), ctx)
+    for k in ("color_scale", "color_shift", "color_scale_global",
+              "color_shift_global"):
+        x.pop(k, None)
     n = x["points"].reshape(-1, 3).shape[0]
-    x[key] = torch.zeros(n, 9)
+    gen = torch.Generator().manual_seed(0)
+    shift = key.replace("transform", "shift")
+    x[key] = 0.3 * torch.randn(n, 9, generator=gen)
+    x[shift] = 0.1 * torch.randn(n, 3, generator=gen)
     net = copy.deepcopy(tm.color_net)
     net.fused_render = fused
-    with pytest.raises(NotImplementedError, match="colour transform"):
-        net.apply(_bf16_lines(tp["color"]), x, ctx)
+    general = copy.deepcopy(tm.color_net)
+    general.fused_render = False
+    cp = _bf16_lines(tp["color"])
+    calls = _spy(monkeypatch, shade_multi, "shade_multi")
+    got = net.apply(cp, x, ctx)["rgb"]
+    assert calls == (["shade_multi"] if fused and key.endswith("global")
+                     else [])
+    want = general.apply(cp, x, ctx)["rgb"]
+    assert (got - want).abs().max() <= TOL_F32
+    x0 = {k: v for k, v in x.items() if k not in (key, shift)}
+    assert (general.apply(cp, x0, ctx)["rgb"] - want).abs().max() > 0.01
 
 
 def test_prepared_tables_give_the_same_frame():

@@ -321,7 +321,7 @@ def test_cli_flags_and_refusals(tmp_path, capsys):
     with pytest.raises(NotImplementedError, match="ROADMAP.md: long tail"):
         main(CLI + ["--import-reference", "ref.ckpt"])
     with pytest.raises(NotImplementedError, match="ROADMAP.md: long tail"):
-        main(CLI + ["model.color.net.shadingMode=MLP_Fea"])
+        main(CLI + ["model.color.net.type=tensor_vm_split_reflect"])
     with pytest.raises(ValueError, match="require --resume"):
         main(CLI + [f"params.save_dir={tmp_path}", "--eval-only"])
     # one device: data_parallel changes nothing, as in JAX on one device
