@@ -31,7 +31,11 @@ refnerf_sphere and shiny_z_deformable trained and rendered through K5;
 and the colour side: the six shade kernels at SH degrees 0, 1, 3 and 4,
 the SH-3 flagship's and SH-4 llff's frames on every route, the flagship
 with a per-camera colour transform trained through the CLI, the time
-heads, MLP_Fea, tensor_vm, tensor_cp and the standalone march.
+heads, MLP_Fea, tensor_vm, tensor_cp and the standalone march; and the
+prediction side: K1 at every layer and field activation and at wider
+encodings, the long-tail flagship trained through the CLI and rendered
+through K1 + K2 and K1 + K3, the angular flow, ray outputs and every ray
+param through the general chain.
 
     python3 chip_smoke.py
 
@@ -362,7 +366,27 @@ no result line):
      general chain);
  90. tensor_vm (8, 24) and tensor_cp (96, 288) on the llff chain at a
      128^3 grid: steps, an upsample to 160^3, steps (ms each);
- 91. the standalone tensor_vm_split march: steps, an upsample, steps.
+ 91. the standalone tensor_vm_split march: steps, an upsample, steps;
+ 92. K1 on the flagship's first bench chunk at each layer activation
+     that it takes (LAYER_ACTS: identity, sigmoid, tanh, softplus, relu,
+     leaky_relu, abs, zero, identity_tanh, an ease_value and an
+     interp_value at weight 0.5), under the bf16 and f32 MLP policies,
+     against its plain version, timed; the chunk through model.apply (K1
+     and K2 once);
+ 93. the same with the field activations of FIELD_GROUPS on the z,
+     isect, sigma, flow, flow-stage, point-sigma, offset, offset-stage and
+     colour slots (every elementwise kind, an ease_value and an
+     interp_value);
+ 94. the same at 48 and 96 encoded columns (wider PEs);
+ 95. the long-tail flagship (longtail_cfg: pluecker with use_local_param
+     and a windowed_random PE, a random time PE, relu layers,
+     identity_tanh offsets, an interp_value flow) trained LT_ITERS steps
+     through the CLI, a held-out view through the Renderer on the quad
+     and fused patch routes, its PSNR above the untrained view's, K1 and
+     K2 against their plain versions, fused against the general chain;
+ 96. neural_3d_z_plane with an angular flow and ray outputs through the
+     general chain (an eval chunk, a step), and every ray param of the
+     registry on llff_z_plane (an eval chunk each).
 The line before the last is the kernels' JSON record (launches on their
 main path, error against the plain version, ms and the plain version's
 ms, and the least time the card could take, counting of each table only
@@ -400,6 +424,11 @@ PACK_TOL_BF16 = 2e-3
 # after 600 steps) and the most any colour field may move, in bf16 ulps
 BF16_MOVED_SHARE = 1e-3
 BF16_COLOUR_ULPS = 4
+# K1 against its plain version on a trained model whose camera sits among
+# the planes: the share of rays on which the two may disagree about a
+# sample within rounding of distance 0, each such ray held shifted by the
+# flipped samples (sentinel_flips)
+FLIP_SHARE = 1e-3
 SHADE_TOL = 1e-4               # another order of the per-ray warp sums
 PATH_TOL = 2e-4                # tests/test_fused_cf.py gate
 COMPOSITE_TOL = 1e-5           # f32 scan and sums in another order
@@ -3055,7 +3084,7 @@ def time_steps(torch, trainer, state, ds, tag):
             "line_backward_ms": line_bwd, "peak_bytes": peak}
 
 
-def bf16_colour_gate(torch, pack, pack_p, label, far_sentinel):
+def bf16_colour_gate(torch, pack, pack_p, label, far_sentinel, skip=None):
     """K1 under the bf16 MLP policy on trained weights, against its plain
     version by pack row. Rows 0-3 (the points and the sorted distance)
     within PACK_TOL_BF16, as in every phase. Rows 4-9 (the colour scale
@@ -3067,10 +3096,13 @@ def bf16_colour_gate(torch, pack, pack_p, label, far_sentinel):
     of the samples may move more than 1e-3 there, and no element more
     than BF16_COLOUR_ULPS bf16 ulps of max(|plain|, 1). A kernel that is
     wrong on a whole block, a row or a field fails one of the three.
-    Prints the rows' errors; returns whether the gate passed."""
+    `skip`: rays whose rows 0-3 sentinel_flips holds instead. Prints the
+    rows' errors; returns whether the gate passed."""
     d = (pack - pack_p).abs()
     far = pack_p[3] == far_sentinel
     d[:3, far] = 0.0             # pack_error holds these points relatively
+    if skip is not None:
+        d[:4, skip.repeat_interleave(d.shape[1] // skip.shape[0])] = 0.0
     geo = d[:4].amax().item()
     col = d[4:]
     cap = BF16_COLOUR_ULPS * 2.0 ** -8 * pack_p[4:].abs().clamp_min(1.0)
@@ -3101,12 +3133,29 @@ def trained_flagship_chunk(torch, model, params, chunk, ctx, prep, label,
     against its plain version on F32_RAYS of the chunk's rays under that
     policy (PACK_TOL), and K1's bf16 gate is split by pack row
     (bf16_colour_gate): trained weights amplify a one-ulp flip of a hidden
-    activation into the colour fields past PACK_TOL_BF16. Returns ((K1
-    error, ms, plain ms, bound), the same of K2)."""
+    activation into the colour fields past PACK_TOL_BF16. A ray whose
+    camera sees a sample within rounding of distance 0 may have it valid
+    on one side and at the far sentinel on the other: such rays, at most
+    FLIP_SHARE of them, are held by sentinel_flips at the same tolerance.
+    Returns ((K1 error, ms, plain ms, bound), the same of K2)."""
     from hyperreel_tpu_torch.ops.kernels.pack_build import (
-        FAR_SENTINEL, pack_build, pack_build_plain, pack_error)
+        FAR_SENTINEL, pack_build, pack_build_plain, pack_error,
+        sentinel_flips)
     from hyperreel_tpu_torch.ops.kernels.shade import (
         ShadeSpec, premix_time, shade, shade_plain)
+
+    def k1_error(pack, pack_p, rp, spec, tol, what):
+        """pack_error with the rays of sentinel_flips held by it: (error,
+        the sentinel points' relative error, the flipped rays, gate)."""
+        flips, flip_err = sentinel_flips(pack, pack_p, rp, spec, tol)
+        err, rel = pack_error(pack, pack_p, skip=flips)
+        err, n = max(err, flip_err), int(flips.sum())
+        print(f"# the {label} model's chunk: K1 {what}: {n} of "
+              f"{flips.shape[0]} rays with a sample within rounding of "
+              f"distance 0 on one side only (gate {FLIP_SHARE:.1%}), held "
+              f"shifted to {flip_err:.3e} (tol {tol})", flush=True)
+        return err, rel, flips, (n <= FLIP_SHARE * flips.shape[0]
+                                 and flip_err <= tol)
 
     cf, net = model._cf_eval, model.color_net
     B = chunk.shape[0]
@@ -3118,23 +3167,26 @@ def trained_flagship_chunk(torch, model, params, chunk, ctx, prep, label,
     torch.cuda.synchronize()
     # a model that sorts invalid samples far: their points at the far
     # sentinel compared relatively (pack_error)
-    k1_err, k1_rel = pack_error(pack, pack_p)
-    k1_gate = k1_err <= PACK_TOL_BF16
+    k1_err, k1_rel, flips, flip_gate = k1_error(
+        pack, pack_p, rp, cf.spec, PACK_TOL_BF16, "under bf16")
+    k1_gate = k1_err <= PACK_TOL_BF16 and flip_gate
     if model32 is not None:
-        k1_gate = bf16_colour_gate(torch, pack, pack_p, label,
-                                   FAR_SENTINEL)
+        k1_gate = flip_gate and bf16_colour_gate(
+            torch, pack, pack_p, label, FAR_SENTINEL, flips)
         cf32 = model32._cf_eval
         x32 = net_in[:F32_RAYS].contiguous()
         rp32 = rp[:F32_RAYS].contiguous()
         tabs32 = cf32.prepare(params)["mlp"]
-        k1_err32, k1_rel32 = pack_error(
+        k1_err32, k1_rel32, _, flip_gate32 = k1_error(
             pack_build(x32, tabs32, rp32, cf32.spec, ctx.it),
-            pack_build_plain(x32, tabs32, rp32, cf32.spec, ctx.it))
+            pack_build_plain(x32, tabs32, rp32, cf32.spec, ctx.it),
+            rp32, cf32.spec, PACK_TOL, "under the f32 MLP policy")
         print(f"# the {label} model's chunk: K1 under the f32 MLP policy "
               f"({F32_RAYS} rays) max |kernel - plain| {k1_err32:.3e} (tol "
               f"{PACK_TOL}; the far sentinel's points relative "
               f"{k1_rel32:.2e})", flush=True)
-        k1_gate = k1_gate and k1_err32 <= PACK_TOL and k1_rel32 <= 1e-6
+        k1_gate = k1_gate and k1_err32 <= PACK_TOL and k1_rel32 <= 1e-6 \
+            and flip_gate32
         del tabs32
     del pack_p
     H, W, TH, TW, C, nd = prep["dims"]
@@ -6201,9 +6253,9 @@ EXTRA_UPSAMPLE = 160
 STANDALONE_RAYS = 4096          # the standalone net marches 128 samples
 
 
-def write_gained_scene(root, gains):
+def write_gained_scene(root, gains, frames=CT_FRAMES):
     """A Technicolor scene as write_technicolor_scene writes it, at CT_WH
-    and CT_FRAMES frames, each camera's images times its colour gains [16,
+    and `frames` frames, each camera's images times its colour gains [16,
     3] (a rig whose cameras are calibrated apart)."""
     rng = np.random.default_rng(SEED)
     d = os.path.join(root, "gained")
@@ -6220,7 +6272,7 @@ def write_gained_scene(root, gains):
     with open(os.path.join(d, "cameras_parameters.txt"), "w") as f:
         f.writelines(lines)
     freqs = rng.uniform(0.5, 3.0, (3, 2))
-    for fi in range(CT_FRAMES):
+    for fi in range(frames):
         for c in range(n):
             img = smooth_image(CT_WH, freqs, (0.3 * (c % TECH_RIG)
                                               + 0.05 * fi,
@@ -6463,6 +6515,527 @@ def colour_training_phases(torch, dev, card, reset_counts, read_counts,
     record["tensor_vm_split"] = {"step_ms_init_upsampled": [ms0, ms1],
                                  "loss": [l0, l1, l2]}
     return records, record
+
+
+# ---- phases 92-96: the prediction side of the long tail
+
+# the layer activations of the JAX kernel's _SAFE_ACTS that K1 takes (its
+# row_l2_norm is a vector kind and takes the general chain), with an
+# ease_value and an interp_value over them, whose weights at IT are 0.5
+LAYER_ACTS = {
+    "leaky_relu": "leaky_relu", "identity": "identity", "relu": "relu",
+    "abs": "abs", "zero": "zero", "sigmoid": "sigmoid", "tanh": "tanh",
+    "softplus": "softplus",
+    "identity_tanh": {"type": "identity_tanh", "fac": 1.0},
+    "ease_value": {"type": "ease_value", "start_value": 0.1,
+                   "wait_iters": IT // 2, "window_iters": IT,
+                   "activation": "sigmoid"},
+    "interp_value": {"type": "interp_value", "act1": "relu",
+                     "act2": "tanh", "wait_iters": IT // 2,
+                     "window_iters": IT}}
+# f32 operations of one activation of a kind, counted from K1's source
+# (csrc/pack_build.cuh act_leaf: the affine in and out, the kind's own);
+# an interp_value or ease_value adds its blend
+ACT_OPS = {"leaky_relu": 2, "identity": 1, "relu": 1, "abs": 1, "zero": 1,
+           "sigmoid": 6, "tanh": 8, "softplus": 8, "identity_tanh": 10,
+           "ease_value": 8, "interp_value": 13}
+# the field activations, grouped several per chain (every elementwise
+# kind, an ease_value and an interp_value, on the z, isect, sigma, flow,
+# flow-stage, point-sigma, offset, offset-stage and colour slots); each
+# group's outputs (the prediction net's fields) and stage activations
+FIELD_GROUPS = {
+    "A": ({"z_vals": {"type": "softplus", "shift": -1.0},
+           "sigma": {"type": "gaussian", "sigma": 2.0},
+           "point_sigma": {"type": "ease_value", "start_value": 1.0,
+                           "wait_iters": IT // 2, "window_iters": IT,
+                           "activation": "sigmoid"},
+           "spatial_flow": {"type": "interp_value", "act1": "zero",
+                            "act2": {"type": "identity", "fac": 0.25},
+                            "wait_iters": IT // 2, "window_iters": IT},
+           "point_offset": {"type": "identity_tanh", "fac": 0.25},
+           "color_scale": "relu", "color_shift": "abs"},
+          {"isect": {"type": "power", "power": 1.5},
+           "po_stage": {"type": "leaky_relu", "a": 0.2},
+           "flow_stage": "tanh"}),
+    "B": ({"z_vals": "tanh", "point_sigma": "zero",
+           "spatial_flow": {"type": "leaky_relu", "a": 0.1},
+           "point_offset": {"type": "power", "power": 2.0},
+           "color_scale": {"type": "gaussian", "sigma": 0.5},
+           "color_shift": {"type": "softplus", "inner_fac": 2.0}},
+          {"isect": {"type": "identity_tanh", "fac": 1.0},
+           "po_stage": "relu", "flow_stage": "abs"})}
+# the encoded widths of phase 94: the ray range's windowed PE and the time
+# range's windowed PE without its identity columns
+ENCODED = {48: (("two_plane", 4, 5), 2), 96: (("pluecker", 6, 7), 3)}
+LT_ITERS = 300                 # the long-tail flagship's CLI steps
+LT_FRAMES = 2
+GENERAL_RAYS = 16384           # phase 96's eval chunk and step batch
+
+
+def with_acts(cfg, outputs=None, stages=None, layer=None):
+    """The flagship chain with the prediction net's layer activation, its
+    outputs' activations and the intersect's, the point offset's and the
+    flow's (stage keys isect, po_stage, flow_stage) replaced."""
+    import copy
+
+    cfg = copy.deepcopy(cfg)
+    emb = cfg["embedding"]["embeddings"]
+    pred = emb["ray_prediction_0"]
+    if layer is not None:
+        pred["net"]["layer_activation"] = layer
+    for k, a in (outputs or {}).items():
+        pred["outputs"][k]["activation"] = a
+    stages = stages or {}
+    if "isect" in stages:
+        emb["ray_intersect_0"]["intersect"]["activation"] = stages["isect"]
+    if "po_stage" in stages:
+        emb["point_offset_0"]["activation"] = stages["po_stage"]
+    if "flow_stage" in stages:
+        emb["flow_0"]["spatial_flow_activation"] = stages["flow_stage"]
+    return cfg
+
+
+def with_encoding(cfg, ray, time_freqs):
+    """The flagship chain with the ray range's param and windowed PE
+    (fn, its channels, frequencies) and the time range's windowed PE of
+    `time_freqs` frequencies without its identity columns: encoded width
+    ch (2 n + 1) + 2 time_freqs."""
+    import copy
+
+    cfg = copy.deepcopy(cfg)
+    fn, ch, n = ray
+    pred = cfg["embedding"]["embeddings"]["ray_prediction_0"]
+    pred["params"]["ray"]["param"] = {"n_dims": ch, "fn": fn}
+    pred["params"]["ray"]["pe"] = {"type": "windowed", "n_freqs": n}
+    pred["params"]["time"]["pe"] = {"type": "windowed",
+                                    "n_freqs": time_freqs,
+                                    "exclude_identity": True}
+    return cfg
+
+
+def k1_variant(torch, dev, card, tag, cfg, info, chunk, reset_counts,
+               read_counts, act_ops=0):
+    """One K1 branch at the flagship's width on a 262,144-ray chunk: the
+    chain's model under the bf16 policy (weights from SEED) renders the
+    chunk through model.apply on the quad route (K1 and K2 once, finite,
+    in [0, 1]); K1 against its plain version (rows 0-3 within
+    PACK_TOL_BF16, the colour rows by bf16_colour_gate), under the f32
+    policy on F32_RAYS (PACK_TOL), timed beside its plain version, its
+    bound (the MLP's bf16 products, the tail's f32 operations and
+    `act_ops`, the activations' f32 operations). Returns (the kernel's
+    record, the branch's record)."""
+    import copy
+
+    from hyperreel_tpu_torch.models.ctx import StepCtx
+    from hyperreel_tpu_torch.models.model import build_model
+    from hyperreel_tpu_torch.ops.kernels.pack_build import (
+        FAR_SENTINEL, pack_build, pack_build_plain, pack_error)
+
+    model = build_model(copy.deepcopy(cfg), dataset_info=info,
+                        compute_dtype=torch.bfloat16)
+    cf = model._cf_eval
+    if cf is None:
+        raise AssertionError(f"{tag}: the chain took the general chain")
+    params = model.init(torch.Generator().manual_seed(SEED), dev)
+    ctx = StepCtx(it=IT)
+    with torch.no_grad():
+        prep = model.prepare_eval(params)
+        reset_counts()
+        rgb = model.apply(params, chunk, ctx, {"cf_prepared": prep,
+                                               "uniform_time": True})["rgb"]
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if not (only(counts, pack_build=1, shade=1)
+                and torch.isfinite(rgb).all() and rgb.min() >= 0
+                and rgb.max() <= 1):
+            raise AssertionError(f"{tag}: the chunk's launches {counts} or "
+                                 "its rgb")
+        tabs = prep["mlp"]
+        x = cf.pred.net_input(chunk, ctx).float().contiguous()
+        rp = cf.ray_pack(chunk)
+        pack = pack_build(x, tabs, rp, cf.spec, IT)
+        pack_p = pack_build_plain(x, tabs, rp, cf.spec, IT)
+        err = pack_error(pack, pack_p)[0]
+        rows = (pack - pack_p).abs().amax(1).tolist()
+        # the colour rows, the MLP's outputs themselves, by the gate of a
+        # trained model (bf16_colour_gate): a one-ulp flip of a hidden
+        # bf16 value carries into them further through smooth layer
+        # activations than through the leaky relu
+        gate = bf16_colour_gate(torch, pack, pack_p, tag, FAR_SENTINEL)
+        del pack_p
+        m32 = build_model(copy.deepcopy(cfg), dataset_info=info)
+        cf32 = m32._cf_eval
+        t32 = cf32.prepare(params)["mlp"]
+        x32, r32 = x[:F32_RAYS].contiguous(), rp[:F32_RAYS].contiguous()
+        err32 = pack_error(pack_build(x32, t32, r32, cf32.spec, IT),
+                           pack_build_plain(x32, t32, r32, cf32.spec,
+                                            IT))[0]
+        ms = cuda_ms(torch, lambda: pack_build(x, tabs, rp, cf.spec, IT),
+                     20)
+        plain_ms = cuda_ms(torch, lambda: pack_build_plain(
+            x, tabs, rp, cf.spec, IT), 3)
+    mlp_ops = 2 * CHUNK * sum(
+        p["weight"].numel() for p in
+        params["embedding"]["ray_prediction_0"]["net"].values())
+    bnd = bound(nbytes(x, rp, pack) + sum(nbytes(l.w, l.b)
+                                          for l in tabs.layers),
+                [(mlp_ops, BF16_OPS_PER_S),
+                 (pack.shape[1] * K1_TAIL_OPS + act_ops, F32_OPS_PER_S)])
+    generic = cf.spec.generic(tabs, IT)
+    print(f"# {tag} ({card}): {x.shape[1]} encoded columns, the "
+          f"{'generic' if generic else 'default'} instantiation; K1 "
+          f"{ms:.3f} ms a chunk (plain {plain_ms:.3f}, bound {bnd[0]:.4f} "
+          f"{bnd[1]}); max |kernel - plain| bf16 {err:.3e} (rows 0-3 tol "
+          f"{PACK_TOL_BF16}, the colour rows by bf16_colour_gate; per pack "
+          "row "
+          + " ".join(f"{e:.1e}" for e in rows) + f"), f32 on {F32_RAYS} "
+          f"rays {err32:.3e} (tol "
+          f"{PACK_TOL}); chunk acc mean {rgb.mean().item():.4f}",
+          flush=True)
+    if not (gate and err32 <= PACK_TOL):
+        raise AssertionError(f"{tag}: K1 disagrees with its plain version: "
+                             f"{err}, {err32}")
+    name = "pack_build_" + re.sub(r"[^a-z0-9]+", "_", tag.lower()).strip("_")
+    rec = entry(name, "pack_build.cuh",
+                "hyperreel_tpu/ops/pallas/pack_build.py:137",
+                counts["pack_build"], max(err, err32), ms, plain_ms, bnd)
+    return rec, {"ms": ms, "plain_ms": plain_ms, "err_bf16": err,
+                 "err_f32": err32, "generic": bool(generic),
+                 "encoded": int(x.shape[1]), "bound_ms": bnd[0]}
+
+
+def k1_branch_phases(torch, dev, card, frame, reset_counts, read_counts):
+    """Phases 92-94: K1 on the flagship's first bench chunk at each layer
+    activation (92), with the field activations of FIELD_GROUPS (93) and
+    at 48 and 96 encoded columns (94), each against its plain version.
+    Returns (the kernels' records, the record)."""
+    from hyperreel_tpu_torch.configs.presets import (
+        convert_epochs_to_iters, technicolor_z_plane)
+
+    base = convert_epochs_to_iters(technicolor_z_plane(), 4000)
+    info = {"num_keyframes": 4, "num_frames": 50, "num_views": 16}
+    chunk = frame[0]
+    # the layer activation's values in a chunk: the five hidden layers of
+    # 256 (the prediction net's last layer has none; its outputs' field
+    # activations are in K1_TAIL_OPS)
+    acts = CHUNK * 5 * 256
+    records, record = [], {"layer": {}, "field": {}, "encoded": {}}
+    for name, act in LAYER_ACTS.items():
+        rec, r = k1_variant(
+            torch, dev, card, f"92. layer activation {name}",
+            with_acts(base, layer=act), info, chunk, reset_counts,
+            read_counts, act_ops=acts * ACT_OPS[name])
+        records.append(rec)
+        record["layer"][name] = r
+    # the field activations' operations are K1_TAIL_OPS' (the default
+    # kinds' count: the bound stays a least time for the other kinds)
+    for name, (outputs, stages) in FIELD_GROUPS.items():
+        rec, r = k1_variant(
+            torch, dev, card, f"93. field activations {name}",
+            with_acts(base, outputs, stages), info, chunk, reset_counts,
+            read_counts)
+        records.append(rec)
+        record["field"][name] = r
+    for width, (ray, tf) in ENCODED.items():
+        rec, r = k1_variant(
+            torch, dev, card, f"94. {width} encoded columns",
+            with_encoding(base, ray, tf), info, chunk, reset_counts,
+            read_counts)
+        if r["encoded"] != width:
+            raise AssertionError(f"94. {r['encoded']} encoded columns, "
+                                 f"not {width}")
+        records.append(rec)
+        record["encoded"][width] = r
+    return records, record
+
+
+def longtail_cfg():
+    """The long-tail flagship: technicolor_z_plane's widths (6 x 256 MLP,
+    skip at 3, 32 samples, 161^2 space plane) with the prediction stage's
+    ray range pluecker with use_local_param and a 16-frequency
+    windowed_random PE, the time range a 4-frequency random PE (47
+    encoded columns), relu between the MLP's layers, identity_tanh on the
+    point offset and an interp_value from zero to identity x 0.25 on the
+    spatial flow (over the run's second hundred steps)."""
+    from hyperreel_tpu_torch.configs.presets import technicolor_z_plane
+
+    cfg = technicolor_z_plane()
+    pred = cfg["embedding"]["embeddings"]["ray_prediction_0"]
+    pred["params"]["ray"].update(
+        param={"n_dims": 6, "fn": "pluecker", "use_local_param": True,
+               "voxel_size": [1.0, 1.0, 1.0]},
+        pe={"type": "windowed_random", "n_freqs": 16, "sigma": 1.0,
+            "seed": SEED + 1, "wait_iters": 0,
+            "max_freq_iter": LT_ITERS // 2})
+    pred["params"]["time"]["pe"] = {"type": "random", "n_freqs": 4,
+                                    "sigma": 1.0, "seed": SEED + 2}
+    pred["net"]["layer_activation"] = "relu"
+    pred["outputs"]["point_offset"]["activation"] = {
+        "type": "identity_tanh", "fac": 0.25}
+    pred["outputs"]["spatial_flow"]["activation"] = {
+        "type": "interp_value", "act1": "zero",
+        "act2": {"type": "identity", "fac": 0.25},
+        "wait_iters": LT_ITERS // 3, "window_iters": LT_ITERS // 3}
+    return cfg
+
+
+def longtail_phase(torch, dev, card, reset_counts, read_counts, tmp):
+    """Phase 95: the long-tail flagship trained LT_ITERS steps through the
+    CLI (main.main) on a 4 x 4 rig written as phase 87 writes it (unit
+    gains), then a held-out view through the Renderer on the quad route
+    (K1 + K2, once per chunk) and on the fused patch route (K1 + K3) at
+    R=4 (4, 3): its PSNR above the untrained model's on the same view, the
+    patch route within PATH_TOL of the quad route where its witness
+    passes; on the view's chunk K1 and K2 against their plain versions
+    (trained_flagship_chunk), fused against the general chain under the
+    f32 MLP policy (<= PATH_TOL, the rays with a sample on an aabb face
+    left out). Returns (the kernels' records, the record)."""
+    import copy
+
+    import yaml
+
+    from hyperreel_tpu_torch import main as cli
+    from hyperreel_tpu_torch.config import resolve_model_cfg
+    from hyperreel_tpu_torch.configs.presets import with_coherent_gather
+    from hyperreel_tpu_torch.models.ctx import StepCtx
+    from hyperreel_tpu_torch.models.model import build_model
+    from hyperreel_tpu_torch.ops.kernels.pack_build import pack_build
+    from hyperreel_tpu_torch.train.metrics import psnr
+    from hyperreel_tpu_torch.train.regularizers import tv_4000_defaults
+    from hyperreel_tpu_torch.train.render import Renderer
+
+    root = write_gained_scene(os.path.join(tmp, "longtail"),
+                              np.ones((TECH_RIG * TECH_RIG, 3)),
+                              LT_FRAMES)
+    model_cfg = longtail_cfg()
+    model_cfg["color"]["net"].update(upsamp_list=[],
+                                     update_AlphaMask_list=[LT_ITERS // 2])
+    cfg_path = os.path.join(tmp, "longtail.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump({
+            "params": {"seed": SEED, "save_dir": os.path.join(tmp, "runs"),
+                       "name": "longtail", "compute_dtype": "bfloat16"},
+            "dataset": {"name": "technicolor", "root_dir": root,
+                        "img_wh": list(CT_WH), "num_frames": LT_FRAMES,
+                        "keyframe_step": 1, "load_full_step": 1},
+            "model": model_cfg,
+            "training": {"num_iters": LT_ITERS, "num_epochs": 1,
+                         "val_every": 1, "log_every": 50},
+            "regularizers": tv_4000_defaults()}, f, sort_keys=False)
+    t0 = time.perf_counter()
+    system, state, done = cli.main(["--config", cfg_path, "--device",
+                                    str(dev)])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    model, ds = system.model, system.train_dataset
+    mcfg = resolve_model_cfg(system.cfg, system.iters_per_epoch)
+    info = ds.info()
+    cf = model._cf_eval
+    if cf is None or not cf.spec.generic(
+            model.prepare_eval(state.params)["mlp"], state.it):
+        raise AssertionError("95. the long-tail flagship did not take K1's "
+                             "generic instantiation")
+    view = system.val_dataset.image(0)
+    W, H = system.val_dataset.img_wh
+    gt = torch.from_numpy(view["rgb"].reshape(H, W, 3))
+    renderer = Renderer(model, ray_chunk=CHUNK, device=dev)
+    reset_counts()
+    out = renderer.render_rays(state.params, view["rays"], it=state.it)
+    counts = read_counts()
+    rgb = torch.from_numpy(np.clip(out["rgb"], 0, 1))
+    n_chunks = -(-view["rays"].shape[0] // CHUNK)
+    view_ms = cuda_ms(torch, lambda: renderer.render_rays(
+        state.params, view["rays"], it=state.it), 3)
+    p_trained = psnr(rgb.reshape(H, W, 3), gt).item()
+    init = model.init(torch.Generator().manual_seed(SEED), dev)
+    p_init = psnr(torch.from_numpy(np.clip(renderer.render_rays(
+        init, view["rays"], it=state.it)["rgb"], 0, 1)).reshape(H, W, 3),
+        gt).item()
+    del init
+    # the fused patch route on a clone of the trained model
+    pm = build_model(with_coherent_gather(mcfg, *PATCH_R4),
+                     dataset_info=info, compute_dtype=torch.bfloat16)
+    pm.color_net.aabb = model.color_net.aabb
+    pm.color_net.grid_size = list(model.color_net.grid_size)
+    reset_counts()
+    pout = Renderer(pm, ray_chunk=CHUNK, device=dev).render_rays(
+        state.params, view["rays"], it=state.it)
+    pcounts = read_counts()
+    viol = float(np.max(pout["patch_coverage_viol"]))
+    patch_err = float(np.abs(pout["rgb"] - out["rgb"]).max())
+    print(f"# 95. {card}: the long-tail flagship, {state.it} CLI steps "
+          f"({fit_s:.1f} s with the load; {done['final']}); a held-out "
+          f"view ({W} x {H}) through the Renderer: quad route {view_ms:.3f} "
+          f"ms, psnr {p_trained:.3f} dB (untrained {p_init:.3f}), launches "
+          f"{counts}; fused patch route R=4 (4, 3): witness {viol:.2e}, "
+          f"max |rgb - quad| {patch_err:.3e}, launches {pcounts}",
+          flush=True)
+    if not (only(counts, pack_build=n_chunks, shade=n_chunks)
+            and only(pcounts, pack_build=n_chunks, shade_patch=n_chunks)
+            and p_trained > p_init
+            and (viol > PVIOL_EXACT or patch_err <= PATH_TOL)):
+        raise AssertionError("95. the long-tail flagship's view: launches, "
+                             "PSNR or the patch route")
+    # K1 and K2 on the view's chunk; fused against the general chain
+    chunk = torch.from_numpy(view["rays"][:CHUNK]).to(dev)
+    ctx = StepCtx(it=state.it)
+    model32 = build_model(copy.deepcopy(mcfg), dataset_info=info)
+    model32.color_net.aabb = model.color_net.aabb
+    model32.color_net.grid_size = list(model.color_net.grid_size)
+    with torch.no_grad():
+        prep = model.prepare_eval(state.params)
+        k1, k2 = trained_flagship_chunk(torch, model, state.params, chunk,
+                                        ctx, prep, "long-tail flagship",
+                                        model32)
+        gcfg = copy.deepcopy(mcfg)
+        gcfg["color"]["net"].update(fused_render_cf=False,
+                                    fused_render=False)
+        general = build_model(gcfg, dataset_info=info)
+        general.color_net.aabb = model.color_net.aabb
+        general.color_net.grid_size = list(model.color_net.grid_size)
+        p16 = bf16_second_factors(torch, state.params)
+        rays = chunk[:4096].contiguous()
+        a = model32.apply(p16, rays, ctx)["rgb"]
+        b = general.apply(p16, rays, ctx)["rgb"]
+        fcf = model32._cf_eval
+        fpack = pack_build(fcf.pred.net_input(rays, ctx).float().contiguous(),
+                           fcf.prepare(p16)["mlp"], fcf.ray_pack(rays),
+                           fcf.spec, ctx.it)
+        near = near_face(torch, fpack, fcf.S)
+        # every ray when every one has a sample on a face (phase 87)
+        keep = ~near if not near.all() else torch.ones_like(near)
+        path_err = (a - b).abs()[keep].max().item()
+    print(f"# 95. fused vs general (f32 MLP), 4096 of the view's rays: max "
+          f"|diff| {path_err:.3e} (tol {PATH_TOL}; {int((~keep).sum())} "
+          f"rays with a sample on an aabb face left out, of "
+          f"{int(near.sum())} that have one)", flush=True)
+    if not path_err <= PATH_TOL:
+        raise AssertionError(f"95. fused and general chains disagree: "
+                             f"{path_err}")
+    records = flagship_entries("longtail", counts, k1, k2)
+    record = {"fit_s": fit_s, "final": done["final"], "view_ms": view_ms,
+              "psnr": p_trained, "psnr_untrained": p_init,
+              "patch_viol": viol, "patch_err": patch_err,
+              "path_err": path_err, "launches": counts,
+              "patch_launches": pcounts}
+    del system, state, model, model32, general, pm, prep, p16
+    torch.cuda.empty_cache()
+    return records, record
+
+
+def general_chain_phase(torch, dev, card, reset_counts, read_counts):
+    """Phase 96: the modules that take the general chain. neural_3d_z_plane
+    at full width (bf16) with an angular flow (the predicted field
+    angular_flow, tanh rates and anchors) and two ray outputs: one
+    GENERAL_RAYS eval chunk (no kernel launched by the chain) and one
+    training step on the dynamic blob scene; then every ray param of the
+    registry, one GENERAL_RAYS eval chunk each on llff_z_plane: as the
+    model-level param where it keeps the six ray channels (the general
+    chain, then the net's own route, K5), else as the prediction stage's
+    ray range param (K1, K5). Returns the record."""
+    import copy
+
+    from hyperreel_tpu_torch.configs import presets
+    from hyperreel_tpu_torch.data.synthetic import gaussian_blob_scene
+    from hyperreel_tpu_torch.models.ctx import StepCtx
+    from hyperreel_tpu_torch.models.model import build_model
+    from hyperreel_tpu_torch.models.ray_param import RAY_PARAMS
+
+    record = {}
+    dyn = gaussian_blob_scene(**TRAIN_SCENE, device=dev)
+    cfg = presets.convert_epochs_to_iters(presets.neural_3d_z_plane(), 4000)
+    emb = cfg["embedding"]["embeddings"]
+    pred = emb["ray_prediction_0"]
+    pred["outputs"]["angular_flow"] = {"channels": 6,
+                                       "activation": "identity"}
+    pred["ray_outputs"] = {"ray_scale": {"channels": 3,
+                                         "activation": "sigmoid"},
+                           "ray_shift": {"channels": 1,
+                                         "activation": "tanh"}}
+    emb["flow_0"].update(use_angular_flow=True,
+                         angular_flow_rotation_activation={
+                             "type": "tanh", "outer_fac": 0.5},
+                         angular_flow_anchor_activation="tanh")
+    model = build_model(copy.deepcopy(cfg), dataset_info=dyn.info(),
+                        compute_dtype=torch.bfloat16)
+    if model._cf_eval is not None:
+        raise AssertionError("96. angular flow took the fused route")
+    trainer, state, rec = family_fit(torch, dev, model, dyn, 1,
+                                     "96. neural_3d_z_plane with angular "
+                                     "flow and ray outputs")
+    rays = torch.from_numpy(dyn.all_coords[:GENERAL_RAYS]).to(dev)
+    ctx = StepCtx(it=state.it)
+    with torch.no_grad():
+        reset_counts()
+        x = model.embedding.apply(state.params["embedding"],
+                                  model.ray_param.apply(rays), ctx,
+                                  {"fields": ["angular_flow_rot",
+                                              "ray_scale", "ray_shift"]})
+        out = model.apply(state.params, rays, ctx)["rgb"]
+        torch.cuda.synchronize()
+        got = read_counts()
+        ms = cuda_ms(torch, lambda: model.apply(state.params, rays, ctx), 3)
+    print(f"# 96. {card}: the eval chunk ({GENERAL_RAYS} rays) through the "
+          f"general chain {ms:.3f} ms, launches {got}; ray outputs "
+          f"{tuple(x['ray_scale'].shape)}, {tuple(x['ray_shift'].shape)}, "
+          f"the rotation rates' mean |.| "
+          f"{x['angular_flow_rot'].abs().mean().item():.4f}", flush=True)
+    if not (torch.isfinite(out).all() and out.min() >= 0 and out.max() <= 1
+            and x["ray_scale"].shape == (GENERAL_RAYS, 3)
+            and x["ray_shift"].shape == (GENERAL_RAYS, 1)
+            and got["pack_build"] == 0):
+        raise AssertionError("96. the angular-flow chain's eval")
+    record["angular_flow"] = dict(rec, eval_ms=ms)
+    del model, trainer, state, dyn
+    torch.cuda.empty_cache()
+
+    static = gaussian_blob_scene(**STATIC_TRAIN_SCENE, device=dev)
+    rays = torch.from_numpy(static.all_coords[:GENERAL_RAYS]).to(dev)
+    base = presets.convert_epochs_to_iters(presets.llff_z_plane(), 4000)
+    params_cfg = {
+        "identity": {}, "take": {"input_channels": [0, 1, 2, 3, 4, 5]},
+        "position": {}, "two_plane": {"use_local_param": True},
+        "multi_plane": {"z_channels": 4}, "two_plane_matrix": {
+            "matrix": (np.eye(4) + 0.1).tolist()},
+        "two_cylinder": {"near": 0.5, "far": 2.0},
+        "ray_plus_time": {"param": {"fn": "two_plane"}},
+        "voxel_center": {"voxel_size": 0.5}, "z_slice": {"z": 0.5},
+        "contract_points": {"param": {"fn": "identity"},
+                            "contract": {"type": "mipnerf"}},
+        "pluecker": {"use_local_param": True}, "spherical": {"radius": 2.0},
+        "xy": {}, "rays": {}, "pluecker_pos": {}}
+    six = ("identity", "take", "voxel_center", "contract_points",
+           "pluecker", "rays")
+    for fn in RAY_PARAMS:
+        c = copy.deepcopy(base)
+        pc = dict(params_cfg[fn], fn=fn)
+        if fn in six:
+            c["param"] = dict(pc, n_dims=6)
+        else:
+            rr = c["embedding"]["embeddings"]["ray_prediction_0"]["params"]
+            rr["ray"]["param"] = pc
+            rr["ray"]["pe"] = None
+        m = build_model(c, dataset_info=static.info(),
+                        compute_dtype=torch.bfloat16)
+        params = m.init(torch.Generator().manual_seed(SEED), dev)
+        with torch.no_grad():
+            rk = {"cf_prepared": m.prepare_eval(params)}
+            reset_counts()
+            o = m.apply(params, rays, StepCtx(it=IT), rk)["rgb"]
+            torch.cuda.synchronize()
+            got = read_counts()
+        route = "K1" if m._cf_eval is not None else "general chain"
+        print(f"# 96. ray param {fn} "
+              f"({'model-level' if fn in six else 'prediction range'}): "
+              f"{route}, launches {got}, rgb mean {o.mean().item():.4f}",
+              flush=True)
+        if not (torch.isfinite(o).all() and o.min() >= 0 and o.max() <= 1
+                and (fn == "identity" or fn not in six) ==
+                (m._cf_eval is not None)):
+            raise AssertionError(f"96. ray param {fn}: rgb or route")
+        record[f"ray_param {fn}"] = {"route": route, "launches": got}
+        del m, params
+    return record
 
 
 def main():
@@ -7030,6 +7603,20 @@ def main():
             torch, dev, gpu, reset_counts, read_counts, tmp)
         print(f"# phases 87-91 took {time.perf_counter() - t_col:.1f} s",
               flush=True)
+
+        # ---- 92-96. the prediction side: K1 at every layer and field
+        # activation and at wider encodings, the long-tail flagship, the
+        # modules of the general chain
+        t_lt = time.perf_counter()
+        k1_entries, lt_record = k1_branch_phases(
+            torch, dev, gpu, frame, reset_counts, read_counts)
+        torch.cuda.empty_cache()
+        lt_entries, lt_record["longtail"] = longtail_phase(
+            torch, dev, gpu, reset_counts, read_counts, tmp)
+        lt_record["general"] = general_chain_phase(
+            torch, dev, gpu, reset_counts, read_counts)
+        print(f"# phases 92-96 took {time.perf_counter() - t_lt:.1f} s",
+              flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print("# SH bounds, ms with the basis folded per ray (the least work, "
@@ -7064,11 +7651,13 @@ def main():
         + n3d_entries + shiny_entries + stanford_entries
         + primitive_entries + own_entries + count_entries + train_entries
         + multi_train_entries + data_entries + cli_entries
-        + family_entries + sh_entries + colour_entries,
+        + family_entries + sh_entries + colour_entries + k1_entries
+        + lt_entries,
         "frame_ms": frame_ms, "train": train_record,
         "train_multi": multi_train_record, "data": data_record,
         "cli": cli_record, "data_parallel": dp_record,
-        "families": family_record, "colour": colour_record}
+        "families": family_record, "colour": colour_record,
+        "prediction": lt_record}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

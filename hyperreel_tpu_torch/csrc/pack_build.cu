@@ -1,10 +1,14 @@
 // Pack-build (K1): the host side, the launch plans and the C interface.
 // The kernels and their design note are in pack_build.cuh, compiled per
-// sample count in pack_build_s<S>.cu.
+// sample count in pack_build_s<S>.cu (the default instantiation) and
+// pack_build_gen_s<S>.cu (the generic ones).
 
 #include "pack_build.cuh"
 
 namespace {
+
+// pack_build_launch's return where no launch plan takes p: no cudaError_t
+constexpr int kNoPlan = -1;
 
 bool sample_count_ok(int S) {
   return S == 8 || S == 16 || S == 32 || S == 64;
@@ -27,6 +31,28 @@ bool fields_ok(const PackParams& p) {
          p.P * p.S <= p.layer[p.n_layers - 1].n;
 }
 
+bool act_ok(const PackAct& a, bool basic) {
+  if (a.n < 1 || a.n > (basic ? 1 : kActLeaves)) return false;
+  for (int i = 0; i < a.n; ++i) {
+    if (a.f[i].kind < 0 || a.f[i].kind > (basic ? kBasicKinds - 1
+                                                 : K_GAUSSIAN)) {
+      return false;
+    }
+  }
+  return true;
+}
+
+// The activations are ones the chosen instantiation evaluates: in the
+// default one every field slot one basic leaf and the layer activation
+// piecewise linear (lpl)
+bool acts_ok(const PackParams& p) {
+  const bool basic = !p.generic;
+  for (int i = 0; i < A_N; ++i) {
+    if (!act_ok(p.act[i], basic)) return false;
+  }
+  return act_ok(p.lact, false) && (p.lpl || !basic);
+}
+
 size_t tail_bytes(int S) { return 2 * (size_t)kWgRays * (S + 8) * 4; }
 
 K1Plan plan_f32(const PackParams& p) {
@@ -39,7 +65,12 @@ K1Plan plan_f32(const PackParams& p) {
     cols = L.k0 + L.k > cols ? L.k0 + L.k : cols;
   }
   pl.lda = (cols + 31) / 32 * 32 + 4;
-  pl.smem = 2 * (size_t)kWgRays * pl.lda * 4 + tail_bytes(p.S);
+  // the generic instantiation's staging buffer: the operand buffer the
+  // last layer does not read, or its own beside the tail's where that
+  // buffer is smaller (f32_staging_in_operands)
+  pl.smem = 2 * (size_t)kWgRays * pl.lda * 4 + tail_bytes(p.S) +
+            (p.generic && !f32_staging_in_operands(pl.lda) ? kStagingBytes
+                                                           : 0);
   if (pl.smem <= kMaxSmem) pl.R = kWgRays;
   return pl;
 }
@@ -48,21 +79,23 @@ K1Plan plan_wgmma(const PackParams& p) {
   K1Plan pl{};
   const int H = p.layer[0].n, xk = p.layer[0].k;
   if ((H != 64 && H != 256) || p.xcol != H || p.layer[0].k0 != H ||
-      (xk != 16 && xk != 32) || p.cin > xk || p.wt == nullptr ||
-      reinterpret_cast<uintptr_t>(p.wt) % 16) {
+      xk < 16 || xk % 16 || xk > kMaxXCols || p.cin > xk ||
+      p.wt == nullptr || reinterpret_cast<uintptr_t>(p.wt) % 16) {
     return pl;
   }
+  // the encoded rays' slabs per column block: one per chunk of 64 rows
+  const int xs = (x_cols(xk) + kChunkK - 1) / kChunkK;
   SlabPlan& sp = pl.slabs;
   auto push = [&](int rows, int count) {
     for (int j = 0; j < count && sp.n < kMaxSlabs; ++j) sp.rows[sp.n++] = rows;
   };
   // hidden layers in column blocks of HB (pack_build.cuh hidden_layers)
   const int HB = H < kHiddenBlock ? H : kHiddenBlock;
-  push(HB, H / HB);
+  push(HB, H / HB * xs);
   for (int l = 1; l + 1 < p.n_layers; ++l) {
     const MlpLayer& L = p.layer[l];
     if (L.n != H || L.k0 != 0 || (L.k != H && L.k != H + xk)) return pl;
-    push(HB, H / HB * (H / kChunkK + (L.k > H)));
+    push(HB, H / HB * (H / kChunkK + (L.k > H ? xs : 0)));
   }
   const MlpLayer& last = p.layer[p.n_layers - 1];
   if (last.k0 != 0 || last.k != H) return pl;
@@ -88,9 +121,11 @@ K1Plan plan_wgmma(const PackParams& p) {
     rows += sp.rows[j];
   }
   if (rows != p.wt_rows) return pl;
+  sp.a_bytes = a_bytes(H, x_cols(xk));
   const size_t fixed = 2 * kMaxStages * sizeof(uint64_t) +
       sizeof(SlabPlan) +
-      kConsumers * (kABytes + (size_t)tail_floats(p.S) * 4);
+      kConsumers * (sp.a_bytes + (size_t)tail_floats(p.S) * 4 +
+                    (p.generic ? kStagingBytes : 0));
   sp.stages = (int)((kMaxSmem - fixed) / kStageBytes);
   if (sp.stages > kMaxStages) sp.stages = kMaxStages;
   if (sp.stages < 2) return pl;
@@ -102,7 +137,8 @@ K1Plan plan_wgmma(const PackParams& p) {
 // The launch plan for p's widths; R = 0 where p is not a layout the
 // kernels take or nothing fits
 K1Plan plan(const PackParams& p) {
-  if (!sample_count_ok(p.S) || !samples_kept_ok(p) || !fields_ok(p)) {
+  if (!sample_count_ok(p.S) || !samples_kept_ok(p) || !fields_ok(p) ||
+      !acts_ok(p)) {
     return K1Plan{};
   }
   return p.bf16 ? plan_wgmma(p) : plan_f32(p);
@@ -155,11 +191,12 @@ cudaError_t weight_map(const PackParams& p, CUtensorMap* map) {
 
 }  // namespace
 
+// K1 on p's rays: a cudaError_t, or kNoPlan where p is refused (plan)
 extern "C" int pack_build_launch(const float* x0, const float* rays,
                                  float* pack, const PackParams* p,
                                  void* stream) {
   const K1Plan pl = plan(*p);
-  if (pl.R == 0) return (int)cudaErrorInvalidValue;
+  if (pl.R == 0) return kNoPlan;
   if (p->B == 0) return 0;
   CUtensorMap map{};
   if (p->bf16) {
@@ -167,12 +204,16 @@ extern "C" int pack_build_launch(const float* x0, const float* rays,
     if (e != cudaSuccess) return (int)e;
   }
   cudaStream_t st = (cudaStream_t)stream;
+#define K1_CASE(S)                                                         \
+  case S:                                                                  \
+    return (int)(p->generic                                                \
+                     ? k1_launch_gen_s##S(x0, rays, pack, *p, pl, map, st) \
+                     : k1_launch_s##S(x0, rays, pack, *p, pl, map, st));
   switch (p->S) {
-    case 8: return (int)k1_launch_s8(x0, rays, pack, *p, pl, map, st);
-    case 16: return (int)k1_launch_s16(x0, rays, pack, *p, pl, map, st);
-    case 32: return (int)k1_launch_s32(x0, rays, pack, *p, pl, map, st);
-    default: return (int)k1_launch_s64(x0, rays, pack, *p, pl, map, st);
+    K1_LAUNCHERS(K1_CASE)
+    default: return (int)cudaErrorInvalidValue;
   }
+#undef K1_CASE
 }
 
 // The rays per block that pack_build_launch takes for p (0: p is refused)

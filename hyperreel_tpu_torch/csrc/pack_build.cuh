@@ -82,12 +82,34 @@
 //   code: one 8-byte store per two samples) and for k < S, and a uniform
 //   branch on k picks one per strip. The second copy costs the full
 //   routes' K1 1.4-2.2 %; one copy for both cost them 5-8 % (PERF.md).
+// - The activations (PackAct: the host folds an ease_value's or an
+//   interp_value's schedule into the coefficients of at most two
+//   elementwise functions) come in two instantiations, chosen at the launch
+//   (PackParams.generic). The default one is the code above: a
+//   piecewise-linear layer activation (the leaky relu; its slope below 0
+//   a parameter, so identity, relu and abs too) and field activations of
+//   one identity, sigmoid or tanh each, inlined where they are used. The generic one takes any
+//   layer and field activation (pack_build_gen_s<S>.cu): the accumulators
+//   of each hidden block and of each strip pass through a per-thread
+//   staging buffer in shared memory (act_staged, 16 KB per warpgroup, two
+//   ring stages fewer), where a loop applies the activations; inlined at
+//   every accumulator instead, their code made the kernel five times
+//   slower and its build take minutes (PERF.md). The piecewise-linear
+//   layer activation stays inline in both.
+// - The encoded rays take kXCols-column steps of A and of the first and
+//   the skip layer's slabs, whole 64-column chunks and a half one, up to
+//   kMaxXCols columns (mma_x); A grows with them and the ring takes what
+//   shared memory is left.
 // The f32-policy kernel (pack_build_f32, the 1e-5 check against the plain
 // version) runs its layers as plain f32 FMAs over operand buffers in shared
 // memory, 64 rays per block, and its last layer through the same strip
 // drain: the FMA strips produce the wgmma accumulator layout, so one set of
-// tail functions serves both. The tail runs in the JAX operation order,
-// with __f*_rn intrinsics in the mipnerf contraction
+// tail functions serves both. It comes in both instantiations too: the
+// generic one applies a layer activation by a rolled pass over the layer's
+// output buffer and stages the field activations in the operand buffer
+// that the last layer does not read (so it takes the default one's
+// widths). The tail runs in
+// the JAX operation order, with __f*_rn intrinsics in the mipnerf contraction
 // (hyperreel_tpu/ops/contract.py inverse_contract_distance and
 // contract_rows, the JAX kernel's :191-194 and :209-221) so that no
 // multiply-add is fused where the JAX and plain versions round twice.
@@ -115,14 +137,36 @@ constexpr int kStripChannels = 6;
 
 // The C interface's types live at global scope: a signature naming a type
 // of an unnamed namespace would give the extern "C" entry internal linkage.
-struct PackAct {
-  int kind;  // 0 identity, 1 sigmoid, 2 tanh
-  float inner, outer, shift, w, start;
+
+// the elementwise activation kinds (models/activations.py KINDS); kinds
+// below kBasicKinds run in the default instantiation
+enum ActKind {
+  K_IDENTITY, K_SIGMOID, K_TANH, K_SOFTPLUS, K_RELU, K_LEAKY, K_ABS, K_ZERO,
+  K_IDENTITY_TANH, K_POWER, K_GAUSSIAN
+};
+constexpr int kBasicKinds = 3;
+constexpr int kActLeaves = 2;
+
+// f(x) = g_kind(x * inner + shift) * outer, `a` the kind's parameter
+// (leaky slope, identity_tanh fac, power exponent, gaussian sigma)
+struct ActLeaf {
+  int kind;
+  float inner, outer, shift, a;
 };
 
-// One MLP layer: out[:, :n] = A[:, k0:k0 + k] @ w + b, then leaky relu
-// when `act`. w is row-major [k, n] in the operand type, b f32 [n]; the
-// last layer's columns are field-major, at PackParams.foff.
+// An activation as K1 evaluates it: c0 + sum over its n leaves of c[i] *
+// f_i(x). The host folds ease_value's and interp_value's schedules at the
+// launch's iteration into the coefficients (models/activations.py
+// kernel_terms).
+struct PackAct {
+  int n;
+  float c0, c[kActLeaves];
+  ActLeaf f[kActLeaves];
+};
+
+// One MLP layer: out[:, :n] = A[:, k0:k0 + k] @ w + b, then the layer
+// activation when `act`. w is row-major [k, n] in the operand type, b f32
+// [n]; the last layer's columns are field-major, at PackParams.foff.
 struct MlpLayer {
   const void* w;
   const float* b;
@@ -162,6 +206,13 @@ struct PackParams {
   // or the far sentinel 1e9 of invalid_sort_far chains)
   int k, stride;
   float far;
+  // the layer activation: lact, or where lpl is 1 the piecewise-linear
+  // function v >= 0 ? v : v * leaky (identity, relu, leaky relu, abs);
+  // the default instantiation (generic 0) takes such a layer activation
+  // and field activations of the kinds below kBasicKinds with one leaf,
+  // the generic one (1) any
+  PackAct lact;
+  int generic, lpl;
 };
 
 
@@ -173,13 +224,25 @@ constexpr int kThreadsWg = kConsumers * kWgThreads;
 constexpr int kChunkK = 64;          // K columns of a slab or A chunk:
                                      // one 128-byte swizzle row of bf16
 constexpr int kChunkBytes = kWgRays * kChunkK * 2;         // 8 KB
-constexpr int kXCols = 32;           // encoded-ray columns (k of layer 0)
+constexpr int kXCols = 32;           // the encoded rays' column step (k of
+                                     // layer 0 and the skip layer's input
+                                     // are whole steps of it)
+constexpr int kMaxXCols = 128;       // the most encoded columns (two chunks)
 constexpr int kHiddenBlock = 128;    // hidden-layer columns per product
 constexpr int kStageRows = 128;      // the widest slab: a hidden block,
                                      // or z and sigma at S = 64
 constexpr int kStageBytes = kStageRows * kChunkK * 2;      // 16 KB
-// 256 hidden columns, then the encoded rays' 32 (half a chunk)
-constexpr int kABytes = 4 * kChunkBytes + kWgRays * kXCols * 2;
+// A of one warpgroup: H / 64 chunks of hidden columns, then the encoded
+// rays' xk columns (whole chunks and a half one where xk % 64 = 32)
+__host__ __device__ constexpr int a_bytes(int H, int xk) {
+  return (H / kChunkK + xk / kChunkK) * kChunkBytes +
+         (xk % kChunkK ? kWgRays * kXCols * 2 : 0);
+}
+// the encoded columns the kernels multiply: layer 0's k rounded up to a
+// whole step of kXCols (the rows past k are zero in A and in the slabs)
+__host__ __device__ constexpr int x_cols(int k) {
+  return (k + kXCols - 1) / kXCols * kXCols;
+}
 constexpr int kBoxRows = 32;         // TMA box: 32 rows x 64 bf16
 constexpr int kMaxStages = 8;
 constexpr size_t kMaxSmem = 232448;  // 227 KB
@@ -269,6 +332,7 @@ __host__ __device__ __forceinline__ int strip_column(const int* foff, int q,
 struct SlabPlan {
   int n;                 // slabs per tile
   int stages;            // ring stages
+  int a_bytes;           // a warpgroup's A (a_bytes)
   int rows[kMaxSlabs];   // N of each slab (its rows in the weight tensor)
   int row0[kMaxSlabs];   // its first row
 };
@@ -284,29 +348,177 @@ struct K1Plan {
 // One sample count's launcher (the bf16 and the f32 kernel), each compiled
 // in its own pack_build_s<S>.cu so that the sample counts build in
 // parallel.
+// The default instantiations (k1_launch_s<S>) and the generic ones
+// (k1_launch_gen_s<S>), each of the bf16 and the f32 kernel, are separate
+// sources too.
 #define K1_LAUNCHERS(X) X(8) X(16) X(32) X(64)
 #define K1_DECLARE(S)                                                    \
   cudaError_t k1_launch_s##S(const float* x0, const float* rays,         \
                              float* pack, const PackParams& p,          \
                              const K1Plan& pl, const CUtensorMap& map,  \
-                             cudaStream_t st);
+                             cudaStream_t st);                          \
+  cudaError_t k1_launch_gen_s##S(const float* x0, const float* rays,     \
+                                 float* pack, const PackParams& p,      \
+                                 const K1Plan& pl,                      \
+                                 const CUtensorMap& map, cudaStream_t st);
 K1_LAUNCHERS(K1_DECLARE)
 
 namespace {
 
+// an activation of the default instantiation: one leaf of kind identity,
+// sigmoid or tanh (PackParams.generic is 0)
 __device__ __forceinline__ float apply_act(const PackAct& a, float x) {
-  float u = x * a.inner + a.shift;
+  const ActLeaf& l = a.f[0];
+  float u = x * l.inner + l.shift;
   float f;
-  if (a.kind == 1) {
+  if (l.kind == K_SIGMOID) {
     f = 1.0f / (1.0f + expf(-u));
-  } else if (a.kind == 2) {
+  } else if (l.kind == K_TANH) {
     f = tanhf(u);
   } else {
     f = u;
   }
-  f = f * a.outer;
-  return a.w * f + (1.0f - a.w) * a.start;
+  f = f * l.outer;
+  return a.c[0] * f + a.c0;
 }
+
+// one leaf of the generic instantiation, of kind K, in the JAX closures'
+// operations (models/activations.py leaf_value, the plain version's).
+// Accurate functions: under the bf16 policy an error of a few f32 ulps
+// already moves hidden values across bf16 rounding boundaries that the
+// plain version does not cross.
+template <int K>
+__device__ __forceinline__ float leaf_k(const ActLeaf& l, float x) {
+  const float u = x * l.inner + l.shift;
+  float f;
+  if constexpr (K == K_SIGMOID) {
+    f = 1.0f / (1.0f + expf(-u));
+  } else if constexpr (K == K_TANH) {
+    f = tanhf(u);
+  } else if constexpr (K == K_IDENTITY_TANH) {
+    // the identity below the edge, 2 tanh above, times fac / 2 (JAX
+    // activations.py:70-77; u = 2x)
+    f = (fabsf(u) < 1.91501f ? u : tanhf(u) * 2.0f) * l.a * 0.5f;
+  } else if constexpr (K == K_SOFTPLUS) {  // logaddexp(u, 0)
+    f = fmaxf(u, 0.0f) + log1pf(expf(-fabsf(u)));
+  } else if constexpr (K == K_RELU) {
+    f = fmaxf(u, 0.0f);
+  } else if constexpr (K == K_LEAKY) {
+    f = u >= 0.0f ? u : l.a * u;
+  } else if constexpr (K == K_ABS) {
+    f = fabsf(u);
+  } else if constexpr (K == K_ZERO) {
+    f = 0.0f;
+  } else if constexpr (K == K_POWER) {  // sign(u) (|u| + 1e-8)^a
+    const float m = powf(fabsf(u) + 1e-8f, l.a);
+    f = u > 0.0f ? m : (u < 0.0f ? -m : 0.0f);
+  } else if constexpr (K == K_GAUSSIAN) {
+    const float t = u / l.a;
+    f = expf(-0.5f * (t * t));
+  } else {
+    f = u;
+  }
+  return f * l.outer;
+}
+
+// the kind-K function of a kind known only at run time, for each kind
+#define ACT_KINDS(X)                                                    \
+  X(K_IDENTITY) X(K_SIGMOID) X(K_TANH) X(K_SOFTPLUS) X(K_RELU) X(K_LEAKY) \
+  X(K_ABS) X(K_ZERO) X(K_IDENTITY_TANH) X(K_POWER) X(K_GAUSSIAN)
+
+__device__ __forceinline__ float act_leaf(const ActLeaf& l, float x) {
+  switch (l.kind) {
+#define ACT_CASE(K) \
+  case K:           \
+    return leaf_k<K>(l, x);
+    ACT_KINDS(ACT_CASE)
+#undef ACT_CASE
+  }
+  return x * l.inner + l.shift;
+}
+
+// an activation of the generic instantiation: c0 + sum of c[i] f_i(x), in
+// the plain version's order
+__device__ __forceinline__ float act_eval(const PackAct& a, float x) {
+  float v = a.c0;
+#pragma unroll 1
+  for (int i = 0; i < a.n; ++i) v = a.c[i] * act_leaf(a.f[i], x) + v;
+  return v;
+}
+
+// a field activation slot in the tail: the default instantiation's form;
+// in the generic one the staging pass (strip_acts) has applied it
+template <bool kGen>
+__device__ __forceinline__ float field_act(const PackAct& a, float x) {
+  if constexpr (kGen) {
+    return x;
+  } else {
+    return apply_act(a, x);
+  }
+}
+
+// The generic instantiation's activations: a thread's accumulators pass
+// through its own column of a staging buffer G [kStageK][kWgThreads] in
+// shared memory, kStageK at a time, and a loop applies f(j, acc[j]) to
+// each, so that the activations' code exists a few times per pass and not
+// once per accumulator (hundreds of inlined copies made the kernel five
+// times slower and its build take minutes). The loop is unrolled U times,
+// so that U activations are in flight per thread.
+constexpr int kStageK = 32;
+constexpr size_t kStagingBytes = (size_t)kStageK * kWgThreads * 4;
+
+// The f32 kernel's staging buffer is the operand buffer that its last
+// layer does not read (its hidden layers are done with it) where that
+// buffer holds kStagingBytes
+__host__ __device__ constexpr bool f32_staging_in_operands(int lda) {
+  return (size_t)kWgRays * lda * 4 >= kStagingBytes;
+}
+
+template <int U, int N, class F>
+__device__ __forceinline__ void act_staged(float (&acc)[N], float* G,
+                                           int wtid, F&& f) {
+#pragma unroll
+  for (int j0 = 0; j0 < N; j0 += kStageK) {
+#pragma unroll
+    for (int j = 0; j < kStageK; ++j) {
+      if (j0 + j < N) G[j * kWgThreads + wtid] = acc[j0 + j];
+    }
+    const int n = N - j0 < kStageK ? N - j0 : kStageK;
+#pragma unroll U
+    for (int j = 0; j < n; ++j) {
+      float* q = G + j * kWgThreads + wtid;
+      *q = f(j0 + j, *q);
+    }
+#pragma unroll
+    for (int j = 0; j < kStageK; ++j) {
+      if (j0 + j < N) acc[j0 + j] = G[j * kWgThreads + wtid];
+    }
+  }
+}
+
+// The generic instantiation's layer activation on a thread's accumulators
+// through the staging buffer: one leaf by a loop of its own kind (the
+// kind's dispatch hoisted out of the loop), any other by act_eval
+template <int U, int N>
+__device__ __forceinline__ void layer_staged(float (&acc)[N], float* G,
+                                             int wtid, const PackAct& a) {
+  if (a.n == 1) {
+    const ActLeaf l = a.f[0];
+    const float c = a.c[0], c0 = a.c0;
+    switch (l.kind) {
+#define ACT_CASE(K)                                              \
+  case K:                                                        \
+    act_staged<U>(acc, G, wtid, [&](int, float v) {              \
+      return c * leaf_k<K>(l, v) + c0;                           \
+    });                                                          \
+    return;
+      ACT_KINDS(ACT_CASE)
+#undef ACT_CASE
+    }
+  }
+  act_staged<U>(acc, G, wtid, [&](int, float v) { return act_eval(a, v); });
+}
+
 
 // mipnerf inverse_contract_distance with the identity distance activation:
 // contracted distance in [-2, 2] -> metric distance
@@ -353,16 +565,23 @@ struct Tail {
   int64_t ray0;        // the warpgroup's first ray
   int wtid;            // thread in the warpgroup
   int bar;             // the warpgroup's named barrier
+  float* G;            // the generic instantiation's staging buffer
 };
 
 __device__ __forceinline__ void named_bar(int id) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(kWgThreads) : "memory");
 }
 
-// a last-layer column from its biased sum: the leaky relu where the layer
-// has one
+// a last-layer column from its biased sum: the layer activation where the
+// layer has one (in the default instantiation the piecewise-linear one of
+// slope p.leaky below 0)
+template <bool kGen>
 __device__ __forceinline__ float last_value(const PackParams& p, float v) {
-  return p.layer[p.n_layers - 1].act && v < 0.0f ? v * p.leaky : v;
+  if constexpr (kGen) {
+    return v;   // applied by the staging pass (strip_acts)
+  } else {
+    return p.layer[p.n_layers - 1].act && v < 0.0f ? v * p.leaky : v;
+  }
 }
 
 // strip q's bias in the accumulator layout (0 in pad columns and in the
@@ -396,11 +615,13 @@ __device__ __forceinline__ void store2(float* q, float a, float b) {
 
 // z processing (intersect.py z_plane): act(z) * (1 - sigma), the anchors,
 // the contraction's inverse, and the distance along the ray
+template <bool kGen>
 __device__ __forceinline__ float sample_dist(const PackParams& p, float zf,
                                              float sf, int s, float oz,
                                              float dz) {
-  float z = apply_act(p.act[A_ISECT], apply_act(p.act[A_Z], zf));
-  z = z * (1.0f - apply_act(p.act[A_SIGMA], sf));
+  float z = field_act<kGen>(p.act[A_ISECT],
+                            field_act<kGen>(p.act[A_Z], zf));
+  z = z * (1.0f - field_act<kGen>(p.act[A_SIGMA], sf));
   z = z * p.z_scale[s] + p.samples[s];
   if (p.contract_samples) z = inverse_contract_distance(z, p);
   const float dzg = fabsf(dz) < 1e-5f ? 1e12f : dz;
@@ -443,7 +664,7 @@ __device__ __forceinline__ void bound_live() {
 }
 
 // strip 0 (z, sigma) -> the unsorted distances in D
-template <int S, int W>
+template <int S, int W, bool kGen>
 __device__ __forceinline__ void strip_z(const PackParams& p,
                                         const float (&acc)[W / 2],
                                         const Tail& T) {
@@ -461,9 +682,10 @@ __device__ __forceinline__ void strip_z(const PackParams& p,
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int s = 8 * i + 2 * t + e;
-        v[e] = sample_dist(p, last_value(p, acc[4 * i + 2 * h + e]),
-                           last_value(p, acc[4 * (i + S / 8) + 2 * h + e]),
-                           s, oz, dz);
+        v[e] = sample_dist<kGen>(
+            p, last_value<kGen>(p, acc[4 * i + 2 * h + e]),
+            last_value<kGen>(p, acc[4 * (i + S / 8) + 2 * h + e]), s, oz,
+            dz);
       }
       store2(T.D + r * RF + 8 * i + 2 * t, v[0], v[1]);
       bound_live();
@@ -578,7 +800,7 @@ __device__ __forceinline__ void sort_rays(const PackParams& p,
 }
 
 // strip 1 (point sigma) -> the offsets' factor 1 - act(point sigma) in PF
-template <int S, int W>
+template <int S, int W, bool kGen>
 __device__ __forceinline__ void strip_psig(const PackParams& p,
                                            const float (&acc)[W / 2],
                                            const Tail& T) {
@@ -592,8 +814,9 @@ __device__ __forceinline__ void strip_psig(const PackParams& p,
       float v[2];
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        v[e] = 1.0f - apply_act(p.act[A_PSIG],
-                                last_value(p, acc[4 * i + 2 * h + e]));
+        v[e] = 1.0f - field_act<kGen>(
+                          p.act[A_PSIG],
+                          last_value<kGen>(p, acc[4 * i + 2 * h + e]));
       }
       store2(T.PF + (r0 + 8 * h) * RF + 8 * i + 2 * t, v[0], v[1]);
       bound_live();
@@ -609,7 +832,7 @@ __device__ __forceinline__ void strip_psig(const PackParams& p,
 // Only the samples the pack keeps (kept_sample): sample s pairs sorted
 // position s with prediction row s, as the JAX kernel's first-k and
 // positional stride selections do
-template <int S, int W, bool kAll>
+template <int S, int W, bool kAll, bool kGen>
 __device__ __forceinline__ void strip_point(const PackParams& p,
                                             const float (&acc)[W / 2], int g,
                                             const Tail& T) {
@@ -643,16 +866,19 @@ __device__ __forceinline__ void strip_point(const PackParams& p,
         for (int c = 0; c < 3; ++c) {
           float x = base[c];
           if (flow) {
-            x = x + apply_act(p.act[A_FLOW_STAGE],
-                              apply_act(p.act[A_FLOW],
-                                        last_value(p, acc[4 * (c * GB + i) +
-                                                          2 * h + e]))) * dt;
+            x = x + field_act<kGen>(
+                        p.act[A_FLOW_STAGE],
+                        field_act<kGen>(
+                            p.act[A_FLOW],
+                            last_value<kGen>(p, acc[4 * (c * GB + i) +
+                                                    2 * h + e]))) * dt;
           }
-          x = x + apply_act(p.act[A_PO_STAGE],
-                            apply_act(p.act[A_POFF],
-                                      last_value(p, acc[4 * ((3 + c) * GB +
-                                                             i) + 2 * h + e])))
-                      * pf;
+          x = x + field_act<kGen>(
+                      p.act[A_PO_STAGE],
+                      field_act<kGen>(
+                          p.act[A_POFF],
+                          last_value<kGen>(p, acc[4 * ((3 + c) * GB + i) +
+                                                  2 * h + e]))) * pf;
           v[c][e] = (x - p.aabb_lo[c]) * p.aabb_inv[c] - 1.0f;
         }
         v[3][e] = dist;
@@ -670,7 +896,7 @@ __device__ __forceinline__ void strip_point(const PackParams& p,
 
 // the colour strips (colour scale, colour shift; a component each) -> pack
 // row `row`, the kept samples' prediction rows
-template <int S, int W, bool kAll>
+template <int S, int W, bool kAll, bool kGen>
 __device__ __forceinline__ void strip_colour(const PackParams& p,
                                              const float (&acc)[W / 2], int a,
                                              int row, const Tail& T) {
@@ -688,7 +914,8 @@ __device__ __forceinline__ void strip_colour(const PackParams& p,
       float v[2];
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        v[e] = apply_act(p.act[a], last_value(p, acc[4 * i + 2 * h + e]));
+        v[e] = field_act<kGen>(p.act[a],
+                               last_value<kGen>(p, acc[4 * i + 2 * h + e]));
       }
       store_kept<S, kAll>(p, T.pack, row, ray, s0, j, v[0], v[1]);
       bound_live();
@@ -696,12 +923,78 @@ __device__ __forceinline__ void strip_colour(const PackParams& p,
   }
 }
 
+// The generic instantiation's activations of strip q's accumulators (the
+// layer activation where the last layer has one, then each field's: z and
+// the intersect's, sigma, point sigma, flow and the flow stage's, offset
+// and the point-offset stage's, colour), applied by a staging pass before
+// the tail reads them. A thread's accumulators of one channel are
+// contiguous (acc[4 i + 2 h + e] holds column 8 i + 2 t + e, and a
+// channel's ns columns are whole 8-column blocks), so the slots are found
+// and their activations read once per channel; pad columns keep their
+// value.
+template <int S, int W>
+__device__ __forceinline__ void strip_acts(const PackParams& p, int q,
+                                           float (&acc)[W / 2],
+                                           const Tail& T) {
+  constexpr int N = W / 2;
+  const int per = strip_desc(q, S).ns / 2;
+  const bool last = p.layer[p.n_layers - 1].act;
+  float* G = T.G;
+  const int wtid = T.wtid;
+#pragma unroll
+  for (int j0 = 0; j0 < N; j0 += kStageK) {
+#pragma unroll
+    for (int j = 0; j < kStageK; ++j) {
+      if (j0 + j < N) G[j * kWgThreads + wtid] = acc[j0 + j];
+    }
+    const int n = N - j0 < kStageK ? N - j0 : kStageK;
+#pragma unroll 1
+    for (int ch = j0 / per; ch * per < j0 + n; ++ch) {
+      int f = 0, c = 0;
+      if (!strip_channel(q, ch, S, &f, &c)) break;
+      const PackAct a1 = p.act[f == F_Z ? A_Z : f == F_SIGMA ? A_SIGMA
+                                 : f == F_PSIG ? A_PSIG : f == F_FLOW ? A_FLOW
+                                 : f == F_POFF ? A_POFF : f == F_CS ? A_CS
+                                                                    : A_CSH];
+      const int b = f == F_Z ? A_ISECT : f == F_FLOW ? A_FLOW_STAGE
+                  : f == F_POFF ? A_PO_STAGE : -1;
+      const PackAct a2 = p.act[b >= 0 ? b : 0];
+      const int lo = ch * per > j0 ? ch * per - j0 : 0;
+      const int hi = (ch + 1) * per - j0 < n ? (ch + 1) * per - j0 : n;
+#pragma unroll 2
+      for (int j = lo; j < hi; ++j) {
+        float* g = G + j * kWgThreads + wtid;
+        float v = *g;
+        if (last) {
+          v = p.lpl ? (v < 0.0f ? v * p.leaky : v) : act_eval(p.lact, v);
+        }
+        v = act_eval(a1, v);
+        *g = b >= 0 ? act_eval(a2, v) : v;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kStageK; ++j) {
+      if (j0 + j < N) acc[j0 + j] = G[j * kWgThreads + wtid];
+    }
+  }
+}
+
 // The last layer, strip by strip: `mma(acc, q)` leaves strip q's f32 sums,
 // bias included, in acc (the wgmma accumulator layout, acc's extent the
-// strip's width / 2)
-template <int S, class Mma>
+// strip's width / 2).
+template <int S, bool kGen, class Mma0>
 __device__ __forceinline__ void drain_last_layer(const PackParams& p,
-                                                 const Tail& T, Mma&& mma) {
+                                                 const Tail& T, Mma0&& mma0) {
+  // the strip's sums, activated by the staging pass in the generic
+  // instantiation
+  auto mma = [&](auto& acc, int q) {
+    mma0(acc, q);
+    if constexpr (kGen) {
+      constexpr int W =
+          2 * std::extent_v<std::remove_reference_t<decltype(acc)>>;
+      strip_acts<S, W>(p, q, acc, T);
+    }
+  };
   constexpr int NP = point_strips(S);
   constexpr int WZ = strip_width(2, S);
   constexpr int WS = strip_width(1, S);
@@ -710,14 +1003,14 @@ __device__ __forceinline__ void drain_last_layer(const PackParams& p,
   {
     float acc[WZ / 2];
     mma(acc, 0);
-    strip_z<S, WZ>(p, acc, T);
+    strip_z<S, WZ, kGen>(p, acc, T);
   }
   named_bar(T.bar);
   sort_rays<S>(p, T);
   {
     float acc[WS / 2];
     mma(acc, 1);
-    strip_psig<S, WS>(p, acc, T);
+    strip_psig<S, WS, kGen>(p, acc, T);
   }
   named_bar(T.bar);
   // the pack keeps all S samples (the code the full routes run), or k of
@@ -728,9 +1021,9 @@ __device__ __forceinline__ void drain_last_layer(const PackParams& p,
     float acc[WP / 2];
     mma(acc, 2 + g);
     if (all) {
-      strip_point<S, WP, true>(p, acc, g, T);
+      strip_point<S, WP, true, kGen>(p, acc, g, T);
     } else if (p.stride > 1 || g * point_group(S) < p.k) {
-      strip_point<S, WP, false>(p, acc, g, T);
+      strip_point<S, WP, false, kGen>(p, acc, g, T);
     }
   }
 #pragma unroll 1
@@ -741,9 +1034,9 @@ __device__ __forceinline__ void drain_last_layer(const PackParams& p,
     mma(acc, 2 + NP + c);
     const int a = c < 3 ? A_CS : A_CSH;
     if (all) {
-      strip_colour<S, WC, true>(p, acc, a, 4 + c, T);
+      strip_colour<S, WC, true, kGen>(p, acc, a, 4 + c, T);
     } else {
-      strip_colour<S, WC, false>(p, acc, a, 4 + c, T);
+      strip_colour<S, WC, false, kGen>(p, acc, a, 4 + c, T);
     }
   }
 }
@@ -933,25 +1226,57 @@ __device__ __forceinline__ void mma_ss(float (&acc)[N / 2], uint32_t a, int c0,
 }
 
 // a hidden layer's epilogue on the accumulators of HB columns: bias b,
-// leaky relu, bf16, stored in the A layout at dst (the chunk of the
-// block's first column), in the rows of this thread's warp
-template <int HB>
-__device__ __forceinline__ void hidden_epilogue(const float (&acc)[HB / 2],
+// the layer activation (in f32, before the next layer's bf16 rounding, as
+// the JAX kernel's _mlp_rows; kGen: any, else the piecewise-linear one of
+// slope p.leaky below 0), bf16,
+// stored in the A layout at dst (the chunk of the block's first column),
+// in the rows of this thread's warp
+template <int HB, bool kGen>
+__device__ __forceinline__ void hidden_epilogue(float (&acc)[HB / 2],
                                                 unsigned char* dst,
                                                 const float* b, bool act,
-                                                float leaky, int r0, int t) {
-  auto f = [&](float v) { return act && v < 0.0f ? v * leaky : v; };
+                                                const PackParams& p,
+                                                float* G, int r0, int t) {
+  if constexpr (kGen) {
+    // the bias, then the layer activation by a staging pass
+#pragma unroll
+    for (int i = 0; i < HB / 8; ++i) {
+      const float2 bi =
+          __ldg(reinterpret_cast<const float2*>(b + 8 * i + 2 * t));
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        acc[4 * i + 2 * h] += bi.x;
+        acc[4 * i + 2 * h + 1] += bi.y;
+      }
+    }
+    if (act && p.lpl) {
+#pragma unroll
+      for (int j = 0; j < HB / 2; ++j) {
+        acc[j] = acc[j] < 0.0f ? acc[j] * p.leaky : acc[j];
+      }
+    } else if (act) {
+      layer_staged<2>(acc, G, threadIdx.x % kWgThreads, p.lact);
+    }
+  }
+  auto f = [&](float v) { return act && v < 0.0f ? v * p.leaky : v; };
   unsigned char* base = dst + a_offset(r0, 2 * t);
 #pragma unroll
   for (int i = 0; i < HB / 8; ++i) {
-    const float2 bi = __ldg(reinterpret_cast<const float2*>(b + 8 * i + 2 * t));
+    float2 bi = make_float2(0.0f, 0.0f);
+    if constexpr (!kGen) {
+      bi = __ldg(reinterpret_cast<const float2*>(b + 8 * i + 2 * t));
+    }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       // row r0 + 8h, columns 8i + 2t: chunk i / 8, K group i % 8
-      *reinterpret_cast<uint32_t*>(base + (i / 8) * kChunkBytes +
-                                   (i % 8) * 1024 + h * 128) =
-          pack_bf16(f(acc[4 * i + 2 * h] + bi.x),
-                    f(acc[4 * i + 2 * h + 1] + bi.y));
+      uint32_t* q = reinterpret_cast<uint32_t*>(
+          base + (i / 8) * kChunkBytes + (i % 8) * 1024 + h * 128);
+      if constexpr (kGen) {
+        *q = pack_bf16(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
+      } else {
+        *q = pack_bf16(f(acc[4 * i + 2 * h] + bi.x),
+                       f(acc[4 * i + 2 * h + 1] + bi.y));
+      }
     }
     bound_live();
   }
@@ -964,9 +1289,25 @@ __device__ __forceinline__ void publish_a(int bar) {
   named_bar(bar);
 }
 
+// acc (+)= A[:, the encoded rays' xk columns] @ the ring's next slabs: a
+// slab per whole chunk of 64 columns, then one of which a half chunk's 32
+// rows are read where xk % 64 = 32 (the default: xk = 32)
+template <int N>
+__device__ __forceinline__ void mma_x(float (&acc)[N / 2], uint32_t a,
+                                      int xc, int xk, bool accumulate,
+                                      Ring& ring) {
+  const int whole = xk / kChunkK;
+  if (whole) mma_ss<N, kChunkK / 16>(acc, a, xc, whole, accumulate, ring);
+  if (xk % kChunkK) {
+    mma_ss<N, kXCols / 16>(acc, a, xc + whole, 1, accumulate || whole,
+                           ring);
+  }
+}
+
 // ------------------------------------------------------ the bf16 kernel
 // The hidden layers of one tile at hidden width H (A holds the encoded
-// rays in chunk H/64); leaves the last hidden layer's output in A. A layer
+// rays' xk columns from chunk H/64 on); leaves the last hidden layer's
+// output in A. A layer
 // runs in column blocks of at most kHiddenBlock: a block's accumulators
 // (64 registers) are all that is live, where the whole 256-column layer's
 // 128 made ptxas spill. The weight slabs come per block (mlp_tables). The
@@ -974,12 +1315,12 @@ __device__ __forceinline__ void publish_a(int bar) {
 // tail buffers, idle during the hidden layers), since A is still the input
 // of the next block; the last block stores into A, and each warp then
 // copies its own rows of the others over.
-template <int H>
+template <int H, bool kGen>
 __device__ __forceinline__ void hidden_layers(const PackParams& p,
                                               unsigned char* A,
                                               unsigned char* scratch,
-                                              Ring& ring, int bar, int r0,
-                                              int t) {
+                                              float* G, Ring& ring, int bar,
+                                              int r0, int t, int xk) {
   constexpr int XC = H / kChunkK;   // the encoded rays' chunk
   constexpr int HB = H < kHiddenBlock ? H : kHiddenBlock;
   constexpr int NB = H / HB;
@@ -991,14 +1332,14 @@ __device__ __forceinline__ void hidden_layers(const PackParams& p,
     for (int b = 0; b < NB; ++b) {
       float acc[HB / 2];
       if (l == 0) {
-        mma_ss<HB, kXCols / 16>(acc, a, XC, 1, false, ring);
+        mma_x<HB>(acc, a, XC, xk, false, ring);
       } else {
         mma_ss<HB, kChunkK / 16>(acc, a, 0, XC, false, ring);
-        if (L.k > H) mma_ss<HB, kXCols / 16>(acc, a, XC, 1, true, ring);
+        if (L.k > H) mma_x<HB>(acc, a, XC, xk, true, ring);
       }
-      hidden_epilogue<HB>(acc, (b + 1 < NB ? scratch : A) +
-                                   b * HB / kChunkK * kChunkBytes,
-                          L.b + b * HB, L.act, p.leaky, r0, t);
+      hidden_epilogue<HB, kGen>(acc, (b + 1 < NB ? scratch : A) +
+                                         b * HB / kChunkK * kChunkBytes,
+                                L.b + b * HB, L.act, p, G, r0, t);
     }
     if (NB > 1) {
       // this warp's rows (row groups 2w, 2w + 1) of the scratch chunks:
@@ -1026,7 +1367,7 @@ __device__ __forceinline__ void copy_words(void* dst, const void* src,
 }
 
 // Two warpgroups, each 64 rays of every tile the block takes
-template <int S>
+template <int S, bool kGen>
 __global__ void __launch_bounds__(kThreadsWg, 1)
 pack_build_wgmma(const float* __restrict__ x0, const float* __restrict__ rays,
                  float* __restrict__ pack,
@@ -1035,12 +1376,14 @@ pack_build_wgmma(const float* __restrict__ x0, const float* __restrict__ rays,
                  const __grid_constant__ SlabPlan sp_in) {
   extern __shared__ __align__(1024) unsigned char smem_wg[];
   constexpr int RF = kRowF<S>;
-  // [ring stages][A of warpgroup 0, 1][D, PF of warpgroup 0, 1][barriers,
+  // [ring stages][A of warpgroup 0, 1][D, PF of warpgroup 0, 1][the
+  // generic instantiation's staging buffers of warpgroup 0, 1][barriers,
   // release counts][the parameters]
   unsigned char* As = smem_wg + sp_in.stages * kStageBytes;
-  float* tails = reinterpret_cast<float*>(As + kConsumers * kABytes);
+  float* tails = reinterpret_cast<float*>(As + kConsumers * sp_in.a_bytes);
+  float* stage = tails + kConsumers * tail_floats(S);
   uint64_t* full = reinterpret_cast<uint64_t*>(
-      tails + kConsumers * tail_floats(S));
+      stage + (kGen ? kConsumers * kStagingBytes / 4 : 0));
   int* released = reinterpret_cast<int*>(full + kMaxStages);
   // the slab plan, copied to shared memory for the thread that refills
   // the ring
@@ -1064,12 +1407,14 @@ pack_build_wgmma(const float* __restrict__ x0, const float* __restrict__ rays,
   }
   __syncthreads();
 
-  unsigned char* A = As + wg * kABytes;
+  unsigned char* A = As + wg * sp.a_bytes;
   float* D = tails + wg * tail_floats(S);
-  Tail T{rays, pack, D, D + kWgRays * RF, 0, wtid, 1 + wg};
+  Tail T{rays, pack, D, D + kWgRays * RF, 0, wtid, 1 + wg,
+         stage + wg * kStagingBytes / 4};
   const int t = lane % 4, r0 = 16 * (wtid / 32) + lane / 4;
   const int H = p.layer[0].n;
   const int XC = H / kChunkK;
+  const int xk = x_cols(p.layer[0].k);
   const uint32_t a = smem_u32(A);
 
 #pragma unroll 1
@@ -1078,27 +1423,32 @@ pack_build_wgmma(const float* __restrict__ x0, const float* __restrict__ rays,
     // the previous tile's tail is done with D and PF, and its products
     // with A
     named_bar(T.bar);
-    for (int i = wtid; i < kWgRays * kXCols / 2; i += kWgThreads) {
-      const int r = i / (kXCols / 2), k = 2 * (i % (kXCols / 2));
-      const int64_t ray = T.ray0 + r;
-      float v[2];
+    // the encoded rays, kXCols columns at a time (pad columns zero)
+#pragma unroll 1
+    for (int k0 = 0; k0 < xk; k0 += kXCols) {
+      for (int i = wtid; i < kWgRays * kXCols / 2; i += kWgThreads) {
+        const int r = i / (kXCols / 2), k = k0 + 2 * (i % (kXCols / 2));
+        const int64_t ray = T.ray0 + r;
+        float v[2];
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        v[e] = (k + e < p.cin && ray < p.B) ? __ldg(x0 + ray * p.cin + k + e)
-                                            : 0.0f;
+        for (int e = 0; e < 2; ++e) {
+          v[e] = (k + e < p.cin && ray < p.B)
+                     ? __ldg(x0 + ray * p.cin + k + e)
+                     : 0.0f;
+        }
+        *reinterpret_cast<uint32_t*>(A + a_offset(r, XC * kChunkK + k)) =
+            pack_bf16(v[0], v[1]);
       }
-      *reinterpret_cast<uint32_t*>(A + a_offset(r, XC * kChunkK + k)) =
-          pack_bf16(v[0], v[1]);
     }
     publish_a(T.bar);
 
     unsigned char* scratch = reinterpret_cast<unsigned char*>(D);
     if (H == 256) {
-      hidden_layers<256>(p, A, scratch, ring, T.bar, r0, t);
+      hidden_layers<256, kGen>(p, A, scratch, T.G, ring, T.bar, r0, t, xk);
     } else {
-      hidden_layers<64>(p, A, scratch, ring, T.bar, r0, t);
+      hidden_layers<64, kGen>(p, A, scratch, T.G, ring, T.bar, r0, t, xk);
     }
-    drain_last_layer<S>(p, T, [&](auto& acc, int q) {
+    drain_last_layer<S, kGen>(p, T, [&](auto& acc, int q) {
       constexpr int W =
           2 * std::extent_v<std::remove_reference_t<decltype(acc)>>;
       strip_bias<S, W>(p, q, acc, wtid);
@@ -1142,7 +1492,7 @@ __device__ __forceinline__ void fma_cols(float (&acc)[N / 2], const float* A,
 // 64 rays per block, one warpgroup; two f32 operand buffers hold a layer's
 // input and the next layer's, the encoded rays parked in columns [xcol,
 // xcol + k) of both for the first and the skip layer
-template <int S>
+template <int S, bool kGen>
 __global__ void __launch_bounds__(kWgThreads)
 pack_build_f32(const float* __restrict__ x0, const float* __restrict__ rays,
                float* __restrict__ pack, const __grid_constant__ PackParams p,
@@ -1154,8 +1504,11 @@ pack_build_f32(const float* __restrict__ x0, const float* __restrict__ rays,
   float* D = bufs[1] + kWgRays * lda;
   const int tid = threadIdx.x, lane = tid % 32;
   const int t = lane % 4, r0 = 16 * (tid / 32) + lane / 4;
+  // [two operand buffers][D, PF][the staging buffer, where the operand
+  // buffer that the last layer does not read is too small for it]
   Tail T{rays, pack, D, D + kWgRays * RF, (int64_t)blockIdx.x * kWgRays, tid,
-         1};
+         1, f32_staging_in_operands(lda) ? bufs[p.n_layers & 1]
+                                         : D + 2 * kWgRays * RF};
 
   const int kin = p.layer[0].k;
   for (int i = tid; i < kWgRays * kin; i += kWgThreads) {
@@ -1187,20 +1540,34 @@ pack_build_f32(const float* __restrict__ x0, const float* __restrict__ rays,
           for (int e = 0; e < 2; ++e) {
             const int c = c0 + 8 * i + 2 * t + e;
             float v = acc[4 * i + 2 * h + e] + __ldg(L.b + c);
-            if (L.act && v < 0.0f) v *= p.leaky;
+            if constexpr (!kGen) {
+              if (L.act && v < 0.0f) v *= p.leaky;
+            }
             out[(r0 + 8 * h) * lda + c] = v;
           }
         }
       }
     }
     __syncthreads();
+    if constexpr (kGen) {
+      // the layer activation over the layer's output, in one rolled loop
+      if (L.act) {
+#pragma unroll 1
+        for (int i = tid; i < kWgRays * L.n; i += kWgThreads) {
+          float* q = out + (i / L.n) * lda + i % L.n;
+          *q = p.lpl ? (*q < 0.0f ? *q * p.leaky : *q)
+                     : act_eval(p.lact, *q);
+        }
+      }
+      __syncthreads();
+    }
   }
 
   // the last layer strip by strip, its columns gathered from the
   // field-major weights
   const float* A = bufs[(p.n_layers - 1) & 1];
   const MlpLayer& L = p.layer[p.n_layers - 1];
-  drain_last_layer<S>(p, T, [&](auto& acc, int q) {
+  drain_last_layer<S, kGen>(p, T, [&](auto& acc, int q) {
     constexpr int W =
         2 * std::extent_v<std::remove_reference_t<decltype(acc)>>;
     strip_bias<S, W>(p, q, acc, T.wtid);
@@ -1209,12 +1576,12 @@ pack_build_f32(const float* __restrict__ x0, const float* __restrict__ rays,
   });
 }
 
-template <int S>
+template <int S, bool kGen>
 cudaError_t launch_wgmma(const float* x0, const float* rays, float* pack,
                          const PackParams& p, const K1Plan& pl,
                          const CUtensorMap& map, cudaStream_t st) {
   cudaError_t e = cudaFuncSetAttribute(
-      pack_build_wgmma<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      pack_build_wgmma<S, kGen>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)pl.smem);
   if (e != cudaSuccess) return e;
   int dev = 0, sms = 0;
@@ -1224,32 +1591,46 @@ cudaError_t launch_wgmma(const float* x0, const float* rays, float* pack,
   if (e != cudaSuccess) return e;
   const int64_t tiles = ((int64_t)p.B + kTileRays - 1) / kTileRays;
   const unsigned blocks = (unsigned)(tiles < sms ? tiles : sms);
-  pack_build_wgmma<S><<<blocks, kThreadsWg, pl.smem, st>>>(
+  pack_build_wgmma<S, kGen><<<blocks, kThreadsWg, pl.smem, st>>>(
       x0, rays, pack, p, map, pl.slabs);
   return cudaGetLastError();
 }
 
-template <int S>
+template <int S, bool kGen>
 cudaError_t launch_f32(const float* x0, const float* rays, float* pack,
                        const PackParams& p, const K1Plan& pl,
                        cudaStream_t st) {
   cudaError_t e = cudaFuncSetAttribute(
-      pack_build_f32<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      pack_build_f32<S, kGen>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)pl.smem);
   if (e != cudaSuccess) return e;
   const unsigned blocks = (unsigned)((p.B + kWgRays - 1) / kWgRays);
-  pack_build_f32<S><<<blocks, kWgThreads, pl.smem, st>>>(x0, rays, pack, p,
-                                                         pl.lda);
+  pack_build_f32<S, kGen><<<blocks, kWgThreads, pl.smem, st>>>(
+      x0, rays, pack, p, pl.lda);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// the default instantiations: the bf16 and the f32 kernel with a
+// piecewise-linear layer activation and the basic field activations
 #define K1_DEFINE(S)                                                     \
   cudaError_t k1_launch_s##S(const float* x0, const float* rays,         \
                              float* pack, const PackParams& p,          \
                              const K1Plan& pl, const CUtensorMap& map,  \
                              cudaStream_t st) {                         \
-    return p.bf16 ? launch_wgmma<S>(x0, rays, pack, p, pl, map, st)     \
-                  : launch_f32<S>(x0, rays, pack, p, pl, st);           \
+    return p.bf16 ? launch_wgmma<S, false>(x0, rays, pack, p, pl, map, st) \
+                  : launch_f32<S, false>(x0, rays, pack, p, pl, st);    \
+  }
+
+// the generic instantiations: the bf16 and the f32 kernel with any
+// activation
+#define K1_DEFINE_GEN(S)                                                 \
+  cudaError_t k1_launch_gen_s##S(const float* x0, const float* rays,     \
+                                 float* pack, const PackParams& p,      \
+                                 const K1Plan& pl,                      \
+                                 const CUtensorMap& map,                \
+                                 cudaStream_t st) {                     \
+    return p.bf16 ? launch_wgmma<S, true>(x0, rays, pack, p, pl, map, st) \
+                  : launch_f32<S, true>(x0, rays, pack, p, pl, st);     \
   }

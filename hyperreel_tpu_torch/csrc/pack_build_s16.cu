@@ -1,5 +1,5 @@
-// K1's kernels at S = 16 (csrc/pack_build.cuh), compiled apart from the
-// other sample counts so that they build in parallel.
+// K1's default instantiation at S = 16 (csrc/pack_build.cuh), compiled apart
+// from the other sample counts and the generic ones, to build in parallel.
 
 #include "pack_build.cuh"
 

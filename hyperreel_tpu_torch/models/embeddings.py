@@ -3,10 +3,10 @@ hyperreel_tpu/models/embeddings.py; reference nlf/embedding/).
 
 Each stage has `.init(gen, device) -> params` and
 `.apply(params, x, ctx, render_kwargs) -> x` over a dict of tensors. The
-ported stages are ray_prediction, ray_intersect, point_prediction,
-point_density, advect_points, point_offset, add_point_outputs,
-extract_fields, color_transform, and generate_samples, select_points and
-reflect
+ported stages are ray_prediction (with its ray outputs), ray_intersect,
+point_prediction, point_density, advect_points (spatial and angular
+flow), point_offset, add_point_outputs, extract_fields, color_transform,
+and generate_samples, select_points and reflect
 (models/embeddings_extra.py), at eval and in training, with
 the per-stage wait/stop gating of the chain; any other stage type raises
 NotImplementedError (ROADMAP.md: long tail). Each stage's `group` names
@@ -26,6 +26,7 @@ from hyperreel_tpu_torch.models.intersect import build_intersect
 from hyperreel_tpu_torch.models.mlp import build_net
 from hyperreel_tpu_torch.models.pe import get_pe
 from hyperreel_tpu_torch.models.ray_param import get_ray_param
+from hyperreel_tpu_torch.ops.rotation import axis_angle_to_matrix
 
 
 class RayPredictionEmbedding:
@@ -57,21 +58,29 @@ class RayPredictionEmbedding:
         self.output_shapes = [int(outputs[k]["channels"])
                               for k in self.output_names]
         self.preds_per_z = sum(self.output_shapes)
-        if cfg.get("ray_outputs"):
-            raise NotImplementedError(
-                "ray_outputs are not ported (ROADMAP.md: long tail)")
+        # per-ray fields after the per-sample ones in the MLP's output
+        # (JAX embeddings.py:73-99, 127-134)
+        ray_outputs = cfg.get("ray_outputs") or {}
+        self.ray_output_names = list(ray_outputs.keys())
+        self.ray_output_shapes = [int(ray_outputs[k]["channels"])
+                                  for k in self.ray_output_names]
         self.total_point_out = self.z_channels * self.preds_per_z
+        self.total_ray_out = sum(self.ray_output_shapes)
         # the reference shrinks depth by 2 and drops linear_last here
         # (nlf/embedding/ray.py:283-285)
         net_cfg = dict(cfg["net"])
         if "depth" in net_cfg:
             net_cfg["depth"] = int(net_cfg["depth"]) - 2
             net_cfg["linear_last"] = False
-        self.net = build_net(self.in_channels, self.total_point_out, net_cfg,
-                             compute_dtype=compute_dtype)
+        self.net = build_net(self.in_channels,
+                             self.total_point_out + self.total_ray_out,
+                             net_cfg, compute_dtype=compute_dtype)
         self.activations = [get_activation(outputs[k].get("activation",
                                                           "identity"))
                             for k in self.output_names]
+        self.ray_activations = [
+            get_activation(ray_outputs[k].get("activation", "identity"))
+            for k in self.ray_output_names]
 
     def init(self, gen, device):
         return {"net": self.net.init(gen, device)}
@@ -86,12 +95,18 @@ class RayPredictionEmbedding:
     def apply(self, params, x, ctx, render_kwargs=None):
         rays = x[self.rays_name]
         out = self.net.apply(params["net"], self.net_input(rays, ctx), ctx)
-        point_out = out.reshape(rays.shape[0], self.z_channels,
-                                self.preds_per_z)
+        point_out = out[..., :self.total_point_out].reshape(
+            rays.shape[0], self.z_channels, self.preds_per_z)
         off = 0
         for name, width, act in zip(self.output_names, self.output_shapes,
                                     self.activations):
             x[name] = act(point_out[..., off:off + width], ctx)
+            off += width
+        off = self.total_point_out
+        for name, width, act in zip(self.ray_output_names,
+                                    self.ray_output_shapes,
+                                    self.ray_activations):
+            x[name] = act(out[..., off:off + width], ctx)
             off += width
         return x
 
@@ -268,22 +283,30 @@ def get_base_time(t, flow_keyframes, total_frames, jitter=None,
 
 
 class AdvectPointsEmbedding:
-    """Keyframe flow advection (reference nlf/embedding/point.py:741-834),
-    spatial flow only; in training the keyframe jitter of flow_scale
-    (the draw "flow_jitter"; render_kwargs "no_flow_jitter" turns it
-    off); `save_points_field` keeps the points before the advection."""
+    """Keyframe flow advection (reference nlf/embedding/point.py:741-834):
+    the angular flow (the predicted field "angular_flow": an axis-angle
+    rate [..., :3] and an anchor [..., 3:6], each under its activation;
+    the points rotated about the anchor by the rate times the time
+    offset, ops/rotation.py axis_angle_to_matrix) and then the spatial
+    flow (points + flow * time offset); in training the keyframe jitter of
+    flow_scale (the draw "flow_jitter"; render_kwargs "no_flow_jitter"
+    turns it off); `save_points_field` keeps the points before the
+    advection, `out_offset_field` gets in-points minus out-points."""
 
     def __init__(self, cfg, num_keyframes=1, num_frames=1):
         self.cfg = cfg
-        if cfg.get("use_angular_flow", False):
-            raise NotImplementedError(
-                "angular flow is not ported (ROADMAP.md: long tail)")
         self.rays_name = cfg.get("rays_name", "rays")
         self.in_points_field = cfg.get("in_points_field", "points")
         self.out_points_field = cfg.get("out_points_field", "points")
+        self.out_offset_field = cfg.get("out_offset_field", "offset")
         self.use_spatial_flow = bool(cfg.get("use_spatial_flow", False))
+        self.use_angular_flow = bool(cfg.get("use_angular_flow", False))
         self.spatial_flow_activation = get_activation(
             cfg.get("spatial_flow_activation", "identity"))
+        self.angular_flow_rotation_activation = get_activation(
+            cfg.get("angular_flow_rotation_activation", "identity"))
+        self.angular_flow_anchor_activation = get_activation(
+            cfg.get("angular_flow_anchor_activation", "identity"))
         self.save_points_field = cfg.get("save_points_field")
         self.flow_scale = float(cfg.get("flow_scale", 0.0))
         self.num_keyframes = num_keyframes
@@ -306,6 +329,16 @@ class AdvectPointsEmbedding:
         base_t = get_base_time(t, self.num_keyframes, self.num_frames,
                                jitter, self.flow_scale)
         time_offset = (t - base_t)[..., None, :]
+        if self.use_angular_flow:
+            rot_vec = self.angular_flow_rotation_activation(
+                x["angular_flow"][..., :3], ctx)
+            anchor = self.angular_flow_anchor_activation(
+                x["angular_flow"][..., 3:6], ctx)
+            x["angular_flow_rot"] = rot_vec
+            x["angular_flow_anchor"] = anchor
+            R = axis_angle_to_matrix(rot_vec * time_offset)
+            points = torch.einsum("...ij,...j->...i", R,
+                                  points - anchor) + anchor
         if self.use_spatial_flow:
             flow = self.spatial_flow_activation(x["spatial_flow"], ctx)
             x["spatial_flow"] = flow
@@ -314,6 +347,8 @@ class AdvectPointsEmbedding:
         x[self.out_points_field] = points
         x["base_times"] = base_t[..., None, :].expand(B, S, 1)
         x["time_offset"] = time_offset.expand(B, S, 1)
+        if self.out_offset_field is not None:
+            x[self.out_offset_field] = x[self.in_points_field] - points
         return x
 
 

@@ -73,7 +73,7 @@ import os
 import numpy as np
 import torch
 
-from hyperreel_tpu_torch.models.activations import Activation
+from hyperreel_tpu_torch.models.activations import kernel_act
 from hyperreel_tpu_torch.models.embeddings import get_base_time
 from hyperreel_tpu_torch.models.intersect import FAR_SENTINEL
 from hyperreel_tpu_torch.models.tensorf import (
@@ -142,13 +142,31 @@ def _samples_ok(st, S):
     return not (isect.invalid_sort_far and isect.contract.name != "identity")
 
 
+def _acts_ok(pred, isect, po, flow):
+    """K1 takes every activation of the chain: the prediction net's layer
+    activation and its outputs', the intersect's, the point offset's and
+    the flow's (hyperreel_tpu fused_eval.py:233-246, 821-826: the JAX
+    gate, act_cfg_supported). The one difference: a vector activation
+    (softmax, the norms, ...; or an ease_value / interp_value over one)
+    takes the general chain here, where the JAX fused paths apply it to a
+    channel's [S, B] rows and so mix rays (ROADMAP.md section 3); so does
+    one whose schedules nest more than MAX_LEAVES functions."""
+    acts = [pred.net.layer_act, isect.activation, po.activation,
+            *pred.activations]
+    if flow is not None:
+        acts.append(flow.spatial_flow_activation)
+    return all(kernel_act(a) for a in acts)
+
+
 def cf_eligible(model):
     """Structural eligibility: the dynamic chain (the technicolor_z_plane
     and neural_3d_z_plane families) or the static chain (the llff_z_plane
     and shiny_z_plane families; not stanford_llff_z_plane, whose intersect
     masks near/far), each with or without one sample-count stage, and no
-    stage gated by wait/stop iterations (hyperreel_tpu/models/
-    fused_eval.py cf_eligible:45-159)."""
+    stage gated by wait/stop iterations; no model-level ray param, no ray
+    outputs, no PE inside the prediction net, no angular flow
+    (hyperreel_tpu/models/fused_eval.py cf_eligible:45-159); activations
+    that K1 takes (`_acts_ok`)."""
     names = [n for n, _ in model.embedding.stages]
     if names not in _chains() or any(model.embedding.windows.values()):
         return False
@@ -159,10 +177,10 @@ def cf_eligible(model):
     if not _samples_ok(st, pred.z_channels):
         return False
     dynamic = "flow_0" in names
+    flow = st.get("flow_0")
     if dynamic:
-        flow = st["flow_0"]
         chain_ok = (isinstance(net, TensorVMKeyframeTime)
-                    and flow.use_spatial_flow
+                    and flow.use_spatial_flow and not flow.use_angular_flow
                     and "spatial_flow" in pred.output_names)
     else:
         chain_ok = isinstance(net, TensorVMNoSample)
@@ -170,7 +188,10 @@ def cf_eligible(model):
     return (chain_ok
             and isect.cfg.get("type") == "z_plane"
             and model.ray_param.name == "identity"
+            and pred.total_ray_out == 0
+            and not pred.net.pe_cfg
             and pred.net.activation == "identity"
+            and _acts_ok(pred, isect, po, flow)
             and isect.sort and isect.near == 0.0
             and isect.far == float("inf")
             and isect.mask_stop_iters == float("inf")
@@ -235,11 +256,6 @@ class FusedCFEval:
         fa.update(isect=self.isect.activation, po_stage=self.po.activation)
         if self.flow is not None:
             fa["flow_stage"] = self.flow.spatial_flow_activation
-        for k, a in fa.items():
-            if not isinstance(a, Activation):
-                raise NotImplementedError(
-                    f"activation {a!r} ({k}) has no pack-build kernel form "
-                    "(ROADMAP.md: long tail)")
         # the aabb is read from the net at each call (`spec`): the
         # alpha-mask event's shrink replaces it (hyperreel_tpu
         # fused_eval.py reads net.aabb per call)

@@ -4,7 +4,10 @@ reference nlf/nets/mlp.py:60-179).
 Parameters are a dict {"layer_i": {"weight": [out, in], "bias": [out]}}
 (the nn.Linear layout; `convert.params_from_jax` transposes the JAX
 [in, out] weights). Skip layers take [input, hidden] concatenated, input
-first.
+first. A net with its own `pe` encodes its input first (JAX mlp.py:60-65);
+the skip layers then take the encoded input. The fused path's K1 does not
+take such a net (hyperreel_tpu fused_eval.py:108): its chain runs the
+general stages.
 
 compute_dtype=torch.bfloat16 is the bench's precision policy as the JAX
 general path (hyperreel_tpu BaseMLP.apply) runs it: bf16 operands, and
@@ -22,6 +25,7 @@ from typing import List, Optional
 import torch
 
 from hyperreel_tpu_torch.models.activations import get_activation
+from hyperreel_tpu_torch.models.pe import IdentityPE, get_pe
 
 
 def round_to(x, dtype):
@@ -64,10 +68,14 @@ class BaseMLP:
     activation: str = "identity"
     layer_activation: str = "leaky_relu"
     compute_dtype: Optional[torch.dtype] = None
+    pe_cfg: Optional[dict] = None
 
     def __post_init__(self):
         if self.depth == 0:
             raise NotImplementedError("depth-0 MLPs are not ported")
+        self.pe = get_pe(self.in_channels, self.pe_cfg) if self.pe_cfg \
+            else IdentityPE(self.in_channels)
+        self.net_in = self.pe.out_channels
         self.out_act = get_activation(self.activation)
         self.layer_act = get_activation(self.layer_activation)
 
@@ -77,9 +85,9 @@ class BaseMLP:
 
     def fan_in(self, i):
         if i == 0:
-            return self.in_channels
+            return self.net_in
         if i in self.skips:
-            return self.hidden + self.in_channels
+            return self.hidden + self.net_in
         return self.hidden
 
     def fan_out(self, i):
@@ -91,6 +99,7 @@ class BaseMLP:
                 for i in range(self.depth + 2)}
 
     def apply(self, params, x, ctx=None):
+        x = self.pe.apply(x, ctx)
         input_x = x
         cd = self.compute_dtype
         for i in range(self.depth + 2):
@@ -104,7 +113,7 @@ class BaseMLP:
 
 def build_net(in_channels, out_channels, cfg, compute_dtype=None):
     t = cfg.get("type", "base")
-    if t not in ("base", "mlp") or cfg.get("pe"):
+    if t not in ("base", "mlp"):
         raise NotImplementedError(
             f"net type {t!r} is not ported (ROADMAP.md: long tail)")
     return BaseMLP(
@@ -116,4 +125,4 @@ def build_net(in_channels, out_channels, cfg, compute_dtype=None):
         bias=bool(cfg.get("bias", True)),
         activation=cfg.get("activation", "identity"),
         layer_activation=cfg.get("layer_activation", "leaky_relu"),
-        compute_dtype=compute_dtype)
+        compute_dtype=compute_dtype, pe_cfg=cfg.get("pe"))

@@ -154,10 +154,8 @@ class FactoredNet:
         self.density_shift = float(cfg.get("density_shift", -10.0))
         if self.shading_mode not in SHADING_MODES + self.TIME_HEADS:
             raise ValueError(f"unsupported shadingMode {self.shading_mode}")
-        if self.fea2dense not in ("relu", "softplus"):
-            raise NotImplementedError(
-                f"density activation {self.fea2dense!r} is not ported "
-                "(ROADMAP.md: long tail)")
+        if self.fea2dense not in ("relu", "softplus", "relu_abs"):
+            raise ValueError(f"density activation {self.fea2dense!r}")
         # the render net of MLP_Fea (JAX _shading_mlp_fea)
         self.view_pe = int(cfg.get("view_pe", 6))
         self.fea_pe = int(cfg.get("fea_pe", 6))
@@ -224,7 +222,7 @@ class FactoredNet:
         """Reference init scales (tensorf_base.py:895-991); relu density
         grids start uniform and clipped at 1e-2, softplus ones 0.1 N(0,
         1); the MLP_Fea render net where the net shades with it."""
-        relu = self.fea2dense == "relu"
+        relu = self.fea2dense != "softplus"
         params = {
             "density": self.init_family(gen, device, self.density_n_comp,
                                         1e-2 if relu else 0.1, relu),
@@ -303,10 +301,13 @@ class FactoredNet:
         net's jnp.logaddexp(., 0)); relu as 0.5 (x + |x|): the same values,
         and at x = 0 the gradient 0.5 of jnp.maximum(x, 0) (the JAX net's
         feature2density), where torch's relu passes 1 (a density grid
-        trained to exactly 0)."""
+        trained to exactly 0); relu_abs as where(x >= 0, x, -x): |x|,
+        with the gradient 1 of jnp.abs at 0 (JAX tensorf.py:484)."""
         if self.fea2dense == "softplus":
             return torch.logaddexp(feat + self.density_shift,
                                    torch.zeros_like(feat))
+        if self.fea2dense == "relu_abs":
+            return torch.where(feat >= 0, feat, -feat)
         return 0.5 * (feat + feat.abs())
 
     def filter_valid(self, ray_valid, w_pred, ctx):

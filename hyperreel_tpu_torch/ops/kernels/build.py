@@ -26,10 +26,20 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
 
+class ActLeaf(ctypes.Structure):
+    """Mirror of csrc/pack_build.cuh ActLeaf."""
+    _fields_ = [("kind", ctypes.c_int)] + [
+        (n, ctypes.c_float) for n in ("inner", "outer", "shift", "a")]
+
+
+PACK_ACT_LEAVES = 2
+
+
 class Act(ctypes.Structure):
-    _fields_ = [("kind", ctypes.c_int), ("inner", ctypes.c_float),
-                ("outer", ctypes.c_float), ("shift", ctypes.c_float),
-                ("w", ctypes.c_float), ("start", ctypes.c_float)]
+    """Mirror of csrc/pack_build.cuh PackAct."""
+    _fields_ = [("n", ctypes.c_int), ("c0", ctypes.c_float),
+                ("c", ctypes.c_float * PACK_ACT_LEAVES),
+                ("f", ActLeaf * PACK_ACT_LEAVES)]
 
 
 class MlpLayer(ctypes.Structure):
@@ -66,7 +76,8 @@ class PackParams(ctypes.Structure):
         ("strip_fc", (ctypes.c_int * PACK_STRIP_CHANNELS) * PACK_MAX_STRIPS),
         ("strip_s", (ctypes.c_int * 2) * PACK_MAX_STRIPS),
         ("k", ctypes.c_int), ("stride", ctypes.c_int),
-        ("far", ctypes.c_float)]
+        ("far", ctypes.c_float), ("lact", Act), ("generic", ctypes.c_int),
+        ("lpl", ctypes.c_int)]
 
 
 # csrc/shade_core.cuh kMaxWb: the SH basis of degree 4 over K5's [8, 8, 8]

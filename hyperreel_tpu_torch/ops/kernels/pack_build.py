@@ -18,9 +18,20 @@ tail. The kernels take S in 8, 16, 32, 64; the plain version any S. See
 the source for the design.
 
 The MLP, under the bf16 policy as the JAX kernel's `_mlp_rows`: one bf16
-rounding of each layer's input, weight and bias, f32 sums, f32 leaky relu
-and an f32 last layer (bf16 storage at that boundary cost 3.2e-4 of rgb on
-the TPU against the 2e-4 gate). Under the f32 policy nothing is rounded.
+rounding of each layer's input, weight and bias, f32 sums, the layer
+activation in f32 and an f32 last layer (bf16 storage at that boundary
+cost 3.2e-4 of rgb on the TPU against the 2e-4 gate). Under the f32
+policy nothing is rounded. The encoded rays may be up to MAX_ENCODED
+columns wide (the bf16 kernel multiplies them in steps of 32).
+
+The activations: the MLP's layer activation and every field activation
+are any elementwise kind of models/activations.py, or an ease_value /
+interp_value over them, each handed to the kernel as its terms at the
+launch's iteration (`kernel_terms`). A launch whose layer activation is
+piecewise linear (identity, relu, a leaky relu or abs) and whose field
+activations are each one identity, sigmoid or tanh runs the default
+instantiation; any other, the generic one (PackParams.generic;
+csrc/pack_build.cuh).
 
 The tail, per sample, in order: the field activations; z = act(z)*(1 -
 sigma)*z_scale + anchor, then z = inverse_contract_distance(z) when the
@@ -52,7 +63,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from hyperreel_tpu_torch.models.activations import LeakyRelu
+from hyperreel_tpu_torch.models.activations import (
+    Activation, MAX_LEAVES, kernel_act, leaf_value)
 from hyperreel_tpu_torch.models.intersect import FAR_SENTINEL
 from hyperreel_tpu_torch.models.mlp import round_to
 from hyperreel_tpu_torch.ops.contract import IdentityContract
@@ -64,8 +76,23 @@ from hyperreel_tpu_torch.ops.kernels.layout import PACK_ROWS, check_ray_pack
 FIELDS = ("z", "sigma", "flow", "psig", "poff", "cs", "csh")
 ACTS = ("z", "isect", "sigma", "flow", "flow_stage", "psig", "poff",
         "po_stage", "cs", "csh")
-_IDENTITY = (0, 1.0, 1.0, 0.0, 1.0, 0.0)
+_IDENTITY = Activation("identity")
+# the layer activations v >= 0 ? v : v * slope, by their slope (None: the
+# leaky relu's own): the default instantiation's (PackParams.lpl, leaky)
+_PIECEWISE = {"identity": 1.0, "relu": 0.0, "abs": -1.0, "leaky_relu": None}
+
+
+def _piecewise_slope(act):
+    """The slope below 0 of a piecewise-linear layer activation that K1
+    applies inline (PackParams.lpl), else None."""
+    if isinstance(act, Activation) and act.kind in _PIECEWISE \
+            and act.leaf()[1:4] == (1.0, 1.0, 0.0):
+        slope = _PIECEWISE[act.kind]
+        return act.a if slope is None else slope
+    return None
 KERNEL_S = (8, 16, 32, 64)
+MAX_ENCODED = 128    # encoded-ray columns of the bf16 kernel (csrc kMaxXCols)
+NO_PLAN = -1         # pack_build_launch where no plan takes the launch
 MAX_LAYERS = build.PACK_MAX_LAYERS
 SLAB_K = 64          # the weight slabs' K rows: one 128-byte swizzle row
 HIDDEN_BLOCK = 128   # hidden-layer columns per product (csrc kHiddenBlock)
@@ -78,8 +105,8 @@ def _ceil(x, m):
 
 @dataclass
 class MlpLayer:
-    """out[:, :n] = A[:, k0:k0 + k] @ w + b (then leaky relu if `act`),
-    A being the kernel's per-ray operand buffer."""
+    """out[:, :n] = A[:, k0:k0 + k] @ w + b (then the layer activation if
+    `act`), A being the kernel's per-ray operand buffer."""
     w: torch.Tensor          # [k, n] in the operand dtype
     b: torch.Tensor          # f32 [n] (bf16-valued under the bf16 policy)
     k0: int
@@ -96,7 +123,7 @@ class MlpTables:
     layers: List[MlpLayer]
     cin: int
     xcol: int
-    leaky: float
+    layer_act: object        # models.activations: an elementwise one
     compute_dtype: object    # torch.bfloat16 or None (f32)
     # the bf16 kernel's weight slabs (`tile_weights`) and the rows of each;
     # None under the f32 policy or where the widths do not slab
@@ -143,10 +170,11 @@ def tile_weights(layers, xcol, strips):
     zero. Returns the slabs [sum of n, SLAB_K] and the n of each, which
     the launch checks slab by slab against the kernel's order; None where
     the hidden width is not a multiple of SLAB_K or the encoded rays exceed
-    SLAB_K columns."""
+    MAX_ENCODED columns. The encoded-ray rows take a slab per SLAB_K of
+    them."""
     H = layers[0].w.shape[1]
     cp = layers[0].w.shape[0]
-    if H % SLAB_K or cp > SLAB_K:
+    if H % SLAB_K or cp > MAX_ENCODED:
         return None
 
     def slab(rows):                           # [k <= SLAB_K, n] -> [n, K]
@@ -160,7 +188,8 @@ def tile_weights(layers, xcol, strips):
             if l.k0 == 0:
                 slabs += [slab(w[j:j + SLAB_K]) for j in range(0, H, SLAB_K)]
             if l.k0 + l.w.shape[0] > xcol:
-                slabs.append(slab(w[xcol - l.k0:xcol - l.k0 + cp]))
+                x = w[xcol - l.k0:xcol - l.k0 + cp]
+                slabs += [slab(x[j:j + SLAB_K]) for j in range(0, cp, SLAB_K)]
     w = layers[-1].w
     for cols in strips:
         idx = torch.as_tensor(cols, device=w.device)
@@ -173,11 +202,12 @@ def mlp_tables(net, params, perm, spec):
     """BaseMLP `net` with nn.Linear-layout `params` -> MlpTables; `perm`
     maps field-major output column -> the MLP's own column; `spec` (the
     chain's PackSpec) gives the last layer's strips."""
-    if not isinstance(net.layer_act, LeakyRelu) or net.activation != \
-            "identity":
-        raise NotImplementedError(
-            "K1 runs leaky-relu MLPs with an identity output "
-            "(ROADMAP.md: long tail)")
+    if not kernel_act(net.layer_act) or net.activation != "identity" \
+            or net.pe_cfg:
+        raise ValueError(
+            "K1 runs MLPs with an elementwise layer activation, an identity "
+            "output and no PE of their own (models/fused_eval.py "
+            "cf_eligible)")
     if net.compute_dtype not in (None, torch.bfloat16):
         raise NotImplementedError(f"MLP policy {net.compute_dtype}")
     if net.depth + 2 > MAX_LAYERS:
@@ -211,7 +241,7 @@ def mlp_tables(net, params, perm, spec):
             k0=k0, act=i < net.act_until))
     tiled = tile_weights(layers, hp, strip_columns(spec)) \
         if cd is not None else None
-    return MlpTables(layers, cin, hp, float(net.layer_act.a), cd,
+    return MlpTables(layers, cin, hp, net.layer_act, cd,
                      *(tiled or (None, None)))
 
 
@@ -221,8 +251,8 @@ class PackSpec:
 
     foff: field slot -> channel offset in the MLP row; every slot of
           FIELDS but "flow" is required (static chains have no flow).
-    acts: activation slot -> models.activations.Activation (absent slots
-          are identity).
+    acts: activation slot -> a models.activations activation that K1
+          takes (kernel_act; absent slots are identity).
     contract: the intersect's ops.contract contraction (identity or
           mipnerf).
     k, stride: the samples the pack keeps (hyperreel_tpu/ops/pallas/
@@ -265,9 +295,17 @@ class PackSpec:
         return slice(None, None, self.stride) if self.stride \
             else slice(None, self.k)
 
-    def descriptors(self, it):
-        return {k: (self.acts[k].descriptor(it) if k in self.acts
-                    else _IDENTITY) for k in ACTS}
+    def terms(self, it):
+        """Each activation slot's kernel_terms at iteration `it`."""
+        return {k: self.acts.get(k, _IDENTITY).kernel_terms(it)
+                for k in ACTS}
+
+    def generic(self, mlp, it):
+        """Whether the launch takes the generic instantiation: a layer
+        activation other than identity, relu, a leaky relu or abs, or a
+        field activation other than one identity, sigmoid or tanh."""
+        return (_piecewise_slope(mlp.layer_act) is None
+                or not all(self.acts.get(k, _IDENTITY).basic() for k in ACTS))
 
     def params(self, B, mlp, it):
         """The kernel's PackParams for B rays at iteration `it`."""
@@ -276,7 +314,11 @@ class PackSpec:
         p.k, p.stride = self.k, self.stride or 1
         p.far = float(self.far_sentinel or 0.0)
         p.cin, p.xcol, p.n_layers = mlp.cin, mlp.xcol, len(mlp.layers)
-        p.bf16, p.leaky = int(mlp.compute_dtype is not None), mlp.leaky
+        p.bf16 = int(mlp.compute_dtype is not None)
+        slope = _piecewise_slope(mlp.layer_act)
+        p.lpl, p.leaky = int(slope is not None), slope or 0.0
+        p.generic = int(self.generic(mlp, it))
+        _set_act(p.lact, mlp.layer_act.kernel_terms(it))
         for i, l in enumerate(mlp.layers):
             p.layer[i] = build.MlpLayer(l.w.data_ptr(), l.b.data_ptr(), l.k0,
                                         l.w.shape[0], l.w.shape[1],
@@ -289,8 +331,8 @@ class PackSpec:
             for k in ("start_r", "inv_end_r", "r_scale", "start_d",
                       "inv_end_d", "d_scale"):
                 setattr(p, "c_" + k, float(getattr(c, k)))
-        for i, d in enumerate(self.descriptors(it).values()):
-            p.act[i] = build.Act(int(d[0]), *(float(v) for v in d[1:]))
+        for i, t in enumerate(self.terms(it).values()):
+            _set_act(p.act[i], t)
         for s in range(self.S):
             p.samples[s] = float(self.samples[s])
             p.z_scale[s] = float(self.z_scale[s])
@@ -315,21 +357,35 @@ class PackSpec:
         return p
 
 
-def _apply_desc(x, d):
-    kind, inner, outer, shift, w, start = d
-    u = x * inner + shift
-    if kind == 1:
-        f = torch.reciprocal(1.0 + torch.exp(-u))
-    elif kind == 2:
-        f = torch.tanh(u)
-    else:
-        f = u
-    return w * (f * outer) + (1.0 - w) * start
+def _set_act(a, terms):
+    """Fill a build.Act from kernel_terms (c0, ((c, leaf), ...))."""
+    c0, leaves = terms
+    if not 1 <= len(leaves) <= MAX_LEAVES:
+        raise ValueError(f"K1 takes 1-{MAX_LEAVES} activation leaves")
+    a.n, a.c0 = len(leaves), float(c0)
+    for i, (c, (kind, inner, outer, shift, par)) in enumerate(leaves):
+        a.c[i] = float(c)
+        a.f[i] = build.ActLeaf(int(kind), float(inner), float(outer),
+                               float(shift), float(par))
 
 
-def mlp_plain(x0, mlp):
+def apply_terms(x, terms):
+    """An activation in the kernel's form: c0 + sum c * f_leaf(x), in the
+    kernel's order."""
+    c0, leaves = terms
+    (c, leaf), *rest = leaves
+    v = c * leaf_value(leaf, x) + c0
+    for c, leaf in rest:
+        v = v + c * leaf_value(leaf, x)
+    return v
+
+
+def mlp_plain(x0, mlp, it=None):
     """Plain PyTorch version of the kernel's MLP: [B, cin] -> f32 [B, n]
-    of the last layer (field-major columns, zero-padded)."""
+    of the last layer (field-major columns, zero-padded); the layer
+    activation's schedule at iteration `it` (None: without a context, as
+    the JAX closures take ctx None)."""
+    terms = mlp.layer_act.kernel_terms(it)
     cols = max(l.k0 + l.w.shape[0] for l in mlp.layers)
     A = x0.new_zeros(x0.shape[0], cols)
     A[:, mlp.xcol:mlp.xcol + mlp.cin] = x0
@@ -337,7 +393,7 @@ def mlp_plain(x0, mlp):
         y = round_to(A[:, l.k0:l.k0 + l.w.shape[0]], mlp.compute_dtype) \
             @ l.w.float() + l.b
         if l.act:
-            y = F.leaky_relu(y, mlp.leaky)
+            y = apply_terms(y, terms)
         if i + 1 < len(mlp.layers):
             A[:, :y.shape[1]] = y
     return y
@@ -347,16 +403,16 @@ def tail_plain(mlp_out, ray_pack, spec, it):
     """Plain PyTorch version of the kernel's tail: the MLP's field-major
     f32 output [B, >= P*S] -> the pack."""
     B, S = ray_pack.shape[0], spec.S
-    dsc = spec.descriptors(it)
+    dsc = spec.terms(it)
     rows3 = mlp_out[:, :spec.P * S].reshape(B, spec.P, S)
     keep = spec.kept()
 
     def field(slot, act, c=0, rows=keep):
-        return _apply_desc(rows3[:, spec.foff[slot] + c, rows], dsc[act])
+        return apply_terms(rows3[:, spec.foff[slot] + c, rows], dsc[act])
 
     o, d, dt = ray_pack[:, 0:3], ray_pack[:, 3:6], ray_pack[:, 6:7]
     every = slice(None)
-    z = _apply_desc(field("z", "z", rows=every), dsc["isect"])
+    z = apply_terms(field("z", "z", rows=every), dsc["isect"])
     z = z * (1.0 - field("sigma", "sigma", rows=every))
     dev = mlp_out.device
     z = z * torch.as_tensor(spec.z_scale, dtype=torch.float32, device=dev) \
@@ -387,9 +443,9 @@ def tail_plain(mlp_out, ray_pack, spec, it):
     for c in range(3):
         p = base[c]
         if "flow" in spec.foff:
-            p = p + _apply_desc(field("flow", "flow", c),
+            p = p + apply_terms(field("flow", "flow", c),
                                 dsc["flow_stage"]) * dt
-        p = p + _apply_desc(field("poff", "poff", c),
+        p = p + apply_terms(field("poff", "poff", c),
                             dsc["po_stage"]) * po_fac
         pts.append((p - float(aabb[0][c])) * float(inv[c]) - 1.0)
     rows = pts + [dist] + [field(slot, slot, c) for slot in ("cs", "csh")
@@ -399,22 +455,80 @@ def tail_plain(mlp_out, ray_pack, spec, it):
 
 def pack_build_plain(x0, mlp, ray_pack, spec, it):
     """Plain PyTorch version of the kernel (same inputs and output)."""
-    return tail_plain(mlp_plain(x0, mlp), ray_pack, spec, it)
+    return tail_plain(mlp_plain(x0, mlp, it), ray_pack, spec, it)
 
 
-def pack_error(pack, ref, far_sentinel=FAR_SENTINEL):
+def pack_error(pack, ref, far_sentinel=FAR_SENTINEL, skip=None):
     """(max |pack - ref| over every element but the points of the samples
     at the far sentinel, max |pack - ref| / |ref| over those points), for
     holding K1 against its plain version: a sentinel sample's point lies
     ~1e8 outside the aabb, where one f32 rounding more or less (a
     multiply-add that the compiler fuses, the plain version rounding
-    twice) moves it by 8-16, so only its relative error means anything."""
-    far = ref[3] == far_sentinel
+    twice) moves it by 8-16, so only its relative error means anything.
+    `skip` (bool [B]): rays whose rows 0-3 are left out, those that
+    `sentinel_flips` holds instead; their colour rows are compared."""
+    geo = torch.ones_like(ref[3], dtype=torch.bool)
+    if skip is not None:
+        geo = ~skip.repeat_interleave(ref.shape[1] // skip.shape[0])
+    far = (ref[3] == far_sentinel) & geo
     d = (pack - ref).abs()
-    err = torch.cat([d[:, ~far].flatten(), d[3:, far].flatten()]).max()
+    err = torch.cat([d[:, ~far & geo].flatten(), d[3:, far].flatten(),
+                     d[4:, ~geo].flatten()]).max()
     rel = (d[:3, far] / ref[:3, far].abs()).max().item() if far.any() \
         else 0.0
     return err.item(), rel
+
+
+def sentinel_flips(pack, ref, ray_pack, spec, tol):
+    """The rays on which two packs of one chain (K1 and its plain version)
+    disagree about which samples are invalid, and the largest error over
+    those rays once that is accounted for: (bool [B], float).
+
+    A sample whose distance lies within rounding of 0 may fall on either
+    side of the `dist <= 0` test: the bf16 MLP sums its products in
+    another order on each side, so its predicted z moves by ~1e-5. On one
+    side it is valid, the nearest sample of its ray; on the other it takes
+    the far sentinel and sorts last, so every sorted position of that ray
+    moves by one. Such a ray passes when the side with more valid samples
+    has exactly its first m (the count of flips) at distances in (0, tol],
+    its remaining valid distances match the other side's shifted by m, and
+    rows 0-2 less d * dist (the flow and offset fields of each prediction
+    row, which the sort does not move) match at every position valid on
+    both sides, all within `tol`. Only chains that keep every sample at
+    the far sentinel with no contraction are aligned so; for any other
+    chain no ray is returned and `pack_error` sees the flip whole."""
+    B, k = ray_pack.shape[0], spec.k
+    flips = torch.zeros(B, dtype=torch.bool, device=pack.device)
+    sent = spec.far_sentinel
+    if sent is None or spec.stride or k != spec.S \
+            or spec.contract.name != "identity":
+        return flips, 0.0
+    p, r = pack[:4].reshape(4, B, k), ref[:4].reshape(4, B, k)
+    n_p, n_r = (p[3] == sent).sum(1), (r[3] == sent).sum(1)
+    flips = n_p != n_r
+    if not flips.any():
+        return flips, 0.0
+    more = (n_p < n_r)[flips][None, :, None]     # the pack keeps more
+    a = torch.where(more, p[:, flips], r[:, flips])
+    b = torch.where(more, r[:, flips], p[:, flips])
+    m = (n_p - n_r).abs()[flips][:, None]
+    nb = k - torch.maximum(n_p, n_r)[flips][:, None]
+    j = torch.arange(k, device=pack.device)[None]
+    extra = a[3][j < m]
+    if extra.min() <= 0.0:
+        return flips, float("inf")
+    both = j < nb
+    a_shift = torch.gather(a[3], 1, (j + m).clamp_max(k - 1))
+    aabb = np.asarray(spec.aabb, np.float32)
+    inv = torch.as_tensor((2.0 / (aabb[1] - aabb[0])).astype(np.float32),
+                          device=pack.device)
+    dn = ray_pack[flips, 3:6].T[:, :, None] * inv[:, None, None]
+    res = (a[:3] - dn * a[3]) - (b[:3] - dn * b[3])
+    zero = torch.zeros((), device=pack.device)
+    err = max(extra.max().item(),
+              torch.where(both, (a_shift - b[3]).abs(), zero).max().item(),
+              torch.where(both, res.abs().amax(0), zero).max().item())
+    return flips, err
 
 
 def _check(x0, mlp, ray_pack, spec):
@@ -458,16 +572,31 @@ def pack_build(x0, mlp, ray_pack, spec, it):
     if mlp.compute_dtype is not None and mlp.tiled is None:
         raise NotImplementedError(
             "pack_build kernel: the MLP's widths do not slab (hidden width "
-            f"a multiple of {SLAB_K}, at most {SLAB_K} encoded columns)")
+            f"a multiple of {SLAB_K}, at most {MAX_ENCODED} encoded "
+            "columns: the encoded rays' chunks of A beside the weight ring "
+            "in shared memory)")
     lib = build.load_library().lib
+    params = spec.params(B, mlp, it)
     pack = torch.empty((PACK_ROWS, B * spec.k), dtype=torch.float32,
                        device=x0.device)
-    params = spec.params(B, mlp, it)
     with torch.cuda.device(x0.device):
         stream = torch.cuda.current_stream().cuda_stream
-        build.check_launch(lib.pack_build_launch(
-            x0.data_ptr(), ray_pack.data_ptr(), pack.data_ptr(), params,
-            stream), "pack_build")
+        rc = lib.pack_build_launch(x0.data_ptr(), ray_pack.data_ptr(),
+                                   pack.data_ptr(), params, stream)
+    if rc == NO_PLAN:
+        raise NotImplementedError(
+            f"pack_build kernel: no launch plan for these widths (S={spec.S},"
+            f" {mlp.layers[0].w.shape[0]} encoded columns, the "
+            f"{'bf16' if params.bf16 else 'f32'} kernel's "
+            f"{'generic' if params.generic else 'default'} instantiation): "
+            + ("the encoded rays' chunks of A, the tail buffers and the "
+               "generic instantiation's staging buffers leave fewer than "
+               "two weight-ring stages of shared memory (csrc/pack_build.cu"
+               " plan_wgmma)" if params.bf16 else
+               "the two f32 operand buffers of 64 rays x the widest layer "
+               "input and the tail buffers exceed 227 KB of shared memory "
+               "(csrc/pack_build.cu plan_f32)"))
+    build.check_launch(rc, "pack_build")
     pack_build.launches += 1
     return pack
 

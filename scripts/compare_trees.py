@@ -8,7 +8,8 @@ are the ones imported, its kernels are built into its own build/):
 
 renders with chip_smoke.py's flagship (technicolor_z_plane), llff_z_plane,
 neural_3d_z_plane and shiny_z_plane models, weights from its seed: K1's
-pack of the bench frame's first chunk for each model, the bench frame's
+pack of the bench frame's first chunk for each model (the flagship's
+also under the f32 MLP policy, K1's FMA kernel), the bench frame's
 rgb on every route (flagship quad, fused and two-kernel patch at R=8 (5,
 2); llff quad, fused and two-kernel patch at R=8 (5, 2) and R=4 (4, 3);
 n3d quad with one t and with a t per ray (K5 on the time planes); shiny
@@ -42,6 +43,7 @@ one call so that the times share a card.
 """
 
 import argparse
+import copy
 import dataclasses
 import inspect
 import os
@@ -72,6 +74,7 @@ def save(path, frames):
 
     import chip_smoke as cs
     from hyperreel_tpu_torch.models.ctx import StepCtx
+    from hyperreel_tpu_torch.models.model import build_model
     from hyperreel_tpu_torch.ops.kernels.composite import composite
     from hyperreel_tpu_torch.ops.kernels.pack_build import pack_build
     from hyperreel_tpu_torch.ops.kernels.shade import (
@@ -180,6 +183,10 @@ def save(path, frames):
 
     cfg, info, model, params, prep = cs.flagship(dev)
     k1("flagship", model, prep, frame[0])
+    # the f32 MLP policy's K1 (the FMA kernel) on the same chunk
+    m32 = build_model(copy.deepcopy(cfg), dataset_info=info)
+    k1("flagship f32", m32, {"mlp": m32._cf_eval.prepare(params)["mlp"]},
+       frame[0])
     # K2 on the first chunk: the time plane premixed (the quad route's),
     # the time plane itself, RGB colour with the weights row
     cf = model._cf_eval

@@ -52,14 +52,14 @@ __device__ __forceinline__ void sink(const float (&acc)[W / 2], const Tail& T) {
 }
 
 // The last layer, strip by strip"""
-POINT = r"strip_point<S, WP, (true|false)>\(p, acc, g, T\);"
-COLOUR = r"strip_colour<S, WC, (true|false)>\(p, acc, a, 4 \+ c, T\);"
+POINT = r"strip_point<S, WP, (true|false), kGen>\(p, acc, g, T\);"
+COLOUR = r"strip_colour<S, WC, (true|false), kGen>\(p, acc, a, 4 \+ c, T\);"
 
 
 def notail(t):
     t = t.replace("// The last layer, strip by strip", SINK, 1)
-    for a, w in (("strip_z<S, WZ>(p, acc, T);", "WZ"),
-                 ("strip_psig<S, WS>(p, acc, T);", "WS")):
+    for a, w in (("strip_z<S, WZ, kGen>(p, acc, T);", "WZ"),
+                 ("strip_psig<S, WS, kGen>(p, acc, T);", "WS")):
         assert a in t, a
         t = t.replace(a, f"sink<{w}>(acc, T);")
     for a, w in ((POINT, "WP"), (COLOUR, "WC")):
@@ -69,18 +69,19 @@ def notail(t):
     t = t.replace("  sort_rays<S>(p, T);\n", "")
     return t
 def one_tail(t):
-    for a in ("strip_point<S, WP, true>", "strip_colour<S, WC, true>"):
+    for a in ("strip_point<S, WP, true, kGen>",
+              "strip_colour<S, WC, true, kGen>"):
         assert a in t, a
         t = t.replace(a, a.replace("true", "false"))
     return t
 def colour_once(t):
     a = """    if (all) {
-      strip_colour<S, WC, true>(p, acc, a, 4 + c, T);
+      strip_colour<S, WC, true, kGen>(p, acc, a, 4 + c, T);
     } else {
-      strip_colour<S, WC, false>(p, acc, a, 4 + c, T);
+      strip_colour<S, WC, false, kGen>(p, acc, a, 4 + c, T);
     }"""
     assert a in t
-    t = t.replace(a, "    strip_colour<S, WC, false>(p, acc, a, 4 + c, T);")
+    t = t.replace(a, "    strip_colour<S, WC, false, kGen>(p, acc, a, 4 + c, T);")
     b = "    float* q = pack + row * ((int64_t)p.B * p.k) + ray * p.k;\n"
     assert b in t
     return t.replace(b, b + "    if (p.k == S) {\n      store2(q + s0, a, b);\n"

@@ -915,6 +915,20 @@ def test_pack_plan_takes_128_rays_at_full_width(dev, family):
     assert lib.pack_rays_per_block(cf.spec.params(1, tabs, 20000)) >= 128
 
 
+@pytest.mark.parametrize("S,widest", [(32, 128), (64, 96)])
+def test_f32_pack_plan_encoded_width(dev, S, widest):
+    """The f32 plan at the full 6x256 MLP takes `widest` encoded columns
+    and refuses 32 more: its field activations' staging buffer is the
+    operand buffer the last layer does not read, so it costs no width."""
+    _, model, params = _n3d_model(dev, S, full_mlp=True)
+    cf = model._cf_eval
+    p = cf.spec.params(256, cf.prepare(params)["mlp"], 20000)
+    lib = build.load_library().lib
+    for k, rpb in ((widest, 64), (widest + 32, 0)):
+        p.layer[0].k = k
+        assert lib.pack_rays_per_block(p) == rpb
+
+
 @pytest.mark.parametrize("change", ["strips", "slabs"])
 def test_pack_plan_refuses_another_slab_order(dev, change):
     """A slab layout that differs from the kernel's (the last two strips,

@@ -133,6 +133,40 @@ def test_plain_pack_with_mlp_matches_jax_kernel(it):
     assert (mo - ref[:, perm]).abs().max().item() <= 1e-5
 
 
+def test_sentinel_flips_align_a_sample_at_distance_zero():
+    """Two packs of one chain under invalid_sort_far whose ray 10 has its
+    nearest sample 2e-6 in front of the origin on one side and 2e-6
+    behind it on the other (the ray's o_z moved by 4e-6, as a bf16 sum in
+    another order moves a predicted z): `pack_error` sees the sentinel
+    against a valid sample, `sentinel_flips` finds ray 10 alone and holds
+    it shifted by one position to 1e-5. A sample dropped at a distance
+    that is not ~0 is not excused."""
+    _, tm = models(flagship_cfg(tiny=True), bf16=False)
+    spec = dataclasses.replace(tm._cf_eval.spec,
+                               far_sentinel=PB.FAR_SENTINEL)
+    mlp, rays = _inputs(spec.S, spec.P, seed=7)
+    mlp, rays = torch.from_numpy(mlp), torch.from_numpy(rays)
+    ref = PB.tail_plain(mlp, rays, spec, 20000)
+    d0 = ref[3].reshape(B, -1)[10, 0].item()
+    assert 0.0 < d0 < PB.FAR_SENTINEL and rays[10, 5] == 1.0
+    r_in, r_out = rays.clone(), rays.clone()
+    r_in[10, 2] += d0 - 2e-6
+    r_out[10, 2] += d0 + 2e-6
+    ref, pack = (PB.tail_plain(mlp, r, spec, 20000) for r in (r_in, r_out))
+    assert PB.pack_error(pack, ref)[0] > 1e8
+    flips, err = PB.sentinel_flips(pack, ref, r_in, spec, 1e-5)
+    assert flips.nonzero().flatten().tolist() == [10] and err <= 1e-5, err
+    assert PB.pack_error(pack, ref, skip=flips)[0] <= 1e-5
+    assert PB.sentinel_flips(ref, pack, r_in, spec, 1e-5)[1] <= 1e-5
+    # ray 20 loses its nearest sample, which lies well in front
+    bad = ref.clone().reshape(-1, B, spec.S)
+    bad[:4, 20] = torch.cat([bad[:4, 20, 1:], bad[:4, 20, -1:]], 1)
+    bad[3, 20, -1] = PB.FAR_SENTINEL
+    flips, err = PB.sentinel_flips(bad.reshape(ref.shape), ref, r_in, spec,
+                                   1e-5)
+    assert flips[20] and err > 1e-3, err
+
+
 def test_pack_from_smajor_reorders_tiles():
     """JAX lane s*tile + r of tile block b holds ray b*tile + r, sample s;
     the port's column (b*tile + r)*S + s."""
@@ -333,7 +367,8 @@ def test_kernel_slab_order_reproduces_the_plain_pack(family, S):
         if wx is not None:
             acc = acc + x @ wx[:cp].float()
         y = acc + l.b
-        h = bf(torch.where(y < 0, y * tabs.leaky, y) if l.act else y)
+        h = bf(PB.apply_terms(y, tabs.layer_act.kernel_terms(20000))
+               if l.act else y)
     last = tabs.layers[-1]
     out = torch.zeros(x0.shape[0], last.w.shape[1])
     for cols, ws in zip(PB.strip_columns(spec), strips):

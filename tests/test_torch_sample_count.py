@@ -329,11 +329,11 @@ def test_plain_pack_keeps_the_jax_kernels_samples(S, k, stride):
     if stride is None:
         assert (dist == FAR_SENTINEL).any() and (dist < FAR_SENTINEL).any()
     # the unsorted distances, from the plain version's own arithmetic
-    dsc = spec.descriptors(IT)
+    dsc = spec.terms(IT)
     rows3 = torch.from_numpy(mlp).reshape(-1, spec.P, S)
-    z = PB._apply_desc(PB._apply_desc(rows3[:, spec.foff["z"]], dsc["z"]),
+    z = PB.apply_terms(PB.apply_terms(rows3[:, spec.foff["z"]], dsc["z"]),
                        dsc["isect"])
-    z = z * (1 - PB._apply_desc(rows3[:, spec.foff["sigma"]],
+    z = z * (1 - PB.apply_terms(rows3[:, spec.foff["sigma"]],
                                 dsc["sigma"]))
     z = z * torch.from_numpy(spec.z_scale) + torch.from_numpy(spec.samples)
     r = torch.from_numpy(rays)
